@@ -6,24 +6,36 @@
 
 1. Prints the card's name and power limit, and builds every kernel from
    ``smsut_tpu_torch/csrc`` (one nvcc per source, in parallel).
-2. Holds each kernel (K1 instance norm, K2 3x3 conv, K3 fused block, both
-   block forms) against its plain PyTorch version on the card, at the
-   U-Net's shapes, in float32 (TF32 off) and bfloat16, and times the
+2. Holds each forward kernel (K1 instance norm, K2 3x3 conv, K3 fused
+   block, both block forms) against its plain PyTorch version on the card,
+   at the U-Net's shapes, in float32 (TF32 off) and bfloat16, and times the
    kernel, the plain version, one PyTorch library call of the same
    function (a yardstick the port never calls) and the card's bound.
+   2b. The same for each backward kernel: K4 (norm backward), K5 (conv
+   weight gradient), K2 as the dx of a conv (the 16 -> 8 transposed
+   shape) and K6 (block backward, both forms).
 3. Serves the full-width U-Net (width 16, 256x256, batch 8, bfloat16,
    seeded random weights) through ``SupervisedUNet`` -> ``export_eval`` ->
    ``load_serving`` -> ``predict``, once with ``block_pallas`` off and once
    on.  Each mode's launch counts must match the U-Net (off: 28 K1 + 18 K2
-   per forward; on: 9 K3 + 1 K1), and its logits must agree with the plain
-   path on the card in float32 and bfloat16.
-4. Prints the ``kernels`` JSON line, then the device line last.
+   per forward; on: 9 K3 + 1 K1; no backward kernel), and its logits must
+   agree with the plain path on the card in float32 and bfloat16.
+4. Trains the full-width U-Net: ``init_state(seed=0)`` and 10
+   ``train_step``s on one seeded batch of 8 slices with filled ellipses
+   labelled 1-4, in bfloat16, with ``block_pallas`` off and on.  Checks the
+   launches per step (off: 28 K1, 36 K2, 28 K4, 18 K5; on: 1 K1, 9 K3, 1
+   K4, 9 K6), every parameter's step-1 gradient against the plain path
+   (float32 and bfloat16), a finite and falling loss, and in float32 the
+   first 3 losses against the plain path; records the median step time and
+   the device idle share.
+5. Prints the ``kernels`` JSON line, then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -40,11 +52,19 @@ OUT = ROOT / "chiprun_out"
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 
+# the float32 rate of the CUDA cores, for elementwise and reduction math
+PEAK_F32_CORES = 67e12
+
 # kernel vs plain on the card, on the relative error
-# max |kernel - plain| / max(1, max |plain|)
+# max |kernel - plain| / max(1, max |plain|), the largest over a kernel's
+# outputs
 TOL = {("instnorm", "float32"): 1e-4, ("instnorm", "bfloat16"): 0.05,
        ("conv3x3", "float32"): 1e-4, ("conv3x3", "bfloat16"): 0.02,
-       ("block", "float32"): 1e-3, ("block", "bfloat16"): 0.05}
+       ("block", "float32"): 1e-3, ("block", "bfloat16"): 0.05,
+       ("instnorm_bwd", "float32"): 1e-4, ("instnorm_bwd", "bfloat16"): 0.05,
+       ("conv3x3_dw", "float32"): 1e-4, ("conv3x3_dw", "bfloat16"): 0.05,
+       ("conv3x3_dx", "float32"): 1e-4, ("conv3x3_dx", "bfloat16"): 0.02,
+       ("block_bwd", "float32"): 1e-3, ("block_bwd", "bfloat16"): 0.05}
 # serving logits, kernel path vs plain path on the card: the error bound,
 # the least argmax agreement over all pixels, and over the pixels whose
 # plain top-two margin exceeds MARGIN * max(1, max |logit|).  Random-weight
@@ -56,8 +76,31 @@ MARGIN = 0.05
 ARGMAX_MIN_CLEAR = 0.999
 
 REQUESTS = 20
+KERNELS = ("instnorm", "conv3x3", "block", "instnorm_bwd", "conv3x3_dw",
+           "block_bwd")
 PER_FORWARD = {False: {"instnorm": 28, "conv3x3": 18, "block": 0},
                True: {"instnorm": 1, "conv3x3": 0, "block": 9}}
+# training: launches per step (forward + backward; K2 runs the forward
+# convs and the dx of every 3x3 conv)
+PER_STEP = {False: {"instnorm": 28, "conv3x3": 36, "block": 0,
+                    "instnorm_bwd": 28, "conv3x3_dw": 18, "block_bwd": 0},
+            True: {"instnorm": 1, "conv3x3": 0, "block": 9,
+                   "instnorm_bwd": 1, "conv3x3_dw": 0, "block_bwd": 9}}
+STEPS = 10
+# step-1 gradients, kernel path vs plain path on the card.  float32 (TF32
+# off): per tensor rel_err (max |diff| / max(1, max |plain|)) at most
+# GRAD_REL, ||diff|| / ||plain|| over all parameters together at most
+# GRAD_REL, and per tensor cosine at least GRAD_COS.  Not ||diff|| /
+# ||plain|| per tensor: the gradient of a norm bias that feeds the next
+# instance norm is the small remainder of terms that nearly cancel, so
+# float32 summation order alone moves it by 3e-3 of itself.  bfloat16: per
+# tensor the kernel path is no less accurate than the plain path, both
+# measured against the float32 plain gradient:
+# ||K_bf16 - P_f32|| <= BF16_ACC * ||P_bf16 - P_f32|| + 1e-3 * ||P_f32||.
+GRAD_REL = 1e-3
+GRAD_COS = 0.9999
+BF16_ACC = 2.0
+LOSS_TOL = 1e-3   # float32: the first 3 losses, kernel vs plain path
 
 
 def smi() -> str:
@@ -107,55 +150,86 @@ class Cases:
         return self.randn(k, k, ci, co, std=(2.0 / (k * k * co)) ** 0.5,
                           dtype=dtype)
 
+    def block_args(self, b, h, w, ci, co, dtype):
+        args = [self.randn(b, h, w, ci, dtype=dtype),
+                self.conv_w(3, ci, co, dtype), *self.norm_params(co),
+                self.conv_w(3, co, co, dtype), *self.norm_params(co)]
+        if ci != co:
+            args += [self.conv_w(1, ci, co, dtype), *self.norm_params(co)]
+        else:
+            args += [None, None, None]
+        return args
+
+
+def library_block(F, x, w1, s1, b1, w2, s2, b2, ws=None, ss=None, bs=None):
+    """The block as PyTorch's own calls (cuDNN convs, instance_norm)."""
+    dt = x.dtype
+    nchw = lambda t: t.permute(0, 3, 1, 2)
+    conv = lambda t, w: F.conv2d(t, w.permute(3, 2, 0, 1),
+                                 padding=w.shape[0] // 2)
+    norm = lambda t, s, b: F.instance_norm(t, weight=s.to(dt),
+                                           bias=b.to(dt), eps=1e-5)
+    xn = nchw(x)
+    y = F.leaky_relu(norm(conv(xn, w1), s1, b1), 0.01)
+    y = norm(conv(y, w2), s2, b2)
+    idn = xn if ws is None else norm(conv(xn, ws), ss, bs)
+    return F.leaky_relu(y + idn, 0.01)
+
+
+def grad_call(torch, fn, inputs, cot):
+    """A call that runs one backward of ``fn(*inputs)`` for the cotangent
+    ``cot``: the graph is built once, each call only differentiates."""
+    leaves = [t.detach().requires_grad_() if t is not None else None
+              for t in inputs]
+    out = fn(*leaves)
+    wrt = [t for t in leaves if t is not None]
+    return lambda: torch.autograd.grad(out, wrt, cot, retain_graph=True)
+
+
+def record(torch, ops, rows, name, label, dt_name, fn, args, library, flops,
+           nbytes, iters, peak=None):
+    """Hold ``fn(*args)`` against its plain version (``ops.plain()``) on the
+    card, time the kernel, the plain version and the library call, and
+    append the row."""
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    with ops.plain():
+        want = as_tuple(fn(*args))
+    got = as_tuple(fn(*args))
+    torch.cuda.synchronize()
+    pairs = [(a, w) for a, w in zip(got, want) if w is not None]
+    if len(pairs) != sum(a is not None for a in got):
+        raise AssertionError(f"{name} {label}: outputs differ in kind")
+    err = max(rel_err(a, w) for a, w in pairs)
+    tol = TOL[(name, dt_name)]
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / (peak or PEAK_OPS_S[dt_name]) * 1e3
+    row = {"name": name, "case": label, "dtype": dt_name,
+           "max_abs_err": max(float((a.float() - w.float()).abs().max())
+                              for a, w in pairs),
+           "rel_err": err, "tol": tol,
+           "ms": time_ms(lambda: fn(*args), iters),
+           "plain_ms": None, "library_ms": None,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    with ops.plain():
+        row["plain_ms"] = time_ms(lambda: fn(*args), max(2, iters // 5))
+    row["library_ms"] = time_ms(library, iters)
+    rows.append(row)
+    print(f"kernel {name} {label} {dt_name}: max abs err "
+          f"{row['max_abs_err']:.3g}, rel err {err:.3g} (tol {tol}) "
+          f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+          f"library {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']})", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{name} {label} {dt_name}: error {err} "
+                             f"above {tol}")
+
 
 def check_kernels(torch, F, ops, instnorm, conv3x3, block):
-    """Phase 2: every kernel against its plain version; returns the rows."""
+    """Phase 2: every forward kernel against its plain version; returns
+    the rows."""
     rows = []
     cases = Cases(torch)
-
-    def library_block(x, w1, s1, b1, w2, s2, b2, ws=None, ss=None, bs=None):
-        dt = x.dtype
-        nchw = lambda t: t.permute(0, 3, 1, 2)
-        conv = lambda t, w: F.conv2d(t, w.permute(3, 2, 0, 1),
-                                     padding=w.shape[0] // 2)
-        norm = lambda t, s, b: F.instance_norm(t, weight=s.to(dt),
-                                               bias=b.to(dt), eps=1e-5)
-        xn = nchw(x)
-        y = F.leaky_relu(norm(conv(xn, w1), s1, b1), 0.01)
-        y = norm(conv(y, w2), s2, b2)
-        idn = xn if ws is None else norm(conv(xn, ws), ss, bs)
-        return F.leaky_relu(y + idn, 0.01)
-
-    def record(name, label, dt_name, fn, args, library, flops, nbytes,
-               iters):
-        with ops.plain():
-            want = fn(*args)
-        got = fn(*args)
-        torch.cuda.synchronize()
-        err = rel_err(got, want)
-        tol = TOL[(name, dt_name)]
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / PEAK_OPS_S[dt_name] * 1e3
-        row = {"name": name, "case": label, "dtype": dt_name,
-               "max_abs_err": float((got.float() - want.float()).abs().max()),
-               "rel_err": err, "tol": tol,
-               "ms": time_ms(lambda: fn(*args), iters),
-               "plain_ms": None, "library_ms": None,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        with ops.plain():
-            row["plain_ms"] = time_ms(lambda: fn(*args), max(2, iters // 5))
-        row["library_ms"] = time_ms(lambda: library(*args), iters)
-        rows.append(row)
-        print(f"kernel {name} {label} {dt_name}: max abs err "
-              f"{row['max_abs_err']:.3g}, rel err {err:.3g} (tol {tol}) "
-              f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
-              f"library {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
-              f"({row['bound_by']})", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"{name} {label} {dt_name}: error {err} "
-                                 f"above {tol}")
-
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[-1]
         isz = torch.tensor([], dtype=dt).element_size()
@@ -164,63 +238,140 @@ def check_kernels(torch, F, ops, instnorm, conv3x3, block):
             b, h, w, c = shape
             x = cases.randn(*shape, mean=0.3, dtype=dt)
             s, bb = cases.norm_params(c)
-            lib = lambda x, s, bb, act: (
+            lib = lambda x=x, s=s, bb=bb, act=act: (
                 F.leaky_relu(F.instance_norm(x.permute(0, 3, 1, 2),
                                              weight=s.to(x.dtype),
                                              bias=bb.to(x.dtype), eps=1e-5),
                              0.01) if act else
                 F.instance_norm(x.permute(0, 3, 1, 2), weight=s.to(x.dtype),
                                 bias=bb.to(x.dtype), eps=1e-5))
-            record("instnorm", f"{list(shape)} act={act}", dn,
-                   instnorm.instance_norm, (x, s, bb, act), lib,
-                   flops=8 * x.numel(),
+            record(torch, ops, rows, "instnorm", f"{list(shape)} act={act}",
+                   dn, lambda *a: instnorm.instance_norm_fwd(*a)[0],
+                   (x, s, bb, act), lib, flops=8 * x.numel(),
                    nbytes=2 * x.numel() * isz + 4 * 4 * c + 2 * 4 * b * c,
-                   iters=50)
+                   iters=20)
         # K2: decoder level 0 (32 -> 16), stem block (8 -> 16),
         # decoder level 3 (256 -> 128 at 32^2), bottleneck (128 -> 256)
         for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 256, 256, 8, 16),
                                   (8, 32, 32, 256, 128), (8, 16, 16, 128, 256)):
             x = cases.randn(b, h, w, ci, dtype=dt)
             wt = cases.conv_w(3, ci, co, dt)
-            lib = lambda x, wt: F.conv2d(x.permute(0, 3, 1, 2),
-                                         wt.permute(3, 2, 0, 1), padding=1)
-            record("conv3x3", f"{[b, h, w, ci]}->{co}", dn, conv3x3.conv3x3,
-                   (x, wt), lib, flops=2 * b * h * w * 9 * ci * co,
+            lib = lambda x=x, wt=wt: F.conv2d(x.permute(0, 3, 1, 2),
+                                              wt.permute(3, 2, 0, 1),
+                                              padding=1)
+            record(torch, ops, rows, "conv3x3", f"{[b, h, w, ci]}->{co}", dn,
+                   conv3x3.conv3x3_fwd, (x, wt), lib,
+                   flops=2 * b * h * w * 9 * ci * co,
                    nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz,
-                   iters=20)
+                   iters=10)
         # K3: shortcut form at decoder level 0 (32 -> 16) and the
         # bottleneck (128 -> 256 at 16^2); identity form 64 -> 64 at 64^2
         for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 16, 16, 128, 256),
                                   (8, 64, 64, 64, 64)):
-            x = cases.randn(b, h, w, ci, dtype=dt)
-            args = [x, cases.conv_w(3, ci, co, dt), *cases.norm_params(co),
-                    cases.conv_w(3, co, co, dt), *cases.norm_params(co)]
-            if ci != co:
-                args += [cases.conv_w(1, ci, co, dt), *cases.norm_params(co)]
+            args = cases.block_args(b, h, w, ci, co, dt)
             form = "shortcut" if ci != co else "identity"
             macs = 9 * ci * co + 9 * co * co + (ci * co if ci != co else 0)
-            record("block", f"{form} {[b, h, w, ci]}->{co}", dn,
-                   block.basic_block, tuple(args), library_block,
+            record(torch, ops, rows, "block", f"{form} {[b, h, w, ci]}->{co}",
+                   dn, block.basic_block_fwd, tuple(args),
+                   lambda args=args: library_block(F, *args),
                    flops=2 * b * h * w * macs,
                    nbytes=(b * h * w * (ci + co) + macs) * isz + 6 * 4 * co,
-                   iters=10)
+                   iters=5)
     return rows
 
 
-def profile_forward(torch, predict, img, n: int = 5) -> dict:
-    """Device time per serving forward by kernel (torch.profiler, mean of
-    n forwards).  Only device kernels are summed: an operator's entry
-    repeats the time of the kernels it launched."""
+def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
+    """Phase 2b: every backward kernel against its plain version; returns
+    the rows.  The library calls are yardsticks the port never calls:
+    autograd of F.instance_norm (+ leaky_relu), torch.nn.grad's
+    conv2d_weight and conv2d_input, autograd of the block's PyTorch
+    calls."""
+    rows = []
+    cases = Cases(torch, seed=1)
+    nchw = lambda t: t.permute(0, 3, 1, 2)
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[-1]
+        isz = torch.tensor([], dtype=dt).element_size()
+        # K4: the level-0 norm with lrelu and the bottleneck's affine norm
+        for shape, act in (((8, 256, 256, 16), True), ((8, 16, 16, 256), False)):
+            b, h, w, c = shape
+            x = cases.randn(*shape, mean=0.3, dtype=dt)
+            g = cases.randn(*shape, dtype=dt)
+            s, bb = cases.norm_params(c)
+            _, mean, rstd = instnorm.instance_norm_fwd(x, s, bb, act)
+
+            def lib_fwd(xn, s_, b_, act=act):
+                y = F.instance_norm(xn, weight=s_.to(xn.dtype),
+                                    bias=b_.to(xn.dtype), eps=1e-5)
+                return F.leaky_relu(y, 0.01) if act else y
+            record(torch, ops, rows, "instnorm_bwd", f"{list(shape)} act={act}",
+                   dn, instnorm.instance_norm_bwd,
+                   (x, g, mean, rstd, s, bb, act),
+                   grad_call(torch, lib_fwd, (nchw(x), s, bb), nchw(g)),
+                   flops=12 * x.numel(),
+                   nbytes=3 * x.numel() * isz + 6 * 4 * c + 2 * 4 * b * c,
+                   iters=20, peak=PEAK_F32_CORES)
+        # K5: dw of decoder level 0 (32 -> 16), the first block (8 -> 16)
+        # and the bottleneck (128 -> 256 at 16^2)
+        for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 256, 256, 8, 16),
+                                  (8, 16, 16, 128, 256)):
+            x = cases.randn(b, h, w, ci, dtype=dt)
+            g = cases.randn(b, h, w, co, dtype=dt)
+            lib = lambda x=x, g=g, ci=ci, co=co: torch.nn.grad.conv2d_weight(
+                nchw(x), (co, ci, 3, 3), nchw(g), padding=1)
+            record(torch, ops, rows, "conv3x3_dw", f"{[b, h, w, ci]}->{co}",
+                   dn, conv3x3.conv3x3_dw, (x, g), lib,
+                   flops=2 * b * h * w * 9 * ci * co,
+                   nbytes=b * h * w * (ci + co) * isz + 9 * ci * co * 4,
+                   iters=10)
+        # K2 as dx: the first block's conv1 (8 -> 16) transposed, 16 -> 8
+        b, h, w, ci, co = 8, 256, 256, 8, 16
+        g = cases.randn(b, h, w, co, dtype=dt)
+        wf = cases.conv_w(3, ci, co, dt)
+        wt = conv3x3.flip_io(wf)
+        lib = lambda g=g, wf=wf: torch.nn.grad.conv2d_input(
+            (b, ci, h, w), wf.permute(3, 2, 0, 1), nchw(g), padding=1)
+        record(torch, ops, rows, "conv3x3_dx", f"{[b, h, w, co]}->{ci}", dn,
+               conv3x3.conv3x3_fwd, (g, wt), lib,
+               flops=2 * b * h * w * 9 * ci * co,
+               nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz, iters=10)
+        # K6: shortcut form at decoder level 0 (32 -> 16) and the first
+        # block (8 -> 16); identity form 64 -> 64 at 64^2
+        for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 256, 256, 8, 16),
+                                  (8, 64, 64, 64, 64)):
+            args = cases.block_args(b, h, w, ci, co, dt)
+            x, w1, s1, _, w2, s2, _, ws, ss, _ = args
+            _, res = block.basic_block_fwd(*args, save=True)
+            g = cases.randn(b, h, w, co, dtype=dt)
+            short = ws is not None
+            form = "shortcut" if short else "identity"
+            macs = 9 * ci * co + 9 * co * co + (ci * co if short else 0)
+            maps = (4 if short else 3) * co + 2 * ci
+            record(torch, ops, rows, "block_bwd",
+                   f"{form} {[b, h, w, ci]}->{co}", dn, block.basic_block_bwd,
+                   (g, x, w1, s1, w2, s2, ws, ss, res),
+                   grad_call(torch, lambda *a: library_block(F, *a), args,
+                             nchw(g)),
+                   flops=4 * b * h * w * macs,
+                   nbytes=b * h * w * maps * isz + macs * (isz + 4)
+                   + 4 * (6 * co + 12 * b * co), iters=5)
+    return rows
+
+
+def profile_device(torch, fn, n: int = 5) -> dict:
+    """Device time per call of ``fn`` by kernel (torch.profiler, mean of n
+    calls).  Only device kernels are summed: an operator's entry repeats
+    the time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    predict(img)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            predict(img)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
@@ -228,7 +379,13 @@ def profile_forward(torch, predict, img, n: int = 5) -> dict:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     return {"profiled_wall_ms": wall,
-            "device_ms": sum(r[1] for r in rows), "top": rows[:16]}
+            "device_ms": sum(r[1] for r in rows),
+            "kernels_per_call": sum(r[2] for r in rows), "top": rows[:16]}
+
+
+def zero(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
 
 
 def serve_modes(torch, ops, counters):
@@ -258,8 +415,7 @@ def serve_modes(torch, ops, counters):
             raise AssertionError(f"manifest input {manifest['input']}")
         imgs = [torch.from_numpy(r).cuda() for r in reqs]
         torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
+        zero(counters)
         lat = []
         logits = []
         for img in imgs:
@@ -269,7 +425,7 @@ def serve_modes(torch, ops, counters):
             lat.append((time.perf_counter() - t0) * 1e3)
             logits.append(y)
         counts = {k: c.launches for k, c in counters.items()}
-        want = {k: v * REQUESTS for k, v in PER_FORWARD[fused].items()}
+        want = {k: PER_FORWARD[fused].get(k, 0) * REQUESTS for k in KERNELS}
         q1, med, q3 = statistics.quantiles(lat[1:], n=4)
         print(f"serve block_pallas={fused}: launches {counts} "
               f"(expected {want}); latency per batch of 8: first "
@@ -311,13 +467,171 @@ def serve_modes(torch, ops, counters):
         results[fused] = {"launches": counts, "latency_ms": lat,
                           "median_ms": med, "quartiles_ms": [q1, q3],
                           "checks": checks,
-                          "profile": profile_forward(torch, predict, imgs[0])}
+                          "profile": profile_device(
+                              torch, lambda: predict(imgs[0]))}
         p = results[fused]["profile"]
         p["idle_share"] = 1 - p["device_ms"] / results[fused]["median_ms"]
         top = "; ".join(f"{n[:48]} {ms:.3f} ms x{k}" for n, ms, k in p["top"][:4])
         print(f"profile block_pallas={fused}: device busy {p['device_ms']:.3f} "
               f"ms per forward, idle share {p['idle_share']:.3f} of the median "
               f"latency; top: {top}", flush=True)
+    return results
+
+
+def ellipse_batch(np, b: int = 8, hw: int = 256, seed: int = 0):
+    """A fixed batch the loss can fall on: each slice holds four filled
+    ellipses labelled 1-4 on background 0, and its image is the label map's
+    intensities plus noise, normalised to [-1, 1].  Not a dataset."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32)
+    msk = np.zeros((b, hw, hw), np.int32)
+    for i in range(b):
+        for lab in range(1, 5):
+            cy, cx = rng.uniform(0.2, 0.8, 2) * hw
+            ry, rx = rng.uniform(0.06, 0.18, 2) * hw
+            msk[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = lab
+    img = msk * 0.2 - 0.5 + rng.normal(0, 0.1, msk.shape)
+    return {"img": img[..., None].astype(np.float32), "msk": msk}
+
+
+def step1_grads(ops, algo, batch):
+    """Step-1 gradients of every parameter: kernel path, plain path."""
+    params = algo.init_params(seed=0)
+    _, got = algo.value_and_grad(params, batch)
+    with ops.plain():
+        _, want = algo.value_and_grad(params, batch)
+    for k, w in want.items():
+        if got.get(k) is None or got[k].shape != w.shape:
+            raise AssertionError(f"gradient of {k} missing on the kernel path")
+    return got, want
+
+
+def grad_parity(got, want) -> dict:
+    """Per tensor rel_err, L2 and cosine, and L2 over all tensors."""
+    rel, l2, cos = {}, {}, {}
+    diff2 = norm2 = 0.0
+    for k, w in want.items():
+        rel[k] = rel_err(got[k], w)
+        g, w = got[k].double(), w.double()
+        d2, w2 = float(((g - w) ** 2).sum()), float((w * w).sum())
+        diff2, norm2 = diff2 + d2, norm2 + w2
+        l2[k] = (d2 / w2) ** 0.5
+        cos[k] = float((g * w).sum() / (g.norm() * w.norm()))
+    return {"rel_max": max(rel.values()), "worst_rel": max(rel, key=rel.get),
+            "l2_all": (diff2 / norm2) ** 0.5,
+            "l2_tensor_max": max(l2.values()), "worst_l2": max(l2, key=l2.get),
+            "cos_min": min(cos.values()), "worst_cos": min(cos, key=cos.get),
+            "n": len(rel)}
+
+
+def bf16_accuracy(k16, p16, p32) -> dict:
+    """Per tensor, ||K_bf16 - P_f32|| / ||P_f32|| against the plain path's
+    ||P_bf16 - P_f32|| / ||P_f32||; the worst margin over the bound."""
+    worst, rows = None, {}
+    for k, ref in p32.items():
+        r = ref.double()
+        n = float(r.norm())
+        ek = float((k16[k].double() - r).norm()) / n
+        ep = float((p16[k].double() - r).norm()) / n
+        rows[k] = (ek, ep)
+        over = ek - (BF16_ACC * ep + 1e-3)
+        if worst is None or over > worst[1]:
+            worst = (k, over)
+    return {"worst": worst[0], "worst_over": worst[1],
+            "kernel_err": rows[worst[0]][0], "plain_err": rows[worst[0]][1],
+            "kernel_err_max": max(e for e, _ in rows.values()),
+            "plain_err_max": max(e for _, e in rows.values())}
+
+
+def train_modes(torch, ops, counters):
+    """Phase 4: the full-width training step in both block modes."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    batch = ellipse_batch(np)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    results = {}
+    for fused in (False, True):
+        cfg = lambda dtn: Config(input_size=256, base_width=16, batch_size=8,
+                                 compute_dtype=dtn, block_pallas=fused)
+        algo = SupervisedUNet(cfg("bfloat16"))
+        state = algo.init_state(seed=0)
+        torch.cuda.synchronize()
+        zero(counters)
+        losses, step_ms = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            state, m = algo.train_step(state, batch, {})
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {k: c.launches for k, c in counters.items()}
+        want = {k: STEPS * PER_STEP[fused][k] for k in KERNELS}
+        med = statistics.median(step_ms[1:])
+        q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
+        print(f"train block_pallas={fused}: launches {counts} (expected "
+              f"{want}); losses {[round(x, 5) for x in losses]}; step time "
+              f"first {step_ms[0]:.3f} ms, then median {med:.3f} ms, "
+              f"quartiles {q1:.3f}-{q3:.3f}", flush=True)
+        if counts != want:
+            raise AssertionError(f"launch counts {counts} != {want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"loss not finite and falling: {losses}")
+        prof = profile_device(
+            torch, lambda: algo.train_step(state, batch, {}), n=3)
+        prof["idle_share"] = 1 - prof["device_ms"] / med
+        top = "; ".join(f"{n[:48]} {ms:.3f} ms x{k}"
+                        for n, ms, k in prof["top"][:5])
+        print(f"profile train block_pallas={fused}: device busy "
+              f"{prof['device_ms']:.3f} ms per step in "
+              f"{prof['kernels_per_call']} kernels, idle share "
+              f"{prof['idle_share']:.3f} of the median step; top: {top}",
+              flush=True)
+        k32, p32 = step1_grads(ops, SupervisedUNet(cfg("float32")), batch)
+        k16, p16 = step1_grads(ops, SupervisedUNet(cfg("bfloat16")), batch)
+        checks = {"float32": grad_parity(k32, p32),
+                  "bfloat16": grad_parity(k16, p16),
+                  "bfloat16_vs_float32": bf16_accuracy(k16, p16, p32)}
+        for dtn in ("float32", "bfloat16"):
+            c = checks[dtn]
+            print(f"train block_pallas={fused} {dtn}: step-1 gradients of "
+                  f"{c['n']} tensors vs the plain path: rel err max "
+                  f"{c['rel_max']:.3g} ({c['worst_rel']}), L2 of all "
+                  f"{c['l2_all']:.3g}, L2 per tensor max "
+                  f"{c['l2_tensor_max']:.3g} ({c['worst_l2']}), cosine min "
+                  f"{c['cos_min']:.6f} ({c['worst_cos']})", flush=True)
+        a = checks["bfloat16_vs_float32"]
+        print(f"train block_pallas={fused} bfloat16 vs the float32 plain "
+              f"gradient: kernel path err max {a['kernel_err_max']:.3g}, "
+              f"plain path err max {a['plain_err_max']:.3g}; closest to the "
+              f"bound {a['worst']}: kernel {a['kernel_err']:.3g} vs plain "
+              f"{a['plain_err']:.3g} (bound {BF16_ACC} x plain + 1e-3)",
+              flush=True)
+        c = checks["float32"]
+        if not (c["rel_max"] <= GRAD_REL and c["l2_all"] <= GRAD_REL
+                and c["cos_min"] >= GRAD_COS and a["worst_over"] <= 0):
+            raise AssertionError(f"gradients disagree: {checks}")
+        a32 = SupervisedUNet(cfg("float32"))
+        runs = []
+        for plain in (False, True):
+            st, ls = a32.init_state(seed=0), []
+            with ops.plain() if plain else contextlib.nullcontext():
+                for _ in range(3):
+                    st, m = a32.train_step(st, batch, {})
+                    ls.append(float(m["loss"]))
+            runs.append(ls)
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+        print(f"train block_pallas={fused} float32: first 3 losses "
+              f"{runs[0]} vs plain {runs[1]}, rel err {lerr:.3g} (tol "
+              f"{LOSS_TOL})", flush=True)
+        if not lerr <= LOSS_TOL:
+            raise AssertionError(f"float32 losses disagree: {runs}")
+        results[fused] = {"launches": counts, "losses": losses,
+                          "step_ms": step_ms, "median_ms": med,
+                          "quartiles_ms": [q1, q3], "profile": prof,
+                          "grad_checks": checks, "f32_losses": runs}
     return results
 
 
@@ -343,40 +657,67 @@ def main() -> int:
     for name in _build.SOURCES:
         log = _build.build_log(name)
         (OUT / f"ptxas_{name}.log").write_text(log)
-        spills = [ln.strip() for ln in log.splitlines() if "spill" in ln
-                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                             log) if int(m)]
         print(f"ptxas {name}: {len(regs)} kernels, registers max "
-              f"{max(regs, default=0)}, spilling: {spills or 'none'}")
+              f"{max(regs, default=0)}, {len(spills)} kernels spill, at most "
+              f"{max(spills, default=0)} bytes")
 
+    t0 = time.perf_counter()
     rows = check_kernels(torch, F, ops, instnorm, conv3x3, block)
+    rows += check_backward_kernels(torch, F, ops, instnorm, conv3x3, block)
+    print(f"phases 2-2b: {time.perf_counter() - t0:.1f} s", flush=True)
     counters = {"instnorm": instnorm.instance_norm_fwd,
-                "conv3x3": conv3x3.conv3x3, "block": block.basic_block}
+                "conv3x3": conv3x3.conv3x3_fwd, "block": block.basic_block_fwd,
+                "instnorm_bwd": instnorm.instance_norm_bwd,
+                "conv3x3_dw": conv3x3.conv3x3_dw,
+                "block_bwd": block.basic_block_bwd}
+    t0 = time.perf_counter()
     serve = serve_modes(torch, ops, counters)
+    print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train = train_modes(torch, ops, counters)
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    main_case = {"instnorm": "[8, 256, 256, 16] act=True",
-                 "conv3x3": "[8, 256, 256, 32]->16",
-                 "block": "shortcut [8, 256, 256, 32]->16"}
-    meta = {"instnorm": ("smsut_tpu_torch/csrc/instnorm.cu",
-                         "smsut_tpu/ops/instnorm_pallas.py:90"),
-            "conv3x3": ("smsut_tpu_torch/csrc/conv3x3.cu",
-                        "smsut_tpu/ops/conv_pallas.py:69"),
-            "block": ("smsut_tpu_torch/csrc/block.cu",
-                      "smsut_tpu/ops/block_pallas.py:185")}
+    # (row name, case, source, TPU kernel); K2's row is its forward case
+    main_case = {
+        "instnorm": ("instnorm", "[8, 256, 256, 16] act=True",
+                     "smsut_tpu_torch/csrc/instnorm.cu",
+                     "smsut_tpu/ops/instnorm_pallas.py:90"),
+        "conv3x3": ("conv3x3", "[8, 256, 256, 32]->16",
+                    "smsut_tpu_torch/csrc/conv3x3.cu",
+                    "smsut_tpu/ops/conv_pallas.py:69"),
+        "block": ("block", "shortcut [8, 256, 256, 32]->16",
+                  "smsut_tpu_torch/csrc/block.cu",
+                  "smsut_tpu/ops/block_pallas.py:185"),
+        "instnorm_bwd": ("instnorm_bwd", "[8, 256, 256, 16] act=True",
+                         "smsut_tpu_torch/csrc/instnorm_bwd.cu",
+                         "smsut_tpu/ops/instnorm_pallas.py:135"),
+        "conv3x3_dw": ("conv3x3_dw", "[8, 256, 256, 32]->16",
+                       "smsut_tpu_torch/csrc/conv3x3_dw.cu",
+                       "smsut_tpu/ops/conv_pallas.py:124"),
+        "block_bwd": ("block_bwd", "shortcut [8, 256, 256, 32]->16",
+                      "smsut_tpu_torch/csrc/block_bwd.cu",
+                      "smsut_tpu/ops/block_pallas.py:488")}
     kernels = []
-    for name, case in main_case.items():
-        r = next(r for r in rows if r["name"] == name and r["case"] == case
-                 and r["dtype"] == "bfloat16")
+    for name, (row_name, case, source, replaces) in main_case.items():
+        r = next(r for r in rows if r["name"] == row_name
+                 and r["case"] == case and r["dtype"] == "bfloat16")
+        launches = (sum(v["launches"][name] for v in serve.values())
+                    + sum(v["launches"][name] for v in train.values()))
+        if launches < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1],
-            "launches": sum(s["launches"][name] for s in serve.values()),
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernel_rows": rows,
                    "serve": {str(k): v for k, v in serve.items()},
+                   "train": {str(k): v for k, v in train.items()},
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -29,6 +29,8 @@
 //   5. shortcut form only: the 1x1 conv (KS = 1, STATS) writes u and its
 //      partial sums, then finalize: (gs, hs);
 //   6. out: one elementwise pass, lrelu(y2*g2 + h2 + (u*gs + hs | x)).
+// In training the finalize steps also write each norm's mean and rstd, the
+// statistics K6 (block_bwd.cu) takes with y1, y2, u and the (g, h) table.
 // Against the unfused chain (K2, K1, K2, K1, 1x1 conv, K1, add, act) it
 // keeps out of device memory: the write and read of z1, the statistics
 // re-reads of y1, y2 and u, and the writes and reads of n2, of the
@@ -53,12 +55,13 @@ block_out_kernel(const T* __restrict__ y2, const float* __restrict__ gh2,
     load4(idn + e, d);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      float t = v[k] * g2[c + k] + g2[C + c + k];
+      // rounded as the plain version and K6's rebuild of pre round it
+      float t = mul_add_rn(v[k], g2[c + k], g2[C + c + k]);
       if (ghs) {
         const float* gs = ghs + (size_t)2 * b * C;
-        t += d[k] * gs[c + k] + gs[C + c + k];
+        t = __fadd_rn(t, mul_add_rn(d[k], gs[c + k], gs[C + c + k]));
       } else {
-        t += d[k];
+        t = __fadd_rn(t, d[k]);
       }
       v[k] = lrelu(t);
     }
@@ -70,29 +73,33 @@ template <typename T>
 static int run(const T* x, const T* w1, const float* s1, const float* b1,
                const T* w2, const float* s2, const float* b2, const T* ws,
                const float* ss, const float* bs, T* out, T* y1, T* y2, T* u,
-               float* part, float* gh, int B, int H, int W, int Ci, int Co,
-               cudaStream_t s) {
+               float* part, float* gh, float* st, int B, int H, int W,
+               int Ci, int Co, cudaStream_t s) {
   const int nt = conv_ntiles(H, W, Co);
   const int HW = H * W;
+  const size_t BC = (size_t)B * Co;
   float* gh1 = gh;
-  float* gh2 = gh + (size_t)2 * B * Co;
-  float* ghs = gh + (size_t)4 * B * Co;
+  float* gh2 = gh + 2 * BC;
+  float* ghs = gh + 4 * BC;
+  // (mean, rstd) of norm k at st + 2k*BC, st + (2k+1)*BC, when st is given
+  auto mean = [&](int k) { return st ? st + 2 * k * BC : nullptr; };
+  auto rstd = [&](int k) { return st ? st + (2 * k + 1) * BC : nullptr; };
   cudaError_t e;
   e = launch_conv<T, 3, true, false>(x, w1, y1, nullptr, part, B, H, W, Ci,
                                      Co, s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_finalize(part, nt, B, Co, HW, s1, b1, nullptr, nullptr, gh1, s);
+  e = launch_finalize(part, nt, B, Co, HW, s1, b1, mean(0), rstd(0), gh1, s);
   if (e != cudaSuccess) return (int)e;
   e = launch_conv<T, 3, true, true>(y1, w2, y2, gh1, part, B, H, W, Co, Co,
                                     s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_finalize(part, nt, B, Co, HW, s2, b2, nullptr, nullptr, gh2, s);
+  e = launch_finalize(part, nt, B, Co, HW, s2, b2, mean(1), rstd(1), gh2, s);
   if (e != cudaSuccess) return (int)e;
   if (ws) {
     e = launch_conv<T, 1, true, false>(x, ws, u, nullptr, part, B, H, W, Ci,
                                        Co, s);
     if (e != cudaSuccess) return (int)e;
-    e = launch_finalize(part, nt, B, Co, HW, ss, bs, nullptr, nullptr, ghs,
+    e = launch_finalize(part, nt, B, Co, HW, ss, bs, mean(2), rstd(2), ghs,
                         s);
     if (e != cudaSuccess) return (int)e;
   }
@@ -106,7 +113,8 @@ static int run(const T* x, const T* w1, const float* s1, const float* b1,
 // null (identity form, Ci == Co), all in x's dtype; s*, b* [Co] f32.
 // Scratch: y1, y2 [B][H][W][Co] and u (shortcut form) in x's dtype;
 // part [B][ntiles][2][Co] f32 with ntiles = smsut_block_ntiles(H, W, Co);
-// gh [3][B][2][Co] f32.
+// gh [3][B][2][Co] f32.  stats [3][2][B][Co] f32 (the (mean, rstd) of
+// norms 1, 2 and s, the residuals K6 needs) or null (serving).
 extern "C" int smsut_block_ntiles(int H, int W, int Co) {
   return conv_ntiles(H, W, Co);
 }
@@ -115,16 +123,16 @@ extern "C" int smsut_block_fwd(const void* x, const void* w1, const void* s1,
                                const void* b1, const void* w2, const void* s2,
                                const void* b2, const void* ws, const void* ss,
                                const void* bs, void* out, void* y1, void* y2,
-                               void* u, void* part, void* gh, int B, int H,
-                               int W, int Ci, int Co, int dtype,
-                               void* stream) {
+                               void* u, void* part, void* gh, void* stats,
+                               int B, int H, int W, int Ci, int Co,
+                               int dtype, void* stream) {
   if (Co % 16 != 0 || (!ws && Ci != Co)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define SMSUT_BLOCK_ARGS(T)                                                   \
   (const T*)x, (const T*)w1, (const float*)s1, (const float*)b1,            \
       (const T*)w2, (const float*)s2, (const float*)b2, (const T*)ws,       \
       (const float*)ss, (const float*)bs, (T*)out, (T*)y1, (T*)y2, (T*)u,   \
-      (float*)part, (float*)gh, B, H, W, Ci, Co, s
+      (float*)part, (float*)gh, (float*)stats, B, H, W, Ci, Co, s
   if (dtype == 0) return run<float>(SMSUT_BLOCK_ARGS(float));
   if (dtype == 1) return run<__nv_bfloat16>(SMSUT_BLOCK_ARGS(__nv_bfloat16));
 #undef SMSUT_BLOCK_ARGS

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels (K1 instnorm.cu, K2
-// conv3x3.cu, K3 block.cu): dtype conversion, 4-wide loads and stores, and
-// the instance-norm finalize step that turns per-block partial sums into
-// statistics.
+// conv3x3.cu, K3 block.cu, K4 instnorm_bwd.cu, K5 conv3x3_dw.cu, K6
+// block_bwd.cu): dtype conversion, 4-wide loads and stores, the leaky ReLU
+// and its mask, and the instance-norm finalize step that turns per-block
+// partial sums into statistics.
 //
 // Activations are NHWC, float32 or bfloat16; everything the kernels
 // accumulate is float32.  Instance-norm statistics follow the JAX reference
@@ -33,6 +34,24 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 }
 
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : kSlope * v; }
+
+// lrelu'(v) as the TPU block backward takes it (`_lrelu_mask`): 1 where
+// v > 0, else the slope (v == 0 included).
+__device__ __forceinline__ float lrelu_grad(float v) { return v > 0.f ? 1.f : kSlope; }
+
+// v*g + h with the product and the sum rounded separately, as PyTorch's
+// elementwise ops round them.  Where a backward masks on the sign of such a
+// value, an FMA here and none in the plain version would flip the mask of
+// the elements that sit within one rounding of 0.
+__device__ __forceinline__ float mul_add_rn(float v, float g, float h) {
+  return __fadd_rn(__fmul_rn(v, g), h);
+}
+
+// a normalised, activated value as the forward stores it:
+// round_T(lrelu(v*g + h))
+template <typename T> __device__ __forceinline__ float norm_act(float v, float g, float h) {
+  return round_to<T>(lrelu(mul_add_rn(v, g, h)));
+}
 
 // 4 consecutive elements; p is 16-byte (float) or 8-byte (bf16) aligned
 __device__ __forceinline__ void load4(const float* p, float v[4]) {

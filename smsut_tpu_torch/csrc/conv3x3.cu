@@ -17,8 +17,9 @@
 // tiles of 4 pixels x 4 channels, float32 FMAs on the CUDA cores.  This
 // first version stays far from the bound (it runs on the CUDA cores, not
 // the tensor cores); mma.sync/wgmma with TMA staging is the next step.
-// Any H, W and Cin; Cout must be a multiple of 16 (the wrapper raises
-// otherwise).
+// Any H, W and Cin; Cout must be a multiple of 8 (the wrapper raises
+// otherwise): the 8-channel tile (32x16 pixels) serves the dx of the
+// U-Net's first block, whose input has 8 channels at width 16.
 #include "conv_tile.cuh"
 
 using namespace smsut;
@@ -27,7 +28,7 @@ using namespace smsut;
 extern "C" int smsut_conv3x3_fwd(const void* x, const void* w, void* y, int B,
                                  int H, int W, int Cin, int Cout, int dtype,
                                  void* stream) {
-  if (Cout % 16 != 0 || Cin < 1) return (int)cudaErrorInvalidValue;
+  if (Cout % 8 != 0 || Cin < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)launch_conv<float, 3, false, false>(

@@ -27,7 +27,8 @@ from smsut_tpu_torch.ops.instnorm import lrelu
 class BasicBlock(nn.Module):
     """2x(conv3x3 + norm), 1x1(+norm) shortcut when channels change,
     leaky ReLU after the sum.  ``fused`` runs the whole block as one call of
-    kernel K3 (``Config.block_pallas``) instead of K2 + K1 per layer."""
+    kernel K3 forward and K6 backward (``Config.block_pallas``) instead of
+    K2 + K1 (K4, K2, K5 backward) per layer."""
 
     def __init__(self, cin: int, features: int, fused: bool = False,
                  generator: Optional[torch.Generator] = None):

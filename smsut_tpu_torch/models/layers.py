@@ -6,9 +6,12 @@ Activations flow in the compute dtype (bfloat16 by default); parameters
 and normalisation statistics stay float32.  Conv weights are stored HWIO
 [k, k, Cin, Cout], the layout the kernels read and the flax layout.
 
-On a CUDA tensor every instance norm runs kernel K1 and every 3x3 conv
-kernel K2.  The other convs (5x5 stem, 1x1 head and shortcut) and the
-pooling stay plain PyTorch, as XLA computed them in the JAX package.
+On a CUDA tensor every instance norm runs kernel K1 forward and K4
+backward, and every 3x3 conv kernel K2 forward, K2 (dx) and K5 (dw)
+backward.  The weights are cast to the activation dtype per call, and the
+gradient comes back through that cast to the float32 parameter.  The other
+convs (5x5 stem, 1x1 head and shortcut) and the pooling stay plain PyTorch
+with autograd, as XLA computed them in the JAX package.
 """
 from __future__ import annotations
 

@@ -26,13 +26,15 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("instnorm", "conv3x3", "block")
+SOURCES = ("instnorm", "conv3x3", "block", "instnorm_bwd", "conv3x3_dw",
+           "block_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -102,10 +104,11 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, fn: str, argtypes: Iterable) -> ctypes._CFuncPtr:
+def bind(name: str, fn: str, argtypes: Iterable,
+         restype=I) -> ctypes._CFuncPtr:
     f = getattr(library(name), fn)
     f.argtypes = list(argtypes)
-    f.restype = I
+    f.restype = restype
     return f
 
 

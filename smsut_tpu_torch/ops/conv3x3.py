@@ -1,11 +1,16 @@
 # -*- coding: utf-8 -*-
-"""K2: 3x3 stride-1 SAME convolution forward, NHWC, HWIO weights.
+"""K2 and K5: 3x3 stride-1 SAME convolution, NHWC, HWIO weights, forward
+and weight gradient.
 
-Port of ``smsut_tpu/ops/conv_pallas.py`` ``_conv_fwd`` (public
-``conv_same_pallas``).  On a CUDA tensor :func:`conv3x3` launches the
-kernel of ``csrc/conv3x3.cu``; on a CPU tensor it runs
-:func:`conv3x3_plain`: the nine taps as shifted views times the [Cin, Cout]
-tap weight, summed in float32, rounded once to the input's dtype.
+Port of ``smsut_tpu/ops/conv_pallas.py`` (public ``conv_same_pallas``): K2
+replaces ``_conv_fwd``, K5 ``_conv_dw``.  On a CUDA tensor
+:func:`conv3x3_fwd` and :func:`conv3x3_dw` launch the kernels of
+``csrc/conv3x3.cu`` and ``csrc/conv3x3_dw.cu``; on a CPU tensor they run
+:func:`conv3x3_plain` (the nine taps as shifted views times the
+[Cin, Cout] tap weight, summed in float32, rounded once to the input's
+dtype) and :func:`conv3x3_dw_plain`.  :func:`conv3x3` is the differentiable
+op, wired as ``_vjp_bwd`` wires the TPU kernels: dx is K2 itself on the
+cotangent with the kernel flipped in space and IO-transposed, dw is K5.
 """
 from __future__ import annotations
 
@@ -13,9 +18,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from smsut_tpu_torch.ops import on_card, require, require_like
-from smsut_tpu_torch.ops._build import I, P, bind, check, stream_of
+from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 
 def conv_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -34,9 +40,33 @@ def conv_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def dw_f32(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """Weight gradient of the SAME conv with an odd k x k kernel, float32
+    [k,k,Cin,Cout]: dw[u,v] = sum over b,i,j of the (u,v)-shifted x (zero
+    padded) times g, the batch-accumulated correlation."""
+    b, h, wd, cin = x.shape
+    r = k // 2
+    xf = x.float()
+    xp = F.pad(xf, (0, 0, r, r, r, r)) if r else xf
+    gf = g.float().reshape(-1, g.shape[-1])
+    taps = [xp[:, u:u + h, v:v + wd, :].reshape(-1, cin).T @ gf
+            for u in range(k) for v in range(k)]
+    return torch.stack(taps).reshape(k, k, cin, g.shape[-1])
+
+
+def flip_io(w: torch.Tensor) -> torch.Tensor:
+    """The kernel of the transposed conv: flipped in space, IO-swapped."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of K2."""
     return conv_f32(x, w).to(x.dtype)
+
+
+def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 (float32)."""
+    return dw_f32(x, g, 3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,23 +74,96 @@ def _kernel():
     return bind("conv3x3", "smsut_conv3x3_fwd", [P] * 3 + [I] * 6 + [P])
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _dw_kernel():
+    return bind("conv3x3_dw", "smsut_conv3x3_dw", [P] * 4 + [I] * 6 + [P])
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_scratch():
+    return bind("conv3x3_dw", "smsut_conv3x3_dw_scratch", [I] * 5, L)
+
+
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``y = conv(x, w)``, SAME zero padding; ``w`` [3,3,Cin,Cout] in x's
     dtype.  Float32 accumulation, output in x's dtype.  On the card Cout
-    must be a multiple of 16."""
+    must be a multiple of 8."""
     if not on_card(x):
         return conv3x3_plain(x, w)
     dt = require(x, "conv3x3")
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     require_like(w, "conv3x3 weight", (3, 3, cin, cout), x.dtype, x.device)
-    if cout % 16:
-        raise ValueError(f"conv3x3: Cout {cout} is not a multiple of 16")
+    if cout % 8:
+        raise ValueError(f"conv3x3: Cout {cout} is not a multiple of 8")
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     check(_kernel()(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
                     cout, dt, stream_of(x)), "conv3x3")
-    conv3x3.launches += 1
+    conv3x3_fwd.launches += 1
     return y
 
 
-conv3x3.launches = 0
+conv3x3_fwd.launches = 0
+
+
+def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Float32 weight gradient [3,3,Cin,Cout] of ``conv3x3_fwd(x, w)`` for
+    the output cotangent ``g``.  On the card Cout must be a multiple of
+    16."""
+    if not on_card(g):
+        return conv3x3_dw_plain(x, g)
+    dt = require(x, "conv3x3_dw")
+    require(g, "conv3x3_dw cotangent")
+    b, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    if tuple(g.shape[:3]) != (b, h, wd) or g.dtype != x.dtype \
+            or g.device != x.device:
+        raise ValueError(f"conv3x3_dw: cotangent {g.dtype} "
+                         f"{tuple(g.shape)} does not match x {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if cout % 16:
+        raise ValueError(f"conv3x3_dw: Cout {cout} is not a multiple of 16")
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    part = torch.empty(_dw_scratch()(b, h, wd, cin, cout),
+                       dtype=torch.float32, device=x.device)
+    check(_dw_kernel()(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                       part.data_ptr(), b, h, wd, cin, cout, dt,
+                       stream_of(x)), "conv3x3_dw")
+    conv3x3_dw.launches += 1
+    return dw
+
+
+conv3x3_dw.launches = 0
+
+
+class _Conv3x3(torch.autograd.Function):
+    """K2 forward; backward dx = K2(g, flip_io(w)), dw = K5(x, g) cast to
+    w's dtype (``conv_pallas._vjp_bwd``).  The backward takes the path the
+    forward took, fixed when the forward ran."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.kernel = on_card(x)
+        ctx.save_for_backward(x, w)
+        return conv3x3_fwd(x, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        fwd, dwf = ((conv3x3_fwd, conv3x3_dw) if ctx.kernel
+                    else (conv3x3_plain, conv3x3_dw_plain))
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = fwd(g, flip_io(w))
+        if ctx.needs_input_grad[1]:
+            dw = dwf(x, g).to(w.dtype)
+        return dx, dw
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The differentiable op.  Without autograd it is one K2 call."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv3x3.apply(x, w)
+    return conv3x3_fwd(x, w)

@@ -1,10 +1,13 @@
 # -*- coding: utf-8 -*-
-"""K1: instance norm (+ LeakyReLU 0.01) forward, NHWC.
+"""K1 and K4: instance norm (+ LeakyReLU 0.01), NHWC, forward and backward.
 
-Port of ``smsut_tpu/ops/instnorm_pallas.py`` ``_fwd_call`` (public
-``instance_norm_lrelu`` / ``instance_norm_affine``).  On a CUDA tensor
-:func:`instance_norm_fwd` launches the kernel of ``csrc/instnorm.cu``; on a
-CPU tensor it runs :func:`instance_norm_plain`, the same math in PyTorch.
+Port of ``smsut_tpu/ops/instnorm_pallas.py`` (public ``instance_norm_lrelu``
+/ ``instance_norm_affine``): K1 replaces ``_fwd_call``, K4 ``_bwd_call``.
+On a CUDA tensor :func:`instance_norm_fwd` and :func:`instance_norm_bwd`
+launch the kernels of ``csrc/instnorm.cu`` and ``csrc/instnorm_bwd.cu``; on
+a CPU tensor they run :func:`instance_norm_plain` and
+:func:`instance_norm_bwd_plain`, the same math in PyTorch.
+:func:`instance_norm` is the differentiable op: K1 forward, K4 backward.
 """
 from __future__ import annotations
 
@@ -12,9 +15,10 @@ import functools
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from smsut_tpu_torch.ops import on_card, require, require_like
-from smsut_tpu_torch.ops._build import I, P, bind, check, stream_of
+from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 NEG_SLOPE = 0.01
 EPS = 1e-5
@@ -46,6 +50,42 @@ def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor,
     return (lrelu(y) if act else y).to(x.dtype), mean, rstd
 
 
+def norm_bwd_terms(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, act: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """(d, xhat, S_d, S_dxhat) in float32: the cotangent after the lrelu
+    mask of ``_make_bwd_kernel`` (``y >= 0``), xhat, and their per-(sample,
+    channel) sums over H*W."""
+    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+    d = g.float()
+    if act:
+        d = torch.where(xhat * scale + bias >= 0, d, NEG_SLOPE * d)
+    return d, xhat, d.sum(dim=(1, 2)), (d * xhat).sum(dim=(1, 2))
+
+
+def norm_bwd_dx(d: torch.Tensor, xhat: torch.Tensor, sd: torch.Tensor,
+                sdx: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor
+                ) -> torch.Tensor:
+    """dx = scale*rstd * (d - mean(d) - xhat*mean(d*xhat)), float32."""
+    n = d.shape[1] * d.shape[2]
+    a = (scale * rstd)[:, None, None]
+    return a * (d - (sd / n)[:, None, None] - xhat * (sdx / n)[:, None, None])
+
+
+def instance_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor,
+                            mean: torch.Tensor, rstd: torch.Tensor,
+                            scale: torch.Tensor, bias: torch.Tensor,
+                            act: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of K4: (dx in x's dtype, dscale, dbias float32 [C])."""
+    d, xhat, sd, sdx = norm_bwd_terms(x, g, mean, rstd, scale, bias, act)
+    dx = norm_bwd_dx(d, xhat, sd, sdx, scale, rstd)
+    return dx.to(x.dtype), sdx.sum(0), sd.sum(0)
+
+
 def splits(hw: int, c: int) -> Tuple[int, int]:
     """(nsplit, rows): the statistics pass cuts H*W into nsplit slices of
     ``rows`` rows, about _BLOCK_ELEMS elements each."""
@@ -61,6 +101,24 @@ def _kernel():
                 [P] * 7 + [I] * 7 + [P])
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    return bind("instnorm_bwd", "smsut_instnorm_bwd",
+                [P] * 9 + [I] * 5 + [P])
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_scratch():
+    return bind("instnorm_bwd", "smsut_instnorm_bwd_scratch", [I] * 3, L)
+
+
+def _check_params(x: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor, what: str) -> None:
+    for name, t in (("scale", scale), ("bias", bias)):
+        require_like(t, f"{what} {name}", (x.shape[-1],), torch.float32,
+                     x.device)
+
+
 def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, act: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -71,8 +129,7 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
         return instance_norm_plain(x, scale, bias, act)
     dt = require(x, "instance_norm", 4)
     b, h, w, c = x.shape
-    for name, t in (("scale", scale), ("bias", bias)):
-        require_like(t, f"instance_norm {name}", (c,), torch.float32, x.device)
+    _check_params(x, scale, bias, "instance_norm")
     nsplit, rows = splits(h * w, c)
     out = torch.empty_like(x)
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
@@ -89,6 +146,66 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
 instance_norm_fwd.launches = 0
 
 
+def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                      rstd: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, act: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`instance_norm_fwd` from its input ``x``, its
+    statistics and the cotangent ``g`` of its output: (dx in x's dtype,
+    dscale, dbias float32, summed over the batch)."""
+    if not on_card(g):
+        return instance_norm_bwd_plain(x, g, mean, rstd, scale, bias, act)
+    dt = require(x, "instance_norm_bwd", 4)
+    require_like(g, "instance_norm_bwd cotangent", x.shape, x.dtype, x.device)
+    b, h, w, c = x.shape
+    _check_params(x, scale, bias, "instance_norm_bwd")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        require_like(t, f"instance_norm_bwd {name}", (b, c), torch.float32,
+                     x.device)
+    dx = torch.empty_like(x)
+    dsb = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(_bwd_scratch()(b, h * w, c), dtype=torch.float32,
+                          device=x.device)
+    check(_bwd_kernel()(x.data_ptr(), g.data_ptr(), mean.data_ptr(),
+                        rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                        dx.data_ptr(), dsb.data_ptr(), scratch.data_ptr(),
+                        b, h * w, c, dt, int(act), stream_of(x)),
+          "instance_norm_bwd")
+    instance_norm_bwd.launches += 1
+    return dx, dsb[1], dsb[0]
+
+
+instance_norm_bwd.launches = 0
+
+
+class _InstanceNorm(torch.autograd.Function):
+    """K1 forward, K4 backward.  The backward takes the path the forward
+    took (kernel or plain), fixed when the forward ran: autograd runs a
+    CUDA backward on its own thread, which does not see ``ops.plain()``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, act):
+        ctx.kernel = on_card(x)
+        ctx.act = act
+        out, mean, rstd = instance_norm_fwd(x, scale, bias, act)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        bwd = instance_norm_bwd if ctx.kernel else instance_norm_bwd_plain
+        dx, dscale, dbias = bwd(x, g.contiguous(), mean, rstd, scale, bias,
+                                ctx.act)
+        return dx, dscale, dbias, None
+
+
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   act: bool) -> torch.Tensor:
+    """The differentiable op.  Without autograd (serving, no_grad) it is one
+    K1 call that saves nothing."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _InstanceNorm.apply(x, scale, bias, act)
     return instance_norm_fwd(x, scale, bias, act)[0]

@@ -1,0 +1,29 @@
+# -*- coding: utf-8 -*-
+"""The poly learning-rate schedule as a function of the step counter.
+
+Port of ``poly_lr_schedule`` and ``poly_lr_host`` of
+``smsut_tpu/ops/schedules.py``.  The reference mutates the optimizer's LR
+after each step, so step k trains with poly(max(k - 1, 0)); both functions
+keep that one-step lag, and clamp the base at 0 past ``total_iters``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+
+def poly_lr_host(base_lr: float, step: int, total_iters: int,
+                 power: float = 0.9) -> float:
+    """lr * (1 - max(step - 1, 0)/total)^power, the base clamped at 0 (a
+    negative base to a fractional power is complex in Python)."""
+    eff = max(int(step) - 1, 0)
+    return float(base_lr * max(1.0 - eff / total_iters, 0.0) ** power)
+
+
+def poly_lr_schedule(base_lr: float, total_iters: int,
+                     power: float = 0.9) -> Callable[[int], float]:
+    """count -> the LR of the step with that count (``poly_lr_host``)."""
+
+    def schedule(count: int) -> float:
+        return poly_lr_host(base_lr, count, total_iters, power)
+
+    return schedule

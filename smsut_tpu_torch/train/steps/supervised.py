@@ -1,14 +1,16 @@
 # -*- coding: utf-8 -*-
-"""Supervised U-Net algorithm: the serving half of
-``smsut_tpu/train/steps/supervised.py`` ``SupervisedUNet``.
+"""Supervised U-Net algorithm: ``smsut_tpu/train/steps/supervised.py``
+``SupervisedUNet``.
 
-This slice ports what serving needs: ``init_params``, ``eval_params`` and
-``eval_fn``.  The training step (Dice+CE loss, SGD with poly-LR, and the
-backward kernels) comes with the training slice.
+One training iteration is forward, Dice+CE loss, backward and the SGD +
+poly-LR update.  On the card the backward runs the backward kernels: K4
+for every instance norm, K2 (dx) and K5 (dw) for every 3x3 conv, or K6 for
+every residual block with ``block_pallas``.  The eval forward serves
+(``serve.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -16,6 +18,8 @@ import torch
 from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models import UNet
+from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+from smsut_tpu_torch.train.state import TrainState, make_sgd
 from smsut_tpu_torch.train.steps import setup_compute
 
 Params = Dict[str, torch.Tensor]
@@ -24,6 +28,9 @@ Params = Dict[str, torch.Tensor]
 class SupervisedUNet:
     """``UNet(out_ch=n_class, width=base_width)``, instance norm, leaky
     ReLU, on the card unless ``device`` names another."""
+
+    name = "unet"
+    uses_unlabeled = False
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None):
@@ -42,10 +49,46 @@ class SupervisedUNet:
         """Freshly initialised parameters, drawn from ``seed``."""
         return {k: v.detach() for k, v in self._build(seed).state_dict().items()}
 
-    def eval_params(self, params: Params) -> Params:
+    def init_state(self, seed: int) -> TrainState:
+        """Parameters drawn from ``seed``, zero momentum, step 0."""
+        return self.state_from_params(self.init_params(seed))
+
+    def state_from_params(self, params: Mapping[str, torch.Tensor]
+                          ) -> TrainState:
+        """A fresh train state (step 0, zero momentum) holding float32
+        copies of ``params`` on the algorithm's device."""
+        return TrainState.create(self.eval_params(params), make_sgd(self.cfg))
+
+    def value_and_grad(self, params: Params, batch: Mapping
+                       ) -> Tuple[torch.Tensor, Params]:
+        """Dice+CE loss (batch dice) of ``batch = {"img", "msk"}`` and its
+        gradient with respect to every parameter."""
+        cfg = self.cfg
+        img = torch.as_tensor(batch["img"], dtype=torch.float32,
+                              device=self.device)
+        msk = torch.as_tensor(batch["msk"], device=self.device).long()
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        logits = torch.func.functional_call(self.net, leaves, (img,))
+        loss = dice_and_ce_loss(logits, msk, cfg.weight_dc, cfg.weight_ce,
+                                batch_dice=True)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def train_step(self, state: TrainState, batch: Mapping,
+                   scalars: Optional[Mapping] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One iteration; ``scalars`` is unused here, as in the JAX step.
+        The state passed in is consumed (``TrainState.apply_gradients``)."""
+        loss, grads = self.value_and_grad(state.params, batch)
+        return state.apply_gradients(grads), {"loss": loss}
+
+    def eval_params(self, state: Union[TrainState, Mapping[str, torch.Tensor]]
+                    ) -> Params:
         """The float32 parameters the eval forward runs with, on the
-        algorithm's device."""
-        return {k: v.detach().to(self.device, torch.float32)
+        algorithm's device, from a train state or a parameter mapping."""
+        params = state.params if isinstance(state, TrainState) else state
+        return {k: v.detach().to(self.device, torch.float32, copy=True)
                 for k, v in params.items()}
 
     @torch.inference_mode()

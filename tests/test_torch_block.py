@@ -1,6 +1,7 @@
 # -*- coding: utf-8 -*-
-"""K3 (smsut_tpu_torch/ops/block.py): the plain fused block against the JAX
-Pallas block kernel (ops/block_pallas.py, interpret mode on the CPU).
+"""K3 and K6 (smsut_tpu_torch/ops/block.py): the plain fused block and the
+backward of the autograd op (K6's plain formula on the CPU) against the JAX
+Pallas block kernels (ops/block_pallas.py, interpret mode on the CPU).
 
 The TPU kernel runs on the space-to-depth packed layout; on the unpacked
 map its statistics pooled over the 4 subpixel groups are the full-H*W
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from smsut_tpu.models import packed as pk
@@ -56,6 +58,49 @@ def test_plain_matches_pallas(rng, ci, co):
     want = np.asarray(pk.depth_to_space(out, co))
     got = block.basic_block(*_torch_args(x, a)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ci,co", [(16, 16), (8, 16)])
+def test_backward_matches_pallas_grad(rng, ci, co):
+    """Every gradient of the autograd op against jax.grad through
+    space_to_depth -> apply_fused_block (``_bwd_call``) -> depth_to_space,
+    taken with respect to the unpacked x, kernels and norm parameters;
+    float32, errors scaled by each gradient's largest entry."""
+    x, a = _case(rng, ci, co, hw=16)
+    tgt = rng.standard_normal((2, 16, 16, co)).astype(np.float32)
+    names = ["x"] + [k for k in _ORDER if k in a]
+    vals = [x] + [a[k] for k in names[1:]]
+
+    def loss(x, w1, s1, b1, w2, s2, b2, ws=None, ss=None, bs=None):
+        out = bp.apply_fused_block(
+            pk.space_to_depth(x), pk.pack_kernel(w1, (ci,)), s1, b1,
+            pk.pack_kernel(w2, (co,)), s2, b2,
+            None if ws is None else pk.pack_kernel(ws, (ci,)), ss, bs)
+        return jnp.sum(pk.depth_to_space(out, co) * tgt)
+
+    want = jax.grad(loss, argnums=tuple(range(len(vals))))(
+        *[jnp.asarray(v) for v in vals])
+    args = [t(v).requires_grad_() for v in vals]
+    block.basic_block(*args).backward(t(tgt))
+    for name, got, w in zip(names, args, want):
+        w = np.asarray(w)
+        scale = np.abs(w).max() + 1e-9
+        np.testing.assert_allclose(got.grad.numpy() / scale, w / scale,
+                                   rtol=0, atol=1e-4, err_msg=name)
+
+
+def test_without_autograd_nothing_is_saved(rng):
+    """Serving (inference mode) takes the forward alone: no autograd node
+    and no residuals; with autograd the op keeps the residuals."""
+    x, a = _case(rng, 8, 16, hw=8)
+    args = [a2.requires_grad_() if a2.dtype == torch.float32 else a2
+            for a2 in _torch_args(x, a)]
+    with torch.inference_mode():
+        out = block.basic_block(*args)
+    assert out.grad_fn is None
+    out = block.basic_block(*args)
+    assert type(out.grad_fn).__name__ == "_BasicBlockBackward"
+    assert len(out.grad_fn.saved_tensors) == 12
 
 
 def _block_module(a, ci, co, fused):

@@ -1,6 +1,8 @@
 # -*- coding: utf-8 -*-
-"""K2 (smsut_tpu_torch/ops/conv3x3.py): the plain version against the JAX
-Pallas conv (ops/conv_pallas.py, interpret mode on the CPU) and XLA's conv.
+"""K2 and K5 (smsut_tpu_torch/ops/conv3x3.py): the plain forward, and the
+backward of the autograd op (dx by K2 on the flipped kernel, dw by K5's
+plain formula on the CPU), against the JAX Pallas conv (ops/conv_pallas.py,
+interpret mode on the CPU) and XLA's conv.
 The convs no kernel covers (5x5 stem, 1x1) are held against XLA's conv
 too.  The CUDA kernel is held against the plain version on the card in
 tests/test_torch_cuda.py."""
@@ -29,6 +31,23 @@ def test_plain_matches_pallas(rng):
     want = np.asarray(cp.conv_same_pallas(jnp.asarray(x), jnp.asarray(w)))
     got = conv3x3.conv3x3(t(x), t(w)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("cin", [8, 16])
+def test_backward_matches_pallas_vjp(rng, cin):
+    """dx and dw against jax.vjp of ``conv_same_pallas`` (``_vjp_bwd``:
+    ``_conv_fwd`` on the flipped kernel, ``_conv_dw``), float32."""
+    x = rng.normal(size=(2, 12, 10, cin)).astype(np.float32)
+    w = conv_w(rng, 3, cin, 16)
+    g = rng.normal(size=(2, 12, 10, 16)).astype(np.float32)
+    _, vjp = jax.vjp(cp.conv_same_pallas, jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    xt, wt = t(x).requires_grad_(), t(w).requires_grad_()
+    conv3x3.conv3x3(xt, wt).backward(t(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want_dx, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), want_dw, rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("shape,cout", [((2, 16, 16, 8), 16),

@@ -1,6 +1,8 @@
 # -*- coding: utf-8 -*-
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Each test skips on a host without an NVIDIA GPU.
+card: K1-K3 forward, K4-K6 backward (and K2 as the dx of a conv), the
+launch counts of the U-Net's serving and training steps, and its gradients
+against the plain path.  Each test skips on a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -66,7 +68,8 @@ def test_instnorm(rng, cuda_device, shape, act, dtype, tol):
 def test_conv3x3(rng, cuda_device, shape, cout, dtype, tol):
     x = t(rng.normal(size=shape).astype(np.float32), dtype, cuda_device)
     w = t(conv_w(rng, 3, shape[-1], cout), dtype, cuda_device)
-    _held_against_plain(conv3x3.conv3x3, conv3x3.conv3x3, (x, w), tol)
+    _held_against_plain(conv3x3.conv3x3_fwd, conv3x3.conv3x3_fwd, (x, w),
+                        tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(F32, 1e-3), (BF16, 0.05)])
@@ -82,15 +85,18 @@ def test_block(rng, cuda_device, ci, co, hw, dtype, tol):
     if ci != co:
         args += [t(conv_w(rng, 1, ci, co, std=0.3), dtype, cuda_device)]
         args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
-    _held_against_plain(block.basic_block, block.basic_block, args, tol)
+    _held_against_plain(block.basic_block_fwd, block.basic_block_fwd, args,
+                        tol)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     x = torch.zeros((1, 8, 8, 16), device=cuda_device)
     w16 = torch.zeros((3, 3, 16, 16), device=cuda_device)
     one = torch.ones(16, device=cuda_device)
-    with pytest.raises(ValueError):          # Cout not a multiple of 16
+    with pytest.raises(ValueError):          # Cout not a multiple of 8
         conv3x3.conv3x3(x, torch.zeros((3, 3, 16, 5), device=cuda_device))
+    with pytest.raises(ValueError):          # dw needs Cout % 16 == 0
+        conv3x3.conv3x3_dw(x, torch.zeros((1, 8, 8, 8), device=cuda_device))
     with pytest.raises(TypeError):           # float16 is not taken
         conv3x3.conv3x3(x.half(), w16.half())
     with pytest.raises(ValueError):          # weight dtype differs
@@ -106,19 +112,160 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                           one, one, w16, one, one)
 
 
+COUNTERS = (instnorm.instance_norm_fwd, conv3x3.conv3x3_fwd,
+            block.basic_block_fwd, instnorm.instance_norm_bwd,
+            conv3x3.conv3x3_dw, block.basic_block_bwd)
+
+
+def _launches(fn):
+    before = [c.launches for c in COUNTERS]
+    out = fn()
+    return out, tuple(c.launches - b for c, b in zip(COUNTERS, before))
+
+
 def test_unet_forward_counts_launches(cuda_device):
     """Every norm and 3x3 conv of the U-Net forward goes through a kernel:
-    28 K1 + 18 K2 unfused, 9 K3 + 1 K1 (the stem's norm) fused."""
+    28 K1 + 18 K2 unfused, 9 K3 + 1 K1 (the stem's norm) fused; serving
+    launches no backward kernel."""
     from smsut_tpu_torch.models import UNet
 
     x = torch.randn((2, 64, 64, 1), device=cuda_device)
-    for fused, want in ((False, (28, 18, 0)), (True, (1, 0, 9))):
+    for fused, want in ((False, (28, 18, 0, 0, 0, 0)),
+                        (True, (1, 0, 9, 0, 0, 0))):
         net = UNet(5, 16, compute_dtype=BF16, block_fused=fused,
                    device=cuda_device)
-        counters = (instnorm.instance_norm_fwd, conv3x3.conv3x3,
-                    block.basic_block)
-        before = [c.launches for c in counters]
         with torch.inference_mode():
-            y = net(x)
-        assert tuple(c.launches - b for c, b in zip(counters, before)) == want
+            y, counts = _launches(lambda: net(x))
+        assert counts == want
         assert y.dtype == F32 and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-4), (BF16, 0.05)])
+@pytest.mark.parametrize("shape,act", [((8, 256, 256, 16), True),
+                                       ((8, 16, 16, 256), False),
+                                       ((2, 7, 5, 12), True)])
+def test_instnorm_bwd(rng, cuda_device, shape, act, dtype, tol):
+    x = t((rng.normal(size=shape) * 2 + 0.3).astype(np.float32), dtype,
+          cuda_device)
+    g = t(rng.normal(size=shape).astype(np.float32), dtype, cuda_device)
+    s, b = (t(a, device=cuda_device) for a in norm_params(rng, shape[-1]))
+    _, mean, rstd = instnorm.instance_norm_fwd(x, s, b, act)
+    args = (x, g, mean, rstd, s, b, act)
+    got, counts = _launches(lambda: instnorm.instance_norm_bwd(*args))
+    assert counts == (0, 0, 0, 1, 0, 0)
+    with ops.plain():
+        want = instnorm.instance_norm_bwd(*args)
+    assert got[0].dtype == dtype
+    for a, w in zip(got, want):
+        assert rel_err(a, w) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-4), (BF16, 0.02)])
+@pytest.mark.parametrize("shape,cout", [((8, 256, 256, 32), 16),
+                                        ((8, 256, 256, 8), 16),
+                                        ((8, 16, 16, 128), 256),
+                                        ((2, 9, 13, 20), 48)])
+def test_conv3x3_dw(rng, cuda_device, shape, cout, dtype, tol):
+    x = t(rng.normal(size=shape).astype(np.float32), dtype, cuda_device)
+    g = t(rng.normal(size=shape[:3] + (cout,)).astype(np.float32), dtype,
+          cuda_device)
+    got, counts = _launches(lambda: conv3x3.conv3x3_dw(x, g))
+    assert counts == (0, 0, 0, 0, 1, 0) and got.dtype == F32
+    with ops.plain():
+        want = conv3x3.conv3x3_dw(x, g)
+    assert rel_err(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-4), (BF16, 0.02)])
+def test_conv3x3_dx_with_eight_channels(rng, cuda_device, dtype, tol):
+    """The dx of the U-Net's first block conv (8 -> 16): K2 with Cout = 8,
+    through the autograd op, against the plain path."""
+    x = t(rng.normal(size=(8, 256, 256, 8)).astype(np.float32), dtype,
+          cuda_device).requires_grad_()
+    w = t(conv_w(rng, 3, 8, 16), dtype, cuda_device).requires_grad_()
+    g = t(rng.normal(size=(8, 256, 256, 16)).astype(np.float32), dtype,
+          cuda_device)
+    got, counts = _launches(lambda: torch.autograd.grad(
+        conv3x3.conv3x3(x, w), (x, w), g))
+    assert counts == (0, 2, 0, 0, 1, 0)
+    with ops.plain():
+        want = torch.autograd.grad(conv3x3.conv3x3(x, w), (x, w), g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and rel_err(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-3), (BF16, 0.05)])
+@pytest.mark.parametrize("ci,co,hw", [(32, 16, 256), (8, 16, 256),
+                                      (64, 64, 64), (24, 48, 13)])
+def test_block_bwd(rng, cuda_device, ci, co, hw, dtype, tol):
+    x = rng.standard_normal((8, hw, hw, ci)).astype(np.float32)
+    args = [t(x, dtype, cuda_device), t(conv_w(rng, 3, ci, co), dtype,
+                                        cuda_device)]
+    args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
+    args += [t(conv_w(rng, 3, co, co), dtype, cuda_device)]
+    args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
+    if ci != co:
+        args += [t(conv_w(rng, 1, ci, co, std=0.3), dtype, cuda_device)]
+        args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
+    else:
+        args += [None, None, None]
+    _, res = block.basic_block_fwd(*args, save=True)
+    x_, w1, s1, _, w2, s2, _, ws, ss, _ = args
+    g = t(rng.standard_normal((8, hw, hw, co)).astype(np.float32), dtype,
+          cuda_device)
+    bargs = (g, x_, w1, s1, w2, s2, ws, ss, res)
+    got, counts = _launches(lambda: block.basic_block_bwd(*bargs))
+    assert counts == (0, 0, 0, 0, 0, 1)
+    with ops.plain():
+        want = block.basic_block_bwd(*bargs)
+    assert got[0].dtype == dtype
+    for a, w in zip(got, want):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert rel_err(a, w) <= tol
+
+
+def _unet_grads(fused, dtype, device):
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(input_size=64, base_width=16, batch_size=2,
+                 compute_dtype=str(dtype).split(".")[-1], block_pallas=fused)
+    algo = SupervisedUNet(cfg, device)
+    rng = np.random.default_rng(5)
+    batch = {"img": rng.normal(size=(2, 64, 64, 1)).astype(np.float32),
+             "msk": rng.integers(0, 5, size=(2, 64, 64))}
+    params = algo.init_params(seed=0)
+    (_, got), counts = _launches(lambda: algo.value_and_grad(params, batch))
+    with ops.plain():
+        _, want = algo.value_and_grad(params, batch)
+    return got, want, counts
+
+
+@pytest.mark.parametrize("fused,want_counts", [
+    (False, (28, 36, 0, 28, 18, 0)), (True, (1, 0, 9, 1, 0, 9))])
+def test_unet_training_step_counts_launches(cuda_device, fused, want_counts):
+    """One forward and backward of the U-Net: off, 28 K1 + 18 K2 forward,
+    28 K4 + 18 K2 (dx) + 18 K5 backward; on, 9 K3 + 1 K1 forward, 9 K6 +
+    1 K4 backward.  Every parameter gets a gradient."""
+    got, _, counts = _unet_grads(fused, BF16, cuda_device)
+    assert counts == want_counts
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               for g in got.values())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_unet_gradients_match_plain(cuda_device, fused):
+    """Every parameter's gradient from the kernels against the plain path
+    on the card, float32 with TF32 off: a kernel path whose backward left a
+    parameter without its gradient fails here.  The bound is on
+    ||got - want|| / ||want|| per tensor: where a pre-activation lies
+    within float32 rounding of 0, the two forwards may take different
+    leaky-ReLU branches, and one such element moves a level-0 weight
+    gradient by about 1/sqrt(pixels) / sqrt(channels), 3e-3 at 2x64x64."""
+    got, want, _ = _unet_grads(fused, F32, cuda_device)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        assert got[k] is not None, k
+        err = float((got[k] - w).norm() / w.norm())
+        assert err <= 1e-2, (k, err)

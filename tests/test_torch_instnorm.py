@@ -1,11 +1,14 @@
 # -*- coding: utf-8 -*-
-"""K1 (smsut_tpu_torch/ops/instnorm.py): the plain version against the JAX
-Pallas kernel (ops/instnorm_pallas.py, interpret mode).  The CUDA kernel is
-held against the plain version on the card in tests/test_torch_cuda.py."""
+"""K1 and K4 (smsut_tpu_torch/ops/instnorm.py): the plain forward and the
+plain backward (run by the autograd op on a CPU tensor) against the JAX
+Pallas kernels (ops/instnorm_pallas.py, interpret mode).  The CUDA kernels
+are held against the plain versions on the card in
+tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from smsut_tpu.ops import instnorm_pallas as inp
@@ -57,9 +60,38 @@ def test_splits_cover_every_row(hw, c):
     assert nsplit * rows >= hw > (nsplit - 1) * rows
 
 
+@pytest.mark.parametrize("act", [True, False])
+def test_backward_matches_pallas_vjp(rng, act):
+    """dx, dscale, dbias of the autograd op (K4's plain formula on the CPU)
+    against jax.vjp of the Pallas op (``_bwd_call``), float32."""
+    x, s, b = _inputs(rng, c=8)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    jfn = inp.instance_norm_lrelu if act else inp.instance_norm_affine
+    _, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    want = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    xt, st, bt = (t(a).requires_grad_() for a in (x, s, b))
+    instnorm.instance_norm(xt, st, bt, act).backward(t(g))
+    for got, w in zip((xt.grad, st.grad, bt.grad), want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-4, atol=1e-5)
+
+
+def test_double_backward_raises(rng):
+    """The backward is once-differentiable: a gradient of a gradient (the
+    discriminator's WGAN-GP penalty) raises instead of returning wrong
+    values, until the double backward is ported."""
+    x, s, b = _inputs(rng)
+    xt = t(x).requires_grad_()
+    out = instnorm.instance_norm(xt, t(s), t(b), True)
+    (gx,) = torch.autograd.grad((out * out).sum(), xt, create_graph=True)
+    with pytest.raises(RuntimeError):
+        gx.sum().backward()
+
+
 def test_cpu_tensor_takes_plain_path_without_launch(rng):
     x, s, b = _inputs(rng)
-    before = instnorm.instance_norm_fwd.launches
-    instnorm.instance_norm(t(x), t(s), t(b), True)
-    assert instnorm.instance_norm_fwd.launches == before
+    counters = (instnorm.instance_norm_fwd, instnorm.instance_norm_bwd)
+    before = [c.launches for c in counters]
+    xt = t(x).requires_grad_()
+    instnorm.instance_norm(xt, t(s), t(b), True).sum().backward()
+    assert [c.launches for c in counters] == before
 
