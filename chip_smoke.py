@@ -14,6 +14,10 @@
    2b. The same for each backward kernel: K4 (norm backward), K5 (conv
    weight gradient), K2 as the dx of a conv (the 16 -> 8 transposed
    shape) and K6 (block backward, both forms).
+   2c. The same for the three tensor-core conv kernels (dots, im2col,
+   im2col2, the candidates of the conv microbench), bfloat16, at the
+   microbench's shape [16,128,128,64] -> 64 and at [4,64,64,32] -> 32,
+   each at strip 16 and 32.
 3. Serves the full-width U-Net (width 16, 256x256, batch 8, bfloat16,
    seeded random weights) through ``SupervisedUNet`` -> ``export_eval`` ->
    ``load_serving`` -> ``predict``, once with ``block_pallas`` off and once
@@ -28,7 +32,12 @@
    (float32 and bfloat16), a finite and falling loss, and in float32 the
    first 3 losses against the plain path; records the median step time and
    the device idle share.
-5. Prints the ``kernels`` JSON line, then the device line last.
+5. Runs the port's conv microbench (``smsut_tpu_torch.tools.microbench_conv``)
+   at batch 16 with 20 applications per chain: the three tensor-core
+   kernels, K2 and the library conv, each checked against the plain
+   version and timed; the launch counts must match the tool's calls.
+6. Prints the ``kernels`` JSON line (all nine kernels), then the device
+   line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -57,14 +66,21 @@ PEAK_F32_CORES = 67e12
 
 # kernel vs plain on the card, on the relative error
 # max |kernel - plain| / max(1, max |plain|), the largest over a kernel's
-# outputs
+# outputs; for the tensor-core convs max |kernel - plain| / max |plain|
+# (REL_TO_MAX), the microbench's measure
 TOL = {("instnorm", "float32"): 1e-4, ("instnorm", "bfloat16"): 0.05,
        ("conv3x3", "float32"): 1e-4, ("conv3x3", "bfloat16"): 0.02,
        ("block", "float32"): 1e-3, ("block", "bfloat16"): 0.05,
        ("instnorm_bwd", "float32"): 1e-4, ("instnorm_bwd", "bfloat16"): 0.05,
        ("conv3x3_dw", "float32"): 1e-4, ("conv3x3_dw", "bfloat16"): 0.05,
        ("conv3x3_dx", "float32"): 1e-4, ("conv3x3_dx", "bfloat16"): 0.02,
-       ("block_bwd", "float32"): 1e-3, ("block_bwd", "bfloat16"): 0.05}
+       ("block_bwd", "float32"): 1e-3, ("block_bwd", "bfloat16"): 0.05,
+       # both round the float32 sum once to bfloat16, so they differ by at
+       # most one bf16 unit of an output: 2^-7 of max |plain| at most
+       ("conv3x3_dots", "bfloat16"): 8e-3,
+       ("conv3x3_im2col", "bfloat16"): 8e-3,
+       ("conv3x3_im2col2", "bfloat16"): 8e-3}
+REL_TO_MAX = {"conv3x3_dots", "conv3x3_im2col", "conv3x3_im2col2"}
 # serving logits, kernel path vs plain path on the card: the error bound,
 # the least argmax agreement over all pixels, and over the pixels whose
 # plain top-two margin exceeds MARGIN * max(1, max |logit|).  Random-weight
@@ -77,7 +93,8 @@ ARGMAX_MIN_CLEAR = 0.999
 
 REQUESTS = 20
 KERNELS = ("instnorm", "conv3x3", "block", "instnorm_bwd", "conv3x3_dw",
-           "block_bwd")
+           "block_bwd", "conv3x3_dots", "conv3x3_im2col", "conv3x3_im2col2")
+MMA_VARIANTS = ("dots", "im2col", "im2col2")
 PER_FORWARD = {False: {"instnorm": 28, "conv3x3": 18, "block": 0},
                True: {"instnorm": 1, "conv3x3": 0, "block": 9}}
 # training: launches per step (forward + backward; K2 runs the forward
@@ -87,6 +104,12 @@ PER_STEP = {False: {"instnorm": 28, "conv3x3": 36, "block": 0,
             True: {"instnorm": 1, "conv3x3": 0, "block": 9,
                    "instnorm_bwd": 1, "conv3x3_dw": 0, "block_bwd": 9}}
 STEPS = 10
+# phase 5: the microbench's applications per chain, and the launches of
+# each wrapper: per candidate one checked call, two warm-up applications
+# and the chain; im2col and im2col2 are two candidates each (strip 16, 32)
+MB_ITERS = 20
+MB_CALLS = {"conv3x3": 1, "conv3x3_dots": 1, "conv3x3_im2col": 2,
+            "conv3x3_im2col2": 2}
 # step-1 gradients, kernel path vs plain path on the card.  float32 (TF32
 # off): per tensor rel_err (max |diff| / max(1, max |plain|)) at most
 # GRAD_REL, ||diff|| / ||plain|| over all parameters together at most
@@ -126,10 +149,10 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rel_err(got, want) -> float:
+def rel_err(got, want, floor: float = 1.0) -> float:
     want = want.float()
     return float((got.float() - want).abs().max()
-                 / max(1.0, float(want.abs().max())))
+                 / max(floor, float(want.abs().max())))
 
 
 class Cases:
@@ -199,7 +222,8 @@ def record(torch, ops, rows, name, label, dt_name, fn, args, library, flops,
     pairs = [(a, w) for a, w in zip(got, want) if w is not None]
     if len(pairs) != sum(a is not None for a in got):
         raise AssertionError(f"{name} {label}: outputs differ in kind")
-    err = max(rel_err(a, w) for a, w in pairs)
+    floor = 1e-30 if name in REL_TO_MAX else 1.0
+    err = max(rel_err(a, w, floor) for a, w in pairs)
     tol = TOL[(name, dt_name)]
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / (peak or PEAK_OPS_S[dt_name]) * 1e3
@@ -356,6 +380,48 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
                    nbytes=b * h * w * maps * isz + macs * (isz + 4)
                    + 4 * (6 * co + 12 * b * co), iters=5)
     return rows
+
+
+def check_mma_kernels(torch, F, ops, conv_mma):
+    """Phase 2c: the tensor-core conv kernels against their plain version
+    (bfloat16), timed beside cuDNN's conv on the channels-last view."""
+    rows = []
+    cases = Cases(torch, seed=2)
+    for (b, h, w, c, co) in ((16, 128, 128, 64, 64), (4, 64, 64, 32, 32)):
+        x = cases.randn(b, h, w, c, std=0.1, dtype=torch.bfloat16)
+        wt = cases.randn(3, 3, c, co, std=0.05, dtype=torch.bfloat16)
+        lib = lambda x=x, wt=wt: F.conv2d(x.permute(0, 3, 1, 2),
+                                          wt.permute(3, 2, 0, 1), padding=1)
+        for strip in (16, 32):
+            for variant in MMA_VARIANTS:
+                fn = getattr(conv_mma, f"conv3x3_{variant}")
+                record(torch, ops, rows, f"conv3x3_{variant}",
+                       f"{[b, h, w, c]}->{co} strip={strip}", "bfloat16",
+                       lambda a, k, fn=fn, strip=strip: fn(a, k, strip),
+                       (x, wt), lib, flops=2 * b * h * w * 9 * c * co,
+                       nbytes=(b * h * w * (c + co) + 9 * c * co) * 2,
+                       iters=20)
+    return rows
+
+
+def microbench(torch, counters):
+    """Phase 5: the port's conv microbench at batch 16; returns its rows
+    and the launch counts of its run."""
+    from smsut_tpu_torch.tools import microbench_conv
+
+    torch.cuda.synchronize()
+    zero(counters)
+    rows = microbench_conv.main(["16", str(MB_ITERS)])
+    torch.cuda.synchronize()
+    counts = {k: c.launches for k, c in counters.items()}
+    want = {k: MB_CALLS.get(k, 0) * (MB_ITERS + 3) for k in KERNELS}
+    print(f"microbench launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if [r["name"] for r in rows] != [n for n, _ in
+                                     microbench_conv.candidates()]:
+        raise AssertionError(f"microbench rows {rows}")
+    return {"rows": rows, "launches": counts, "iters": MB_ITERS}
 
 
 def profile_device(torch, fn, n: int = 5) -> dict:
@@ -568,7 +634,7 @@ def train_modes(torch, ops, counters):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         counts = {k: c.launches for k, c in counters.items()}
-        want = {k: STEPS * PER_STEP[fused][k] for k in KERNELS}
+        want = {k: STEPS * PER_STEP[fused].get(k, 0) for k in KERNELS}
         med = statistics.median(step_ms[1:])
         q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
         print(f"train block_pallas={fused}: launches {counts} (expected "
@@ -644,7 +710,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from smsut_tpu_torch import ops
-    from smsut_tpu_torch.ops import _build, block, conv3x3, instnorm
+    from smsut_tpu_torch.ops import _build, block, conv3x3, conv_mma, instnorm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -667,20 +733,27 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = check_kernels(torch, F, ops, instnorm, conv3x3, block)
     rows += check_backward_kernels(torch, F, ops, instnorm, conv3x3, block)
-    print(f"phases 2-2b: {time.perf_counter() - t0:.1f} s", flush=True)
+    rows += check_mma_kernels(torch, F, ops, conv_mma)
+    print(f"phases 2-2c: {time.perf_counter() - t0:.1f} s", flush=True)
     counters = {"instnorm": instnorm.instance_norm_fwd,
                 "conv3x3": conv3x3.conv3x3_fwd, "block": block.basic_block_fwd,
                 "instnorm_bwd": instnorm.instance_norm_bwd,
                 "conv3x3_dw": conv3x3.conv3x3_dw,
                 "block_bwd": block.basic_block_bwd}
+    counters.update({f"conv3x3_{v}": getattr(conv_mma, f"conv3x3_{v}")
+                     for v in MMA_VARIANTS})
     t0 = time.perf_counter()
     serve = serve_modes(torch, ops, counters)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     train = train_modes(torch, ops, counters)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    bench = microbench(torch, counters)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (row name, case, source, TPU kernel); K2's row is its forward case
+    # (row name, case, source, TPU kernel); K2's row is its forward case,
+    # the tensor-core convs' the microbench's shape at strip 16
     main_case = {
         "instnorm": ("instnorm", "[8, 256, 256, 16] act=True",
                      "smsut_tpu_torch/csrc/instnorm.cu",
@@ -700,12 +773,17 @@ def main() -> int:
         "block_bwd": ("block_bwd", "shortcut [8, 256, 256, 32]->16",
                       "smsut_tpu_torch/csrc/block_bwd.cu",
                       "smsut_tpu/ops/block_pallas.py:488")}
+    for v, line in zip(MMA_VARIANTS, (63, 99, 139)):
+        main_case[f"conv3x3_{v}"] = (
+            f"conv3x3_{v}", "[16, 128, 128, 64]->64 strip=16",
+            "smsut_tpu_torch/csrc/conv3x3_mma.cu",
+            f"tools/microbench_pallas_conv.py:{line}")
     kernels = []
     for name, (row_name, case, source, replaces) in main_case.items():
         r = next(r for r in rows if r["name"] == row_name
                  and r["case"] == case and r["dtype"] == "bfloat16")
-        launches = (sum(v["launches"][name] for v in serve.values())
-                    + sum(v["launches"][name] for v in train.values()))
+        runs = (*serve.values(), *train.values(), bench)
+        launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
         kernels.append({
@@ -718,7 +796,7 @@ def main() -> int:
         json.dump({"card": card, "build_s": build_s, "kernel_rows": rows,
                    "serve": {str(k): v for k, v in serve.items()},
                    "train": {str(k): v for k, v in train.items()},
-                   "kernels": kernels}, f, indent=1)
+                   "microbench": bench, "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,366 @@
+// Three 3x3 stride-1 SAME convolutions on the tensor cores, NHWC bfloat16
+// in and out, HWIO bfloat16 weights, float32 accumulation and one rounding
+// to bfloat16 at the store:
+//
+//   y[b,i,j,co] = sum_{u,v,ci} x[b, i+u-1, j+v-1, ci] * w[u,v,ci,co]
+//
+// They replace the three Pallas conv candidates of
+// tools/microbench_pallas_conv.py, and differ as those do:
+//   smsut_conv3x3_dots    `pallas_conv_dots` (:63, kernel `_dots_kernel`
+//                         :44): nine accumulated tap products per pixel
+//                         tile, from shifted views of the staged input;
+//   smsut_conv3x3_im2col  `pallas_conv_im2col` (:99, `_im2col_kernel` :82):
+//                         an [M, 9C] column tile, one K = 9C product;
+//   smsut_conv3x3_im2col2 `pallas_conv_im2col2` (:139, `_im2col2_kernel`
+//                         :120): the same with two column buffers, tile
+//                         t+1's columns copied by cp.async while the
+//                         products of tile t run.
+//
+// Bound on the H100, at the tool's shape x [16,128,128,64], w [3,3,64,64]:
+// 19.3 GFLOP, 0.0195 ms at 989 TF/s bf16; 67.2 MB moved (x and y 33.5 MB
+// each, w 74 KB), 0.0201 ms at 3.35 TB/s.  Bytes bound it, by a hair: the
+// conv does 288 operations per byte against the card's ~295.  To come near
+// it a kernel must read x about once and keep the tensor cores busy, so:
+//   - every product is a bf16 mma.sync.m16n8k16 with float32 accumulators
+//     (mma_tile.cuh), its operands fed from shared memory by ldmatrix;
+//   - one block of 256 threads walks a band of `strip` image rows of one
+//     image (grid B*H/strip x Cout/NCO), and stages the block's weight
+//     slab [9C][NCO] (73.7 KB at C = Cout = 64) in shared memory once;
+//   - shared-memory rows are padded by 16 bytes (conflict-free ldmatrix);
+//   - the image border is zero-filled while staging.
+// dots keeps a ring of four halo'd input rows ((W+2) x C each, 18.7 KB at
+// W = 128, C = 64, padded) filled by cp.async one row ahead, so x is read
+// about once from device memory.  The two im2col kernels copy each input
+// value nine times into shared memory (the column tile), which costs
+// shared-memory bandwidth and instructions the dots kernel does not spend.
+// This is the first, simple version: no wgmma, TMA or warp specialisation.
+//
+// Shapes taken: C and Cout multiples of 16, H % strip == 0, any W whose
+// shared memory fits the device (`takes`); 16-byte aligned x and w.
+// Anything else returns cudaErrorInvalidValue.
+#include <atomic>
+
+#include "mma_tile.cuh"
+
+using namespace smsut;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// pixels per im2col product tile: two 64-pixel column tiles and the 64 x 64
+// weight slab fill the H100's 227 KB
+constexpr int kTile = 64;
+
+// w [9][C][Cout] -> w_s [9C][NCO + 8], output channels co0 .. co0+NCO-1
+template <int NCO>
+__device__ __forceinline__ void stage_weights(bf16* w_s,
+                                              const bf16* __restrict__ w,
+                                              int C, int Cout, int co0) {
+  constexpr int CH = NCO / 8, NS = NCO + 8;
+  const int n = 9 * C * CH;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int k = i / CH, c = i % CH;
+    *reinterpret_cast<uint4*>(w_s + k * NS + c * 8) = __ldg(
+        reinterpret_cast<const uint4*>(w + (size_t)k * Cout + co0 + c * 8));
+  }
+}
+
+// The warp's 16 x 8NT float32 tile, rounded once, to output pixels
+// pix0 + m (m < 16, pixel index of the row-major [H][W] map, masked by
+// m < mmax) and channels y's co .. co + 8NT - 1.
+template <int NT>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ y,
+                                           const float (&acc)[NT][4],
+                                           size_t pix0, int mmax, int Cout,
+                                           int co, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = g + 8 * h;
+    if (m < mmax) {
+      bf16* p = y + (pix0 + m) * Cout + co + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        store_bf16x2(p + nt * 8, acc[nt][2 * h], acc[nt][2 * h + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ dots
+// Ring slot s holds image row r (slot (r - r0 + 1) % 4) as W + 2 pixels of
+// C + 8 elements, pixel 0 and W + 1 being the zero columns -1 and W.  At
+// step `it` the block computes output row r0 + it from the slots of rows
+// r0+it-1 .. r0+it+1 while cp.async fills row r0+it+2 into the fourth.
+// Warp w takes the 16-pixel tiles w, w+8, .. of the row, all NCO channels:
+// per tap and 16 channels one ldmatrix of A (the tap's shifted view) and
+// NCO/16 of B.
+template <int NCO>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_dots_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                 bf16* __restrict__ y, int H, int W, int C, int Cout,
+                 int strip) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NT = NCO / 8, NS = NCO + 8;
+  const int PS = C + 8, RS = (W + 2) * PS, cch = C / 8;
+  bf16* w_s = reinterpret_cast<bf16*>(smem);
+  bf16* ring = w_s + 9 * C * NS;
+  const int bands = H / strip;
+  const int b = blockIdx.x / bands, r0 = (blockIdx.x % bands) * strip;
+  const int co0 = blockIdx.y * NCO;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bf16* xb = x + (size_t)b * H * W * C;
+
+  stage_weights<NCO>(w_s, w, C, Cout, co0);
+  for (int i = tid; i < 4 * 2 * cch; i += kThreads) {
+    const int s = i / (2 * cch), r = i % (2 * cch);
+    *reinterpret_cast<uint4*>(ring + s * RS + (r / cch) * (W + 1) * PS +
+                              (r % cch) * 8) = make_uint4(0, 0, 0, 0);
+  }
+  auto load_row = [&](int row, int s) {
+    bf16* dst = ring + s * RS + PS;
+    if (row >= 0 && row < H) {
+      const bf16* src = xb + (size_t)row * W * C;
+      for (int i = tid; i < W * cch; i += kThreads)
+        cp_async16(smem_addr(dst + (i / cch) * PS + (i % cch) * 8),
+                   src + (size_t)i * 8, true);
+    } else {
+      for (int i = tid; i < W * cch; i += kThreads)
+        *reinterpret_cast<uint4*>(dst + (i / cch) * PS + (i % cch) * 8) =
+            make_uint4(0, 0, 0, 0);
+    }
+  };
+  load_row(r0 - 1, 0);
+  load_row(r0, 1);
+  load_row(r0 + 1, 2);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nmt = (W + 15) / 16;
+  const uint32_t bw = b_lane_addr(w_s, NS, lane);
+  const int kq = C / 16;
+  for (int it = 0; it < strip; ++it) {
+    if (it + 1 < strip) {
+      load_row(r0 + it + 2, (it + 3) & 3);
+      cp_async_commit();
+    }
+    for (int mt = warp; mt < nmt; mt += kWarps) {
+      float acc[NT][4] = {};
+      // lanes past the row's end read its last pixel; their rows are
+      // not stored
+      const int p = min(mt * 16 + (lane & 15), W - 1);
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const bf16* slot = ring + ((it + u) & 3) * RS;
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          const uint32_t a = smem_addr(slot + (p + v) * PS + ((lane >> 4) << 3));
+          const uint32_t bt = bw + (uint32_t)((u * 3 + v) * C * NS * 2);
+          for (int kc = 0; kc < kq; ++kc)
+            mma_k16<NT>(acc, a + kc * 32, bt + kc * 16 * NS * 2);
+        }
+      }
+      store_tile<NT>(y, acc, ((size_t)b * H + r0 + it) * W + mt * 16,
+                     W - mt * 16, Cout, co0, lane);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------- im2col
+// The band's strip*W pixels in tiles of M.  Tile t's columns
+// col[M][9C + 8] (column tap*C + ci of pixel row m is x at the tap's
+// shifted pixel, zero off the image) are built in shared memory, then
+// the warps run one K = 9C product of [M, 9C] @ [9C, NCO]: warp w takes
+// 16 pixels (w / WN) and NCO / WN channels (w % WN).  ASYNC (im2col2)
+// builds tile t+1 into the other buffer with cp.async while the products
+// of tile t run; otherwise each thread loads and stores its 16 bytes and
+// the block waits for the column tile before the products.
+template <int NCO, bool ASYNC>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_im2col_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                   bf16* __restrict__ y, int H, int W, int C, int Cout,
+                   int strip) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int M = kTile, MT = M / 16;
+  constexpr int WN = kWarps / MT < NCO / 16 ? kWarps / MT : NCO / 16;
+  constexpr int NT = NCO / 8 / WN, NS = NCO + 8;
+  static_assert(MT * WN <= kWarps && NT % 2 == 0, "warp tiling");
+  const int K = 9 * C, KS = K + 8, cch = C / 8;
+  bf16* w_s = reinterpret_cast<bf16*>(smem);
+  bf16* cols = w_s + K * NS;
+  const int bands = H / strip;
+  const int b = blockIdx.x / bands, r0 = (blockIdx.x % bands) * strip;
+  const int co0 = blockIdx.y * NCO;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int npix = strip * W, ntiles = (npix + M - 1) / M;
+  const bf16* xb = x + (size_t)b * H * W * C;
+
+  auto build = [&](int tile, bf16* col) {
+    for (int i = tid; i < M * cch; i += kThreads) {
+      const int m = i / cch, c = i % cch;
+      const int p = tile * M + m;
+      const int pr = r0 + p / W, pc = p % W;
+      bf16* dst = col + m * KS + c * 8;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ih = pr + tap / 3 - 1, iw = pc + tap % 3 - 1;
+        const bool ok = p < npix && ih >= 0 && ih < H && iw >= 0 && iw < W;
+        const bf16* src = ok ? xb + ((size_t)ih * W + iw) * C + c * 8 : xb;
+        if (ASYNC)
+          cp_async16(smem_addr(dst + tap * C), src, ok);
+        else
+          *reinterpret_cast<uint4*>(dst + tap * C) =
+              ok ? __ldg(reinterpret_cast<const uint4*>(src))
+                 : make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+
+  stage_weights<NCO>(w_s, w, C, Cout, co0);
+  const int wm = warp / WN, wn = warp % WN;
+  const uint32_t bw = b_lane_addr(w_s + wn * NT * 8, NS, lane);
+  if (ASYNC) {
+    build(0, cols);
+    cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    bf16* col = cols + (ASYNC ? (t & 1) * M * KS : 0);
+    if (ASYNC) {
+      if (t + 1 < ntiles) {
+        build(t + 1, cols + ((t + 1) & 1) * M * KS);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      build(t, col);
+    }
+    __syncthreads();
+    if (wm < MT) {
+      float acc[NT][4] = {};
+      const uint32_t a = a_lane_addr(col + wm * 16 * KS, KS, lane);
+      for (int ks = 0; ks < K / 16; ++ks)
+        mma_k16<NT>(acc, a + ks * 32, bw + ks * 16 * NS * 2);
+      const int m0 = t * M + wm * 16;
+      // pixel m0 + m of the band is row r0 + (m0+m) / W, column (m0+m) % W:
+      // consecutive in the [H][W] map, so the band's first pixel plus m0
+      store_tile<NT>(y, acc, ((size_t)b * H + r0) * W + m0, npix - m0, Cout,
+                     co0 + wn * NT * 8, lane);
+    }
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------------ host
+int nco_of(int Cout) {
+  return Cout % 64 == 0 ? 64 : Cout % 32 == 0 ? 32 : 16;
+}
+
+// Dynamic shared memory of `variant` (0 dots, 1 im2col, 2 im2col2): the
+// weight slab, then the dots ring of four rows or the im2col kernels' one
+// or two column tiles of kTile pixels.
+size_t smem_bytes(int variant, int W, int C, int Cout) {
+  const size_t wts = (size_t)9 * C * (nco_of(Cout) + 8) * sizeof(bf16);
+  if (variant == 0) return wts + (size_t)4 * (W + 2) * (C + 8) * sizeof(bf16);
+  return wts + (size_t)variant * kTile * (9 * C + 8) * sizeof(bf16);
+}
+
+// the device's opt-in limit of shared memory per block; 0 if unread
+size_t optin_bytes() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return (size_t)v;
+}
+
+// Everything the kernels need of a shape: C and Cout multiples of 16,
+// H % strip == 0, 16-byte aligned x and w, and the block's shared memory
+// within the device's limit.
+bool takes(int variant, int B, int H, int W, int C, int Cout, int strip,
+           const void* x, const void* w) {
+  return B >= 1 && H >= 1 && W >= 1 && strip >= 1 && H % strip == 0 &&
+         C >= 16 && C % 16 == 0 && Cout >= 16 && Cout % 16 == 0 &&
+         (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0 &&
+         smem_bytes(variant, W, C, Cout) <= optin_bytes();
+}
+
+// Launches `kernel` with `smem` bytes.  Over 48 KB a kernel must be allowed
+// its shared memory: the limit is raised to the device's opt-in maximum
+// the first time the kernel runs on a device, and `opted` (one per kernel
+// instantiation) keeps a bit per device where that is done.
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, std::atomic<uint64_t>& opted, size_t smem,
+                   int B, int H, int W, int C, int Cout, int nco, int strip,
+                   const void* x, const void* w, void* y, cudaStream_t s) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(opted.load() & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)optin_bytes());
+    if (e != cudaSuccess) return e;
+    opted.fetch_or(bit);
+  }
+  dim3 grid(B * (H / strip), Cout / nco);
+  kernel<<<grid, kThreads, smem, s>>>((const bf16*)x, (const bf16*)w,
+                                      (bf16*)y, H, W, C, Cout, strip);
+  return cudaGetLastError();
+}
+
+// One kernel instantiation: `variant` (0 dots, 1 im2col, 2 im2col2) at NCO
+// output channels per block.
+template <int V, int NCO>
+int launch_variant(const void* x, const void* w, void* y, int B, int H,
+                   int W, int C, int Cout, int strip, cudaStream_t s) {
+  static std::atomic<uint64_t> opted{0};
+  const size_t smem = smem_bytes(V, W, C, Cout);
+  if constexpr (V == 0)
+    return (int)launch(conv_dots_kernel<NCO>, opted, smem, B, H, W, C, Cout,
+                       NCO, strip, x, w, y, s);
+  else
+    return (int)launch(conv_im2col_kernel<NCO, V == 2>, opted, smem, B, H, W,
+                       C, Cout, NCO, strip, x, w, y, s);
+}
+
+template <int V>
+int entry(const void* x, const void* w, void* y, int B, int H, int W, int C,
+          int Cout, int strip, void* stream) {
+  if (!takes(V, B, H, W, C, Cout, strip, x, w))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nco_of(Cout)) {
+    case 64: return launch_variant<V, 64>(x, w, y, B, H, W, C, Cout, strip, s);
+    case 32: return launch_variant<V, 32>(x, w, y, B, H, W, C, Cout, strip, s);
+    default: return launch_variant<V, 16>(x, w, y, B, H, W, C, Cout, strip, s);
+  }
+}
+
+}  // namespace
+
+// x [B][H][W][C], w [3][3][C][Cout], y [B][H][W][Cout], all bfloat16.
+// Each returns cudaErrorInvalidValue, launching nothing, for a shape the
+// kernel does not take (`takes`), else the launch's cudaGetLastError().
+extern "C" int smsut_conv3x3_dots(const void* x, const void* w, void* y,
+                                  int B, int H, int W, int C, int Cout,
+                                  int strip, void* stream) {
+  return entry<0>(x, w, y, B, H, W, C, Cout, strip, stream);
+}
+
+extern "C" int smsut_conv3x3_im2col(const void* x, const void* w, void* y,
+                                    int B, int H, int W, int C, int Cout,
+                                    int strip, void* stream) {
+  return entry<1>(x, w, y, B, H, W, C, Cout, strip, stream);
+}
+
+extern "C" int smsut_conv3x3_im2col2(const void* x, const void* w, void* y,
+                                     int B, int H, int W, int C, int Cout,
+                                     int strip, void* stream) {
+  return entry<2>(x, w, y, B, H, W, C, Cout, strip, stream);
+}

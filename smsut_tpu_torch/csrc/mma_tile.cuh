@@ -1,0 +1,117 @@
+// Warp-level tensor-core pieces of the port's mma kernels (conv3x3_mma.cu):
+// bfloat16 mma.sync.m16n8k16 products with float32 accumulators, their
+// operands fed from shared memory by ldmatrix, and cp.async copies from
+// device memory into shared memory.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), for lane l,
+// g = l / 4, t = l % 4, each register holding two consecutive elements:
+//   A [16 x 16], row-major:  a0 (row g, k 2t..2t+1),  a1 (row g+8, k 2t..),
+//                            a2 (row g, k 2t+8..),    a3 (row g+8, k 2t+8..)
+//   B [16 x 8]:              b0 (k 2t..2t+1, col g),  b1 (k 2t+8.., col g)
+//   C [16 x 8], float32:     c0, c1 (row g, col 2t, 2t+1),
+//                            c2, c3 (row g+8, col 2t, 2t+1)
+// ldmatrix.x4 loads four 8x8 bf16 matrices; lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i of lane l receives row l/4,
+// elements 2(l%4), 2(l%4)+1 of matrix i (with .trans: column l/4, rows
+// 2(l%4), 2(l%4)+1), which is exactly the A and B fragments above when the
+// lane addresses follow a_lane_addr and b_lane_addr.
+//
+// Operands in shared memory are row-major with a row stride of an odd
+// number of 16-byte chunks (n + 8 elements for n a multiple of 16), so that
+// the eight row addresses of one 8x8 matrix fall on eight distinct groups
+// of four banks.
+#pragma once
+
+#include "common.cuh"
+
+namespace smsut {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += A B for one m16n8k16 tile
+__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from device memory to shared memory, asynchronously; with
+// valid false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// lane's ldmatrix address of the 16 x 16 A tile at `base` (row stride ld
+// elements): row l % 16, column 8 * (l / 16)
+__device__ __forceinline__ uint32_t a_lane_addr(const bf16* base, int ld,
+                                                int lane) {
+  return smem_addr(base + (lane & 15) * ld + ((lane >> 4) << 3));
+}
+
+// lane's ldmatrix.trans address of the 16 x 16 block of B [k][n] at `base`
+// (row stride ld elements): row (l % 8) + 8 ((l / 8) % 2), column 8 (l / 16)
+__device__ __forceinline__ uint32_t b_lane_addr(const bf16* base, int ld,
+                                                int lane) {
+  return smem_addr(base + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld +
+                   ((lane >> 4) << 3));
+}
+
+// acc[NT] += A[16 x 16] B[16 x 8 NT] for one k16 step: a is the lane's
+// A address, b its B address at the warp's first column.  One ldmatrix
+// for A, one ldmatrix.trans per 16 columns of B, two mma per 16 columns.
+template <int NT>
+__device__ __forceinline__ void mma_k16(float (&acc)[NT][4], uint32_t a,
+                                        uint32_t b) {
+  static_assert(NT % 2 == 0, "B is loaded 16 columns at a time");
+  uint32_t af[4];
+  ldmatrix_x4(af, a);
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    uint32_t bfr[4];
+    ldmatrix_x4_trans(bfr, b + j * 32);
+    mma_16816(acc[2 * j], af, bfr[0], bfr[1]);
+    mma_16816(acc[2 * j + 1], af, bfr[2], bfr[3]);
+  }
+}
+
+// two float32 values, rounded once to bf16, to p (4-byte aligned)
+__device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+}  // namespace smsut

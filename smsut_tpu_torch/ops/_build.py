@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("instnorm", "conv3x3", "block", "instnorm_bwd", "conv3x3_dw",
-           "block_bwd")
+           "block_bwd", "conv3x3_mma")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,101 @@
+# -*- coding: utf-8 -*-
+"""3x3 SAME convolutions on the tensor cores: the three conv candidates of
+``tools/microbench_pallas_conv.py``, forward only.
+
+Each wrapper computes ``y[b,i,j,co] = sum_{u,v,ci} x[b,i+u-1,j+v-1,ci] *
+w[u,v,ci,co]`` with zero padding, NHWC ``x``, HWIO ``w`` [3,3,C,Cout],
+float32 accumulation and one rounding to x's dtype, as the Pallas
+candidate it replaces does:
+
+- :func:`conv3x3_dots`: ``pallas_conv_dots`` (nine accumulated tap products);
+- :func:`conv3x3_im2col`: ``pallas_conv_im2col`` (one [M, 9C] @ [9C, Cout]
+  product per pixel tile);
+- :func:`conv3x3_im2col2`: ``pallas_conv_im2col2`` (the same with two
+  column buffers, the next tile's columns copied during the product).
+
+On a CUDA tensor each launches its kernel of ``csrc/conv3x3_mma.cu``
+(bf16 ``mma.sync``); on a CPU tensor, or under ``ops.plain()``, it runs
+:func:`conv3x3_mma_plain`.  ``strip`` is the number of image rows one
+block (one Pallas strip) walks; it does not change the math, and H must be
+a multiple of it.  On the card the kernel takes bfloat16, C and Cout
+multiples of 16, 16-byte aligned tensors and a W whose staged rows fit a
+block's shared memory; it refuses any other shape, and the wrapper raises
+``ValueError``.  The Pallas candidates have no backward, so neither do
+these.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from smsut_tpu_torch.ops import on_card, require, require_like
+from smsut_tpu_torch.ops._build import I, P, bind, check, stream_of
+from smsut_tpu_torch.ops.conv3x3 import conv_f32
+
+# the C entry points' code for a shape the kernel does not take
+# (cudaErrorInvalidValue)
+REFUSED = 1
+
+
+def conv3x3_mma_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of all three: the taps summed in float32, rounded once
+    to x's dtype."""
+    return conv_f32(x, w).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(variant: str):
+    return bind("conv3x3_mma", f"smsut_conv3x3_{variant}",
+                [P] * 3 + [I] * 6 + [P])
+
+
+def _conv(variant: str, wrapper, x: torch.Tensor, w: torch.Tensor,
+          strip: int) -> torch.Tensor:
+    name = f"conv3x3_{variant}"
+    b, h, wd, c = x.shape
+    cout = w.shape[-1]
+    if strip < 1 or h % strip:
+        raise ValueError(f"{name}: H {h} is not a multiple of strip {strip}")
+    if not on_card(x):
+        return conv3x3_mma_plain(x, w)
+    require(x, name)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
+    require_like(w, f"{name} weight", (3, 3, c, cout), x.dtype, x.device)
+    y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    rc = _kernel(variant)(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd,
+                          c, cout, strip, stream_of(x))
+    if rc == REFUSED:
+        raise ValueError(f"{name}: the kernel does not take x {tuple(x.shape)}"
+                         f", Cout {cout}: C and Cout must be multiples of 16, "
+                         f"x and w 16-byte aligned, and a block's shared "
+                         f"memory must hold W {wd}")
+    check(rc, name)
+    wrapper.launches += 1
+    return y
+
+
+def conv3x3_dots(x: torch.Tensor, w: torch.Tensor,
+                 strip: int = 16) -> torch.Tensor:
+    """Nine tap products per 16-pixel tile from a ring of staged input
+    rows (``pallas_conv_dots``)."""
+    return _conv("dots", conv3x3_dots, x, w, strip)
+
+
+def conv3x3_im2col(x: torch.Tensor, w: torch.Tensor,
+                   strip: int = 16) -> torch.Tensor:
+    """One K = 9C product per column tile (``pallas_conv_im2col``)."""
+    return _conv("im2col", conv3x3_im2col, x, w, strip)
+
+
+def conv3x3_im2col2(x: torch.Tensor, w: torch.Tensor,
+                    strip: int = 16) -> torch.Tensor:
+    """im2col with two column buffers, the next tile's columns copied by
+    cp.async during the product (``pallas_conv_im2col2``)."""
+    return _conv("im2col2", conv3x3_im2col2, x, w, strip)
+
+
+conv3x3_dots.launches = 0
+conv3x3_im2col.launches = 0
+conv3x3_im2col2.launches = 0

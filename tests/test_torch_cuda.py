@@ -2,7 +2,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1-K3 forward, K4-K6 backward (and K2 as the dx of a conv), the
 launch counts of the U-Net's serving and training steps, and its gradients
-against the plain path.  Each test skips on a host without an NVIDIA GPU.
+against the plain path; the three tensor-core conv kernels of the conv
+microbench (dots, im2col, im2col2) and the microbench itself.  Each test skips on a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from smsut_tpu_torch import ops
-from smsut_tpu_torch.ops import block, conv3x3, instnorm
+from smsut_tpu_torch.ops import block, conv3x3, conv_mma, instnorm
 from torch_port_helpers import conv_w, cuda_device, norm_params, rel_err, t  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -269,3 +270,67 @@ def test_unet_gradients_match_plain(cuda_device, fused):
         assert got[k] is not None, k
         err = float((got[k] - w).norm() / w.norm())
         assert err <= 1e-2, (k, err)
+
+
+MMA = {"dots": conv_mma.conv3x3_dots, "im2col": conv_mma.conv3x3_im2col,
+       "im2col2": conv_mma.conv3x3_im2col2}
+
+
+@pytest.mark.parametrize("strip", [16, 32])
+@pytest.mark.parametrize("shape,cout", [((16, 128, 128, 64), 64),
+                                        ((4, 64, 64, 32), 32),
+                                        ((2, 32, 20, 48), 16)])
+@pytest.mark.parametrize("name", list(MMA))
+def test_conv_mma(rng, cuda_device, name, shape, cout, strip):
+    """The microbench's shape, a narrower one, and one whose W is not a
+    multiple of 16 (Cout 16, C 48): bf16, one rounding of the f32 sum in
+    both, so within one bf16 unit of max |plain| (2^-7 of it)."""
+    x = t((0.1 * rng.normal(size=shape)).astype(np.float32), BF16,
+          cuda_device)
+    w = t(conv_w(rng, 3, shape[-1], cout, std=0.05), BF16, cuda_device)
+    fn = MMA[name]
+    before = fn.launches
+    got = fn(x, w, strip).float()
+    assert fn.launches == before + 1
+    with ops.plain():
+        want = fn(x, w, strip).float()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 8e-3, err
+
+
+def test_conv_mma_counts_launches(cuda_device):
+    x = torch.randn((2, 32, 32, 32), device=cuda_device).to(BF16)
+    w = (0.05 * torch.randn((3, 3, 32, 32), device=cuda_device)).to(BF16)
+    before = [f.launches for f in MMA.values()]
+    for f in MMA.values():
+        f(x, w)
+        f(x, w, strip=32)
+        with ops.plain():
+            f(x, w)
+    assert [f.launches - b for f, b in zip(MMA.values(), before)] == [2] * 3
+
+
+def test_conv_mma_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((1, 32, 16, 16), dtype=BF16, device=cuda_device)
+    w = torch.zeros((3, 3, 16, 16), dtype=BF16, device=cuda_device)
+    for f in MMA.values():
+        with pytest.raises(TypeError):       # float32 is not taken
+            f(x.float(), w.float())
+        with pytest.raises(ValueError):      # Cout 8
+            f(x, torch.zeros((3, 3, 16, 8), dtype=BF16, device=cuda_device))
+        with pytest.raises(ValueError):      # C 8
+            f(x[..., :8].contiguous(), w[:, :, :8].contiguous())
+        with pytest.raises(ValueError):      # H % strip != 0
+            f(x, w, strip=12)
+        with pytest.raises(ValueError):      # weight dtype differs
+            f(x, w.float())
+
+
+def test_microbench_runs_on_the_card(cuda_device):
+    from smsut_tpu_torch.tools import microbench_conv
+
+    rows = microbench_conv.main(["1", "2"])
+    assert [r["name"] for r in rows] == [n for n, _ in
+                                         microbench_conv.candidates()]
+    assert all(r["rel_err"] <= microbench_conv.REL_TOL and r["us"] > 0
+               for r in rows)

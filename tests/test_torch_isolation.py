@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """The port stands alone: no module of ``smsut_tpu_torch`` (nor
 ``chip_smoke.py``, which drives it on the card) imports JAX, flax, optax,
-orbax or anything of the JAX package ``smsut_tpu`` -- checked in the
-source, and in a fresh interpreter that imports every module."""
+orbax, anything of the JAX package ``smsut_tpu`` or of the JAX tools in
+``tools/`` -- checked in the source, and in a fresh interpreter that
+imports every module."""
 import ast
 import json
 import subprocess
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "smsut_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "smsut_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "smsut_tpu",
+             "tools")
 
 
 def _forbidden(name: str) -> bool:
@@ -44,6 +46,8 @@ def test_forbidden_matches_exact_names_and_prefixes():
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert not _forbidden("smsut_tpu_torch.ops")
     assert not _forbidden("jaxtyping_like")
+    assert _forbidden("tools.microbench_pallas_conv")
+    assert not _forbidden("smsut_tpu_torch.tools.microbench_conv")
 
 
 @pytest.mark.parametrize(
