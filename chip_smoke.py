@@ -5,15 +5,18 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, and builds every kernel from
-   ``smsut_tpu_torch/csrc`` (one nvcc per source, in parallel).
+   ``smsut_tpu_torch/csrc`` (one nvcc per source, in parallel); counts the
+   HMMA instructions of K2's and K5's tensor-core kernels in the built
+   code (``cuobjdump -sass``) and fails where one has none.
 2. Holds each forward kernel (K1 instance norm, K2 3x3 conv, K3 fused
    block, both block forms) against its plain PyTorch version on the card,
    at the U-Net's shapes, in float32 (TF32 off) and bfloat16, and times the
    kernel, the plain version, one PyTorch library call of the same
-   function (a yardstick the port never calls) and the card's bound.
+   function (a yardstick the port never calls) and the card's bound.  K2
+   runs in bfloat16 at all 14 3x3 convs of the training step.
    2b. The same for each backward kernel: K4 (norm backward), K5 (conv
-   weight gradient), K2 as the dx of a conv (the 16 -> 8 transposed
-   shape) and K6 (block backward, both forms).
+   weight gradient) and K2 as the dx of a conv, both in bfloat16 at all 14
+   3x3 convs of the step, and K6 (block backward, both forms).
    2c. The same for the three tensor-core conv kernels (dots, im2col,
    im2col2, the candidates of the conv microbench), bfloat16, at the
    microbench's shape [16,128,128,64] -> 64 and at [4,64,64,32] -> 32,
@@ -30,8 +33,8 @@
    launches per step (off: 28 K1, 36 K2, 28 K4, 18 K5; on: 1 K1, 9 K3, 1
    K4, 9 K6), every parameter's step-1 gradient against the plain path
    (float32 and bfloat16), a finite and falling loss, and in float32 the
-   first 3 losses against the plain path; records the median step time and
-   the device idle share.
+   first 3 losses against the plain path; records the median step time,
+   the device idle share and K2's and K5's device time per step.
 5. Runs the port's conv microbench (``smsut_tpu_torch.tools.microbench_conv``)
    at batch 16 with 20 applications per chain: the three tensor-core
    kernels, K2 and the library conv, each checked against the plain
@@ -92,6 +95,26 @@ MARGIN = 0.05
 ARGMAX_MIN_CLEAR = 0.999
 
 REQUESTS = 20
+# the 3x3 convs of the training step (w16 U-Net, 256^2, batch 8): map
+# side, forward Cin and Cout.  The dx of each is K2 on the flipped kernel
+# (Cout -> Cin), its weight gradient K5.  bfloat16 runs all of them; the
+# float32 parity rows keep the shapes they had before.
+STEP_CONVS = ((256, 8, 16), (256, 16, 16), (256, 32, 16), (128, 16, 32),
+              (128, 32, 32), (128, 64, 32), (64, 32, 64), (64, 64, 64),
+              (64, 128, 64), (32, 64, 128), (32, 128, 128), (32, 256, 128),
+              (16, 128, 256), (16, 256, 256))
+F32_K2 = ((256, 32, 16), (256, 8, 16), (32, 256, 128), (16, 128, 256))
+F32_K5 = ((256, 32, 16), (256, 8, 16), (16, 128, 256))
+F32_DX = ((256, 8, 16),)
+# device kernels of K2 and K5 by name, each path apart (in the
+# block_pallas=False step only they run these names)
+FAMILIES = {"K2": ("conv3x3_tc_kernel", "conv_tile_kernel"),
+            "K5": ("conv3x3_dw_tc_kernel", "dw_tc_reduce_kernel",
+                   "dw_partial_kernel", "dw_reduce_kernel")}
+# the tensor-core kernels of K2 and K5 in the built code: library, kernel
+# name, instantiations
+TC_KERNELS = (("conv3x3", "conv3x3_tc_kernel", 12),
+              ("conv3x3_dw", "conv3x3_dw_tc_kernel", 6))
 KERNELS = ("instnorm", "conv3x3", "block", "instnorm_bwd", "conv3x3_dw",
            "block_bwd", "conv3x3_dots", "conv3x3_im2col", "conv3x3_im2col2")
 MMA_VARIANTS = ("dots", "im2col", "im2col2")
@@ -134,13 +157,23 @@ def smi() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls.  A
+    sleep kernel holds the stream while the host enqueues them, so that the
+    calls run back to back and the events time the device, not the host's
+    launch rate (a call of a few tens of us is shorter than its enqueue)."""
     import torch
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # about 2e9 cycles a second; twice the host's time for the loop
+    torch.cuda._sleep(int(min(2 * iters * host_s, 1.0) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -212,8 +245,8 @@ def grad_call(torch, fn, inputs, cot):
 def record(torch, ops, rows, name, label, dt_name, fn, args, library, flops,
            nbytes, iters, peak=None):
     """Hold ``fn(*args)`` against its plain version (``ops.plain()``) on the
-    card, time the kernel, the plain version and the library call, and
-    append the row."""
+    card, time the kernel, the plain version and the library call (device
+    time, ``time_ms``), and append the row."""
     as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
     with ops.plain():
         want = as_tuple(fn(*args))
@@ -274,10 +307,11 @@ def check_kernels(torch, F, ops, instnorm, conv3x3, block):
                    (x, s, bb, act), lib, flops=8 * x.numel(),
                    nbytes=2 * x.numel() * isz + 4 * 4 * c + 2 * 4 * b * c,
                    iters=20)
-        # K2: decoder level 0 (32 -> 16), stem block (8 -> 16),
-        # decoder level 3 (256 -> 128 at 32^2), bottleneck (128 -> 256)
-        for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 256, 256, 8, 16),
-                                  (8, 32, 32, 256, 128), (8, 16, 16, 128, 256)):
+        # K2: float32 at decoder level 0 (32 -> 16), the stem block
+        # (8 -> 16), decoder level 3 (256 -> 128 at 32^2) and the
+        # bottleneck (128 -> 256); bfloat16 at every conv of the step
+        for (h, ci, co) in F32_K2 if dt == torch.float32 else STEP_CONVS:
+            b, w = 8, h
             x = cases.randn(b, h, w, ci, dtype=dt)
             wt = cases.conv_w(3, ci, co, dt)
             lib = lambda x=x, wt=wt: F.conv2d(x.permute(0, 3, 1, 2),
@@ -335,10 +369,11 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
                    flops=12 * x.numel(),
                    nbytes=3 * x.numel() * isz + 6 * 4 * c + 2 * 4 * b * c,
                    iters=20, peak=PEAK_F32_CORES)
-        # K5: dw of decoder level 0 (32 -> 16), the first block (8 -> 16)
-        # and the bottleneck (128 -> 256 at 16^2)
-        for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 256, 256, 8, 16),
-                                  (8, 16, 16, 128, 256)):
+        # K5: float32 at the dw of decoder level 0 (32 -> 16), the first
+        # block (8 -> 16) and the bottleneck (128 -> 256 at 16^2);
+        # bfloat16 at every conv of the step
+        for (h, ci, co) in F32_K5 if dt == torch.float32 else STEP_CONVS:
+            b, w = 8, h
             x = cases.randn(b, h, w, ci, dtype=dt)
             g = cases.randn(b, h, w, co, dtype=dt)
             lib = lambda x=x, g=g, ci=ci, co=co: torch.nn.grad.conv2d_weight(
@@ -348,17 +383,22 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
                    flops=2 * b * h * w * 9 * ci * co,
                    nbytes=b * h * w * (ci + co) * isz + 9 * ci * co * 4,
                    iters=10)
-        # K2 as dx: the first block's conv1 (8 -> 16) transposed, 16 -> 8
-        b, h, w, ci, co = 8, 256, 256, 8, 16
-        g = cases.randn(b, h, w, co, dtype=dt)
-        wf = cases.conv_w(3, ci, co, dt)
-        wt = conv3x3.flip_io(wf)
-        lib = lambda g=g, wf=wf: torch.nn.grad.conv2d_input(
-            (b, ci, h, w), wf.permute(3, 2, 0, 1), nchw(g), padding=1)
-        record(torch, ops, rows, "conv3x3_dx", f"{[b, h, w, co]}->{ci}", dn,
-               conv3x3.conv3x3_fwd, (g, wt), lib,
-               flops=2 * b * h * w * 9 * ci * co,
-               nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz, iters=10)
+        # K2 as dx: float32 at the first block's conv1 (8 -> 16)
+        # transposed, 16 -> 8; bfloat16 at every conv of the step
+        for (h, ci, co) in F32_DX if dt == torch.float32 else STEP_CONVS:
+            b, w = 8, h
+            g = cases.randn(b, h, w, co, dtype=dt)
+            wf = cases.conv_w(3, ci, co, dt)
+            wt = conv3x3.flip_io(wf)
+            lib = lambda g=g, wf=wf, b=b, h=h, ci=ci: \
+                torch.nn.grad.conv2d_input((b, ci, h, h),
+                                           wf.permute(3, 2, 0, 1), nchw(g),
+                                           padding=1)
+            record(torch, ops, rows, "conv3x3_dx", f"{[b, h, w, co]}->{ci}",
+                   dn, conv3x3.conv3x3_fwd, (g, wt), lib,
+                   flops=2 * b * h * w * 9 * ci * co,
+                   nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz,
+                   iters=10)
         # K6: shortcut form at decoder level 0 (32 -> 16) and the first
         # block (8 -> 16); identity form 64 -> 64 at 64^2
         for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 256, 256, 8, 16),
@@ -446,7 +486,38 @@ def profile_device(torch, fn, n: int = 5) -> dict:
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     return {"profiled_wall_ms": wall,
             "device_ms": sum(r[1] for r in rows),
-            "kernels_per_call": sum(r[2] for r in rows), "top": rows[:16]}
+            "kernels_per_call": sum(r[2] for r in rows), "top": rows[:16],
+            "families": kernel_families(rows)}
+
+
+def kernel_families(rows) -> dict:
+    """Device ms and launches per call of each kernel name of FAMILIES,
+    summed over a profile's rows (name, ms, launches)."""
+    out = {}
+    for fam, names in FAMILIES.items():
+        for name in names:
+            sel = [r for r in rows if name in r[0]]
+            out[f"{fam} {name}"] = [sum(r[1] for r in sel),
+                                    sum(r[2] for r in sel)]
+    return out
+
+
+def sass_hmma(path: Path) -> dict:
+    """HMMA (tensor-core) instructions per kernel of a built library, from
+    ``cuobjdump -sass``; None where the tool is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def zero(counters) -> None:
@@ -655,6 +726,14 @@ def train_modes(torch, ops, counters):
               f"{prof['kernels_per_call']} kernels, idle share "
               f"{prof['idle_share']:.3f} of the median step; top: {top}",
               flush=True)
+        if not fused:
+            fam = prof["families"]
+            print("profile train block_pallas=False: device ms per step "
+                  "(launches) " + "; ".join(
+                      f"{k} {ms:.4f} ({n})" for k, (ms, n) in fam.items()),
+                  flush=True)
+            if fam["K2 conv_tile_kernel"][1] or fam["K5 dw_partial_kernel"][1]:
+                raise AssertionError(f"bf16 step ran a CUDA-core conv: {fam}")
         k32, p32 = step1_grads(ops, SupervisedUNet(cfg("float32")), batch)
         k16, p16 = step1_grads(ops, SupervisedUNet(cfg("bfloat16")), batch)
         checks = {"float32": grad_parity(k32, p32),
@@ -729,6 +808,18 @@ def main() -> int:
         print(f"ptxas {name}: {len(regs)} kernels, registers max "
               f"{max(regs, default=0)}, {len(spills)} kernels spill, at most "
               f"{max(spills, default=0)} bytes")
+    sass = {}
+    for lib, kernel, count in TC_KERNELS:
+        hmma = sass_hmma(_build.lib_path(lib))
+        if hmma is None:
+            print(f"sass {lib}: cuobjdump not found, HMMA not counted")
+            continue
+        tc = {k: v for k, v in hmma.items() if kernel in k}
+        sass[lib] = tc
+        print(f"sass {lib}: {len(tc)} {kernel} instantiations, HMMA per "
+              f"kernel {sorted(tc.values())}", flush=True)
+        if len(tc) != count or not all(tc.values()):
+            raise AssertionError(f"{lib}: tensor-core kernels {tc}")
 
     t0 = time.perf_counter()
     rows = check_kernels(torch, F, ops, instnorm, conv3x3, block)
@@ -793,7 +884,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(OUT / "chip_smoke.json", "w") as f:
-        json.dump({"card": card, "build_s": build_s, "kernel_rows": rows,
+        json.dump({"card": card, "build_s": build_s, "sass_hmma": sass,
+                   "kernel_rows": rows,
                    "serve": {str(k): v for k, v in serve.items()},
                    "train": {str(k): v for k, v in train.items()},
                    "microbench": bench, "kernels": kernels}, f, indent=1)

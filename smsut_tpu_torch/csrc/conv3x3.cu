@@ -11,16 +11,20 @@
 // above the card's ~295 operations per byte for every conv of the path
 // except the narrowest.  The bound is the tensor cores' bf16 rate.
 //
-// Design (conv_tile.cuh): an implicit GEMM done directly, block tile =
-// output pixels x output channels, the halo input tile and the weight
-// slice staged in shared memory per 16-channel chunk of Cin, register
-// tiles of 4 pixels x 4 channels, float32 FMAs on the CUDA cores.  This
-// first version stays far from the bound (it runs on the CUDA cores, not
-// the tensor cores); mma.sync/wgmma with TMA staging is the next step.
+// Two paths, chosen by dtype alone:
+// - bfloat16, the path of training and serving: the tensor-core kernel of
+//   conv3x3_tc.cuh (mma.sync.m16n8k16, float32 accumulators, one rounding
+//   at the store).  It takes every shape this entry point takes; where it
+//   refuses one (a weight that is not 16-byte aligned, a device with too
+//   little shared memory) the call returns cudaErrorInvalidValue and runs
+//   nothing: there is no fallback to the CUDA-core kernel.
+// - float32, the parity path (every float32 check runs with TF32 off): the
+//   CUDA-core tile of conv_tile.cuh, float32 FMAs, exact float32 products.
 // Any H, W and Cin; Cout must be a multiple of 8 (the wrapper raises
-// otherwise): the 8-channel tile (32x16 pixels) serves the dx of the
-// U-Net's first block, whose input has 8 channels at width 16.
+// otherwise): Cout 8 is the dx of the U-Net's first block, whose input has
+// 8 channels at width 16.
 #include "conv_tile.cuh"
+#include "conv3x3_tc.cuh"
 
 using namespace smsut;
 
@@ -35,8 +39,7 @@ extern "C" int smsut_conv3x3_fwd(const void* x, const void* w, void* y, int B,
         (const float*)x, (const float*)w, (float*)y, nullptr, nullptr, B, H,
         W, Cin, Cout, s);
   if (dtype == 1)
-    return (int)launch_conv<__nv_bfloat16, 3, false, false>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y,
-        nullptr, nullptr, B, H, W, Cin, Cout, s);
+    return (int)conv3x3_tc((const bf16*)x, (const bf16*)w, (bf16*)y, B, H, W,
+                           Cin, Cout, s);
   return (int)cudaErrorInvalidValue;
 }

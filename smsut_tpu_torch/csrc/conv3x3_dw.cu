@@ -12,20 +12,28 @@
 // Bound on the H100: operations.  2*9*Cin*Cout operations per pixel
 // against (Cin + Cout) element reads per pixel, as in the forward.
 //
-// Design (conv_dw.cuh): on the TPU the batch grid runs in order and one
-// output block accumulates; on the card blocks run in parallel, so the
-// B*H*W pixels are split across blocks that each write a float32 partial
-// dw, and a second kernel adds the partials in a fixed order (no atomics:
-// runs agree bit for bit).  Float32 FMAs on the CUDA cores, like K2.
+// On the TPU the batch grid runs in order and one output block
+// accumulates; on the card blocks run in parallel, so both paths split the
+// B*H*W pixels across blocks that each write a float32 partial dw, and a
+// second kernel adds the partials in a fixed order (no atomics: runs agree
+// bit for bit).  Two paths, chosen by dtype alone:
+// - bfloat16, the path of training: the tensor-core kernel of
+//   conv3x3_dw_tc.cuh (mma.sync, one 16 x 16 channel unit per warp for all
+//   nine taps).  A shape it refuses returns cudaErrorInvalidValue and runs
+//   nothing: there is no fallback;
+// - float32, the parity path: conv_dw.cuh, float32 FMAs on the CUDA cores.
 // Any H, W and Cin; Cout must be a multiple of 16.
 #include "conv_dw.cuh"
+#include "conv3x3_dw_tc.cuh"
 
 using namespace smsut;
 
-// float32 elements of the scratch smsut_conv3x3_dw needs
+// float32 elements of the scratch smsut_conv3x3_dw needs (either path)
 extern "C" long long smsut_conv3x3_dw_scratch(int B, int H, int W, int Cin,
                                               int Cout) {
-  return dw_part_elems(B, H, W, Cin, Cout, 3);
+  const long long f32 = dw_part_elems(B, H, W, Cin, Cout, 3);
+  const long long tc = dw_tc_part_elems(B, H, W, Cin, Cout);
+  return f32 > tc ? f32 : tc;
 }
 
 // x [B][H][W][Cin], g [B][H][W][Cout] (same dtype), dw [3][3][Cin][Cout]
@@ -40,8 +48,7 @@ extern "C" int smsut_conv3x3_dw(const void* x, const void* g, void* dw,
         (const float*)x, (const float*)g, nullptr, (float*)part, (float*)dw,
         B, H, W, Cin, Cout, s);
   if (dtype == 1)
-    return (int)launch_dw<__nv_bfloat16, 3, false>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, nullptr,
-        (float*)part, (float*)dw, B, H, W, Cin, Cout, s);
+    return (int)conv3x3_dw_tc((const bf16*)x, (const bf16*)g, (float*)part,
+                              (float*)dw, B, H, W, Cin, Cout, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -38,8 +38,6 @@
 // Shapes taken: C and Cout multiples of 16, H % strip == 0, any W whose
 // shared memory fits the device (`takes`); 16-byte aligned x and w.
 // Anything else returns cudaErrorInvalidValue.
-#include <atomic>
-
 #include "mma_tile.cuh"
 
 using namespace smsut;
@@ -269,16 +267,6 @@ size_t smem_bytes(int variant, int W, int C, int Cout) {
   return wts + (size_t)variant * kTile * (9 * C + 8) * sizeof(bf16);
 }
 
-// the device's opt-in limit of shared memory per block; 0 if unread
-size_t optin_bytes() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return (size_t)v;
-}
-
 // Everything the kernels need of a shape: C and Cout multiples of 16,
 // H % strip == 0, 16-byte aligned x and w, and the block's shared memory
 // within the device's limit.
@@ -287,31 +275,7 @@ bool takes(int variant, int B, int H, int W, int C, int Cout, int strip,
   return B >= 1 && H >= 1 && W >= 1 && strip >= 1 && H % strip == 0 &&
          C >= 16 && C % 16 == 0 && Cout >= 16 && Cout % 16 == 0 &&
          (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0 &&
-         smem_bytes(variant, W, C, Cout) <= optin_bytes();
-}
-
-// Launches `kernel` with `smem` bytes.  Over 48 KB a kernel must be allowed
-// its shared memory: the limit is raised to the device's opt-in maximum
-// the first time the kernel runs on a device, and `opted` (one per kernel
-// instantiation) keeps a bit per device where that is done.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, std::atomic<uint64_t>& opted, size_t smem,
-                   int B, int H, int W, int C, int Cout, int nco, int strip,
-                   const void* x, const void* w, void* y, cudaStream_t s) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(opted.load() & bit)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)optin_bytes());
-    if (e != cudaSuccess) return e;
-    opted.fetch_or(bit);
-  }
-  dim3 grid(B * (H / strip), Cout / nco);
-  kernel<<<grid, kThreads, smem, s>>>((const bf16*)x, (const bf16*)w,
-                                      (bf16*)y, H, W, C, Cout, strip);
-  return cudaGetLastError();
+         smem_bytes(variant, W, C, Cout) <= smem_optin_bytes();
 }
 
 // One kernel instantiation: `variant` (0 dots, 1 im2col, 2 im2col2) at NCO
@@ -321,12 +285,15 @@ int launch_variant(const void* x, const void* w, void* y, int B, int H,
                    int W, int C, int Cout, int strip, cudaStream_t s) {
   static std::atomic<uint64_t> opted{0};
   const size_t smem = smem_bytes(V, W, C, Cout);
+  const dim3 grid(B * (H / strip), Cout / NCO);
+  const bf16 *xb = (const bf16*)x, *wb = (const bf16*)w;
   if constexpr (V == 0)
-    return (int)launch(conv_dots_kernel<NCO>, opted, smem, B, H, W, C, Cout,
-                       NCO, strip, x, w, y, s);
+    return (int)launch_opted(conv_dots_kernel<NCO>, opted, grid, kThreads,
+                             smem, s, xb, wb, (bf16*)y, H, W, C, Cout, strip);
   else
-    return (int)launch(conv_im2col_kernel<NCO, V == 2>, opted, smem, B, H, W,
-                       C, Cout, NCO, strip, x, w, y, s);
+    return (int)launch_opted(conv_im2col_kernel<NCO, V == 2>, opted, grid,
+                             kThreads, smem, s, xb, wb, (bf16*)y, H, W, C,
+                             Cout, strip);
 }
 
 template <int V>

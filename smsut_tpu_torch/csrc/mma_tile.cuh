@@ -1,7 +1,9 @@
-// Warp-level tensor-core pieces of the port's mma kernels (conv3x3_mma.cu):
-// bfloat16 mma.sync.m16n8k16 products with float32 accumulators, their
-// operands fed from shared memory by ldmatrix, and cp.async copies from
-// device memory into shared memory.
+// Tensor-core pieces of the port's mma kernels (conv3x3_mma.cu, and K2's
+// and K5's bfloat16 paths, conv3x3_tc.cuh and conv3x3_dw_tc.cuh): bfloat16
+// mma.sync.m16n8k16 products with float32 accumulators, their operands fed
+// from shared memory by ldmatrix, cp.async copies from device memory into
+// shared memory, the staging of a halo'd input tile, and the opt-in to
+// more than 48 KB of shared memory.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), for lane l,
 // g = l / 4, t = l % 4, each register holding two consecutive elements:
@@ -22,11 +24,16 @@
 // of four banks.
 #pragma once
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace smsut {
 
 typedef __nv_bfloat16 bf16;
+
+// the H100's SMs: the grid a kernel's plan aims to cover
+constexpr int kSMs = 132;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -43,6 +50,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) 
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// two 8x8 matrices, transposed: lanes 0-7 and 8-15 give the row addresses
+// (those of lanes 16-31 are not read); the B fragment of one n8 tile
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(addr)
       : "memory");
 }
@@ -112,6 +129,83 @@ __device__ __forceinline__ void mma_k16(float (&acc)[NT][4], uint32_t a,
 // two float32 values, rounded once to bf16, to p (4-byte aligned)
 __device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The row stride, in elements, of a staged operand whose rows hold n
+// (a multiple of 8) bf16 values: an odd number of 16-byte chunks, so that
+// eight consecutive rows fall on eight distinct groups of four banks.
+__host__ __device__ constexpr int padded_row(int n) {
+  return (n / 8) % 2 ? n : n + 8;
+}
+
+// Stage a halo tile of the image xb [H][W][C] into x_s: `rows` image rows
+// from r0 - 1 and kHaloW columns from c0 - 1, channels k0 .. k0 + KC - 1
+// (KC a multiple of 8), pixel p of the tile (row-major) at x_s + p * PS.
+// Zero outside the image and at channels >= C.  With vec (C % 8 == 0 and
+// xb 16-byte aligned) by cp.async, one 16-byte piece per thread and step;
+// otherwise a pixel's channels are not 16-byte aligned, and the pieces are
+// built from element loads and stored directly.  Called by every thread of
+// the block.
+template <int kHaloW>
+__device__ __forceinline__ void stage_halo_bf16(bf16* x_s, const bf16* xb,
+                                                int r0, int c0, int rows,
+                                                int k0, int KC, int PS, int H,
+                                                int W, int C, bool vec) {
+  const int kch = KC / 8, n = rows * kHaloW * kch;
+  const unsigned short* xe = reinterpret_cast<const unsigned short*>(xb);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int q = i % kch, p = i / kch;
+    const int r = r0 - 1 + p / kHaloW, c = c0 - 1 + p % kHaloW;
+    const int ch = k0 + q * 8;
+    const bool in = r >= 0 && r < H && c >= 0 && c < W;
+    const size_t off = in ? ((size_t)r * W + c) * C + ch : 0;
+    bf16* dst = x_s + p * PS + q * 8;
+    if (vec) {
+      cp_async16(smem_addr(dst), xb + off, in && ch < C);
+    } else {
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t lo = in && ch + 2 * e < C ? xe[off + 2 * e] : 0;
+        const uint32_t hi = in && ch + 2 * e + 1 < C ? xe[off + 2 * e + 1] : 0;
+        v[e] = lo | hi << 16;
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// the device's opt-in limit of shared memory per block; 0 if unread
+inline size_t smem_optin_bytes() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return (size_t)v;
+}
+
+// Launches kernel<<<grid, threads, smem, s>>>(args...) and returns the
+// launch's error.  Over 48 KB a kernel must be allowed its shared memory:
+// the limit is raised to the device's opt-in maximum the first time the
+// kernel runs on a device, and `opted` (one per kernel instantiation) keeps
+// a bit per device where that is done.
+template <typename Kernel, typename... Args>
+cudaError_t launch_opted(Kernel kernel, std::atomic<uint64_t>& opted,
+                         dim3 grid, int threads, size_t smem, cudaStream_t s,
+                         Args... args) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(opted.load() & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_optin_bytes());
+    if (e != cudaSuccess) return e;
+    opted.fetch_or(bit);
+  }
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace smsut

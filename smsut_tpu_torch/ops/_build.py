@@ -112,7 +112,17 @@ def bind(name: str, fn: str, argtypes: Iterable,
     return f
 
 
-def check(rc: int, what: str) -> None:
+# the C entry points' code for a shape the kernel does not take
+# (cudaErrorInvalidValue): nothing was launched
+REFUSED = 1
+
+
+def check(rc: int, what: str, refused: str = "") -> None:
+    """Raise on a non-zero code: ``ValueError`` where the entry point
+    refused the shape (``REFUSED``) and ``refused`` says what it takes,
+    ``RuntimeError`` otherwise."""
+    if rc == REFUSED and refused:
+        raise ValueError(f"{what}: {refused}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 

@@ -5,7 +5,10 @@ and weight gradient.
 Port of ``smsut_tpu/ops/conv_pallas.py`` (public ``conv_same_pallas``): K2
 replaces ``_conv_fwd``, K5 ``_conv_dw``.  On a CUDA tensor
 :func:`conv3x3_fwd` and :func:`conv3x3_dw` launch the kernels of
-``csrc/conv3x3.cu`` and ``csrc/conv3x3_dw.cu``; on a CPU tensor they run
+``csrc/conv3x3.cu`` and ``csrc/conv3x3_dw.cu``, which route by dtype:
+bfloat16 to the tensor-core kernels (``conv3x3_tc.cuh``,
+``conv3x3_dw_tc.cuh``), float32 to the CUDA-core tiles (``conv_tile.cuh``,
+``conv_dw.cuh``), the parity path; on a CPU tensor they run
 :func:`conv3x3_plain` (the nine taps as shifted views times the
 [Cin, Cout] tap weight, summed in float32, rounded once to the input's
 dtype) and :func:`conv3x3_dw_plain`.  :func:`conv3x3` is the differentiable
@@ -69,6 +72,11 @@ def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw_f32(x, g, 3)
 
 
+# what the C entry points refuse beyond the wrappers' own checks
+_TAKES = ("the kernel needs a 16-byte aligned weight (cotangent for dw) and "
+          "a block that fits the device's shared memory")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return bind("conv3x3", "smsut_conv3x3_fwd", [P] * 3 + [I] * 6 + [P])
@@ -98,7 +106,7 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3: Cout {cout} is not a multiple of 8")
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     check(_kernel()(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                    cout, dt, stream_of(x)), "conv3x3")
+                    cout, dt, stream_of(x)), "conv3x3", _TAKES)
     conv3x3_fwd.launches += 1
     return y
 
@@ -128,7 +136,7 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                        dtype=torch.float32, device=x.device)
     check(_dw_kernel()(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
                        part.data_ptr(), b, h, wd, cin, cout, dt,
-                       stream_of(x)), "conv3x3_dw")
+                       stream_of(x)), "conv3x3_dw", _TAKES)
     conv3x3_dw.launches += 1
     return dw
 

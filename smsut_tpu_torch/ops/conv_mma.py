@@ -33,10 +33,6 @@ from smsut_tpu_torch.ops import on_card, require, require_like
 from smsut_tpu_torch.ops._build import I, P, bind, check, stream_of
 from smsut_tpu_torch.ops.conv3x3 import conv_f32
 
-# the C entry points' code for a shape the kernel does not take
-# (cudaErrorInvalidValue)
-REFUSED = 1
-
 
 def conv3x3_mma_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of all three: the taps summed in float32, rounded once
@@ -64,14 +60,11 @@ def _conv(variant: str, wrapper, x: torch.Tensor, w: torch.Tensor,
         raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
     require_like(w, f"{name} weight", (3, 3, c, cout), x.dtype, x.device)
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    rc = _kernel(variant)(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd,
-                          c, cout, strip, stream_of(x))
-    if rc == REFUSED:
-        raise ValueError(f"{name}: the kernel does not take x {tuple(x.shape)}"
-                         f", Cout {cout}: C and Cout must be multiples of 16, "
-                         f"x and w 16-byte aligned, and a block's shared "
-                         f"memory must hold W {wd}")
-    check(rc, name)
+    check(_kernel(variant)(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h,
+                           wd, c, cout, strip, stream_of(x)), name,
+          f"the kernel does not take x {tuple(x.shape)}, Cout {cout}: C and "
+          f"Cout must be multiples of 16, x and w 16-byte aligned, and a "
+          f"block's shared memory must hold W {wd}")
     wrapper.launches += 1
     return y
 

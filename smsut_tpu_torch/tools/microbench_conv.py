@@ -7,7 +7,7 @@ library conv and K2, at the GAN step's hw-packed level-0 shape
 Port of ``tools/microbench_pallas_conv.py``.  Candidates:
   library     ``F.conv2d`` on the channels-last view (cuDNN on the card):
               the yardstick, which no path of the port calls
-  k2          ``conv3x3_fwd`` (K2, CUDA cores)
+  k2          ``conv3x3_fwd`` (K2; in bfloat16 its tensor-core kernel)
   dots        ``conv3x3_dots``: nine accumulated tap products
   im2col      ``conv3x3_im2col``: one [M, 9C] @ [9C, Cout] product per tile
   im2col2     ``conv3x3_im2col2``: im2col with two column buffers

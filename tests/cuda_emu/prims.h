@@ -1,6 +1,6 @@
 // Host emulation of the PTX primitives of smsut_tpu_torch/csrc/mma_tile.cuh,
 // written from the PTX ISA and independent of the kernel's own index
-// helpers: ldmatrix (.x4, .trans), mma.sync.m16n8k16 bf16 with float32
+// helpers: ldmatrix (.x4, .x2, .trans), mma.sync.m16n8k16 bf16 with float32
 // accumulators, and cp.async with commit and wait groups.
 //
 // A warp collective posts each lane's operands to a per-warp exchange
@@ -33,9 +33,11 @@ inline uint16_t emu_ld16(uint32_t addr) {
   return v;
 }
 
-inline void emu_ldmatrix_x4(uint32_t r[4], uint32_t addr, bool trans) {
+// ldmatrix of nm (1, 2 or 4) 8x8 matrices: lanes 8i..8i+7 give the row
+// addresses of matrix i (those of the lanes past 8 nm are not read)
+inline void emu_ldsm(uint32_t* r, int nm, uint32_t addr, bool trans) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (addr % 16) {
+  if (lane < 8 * nm && addr % 16) {
     fprintf(stderr, "ldmatrix: row address %u not 16-byte aligned\n", addr);
     exit(4);
   }
@@ -43,7 +45,7 @@ inline void emu_ldmatrix_x4(uint32_t r[4], uint32_t addr, bool trans) {
   emu_warp_sync();
   if (lane == 0) {
     ++emu_ldmatrix;
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < nm; ++i) {
       uint32_t seen[8];
       bool used[8] = {}, conflict = false;
       for (int j = 0; j < 8; ++j) {
@@ -59,7 +61,7 @@ inline void emu_ldmatrix_x4(uint32_t r[4], uint32_t addr, bool trans) {
   // register i: row q, elements c, c+1 of matrix i (.trans: rows c, c+1
   // of column q)
   const int q = lane / 4, c = 2 * (lane % 4);
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < nm; ++i) {
     uint16_t lo, hi;
     if (!trans) {
       const uint32_t row = emu_xch[w][8 * i + q].addr;
@@ -75,10 +77,13 @@ inline void emu_ldmatrix_x4(uint32_t r[4], uint32_t addr, bool trans) {
 }
 
 inline void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  emu_ldmatrix_x4(r, addr, false);
+  emu_ldsm(r, 4, addr, false);
 }
 inline void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
-  emu_ldmatrix_x4(r, addr, true);
+  emu_ldsm(r, 4, addr, true);
+}
+inline void ldmatrix_x2_trans(uint32_t r[2], uint32_t addr) {
+  emu_ldsm(r, 2, addr, true);
 }
 
 inline void mma_16816(float d[4], const uint32_t a[4], uint32_t b0,

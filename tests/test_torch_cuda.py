@@ -1,9 +1,11 @@
 # -*- coding: utf-8 -*-
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K1-K3 forward, K4-K6 backward (and K2 as the dx of a conv), the
-launch counts of the U-Net's serving and training steps, and its gradients
-against the plain path; the three tensor-core conv kernels of the conv
-microbench (dots, im2col, im2col2) and the microbench itself.  Each test skips on a host without an NVIDIA GPU.
+card: K1-K3 forward, K4-K6 backward (and K2 as the dx of a conv), K2's and
+K5's tensor-core paths at every 3x3 conv of the training step and their
+routing by dtype, the launch counts of the U-Net's serving and training
+steps, and its gradients against the plain path; the three tensor-core conv
+kernels of the conv microbench (dots, im2col, im2col2) and the microbench
+itself.  Each test skips on a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -224,6 +226,91 @@ def test_block_bwd(rng, cuda_device, ci, co, hw, dtype, tol):
         assert (a is None) == (w is None)
         if a is not None:
             assert rel_err(a, w) <= tol
+
+
+# the 3x3 convs of the U-Net's training step (width 16, 256^2): map side,
+# forward Cin and Cout.  The dx of each is K2 on the flipped kernel (Cout ->
+# Cin), its dw K5.
+STEP_CONVS = ((256, 8, 16), (256, 16, 16), (256, 32, 16), (128, 16, 32),
+              (128, 32, 32), (128, 64, 32), (64, 32, 64), (64, 64, 64),
+              (64, 128, 64), (32, 64, 128), (32, 128, 128), (32, 256, 128),
+              (16, 128, 256), (16, 256, 256))
+
+
+def _step_conv(rng, device, hw, ci, co):
+    """bf16 x [2,hw,hw,ci], w [3,3,ci,co] and a cotangent g [2,hw,hw,co]."""
+    x = t(rng.normal(size=(2, hw, hw, ci)).astype(np.float32), BF16, device)
+    w = t(conv_w(rng, 3, ci, co), BF16, device)
+    g = t(rng.normal(size=(2, hw, hw, co)).astype(np.float32), BF16, device)
+    return x, w, g
+
+
+@pytest.mark.parametrize("hw,ci,co", STEP_CONVS)
+def test_conv3x3_tensor_cores_at_step_shapes(rng, cuda_device, hw, ci, co):
+    """K2's tensor-core path, forward and as dx, and K5's, against their
+    plain versions at every 3x3 conv of the training step (batch 2), with
+    chip_smoke.py's bf16 tolerances."""
+    x, w, g = _step_conv(rng, cuda_device, hw, ci, co)
+    _held_against_plain(conv3x3.conv3x3_fwd, conv3x3.conv3x3_fwd, (x, w),
+                        0.02)
+    _held_against_plain(conv3x3.conv3x3_fwd, conv3x3.conv3x3_fwd,
+                        (g, conv3x3.flip_io(w)), 0.02)
+    _held_against_plain(conv3x3.conv3x3_dw, conv3x3.conv3x3_dw, (x, g), 0.05)
+
+
+def _kernel_names(fn):
+    """Names of the device kernels ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype,fwd,dw", [
+    (BF16, "conv3x3_tc_kernel", "conv3x3_dw_tc_kernel"),
+    (F32, "conv_tile_kernel", "dw_partial_kernel")])
+def test_conv3x3_routes_by_dtype(rng, cuda_device, dtype, fwd, dw):
+    """bfloat16 runs the tensor-core kernels, float32 the CUDA-core tiles
+    (the parity path), and neither the other's."""
+    x, w, g = (a.to(dtype) for a in _step_conv(rng, cuda_device, 64, 32, 64))
+    names = _kernel_names(lambda: (conv3x3.conv3x3_fwd(x, w),
+                                   conv3x3.conv3x3_dw(x, g)))
+    other = {"conv3x3_tc_kernel", "conv3x3_dw_tc_kernel", "conv_tile_kernel",
+             "dw_partial_kernel"} - {fwd, dw}
+    assert any(fwd in n for n in names) and any(dw in n for n in names), names
+    assert not any(o in n for n in names for o in other), names
+
+
+def test_conv3x3_dw_tensor_cores_bit_for_bit(rng, cuda_device):
+    """K5's bf16 path adds its partials in a fixed order, with no atomics:
+    two runs agree bit for bit (the step's widest level-0 shape, several
+    splits)."""
+    x, _, g = _step_conv(rng, cuda_device, 256, 32, 16)
+    a = conv3x3.conv3x3_dw(x, g)
+    b = conv3x3.conv3x3_dw(x, g)
+    assert torch.equal(a, b)
+
+
+def test_conv3x3_tensor_cores_refuse_what_they_do_not_take(cuda_device):
+    """A bf16 shape the kernels do not take raises ValueError: Cout not a
+    multiple of 8 (the wrapper), a weight that is contiguous but not 16-byte
+    aligned (refused by the C entry point, nothing launched)."""
+    x = torch.zeros((1, 8, 8, 16), dtype=BF16, device=cuda_device)
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_fwd(x, torch.zeros((3, 3, 16, 12), dtype=BF16,
+                                           device=cuda_device))
+    flat = torch.zeros(9 * 16 * 16 + 1, dtype=BF16, device=cuda_device)
+    w = flat[1:].view(3, 3, 16, 16)
+    before = conv3x3.conv3x3_fwd.launches
+    with pytest.raises(ValueError):
+        conv3x3.conv3x3_fwd(x, w)
+    assert conv3x3.conv3x3_fwd.launches == before
+    with pytest.raises(ValueError):      # dw needs Cout % 16 == 0
+        conv3x3.conv3x3_dw(x, torch.zeros((1, 8, 8, 8), dtype=BF16,
+                                          device=cuda_device))
 
 
 def _unet_grads(fused, dtype, device):

@@ -1,18 +1,28 @@
 # -*- coding: utf-8 -*-
-"""The tensor-core conv kernels of smsut_tpu_torch/csrc/conv3x3_mma.cu on the
-CPU: their source, compiled with the host C++ compiler against an
-emulation of the CUDA runtime and of the PTX primitives they use
-(tests/cuda_emu: ldmatrix, mma.sync m16n8k16 bf16, cp.async, one thread
-per CUDA thread), is run and held against a float64 reference within one
-bf16 unit (tests/cuda_emu/conv3x3_mma_check.cpp).  This checks the
-kernels' own index logic (fragment addressing, the dots ring, the halo,
-tiles and masks, the host-side refusal of a shape) where no card is
-present; the card itself is in tests/test_torch_cuda.py.
+"""The port's tensor-core kernels on the CPU: their source, compiled with
+the host C++ compiler against an emulation of the CUDA runtime and of the
+PTX primitives they use (tests/cuda_emu: ldmatrix .x4/.x2/.trans, mma.sync
+m16n8k16 bf16, cp.async, one thread per CUDA thread), is run and held
+against a float64 reference by one check program per source:
 
-The kernel source is used as it is, with three textual changes: the PTX
-primitives of mma_tile.cuh give way to tests/cuda_emu/prims.h, the
-dynamic shared memory is the emulation's buffer, and a launch is a call
-of the emulation's launcher.
+- ``csrc/conv3x3_mma.cu``, the three conv candidates of the microbench,
+  within one bf16 unit (tests/cuda_emu/conv3x3_mma_check.cpp);
+- ``csrc/conv3x3_tc.cuh``, K2's bfloat16 path, at every block shape of
+  each case's channel width, within one bf16 unit
+  (tests/cuda_emu/conv3x3_tc_check.cpp);
+- ``csrc/conv3x3_dw_tc.cuh``, K5's bfloat16 path, within 1e-5 of the sum
+  of |x * g| of each element, two runs bit for bit
+  (tests/cuda_emu/conv3x3_dw_tc_check.cpp).
+
+This checks the kernels' own index logic (fragment addressing, halos,
+channel chunks, tiles and masks, splits, the host-side refusal of a shape)
+and that no ldmatrix phase is bank-conflicted, where no card is present;
+the card itself is in tests/test_torch_cuda.py.
+
+A kernel source is used as it is, with textual changes only: the PTX
+primitives of mma_tile.cuh give way to tests/cuda_emu/prims.h, the dynamic
+shared memory is the emulation's buffer, and a launch is a call of the
+emulation's launcher.
 """
 import os
 import shutil
@@ -25,56 +35,122 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "smsut_tpu_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 
+SMEM = ("extern __shared__ __align__(16) unsigned char smem[];",
+        "unsigned char* smem = emu_smem;")
+INCLUDE_MMA = ('#include "mma_tile.cuh"', '#include "mma_tile_emu.cuh"')
+
+# per kernel source: the generated file and the (old, new, count) changes
+SOURCES = {
+    "conv3x3_mma": ("conv3x3_mma.cu", "conv3x3_mma_emu.cpp",
+                    [(*INCLUDE_MMA, 1), (*SMEM, 2)]),
+    "conv3x3_tc": ("conv3x3_tc.cuh", "conv3x3_tc_emu.cuh",
+                   [(*INCLUDE_MMA, 1), (*SMEM, 1)]),
+    "conv3x3_dw_tc": ("conv3x3_dw_tc.cuh", "conv3x3_dw_tc_emu.cuh",
+                      [(*INCLUDE_MMA, 1), (*SMEM, 1),
+                       ("dw_tc_reduce_kernel<<<blocks, 256, 0, s>>>(",
+                        "emu_launch(dw_tc_reduce_kernel, blocks, 256, 0, s, ",
+                        1)]),
+}
+
 
 def _replace(text: str, old: str, new: str, count: int) -> str:
     assert text.count(old) == count, f"expected {count} x {old!r} in the source"
     return text.replace(old, new)
 
 
-def _generate(out: Path) -> None:
-    cu = (CSRC / "conv3x3_mma.cu").read_text()
-    cu = _replace(cu, '#include "mma_tile.cuh"', '#include "mma_tile_emu.cuh"',
-                  1)
-    cu = _replace(cu, "extern __shared__ __align__(16) unsigned char smem[];",
-                  "unsigned char* smem = emu_smem;", 2)
-    cu = _replace(cu, "kernel<<<grid, kThreads, smem, s>>>(",
-                  "emu_launch(kernel, grid, kThreads, smem, s, ", 1)
-    (out / "conv3x3_mma_emu.cpp").write_text(cu)
+def _generate(out: Path, source: str, generated: str, subs) -> None:
+    """``source`` of csrc with the changes ``subs`` as ``generated``, and
+    mma_tile.cuh with its PTX primitives and launch syntax given to the
+    emulation as mma_tile_emu.cuh, into ``out``."""
+    cu = (CSRC / source).read_text()
+    for old, new, count in subs:
+        cu = _replace(cu, old, new, count)
+    (out / generated).write_text(cu)
     h = (CSRC / "mma_tile.cuh").read_text()
     h = _replace(h, '#include "common.cuh"',
                  '#include "shim.h"\n#include "prims.h"', 1)
     h = _replace(h, "typedef __nv_bfloat16 bf16;", "", 1)
+    h = _replace(h, "kernel<<<grid, threads, smem, s>>>(args...);",
+                 "emu_launch(kernel, grid, threads, smem, s, args...);", 1)
     start = h.index("__device__ __forceinline__ uint32_t smem_addr(")
     end = h.index("// lane's ldmatrix address of the 16 x 16 A tile")
     (out / "mma_tile_emu.cuh").write_text(h[:start] + h[end:])
 
 
-@pytest.fixture(scope="module")
-def check_binary(tmp_path_factory):
+def _build(tmp_path_factory, name):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a C++20 compiler (g++) to build the emulation")
-    out = tmp_path_factory.mktemp("cuda_emu")
-    _generate(out)
-    exe = out / "conv3x3_mma_check"
+    out = tmp_path_factory.mktemp(name)
+    source, generated, subs = SOURCES[name]
+    _generate(out, source, generated, subs)
+    exe = out / f"{name}_check"
     subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", f"-I{out}",
                     f"-I{EMU}", "-o", str(exe),
-                    str(EMU / "conv3x3_mma_check.cpp")],
+                    str(EMU / f"{name}_check.cpp")],
                    check=True, capture_output=True, text=True, timeout=600)
     return exe
 
 
-@pytest.mark.parametrize("env", [
-    {},                        # cp.async lands at once
-    {"EMU_DEFER": "1"},        # cp.async lands at its wait
-    {"EMU_OPTIN": "120000"},   # a smaller block: some shapes refused
-], ids=["copies_at_once", "copies_at_wait", "small_shared_memory"])
-def test_conv3x3_mma_kernels_in_emulation(check_binary, env):
-    run = subprocess.run([str(check_binary)], env={**os.environ, **env},
+def _run(exe, env):
+    run = subprocess.run([str(exe)], env={**os.environ, **env},
                          capture_output=True, text=True, timeout=600)
     lines = run.stdout.splitlines()
     assert run.returncode == 0 and lines[-1] == "OK", run.stdout + run.stderr
     assert "bank-conflicted phases 0" in lines[-2]
+    return lines
+
+
+@pytest.fixture(scope="module")
+def check_binary(tmp_path_factory):
+    return _build(tmp_path_factory, "conv3x3_mma")
+
+
+@pytest.fixture(scope="module")
+def tc_binary(tmp_path_factory):
+    return _build(tmp_path_factory, "conv3x3_tc")
+
+
+@pytest.fixture(scope="module")
+def dw_tc_binary(tmp_path_factory):
+    return _build(tmp_path_factory, "conv3x3_dw_tc")
+
+
+ENVS = {"copies_at_once": {},                    # cp.async lands at once
+        "copies_at_wait": {"EMU_DEFER": "1"}}     # cp.async lands at its wait
+
+
+@pytest.mark.parametrize("env", [
+    ENVS["copies_at_once"], ENVS["copies_at_wait"],
+    {"EMU_OPTIN": "120000"},   # a smaller block: some shapes refused
+], ids=["copies_at_once", "copies_at_wait", "small_shared_memory"])
+def test_conv3x3_mma_kernels_in_emulation(check_binary, env):
+    lines = _run(check_binary, env)
     if "EMU_OPTIN" in env:
         assert any("fits 0 " in l for l in lines)
         assert any("fits 1 " in l for l in lines)
+
+
+@pytest.mark.parametrize("env", [
+    ENVS["copies_at_once"], ENVS["copies_at_wait"],
+    # channel chunks in two buffers, cp.async landing at its wait; the
+    # tallest tiles refused
+    {"EMU_OPTIN": "50000", "EMU_DEFER": "1"},
+], ids=["copies_at_once", "copies_at_wait", "channel_chunks"])
+def test_conv3x3_tc_kernel_in_emulation(tc_binary, env):
+    lines = _run(tc_binary, env)
+    if "EMU_OPTIN" in env:
+        assert any("fits 0 " in l for l in lines)
+        assert any("fits 1 " in l for l in lines)
+        assert lines[-3] != "chunked runs 0"
+
+
+@pytest.mark.parametrize("env", list(ENVS.values()), ids=list(ENVS))
+def test_conv3x3_dw_tc_kernel_in_emulation(dw_tc_binary, env):
+    lines = _run(dw_tc_binary, env)
+    # one split (the block writes dw) and several (the reduce kernel); a
+    # split of several tiles (both stage buffers)
+    splits = [l.split("(")[1].split(")")[0] for l in lines if "splits of" in l]
+    assert any(", 1 splits" in s for s in splits)
+    assert any(", 1 splits" not in s and " of 1 tiles" not in s
+               for s in splits), splits
