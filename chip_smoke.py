@@ -6,17 +6,20 @@
 
 1. Prints the card's name and power limit, and builds every kernel from
    ``smsut_tpu_torch/csrc`` (one nvcc per source, in parallel); counts the
-   HMMA instructions of K2's and K5's tensor-core kernels in the built
-   code (``cuobjdump -sass``) and fails where one has none.
+   HMMA instructions of every tensor-core kernel instantiation in the
+   built code (``cuobjdump -sass``: K2's and K5's, and those of K3's and
+   K6's chains) and fails where one has none.
 2. Holds each forward kernel (K1 instance norm, K2 3x3 conv, K3 fused
    block, both block forms) against its plain PyTorch version on the card,
    at the U-Net's shapes, in float32 (TF32 off) and bfloat16, and times the
    kernel, the plain version, one PyTorch library call of the same
-   function (a yardstick the port never calls) and the card's bound.  K2
-   runs in bfloat16 at all 14 3x3 convs of the training step.
+   function (a yardstick the port never calls) and the card's bound.  In
+   bfloat16 K2 runs at all 14 3x3 convs of the training step, K3 at the
+   U-Net's nine blocks and the identity form.
    2b. The same for each backward kernel: K4 (norm backward), K5 (conv
    weight gradient) and K2 as the dx of a conv, both in bfloat16 at all 14
-   3x3 convs of the step, and K6 (block backward, both forms).
+   3x3 convs of the step, and K6 (block backward, both forms; bfloat16 at
+   the nine blocks and the identity form).
    2c. The same for the three tensor-core conv kernels (dots, im2col,
    im2col2, the candidates of the conv microbench), bfloat16, at the
    microbench's shape [16,128,128,64] -> 64 and at [4,64,64,32] -> 32,
@@ -34,7 +37,9 @@
    K4, 9 K6), every parameter's step-1 gradient against the plain path
    (float32 and bfloat16), a finite and falling loss, and in float32 the
    first 3 losses against the plain path; records the median step time,
-   the device idle share and K2's and K5's device time per step.
+   the device idle share and the device time per step of each kernel
+   family (``smsut_tpu_torch/tools/profile_step.py`` ``step_profile``),
+   and fails if a bfloat16 step ran a CUDA-core conv.
 5. Runs the port's conv microbench (``smsut_tpu_torch.tools.microbench_conv``)
    at batch 16 with 20 applications per chain: the three tensor-core
    kernels, K2 and the library conv, each checked against the plain
@@ -106,15 +111,27 @@ STEP_CONVS = ((256, 8, 16), (256, 16, 16), (256, 32, 16), (128, 16, 32),
 F32_K2 = ((256, 32, 16), (256, 8, 16), (32, 256, 128), (16, 128, 256))
 F32_K5 = ((256, 32, 16), (256, 8, 16), (16, 128, 256))
 F32_DX = ((256, 8, 16),)
-# device kernels of K2 and K5 by name, each path apart (in the
-# block_pallas=False step only they run these names)
-FAMILIES = {"K2": ("conv3x3_tc_kernel", "conv_tile_kernel"),
-            "K5": ("conv3x3_dw_tc_kernel", "dw_tc_reduce_kernel",
-                   "dw_partial_kernel", "dw_reduce_kernel")}
-# the tensor-core kernels of K2 and K5 in the built code: library, kernel
-# name, instantiations
+# the CUDA-core conv kernels, by function name (smsut_tpu_torch/tools/
+# profile_step.py, which also groups a step's kernels into K1-K6): a
+# bfloat16 step runs none of them
+CUDA_CORE_CONVS = ("conv_tile_kernel+stats", "conv_tile_kernel-stats",
+                   "dw_partial_kernel", "dw_reduce_kernel")
+# the tensor-core kernels in the built code: library, kernel name,
+# instantiations (K2 and K5; in K3's chain conv1, conv2 with the norm
+# applied while staging, the 1x1 shortcut; in K6's dn1 masked, dx plus the
+# side term, the float32 side term, and dw2 (norm applied), dw1, dws)
 TC_KERNELS = (("conv3x3", "conv3x3_tc_kernel", 12),
-              ("conv3x3_dw", "conv3x3_dw_tc_kernel", 6))
+              ("conv3x3_dw", "conv3x3_dw_tc_kernel", 6),
+              ("block", "conv3x3_tc_kernel", 36),
+              ("block_bwd", "conv3x3_tc_kernel", 36),
+              ("block_bwd", "conv3x3_dw_tc_kernel", 18))
+# the U-Net's nine BasicBlocks, all of the shortcut form: map side, Cin,
+# Cout; bfloat16 runs K3 and K6 at each, float32 at the parity rows
+UNET_BLOCKS = ((256, 8, 16), (256, 32, 16), (128, 16, 32), (128, 64, 32),
+               (64, 32, 64), (64, 128, 64), (32, 64, 128), (32, 256, 128),
+               (16, 128, 256))
+F32_K3 = ((256, 32, 16), (16, 128, 256), (64, 64, 64))
+F32_K6 = ((256, 32, 16), (256, 8, 16), (64, 64, 64))
 KERNELS = ("instnorm", "conv3x3", "block", "instnorm_bwd", "conv3x3_dw",
            "block_bwd", "conv3x3_dots", "conv3x3_im2col", "conv3x3_im2col2")
 MMA_VARIANTS = ("dots", "im2col", "im2col2")
@@ -322,10 +339,12 @@ def check_kernels(torch, F, ops, instnorm, conv3x3, block):
                    flops=2 * b * h * w * 9 * ci * co,
                    nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz,
                    iters=10)
-        # K3: shortcut form at decoder level 0 (32 -> 16) and the
-        # bottleneck (128 -> 256 at 16^2); identity form 64 -> 64 at 64^2
-        for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 16, 16, 128, 256),
-                                  (8, 64, 64, 64, 64)):
+        # K3: float32 at decoder level 0 (32 -> 16), the bottleneck
+        # (128 -> 256 at 16^2) and the identity form 64 -> 64 at 64^2;
+        # bfloat16 at the nine blocks and the identity form
+        for (h, ci, co) in F32_K3 if dt == torch.float32 else (
+                *UNET_BLOCKS, (64, 64, 64)):
+            b, w = 8, h
             args = cases.block_args(b, h, w, ci, co, dt)
             form = "shortcut" if ci != co else "identity"
             macs = 9 * ci * co + 9 * co * co + (ci * co if ci != co else 0)
@@ -399,10 +418,12 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
                    flops=2 * b * h * w * 9 * ci * co,
                    nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz,
                    iters=10)
-        # K6: shortcut form at decoder level 0 (32 -> 16) and the first
-        # block (8 -> 16); identity form 64 -> 64 at 64^2
-        for (b, h, w, ci, co) in ((8, 256, 256, 32, 16), (8, 256, 256, 8, 16),
-                                  (8, 64, 64, 64, 64)):
+        # K6: float32 at decoder level 0 (32 -> 16), the first block
+        # (8 -> 16) and the identity form 64 -> 64 at 64^2; bfloat16 at the
+        # nine blocks and the identity form
+        for (h, ci, co) in F32_K6 if dt == torch.float32 else (
+                *UNET_BLOCKS, (64, 64, 64)):
+            b, w = 8, h
             args = cases.block_args(b, h, w, ci, co, dt)
             x, w1, s1, _, w2, s2, _, ws, ss, _ = args
             _, res = block.basic_block_fwd(*args, save=True)
@@ -468,38 +489,14 @@ def profile_device(torch, fn, n: int = 5) -> dict:
     """Device time per call of ``fn`` by kernel (torch.profiler, mean of n
     calls).  Only device kernels are summed: an operator's entry repeats
     the time of the kernels it launched."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from smsut_tpu_torch.tools.profile_step import device_rows
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    rows, wall = device_rows(torch, fn, n)
     return {"profiled_wall_ms": wall,
             "device_ms": sum(r[1] for r in rows),
-            "kernels_per_call": sum(r[2] for r in rows), "top": rows[:16],
-            "families": kernel_families(rows)}
-
-
-def kernel_families(rows) -> dict:
-    """Device ms and launches per call of each kernel name of FAMILIES,
-    summed over a profile's rows (name, ms, launches)."""
-    out = {}
-    for fam, names in FAMILIES.items():
-        for name in names:
-            sel = [r for r in rows if name in r[0]]
-            out[f"{fam} {name}"] = [sum(r[1] for r in sel),
-                                    sum(r[2] for r in sel)]
-    return out
+            "kernels_per_call": sum(r[2] for r in rows), "top": rows[:16]}
 
 
 def sass_hmma(path: Path) -> dict:
@@ -685,6 +682,7 @@ def train_modes(torch, ops, counters):
     import numpy as np
 
     from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import step_profile
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
     batch = ellipse_batch(np)
@@ -716,24 +714,27 @@ def train_modes(torch, ops, counters):
             raise AssertionError(f"launch counts {counts} != {want}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"loss not finite and falling: {losses}")
-        prof = profile_device(
-            torch, lambda: algo.train_step(state, batch, {}), n=3)
-        prof["idle_share"] = 1 - prof["device_ms"] / med
+        prof = step_profile(
+            torch, lambda: algo.train_step(state, batch, {}), fused, step_ms)
         top = "; ".join(f"{n[:48]} {ms:.3f} ms x{k}"
                         for n, ms, k in prof["top"][:5])
         print(f"profile train block_pallas={fused}: device busy "
               f"{prof['device_ms']:.3f} ms per step in "
-              f"{prof['kernels_per_call']} kernels, idle share "
+              f"{prof['kernels_per_step']} kernels, idle share "
               f"{prof['idle_share']:.3f} of the median step; top: {top}",
               flush=True)
-        if not fused:
-            fam = prof["families"]
-            print("profile train block_pallas=False: device ms per step "
-                  "(launches) " + "; ".join(
-                      f"{k} {ms:.4f} ({n})" for k, (ms, n) in fam.items()),
-                  flush=True)
-            if fam["K2 conv_tile_kernel"][1] or fam["K5 dw_partial_kernel"][1]:
-                raise AssertionError(f"bf16 step ran a CUDA-core conv: {fam}")
+        fn = prof["functions"]
+        ran = {n: v for n, v in fn.items() if v[1]}
+        print(f"profile train block_pallas={fused}: device ms per step "
+              "(launches) " + "; ".join(
+                  f"{n} {ms:.4f} ({k})" for n, (ms, k) in ran.items())
+              + "; " + ", ".join(f"{k} {ms:.4f} ms"
+                                 for k, ms in prof["families_ms"].items())
+              + (" (K3 holds the stem norm's finalize_kernel, K6 its "
+                 "norm-backward kernels, one launch each)" if fused else "")
+              + f", other {prof['other_ms']:.4f} ms", flush=True)
+        if any(fn[n][1] for n in CUDA_CORE_CONVS):
+            raise AssertionError(f"bf16 step ran a CUDA-core conv: {fn}")
         k32, p32 = step1_grads(ops, SupervisedUNet(cfg("float32")), batch)
         k16, p16 = step1_grads(ops, SupervisedUNet(cfg("bfloat16")), batch)
         checks = {"float32": grad_parity(k32, p32),
@@ -815,7 +816,7 @@ def main() -> int:
             print(f"sass {lib}: cuobjdump not found, HMMA not counted")
             continue
         tc = {k: v for k, v in hmma.items() if kernel in k}
-        sass[lib] = tc
+        sass[f"{lib} {kernel}"] = tc
         print(f"sass {lib}: {len(tc)} {kernel} instantiations, HMMA per "
               f"kernel {sorted(tc.values())}", flush=True)
         if len(tc) != count or not all(tc.values()):

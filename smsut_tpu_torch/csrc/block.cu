@@ -15,12 +15,13 @@
 // the float32 conv accumulators, while the normalise steps read the stored
 // (T-rounded) conv outputs.
 //
-// Bound on the H100: operations (the two 3x3 convs; see conv3x3.cu).
+// Bound on the H100: operations (the two 3x3 convs; see conv3x3.cu) at
+// the deep levels, bytes (the maps) at 256^2 and 128^2.
 //
 // Design.  One TPU program holds a whole sample in VMEM; on the card the
 // statistics of a 256x256 map span many blocks, so K3 is a chain of
 // launches on one stream, each checked:
-//   1. conv1 (conv_tile.cuh, STATS): y1, plus per-tile partial sums of y1;
+//   1. conv1 (STATS): y1, plus per-tile partial sums of y1;
 //   2. finalize: (g1, h1) per (sample, channel);
 //   3. conv2 (STATS, PRO): the input staging applies g1, h1 and the leaky
 //      ReLU to y1 on the fly, so z1 never reaches device memory; writes y2
@@ -29,13 +30,23 @@
 //   5. shortcut form only: the 1x1 conv (KS = 1, STATS) writes u and its
 //      partial sums, then finalize: (gs, hs);
 //   6. out: one elementwise pass, lrelu(y2*g2 + h2 + (u*gs + hs | x)).
+// The convs run, by dtype alone, on the tensor cores in bfloat16
+// (conv3x3_tc.cuh, the path of training and serving) and on the CUDA-core
+// tile in float32 (conv_tile.cuh, the parity path), with the same options.
+// A bfloat16 shape the tensor-core plan refuses returns
+// cudaErrorInvalidValue before anything is launched: no fallback.  The
+// partial count per sample comes from each conv's plan
+// (smsut_block_ntiles), and finalize adds that many in a fixed order.
 // In training the finalize steps also write each norm's mean and rstd, the
 // statistics K6 (block_bwd.cu) takes with y1, y2, u and the (g, h) table.
 // Against the unfused chain (K2, K1, K2, K1, 1x1 conv, K1, add, act) it
 // keeps out of device memory: the write and read of z1, the statistics
 // re-reads of y1, y2 and u, and the writes and reads of n2, of the
 // normalised shortcut and of the pre-activation sum.
+#include <type_traits>
+
 #include "conv_tile.cuh"
+#include "conv3x3_tc.cuh"
 
 using namespace smsut;
 
@@ -69,13 +80,49 @@ block_out_kernel(const T* __restrict__ y2, const float* __restrict__ gh2,
   }
 }
 
+// The partials per sample of each conv of the chain (conv1, conv2, the
+// shortcut), per dtype; false where the bfloat16 plan refuses one.
+static bool block_ntiles(int B, int H, int W, int Ci, int Co, int dtype,
+                         int nt[3]) {
+  if (dtype == 0) {
+    nt[0] = nt[1] = nt[2] = conv_ntiles(H, W, Co);
+    return true;
+  }
+  nt[0] = tc_fwd_tiles(B, H, W, Ci, Co, 3);
+  nt[1] = tc_fwd_tiles(B, H, W, Co, Co, 3);
+  nt[2] = tc_fwd_tiles(B, H, W, Ci, Co, 1);
+  return nt[0] > 0 && nt[1] > 0 && nt[2] > 0;
+}
+
+// conv1 (k 0), conv2 with norm 1's (g, h) applied while staging (k 1), the
+// 1x1 shortcut (k 2), each writing its statistics' partials
+template <int K>
+static cudaError_t block_conv(const float* x, const float* w, float* y,
+                              const float* gh, float* part, int B, int H,
+                              int W, int Ci, int Co, cudaStream_t s) {
+  return launch_conv<float, K == 2 ? 1 : 3, true, K == 1>(x, w, y, gh, part,
+                                                         B, H, W, Ci, Co, s);
+}
+template <int K>
+static cudaError_t block_conv(const bf16* x, const bf16* w, bf16* y,
+                              const float* gh, float* part, int B, int H,
+                              int W, int Ci, int Co, cudaStream_t s) {
+  return conv3x3_tc<K == 2 ? 1 : 3, bf16, true, K == 1>(
+      x, w, y, B, H, W, Ci, Co, s, -1, TcOpts{part, gh, nullptr, nullptr});
+}
+
 template <typename T>
 static int run(const T* x, const T* w1, const float* s1, const float* b1,
                const T* w2, const float* s2, const float* b2, const T* ws,
                const float* ss, const float* bs, T* out, T* y1, T* y2, T* u,
                float* part, float* gh, float* st, int B, int H, int W,
                int Ci, int Co, cudaStream_t s) {
-  const int nt = conv_ntiles(H, W, Co);
+  // the tensor-core convs stage weights in 16-byte pieces
+  constexpr bool tc = std::is_same<T, bf16>::value;
+  int nt[3];
+  if (!block_ntiles(B, H, W, Ci, Co, tc, nt) ||
+      (tc && ((uintptr_t)w1 % 16 || (uintptr_t)w2 % 16 || (uintptr_t)ws % 16)))
+    return (int)cudaErrorInvalidValue;
   const int HW = H * W;
   const size_t BC = (size_t)B * Co;
   float* gh1 = gh;
@@ -85,22 +132,21 @@ static int run(const T* x, const T* w1, const float* s1, const float* b1,
   auto mean = [&](int k) { return st ? st + 2 * k * BC : nullptr; };
   auto rstd = [&](int k) { return st ? st + (2 * k + 1) * BC : nullptr; };
   cudaError_t e;
-  e = launch_conv<T, 3, true, false>(x, w1, y1, nullptr, part, B, H, W, Ci,
-                                     Co, s);
+  e = block_conv<0>(x, w1, y1, nullptr, part, B, H, W, Ci, Co, s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_finalize(part, nt, B, Co, HW, s1, b1, mean(0), rstd(0), gh1, s);
+  e = launch_finalize(part, nt[0], B, Co, HW, s1, b1, mean(0), rstd(0), gh1,
+                      s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_conv<T, 3, true, true>(y1, w2, y2, gh1, part, B, H, W, Co, Co,
-                                    s);
+  e = block_conv<1>(y1, w2, y2, gh1, part, B, H, W, Co, Co, s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_finalize(part, nt, B, Co, HW, s2, b2, mean(1), rstd(1), gh2, s);
+  e = launch_finalize(part, nt[1], B, Co, HW, s2, b2, mean(1), rstd(1), gh2,
+                      s);
   if (e != cudaSuccess) return (int)e;
   if (ws) {
-    e = launch_conv<T, 1, true, false>(x, ws, u, nullptr, part, B, H, W, Ci,
-                                       Co, s);
+    e = block_conv<2>(x, ws, u, nullptr, part, B, H, W, Ci, Co, s);
     if (e != cudaSuccess) return (int)e;
-    e = launch_finalize(part, nt, B, Co, HW, ss, bs, mean(2), rstd(2), ghs,
-                        s);
+    e = launch_finalize(part, nt[2], B, Co, HW, ss, bs, mean(2), rstd(2),
+                        ghs, s);
     if (e != cudaSuccess) return (int)e;
   }
   const long long n4 = (long long)B * HW * Co / 4;
@@ -112,11 +158,16 @@ static int run(const T* x, const T* w1, const float* s1, const float* b1,
 // x [B][H][W][Ci]; w1 [3][3][Ci][Co], w2 [3][3][Co][Co], ws [Ci][Co] or
 // null (identity form, Ci == Co), all in x's dtype; s*, b* [Co] f32.
 // Scratch: y1, y2 [B][H][W][Co] and u (shortcut form) in x's dtype;
-// part [B][ntiles][2][Co] f32 with ntiles = smsut_block_ntiles(H, W, Co);
-// gh [3][B][2][Co] f32.  stats [3][2][B][Co] f32 (the (mean, rstd) of
-// norms 1, 2 and s, the residuals K6 needs) or null (serving).
-extern "C" int smsut_block_ntiles(int H, int W, int Co) {
-  return conv_ntiles(H, W, Co);
+// part [B][ntiles][2][Co] f32 with ntiles = smsut_block_ntiles(B, H, W,
+// Ci, Co, dtype); gh [3][B][2][Co] f32.  stats [3][2][B][Co] f32 (the
+// (mean, rstd) of norms 1, 2 and s, the residuals K6 needs) or null
+// (serving).  dtype 0 float32, 1 bfloat16.
+extern "C" int smsut_block_ntiles(int B, int H, int W, int Ci, int Co,
+                                  int dtype) {
+  int nt[3];
+  if (!block_ntiles(B, H, W, Ci, Co, dtype, nt)) return 0;
+  return nt[0] > nt[1] ? (nt[0] > nt[2] ? nt[0] : nt[2])
+                       : (nt[1] > nt[2] ? nt[1] : nt[2]);
 }
 
 extern "C" int smsut_block_fwd(const void* x, const void* w1, const void* s1,

@@ -35,16 +35,23 @@
 //      dbias2: both sum the same gp);
 //   2. one elementwise pass: dy2, and du (shortcut form) or gp in float32
 //      (identity form);
-//   3. dw2 (K5's device code, conv_dw.cuh) with z1 rebuilt while staging;
-//   4. dn1 = conv2^T(dy2) (K2's device code, conv_tile.cuh) with the z1
-//      mask in its epilogue;
+//   3. dw2 (K5's device code) with z1 rebuilt while staging (PRO);
+//   4. dn1 = conv2^T(dy2) (K2's device code) with the z1 mask in its
+//      epilogue;
 //   5. sums of dn1, dn1*xh1 (K4's device code, instnorm_bwd.cuh) -> dbias1,
 //      dscale1;  6. dy1 (K4's apply pass);  7. dw1 (K5's device code);
 //   8. shortcut form: dws (K5's, KS = 1) and du @ ws^T in float32 (the
-//      1x1 tile conv with a float32 output);
+//      1x1 conv with a float32 output);
 //   9. dx = conv1^T(dy1) plus that float32 term in the epilogue.
-// No atomics: runs agree bit for bit.
+// The convs of steps 3, 4, 7, 8 and 9 run, by dtype alone, on the tensor
+// cores in bfloat16 (conv3x3_tc.cuh, conv3x3_dw_tc.cuh: the path of
+// training) and on the CUDA-core tiles in float32 (conv_tile.cuh,
+// conv_dw.cuh: the parity path), with the same options.  A bfloat16 shape
+// the tensor-core kernels refuse returns cudaErrorInvalidValue before
+// anything is launched: no fallback.  No atomics: runs agree bit for bit.
 #include "conv_dw.cuh"
+#include "conv3x3_dw_tc.cuh"
+#include "conv3x3_tc.cuh"
 #include "instnorm_bwd.cuh"
 
 using namespace smsut;
@@ -137,7 +144,9 @@ block_dy2_kernel(BlockOutSrc<T, SHORT> src, const float* __restrict__ sums,
 
 static size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
-// Scratch layout (bytes), one arena allocated by the wrapper.
+// Scratch layout (bytes), one arena allocated by the wrapper.  The weight
+// gradients' partials follow each dtype's plan (conv_dw.cuh's dw_plan,
+// conv3x3_dw_tc.cuh's dw_tc_plan).
 struct Arena {
   size_t dy2, du, dn1, dy1, side, part, sums, dwpart, total;
   Arena(int B, int H, int W, int Ci, int Co, int shortcut, int dtype) {
@@ -145,9 +154,13 @@ struct Arena {
     const size_t mapo = align256((size_t)B * H * W * Co * tsz);
     int nsplit, rows;
     norm_splits(H * W, Co, &nsplit, &rows);
-    long long dwp = dw_part_elems(B, H, W, Co, Co, 3);
-    const long long dw1 = dw_part_elems(B, H, W, Ci, Co, 3);
-    const long long dws = dw_part_elems(B, H, W, Ci, Co, 1);
+    const bool tc = dtype == 1;
+    long long dwp = tc ? dw_tc_part_elems(B, H, W, Co, Co)
+                       : dw_part_elems(B, H, W, Co, Co, 3);
+    const long long dw1 = tc ? dw_tc_part_elems(B, H, W, Ci, Co)
+                             : dw_part_elems(B, H, W, Ci, Co, 3);
+    const long long dws = tc ? dw_tc_part_elems(B, H, W, Ci, Co, kDwTcTarget, 1)
+                             : dw_part_elems(B, H, W, Ci, Co, 1);
     if (dw1 > dwp) dwp = dw1;
     if (shortcut && dws > dwp) dwp = dws;
     size_t o = 0;
@@ -162,6 +175,52 @@ struct Arena {
     total = o;
   }
 };
+
+// The convolutions of the chain, by dtype: float32 on the CUDA cores,
+// bfloat16 on the tensor cores.  The weight gradient corr(x, g) (with PRO,
+// x = norm_act(x) while staging, gh the (g, h) of x's norm):
+template <int KS, bool PRO>
+static cudaError_t bwd_dw(const float* x, const float* g, const float* gh,
+                          float* part, float* dw, int B, int H, int W, int C,
+                          int Cout, cudaStream_t s) {
+  return launch_dw<float, KS, PRO>(x, g, gh, part, dw, B, H, W, C, Cout, s);
+}
+template <int KS, bool PRO>
+static cudaError_t bwd_dw(const bf16* x, const bf16* g, const float* gh,
+                          float* part, float* dw, int B, int H, int W, int C,
+                          int Cout, cudaStream_t s) {
+  return conv3x3_dw_tc<KS, PRO>(x, g, part, dw, B, H, W, C, Cout, s,
+                                kDwTcTarget, gh);
+}
+// y = conv(x, w) with the epilogue EPI (its map epi, and epi_gh for
+// kEpiMask):
+template <int KS, typename OutT, int EPI>
+static cudaError_t bwd_conv(const float* x, const float* w, OutT* y,
+                            const void* epi, const float* epi_gh, int B,
+                            int H, int W, int C, int Cout, cudaStream_t s) {
+  return launch_conv_ex<float, OutT, KS, false, false, EPI>(
+      x, w, y, nullptr, nullptr, epi, epi_gh, B, H, W, C, Cout, s);
+}
+template <int KS, typename OutT, int EPI>
+static cudaError_t bwd_conv(const bf16* x, const bf16* w, OutT* y,
+                            const void* epi, const float* epi_gh, int B,
+                            int H, int W, int C, int Cout, cudaStream_t s) {
+  return conv3x3_tc<KS, OutT, false, false, EPI>(
+      x, w, y, B, H, W, C, Cout, s, -1, TcOpts{nullptr, nullptr, epi, epi_gh});
+}
+
+// Whether the tensor-core kernels take every conv of the bfloat16 chain,
+// checked before anything is launched (each would also refuse its own).
+static bool tc_takes(int B, int H, int W, int Ci, int Co, int shortcut,
+                     const void* w1t, const void* w2t, const void* wst) {
+  return tc_fwd_tiles(B, H, W, Co, Co, 3) > 0 &&
+         tc_fwd_tiles(B, H, W, Co, Ci, 3) > 0 && dw_tc_takes(Co, Co, 3) &&
+         dw_tc_takes(Ci, Co, 3) &&
+         (!shortcut ||
+          (tc_fwd_tiles(B, H, W, Co, Ci, 1) > 0 && dw_tc_takes(Ci, Co, 1))) &&
+         (uintptr_t)w1t % 16 == 0 && (uintptr_t)w2t % 16 == 0 &&
+         (uintptr_t)wst % 16 == 0;
+}
 
 template <typename T, bool SHORT>
 static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
@@ -203,11 +262,10 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // 3. dw2 = corr(z1, dy2), z1 rebuilt from y1 while staging
-  e = launch_dw<T, 3, true>(y1, dy2, gh1, dwpart, dw2, B, H, W, Co, Co, s);
+  e = bwd_dw<3, true>(y1, dy2, gh1, dwpart, dw2, B, H, W, Co, Co, s);
   if (e != cudaSuccess) return (int)e;
   // 4. dn1 = conv2^T(dy2) * lrelu'(z1)
-  e = launch_conv_ex<T, T, 3, false, false, kEpiMask>(
-      dy2, w2t, dn1, nullptr, nullptr, y1, gh1, B, H, W, Co, Co, s);
+  e = bwd_conv<3, T, kEpiMask>(dy2, w2t, dn1, y1, gh1, B, H, W, Co, Co, s);
   if (e != cudaSuccess) return (int)e;
   // 5-6. norm 1's backward: dsb rows 0, 1 and dy1
   const NormBwdSrc<T> n1{y1, dn1, m1, r1, s1, nullptr, HW, Co, 0};
@@ -216,22 +274,19 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
   e = launch_norm_bwd_apply(n1, sums, dy1, B, s);
   if (e != cudaSuccess) return (int)e;
   // 7. dw1 = corr(x, dy1)
-  e = launch_dw<T, 3, false>(x, dy1, nullptr, dwpart, dw1, B, H, W, Ci, Co,
-                             s);
+  e = bwd_dw<3, false>(x, dy1, nullptr, dwpart, dw1, B, H, W, Ci, Co, s);
   if (e != cudaSuccess) return (int)e;
   // 8. the shortcut: dws = corr(x, du), side = du @ ws^T in float32
   if (SHORT) {
-    e = launch_dw<T, 1, false>(x, du, nullptr, dwpart, dws, B, H, W, Ci, Co,
-                               s);
+    e = bwd_dw<1, false>(x, du, nullptr, dwpart, dws, B, H, W, Ci, Co, s);
     if (e != cudaSuccess) return (int)e;
-    e = launch_conv_ex<T, float, 1, false, false, kEpiNone>(
-        du, wst, side, nullptr, nullptr, nullptr, nullptr, B, H, W, Co, Ci,
-        s);
+    e = bwd_conv<1, float, kEpiNone>(du, wst, side, nullptr, nullptr, B, H, W,
+                                     Co, Ci, s);
     if (e != cudaSuccess) return (int)e;
   }
   // 9. dx = conv1^T(dy1) + side
-  return (int)launch_conv_ex<T, T, 3, false, false, kEpiAdd>(
-      dy1, w1t, dx, nullptr, nullptr, side, nullptr, B, H, W, Co, Ci, s);
+  return (int)bwd_conv<3, T, kEpiAdd>(dy1, w1t, dx, side, nullptr, B, H, W,
+                                      Co, Ci, s);
 }
 
 // bytes of the scratch smsut_block_bwd needs
@@ -262,7 +317,8 @@ extern "C" int smsut_block_bwd(const void* g, const void* x, const void* y1,
                                int Co, int dtype, void* stream) {
   const int shortcut = wst != nullptr;
   if (Co % 16 != 0 || Ci % 8 != 0 || (!shortcut && Ci != Co) ||
-      (shortcut && !u) || (dtype != 0 && dtype != 1))
+      (shortcut && !u) || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && !tc_takes(B, H, W, Ci, Co, shortcut, w1t, w2t, wst)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Arena A(B, H, W, Ci, Co, shortcut, dtype);

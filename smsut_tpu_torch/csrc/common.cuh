@@ -18,6 +18,9 @@ namespace smsut {
 
 constexpr float kEps = 1e-5f;
 constexpr float kSlope = 0.01f;
+// a conv epilogue: none, add a float32 map, or multiply by a leaky-ReLU
+// mask (conv_tile.cuh and conv3x3_tc.cuh say how)
+enum { kEpiNone = 0, kEpiAdd = 1, kEpiMask = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

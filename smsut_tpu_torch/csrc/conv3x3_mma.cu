@@ -283,17 +283,15 @@ bool takes(int variant, int B, int H, int W, int C, int Cout, int strip,
 template <int V, int NCO>
 int launch_variant(const void* x, const void* w, void* y, int B, int H,
                    int W, int C, int Cout, int strip, cudaStream_t s) {
-  static std::atomic<uint64_t> opted{0};
   const size_t smem = smem_bytes(V, W, C, Cout);
   const dim3 grid(B * (H / strip), Cout / NCO);
   const bf16 *xb = (const bf16*)x, *wb = (const bf16*)w;
   if constexpr (V == 0)
-    return (int)launch_opted(conv_dots_kernel<NCO>, opted, grid, kThreads,
-                             smem, s, xb, wb, (bf16*)y, H, W, C, Cout, strip);
+    return (int)launch_opted(conv_dots_kernel<NCO>, grid, kThreads, smem, s,
+                             xb, wb, (bf16*)y, H, W, C, Cout, strip);
   else
-    return (int)launch_opted(conv_im2col_kernel<NCO, V == 2>, opted, grid,
-                             kThreads, smem, s, xb, wb, (bf16*)y, H, W, C,
-                             Cout, strip);
+    return (int)launch_opted(conv_im2col_kernel<NCO, V == 2>, grid, kThreads,
+                             smem, s, xb, wb, (bf16*)y, H, W, C, Cout, strip);
 }
 
 template <int V>

@@ -1,6 +1,7 @@
-// Weight gradient of the NHWC SAME convolution, KS in {1, 3}: the device
-// code of K5 (conv3x3_dw.cu) and of the three weight gradients of K6
-// (block_bwd.cu).
+// Weight gradient of the NHWC SAME convolution, KS in {1, 3}, on the CUDA
+// cores: the float32 parity path of K5 (conv3x3_dw.cu) and of the three
+// weight gradients of K6 (block_bwd.cu).  Their bfloat16 paths run on the
+// tensor cores (conv3x3_dw_tc.cuh, with the same KS and PRO options).
 //
 //   dw[u][v][ci][co] = sum_{b,i,j} x[b, i+u-KS/2, j+v-KS/2, ci] * g[b,i,j,co]
 //

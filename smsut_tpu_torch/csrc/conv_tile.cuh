@@ -1,9 +1,9 @@
 // Direct NHWC SAME convolution, stride 1, odd square kernel KS in {1, 3},
-// float32 accumulation, on the CUDA cores: the device code of K2's float32
-// path (conv3x3.cu, forward and the dx of the backward; K2's bfloat16 path
-// is the tensor-core kernel of conv3x3_tc.cuh), of the convolutions of K3
-// (block.cu) and of the transposed convolutions of K6 (block_bwd.cu), in
-// both dtypes.
+// float32 accumulation, on the CUDA cores: the float32 parity path of K2
+// (conv3x3.cu, forward and the dx of the backward), of the convolutions of
+// K3 (block.cu) and of the transposed convolutions of K6 (block_bwd.cu).
+// Their bfloat16 paths run on the tensor cores (conv3x3_tc.cuh, with the
+// same options as below).
 //
 //   y[b,i,j,co] = sum_{u,v,ci} x[b, i+u-KS/2, j+v-KS/2, ci] * w[u,v,ci,co]
 //
@@ -19,8 +19,6 @@
 // then every tap and channel of the chunk is one float4 weight read, four
 // input reads and 16 FMAs per thread.  The input tile's pixel stride is
 // KC+1 floats, so the 4-pixel groups of a warp fall on distinct banks.
-// K3's and K6's convs have no tensor-core path yet (later work, on the
-// design of conv3x3_tc.cuh).
 //
 // Options of the template:
 //   OutT:  the output's type (T, or float for K6's shortcut term);
@@ -47,7 +45,6 @@ namespace smsut {
 
 constexpr int kConvKC = 16;
 constexpr int kConvKCP = kConvKC + 1;
-enum { kEpiNone = 0, kEpiAdd = 1, kEpiMask = 2 };
 
 template <int TCO> struct ConvTile {
   static constexpr int TW = TCO == 64 ? 8 : 16;

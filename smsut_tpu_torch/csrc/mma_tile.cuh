@@ -24,7 +24,9 @@
 // of four banks.
 #pragma once
 
-#include <atomic>
+#include <mutex>
+#include <set>
+#include <utility>
 
 #include "common.cuh"
 
@@ -139,14 +141,14 @@ __host__ __device__ constexpr int padded_row(int n) {
 }
 
 // Stage a halo tile of the image xb [H][W][C] into x_s: `rows` image rows
-// from r0 - 1 and kHaloW columns from c0 - 1, channels k0 .. k0 + KC - 1
-// (KC a multiple of 8), pixel p of the tile (row-major) at x_s + p * PS.
-// Zero outside the image and at channels >= C.  With vec (C % 8 == 0 and
-// xb 16-byte aligned) by cp.async, one 16-byte piece per thread and step;
-// otherwise a pixel's channels are not 16-byte aligned, and the pieces are
-// built from element loads and stored directly.  Called by every thread of
-// the block.
-template <int kHaloW>
+// from r0 - R and kHaloW columns from c0 - R (R = 1 for a 3x3 kernel, 0
+// for a 1x1), channels k0 .. k0 + KC - 1 (KC a multiple of 8), pixel p of
+// the tile (row-major) at x_s + p * PS.  Zero outside the image and at
+// channels >= C.  With vec (C % 8 == 0 and xb 16-byte aligned) by
+// cp.async, one 16-byte piece per thread and step; otherwise a pixel's
+// channels are not 16-byte aligned, and the pieces are built from element
+// loads and stored directly.  Called by every thread of the block.
+template <int kHaloW, int R = 1>
 __device__ __forceinline__ void stage_halo_bf16(bf16* x_s, const bf16* xb,
                                                 int r0, int c0, int rows,
                                                 int k0, int KC, int PS, int H,
@@ -155,7 +157,7 @@ __device__ __forceinline__ void stage_halo_bf16(bf16* x_s, const bf16* xb,
   const unsigned short* xe = reinterpret_cast<const unsigned short*>(xb);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int q = i % kch, p = i / kch;
-    const int r = r0 - 1 + p / kHaloW, c = c0 - 1 + p % kHaloW;
+    const int r = r0 - R + p / kHaloW, c = c0 - R + p % kHaloW;
     const int ch = k0 + q * 8;
     const bool in = r >= 0 && r < H && c >= 0 && c < W;
     const size_t off = in ? ((size_t)r * W + c) * C + ch : 0;
@@ -175,6 +177,40 @@ __device__ __forceinline__ void stage_halo_bf16(bf16* x_s, const bf16* xb,
   }
 }
 
+// The PRO step of a halo tile that stage_halo_bf16 staged from a stored
+// conv output y (same arguments): each value v of a pixel inside the image
+// at a channel < C becomes the normalised activation
+// norm_act<bf16>(v, gh[ch], gh[C + ch]) in place, so that the activation
+// never reaches device memory.  The padding (outside the image, channels
+// >= C) stays 0: it pads the normalised map.  Each thread rewrites the
+// pieces it staged itself (the same loop), so after the wait for its own
+// copies it needs no barrier; the copies of the next stage stay in flight.
+template <int kHaloW, int R = 1>
+__device__ __forceinline__ void pro_halo_bf16(bf16* x_s,
+                                              const float* __restrict__ gh,
+                                              int r0, int c0, int rows,
+                                              int k0, int KC, int PS, int H,
+                                              int W, int C) {
+  const int kch = KC / 8, n = rows * kHaloW * kch;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int q = i % kch, p = i / kch;
+    const int r = r0 - R + p / kHaloW, c = c0 - R + p % kHaloW;
+    const int ch = k0 + q * 8;
+    if (r < 0 || r >= H || c < 0 || c >= W || ch >= C) continue;
+    uint4* dst = reinterpret_cast<uint4*>(x_s + p * PS + q * 8);
+    uint4 raw = *dst;
+    bf16 v[8];
+    memcpy(v, &raw, 16);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (ch + e < C)
+        v[e] = from_f<bf16>(norm_act<bf16>(to_f(v[e]), gh[ch + e],
+                                           gh[C + ch + e]));
+    memcpy(&raw, v, 16);
+    *dst = raw;
+  }
+}
+
 // the device's opt-in limit of shared memory per block; 0 if unread
 inline size_t smem_optin_bytes() {
   int dev = 0, v = 0;
@@ -185,25 +221,34 @@ inline size_t smem_optin_bytes() {
   return (size_t)v;
 }
 
-// Launches kernel<<<grid, threads, smem, s>>>(args...) and returns the
-// launch's error.  Over 48 KB a kernel must be allowed its shared memory:
-// the limit is raised to the device's opt-in maximum the first time the
-// kernel runs on a device, and `opted` (one per kernel instantiation) keeps
-// a bit per device where that is done.
-template <typename Kernel, typename... Args>
-cudaError_t launch_opted(Kernel kernel, std::atomic<uint64_t>& opted,
-                         dim3 grid, int threads, size_t smem, cudaStream_t s,
-                         Args... args) {
+// Raises `kernel`'s limit of dynamic shared memory to the device's opt-in
+// maximum, once per (kernel, device).  The set of those done is keyed by
+// the address that is then launched: two libraries that hold the same
+// template instantiation each have their own kernel and their own address,
+// so each opts in its own, however they are built and loaded (and where
+// the loader binds both to one copy, that copy is the one launched).
+inline cudaError_t opt_in(const void* kernel) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(opted.load() & bit)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_optin_bytes());
-    if (e != cudaSuccess) return e;
-    opted.fetch_or(bit);
-  }
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_optin_bytes());
+  if (e == cudaSuccess) done.insert({kernel, dev});
+  return e;
+}
+
+// Launches kernel<<<grid, threads, smem, s>>>(args...) and returns the
+// launch's error.  Over 48 KB a kernel must be allowed its shared memory:
+// opt_in does that the first time the kernel runs on a device.
+template <typename Kernel, typename... Args>
+cudaError_t launch_opted(Kernel kernel, dim3 grid, int threads, size_t smem,
+                         cudaStream_t s, Args... args) {
+  const cudaError_t e = opt_in(reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return e;
   kernel<<<grid, threads, smem, s>>>(args...);
   return cudaGetLastError();
 }

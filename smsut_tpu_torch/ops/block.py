@@ -148,7 +148,7 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _ntiles_fn():
-    return bind("block", "smsut_block_ntiles", [I] * 3)
+    return bind("block", "smsut_block_ntiles", [I] * 6)
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,6 +159,13 @@ def _bwd_kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_scratch():
     return bind("block_bwd", "smsut_block_bwd_scratch", [I] * 7, L)
+
+
+# what the C entry points refuse beyond the checks here: in bfloat16 a
+# shape or weight the tensor-core kernels do not take (nothing is launched;
+# there is no fallback to the CUDA-core convs)
+REFUSED_SHAPE = ("the tensor-core convs do not take this shape (weights not "
+                 "16-byte aligned, or no tile that fits shared memory)")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -206,8 +213,11 @@ def basic_block_fwd(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
     y1 = torch.empty_like(out)
     y2 = torch.empty_like(out)
     u = torch.empty_like(out) if ws is not None else None
-    nt = _ntiles_fn()(h, wd, co)
-    part = torch.empty((b, nt, 2, co), dtype=torch.float32, device=dev)
+    # the statistics' partials per sample: the most of the chain's convs,
+    # each by its own plan (the tensor-core plan in bfloat16)
+    nt = _ntiles_fn()(b, h, wd, x.shape[-1], co, dt)
+    part = torch.empty((b, max(nt, 1), 2, co), dtype=torch.float32,
+                       device=dev)
     gh = torch.empty((3, b, 2, co), dtype=torch.float32, device=dev)
     st = (torch.empty((3, 2, b, co), dtype=torch.float32, device=dev)
           if save else None)
@@ -216,7 +226,7 @@ def basic_block_fwd(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
                     _ptr(ss), _ptr(bs), out.data_ptr(), y1.data_ptr(),
                     y2.data_ptr(), _ptr(u), part.data_ptr(), gh.data_ptr(),
                     _ptr(st), b, h, wd, x.shape[-1], co, dt, stream_of(x)),
-          "basic_block")
+          "basic_block", REFUSED_SHAPE)
     basic_block_fwd.launches += 1
     return (out, Residuals(y1, y2, u, gh, st)) if save else out
 
@@ -268,10 +278,13 @@ def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                         _ptr(wst), s1.data_ptr(), s2.data_ptr(), _ptr(ss),
                         dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
                         _ptr(dws), dsb.data_ptr(), scratch.data_ptr(), b, h,
-                        wd, ci, co, dt, stream_of(x)), "basic_block_bwd")
+                        wd, ci, co, dt, stream_of(x)), "basic_block_bwd",
+          REFUSED_SHAPE)
     basic_block_bwd.launches += 1
     # (dbias1, dscale1, dbias2, dscale2, dscale_s) -> (s1, b1, s2, b2, ss, bs)
-    dsb = dsb[[1, 0, 3, 2, 4, 2]]
+    # by rows: an index list would be copied to the card and the host would
+    # wait for the stream
+    dsb = torch.stack((dsb[1], dsb[0], dsb[3], dsb[2], dsb[4], dsb[2]))
     return dx, dw1, dw2, dws, dsb
 
 

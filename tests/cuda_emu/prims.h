@@ -1,7 +1,8 @@
 // Host emulation of the PTX primitives of smsut_tpu_torch/csrc/mma_tile.cuh,
 // written from the PTX ISA and independent of the kernel's own index
 // helpers: ldmatrix (.x4, .x2, .trans), mma.sync.m16n8k16 bf16 with float32
-// accumulators, and cp.async with commit and wait groups.
+// accumulators, cp.async with commit and wait groups, and the warp shuffle
+// __shfl_xor_sync (full mask).
 //
 // A warp collective posts each lane's operands to a per-warp exchange
 // slot, meets the warp's other lanes at a barrier, computes its own lane's
@@ -18,7 +19,7 @@ namespace smsut {
 
 typedef __nv_bfloat16 bf16;
 
-struct EmuLane { uint32_t addr; uint32_t a[4]; uint32_t b[2]; };
+struct EmuLane { uint32_t addr; uint32_t a[4]; uint32_t b[2]; float f; };
 inline EmuLane emu_xch[32][32];
 inline std::atomic<long> emu_ldmatrix{0}, emu_conflicts{0};
 inline bool emu_defer = false;
@@ -114,6 +115,21 @@ inline void mma_16816(float d[4], const uint32_t a[4], uint32_t b0,
       d[2 * h + j] += s;
     }
   emu_warp_sync();
+}
+
+// every lane of the warp takes part (mask 0xffffffff): lane l gets v of
+// lane l ^ m
+inline float __shfl_xor_sync(unsigned mask, float v, int m) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (mask != 0xffffffffu || m < 1 || m > 31) {
+    fprintf(stderr, "__shfl_xor_sync: mask %x, lane mask %d\n", mask, m);
+    exit(4);
+  }
+  emu_xch[w][lane].f = v;
+  emu_warp_sync();
+  const float r = emu_xch[w][lane ^ m].f;
+  emu_warp_sync();
+  return r;
 }
 
 struct EmuCopy { uint32_t dst; const void* src; bool valid; };

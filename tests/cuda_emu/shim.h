@@ -56,6 +56,10 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
 }
+// float32 arithmetic rounded once per operation (no contraction into an
+// FMA), as the device intrinsics give it
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1-K3 forward, K4-K6 backward (and K2 as the dx of a conv), K2's and
-K5's tensor-core paths at every 3x3 conv of the training step and their
-routing by dtype, the launch counts of the U-Net's serving and training
+K5's tensor-core paths at every 3x3 conv of the training step, K3's and
+K6's at the U-Net's nine blocks, their routing by dtype and their runs bit
+for bit, the launch counts of the U-Net's serving and training
 steps, and its gradients against the plain path; the three tensor-core conv
 kernels of the conv microbench (dots, im2col, im2col2) and the microbench
 itself.  Each test skips on a host without an NVIDIA GPU.
@@ -75,19 +76,36 @@ def test_conv3x3(rng, cuda_device, shape, cout, dtype, tol):
                         tol)
 
 
-@pytest.mark.parametrize("dtype,tol", [(F32, 1e-3), (BF16, 0.05)])
-@pytest.mark.parametrize("ci,co,hw", [(32, 16, 256), (128, 256, 16),
-                                      (64, 64, 64), (24, 48, 13)])
-def test_block(rng, cuda_device, ci, co, hw, dtype, tol):
-    x = rng.standard_normal((8, hw, hw, ci)).astype(np.float32)
-    args = [t(x, dtype, cuda_device), t(conv_w(rng, 3, ci, co), dtype,
-                                        cuda_device)]
-    args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
-    args += [t(conv_w(rng, 3, co, co), dtype, cuda_device)]
-    args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
+# the U-Net's nine BasicBlocks (width 16, 256^2), all of the shortcut
+# form: (Cin, Cout, map side)
+UNET_BLOCKS = ((8, 16, 256), (32, 16, 256), (16, 32, 128), (64, 32, 128),
+               (32, 64, 64), (128, 64, 64), (64, 128, 32), (256, 128, 32),
+               (128, 256, 16))
+# float32 (the parity path, CUDA-core convs) at its earlier shapes; bfloat16
+# (the tensor cores) at the nine blocks, the identity form and a ragged map
+BLOCK_F32 = ((32, 16, 256), (128, 256, 16), (64, 64, 64), (24, 48, 13))
+BLOCK_CASES = ([(F32, 1e-3, *c) for c in BLOCK_F32]
+               + [(BF16, 0.05, *c) for c in UNET_BLOCKS
+                  + ((64, 64, 64), (24, 48, 13))])
+
+
+def _block_args(rng, device, ci, co, hw, dtype, batch=8):
+    x = rng.standard_normal((batch, hw, hw, ci)).astype(np.float32)
+    args = [t(x, dtype, device), t(conv_w(rng, 3, ci, co), dtype, device)]
+    args += [t(a, device=device) for a in norm_params(rng, co)]
+    args += [t(conv_w(rng, 3, co, co), dtype, device)]
+    args += [t(a, device=device) for a in norm_params(rng, co)]
     if ci != co:
-        args += [t(conv_w(rng, 1, ci, co, std=0.3), dtype, cuda_device)]
-        args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
+        args += [t(conv_w(rng, 1, ci, co, std=0.3), dtype, device)]
+        args += [t(a, device=device) for a in norm_params(rng, co)]
+    else:
+        args += [None, None, None]
+    return args
+
+
+@pytest.mark.parametrize("dtype,tol,ci,co,hw", BLOCK_CASES)
+def test_block(rng, cuda_device, ci, co, hw, dtype, tol):
+    args = _block_args(rng, cuda_device, ci, co, hw, dtype)
     _held_against_plain(block.basic_block_fwd, block.basic_block_fwd, args,
                         tol)
 
@@ -197,21 +215,15 @@ def test_conv3x3_dx_with_eight_channels(rng, cuda_device, dtype, tol):
         assert a.dtype == dtype and rel_err(a, b) <= tol
 
 
-@pytest.mark.parametrize("dtype,tol", [(F32, 1e-3), (BF16, 0.05)])
-@pytest.mark.parametrize("ci,co,hw", [(32, 16, 256), (8, 16, 256),
-                                      (64, 64, 64), (24, 48, 13)])
+BLOCK_BWD_F32 = ((32, 16, 256), (8, 16, 256), (64, 64, 64), (24, 48, 13))
+BLOCK_BWD_CASES = ([(F32, 1e-3, *c) for c in BLOCK_BWD_F32]
+                   + [(BF16, 0.05, *c) for c in UNET_BLOCKS
+                      + ((64, 64, 64), (24, 48, 13))])
+
+
+@pytest.mark.parametrize("dtype,tol,ci,co,hw", BLOCK_BWD_CASES)
 def test_block_bwd(rng, cuda_device, ci, co, hw, dtype, tol):
-    x = rng.standard_normal((8, hw, hw, ci)).astype(np.float32)
-    args = [t(x, dtype, cuda_device), t(conv_w(rng, 3, ci, co), dtype,
-                                        cuda_device)]
-    args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
-    args += [t(conv_w(rng, 3, co, co), dtype, cuda_device)]
-    args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
-    if ci != co:
-        args += [t(conv_w(rng, 1, ci, co, std=0.3), dtype, cuda_device)]
-        args += [t(a, device=cuda_device) for a in norm_params(rng, co)]
-    else:
-        args += [None, None, None]
+    args = _block_args(rng, cuda_device, ci, co, hw, dtype)
     _, res = block.basic_block_fwd(*args, save=True)
     x_, w1, s1, _, w2, s2, _, ws, ss, _ = args
     g = t(rng.standard_normal((8, hw, hw, co)).astype(np.float32), dtype,
@@ -284,6 +296,50 @@ def test_conv3x3_routes_by_dtype(rng, cuda_device, dtype, fwd, dw):
     assert not any(o in n for n in names for o in other), names
 
 
+@pytest.mark.parametrize("dtype,conv,other", [
+    (BF16, ("conv3x3_tc_kernel", "conv3x3_dw_tc_kernel"),
+     ("conv_tile_kernel", "dw_partial_kernel", "dw_reduce_kernel")),
+    (F32, ("conv_tile_kernel", "dw_partial_kernel"),
+     ("conv3x3_tc_kernel", "conv3x3_dw_tc_kernel"))])
+def test_block_routes_by_dtype(rng, cuda_device, dtype, conv, other):
+    """K3 and K6 in bfloat16 run every conv on the tensor cores and none on
+    the CUDA-core tiles; float32 (the parity path) the other way round."""
+    args = _block_args(rng, cuda_device, 32, 16, 64, dtype, batch=2)
+    x, w1, s1, _, w2, s2, _, ws, ss, _ = args
+    g = torch.randn((2, 64, 64, 16), device=cuda_device).to(dtype)
+
+    def run():
+        _, res = block.basic_block_fwd(*args, save=True)
+        block.basic_block_bwd(g, x, w1, s1, w2, s2, ws, ss, res)
+    names = _kernel_names(run)
+    assert all(any(c in n for n in names) for c in conv), names
+    assert not any(o in n for n in names for o in other), names
+
+
+@pytest.mark.parametrize("ci,co,hw", [(32, 16, 256), (64, 64, 64)])
+def test_block_tensor_cores_bit_for_bit(rng, cuda_device, ci, co, hw):
+    """K3's and K6's bfloat16 chains add their partials in a fixed order,
+    with no atomics: two runs agree bit for bit (level 0, many statistics
+    tiles and dw splits; the identity form)."""
+    args = _block_args(rng, cuda_device, ci, co, hw, BF16)
+    x, w1, s1, _, w2, s2, _, ws, ss, _ = args
+    g = t(rng.standard_normal((8, hw, hw, co)).astype(np.float32), BF16,
+          cuda_device)
+    # the (g, h) and (mean, rstd) rows the chain writes: the shortcut
+    # norm's row only in the shortcut form
+    norms = 3 if ws is not None else 2
+    runs = []
+    for _ in range(2):
+        out, res = block.basic_block_fwd(*args, save=True)
+        grads = block.basic_block_bwd(g, x, w1, s1, w2, s2, ws, ss, res)
+        runs.append([out, res.y1, res.y2, res.u, res.gh[:norms],
+                     res.st[:norms], *grads])
+    for a, b in zip(*runs):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
 def test_conv3x3_dw_tensor_cores_bit_for_bit(rng, cuda_device):
     """K5's bf16 path adds its partials in a fixed order, with no atomics:
     two runs agree bit for bit (the step's widest level-0 shape, several
@@ -292,6 +348,31 @@ def test_conv3x3_dw_tensor_cores_bit_for_bit(rng, cuda_device):
     a = conv3x3.conv3x3_dw(x, g)
     b = conv3x3.conv3x3_dw(x, g)
     assert torch.equal(a, b)
+
+
+def test_dw_then_block_bwd_each_opt_in(rng, cuda_device):
+    """K5 and K6's dw1 at 32 -> 64 on 64^2 launch the same instantiation of
+    conv3x3_dw_tc_kernel, over 48 KB of shared memory, each from its own
+    library: each library's copy must be opted in to its shared memory,
+    whichever ran first, so both launch here in one test."""
+    x, _, g = _step_conv(rng, cuda_device, 64, 32, 64)
+    got, counts = _launches(lambda: conv3x3.conv3x3_dw(x, g))
+    assert counts == (0, 0, 0, 0, 1, 0)
+    with ops.plain():
+        assert rel_err(got, conv3x3.conv3x3_dw(x, g)) <= 0.05
+    args = _block_args(rng, cuda_device, 32, 64, 64, BF16, batch=2)
+    x_, w1, s1, _, w2, s2, _, ws, ss, _ = args
+    _, res = block.basic_block_fwd(*args, save=True)
+    gy = t(rng.standard_normal((2, 64, 64, 64)).astype(np.float32), BF16,
+           cuda_device)
+    bargs = (gy, x_, w1, s1, w2, s2, ws, ss, res)
+    got, counts = _launches(lambda: block.basic_block_bwd(*bargs))
+    assert counts == (0, 0, 0, 0, 0, 1)
+    with ops.plain():
+        want = block.basic_block_bwd(*bargs)
+    for a, w in zip(got, want):
+        if w is not None:
+            assert rel_err(a, w) <= 0.05
 
 
 def test_conv3x3_tensor_cores_refuse_what_they_do_not_take(cuda_device):

@@ -9,10 +9,14 @@ against a float64 reference by one check program per source:
   within one bf16 unit (tests/cuda_emu/conv3x3_mma_check.cpp);
 - ``csrc/conv3x3_tc.cuh``, K2's bfloat16 path, at every block shape of
   each case's channel width, within one bf16 unit
-  (tests/cuda_emu/conv3x3_tc_check.cpp);
+  (tests/cuda_emu/conv3x3_tc_check.cpp), and the options that K3's and
+  K6's bfloat16 chains use (``EMU_OPTS``): the statistics' partials
+  against float64 sums, the norm applied while staging with its zero
+  halo, the mask and add epilogues, a float32 output, the 1x1 conv;
 - ``csrc/conv3x3_dw_tc.cuh``, K5's bfloat16 path, within 1e-5 of the sum
   of |x * g| of each element, two runs bit for bit
-  (tests/cuda_emu/conv3x3_dw_tc_check.cpp).
+  (tests/cuda_emu/conv3x3_dw_tc_check.cpp), and K6's options: the 1x1
+  weight gradient and the norm applied while staging.
 
 This checks the kernels' own index logic (fragment addressing, halos,
 channel chunks, tiles and masks, splits, the host-side refusal of a shape)
@@ -59,16 +63,24 @@ def _replace(text: str, old: str, new: str, count: int) -> str:
 
 
 def _generate(out: Path, source: str, generated: str, subs) -> None:
-    """``source`` of csrc with the changes ``subs`` as ``generated``, and
+    """``source`` of csrc with the changes ``subs`` as ``generated``;
     mma_tile.cuh with its PTX primitives and launch syntax given to the
-    emulation as mma_tile_emu.cuh, into ``out``."""
+    emulation as mma_tile_emu.cuh; and the scalar helpers of common.cuh
+    (dtype conversion, the leaky ReLU, its mask, ``mul_add_rn``,
+    ``norm_act``, the epilogue kinds) as common_emu.cuh, into ``out``."""
     cu = (CSRC / source).read_text()
     for old, new, count in subs:
         cu = _replace(cu, old, new, count)
     (out / generated).write_text(cu)
+    c = (CSRC / "common.cuh").read_text()
+    start = c.index("namespace smsut {")
+    end = c.index("// 4 consecutive elements")
+    (out / "common_emu.cuh").write_text(
+        "#pragma once\n" + c[start:end] + "}  // namespace smsut\n")
     h = (CSRC / "mma_tile.cuh").read_text()
     h = _replace(h, '#include "common.cuh"',
-                 '#include "shim.h"\n#include "prims.h"', 1)
+                 '#include "shim.h"\n#include "common_emu.cuh"\n'
+                 '#include "prims.h"', 1)
     h = _replace(h, "typedef __nv_bfloat16 bf16;", "", 1)
     h = _replace(h, "kernel<<<grid, threads, smem, s>>>(args...);",
                  "emu_launch(kernel, grid, threads, smem, s, args...);", 1)
@@ -143,6 +155,34 @@ def test_conv3x3_tc_kernel_in_emulation(tc_binary, env):
         assert any("fits 0 " in l for l in lines)
         assert any("fits 1 " in l for l in lines)
         assert lines[-3] != "chunked runs 0"
+
+
+@pytest.mark.parametrize("env", [
+    ENVS["copies_at_once"], ENVS["copies_at_wait"],
+    # the norm applied to chunks double-buffered by cp.async
+    {"EMU_OPTIN": "50000", "EMU_DEFER": "1"},
+], ids=["copies_at_once", "copies_at_wait", "channel_chunks"])
+def test_conv3x3_tc_block_options_in_emulation(tc_binary, env):
+    """K3's and K6's convs on the tensor cores: STATS, PRO, KS 1, the mask
+    and add epilogues and a float32 output, each at every block shape."""
+    lines = _run(tc_binary, {"EMU_OPTS": "1", **env})
+    for what in ("stats", "stats+pro", "ks1+stats", "mask", "add",
+                 "ks1+f32"):
+        assert any(l.startswith(what + " ") for l in lines), what
+    if "EMU_OPTIN" in env:
+        assert any(l.startswith("stats+pro ") and " chunks 1 " not in l
+                   and "fits 1" in l for l in lines)
+
+
+@pytest.mark.parametrize("env", list(ENVS.values()), ids=list(ENVS))
+def test_conv3x3_dw_tc_block_options_in_emulation(dw_tc_binary, env):
+    """K6's weight gradients on the tensor cores: the 1x1 conv's (dws) and
+    dw2's, with z1 rebuilt from y1 while staging."""
+    lines = _run(dw_tc_binary, {"EMU_OPTS": "1", **env})
+    for what in ("ks1", "pro"):
+        assert any(l.startswith(what + " ") for l in lines), what
+    assert any(l.startswith("pro ") and " of 1 tiles" not in l
+               for l in lines)
 
 
 @pytest.mark.parametrize("env", list(ENVS.values()), ids=list(ENVS))
