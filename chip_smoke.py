@@ -13,13 +13,16 @@
    block, both block forms) against its plain PyTorch version on the card,
    at the U-Net's shapes, in float32 (TF32 off) and bfloat16, and times the
    kernel, the plain version, one PyTorch library call of the same
-   function (a yardstick the port never calls) and the card's bound.  In
-   bfloat16 K2 runs at all 14 3x3 convs of the training step, K3 at the
-   U-Net's nine blocks and the identity form.
-   2b. The same for each backward kernel: K4 (norm backward), K5 (conv
-   weight gradient) and K2 as the dx of a conv, both in bfloat16 at all 14
-   3x3 convs of the step, and K6 (block backward, both forms; bfloat16 at
-   the nine blocks and the identity form).
+   function (a yardstick the port never calls) and the card's bound.  K1
+   runs at the six distinct (map, channels) of the step's 28 norms and at
+   3 and 12 channels, in both dtypes, with the plan each shape takes
+   (resident in a cluster's shared memory, or two passes; K4 two passes)
+   and two runs bit for bit.  In bfloat16 K2 runs at all 14 3x3 convs of the training step,
+   K3 at the U-Net's nine blocks and the identity form.
+   2b. The same for each backward kernel: K4 (norm backward, at K1's
+   shapes), K5 (conv weight gradient) and K2 as the dx of a conv, both in
+   bfloat16 at all 14 3x3 convs of the step, and K6 (block backward, both
+   forms; bfloat16 at the nine blocks and the identity form).
    2c. The same for the three tensor-core conv kernels (dots, im2col,
    im2col2, the candidates of the conv microbench), bfloat16, at the
    microbench's shape [16,128,128,64] -> 64 and at [4,64,64,32] -> 32,
@@ -39,7 +42,12 @@
    first 3 losses against the plain path; records the median step time,
    the device idle share and the device time per step of each kernel
    family (``smsut_tpu_torch/tools/profile_step.py`` ``step_profile``),
-   and fails if a bfloat16 step ran a CUDA-core conv.
+   and fails if a bfloat16 step ran a CUDA-core conv.  Neither mode routes
+   a conv or block to plain PyTorch at width 16 (``conv3x3.conv3x3.routed``
+   and ``block.basic_block.routed`` stay 0).  Then trains width 8, whose
+   first and last blocks' 3x3 convs the kernels do not take, 3 steps in
+   both modes: the launch and routed counts per step, a finite loss, and
+   the float32 step-1 gradients against the plain path (phase 4's rules).
 5. Runs the port's conv microbench (``smsut_tpu_torch.tools.microbench_conv``)
    at batch 16 with 20 applications per chain: the three tensor-core
    kernels, K2 and the library conv, each checked against the plain
@@ -100,6 +108,13 @@ MARGIN = 0.05
 ARGMAX_MIN_CLEAR = 0.999
 
 REQUESTS = 20
+# the distinct norm shapes of the training step (w16 U-Net, 256^2, batch
+# 8): map side, channels and the activation of one of its sites; then 3
+# and 12 channels, the scalar path.  K1 and K4 run at each, in both dtypes.
+NORM_SHAPES = ((8, 256, 256, 16, True), (8, 256, 256, 8, True),
+               (8, 128, 128, 32, True), (8, 64, 64, 64, True),
+               (8, 32, 32, 128, True), (8, 16, 16, 256, False),
+               (3, 11, 9, 3, True), (8, 64, 64, 12, False))
 # the 3x3 convs of the training step (w16 U-Net, 256^2, batch 8): map
 # side, forward Cin and Cout.  The dx of each is K2 on the flipped kernel
 # (Cout -> Cin), its weight gradient K5.  bfloat16 runs all of them; the
@@ -144,6 +159,16 @@ PER_STEP = {False: {"instnorm": 28, "conv3x3": 36, "block": 0,
             True: {"instnorm": 1, "conv3x3": 0, "block": 9,
                    "instnorm_bwd": 1, "conv3x3_dw": 0, "block_bwd": 9}}
 STEPS = 10
+# width 8: launches and routed calls per step (forward + backward); the
+# first and last blocks' four 3x3 convs go to plain PyTorch, and with
+# block_pallas those two blocks run the unfused chain
+W8_STEPS = 3
+PER_STEP_W8 = {False: {"instnorm": 28, "conv3x3": 28, "block": 0,
+                       "instnorm_bwd": 28, "conv3x3_dw": 14, "block_bwd": 0},
+               True: {"instnorm": 7, "conv3x3": 0, "block": 7,
+                      "instnorm_bwd": 7, "conv3x3_dw": 0, "block_bwd": 7}}
+ROUTED_W8 = {False: {"conv3x3": 4, "block": 0},
+             True: {"conv3x3": 4, "block": 2}}
 # phase 5: the microbench's applications per chain, and the launches of
 # each wrapper: per candidate one checked call, two warm-up applications
 # and the chain; im2col and im2col2 are two candidates each (strip 16, 32)
@@ -260,10 +285,10 @@ def grad_call(torch, fn, inputs, cot):
 
 
 def record(torch, ops, rows, name, label, dt_name, fn, args, library, flops,
-           nbytes, iters, peak=None):
+           nbytes, iters, peak=None, extra=None):
     """Hold ``fn(*args)`` against its plain version (``ops.plain()``) on the
     card, time the kernel, the plain version and the library call (device
-    time, ``time_ms``), and append the row."""
+    time, ``time_ms``), and append the row, with ``extra``'s keys."""
     as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
     with ops.plain():
         want = as_tuple(fn(*args))
@@ -284,7 +309,8 @@ def record(torch, ops, rows, name, label, dt_name, fn, args, library, flops,
            "ms": time_ms(lambda: fn(*args), iters),
            "plain_ms": None, "library_ms": None,
            "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           **(extra or {})}
     with ops.plain():
         row["plain_ms"] = time_ms(lambda: fn(*args), max(2, iters // 5))
     row["library_ms"] = time_ms(library, iters)
@@ -293,10 +319,30 @@ def record(torch, ops, rows, name, label, dt_name, fn, args, library, flops,
           f"{row['max_abs_err']:.3g}, rel err {err:.3g} (tol {tol}) "
           f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
           f"library {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
-          f"({row['bound_by']})", flush=True)
+          f"({row['bound_by']})"
+          + "".join(f" {k} {v}" for k, v in (extra or {}).items()),
+          flush=True)
     if not err <= tol:
         raise AssertionError(f"{name} {label} {dt_name}: error {err} "
                              f"above {tol}")
+
+
+def norm_plan(instnorm, kind: str, shape, dt) -> str:
+    """The plan K1 (``kind`` "fwd") or K4 ("bwd") takes at ``shape``."""
+    b, h, w, c = shape
+    p = instnorm.plan(kind, b, h * w, c, dt)
+    how = (f"resident, clusters of {p['nsplit']}" if p["resident"] else
+           f"two-pass, {p['nsplit']} splits")
+    return (f"{how}, {p['ng']} groups of {p['G']}, "
+            f"{'vec' if p['vec'] else 'scalar'}, {p['rows']} pixels per "
+            f"block, {p['smem']} B shared")
+
+
+def same_twice(torch, name, shape, fn, args) -> None:
+    """Two calls give the same bits (no float atomics in the sums)."""
+    a, b = fn(*args), fn(*args)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError(f"{name} {list(shape)}: two runs differ")
 
 
 def check_kernels(torch, F, ops, instnorm, conv3x3, block):
@@ -307,9 +353,9 @@ def check_kernels(torch, F, ops, instnorm, conv3x3, block):
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[-1]
         isz = torch.tensor([], dtype=dt).element_size()
-        # K1: the level-0 norms (256^2 x 16) and the bottleneck (16^2 x 256)
-        for shape, act in (((8, 256, 256, 16), True), ((8, 16, 16, 256), False)):
-            b, h, w, c = shape
+        # K1: every distinct norm shape of the step, and 3 and 12 channels
+        for (b, h, w, c, act) in NORM_SHAPES:
+            shape = (b, h, w, c)
             x = cases.randn(*shape, mean=0.3, dtype=dt)
             s, bb = cases.norm_params(c)
             lib = lambda x=x, s=s, bb=bb, act=act: (
@@ -319,11 +365,14 @@ def check_kernels(torch, F, ops, instnorm, conv3x3, block):
                              0.01) if act else
                 F.instance_norm(x.permute(0, 3, 1, 2), weight=s.to(x.dtype),
                                 bias=bb.to(x.dtype), eps=1e-5))
+            same_twice(torch, "instnorm", shape, instnorm.instance_norm_fwd,
+                       (x, s, bb, act))
             record(torch, ops, rows, "instnorm", f"{list(shape)} act={act}",
                    dn, lambda *a: instnorm.instance_norm_fwd(*a)[0],
                    (x, s, bb, act), lib, flops=8 * x.numel(),
                    nbytes=2 * x.numel() * isz + 4 * 4 * c + 2 * 4 * b * c,
-                   iters=20)
+                   iters=20, extra={"plan": norm_plan(instnorm, "fwd", shape,
+                                                      dt)})
         # K2: float32 at decoder level 0 (32 -> 16), the stem block
         # (8 -> 16), decoder level 3 (256 -> 128 at 32^2) and the
         # bottleneck (128 -> 256); bfloat16 at every conv of the step
@@ -369,9 +418,9 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[-1]
         isz = torch.tensor([], dtype=dt).element_size()
-        # K4: the level-0 norm with lrelu and the bottleneck's affine norm
-        for shape, act in (((8, 256, 256, 16), True), ((8, 16, 16, 256), False)):
-            b, h, w, c = shape
+        # K4: at K1's shapes
+        for (b, h, w, c, act) in NORM_SHAPES:
+            shape = (b, h, w, c)
             x = cases.randn(*shape, mean=0.3, dtype=dt)
             g = cases.randn(*shape, dtype=dt)
             s, bb = cases.norm_params(c)
@@ -381,13 +430,16 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
                 y = F.instance_norm(xn, weight=s_.to(xn.dtype),
                                     bias=b_.to(xn.dtype), eps=1e-5)
                 return F.leaky_relu(y, 0.01) if act else y
+            same_twice(torch, "instnorm_bwd", shape, instnorm.instance_norm_bwd,
+                       (x, g, mean, rstd, s, bb, act))
             record(torch, ops, rows, "instnorm_bwd", f"{list(shape)} act={act}",
                    dn, instnorm.instance_norm_bwd,
                    (x, g, mean, rstd, s, bb, act),
                    grad_call(torch, lib_fwd, (nchw(x), s, bb), nchw(g)),
                    flops=12 * x.numel(),
                    nbytes=3 * x.numel() * isz + 6 * 4 * c + 2 * 4 * b * c,
-                   iters=20, peak=PEAK_F32_CORES)
+                   iters=20, peak=PEAK_F32_CORES,
+                   extra={"plan": norm_plan(instnorm, "bwd", shape, dt)})
         # K5: float32 at the dw of decoder level 0 (32 -> 16), the first
         # block (8 -> 16) and the bottleneck (128 -> 256 at 16^2);
         # bfloat16 at every conv of the step
@@ -471,7 +523,7 @@ def microbench(torch, counters):
     from smsut_tpu_torch.tools import microbench_conv
 
     torch.cuda.synchronize()
-    zero(counters)
+    zero(counters, {})
     rows = microbench_conv.main(["16", str(MB_ITERS)])
     torch.cuda.synchronize()
     counts = {k: c.launches for k, c in counters.items()}
@@ -517,12 +569,18 @@ def sass_hmma(path: Path) -> dict:
     return counts
 
 
-def zero(counters) -> None:
+def zero(counters, routed) -> None:
     for c in counters.values():
         c.launches = 0
+    for c in routed.values():
+        c.routed = 0
 
 
-def serve_modes(torch, ops, counters):
+def routed_counts(routed) -> dict:
+    return {k: c.routed for k, c in routed.items()}
+
+
+def serve_modes(torch, ops, counters, routed):
     """Phase 3: the full-width serving path in both block modes."""
     import numpy as np
 
@@ -549,7 +607,7 @@ def serve_modes(torch, ops, counters):
             raise AssertionError(f"manifest input {manifest['input']}")
         imgs = [torch.from_numpy(r).cuda() for r in reqs]
         torch.cuda.synchronize()
-        zero(counters)
+        zero(counters, routed)
         lat = []
         logits = []
         for img in imgs:
@@ -560,13 +618,15 @@ def serve_modes(torch, ops, counters):
             logits.append(y)
         counts = {k: c.launches for k, c in counters.items()}
         want = {k: PER_FORWARD[fused].get(k, 0) * REQUESTS for k in KERNELS}
+        rc = routed_counts(routed)
         q1, med, q3 = statistics.quantiles(lat[1:], n=4)
         print(f"serve block_pallas={fused}: launches {counts} "
-              f"(expected {want}); latency per batch of 8: first "
+              f"(expected {want}), routed {rc}; latency per batch of 8: first "
               f"{lat[0]:.3f} ms, then median {med:.3f} ms, quartiles "
               f"{q1:.3f}-{q3:.3f}", flush=True)
-        if counts != want:
-            raise AssertionError(f"launch counts {counts} != {want}")
+        if counts != want or any(rc.values()):
+            raise AssertionError(f"launch counts {counts} != {want}, or "
+                                 f"routed {rc}")
         for y in logits:
             if tuple(y.shape) != (8, 256, 256, 5) or y.dtype != torch.float32 \
                     or not bool(torch.isfinite(y).all()):
@@ -598,7 +658,7 @@ def serve_modes(torch, ops, counters):
                     and c["argmax_agree"] >= ARGMAX_MIN[dtn]
                     and c["argmax_agree_clear"] >= ARGMAX_MIN_CLEAR):
                 raise AssertionError(f"logits disagree: {c}")
-        results[fused] = {"launches": counts, "latency_ms": lat,
+        results[fused] = {"launches": counts, "routed": rc, "latency_ms": lat,
                           "median_ms": med, "quartiles_ms": [q1, q3],
                           "checks": checks,
                           "profile": profile_device(
@@ -677,7 +737,7 @@ def bf16_accuracy(k16, p16, p32) -> dict:
             "plain_err_max": max(e for _, e in rows.values())}
 
 
-def train_modes(torch, ops, counters):
+def train_modes(torch, ops, counters, routed):
     """Phase 4: the full-width training step in both block modes."""
     import numpy as np
 
@@ -694,7 +754,7 @@ def train_modes(torch, ops, counters):
         algo = SupervisedUNet(cfg("bfloat16"))
         state = algo.init_state(seed=0)
         torch.cuda.synchronize()
-        zero(counters)
+        zero(counters, routed)
         losses, step_ms = [], []
         for _ in range(STEPS):
             t0 = time.perf_counter()
@@ -704,14 +764,16 @@ def train_modes(torch, ops, counters):
             step_ms.append((time.perf_counter() - t0) * 1e3)
         counts = {k: c.launches for k, c in counters.items()}
         want = {k: STEPS * PER_STEP[fused].get(k, 0) for k in KERNELS}
+        rc = routed_counts(routed)
         med = statistics.median(step_ms[1:])
         q1, _, q3 = statistics.quantiles(step_ms[1:], n=4)
         print(f"train block_pallas={fused}: launches {counts} (expected "
-              f"{want}); losses {[round(x, 5) for x in losses]}; step time "
-              f"first {step_ms[0]:.3f} ms, then median {med:.3f} ms, "
-              f"quartiles {q1:.3f}-{q3:.3f}", flush=True)
-        if counts != want:
-            raise AssertionError(f"launch counts {counts} != {want}")
+              f"{want}), routed {rc}; losses {[round(x, 5) for x in losses]}; "
+              f"step time first {step_ms[0]:.3f} ms, then median {med:.3f} "
+              f"ms, quartiles {q1:.3f}-{q3:.3f}", flush=True)
+        if counts != want or any(rc.values()):
+            raise AssertionError(f"launch counts {counts} != {want}, or "
+                                 f"routed {rc}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"loss not finite and falling: {losses}")
         prof = step_profile(
@@ -730,8 +792,7 @@ def train_modes(torch, ops, counters):
                   f"{n} {ms:.4f} ({k})" for n, (ms, k) in ran.items())
               + "; " + ", ".join(f"{k} {ms:.4f} ms"
                                  for k, ms in prof["families_ms"].items())
-              + (" (K3 holds the stem norm's finalize_kernel, K6 its "
-                 "norm-backward kernels, one launch each)" if fused else "")
+              + (" (K6 holds the stem norm's K4 launches)" if fused else "")
               + f", other {prof['other_ms']:.4f} ms", flush=True)
         if any(fn[n][1] for n in CUDA_CORE_CONVS):
             raise AssertionError(f"bf16 step ran a CUDA-core conv: {fn}")
@@ -774,10 +835,60 @@ def train_modes(torch, ops, counters):
               f"{LOSS_TOL})", flush=True)
         if not lerr <= LOSS_TOL:
             raise AssertionError(f"float32 losses disagree: {runs}")
-        results[fused] = {"launches": counts, "losses": losses,
+        results[fused] = {"launches": counts, "routed": rc, "losses": losses,
                           "step_ms": step_ms, "median_ms": med,
                           "quartiles_ms": [q1, q3], "profile": prof,
                           "grad_checks": checks, "f32_losses": runs}
+    return results
+
+
+def train_w8(torch, ops, counters, routed):
+    """Phase 4, width 8: the shapes the kernels do not take go to plain
+    PyTorch.  W8_STEPS steps in both block modes, their launch and routed
+    counts, and the float32 step-1 gradients against the plain path."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ellipse_batch(np).items()}
+    results = {}
+    for fused in (False, True):
+        cfg = lambda dtn: Config(input_size=256, base_width=8, batch_size=8,
+                                 compute_dtype=dtn, block_pallas=fused)
+        algo = SupervisedUNet(cfg("bfloat16"))
+        state = algo.init_state(seed=0)
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        losses = []
+        for _ in range(W8_STEPS):
+            state, m = algo.train_step(state, batch, {})
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        want = {k: W8_STEPS * PER_STEP_W8[fused].get(k, 0) for k in KERNELS}
+        rc = routed_counts(routed)
+        want_rc = {k: W8_STEPS * v for k, v in ROUTED_W8[fused].items()}
+        print(f"train w8 block_pallas={fused}: launches {counts} (expected "
+              f"{want}), routed {rc} (expected {want_rc}); losses "
+              f"{[round(x, 5) for x in losses]}", flush=True)
+        if counts != want or rc != want_rc:
+            raise AssertionError(f"w8 counts {counts}, {rc}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"w8 loss not finite: {losses}")
+        c = grad_parity(*step1_grads(ops, SupervisedUNet(cfg("float32")),
+                                     batch))
+        print(f"train w8 block_pallas={fused} float32: step-1 gradients of "
+              f"{c['n']} tensors vs the plain path: rel err max "
+              f"{c['rel_max']:.3g} ({c['worst_rel']}), L2 of all "
+              f"{c['l2_all']:.3g}, cosine min {c['cos_min']:.6f} "
+              f"({c['worst_cos']})", flush=True)
+        if not (c["rel_max"] <= GRAD_REL and c["l2_all"] <= GRAD_REL
+                and c["cos_min"] >= GRAD_COS):
+            raise AssertionError(f"w8 gradients disagree: {c}")
+        results[fused] = {"launches": counts, "routed": rc, "losses": losses,
+                          "grad_check": c}
     return results
 
 
@@ -834,11 +945,13 @@ def main() -> int:
                 "block_bwd": block.basic_block_bwd}
     counters.update({f"conv3x3_{v}": getattr(conv_mma, f"conv3x3_{v}")
                      for v in MMA_VARIANTS})
+    routed = {"conv3x3": conv3x3.conv3x3, "block": block.basic_block}
     t0 = time.perf_counter()
-    serve = serve_modes(torch, ops, counters)
+    serve = serve_modes(torch, ops, counters, routed)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    train = train_modes(torch, ops, counters)
+    train = train_modes(torch, ops, counters, routed)
+    w8 = train_w8(torch, ops, counters, routed)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     bench = microbench(torch, counters)
@@ -889,6 +1002,7 @@ def main() -> int:
                    "kernel_rows": rows,
                    "serve": {str(k): v for k, v in serve.items()},
                    "train": {str(k): v for k, v in train.items()},
+                   "train_w8": {str(k): v for k, v in w8.items()},
                    "microbench": bench, "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

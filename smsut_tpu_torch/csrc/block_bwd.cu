@@ -30,16 +30,16 @@
 // Design.  One TPU program holds a whole sample; here every per-sample
 // group sum crosses blocks, so K6 is a chain of launches on one stream,
 // each checked:
-//   1. sums of gp, gp*xh2 (and gp*xhs): partials, fixed-order finalize,
-//      fixed-order batch sums -> dbias2, dscale2 (dscale_s; dbias_s is
-//      dbias2: both sum the same gp);
+//   1. sums of gp, gp*xh2 (and gp*xhs): K4's sums pass, one launch whose
+//      last blocks add the splits and the samples in a fixed order ->
+//      dbias2, dscale2 (dscale_s; dbias_s is dbias2: both sum the same gp);
 //   2. one elementwise pass: dy2, and du (shortcut form) or gp in float32
 //      (identity form);
 //   3. dw2 (K5's device code) with z1 rebuilt while staging (PRO);
 //   4. dn1 = conv2^T(dy2) (K2's device code) with the z1 mask in its
 //      epilogue;
 //   5. sums of dn1, dn1*xh1 (K4's device code, instnorm_bwd.cuh) -> dbias1,
-//      dscale1;  6. dy1 (K4's apply pass);  7. dw1 (K5's device code);
+//      dscale1;  6. dy1 (K4's dx pass);  7. dw1 (K5's device code);
 //   8. shortcut form: dws (K5's, KS = 1) and du @ ws^T in float32 (the
 //      1x1 conv with a float32 output);
 //   9. dx = conv1^T(dy1) plus that float32 term in the epilogue.
@@ -58,7 +58,8 @@ using namespace smsut;
 
 // gp, xh2 (and xhs) of element e of the block's output; NS summands
 // gp, gp*xh2 (, gp*xhs) for the sums pass.
-template <typename T, bool SHORT> struct BlockOutSrc {
+template <typename T_, bool SHORT> struct BlockOutSrc {
+  typedef T_ T;
   static constexpr int NS = SHORT ? 3 : 2;
   const T* g;
   const T* y2;
@@ -71,31 +72,73 @@ template <typename T, bool SHORT> struct BlockOutSrc {
   const float* rs;
   int HW, C;
 
-  __device__ __forceinline__ void parts(float gv, float y2v, float iv, int b,
-                                        int c, float& gp, float& xh2,
-                                        float& xhs) const {
-    const int bc = b * C + c;
-    const float* G2 = gh2 + (size_t)2 * b * C;
-    float pre = mul_add_rn(y2v, G2[c], G2[C + c]);
+  // gp, xh2 and xhs of one element from its g, y2 and idn and its
+  // channel's (g, h) of norm 2 and the shortcut's norm, and their mean and
+  // rstd
+  __device__ __forceinline__ static void parts(float gv, float y2v, float iv,
+                                               float g2, float h2, float gs,
+                                               float hs, float m2v, float r2v,
+                                               float msv, float rsv, float& gp,
+                                               float& xh2, float& xhs) {
+    float pre = mul_add_rn(y2v, g2, h2);
     if (SHORT) {
-      const float* GS = ghs + (size_t)2 * b * C;
-      pre = __fadd_rn(pre, mul_add_rn(iv, GS[c], GS[C + c]));
-      xhs = __fmul_rn(__fsub_rn(iv, ms[bc]), rs[bc]);
+      pre = __fadd_rn(pre, mul_add_rn(iv, gs, hs));
+      xhs = __fmul_rn(__fsub_rn(iv, msv), rsv);
     } else {
       pre = __fadd_rn(pre, iv);
       xhs = 0.f;
     }
     gp = gv * lrelu_grad(pre);
-    xh2 = __fmul_rn(__fsub_rn(y2v, m2[bc]), r2[bc]);
+    xh2 = __fmul_rn(__fsub_rn(y2v, m2v), r2v);
   }
-  __device__ __forceinline__ void operator()(int b, int r, int c,
-                                             float v[NS]) const {
-    const size_t e = ((size_t)b * HW + r) * C + c;
-    float gp, xh2, xhs;
-    parts(to_f(g[e]), to_f(y2[e]), to_f(idn[e]), b, c, gp, xh2, xhs);
-    v[0] = gp;
-    v[1] = gp * xh2;
-    if (SHORT) v[NS - 1] = gp * xhs;
+  __device__ __forceinline__ void parts(float gv, float y2v, float iv, int b,
+                                        int c, float& gp, float& xh2,
+                                        float& xhs) const {
+    const int bc = b * C + c;
+    const float* G2 = gh2 + (size_t)2 * b * C;
+    const float* GS = SHORT ? ghs + (size_t)2 * b * C : nullptr;
+    parts(gv, y2v, iv, G2[c], G2[C + c], SHORT ? GS[c] : 0.f,
+          SHORT ? GS[C + c] : 0.f, m2[bc], r2[bc], SHORT ? ms[bc] : 0.f,
+          SHORT ? rs[bc] : 0.f, gp, xh2, xhs);
+  }
+  // the constants of V channels from c of sample b
+  template <int V> struct Chan {
+    float g2[V], h2[V], gs[V], hs[V], m2[V], r2[V], ms[V], rs[V];
+    __device__ __forceinline__ Chan(const BlockOutSrc& src, int b, int c) {
+      const int C = src.C;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int bc = b * C + c + k;
+        g2[k] = src.gh2[(size_t)2 * b * C + c + k];
+        h2[k] = src.gh2[(size_t)2 * b * C + C + c + k];
+        m2[k] = src.m2[bc];
+        r2[k] = src.r2[bc];
+        gs[k] = SHORT ? src.ghs[(size_t)2 * b * C + c + k] : 0.f;
+        hs[k] = SHORT ? src.ghs[(size_t)2 * b * C + C + c + k] : 0.f;
+        ms[k] = SHORT ? src.ms[bc] : 0.f;
+        rs[k] = SHORT ? src.rs[bc] : 0.f;
+      }
+    }
+  };
+  template <bool VEC>
+  __device__ __forceinline__ void unit(
+      const Chan<NormUnit<T, VEC>::V>& ch, int b, int px, int c,
+      float (&v)[NS][NormUnit<T, VEC>::V]) const {
+    constexpr int V = NormUnit<T, VEC>::V;
+    const size_t e = ((size_t)b * HW + px) * C + c;
+    float gv[V], yv[V], iv[V];
+    NormUnit<T, VEC>::load(g + e, gv);
+    NormUnit<T, VEC>::load(y2 + e, yv);
+    NormUnit<T, VEC>::load(idn + e, iv);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float gp, xh2, xhs;
+      parts(gv[k], yv[k], iv[k], ch.g2[k], ch.h2[k], ch.gs[k], ch.hs[k],
+            ch.m2[k], ch.r2[k], ch.ms[k], ch.rs[k], gp, xh2, xhs);
+      v[0][k] = gp;
+      v[1][k] = gp * xh2;
+      if (SHORT) v[NS - 1][k] = gp * xhs;
+    }
   }
 };
 
@@ -146,14 +189,19 @@ static size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
 // Scratch layout (bytes), one arena allocated by the wrapper.  The weight
 // gradients' partials follow each dtype's plan (conv_dw.cuh's dw_plan,
-// conv3x3_dw_tc.cuh's dw_tc_plan).
+// conv3x3_dw_tc.cuh's dw_tc_plan), the norm sums' the two-pass plans of
+// the two sums passes (instnorm_bwd.cuh); the sums of a pass come first.
 struct Arena {
-  size_t dy2, du, dn1, dy1, side, part, sums, dwpart, total;
+  size_t dy2, du, dn1, dy1, side, norm, dwpart, total;
+  NormPlan po, p1;  // the sums of the block's output, of norm 1
   Arena(int B, int H, int W, int Ci, int Co, int shortcut, int dtype) {
     const size_t tsz = dtype == 0 ? 4 : 2;
     const size_t mapo = align256((size_t)B * H * W * Co * tsz);
-    int nsplit, rows;
-    norm_splits(H * W, Co, &nsplit, &rows);
+    const int NS = shortcut ? 3 : 2;
+    po = norm_two_pass_plan(B, H * W, Co, (int)tsz, 3, NS);
+    p1 = norm_two_pass_plan(B, H * W, Co, (int)tsz, 2, 2);
+    const long long no = norm_scratch_elems(po, B, Co, NS),
+                    n1 = norm_scratch_elems(p1, B, Co, 2);
     const bool tc = dtype == 1;
     long long dwp = tc ? dw_tc_part_elems(B, H, W, Co, Co)
                        : dw_part_elems(B, H, W, Co, Co, 3);
@@ -169,8 +217,7 @@ struct Arena {
     dn1 = o; o += mapo;
     dy1 = o; o += mapo;
     side = o; o += align256((size_t)B * H * W * Ci * 4);
-    part = o; o += align256((size_t)B * nsplit * 3 * Co * 4);
-    sums = o; o += align256((size_t)B * 3 * Co * 4);
+    norm = o; o += align256((size_t)(no > n1 ? no : n1) * 4);
     dwpart = o; o += align256((size_t)dwp * 4);
     total = o;
   }
@@ -227,8 +274,9 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
                const float* gh, const float* st, const T* w1t, const T* w2t,
                const T* wst, const float* s1, const float* s2,
                const float* ss, T* dx, float* dw1, float* dw2, float* dws,
-               float* dsb, char* scratch, const Arena& A, int B, int H,
-               int W, int Ci, int Co, cudaStream_t s) {
+               float* dsb, char* scratch, unsigned int* tickets,
+               const Arena& A, int B, int H, int W, int Ci, int Co,
+               cudaStream_t s) {
   const int HW = H * W;
   const size_t BC = (size_t)B * Co;
   // stats [3][2][B][Co] = (mean, rstd) of norms 1, 2, s; gh [3][B][2][Co]
@@ -246,15 +294,14 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
   T* dn1 = (T*)(scratch + A.dn1);
   T* dy1 = (T*)(scratch + A.dy1);
   float* side = (float*)(scratch + A.side);
-  float* part = (float*)(scratch + A.part);
-  float* sums = (float*)(scratch + A.sums);
+  float* sums = (float*)(scratch + A.norm);  // [B][NS][Co], then partials
   float* dwpart = (float*)(scratch + A.dwpart);
   cudaError_t e;
 
   // 1-2. the pre-activation's cotangent: dsb rows 2, 3 (, 4)
   const BlockOutSrc<T, SHORT> src{g, y2, SHORT ? u : x, gh2, ghs,
                                   m2, r2, ms, rs, HW, Co};
-  e = launch_bwd_sums(src, part, sums, dsb + 2 * Co, B, HW, Co, s);
+  e = launch_norm_sums(src, A.po, B, sums, dsb + 2 * Co, tickets, s);
   if (e != cudaSuccess) return (int)e;
   const long long n4 = (long long)B * HW * Co / 4;
   block_dy2_kernel<T, SHORT><<<elementwise_blocks(n4), 256, 0, s>>>(
@@ -269,9 +316,9 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
   if (e != cudaSuccess) return (int)e;
   // 5-6. norm 1's backward: dsb rows 0, 1 and dy1
   const NormBwdSrc<T> n1{y1, dn1, m1, r1, s1, nullptr, HW, Co, 0};
-  e = launch_bwd_sums(n1, part, sums, dsb, B, HW, Co, s);
+  e = launch_norm_sums(n1, A.p1, B, sums, dsb, tickets, s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_norm_bwd_apply(n1, sums, dy1, B, s);
+  e = launch_norm_bwd_apply(n1, A.p1, sums, dy1, B, s);
   if (e != cudaSuccess) return (int)e;
   // 7. dw1 = corr(x, dy1)
   e = bwd_dw<3, false>(x, dy1, nullptr, dwpart, dw1, B, H, W, Ci, Co, s);
@@ -304,8 +351,9 @@ extern "C" long long smsut_block_bwd_scratch(int B, int H, int W, int Ci,
 // kernels flipped in space and IO-transposed, in x's dtype; s1, s2, ss [Co]
 // f32.  Out: dx [B][H][W][Ci] in x's dtype; dw1 [3][3][Ci][Co], dw2
 // [3][3][Co][Co], dws [Ci][Co] float32; dsb [5][Co] float32 = (dbias1,
-// dscale1, dbias2, dscale2, dscale_s), dbias_s == dbias2.  Ci % 8 == 0,
-// Co % 16 == 0.
+// dscale1, dbias2, dscale2, dscale_s), dbias_s == dbias2; tickets: the
+// norm sums' kNormTicketWords words, zero, kept for the stream
+// (instnorm.cuh).  Ci % 8 == 0, Co % 16 == 0.
 extern "C" int smsut_block_bwd(const void* g, const void* x, const void* y1,
                                const void* y2, const void* u, const void* gh,
                                const void* stats, const void* w1t,
@@ -313,8 +361,9 @@ extern "C" int smsut_block_bwd(const void* g, const void* x, const void* y1,
                                const void* s1, const void* s2,
                                const void* ss, void* dx, void* dw1,
                                void* dw2, void* dws, void* dsb,
-                               void* scratch, int B, int H, int W, int Ci,
-                               int Co, int dtype, void* stream) {
+                               void* scratch, void* tickets, int B, int H,
+                               int W, int Ci, int Co, int dtype,
+                               void* stream) {
   const int shortcut = wst != nullptr;
   if (Co % 16 != 0 || Ci % 8 != 0 || (!shortcut && Ci != Co) ||
       (shortcut && !u) || (dtype != 0 && dtype != 1) ||
@@ -327,7 +376,7 @@ extern "C" int smsut_block_bwd(const void* g, const void* x, const void* y1,
       (const float*)gh, (const float*)stats, (const T*)w1t, (const T*)w2t,  \
       (const T*)wst, (const float*)s1, (const float*)s2, (const float*)ss,  \
       (T*)dx, (float*)dw1, (float*)dw2, (float*)dws, (float*)dsb,           \
-      (char*)scratch, A, B, H, W, Ci, Co, s
+      (char*)scratch, (unsigned int*)tickets, A, B, H, W, Ci, Co, s
   if (dtype == 0)
     return shortcut ? run<float, true>(SMSUT_BWD_ARGS(float))
                     : run<float, false>(SMSUT_BWD_ARGS(float));

@@ -1,4 +1,5 @@
-// K1: instance norm (+ leaky ReLU) forward, NHWC, float32 or bfloat16.
+// K1: instance norm (+ leaky ReLU) forward, NHWC, float32 or bfloat16, any
+// number of channels.
 //
 // Replaces the TPU kernel smsut_tpu/ops/instnorm_pallas.py `_fwd_call`
 // (kernel `_make_fwd_kernel`; public `instance_norm_lrelu` /
@@ -7,123 +8,54 @@
 // optional LeakyReLU(0.01).  Also emits mean and rstd [B][C].
 //
 // Bound on the H100: memory.  It does a few operations per element, far
-// below the card's ~295 operations per byte, and moves two reads and one
-// write of x (the statistics pass, then the normalise pass).
+// below the card's ~295 operations per byte: the least it can move is one
+// read of x and one write of y.
 //
-// Design.  The TPU kernel keeps one sample's [H, W, C] map in VMEM and
-// reduces it in one program; a CUDA block cannot hold a 256x256 map, so
-// the H*W reduction is split across blocks:
-//   1. stats:    grid (nsplit, B); each block sums x and x^2 over one slice
-//                of H*W rows for every channel, threads laid out channel-
-//                fastest so a warp reads contiguous memory, and writes one
-//                f32 partial (sum, sumsq) per (sample, slice, channel);
-//   2. finalize: one thread per (sample, channel) adds the nsplit partials
-//                in a fixed order (no atomics: runs agree bit for bit) and
-//                writes mean and rstd;
-//   3. apply:    a grid-stride channels-last pass, 4 elements (16 or 8
-//                bytes) per thread: ((x - mean)*rstd)*scale + bias, act.
-// The wrapper (ops/instnorm.py) picks nsplit so that the card gets a few
-// hundred blocks, and checks the return code of every launch.
-#include "common.cuh"
+// Design (instnorm.cuh).  The TPU kernel keeps one sample's [H, W, C] map
+// in VMEM and makes one read and one write of it.  Here a thread-block
+// cluster keeps a sample's channel group in the shared memory of up to 16
+// blocks, which exchange their partial sums over distributed shared memory:
+// one launch, one read, one write (the resident plan).  Where the slices
+// do not fit, the clusters do not fit the card in one wave (a 16-block
+// cluster of 128 KB blocks fits 7 times on the H100, so bfloat16 at
+// [8,256,256,16] is out), or the blocks would hold too little to pay for
+// the cluster's synchronisation (16^2 x 256 in bfloat16), a sums pass and
+// an apply pass (the two-pass plan): two launches, and the second read
+// mostly hits the L2.  The plan is picked by shape (in_fwd_plan, printed by
+// the wrapper's `plan`).  No float atomics: runs agree bit for bit.
+#include "instnorm.cuh"
 
 using namespace smsut;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-in_stats_kernel(const T* __restrict__ x, int HW, int C, int rows,
-                float* __restrict__ part) {
-  const int b = blockIdx.y, s = blockIdx.x, nsplit = gridDim.x;
-  const int TX = C < 256 ? C : 256;
-  const int TY = 256 / TX;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int r0 = s * rows;
-  const int r1 = min(HW, r0 + rows);
-  __shared__ float red[2][256];
-  const T* xb = x + (size_t)b * HW * C;
-  for (int cbase = 0; cbase < C; cbase += TX) {
-    const int c = cbase + tx;
-    float s1 = 0.f, s2 = 0.f;
-    if (ty < TY && c < C) {
-      for (int r = r0 + ty; r < r1; r += TY) {
-        const float v = to_f(xb[(size_t)r * C + c]);
-        s1 += v;
-        s2 += v * v;
-      }
-    }
-    red[0][threadIdx.x] = s1;
-    red[1][threadIdx.x] = s2;
-    __syncthreads();
-    if (threadIdx.x < TX && c < C) {
-      float a = 0.f, q = 0.f;
-      for (int k = 0; k < TY; ++k) {
-        a += red[0][k * TX + tx];
-        q += red[1][k * TX + tx];
-      }
-      float* p = part + ((size_t)(b * nsplit + s) * 2) * C;
-      p[c] = a;
-      p[C + c] = q;
-    }
-    __syncthreads();
-  }
+// K1's plan for a shape on the current device, into out[kNormPlanWords] =
+// (resident, vec, ng, G, U, nsplit, rows, smem); returns the float32
+// elements of scratch it needs, -1 for a shape or dtype it does not take.
+extern "C" long long smsut_instnorm_fwd_plan(int B, int HW, int C, int dtype,
+                                             int* out) {
+  if (B < 1 || HW < 1 || C < 1 || (dtype != 0 && dtype != 1)) return -1;
+  const NormPlan p = dtype == 0 ? in_fwd_plan<float>(B, HW, C)
+                                : in_fwd_plan<__nv_bfloat16>(B, HW, C);
+  norm_plan_words(p, out);
+  return p.resident ? 0 : norm_scratch_elems(p, B, C, 2);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-in_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                const float* __restrict__ rstd, const float* __restrict__ scale,
-                const float* __restrict__ bias, T* __restrict__ y,
-                long long n4, int HWC, int C, int act) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long e = i * 4;
-    const int b = (int)(e / HWC);
-    const int c = (int)(e % C);
-    float v[4];
-    load4(x + e, v);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int bc = b * C + c + k;
-      float t = (v[k] - mean[bc]) * rstd[bc];
-      t = t * scale[c + k] + bias[c + k];
-      v[k] = act ? lrelu(t) : t;
-    }
-    store4(y + e, v);
-  }
-}
-
-template <typename T>
-static int run(const void* x, const void* scale, const void* bias, void* y,
-               void* mean, void* rstd, void* part, int B, int HW, int C,
-               int nsplit, int rows, int act, cudaStream_t s) {
-  in_stats_kernel<T><<<dim3(nsplit, B), 256, 0, s>>>(
-      (const T*)x, HW, C, rows, (float*)part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = launch_finalize((const float*)part, nsplit, B, C, HW, nullptr, nullptr,
-                      (float*)mean, (float*)rstd, nullptr, s);
-  if (e != cudaSuccess) return (int)e;
-  const long long n4 = (long long)B * HW * C / 4;
-  in_apply_kernel<T><<<elementwise_blocks(n4), 256, 0, s>>>(
-      (const T*)x, (const float*)mean, (const float*)rstd,
-      (const float*)scale, (const float*)bias, (T*)y, n4, HW * C, C, act);
-  return (int)cudaGetLastError();
-}
-
-// x, y [B][HW][C] (C % 4 == 0); scale, bias [C] f32; mean, rstd [B][C] f32;
-// part [B][nsplit][2][C] f32 scratch; rows = H*W rows per split.
+// x, y [B][HW][C], same dtype; scale, bias [C] f32; mean, rstd [B][C] f32;
+// plan: the words smsut_instnorm_fwd_plan gave for this shape, dtype and
+// device; scratch: the floats it asked for; tickets: kNormTicketWords
+// words, zero, kept for the stream.
 extern "C" int smsut_instnorm_fwd(const void* x, const void* scale,
                                   const void* bias, void* y, void* mean,
-                                  void* rstd, void* part, int B, int HW, int C,
-                                  int nsplit, int rows, int dtype, int act,
-                                  void* stream) {
-  if (C % 4 != 0 || nsplit < 1 || (long long)nsplit * rows < HW)
-    return (int)cudaErrorInvalidValue;
+                                  void* rstd, const int* plan, void* scratch,
+                                  void* tickets, int B, int HW, int C,
+                                  int dtype, int act, void* stream) {
+  if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return run<float>(x, scale, bias, y, mean, rstd, part, B, HW, C, nsplit,
-                      rows, act, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, scale, bias, y, mean, rstd, part, B, HW, C,
-                              nsplit, rows, act, s);
+#define SMSUT_IN_FWD(T)                                                      \
+  in_fwd<T>(norm_plan_of(plan), (const T*)x, (const float*)scale,            \
+            (const float*)bias, (T*)y, (float*)mean, (float*)rstd,         \
+            (float*)scratch, (unsigned int*)tickets, B, HW, C, act, s)
+  if (dtype == 0) return (int)SMSUT_IN_FWD(float);
+  if (dtype == 1) return (int)SMSUT_IN_FWD(__nv_bfloat16);
+#undef SMSUT_IN_FWD
   return (int)cudaErrorInvalidValue;
 }

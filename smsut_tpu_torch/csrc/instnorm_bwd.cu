@@ -1,4 +1,5 @@
-// K4: instance norm (+ leaky ReLU) backward, NHWC, float32 or bfloat16.
+// K4: instance norm (+ leaky ReLU) backward, NHWC, float32 or bfloat16, any
+// number of channels.
 //
 // Replaces the TPU kernel smsut_tpu/ops/instnorm_pallas.py `_bwd_call`
 // (kernel `_make_bwd_kernel`): from x, the forward's mean and rstd, scale,
@@ -8,57 +9,53 @@
 //   dx = scale*rstd*(d - mean(d) - xhat*mean(d*xhat))   in x's dtype;
 //   dscale = sum over b, H*W of d*xhat;  dbias = sum of d   (float32).
 //
-// Bound on the H100: memory.  A few operations per element against two
-// reads (x, g) and one write (dx); this version reads x and g twice.
+// Bound on the H100: memory.  A few operations per element against the
+// least traffic of two reads (x, g) and one write (dx).
 //
-// Design (instnorm_bwd.cuh): the TPU kernel holds one sample in VMEM and
-// reduces it in one program; here the per-(sample, channel) sums go through
-// per-slice float32 partials and a fixed-order finalize, as in K1, then a
-// fixed-order sum over the batch gives dscale and dbias, and a grid-stride
-// pass writes dx.  No atomics: runs agree bit for bit.
+// Design (instnorm_bwd.cuh, on K1's two-pass plan): the TPU kernel holds
+// one sample in VMEM and reduces it in one program.  Here two launches: the
+// sums pass, whose last blocks add the splits and then the samples in a
+// fixed order (elected by integer tickets), and the dx pass, whose read of
+// x and g mostly hits the L2.  No float atomics: runs agree bit for bit.
 #include "instnorm_bwd.cuh"
 
 using namespace smsut;
 
-template <typename T>
-static int run(const void* x, const void* g, const void* mean,
-               const void* rstd, const void* scale, const void* bias,
-               void* dx, void* dsb, void* part, void* sums, int B, int HW,
-               int C, int act, cudaStream_t s) {
-  NormBwdSrc<T> src{(const T*)x, (const T*)g, (const float*)mean,
-                    (const float*)rstd, (const float*)scale,
-                    (const float*)bias, HW, C, act};
-  cudaError_t e = launch_bwd_sums(src, (float*)part, (float*)sums,
-                                  (float*)dsb, B, HW, C, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_norm_bwd_apply(src, (const float*)sums, (T*)dx, B, s);
+// K4's plan for a shape, into out[kNormPlanWords] = (resident, vec, ng, G,
+// U, nsplit, rows, smem); returns the float32 elements of scratch it needs,
+// -1 for a shape or dtype it does not take.
+extern "C" long long smsut_instnorm_bwd_plan(int B, int HW, int C, int dtype,
+                                             int* out) {
+  if (B < 1 || HW < 1 || C < 1 || (dtype != 0 && dtype != 1)) return -1;
+  const NormPlan p = dtype == 0 ? in_bwd_plan<float>(B, HW, C)
+                                : in_bwd_plan<__nv_bfloat16>(B, HW, C);
+  norm_plan_words(p, out);
+  return norm_scratch_elems(p, B, C, 2);
 }
 
-// float32 elements of the scratch smsut_instnorm_bwd needs
-extern "C" long long smsut_instnorm_bwd_scratch(int B, int HW, int C) {
-  int nsplit, rows;
-  norm_splits(HW, C, &nsplit, &rows);
-  return (long long)B * (nsplit + 1) * 2 * C;
-}
-
-// x, g, dx [B][HW][C] (C % 4 == 0), same dtype; mean, rstd [B][C] f32 (the
-// forward's); scale, bias [C] f32; dsb [2][C] f32 = (dbias, dscale);
-// scratch: smsut_instnorm_bwd_scratch floats.
+// x, g, dx [B][HW][C], same dtype; mean, rstd [B][C] f32 (the forward's);
+// scale, bias [C] f32; dsb [2][C] f32 = (dbias, dscale); plan: the words
+// smsut_instnorm_bwd_plan gave for this shape and dtype; scratch: the
+// floats it asked for; tickets: kNormTicketWords words, zero, kept for the
+// stream.
 extern "C" int smsut_instnorm_bwd(const void* x, const void* g,
                                   const void* mean, const void* rstd,
                                   const void* scale, const void* bias,
-                                  void* dx, void* dsb, void* scratch, int B,
+                                  void* dx, void* dsb, const int* plan,
+                                  void* scratch, void* tickets, int B,
                                   int HW, int C, int dtype, int act,
                                   void* stream) {
-  if (C % 4 != 0 || B < 1 || HW < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  float* sums = (float*)scratch;
-  float* part = sums + (size_t)B * 2 * C;
-  if (dtype == 0)
-    return run<float>(x, g, mean, rstd, scale, bias, dx, dsb, part, sums, B,
-                      HW, C, act, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, g, mean, rstd, scale, bias, dx, dsb, part,
-                              sums, B, HW, C, act, s);
+#define SMSUT_IN_BWD(T)                                                      \
+  in_bwd<T>(norm_plan_of(plan),                                              \
+            NormBwdSrc<T>{(const T*)x, (const T*)g, (const float*)mean,      \
+                          (const float*)rstd, (const float*)scale,           \
+                          (const float*)bias, HW, C, act},                   \
+            (T*)dx, (float*)dsb, (float*)scratch, (unsigned int*)tickets, B, \
+            s)
+  if (dtype == 0) return (int)SMSUT_IN_BWD(float);
+  if (dtype == 1) return (int)SMSUT_IN_BWD(__nv_bfloat16);
+#undef SMSUT_IN_BWD
   return (int)cudaErrorInvalidValue;
 }

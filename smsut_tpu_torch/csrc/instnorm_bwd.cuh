@@ -7,188 +7,157 @@
 //   dx = scale * rstd * (d - S_d/n - xhat * S_dx/n),
 //   dscale = sum_b S_dx,  dbias = sum_b S_d.
 //
-// A 256x256 map does not fit one block, so the sums are taken as K1 takes
-// its statistics: bwd_sums_kernel cuts H*W into nsplit slices of rows, each
-// block writes one float32 partial per (sample, slice, sum, channel), and
-// bwd_finalize_kernel adds the slices in a fixed order; batch_sum_kernel
-// then adds the samples in a fixed order.  No atomics: runs agree bit for
-// bit.  Each summand comes from a source functor Src (NS values per
-// element), so K6 reuses the kernels for its pre-activation cotangent,
-// whose mask and xhat differ.
+// K4 takes K1's two-pass plan (instnorm.cuh): norm_sums_kernel, whose last
+// blocks also add the batch sums, then the dx pass.  (A resident plan, x and
+// g held in a cluster's shared memory, ran 0.0006-0.0023 ms slower than
+// these two passes wherever it fitted, 64^2 to 16^2, on the H100:
+// tools/norm_plans.cu.)  Each summand comes from a source (NS values per
+// element, per-channel constants loaded once per thread), so K6 takes the
+// sums pass for its pre-activation cotangent too, whose mask and xhat
+// differ.  No float atomics: runs agree bit for bit.
 #pragma once
 
-#include "common.cuh"
+#include "instnorm.cuh"
 
 namespace smsut {
 
-// The H*W split of the sums pass (the rule of ops/instnorm.py `splits`).
-inline void norm_splits(int hw, int c, int* nsplit, int* rows) {
-  long long n = ((long long)hw * c + 16383) / 16384;
-  if (n > 256) n = 256;
-  if (n > hw) n = hw;
-  if (n < 1) n = 1;
-  *rows = (int)((hw + n - 1) / n);
-  *nsplit = (hw + *rows - 1) / *rows;
-}
-
-// d and xhat of element e (channel c, sample b) of the instance norm
-// y = xhat*scale + bias, act: d = g masked by y >= 0 (the mask of
-// `_make_bwd_kernel`); the mask's y is computed with separate roundings.
-template <typename T> struct NormBwdSrc {
+// d and xhat of an element of the instance norm y = xhat*scale + bias, act:
+// d = g masked by y >= 0 (the mask of `_make_bwd_kernel`); the mask's y is
+// computed with separate roundings.
+template <typename T_> struct NormBwdSrc {
+  typedef T_ T;
   static constexpr int NS = 2;
   const T* x;
   const T* g;
   const float* mean;   // [B][C]
   const float* rstd;   // [B][C]
   const float* scale;  // [C]
-  const float* bias;   // [C]
+  const float* bias;   // [C], read only with act
   int HW, C, act;
 
-  __device__ __forceinline__ void d_xh(float xv, float gv, int b, int c,
-                                       float& d, float& xh) const {
-    const int bc = b * C + c;
-    xh = __fmul_rn(__fsub_rn(xv, mean[bc]), rstd[bc]);
+  // mean, rstd, scale and bias of V channels from c of sample b
+  template <int V> struct Chan {
+    float m[V], r[V], s[V], h[V];
+    __device__ __forceinline__ Chan(const NormBwdSrc& src, int b, int c) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        m[k] = src.mean[b * src.C + c + k];
+        r[k] = src.rstd[b * src.C + c + k];
+        s[k] = src.scale[c + k];
+        h[k] = src.act ? src.bias[c + k] : 0.f;
+      }
+    }
+  };
+  template <int V>
+  __device__ __forceinline__ void d_xh(float xv, float gv, const Chan<V>& ch,
+                                       int k, float& d, float& xh) const {
+    xh = __fmul_rn(__fsub_rn(xv, ch.m[k]), ch.r[k]);
     d = gv;
-    if (act && !(mul_add_rn(xh, scale[c], bias[c]) >= 0.f)) d = kSlope * gv;
+    if (act && !(mul_add_rn(xh, ch.s[k], ch.h[k]) >= 0.f)) d = kSlope * gv;
   }
-  __device__ __forceinline__ void operator()(int b, int r, int c,
-                                             float v[NS]) const {
-    const size_t e = ((size_t)b * HW + r) * C + c;
-    float d, xh;
-    d_xh(to_f(x[e]), to_f(g[e]), b, c, d, xh);
-    v[0] = d;
-    v[1] = d * xh;
+  // the summands d, d*xhat of V channels from their x and g
+  template <int V>
+  __device__ __forceinline__ void sums(const float (&xv)[V],
+                                       const float (&gv)[V],
+                                       const Chan<V>& ch,
+                                       float (&v)[NS][V]) const {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float d, xh;
+      d_xh(xv[k], gv[k], ch, k, d, xh);
+      v[0][k] = d;
+      v[1][k] = d * xh;
+    }
+  }
+  template <bool VEC>
+  __device__ __forceinline__ void unit(
+      const Chan<NormUnit<T, VEC>::V>& ch, int b, int px, int c,
+      float (&v)[NS][NormUnit<T, VEC>::V]) const {
+    constexpr int V = NormUnit<T, VEC>::V;
+    const size_t e = ((size_t)b * HW + px) * C + c;
+    float xv[V], gv[V];
+    NormUnit<T, VEC>::load(x + e, xv);
+    NormUnit<T, VEC>::load(g + e, gv);
+    sums<V>(xv, gv, ch, v);
+  }
+  // dx of V channels from their x, g and the sums S [NS][sstride] of their
+  // sample, from their first channel
+  template <int V>
+  __device__ __forceinline__ void dx(const float (&xv)[V],
+                                     const float (&gv)[V], const Chan<V>& ch,
+                                     const float* S, int sstride,
+                                     float (&out)[V]) const {
+    const float n = (float)HW;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float d, xh;
+      d_xh(xv[k], gv[k], ch, k, d, xh);
+      const float a = ch.s[k] * ch.r[k];
+      out[k] = a * (d - S[k] / n - xh * (S[sstride + k] / n));
+    }
   }
 };
 
-// grid (nsplit, B): block (s, b) sums Src's NS summands over rows
-// [s*rows, (s+1)*rows) of sample b, for every channel; threads are laid out
-// channel-fastest so that a warp reads contiguous memory.
-// part [B][nsplit][NS][C].
-template <class Src>
-__global__ void __launch_bounds__(256)
-bwd_sums_kernel(Src src, int HW, int C, int rows, float* __restrict__ part) {
-  constexpr int NS = Src::NS;
-  const int b = blockIdx.y, s = blockIdx.x, nsplit = gridDim.x;
-  const int TX = C < 256 ? C : 256;
-  const int TY = 256 / TX;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int r0 = s * rows;
-  const int r1 = min(HW, r0 + rows);
-  __shared__ float red[NS][256];
-  for (int cbase = 0; cbase < C; cbase += TX) {
-    const int c = cbase + tx;
-    float acc[NS];
-#pragma unroll
-    for (int k = 0; k < NS; ++k) acc[k] = 0.f;
-    if (ty < TY && c < C) {
-      for (int r = r0 + ty; r < r1; r += TY) {
-        float v[NS];
-        src(b, r, c, v);
-#pragma unroll
-        for (int k = 0; k < NS; ++k) acc[k] += v[k];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NS; ++k) red[k][threadIdx.x] = acc[k];
-    __syncthreads();
-    if (threadIdx.x < TX && c < C) {
-      float* p = part + ((size_t)(b * nsplit + s) * NS) * C;
-#pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        float a = 0.f;
-        for (int q = 0; q < TY; ++q) a += red[k][q * TX + tx];
-        p[(size_t)k * C + c] = a;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// sums[B][NS][C] = part summed over the nsplit slices, in order
-template <int NS>
-__global__ void bwd_finalize_kernel(const float* __restrict__ part,
-                                    int nsplit, int C,
-                                    float* __restrict__ sums) {
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    float s = 0.f;
-    for (int t = 0; t < nsplit; ++t)
-      s += part[((size_t)(b * nsplit + t) * NS + k) * C + c];
-    sums[((size_t)b * NS + k) * C + c] = s;
-  }
-}
-
-// out[k][c] = sum over b of sums[b][k][c], in order
-__global__ void batch_sum_kernel(const float* __restrict__ sums, int B,
-                                 int NS, int C, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= NS * C) return;
-  const int k = i / C, c = i % C;
-  float s = 0.f;
-  for (int b = 0; b < B; ++b) s += sums[((size_t)b * NS + k) * C + c];
-  out[i] = s;
-}
-
-// sums pass, finalize and batch sums: sums [B][NS][C], out [NS][C]
-template <class Src>
-cudaError_t launch_bwd_sums(const Src& src, float* part, float* sums,
-                            float* out, int B, int HW, int C,
-                            cudaStream_t s) {
-  constexpr int NS = Src::NS;
-  int nsplit, rows;
-  norm_splits(HW, C, &nsplit, &rows);
-  bwd_sums_kernel<Src><<<dim3(nsplit, B), 256, 0, s>>>(src, HW, C, rows,
-                                                       part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bwd_finalize_kernel<NS><<<dim3((C + 127) / 128, B), 128, 0, s>>>(
-      part, nsplit, C, sums);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  batch_sum_kernel<<<(NS * C + 127) / 128, 128, 0, s>>>(sums, B, NS, C, out);
-  return cudaGetLastError();
-}
-
-// dx = scale*rstd*(d - S_d/n - xhat*S_dx/n), 4 channels per thread.
-template <typename T>
-__global__ void __launch_bounds__(256)
+// Two-pass, the dx pass: grid (nsplit * ng, B), block (s, gi, b) writes dx
+// over its slice from x, g and the sums; thread t keeps unit t % U.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kNormThreads)
 norm_bwd_apply_kernel(NormBwdSrc<T> src, const float* __restrict__ sums,
-                      T* __restrict__ dx, long long n4) {
-  const int C = src.C;
-  const long long HWC = (long long)src.HW * C;
-  const float n = (float)src.HW;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long e = i * 4;
-    const int b = (int)(e / HWC);
-    const int c = (int)(e % C);
-    float xv[4], gv[4], out[4];
-    load4(src.x + e, xv);
-    load4(src.g + e, gv);
+                      T* __restrict__ dx, NormPlan p) {
+  using Un = NormUnit<T, VEC>;
+  constexpr int V = Un::V;
+  const int t = threadIdx.x, C = src.C, U = p.U, TY = kNormThreads / U;
+  if (t >= TY * U) return;
+  const int s = blockIdx.x % p.nsplit, g0 = blockIdx.x / p.nsplit * p.G;
+  const int b = blockIdx.y, c = g0 + (t % U) * V;
+  const int p0 = s * p.rows, n = max(0, min(src.HW - p0, p.rows));
+  const size_t base = ((size_t)b * src.HW + p0) * C + c;
+  const float* S = sums + (size_t)b * 2 * C + c;
+  const typename NormBwdSrc<T>::template Chan<V> ch(src, b, c);
+  float Sv[2][V];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float d, xh;
-      src.d_xh(xv[k], gv[k], b, c + k, d, xh);
-      const float sd = sums[((size_t)b * 2) * C + c + k];
-      const float sdx = sums[((size_t)b * 2 + 1) * C + c + k];
-      const float a = src.scale[c + k] * src.rstd[b * C + c + k];
-      out[k] = a * (d - sd / n - xh * (sdx / n));
-    }
-    store4(dx + e, out);
+  for (int k = 0; k < V; ++k) {
+    Sv[0][k] = S[k];
+    Sv[1][k] = S[C + k];
+  }
+#pragma unroll 4
+  for (int q = t / U; q < n; q += TY) {
+    const size_t o = base + (size_t)q * C;
+    float xv[V], gv[V], out[V];
+    Un::load(src.x + o, xv);
+    Un::load(src.g + o, gv);
+    src.template dx<V>(xv, gv, ch, &Sv[0][0], V, out);
+    Un::store(dx + o, out);
   }
 }
 
 template <typename T>
-cudaError_t launch_norm_bwd_apply(const NormBwdSrc<T>& src, const float* sums,
-                                  T* dx, int B, cudaStream_t s) {
-  const long long n4 = (long long)B * src.HW * src.C / 4;
-  norm_bwd_apply_kernel<T><<<elementwise_blocks(n4), 256, 0, s>>>(src, sums,
-                                                                  dx, n4);
-  return cudaGetLastError();
+cudaError_t launch_norm_bwd_apply(const NormBwdSrc<T>& src, const NormPlan& p,
+                                  const float* sums, T* dx, int B,
+                                  cudaStream_t s) {
+  const dim3 grid(p.nsplit * p.ng, B);
+  if (p.vec)
+    return launch_norm(norm_bwd_apply_kernel<T, true>, grid, 1, 0, s, src,
+                       sums, dx, p);
+  return launch_norm(norm_bwd_apply_kernel<T, false>, grid, 1, 0, s, src, sums,
+                     dx, p);
+}
+
+// K4's plan for a shape: two passes over x and g
+template <typename T>
+inline NormPlan in_bwd_plan(int B, int HW, int C) {
+  return norm_two_pass_plan(B, HW, C, sizeof(T), 2, 2);
+}
+
+// K4 under plan p: dx, and out [2][C] = (dbias, dscale); scratch:
+// norm_scratch_elems(p, B, C, 2) floats; tickets as in norm_sums_kernel.
+template <typename T>
+cudaError_t in_bwd(const NormPlan& p, const NormBwdSrc<T>& src, T* dx,
+                   float* out, float* scratch, unsigned int* tickets, int B,
+                   cudaStream_t s) {
+  cudaError_t e = launch_norm_sums(src, p, B, scratch, out, tickets, s);
+  if (e != cudaSuccess) return e;
+  return launch_norm_bwd_apply(src, p, scratch, dx, B, s);
 }
 
 }  // namespace smsut

@@ -20,6 +20,7 @@ from smsut_tpu_torch.models.layers import (
     kaiming_normal_fan_out,
     max_pool2,
 )
+from smsut_tpu_torch.ops import block as k3
 from smsut_tpu_torch.ops.block import basic_block
 from smsut_tpu_torch.ops.instnorm import lrelu
 
@@ -28,7 +29,10 @@ class BasicBlock(nn.Module):
     """2x(conv3x3 + norm), 1x1(+norm) shortcut when channels change,
     leaky ReLU after the sum.  ``fused`` runs the whole block as one call of
     kernel K3 forward and K6 backward (``Config.block_pallas``) instead of
-    K2 + K1 (K4, K2, K5 backward) per layer."""
+    K2 + K1 (K4, K2, K5 backward) per layer, where those kernels take the
+    block's shape (``block.takes``); a block they do not take runs the
+    unfused chain and is counted in ``block.basic_block.routed``, as the
+    JAX package sends such shapes to XLA (``block_pallas.enabled_for``)."""
 
     def __init__(self, cin: int, features: int, fused: bool = False,
                  generator: Optional[torch.Generator] = None):
@@ -46,11 +50,16 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
             dt = x.dtype
-            short = ((self.shortcut1.weight.to(dt), self.shortcut2.weight,
-                      self.shortcut2.bias) if self.has_shortcut else ())
-            return basic_block(x, self.conv1.weight.to(dt), self.bn1.weight,
-                               self.bn1.bias, self.conv2.weight.to(dt),
-                               self.bn2.weight, self.bn2.bias, *short)
+            if not k3.takes(x.shape, self.conv1.weight.shape[-1],
+                            self.has_shortcut, dt):
+                basic_block.routed += 1
+            else:
+                short = ((self.shortcut1.weight.to(dt), self.shortcut2.weight,
+                          self.shortcut2.bias) if self.has_shortcut else ())
+                return basic_block(x, self.conv1.weight.to(dt),
+                                   self.bn1.weight, self.bn1.bias,
+                                   self.conv2.weight.to(dt), self.bn2.weight,
+                                   self.bn2.bias, *short)
         y = self.bn2(self.conv2(self.bn1(self.conv1(x))))
         idn = self.shortcut2(self.shortcut1(x)) if self.has_shortcut else x
         return lrelu(y + idn)

@@ -7,11 +7,16 @@ and normalisation statistics stay float32.  Conv weights are stored HWIO
 [k, k, Cin, Cout], the layout the kernels read and the flax layout.
 
 On a CUDA tensor every instance norm runs kernel K1 forward and K4
-backward, and every 3x3 conv kernel K2 forward, K2 (dx) and K5 (dw)
-backward.  The weights are cast to the activation dtype per call, and the
-gradient comes back through that cast to the float32 parameter.  The other
-convs (5x5 stem, 1x1 head and shortcut) and the pooling stay plain PyTorch
-with autograd, as XLA computed them in the JAX package.
+backward, and every 3x3 conv that the kernels take (``conv3x3.takes``)
+kernel K2 forward, K2 (dx) and K5 (dw) backward.  A 3x3 conv they do not
+take, such as the first block's at ``base_width=8``, goes to
+:func:`conv_plain` by its shape alone and is counted in
+``conv3x3.conv3x3.routed``, as the JAX package sends the shapes its Pallas
+conv does not take to XLA (``conv_pallas.enabled_for``).  The weights are
+cast to the activation dtype per call, and the gradient comes back through
+that cast to the float32 parameter.  The other convs (5x5 stem, 1x1 head
+and shortcut) and the pooling stay plain PyTorch with autograd, as XLA
+computed them in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smsut_tpu_torch.ops import conv3x3 as k2
 from smsut_tpu_torch.ops.conv3x3 import conv3x3
 from smsut_tpu_torch.ops.instnorm import instance_norm
 
@@ -60,7 +66,9 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         if w.shape[0] == 3:
-            return conv3x3(x, w)
+            if k2.takes(x.shape, w.shape[-1], x.dtype):
+                return conv3x3(x, w)
+            conv3x3.routed += 1
         return conv_plain(x, w)
 
 

@@ -2,7 +2,11 @@
 """The port's kernels.  Each wrapper launches its hand-written CUDA kernel
 on a CUDA tensor, and takes its plain PyTorch version, in the same module,
 on a CPU tensor.  There is no fallback: a CUDA tensor the kernel does not
-take raises.
+take raises.  The model layer (``models/layers.py``, ``models/blocks.py``)
+sends a shape that a conv or block kernel does not take to plain PyTorch
+before any wrapper is called, by shape alone (``conv3x3.takes``,
+``block.takes``), and counts it (``conv3x3.conv3x3.routed``,
+``block.basic_block.routed``).
 
 :func:`plain` makes the wrappers run their plain versions on any device,
 so that a caller can hold the kernel path against the plain one on the
@@ -35,7 +39,7 @@ def on_card(x: torch.Tensor) -> bool:
     return x.is_cuda and not _PLAIN.get()
 
 
-def require(x: torch.Tensor, what: str, channels_mult: int = 1) -> int:
+def require(x: torch.Tensor, what: str) -> int:
     """Check what every kernel needs of an activation on the card; return
     its dtype code."""
     if x.dtype not in DTYPES:
@@ -45,9 +49,6 @@ def require(x: torch.Tensor, what: str, channels_mult: int = 1) -> int:
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: input must be contiguous and 16-byte "
                          f"aligned")
-    if x.shape[-1] % channels_mult:
-        raise ValueError(f"{what}: channels {x.shape[-1]} are not a "
-                         f"multiple of {channels_mult}")
     return DTYPES[x.dtype]
 
 

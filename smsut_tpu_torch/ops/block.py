@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from smsut_tpu_torch.ops import on_card, require, require_like
+from smsut_tpu_torch.ops import DTYPES, on_card, require, require_like
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 from smsut_tpu_torch.ops.conv3x3 import conv_f32, dw_f32, flip_io
 from smsut_tpu_torch.ops.instnorm import (
@@ -42,6 +42,7 @@ from smsut_tpu_torch.ops.instnorm import (
     norm_bwd_dx,
     norm_bwd_terms,
     stats,
+    tickets,
 )
 
 
@@ -153,7 +154,7 @@ def _ntiles_fn():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    return bind("block_bwd", "smsut_block_bwd", [P] * 19 + [I] * 6 + [P])
+    return bind("block_bwd", "smsut_block_bwd", [P] * 20 + [I] * 6 + [P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,6 +167,22 @@ def _bwd_scratch():
 # there is no fallback to the CUDA-core convs)
 REFUSED_SHAPE = ("the tensor-core convs do not take this shape (weights not "
                  "16-byte aligned, or no tile that fits shared memory)")
+
+
+# what K3 and K6 take: Cout a multiple of 16 (both), Cin of 8 (K6)
+_COUT_MULT, _CIN_MULT = 16, 8
+
+
+def takes(x_shape, cout: int, shortcut: bool, dtype: torch.dtype) -> bool:
+    """Whether K3 and K6 take the whole block for an input of ``x_shape``
+    (NHWC), ``cout`` output channels and the shortcut form or the identity
+    form (which needs Cin == Cout).  A shape alone decides, in the manner of
+    the JAX package's ``block_pallas.enabled_for``; the model layer runs the
+    rest as the unfused chain (``models/blocks.py`` ``BasicBlock``)."""
+    cin = x_shape[-1]
+    return (dtype in DTYPES and len(x_shape) == 4
+            and cout % _COUT_MULT == 0 and cin % _CIN_MULT == 0
+            and (shortcut or cin == cout))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -185,8 +202,9 @@ def _check_block(x, w1, w2, ws, params, what) -> Tuple[int, int]:
                          f"{ci} -> {co}")
     for name, t in params:
         require_like(t, f"{what} {name}", (co,), torch.float32, dev)
-    if co % 16:
-        raise ValueError(f"{what}: Cout {co} is not a multiple of 16")
+    if co % _COUT_MULT:
+        raise ValueError(f"{what}: Cout {co} is not a multiple of "
+                         f"{_COUT_MULT}")
     return ci, co
 
 
@@ -247,8 +265,9 @@ def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     params = [("s1", s1), ("s2", s2)] + ([("ss", ss)] if ws is not None
                                          else [])
     ci, co = _check_block(x, w1, w2, ws, params, "basic_block_bwd")
-    if ci % 8:
-        raise ValueError(f"basic_block_bwd: Cin {ci} is not a multiple of 8")
+    if ci % _CIN_MULT:
+        raise ValueError(f"basic_block_bwd: Cin {ci} is not a multiple of "
+                         f"{_CIN_MULT}")
     b, h, wd, _ = x.shape
     dev = x.device
     maps = [("cotangent", g), ("y1", res.y1), ("y2", res.y2)]
@@ -277,9 +296,9 @@ def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                         res.st.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
                         _ptr(wst), s1.data_ptr(), s2.data_ptr(), _ptr(ss),
                         dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-                        _ptr(dws), dsb.data_ptr(), scratch.data_ptr(), b, h,
-                        wd, ci, co, dt, stream_of(x)), "basic_block_bwd",
-          REFUSED_SHAPE)
+                        _ptr(dws), dsb.data_ptr(), scratch.data_ptr(),
+                        tickets(x).data_ptr(), b, h, wd, ci, co, dt,
+                        stream_of(x)), "basic_block_bwd", REFUSED_SHAPE)
     basic_block_bwd.launches += 1
     # (dbias1, dscale1, dbias2, dscale2, dscale_s) -> (s1, b1, s2, b2, ss, bs)
     # by rows: an index list would be copied to the card and the host would
@@ -329,3 +348,7 @@ def basic_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
                                        for t in ins):
         return _BasicBlock.apply(*ins)
     return basic_block_fwd(*ins)
+
+
+# blocks the model layer ran as the unfused chain (not :func:`takes`)
+basic_block.routed = 0

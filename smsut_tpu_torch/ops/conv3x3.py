@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from smsut_tpu_torch.ops import on_card, require, require_like
+from smsut_tpu_torch.ops import DTYPES, on_card, require, require_like
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 
@@ -75,6 +75,25 @@ def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # what the C entry points refuse beyond the wrappers' own checks
 _TAKES = ("the kernel needs a 16-byte aligned weight (cotangent for dw) and "
           "a block that fits the device's shared memory")
+# K2 takes output channels in multiples of K2_MULT: Cout in the forward,
+# Cin in the dx (K2 from Cout to Cin); K5 takes Cout in multiples of
+# K5_COUT_MULT
+K2_MULT, K5_COUT_MULT = 8, 16
+
+
+def takes(x_shape, cout: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take the whole differentiable op for an input of
+    ``x_shape`` (NHWC) and ``cout`` output channels: the forward (K2), the
+    dx (K2 from Cout to Cin) and the dw (K5).  A shape alone decides, in the
+    manner of the JAX package's ``conv_pallas.enabled_for``, so the dx and
+    dw rules hold for a forward with no gradient too (a serving conv with
+    Cout 8 goes to plain PyTorch, as it would in training); the model layer
+    sends the rest to plain PyTorch (``models/layers.py`` ``Conv``), since
+    autograd fixes the backward's path when the forward runs."""
+    cin = x_shape[-1]
+    return (dtype in DTYPES and len(x_shape) == 4
+            and cout % K2_MULT == 0 and cin % K2_MULT == 0
+            and cout % K5_COUT_MULT == 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,8 +121,9 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     require_like(w, "conv3x3 weight", (3, 3, cin, cout), x.dtype, x.device)
-    if cout % 8:
-        raise ValueError(f"conv3x3: Cout {cout} is not a multiple of 8")
+    if cout % K2_MULT:
+        raise ValueError(f"conv3x3: Cout {cout} is not a multiple of "
+                         f"{K2_MULT}")
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     check(_kernel()(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin,
                     cout, dt, stream_of(x)), "conv3x3", _TAKES)
@@ -129,8 +149,9 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3_dw: cotangent {g.dtype} "
                          f"{tuple(g.shape)} does not match x {x.dtype} "
                          f"{tuple(x.shape)}")
-    if cout % 16:
-        raise ValueError(f"conv3x3_dw: Cout {cout} is not a multiple of 16")
+    if cout % K5_COUT_MULT:
+        raise ValueError(f"conv3x3_dw: Cout {cout} is not a multiple of "
+                         f"{K5_COUT_MULT}")
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     part = torch.empty(_dw_scratch()(b, h, wd, cin, cout),
                        dtype=torch.float32, device=x.device)
@@ -175,3 +196,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Conv3x3.apply(x, w)
     return conv3x3_fwd(x, w)
+
+
+# 3x3 convs the model layer sent to plain PyTorch (not :func:`takes`)
+conv3x3.routed = 0

@@ -4,27 +4,27 @@
 Port of ``smsut_tpu/ops/instnorm_pallas.py`` (public ``instance_norm_lrelu``
 / ``instance_norm_affine``): K1 replaces ``_fwd_call``, K4 ``_bwd_call``.
 On a CUDA tensor :func:`instance_norm_fwd` and :func:`instance_norm_bwd`
-launch the kernels of ``csrc/instnorm.cu`` and ``csrc/instnorm_bwd.cu``; on
-a CPU tensor they run :func:`instance_norm_plain` and
+launch the kernels of ``csrc/instnorm.cu`` and ``csrc/instnorm_bwd.cu``,
+for any number of channels, in one launch or two by the :func:`plan` the
+shape gets (decided once per shape, dtype and device), with the stream's
+:func:`tickets`; on a CPU tensor they run :func:`instance_norm_plain` and
 :func:`instance_norm_bwd_plain`, the same math in PyTorch.
 :func:`instance_norm` is the differentiable op: K1 forward, K4 backward.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from smsut_tpu_torch.ops import on_card, require, require_like
+from smsut_tpu_torch.ops import DTYPES, on_card, require, require_like
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 NEG_SLOPE = 0.01
 EPS = 1e-5
-# elements of x one statistics block sums; sets how H*W is split
-_BLOCK_ELEMS = 16384
-_MAX_SPLITS = 256
 
 
 def lrelu(y: torch.Tensor) -> torch.Tensor:
@@ -86,30 +86,82 @@ def instance_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor,
     return dx.to(x.dtype), sdx.sum(0), sd.sum(0)
 
 
-def splits(hw: int, c: int) -> Tuple[int, int]:
-    """(nsplit, rows): the statistics pass cuts H*W into nsplit slices of
-    ``rows`` rows, about _BLOCK_ELEMS elements each."""
-    n = -(-hw * c // _BLOCK_ELEMS)
-    n = max(1, min(_MAX_SPLITS, n, hw))
-    rows = -(-hw // n)
-    return -(-hw // rows), rows
-
-
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    return bind("instnorm", "smsut_instnorm_fwd",
-                [P] * 7 + [I] * 7 + [P])
+    return bind("instnorm", "smsut_instnorm_fwd", [P] * 9 + [I] * 5 + [P])
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     return bind("instnorm_bwd", "smsut_instnorm_bwd",
-                [P] * 9 + [I] * 5 + [P])
+                [P] * 11 + [I] * 5 + [P])
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_scratch():
-    return bind("instnorm_bwd", "smsut_instnorm_bwd_scratch", [I] * 3, L)
+def _plan_fn(kind: str):
+    return bind(f"instnorm{'' if kind == 'fwd' else '_bwd'}",
+                f"smsut_instnorm_{kind}_plan", [I] * 4 + [P], L)
+
+
+PLAN_FIELDS = ("resident", "vec", "ng", "G", "U", "nsplit", "rows", "smem")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(kind: str, b: int, hw: int, c: int, dtype: torch.dtype,
+          device: int):
+    """(the plan's words, which the kernel entry points take back, and the
+    float32 elements of scratch it needs)."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        n = _plan_fn(kind)(b, hw, c, DTYPES[dtype], ctypes.addressof(out))
+    if n < 0:
+        raise ValueError(f"instance norm {kind}: no plan for [{b}, {hw}, "
+                         f"{c}] {dtype}")
+    return out, n
+
+
+def plan(kind: str, b: int, hw: int, c: int, dtype: torch.dtype,
+         device: int = 0) -> dict:
+    """The plan K1 (``kind`` "fwd") or K4 ("bwd") takes on the card for a
+    map of ``b`` samples, ``hw`` pixels and ``c`` channels: ``resident``
+    (one launch, a thread-block cluster of ``nsplit`` blocks of ``rows``
+    pixels per sample and channel group, the map held in shared memory; K1
+    only) or two passes (``nsplit`` blocks of ``rows`` pixels per sample
+    and group), ``ng`` groups of ``G`` channels, ``U`` units of 16 bytes
+    (``vec``) or one element per pixel, ``smem`` bytes of shared memory per
+    block; and ``scratch``, the float32 elements of scratch the call needs.
+    Decided by shape and by what the card holds (csrc/instnorm.cuh
+    ``in_fwd_plan``, instnorm_bwd.cuh ``in_bwd_plan``)."""
+    out, n = _plan(kind, b, hw, c, dtype, device)
+    return {**dict(zip(PLAN_FIELDS, out)), "scratch": n}
+
+
+def _plan_and_scratch(kind: str, x: torch.Tensor
+                      ) -> Tuple[int, torch.Tensor]:
+    """(the address of x's plan words, an empty scratch for the call)."""
+    b, h, w, c = x.shape
+    words, n = _plan(kind, b, h * w, c, x.dtype, x.device.index or 0)
+    return (ctypes.addressof(words),
+            torch.empty(n, dtype=torch.float32, device=x.device))
+
+
+# csrc/instnorm.cuh kNormTicketWords: the integer tickets that elect the
+# last block of the norm sums passes (K1 and K4 two-pass, K6's norm sums)
+TICKET_WORDS = 4097
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def tickets(x: torch.Tensor) -> torch.Tensor:
+    """The norm sums' tickets for x's device and current stream: zero
+    between calls, since the block that takes a ticket last resets it and
+    the calls on one stream run one after another.  Calls on two streams at
+    once take two arrays."""
+    key = (x.device.index or 0, stream_of(x))
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(TICKET_WORDS, dtype=torch.int32,
+                                        device=x.device)
+    return t
 
 
 def _check_params(x: torch.Tensor, scale: torch.Tensor,
@@ -127,18 +179,17 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
     are float32 whatever the dtype of ``x``."""
     if not on_card(x):
         return instance_norm_plain(x, scale, bias, act)
-    dt = require(x, "instance_norm", 4)
+    dt = require(x, "instance_norm")
     b, h, w, c = x.shape
     _check_params(x, scale, bias, "instance_norm")
-    nsplit, rows = splits(h * w, c)
     out = torch.empty_like(x)
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    part = torch.empty((b, nsplit, 2, c), dtype=torch.float32, device=x.device)
+    words, scratch = _plan_and_scratch("fwd", x)
     check(_kernel()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                    out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                    part.data_ptr(), b, h * w, c, nsplit, rows, dt, int(act),
-                    stream_of(x)), "instance_norm")
+                    out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), words,
+                    scratch.data_ptr(), tickets(x).data_ptr(), b, h * w, c,
+                    dt, int(act), stream_of(x)), "instance_norm")
     instance_norm_fwd.launches += 1
     return out, mean, rstd
 
@@ -155,7 +206,7 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     dscale, dbias float32, summed over the batch)."""
     if not on_card(g):
         return instance_norm_bwd_plain(x, g, mean, rstd, scale, bias, act)
-    dt = require(x, "instance_norm_bwd", 4)
+    dt = require(x, "instance_norm_bwd")
     require_like(g, "instance_norm_bwd cotangent", x.shape, x.dtype, x.device)
     b, h, w, c = x.shape
     _check_params(x, scale, bias, "instance_norm_bwd")
@@ -164,13 +215,12 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
                      x.device)
     dx = torch.empty_like(x)
     dsb = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(_bwd_scratch()(b, h * w, c), dtype=torch.float32,
-                          device=x.device)
+    words, scratch = _plan_and_scratch("bwd", x)
     check(_bwd_kernel()(x.data_ptr(), g.data_ptr(), mean.data_ptr(),
                         rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                        dx.data_ptr(), dsb.data_ptr(), scratch.data_ptr(),
-                        b, h * w, c, dt, int(act), stream_of(x)),
-          "instance_norm_bwd")
+                        dx.data_ptr(), dsb.data_ptr(), words,
+                        scratch.data_ptr(), tickets(x).data_ptr(), b, h * w,
+                        c, dt, int(act), stream_of(x)), "instance_norm_bwd")
     instance_norm_bwd.launches += 1
     return dx, dsb[1], dsb[0]
 

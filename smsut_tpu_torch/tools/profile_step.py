@@ -31,23 +31,33 @@ from typing import Dict, List, Sequence, Tuple
 
 # the conv kernels and the index of their STATS template argument
 CONVS = {"conv3x3_tc_kernel": 5, "conv_tile_kernel": 4}
+# the norm sums pass, one function for every source of summands: named by
+# its source, 'norm_sums_kernel<XSrc>' (K1), '<NormBwdSrc>' (K4, and norm 1
+# in K6), '<BlockOutSrc>' (K6)
+SOURCED = ("norm_sums_kernel",)
 _DW = ("conv3x3_dw_tc_kernel", "dw_tc_reduce_kernel", "dw_partial_kernel",
        "dw_reduce_kernel")
-_NORM_BWD = ("bwd_sums_kernel", "bwd_finalize_kernel", "batch_sum_kernel",
-             "norm_bwd_apply_kernel")
+# K1's functions: the resident kernel, the sums pass and the apply pass;
+# K4's: the sums pass and the dx pass; and those of a checkout from before
+# K1 and K4 took these plans (a stats pass, finalize and batch-sum kernels)
+_NORM = ("in_resident_kernel", "norm_sums_kernel<XSrc>", "in_apply_kernel",
+         "in_stats_kernel")
+_NORM_BWD = ("norm_sums_kernel<NormBwdSrc>", "norm_bwd_apply_kernel",
+             "bwd_sums_kernel", "bwd_finalize_kernel", "batch_sum_kernel")
 _CONV = tuple(f"{c}{s}" for c in CONVS for s in ("+stats", "-stats"))
 # kernel functions of each family, per block mode.  With block_pallas the
-# stem's instance norm is K1 and K4 (in_stats_kernel, in_apply_kernel and
-# one finalize_kernel; one call of each norm-backward kernel), which K3's
-# finalize_kernel and K6's norm-backward functions include.
+# stem's instance norm is K1 and K4; K6's norm-backward functions include
+# the stem's K4 launches, and, before these plans, K3's finalize_kernel
+# the stem's K1 finalize.
 FAMILIES = {
-    False: {"K1": ("in_stats_kernel", "in_apply_kernel", "finalize_kernel"),
+    False: {"K1": (*_NORM, "finalize_kernel"),
             "K2": _CONV, "K4": _NORM_BWD, "K5": _DW},
-    True: {"K1": ("in_stats_kernel", "in_apply_kernel"),
+    True: {"K1": _NORM,
            "K3": ("conv3x3_tc_kernel+stats", "conv_tile_kernel+stats",
                   "finalize_kernel", "block_out_kernel"),
            "K6": ("conv3x3_tc_kernel-stats", "conv_tile_kernel-stats", *_DW,
-                  "block_dy2_kernel", *_NORM_BWD)}}
+                  "block_dy2_kernel", "norm_sums_kernel<BlockOutSrc>",
+                  *_NORM_BWD)}}
 Row = Tuple[str, float, int]
 # timed steps per block mode; the first, which warms up, is left out of
 # the median
@@ -59,11 +69,15 @@ def kernel_function(key: str) -> str:
     smsut::conv3x3_tc_kernel<64, 2, 4, 3, ...>(...)' -> 'conv3x3_tc_kernel',
     the first name followed by a template or parameter list (or the key
     itself).  A conv kernel of :data:`CONVS` gains '+stats' or '-stats' by
-    its STATS template argument."""
+    its STATS template argument, a kernel of :data:`SOURCED` the name of
+    its first template argument."""
     m = re.search(r"([A-Za-z_]\w*)\s*[<(]", key)
     if m is None:
         return key
     name = m.group(1)
+    if name in SOURCED and key[m.end() - 1] == "<":
+        src = re.match(r"\s*(?:\w+::)*(\w+)", key[m.end():])
+        return f"{name}<{src.group(1)}>" if src else name
     if name in CONVS and key[m.end() - 1] == "<":
         args = [a.strip() for a in key[m.end():].split(",")]
         i = CONVS[name]
@@ -121,8 +135,7 @@ def step_profile(torch, step, fused: bool, step_ms: Sequence[float]
     median), the kernels per step, the device ms per step of each family
     of ``FAMILIES[fused]`` and of the rest, the device ms and launches of
     each of the families' functions, and the 16 heaviest kernels.  With
-    ``block_pallas`` K3 holds the stem norm's one finalize_kernel and K6
-    its one launch of each norm-backward kernel."""
+    ``block_pallas`` K6 holds the stem norm's K4 launches."""
     med = statistics.median(step_ms[1:])
     rows, _ = device_rows(torch, step, 3)
     device = sum(r[1] for r in rows)

@@ -5,12 +5,12 @@
 // __shfl_xor_sync (full mask).
 //
 // A warp collective posts each lane's operands to a per-warp exchange
-// slot, meets the warp's other lanes at a barrier, computes its own lane's
-// result from all of them and meets them again.  ldmatrix also counts the
-// 8-address phases whose distinct row addresses share a group of four
-// banks (a bank conflict).  cp.async copies at once, or, with emu_defer, at
-// the wait that retires its group, so both a copy that lands too early and
-// one that lands too late are tried.
+// slot of its block (shim.h), meets the warp's other lanes at a barrier,
+// computes its own lane's result from all of them and meets them again.
+// ldmatrix also counts the 8-address phases whose distinct row addresses
+// share a group of four banks (a bank conflict).  cp.async copies at once,
+// or, with emu_defer, at the wait that retires its group, so both a copy
+// that lands too early and one that lands too late are tried.
 #pragma once
 #include <atomic>
 #include <vector>
@@ -19,8 +19,6 @@ namespace smsut {
 
 typedef __nv_bfloat16 bf16;
 
-struct EmuLane { uint32_t addr; uint32_t a[4]; uint32_t b[2]; float f; };
-inline EmuLane emu_xch[32][32];
 inline std::atomic<long> emu_ldmatrix{0}, emu_conflicts{0};
 inline bool emu_defer = false;
 

@@ -43,17 +43,33 @@ SMEM = ("extern __shared__ __align__(16) unsigned char smem[];",
         "unsigned char* smem = emu_smem;")
 INCLUDE_MMA = ('#include "mma_tile.cuh"', '#include "mma_tile_emu.cuh"')
 
-# per kernel source: the generated file and the (old, new, count) changes
+# per check program: the kernel sources it includes, each with its
+# generated file and the (old, new, count) changes
+NORM = [("instnorm.cuh", "instnorm_emu.cuh",
+         [(*INCLUDE_MMA, 1), (*SMEM, 3),
+          # three tickets: (sample, group) pairs share them at the checks'
+          # batch sizes; the checks set the fill and the smallest resident
+          # slice (norm_check.h)
+          ("constexpr int kNormTickets = 4096;",
+           "constexpr int kNormTickets = 3;", 1),
+          ("constexpr int kNormFill = 128;", "inline int kNormFill = 128;",
+           1),
+          ("constexpr int kNormMinResidentBytes = 16 * 1024;",
+           "inline int kNormMinResidentBytes = 16 * 1024;", 1)]),
+        ("instnorm_bwd.cuh", "instnorm_bwd_emu.cuh",
+         [('#include "instnorm.cuh"', '#include "instnorm_emu.cuh"', 1)])]
 SOURCES = {
-    "conv3x3_mma": ("conv3x3_mma.cu", "conv3x3_mma_emu.cpp",
-                    [(*INCLUDE_MMA, 1), (*SMEM, 2)]),
-    "conv3x3_tc": ("conv3x3_tc.cuh", "conv3x3_tc_emu.cuh",
-                   [(*INCLUDE_MMA, 1), (*SMEM, 1)]),
-    "conv3x3_dw_tc": ("conv3x3_dw_tc.cuh", "conv3x3_dw_tc_emu.cuh",
-                      [(*INCLUDE_MMA, 1), (*SMEM, 1),
-                       ("dw_tc_reduce_kernel<<<blocks, 256, 0, s>>>(",
-                        "emu_launch(dw_tc_reduce_kernel, blocks, 256, 0, s, ",
-                        1)]),
+    "conv3x3_mma": [("conv3x3_mma.cu", "conv3x3_mma_emu.cpp",
+                     [(*INCLUDE_MMA, 1), (*SMEM, 2)])],
+    "conv3x3_tc": [("conv3x3_tc.cuh", "conv3x3_tc_emu.cuh",
+                    [(*INCLUDE_MMA, 1), (*SMEM, 1)])],
+    "conv3x3_dw_tc": [("conv3x3_dw_tc.cuh", "conv3x3_dw_tc_emu.cuh",
+                       [(*INCLUDE_MMA, 1), (*SMEM, 1),
+                        ("dw_tc_reduce_kernel<<<blocks, 256, 0, s>>>(",
+                         "emu_launch(dw_tc_reduce_kernel, blocks, 256, 0, s, ",
+                         1)])],
+    "instnorm": NORM,
+    "instnorm_bwd": NORM,
 }
 
 
@@ -62,16 +78,18 @@ def _replace(text: str, old: str, new: str, count: int) -> str:
     return text.replace(old, new)
 
 
-def _generate(out: Path, source: str, generated: str, subs) -> None:
-    """``source`` of csrc with the changes ``subs`` as ``generated``;
-    mma_tile.cuh with its PTX primitives and launch syntax given to the
-    emulation as mma_tile_emu.cuh; and the scalar helpers of common.cuh
-    (dtype conversion, the leaky ReLU, its mask, ``mul_add_rn``,
-    ``norm_act``, the epilogue kinds) as common_emu.cuh, into ``out``."""
-    cu = (CSRC / source).read_text()
-    for old, new, count in subs:
-        cu = _replace(cu, old, new, count)
-    (out / generated).write_text(cu)
+def _generate(out: Path, files) -> None:
+    """Each ``(source, generated, subs)`` of ``files``: ``source`` of csrc
+    with the changes ``subs`` as ``generated``; mma_tile.cuh with its PTX
+    primitives and launch syntax given to the emulation as mma_tile_emu.cuh;
+    and the scalar helpers of common.cuh (dtype conversion, the leaky ReLU,
+    its mask, ``mul_add_rn``, ``norm_act``, the epilogue kinds) as
+    common_emu.cuh, into ``out``."""
+    for source, generated, subs in files:
+        cu = (CSRC / source).read_text()
+        for old, new, count in subs:
+            cu = _replace(cu, old, new, count)
+        (out / generated).write_text(cu)
     c = (CSRC / "common.cuh").read_text()
     start = c.index("namespace smsut {")
     end = c.index("// 4 consecutive elements")
@@ -94,8 +112,7 @@ def _build(tmp_path_factory, name):
     if cxx is None:
         pytest.skip("needs a C++20 compiler (g++) to build the emulation")
     out = tmp_path_factory.mktemp(name)
-    source, generated, subs = SOURCES[name]
-    _generate(out, source, generated, subs)
+    _generate(out, SOURCES[name])
     exe = out / f"{name}_check"
     subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", f"-I{out}",
                     f"-I{EMU}", "-o", str(exe),

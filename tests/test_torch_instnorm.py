@@ -4,6 +4,9 @@ plain backward (run by the autograd op on a CPU tensor) against the JAX
 Pallas kernels (ops/instnorm_pallas.py, interpret mode).  The CUDA kernels
 are held against the plain versions on the card in
 tests/test_torch_cuda.py."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -52,12 +55,76 @@ def test_statistics_match_pallas(rng):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def plan_binary(tmp_path_factory):
+    from test_torch_cuda_emu import _build
+
+    return _build(tmp_path_factory, "instnorm")
+
+
 @pytest.mark.parametrize("hw,c", [(65536, 16), (65536, 8), (256, 256),
                                   (1024, 128), (16, 512), (7, 4)])
-def test_splits_cover_every_row(hw, c):
-    nsplit, rows = instnorm.splits(hw, c)
-    assert 1 <= nsplit <= 256
-    assert nsplit * rows >= hw > (nsplit - 1) * rows
+def test_splits_cover_every_row(plan_binary, hw, c):
+    """The plans the card would take (csrc/instnorm.cuh ``norm_plan``: K1,
+    K4 and K6's two sums passes, float32 and bfloat16, batch 1 and 8, at the
+    card's fill) cut a map of ``hw`` pixels and ``c`` channels into blocks
+    that cover every pixel and channel once, compiled for the CPU with
+    tests/cuda_emu (tests/test_torch_norm_emu.py runs the kernels)."""
+    from test_torch_cuda_emu import _run
+
+    lines = _run(plan_binary, {"EMU_PLAN": f"{hw},{c}"})
+    assert sum(" covers 1" in l for l in lines) == 12
+
+
+def test_ticket_words_match_the_kernels():
+    """The tickets the wrapper keeps per stream (``tickets``) are as many
+    words as the sums passes index: csrc/instnorm.cuh kNormTickets + 1."""
+    src = (Path(__file__).resolve().parents[1] / "smsut_tpu_torch" / "csrc"
+           / "instnorm.cuh").read_text()
+    n = re.search(r"constexpr int kNormTickets = (\d+);", src)
+    assert n and instnorm.TICKET_WORDS == int(n.group(1)) + 1
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 0.05)])
+@pytest.mark.parametrize("c", [3, 12])
+def test_plain_matches_fwd_call_at_any_channels(rng, c, dtype, tol):
+    """K1's plain version at channel counts the vector path does not take
+    (the scalar path on the card) against the Pallas ``_fwd_call``: y, and
+    mean and rstd in float32."""
+    x, s, b = _inputs(rng, b=2, h=6, w=5, c=c)
+    jy, jm, jr = inp._fwd_call(jnp.asarray(x).astype(dtype), jnp.asarray(s),
+                               jnp.asarray(b))
+    y, mean, rstd = instnorm.instance_norm_plain(t(x, getattr(torch, dtype)),
+                                                 t(s), t(b), True)
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jy.astype(jnp.float32)), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jm)[:, 0], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jr)[:, 0], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 0.05)])
+@pytest.mark.parametrize("c", [3, 12])
+def test_plain_bwd_matches_bwd_call_at_any_channels(rng, c, dtype, tol):
+    """K4's plain version against the Pallas ``_bwd_call`` from the same
+    residuals, with the leaky ReLU: dx in x's dtype, dscale and dbias."""
+    x, s, b = _inputs(rng, b=2, h=6, w=5, c=c)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    _, jm, jr = inp._fwd_call(jx, jnp.asarray(s), jnp.asarray(b))
+    want = inp._bwd_call((jx, jnp.asarray(s), jnp.asarray(b), jm, jr),
+                         jnp.asarray(g).astype(dtype), inp.NEG_SLOPE)
+    tdt = getattr(torch, dtype)
+    got = instnorm.instance_norm_bwd_plain(
+        t(x, tdt), t(g, tdt), torch.from_numpy(np.array(jm)[:, 0]),
+        torch.from_numpy(np.array(jr)[:, 0]), t(s), t(b), True)
+    assert got[0].dtype == tdt
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("act", [True, False])

@@ -24,6 +24,13 @@ TILE = "void smsut::conv_tile_kernel<__nv_bfloat16, float, 1, 16, {}, false, 0>(
     ("void block_out_kernel<__nv_bfloat16, true>(int)", "block_out_kernel"),
     ("void at::native::(anonymous namespace)::fill<float>(float*)", "fill"),
     ("ampere_sgemm_128x64_nn", "ampere_sgemm_128x64_nn"),
+    ("void smsut::norm_sums_kernel<smsut::XSrc<__nv_bfloat16>, true>(x)",
+     "norm_sums_kernel<XSrc>"),
+    ("void smsut::norm_sums_kernel<smsut::NormBwdSrc<float>, false>(x)",
+     "norm_sums_kernel<NormBwdSrc>"),
+    ("void norm_sums_kernel<BlockOutSrc<__nv_bfloat16, true>, true>(x)",
+     "norm_sums_kernel<BlockOutSrc>"),
+    ("void smsut::in_resident_kernel<float, true>(x)", "in_resident_kernel"),
 ])
 def test_kernel_function(key, name):
     assert ps.kernel_function(key) == name
@@ -47,6 +54,23 @@ def test_block_families(conv, dw):
     assert fam == {"K1": 16.0, "K3": 1.75, "K6": 14.0}
     fn = ps.by_function(rows, ["block_out_kernel", "dw_reduce_kernel"])
     assert fn == {"block_out_kernel": [0.5, 9], "dw_reduce_kernel": [0.0, 0]}
+
+
+def test_norm_families_by_source():
+    """The sums pass is K1's, K4's or K6's by its source of summands; the
+    parent's stats, finalize and batch-sum kernels keep their families."""
+    sums = "void smsut::norm_sums_kernel<smsut::{}<float>, true>(x)"
+    rows = [(sums.format("XSrc"), 1.0, 28), (sums.format("NormBwdSrc"), 2.0, 28),
+            ("void smsut::in_resident_kernel<float, true>(x)", 4.0, 28),
+            ("void smsut::norm_bwd_apply_kernel<float, true>(x)", 8.0, 28),
+            ("smsut::finalize_kernel(float const*)", 16.0, 28),
+            ("void smsut::bwd_finalize_kernel(x)", 32.0, 28)]
+    fam = ps.families(rows, fused=False)
+    assert fam["K1"] == 21.0 and fam["K4"] == 42.0
+    rows.append(("void norm_sums_kernel<BlockOutSrc<float, true>, true>(x)",
+                 64.0, 9))
+    fam = ps.families(rows, fused=True)
+    assert fam["K1"] == 5.0 and fam["K6"] == 106.0 and fam["K3"] == 16.0
 
 
 def test_unfused_families_take_every_conv_as_k2():
