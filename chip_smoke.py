@@ -6,9 +6,11 @@
 
 1. Prints the card's name and power limit, and builds every kernel from
    ``smsut_tpu_torch/csrc`` (one nvcc per source, in parallel); counts the
-   HMMA instructions of every tensor-core kernel instantiation in the
-   built code (``cuobjdump -sass``: K2's and K5's, and those of K3's and
-   K6's chains) and fails where one has none.
+   tensor-core instructions of every tensor-core kernel instantiation in
+   the built code (``cuobjdump -sass``) and fails where one lacks them:
+   HMMA (mma.sync) in K2's and K5's, in those of K3's and K6's chains and
+   in K7's (the dots conv); HGMMA (wgmma) and UTMALDG (TMA loads), and no
+   HMMA, in K8's and K9's (the im2col pair).
 2. Holds each forward kernel (K1 instance norm, K2 3x3 conv, K3 fused
    block, both block forms) against its plain PyTorch version on the card,
    at the U-Net's shapes, in float32 (TF32 off) and bfloat16, and times the
@@ -26,7 +28,8 @@
    2c. The same for the three tensor-core conv kernels (dots, im2col,
    im2col2, the candidates of the conv microbench), bfloat16, at the
    microbench's shape [16,128,128,64] -> 64 and at [4,64,64,32] -> 32,
-   each at strip 16 and 32.
+   each at strip 16 and 32; im2col and im2col2 two runs bit for bit, and
+   strip 32 bit for bit with strip 16 (strip does not change their math).
 3. Serves the full-width U-Net (width 16, 256x256, batch 8, bfloat16,
    seeded random weights) through ``SupervisedUNet`` -> ``export_eval`` ->
    ``load_serving`` -> ``predict``, once with ``block_pallas`` off and once
@@ -132,14 +135,21 @@ F32_DX = ((256, 8, 16),)
 CUDA_CORE_CONVS = ("conv_tile_kernel+stats", "conv_tile_kernel-stats",
                    "dw_partial_kernel", "dw_reduce_kernel")
 # the tensor-core kernels in the built code: library, kernel name,
-# instantiations (K2 and K5; in K3's chain conv1, conv2 with the norm
-# applied while staging, the 1x1 shortcut; in K6's dn1 masked, dx plus the
-# side term, the float32 side term, and dw2 (norm applied), dw1, dws)
-TC_KERNELS = (("conv3x3", "conv3x3_tc_kernel", 12),
-              ("conv3x3_dw", "conv3x3_dw_tc_kernel", 6),
-              ("block", "conv3x3_tc_kernel", 36),
-              ("block_bwd", "conv3x3_tc_kernel", 36),
-              ("block_bwd", "conv3x3_dw_tc_kernel", 18))
+# instantiations, the SASS opcodes each must hold and those it must not
+# (K2 and K5; in K3's chain conv1, conv2 with the norm applied while
+# staging, the 1x1 shortcut; in K6's dn1 masked, dx plus the side term, the
+# float32 side term, and dw2 (norm applied), dw1, dws; K7 at three NCO;
+# K8 and K9 at three NCO each, on wgmma and TMA)
+HMMA = (("HMMA",), ())
+TC_KERNELS = (("conv3x3", "conv3x3_tc_kernel", 12, *HMMA),
+              ("conv3x3_dw", "conv3x3_dw_tc_kernel", 6, *HMMA),
+              ("block", "conv3x3_tc_kernel", 36, *HMMA),
+              ("block_bwd", "conv3x3_tc_kernel", 36, *HMMA),
+              ("block_bwd", "conv3x3_dw_tc_kernel", 18, *HMMA),
+              ("conv3x3_mma", "conv_dots_kernel", 3, *HMMA),
+              ("conv3x3_mma", "conv_im2col_sm90_kernel", 2,
+               ("HGMMA", "UTMALDG"), ("HMMA",)))
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 # the U-Net's nine BasicBlocks, all of the shortcut form: map side, Cin,
 # Cout; bfloat16 runs K3 and K6 at each, float32 at the parity rows
 UNET_BLOCKS = ((256, 8, 16), (256, 32, 16), (128, 16, 32), (128, 64, 32),
@@ -497,7 +507,9 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
 
 def check_mma_kernels(torch, F, ops, conv_mma):
     """Phase 2c: the tensor-core conv kernels against their plain version
-    (bfloat16), timed beside cuDNN's conv on the channels-last view."""
+    (bfloat16), timed beside cuDNN's conv on the channels-last view; K8 and
+    K9 (im2col, im2col2) two runs bit for bit at each strip, and strip 32
+    bit for bit with strip 16."""
     rows = []
     cases = Cases(torch, seed=2)
     for (b, h, w, c, co) in ((16, 128, 128, 64, 64), (4, 64, 64, 32, 32)):
@@ -505,6 +517,15 @@ def check_mma_kernels(torch, F, ops, conv_mma):
         wt = cases.randn(3, 3, c, co, std=0.05, dtype=torch.bfloat16)
         lib = lambda x=x, wt=wt: F.conv2d(x.permute(0, 3, 1, 2),
                                           wt.permute(3, 2, 0, 1), padding=1)
+        for variant in ("im2col", "im2col2"):
+            fn = getattr(conv_mma, f"conv3x3_{variant}")
+            for strip in (16, 32):
+                same_twice(torch, f"conv3x3_{variant} strip={strip}",
+                           (b, h, w, c, co), lambda a, k: (fn(a, k, strip),),
+                           (x, wt))
+            if not torch.equal(fn(x, wt, 16), fn(x, wt, 32)):
+                raise AssertionError(f"conv3x3_{variant} {[b, h, w, c]}: "
+                                     f"strip 16 and 32 differ")
         for strip in (16, 32):
             for variant in MMA_VARIANTS:
                 fn = getattr(conv_mma, f"conv3x3_{variant}")
@@ -551,8 +572,9 @@ def profile_device(torch, fn, n: int = 5) -> dict:
             "kernels_per_call": sum(r[2] for r in rows), "top": rows[:16]}
 
 
-def sass_hmma(path: Path) -> dict:
-    """HMMA (tensor-core) instructions per kernel of a built library, from
+def sass_ops(path: Path) -> dict:
+    """Per kernel of a built library, its count of each SASS_OPS opcode
+    (HMMA: mma.sync, HGMMA: wgmma, UTMALDG: a TMA load), from
     ``cuobjdump -sass``; None where the tool is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -560,12 +582,14 @@ def sass_hmma(path: Path) -> dict:
     out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                          text=True, timeout=300).stdout
     counts, fn = {}, None
+    op = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
     for line in out.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for m in op.findall(line):
+                counts[fn][m] += 1
     return counts
 
 
@@ -917,20 +941,25 @@ def main() -> int:
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
                                              log) if int(m)]
+        serial = log.count("wgmma.mma_async instructions are serialized")
         print(f"ptxas {name}: {len(regs)} kernels, registers max "
               f"{max(regs, default=0)}, {len(spills)} kernels spill, at most "
-              f"{max(spills, default=0)} bytes")
-    sass = {}
-    for lib, kernel, count in TC_KERNELS:
-        hmma = sass_hmma(_build.lib_path(lib))
-        if hmma is None:
-            print(f"sass {lib}: cuobjdump not found, HMMA not counted")
+              f"{max(spills, default=0)} bytes; {serial} wgmma serialized")
+    sass, libs = {}, {}
+    for lib, kernel, count, need, never in TC_KERNELS:
+        if lib not in libs:
+            libs[lib] = sass_ops(_build.lib_path(lib))
+        if libs[lib] is None:
+            print(f"sass {lib}: cuobjdump not found, opcodes not counted")
             continue
-        tc = {k: v for k, v in hmma.items() if kernel in k}
+        tc = {k: v for k, v in libs[lib].items() if kernel in k}
         sass[f"{lib} {kernel}"] = tc
-        print(f"sass {lib}: {len(tc)} {kernel} instantiations, HMMA per "
-              f"kernel {sorted(tc.values())}", flush=True)
-        if len(tc) != count or not all(tc.values()):
+        print(f"sass {lib}: {len(tc)} {kernel} instantiations, "
+              + "; ".join(f"{o} per kernel {sorted(v[o] for v in tc.values())}"
+                          for o in need + never), flush=True)
+        if len(tc) != count or not all(
+                all(v[o] for o in need) and not any(v[o] for o in never)
+                for v in tc.values()):
             raise AssertionError(f"{lib}: tensor-core kernels {tc}")
 
     t0 = time.perf_counter()
@@ -978,10 +1007,12 @@ def main() -> int:
         "block_bwd": ("block_bwd", "shortcut [8, 256, 256, 32]->16",
                       "smsut_tpu_torch/csrc/block_bwd.cu",
                       "smsut_tpu/ops/block_pallas.py:488")}
-    for v, line in zip(MMA_VARIANTS, (63, 99, 139)):
+    for v, line, src in zip(MMA_VARIANTS, (63, 99, 139),
+                            ("conv3x3_mma.cu", "conv3x3_im2col_sm90.cuh",
+                             "conv3x3_im2col_sm90.cuh")):
         main_case[f"conv3x3_{v}"] = (
             f"conv3x3_{v}", "[16, 128, 128, 64]->64 strip=16",
-            "smsut_tpu_torch/csrc/conv3x3_mma.cu",
+            f"smsut_tpu_torch/csrc/{src}",
             f"tools/microbench_pallas_conv.py:{line}")
     kernels = []
     for name, (row_name, case, source, replaces) in main_case.items():
@@ -998,7 +1029,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(OUT / "chip_smoke.json", "w") as f:
-        json.dump({"card": card, "build_s": build_s, "sass_hmma": sass,
+        json.dump({"card": card, "build_s": build_s, "sass_ops": sass,
                    "kernel_rows": rows,
                    "serve": {str(k): v for k, v in serve.items()},
                    "train": {str(k): v for k, v in train.items()},

@@ -10,35 +10,35 @@
 //                         :44): nine accumulated tap products per pixel
 //                         tile, from shifted views of the staged input;
 //   smsut_conv3x3_im2col  `pallas_conv_im2col` (:99, `_im2col_kernel` :82):
-//                         an [M, 9C] column tile, one K = 9C product;
+//                         one K = 9C product per 64-pixel tile, the input
+//                         copied and multiplied in turn;
 //   smsut_conv3x3_im2col2 `pallas_conv_im2col2` (:139, `_im2col2_kernel`
-//                         :120): the same with two column buffers, tile
-//                         t+1's columns copied by cp.async while the
-//                         products of tile t run.
+//                         :120): the same with the next input's copy in
+//                         flight while the products run.
+// The two im2col kernels are Hopper kernels (TMA, mbarriers, wgmma, warp
+// specialisation): conv3x3_im2col_sm90.cuh.
 //
 // Bound on the H100, at the tool's shape x [16,128,128,64], w [3,3,64,64]:
 // 19.3 GFLOP, 0.0195 ms at 989 TF/s bf16; 67.2 MB moved (x and y 33.5 MB
 // each, w 74 KB), 0.0201 ms at 3.35 TB/s.  Bytes bound it, by a hair: the
 // conv does 288 operations per byte against the card's ~295.  To come near
-// it a kernel must read x about once and keep the tensor cores busy, so:
+// it a kernel must read x about once and keep the tensor cores busy.
+// dots, here, is the first, simple version:
 //   - every product is a bf16 mma.sync.m16n8k16 with float32 accumulators
 //     (mma_tile.cuh), its operands fed from shared memory by ldmatrix;
 //   - one block of 256 threads walks a band of `strip` image rows of one
 //     image (grid B*H/strip x Cout/NCO), and stages the block's weight
 //     slab [9C][NCO] (73.7 KB at C = Cout = 64) in shared memory once;
 //   - shared-memory rows are padded by 16 bytes (conflict-free ldmatrix);
-//   - the image border is zero-filled while staging.
-// dots keeps a ring of four halo'd input rows ((W+2) x C each, 18.7 KB at
-// W = 128, C = 64, padded) filled by cp.async one row ahead, so x is read
-// about once from device memory.  The two im2col kernels copy each input
-// value nine times into shared memory (the column tile), which costs
-// shared-memory bandwidth and instructions the dots kernel does not spend.
-// This is the first, simple version: no wgmma, TMA or warp specialisation.
+//   - a ring of four halo'd input rows ((W+2) x C each, 18.7 KB at
+//     W = 128, C = 64, padded), filled by cp.async one row ahead, with the
+//     image border zero-filled while staging, so x is read about once.
 //
-// Shapes taken: C and Cout multiples of 16, H % strip == 0, any W whose
-// shared memory fits the device (`takes`); 16-byte aligned x and w.
-// Anything else returns cudaErrorInvalidValue.
+// Shapes taken: C and Cout multiples of 16, H % strip == 0, 16-byte aligned
+// x, w and y, and the block's shared memory within the device's limit
+// (`takes`).  Anything else returns cudaErrorInvalidValue.
 #include "mma_tile.cuh"
+#include "conv3x3_im2col_sm90.cuh"
 
 using namespace smsut;
 
@@ -46,9 +46,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// pixels per im2col product tile: two 64-pixel column tiles and the 64 x 64
-// weight slab fill the H100's 227 KB
-constexpr int kTile = 64;
 
 // w [9][C][Cout] -> w_s [9C][NCO + 8], output channels co0 .. co0+NCO-1
 template <int NCO>
@@ -167,143 +164,61 @@ conv_dots_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-// ---------------------------------------------------------------- im2col
-// The band's strip*W pixels in tiles of M.  Tile t's columns
-// col[M][9C + 8] (column tap*C + ci of pixel row m is x at the tap's
-// shifted pixel, zero off the image) are built in shared memory, then
-// the warps run one K = 9C product of [M, 9C] @ [9C, NCO]: warp w takes
-// 16 pixels (w / WN) and NCO / WN channels (w % WN).  ASYNC (im2col2)
-// builds tile t+1 into the other buffer with cp.async while the products
-// of tile t run; otherwise each thread loads and stores its 16 bytes and
-// the block waits for the column tile before the products.
-template <int NCO, bool ASYNC>
-__global__ void __launch_bounds__(kThreads, 1)
-conv_im2col_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   bf16* __restrict__ y, int H, int W, int C, int Cout,
-                   int strip) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int M = kTile, MT = M / 16;
-  constexpr int WN = kWarps / MT < NCO / 16 ? kWarps / MT : NCO / 16;
-  constexpr int NT = NCO / 8 / WN, NS = NCO + 8;
-  static_assert(MT * WN <= kWarps && NT % 2 == 0, "warp tiling");
-  const int K = 9 * C, KS = K + 8, cch = C / 8;
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  bf16* cols = w_s + K * NS;
-  const int bands = H / strip;
-  const int b = blockIdx.x / bands, r0 = (blockIdx.x % bands) * strip;
-  const int co0 = blockIdx.y * NCO;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int npix = strip * W, ntiles = (npix + M - 1) / M;
-  const bf16* xb = x + (size_t)b * H * W * C;
-
-  auto build = [&](int tile, bf16* col) {
-    for (int i = tid; i < M * cch; i += kThreads) {
-      const int m = i / cch, c = i % cch;
-      const int p = tile * M + m;
-      const int pr = r0 + p / W, pc = p % W;
-      bf16* dst = col + m * KS + c * 8;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ih = pr + tap / 3 - 1, iw = pc + tap % 3 - 1;
-        const bool ok = p < npix && ih >= 0 && ih < H && iw >= 0 && iw < W;
-        const bf16* src = ok ? xb + ((size_t)ih * W + iw) * C + c * 8 : xb;
-        if (ASYNC)
-          cp_async16(smem_addr(dst + tap * C), src, ok);
-        else
-          *reinterpret_cast<uint4*>(dst + tap * C) =
-              ok ? __ldg(reinterpret_cast<const uint4*>(src))
-                 : make_uint4(0, 0, 0, 0);
-      }
-    }
-  };
-
-  stage_weights<NCO>(w_s, w, C, Cout, co0);
-  const int wm = warp / WN, wn = warp % WN;
-  const uint32_t bw = b_lane_addr(w_s + wn * NT * 8, NS, lane);
-  if (ASYNC) {
-    build(0, cols);
-    cp_async_commit();
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    bf16* col = cols + (ASYNC ? (t & 1) * M * KS : 0);
-    if (ASYNC) {
-      if (t + 1 < ntiles) {
-        build(t + 1, cols + ((t + 1) & 1) * M * KS);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-    } else {
-      build(t, col);
-    }
-    __syncthreads();
-    if (wm < MT) {
-      float acc[NT][4] = {};
-      const uint32_t a = a_lane_addr(col + wm * 16 * KS, KS, lane);
-      for (int ks = 0; ks < K / 16; ++ks)
-        mma_k16<NT>(acc, a + ks * 32, bw + ks * 16 * NS * 2);
-      const int m0 = t * M + wm * 16;
-      // pixel m0 + m of the band is row r0 + (m0+m) / W, column (m0+m) % W:
-      // consecutive in the [H][W] map, so the band's first pixel plus m0
-      store_tile<NT>(y, acc, ((size_t)b * H + r0) * W + m0, npix - m0, Cout,
-                     co0 + wn * NT * 8, lane);
-    }
-    __syncthreads();
-  }
-}
-
 // ------------------------------------------------------------------ host
 int nco_of(int Cout) {
   return Cout % 64 == 0 ? 64 : Cout % 32 == 0 ? 32 : 16;
 }
 
 // Dynamic shared memory of `variant` (0 dots, 1 im2col, 2 im2col2): the
-// weight slab, then the dots ring of four rows or the im2col kernels' one
-// or two column tiles of kTile pixels.
+// dots kernel's weight slab and ring of four rows; the im2col kernels'
+// plan at its least ring (im2col_geom: 3 slots, im2col2 4).
 size_t smem_bytes(int variant, int W, int C, int Cout) {
-  const size_t wts = (size_t)9 * C * (nco_of(Cout) + 8) * sizeof(bf16);
-  if (variant == 0) return wts + (size_t)4 * (W + 2) * (C + 8) * sizeof(bf16);
-  return wts + (size_t)variant * kTile * (9 * C + 8) * sizeof(bf16);
+  if (variant != 0)
+    return im2col_geom(variant == 2, 1, 1, W, C, Cout, kSMs, 0)
+        .smem(variant == 2 ? 4 : 3);
+  return (size_t)9 * C * (nco_of(Cout) + 8) * sizeof(bf16) +
+         (size_t)4 * (W + 2) * (C + 8) * sizeof(bf16);
 }
 
 // Everything the kernels need of a shape: C and Cout multiples of 16,
-// H % strip == 0, 16-byte aligned x and w, and the block's shared memory
-// within the device's limit.
+// H % strip == 0, 16-byte aligned x, w and y, and the block's shared
+// memory within the device's limit.
 bool takes(int variant, int B, int H, int W, int C, int Cout, int strip,
-           const void* x, const void* w) {
+           const void* x, const void* w, const void* y) {
   return B >= 1 && H >= 1 && W >= 1 && strip >= 1 && H % strip == 0 &&
          C >= 16 && C % 16 == 0 && Cout >= 16 && Cout % 16 == 0 &&
          (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0 &&
+         (uintptr_t)y % 16 == 0 &&
          smem_bytes(variant, W, C, Cout) <= smem_optin_bytes();
 }
 
-// One kernel instantiation: `variant` (0 dots, 1 im2col, 2 im2col2) at NCO
-// output channels per block.
-template <int V, int NCO>
-int launch_variant(const void* x, const void* w, void* y, int B, int H,
-                   int W, int C, int Cout, int strip, cudaStream_t s) {
-  const size_t smem = smem_bytes(V, W, C, Cout);
+// The dots kernel at NCO output channels per block, one block per band of
+// `strip` rows.
+template <int NCO>
+int launch_dots(const void* x, const void* w, void* y, int B, int H, int W,
+                int C, int Cout, int strip, cudaStream_t s) {
   const dim3 grid(B * (H / strip), Cout / NCO);
-  const bf16 *xb = (const bf16*)x, *wb = (const bf16*)w;
-  if constexpr (V == 0)
-    return (int)launch_opted(conv_dots_kernel<NCO>, grid, kThreads, smem, s,
-                             xb, wb, (bf16*)y, H, W, C, Cout, strip);
-  else
-    return (int)launch_opted(conv_im2col_kernel<NCO, V == 2>, grid, kThreads,
-                             smem, s, xb, wb, (bf16*)y, H, W, C, Cout, strip);
+  return (int)launch_opted(conv_dots_kernel<NCO>, grid, kThreads,
+                           smem_bytes(0, W, C, Cout), s, (const bf16*)x,
+                           (const bf16*)w, (bf16*)y, H, W, C, Cout, strip);
 }
 
+// `variant` 0 dots, 1 im2col, 2 im2col2; the im2col kernels pick their own
+// bands (im2col_geom), whatever `strip`.
 template <int V>
 int entry(const void* x, const void* w, void* y, int B, int H, int W, int C,
           int Cout, int strip, void* stream) {
-  if (!takes(V, B, H, W, C, Cout, strip, x, w))
+  if (!takes(V, B, H, W, C, Cout, strip, x, w, y))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (nco_of(Cout)) {
-    case 64: return launch_variant<V, 64>(x, w, y, B, H, W, C, Cout, strip, s);
-    case 32: return launch_variant<V, 32>(x, w, y, B, H, W, C, Cout, strip, s);
-    default: return launch_variant<V, 16>(x, w, y, B, H, W, C, Cout, strip, s);
+  if constexpr (V != 0) {
+    return launch_im2col_sm90<V == 2>(x, w, y, B, H, W, C, Cout, s);
+  } else {
+    switch (nco_of(Cout)) {
+      case 64: return launch_dots<64>(x, w, y, B, H, W, C, Cout, strip, s);
+      case 32: return launch_dots<32>(x, w, y, B, H, W, C, Cout, strip, s);
+      default: return launch_dots<16>(x, w, y, B, H, W, C, Cout, strip, s);
+    }
   }
 }
 

@@ -8,18 +8,21 @@ float32 accumulation and one rounding to x's dtype, as the Pallas
 candidate it replaces does:
 
 - :func:`conv3x3_dots`: ``pallas_conv_dots`` (nine accumulated tap products);
-- :func:`conv3x3_im2col`: ``pallas_conv_im2col`` (one [M, 9C] @ [9C, Cout]
-  product per pixel tile);
-- :func:`conv3x3_im2col2`: ``pallas_conv_im2col2`` (the same with two
-  column buffers, the next tile's columns copied during the product).
+- :func:`conv3x3_im2col`: ``pallas_conv_im2col`` (one K = 9C product per
+  pixel tile, the input copied and multiplied in turn);
+- :func:`conv3x3_im2col2`: ``pallas_conv_im2col2`` (the same with the next
+  input's copy in flight during the products).
 
-On a CUDA tensor each launches its kernel of ``csrc/conv3x3_mma.cu``
-(bf16 ``mma.sync``); on a CPU tensor, or under ``ops.plain()``, it runs
-:func:`conv3x3_mma_plain`.  ``strip`` is the number of image rows one
-block (one Pallas strip) walks; it does not change the math, and H must be
-a multiple of it.  On the card the kernel takes bfloat16, C and Cout
-multiples of 16, 16-byte aligned tensors and a W whose staged rows fit a
-block's shared memory; it refuses any other shape, and the wrapper raises
+On a CUDA tensor each launches its kernel of ``csrc/conv3x3_mma.cu``: the
+dots kernel on bf16 ``mma.sync``, the im2col pair on Hopper's ``wgmma``,
+TMA and mbarriers (``csrc/conv3x3_im2col_sm90.cuh``); on a CPU tensor, or
+under ``ops.plain()``, it runs :func:`conv3x3_mma_plain`.  ``strip`` is the
+number of image rows one block (one Pallas strip) walks in the dots
+kernel; the im2col pair picks its own bands.  It does not change the
+math, and H must be a multiple of it.  On the card the kernels take
+bfloat16, C and Cout multiples of 16, 16-byte aligned tensors and a shape
+whose staged rows and weights fit a block's shared memory (the im2col
+pair: C up to 64); they refuse any other shape, and the wrapper raises
 ``ValueError``.  The Pallas candidates have no backward, so neither do
 these.
 """
@@ -63,8 +66,8 @@ def _conv(variant: str, wrapper, x: torch.Tensor, w: torch.Tensor,
     check(_kernel(variant)(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h,
                            wd, c, cout, strip, stream_of(x)), name,
           f"the kernel does not take x {tuple(x.shape)}, Cout {cout}: C and "
-          f"Cout must be multiples of 16, x and w 16-byte aligned, and a "
-          f"block's shared memory must hold W {wd}")
+          f"Cout must be multiples of 16, x, w and y 16-byte aligned, and a "
+          f"block's shared memory must hold W {wd} and C {c}")
     wrapper.launches += 1
     return y
 
@@ -84,8 +87,8 @@ def conv3x3_im2col(x: torch.Tensor, w: torch.Tensor,
 
 def conv3x3_im2col2(x: torch.Tensor, w: torch.Tensor,
                     strip: int = 16) -> torch.Tensor:
-    """im2col with two column buffers, the next tile's columns copied by
-    cp.async during the product (``pallas_conv_im2col2``)."""
+    """im2col with the next input rows' TMA copies in flight during the
+    products (``pallas_conv_im2col2``)."""
     return _conv("im2col2", conv3x3_im2col2, x, w, strip)
 
 

@@ -10,11 +10,14 @@ Port of ``tools/microbench_pallas_conv.py``.  Candidates:
   k2          ``conv3x3_fwd`` (K2; in bfloat16 its tensor-core kernel)
   dots        ``conv3x3_dots``: nine accumulated tap products
   im2col      ``conv3x3_im2col``: one [M, 9C] @ [9C, Cout] product per tile
-  im2col2     ``conv3x3_im2col2``: im2col with two column buffers
+  im2col2     ``conv3x3_im2col2``: im2col with the next input's copy in
+              flight during the products
   im2col2_32, im2col_32: the same at strip 32
 
 Timing: a chain of ``iters`` applications y = f(y) after a warm-up,
-between two CUDA events (device time per application).  ``rel_err`` is
+between two CUDA events, enqueued while a sleep kernel holds the stream, so
+that the events time the device and not the host's launch rate (an
+application of tens of us is shorter than its enqueue).  ``rel_err`` is
 max |f(x) - plain(x)| / max |plain(x)| against the plain version of the
 same function; a candidate over ``REL_TOL``, or one that fails, raises.
 
@@ -60,14 +63,19 @@ def time_chain(fn: Callable, x: torch.Tensor, w: torch.Tensor,
                iters: int) -> float:
     """Seconds per application of a chain y = fn(y, w) of ``iters``
     applications: CUDA events on the card, the host clock on the CPU."""
-    y = x
-    for _ in range(2):
-        y = fn(y, w)
+    y = fn(x, w)
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    y = fn(y, w)
+    host_s = time.perf_counter() - t0
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         y = x
+        # about 2e9 cycles a second; twice the host's time for the chain
+        torch.cuda._sleep(int(min(2 * iters * host_s, 1.0) * 2e9))
         start.record()
         for _ in range(iters):
             y = fn(y, w)

@@ -1,5 +1,7 @@
-// Runs the three kernels of smsut_tpu_torch/csrc/conv3x3_mma.cu on the CPU
-// through the emulation of shim.h and prims.h, and holds every output
+// Runs the three kernels of smsut_tpu_torch/csrc/conv3x3_mma.cu (the dots
+// kernel, and the im2col pair of conv3x3_im2col_sm90.cuh) on the CPU
+// through the emulation of shim.h, prims.h and sm90_prims.h (TMA,
+// mbarriers, wgmma), and holds every output
 // against a float64 reference of the same bf16 inputs, rounded once to
 // bf16: each output must be within one bf16 unit of it.  Outputs start as
 // NaN, so an unwritten one fails.  A shape whose kernel does not fit the
@@ -7,7 +9,8 @@
 // bank conflict, which the kernels' padded rows are meant to rule out.
 //
 // Environment: EMU_DEFER=1 lands cp.async copies at their wait; EMU_OPTIN
-// sets the block's shared-memory limit in bytes.  Built and run by
+// sets the block's shared-memory limit in bytes; EMU_SMS the device's SMs
+// (few: each im2col block walks several units, its ring wrapping).  Built and run by
 // tests/test_torch_cuda_emu.py, which generates conv3x3_mma_emu.cpp.
 #include <random>
 
@@ -18,13 +21,18 @@ using namespace smsut;
 int main() {
   if (getenv("EMU_DEFER")) emu_defer = true;
   if (getenv("EMU_OPTIN")) emu_optin = atoi(getenv("EMU_OPTIN"));
+  if (getenv("EMU_SMS")) emu_sms = atoi(getenv("EMU_SMS"));
   struct Shape { int B, H, W, C, Co, strip; };
   // W not a multiple of 16 (20, 130: more 16-pixel tiles than warps, 3);
-  // Cout 16, 32, 48 and 128 (two blocks along Cout); C 16 to 64
+  // Cout 16, 32, 48 and 128 (two blocks along Cout); C 16 to 64.  For the
+  // im2col kernels' 64-pixel tiles: W 72 (a second, ragged tile for the
+  // second warpgroup) and 200 (two column segments); C 128 (two 64-channel
+  // boxes per row, too large for EMU_OPTIN=120000)
   const std::vector<Shape> shapes = {
       {2, 8, 20, 16, 16, 4},  {1, 8, 16, 32, 48, 8},  {1, 4, 16, 64, 64, 2},
       {1, 16, 24, 48, 32, 16}, {1, 4, 130, 16, 16, 2}, {1, 4, 16, 16, 128, 4},
-      {1, 2, 3, 16, 32, 1}};
+      {1, 2, 3, 16, 32, 1},   {1, 3, 72, 32, 64, 1},  {1, 2, 200, 16, 32, 2},
+      {1, 4, 16, 128, 64, 4}};
   std::mt19937 rng(1);
   std::normal_distribution<float> nd(0.f, 1.f);
   int failed = 0;
@@ -81,6 +89,8 @@ int main() {
     }
   }
   const long conflicts = emu_conflicts.load();
+  printf("wgmma %ld, TMA loads %ld, maps refused %d\n", emu_wgmma.load(),
+         emu_tma_loads.load(), emu_encode_errors);
   printf("ldmatrix %ld, bank-conflicted phases %ld\n", emu_ldmatrix.load(),
          conflicts);
   printf("%s\n", failed || conflicts ? "FAIL" : "OK");

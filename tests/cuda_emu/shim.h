@@ -5,8 +5,11 @@
 // except the blocks of one thread-block cluster (cudaLaunchKernelEx with a
 // cluster dimension), which run at once, meet at cluster.sync() and read
 // each other's shared memory (cooperative_groups.h).  Each block's shared
-// memory is its own buffer, filled with a garbage pattern before the block
-// so that a read of an unwritten byte shows.
+// memory is its own buffer, 1024-byte aligned, filled with a garbage
+// pattern before the block so that a read of an unwritten byte shows.  The
+// launcher also keeps a barrier per full warpgroup of 128 threads (wgmma,
+// sm90_prims.h) and the count of each block's threads still running (the
+// mbarrier emulation's deadlock check).
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -89,8 +92,10 @@ inline int emu_smem_attr = 0;
 inline int emu_max_clusters = 1 << 30;
 inline bool emu_nonportable = false;
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// the device's SMs (the H100's 132 unless EMU_SMS says)
+inline int emu_sms = 132;
 inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
-  *v = attr == cudaDevAttrMultiProcessorCount ? 132 : emu_optin;
+  *v = attr == cudaDevAttrMultiProcessorCount ? emu_sms : emu_optin;
   return cudaSuccess;
 }
 template <typename K> cudaError_t cudaFuncSetAttribute(K, int attr, int v) {
@@ -108,12 +113,15 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 struct EmuLane { uint32_t addr; uint32_t a[4]; uint32_t b[2]; float f; };
 constexpr int kEmuMaxCluster = 16;
 constexpr size_t kEmuSmem = 240 * 1024;
-alignas(16) inline unsigned char emu_smem_pool[kEmuMaxCluster][kEmuSmem];
+alignas(1024) inline unsigned char emu_smem_pool[kEmuMaxCluster][kEmuSmem];
 inline EmuLane emu_xch_pool[kEmuMaxCluster][32][32];
 inline thread_local unsigned char* emu_smem;
 inline thread_local EmuLane (*emu_xch)[32];
 inline thread_local std::barrier<>* emu_block_bar;
 inline thread_local std::barrier<>** emu_warp_bar;
+inline thread_local std::barrier<>** emu_wg_bar;
+inline std::atomic<int> emu_live_pool[kEmuMaxCluster];
+inline thread_local std::atomic<int>* emu_live;
 inline thread_local int emu_cluster_rank = 0, emu_cluster_size = 1;
 inline thread_local std::barrier<>* emu_cluster_bar;
 inline uint64_t __cvta_generic_to_shared(const void* p) {
@@ -149,16 +157,18 @@ void emu_launch_clusters(Kernel k, dim3 grid, int threads, size_t smem_bytes,
   const size_t fill = std::min(kEmuSmem, (smem_bytes + 15) / 16 * 16);
   std::barrier<> cluster_bar(n * threads);
   std::vector<std::barrier<>*> bars;
-  std::vector<std::vector<std::barrier<>*>> warps(n);
+  std::vector<std::vector<std::barrier<>*>> warps(n), wgs(n);
   for (int r = 0; r < n; ++r) {
     bars.push_back(new std::barrier<>(threads));
     for (int w = 0; w < threads / 32; ++w)
       warps[r].push_back(new std::barrier<>(32));
+    for (int w = 0; w < threads / 128; ++w)
+      wgs[r].push_back(new std::barrier<>(128));
   }
   std::vector<std::thread> ts;
   for (int r = 0; r < n; ++r)
     for (int t = 0; t < threads; ++t)
-      ts.emplace_back([=, &cluster_bar, &bars, &warps]() {
+      ts.emplace_back([=, &cluster_bar, &bars, &warps, &wgs]() {
         threadIdx = {(unsigned)t, 0, 0};
         gridDim = grid;
         blockDim = dim3(threads);
@@ -166,16 +176,22 @@ void emu_launch_clusters(Kernel k, dim3 grid, int threads, size_t smem_bytes,
         emu_xch = emu_xch_pool[r];
         emu_block_bar = bars[r];
         emu_warp_bar = warps[r].data();
+        emu_wg_bar = wgs[r].data();
+        emu_live = &emu_live_pool[r];
         emu_cluster_rank = r;
         emu_cluster_size = n;
         emu_cluster_bar = &cluster_bar;
         for (unsigned q = 0; q < clusters; ++q) {
-          if (t == 0) memset(emu_smem, 0xA5, fill);
+          if (t == 0) {
+            memset(emu_smem, 0xA5, fill);
+            emu_live->store(threads);
+          }
           // the previous cluster has ended and the memory is filled
           cluster_bar.arrive_and_wait();
           blockIdx = {q % per_row * n + r, q / per_row % grid.y,
                       q / per_row / grid.y};
           k(args...);
+          emu_live->fetch_sub(1);
           cluster_bar.arrive_and_wait();
         }
       });
@@ -183,6 +199,7 @@ void emu_launch_clusters(Kernel k, dim3 grid, int threads, size_t smem_bytes,
   for (int r = 0; r < n; ++r) {
     delete bars[r];
     for (auto* w : warps[r]) delete w;
+    for (auto* w : wgs[r]) delete w;
   }
 }
 

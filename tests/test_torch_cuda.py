@@ -5,8 +5,9 @@ K5's tensor-core paths at every 3x3 conv of the training step, K3's and
 K6's at the U-Net's nine blocks, their routing by dtype and their runs bit
 for bit, the launch counts of the U-Net's serving and training
 steps, and its gradients against the plain path; the three tensor-core conv
-kernels of the conv microbench (dots, im2col, im2col2) and the microbench
-itself.  Each test skips on a host without an NVIDIA GPU.
+kernels of the conv microbench (dots, im2col, im2col2; the im2col pair
+at the emulation's shapes and bit for bit across runs and strips) and the
+microbench itself.  Each test skips on a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -621,6 +622,53 @@ def test_conv_mma(rng, cuda_device, name, shape, cout, strip):
         want = fn(x, w, strip).float()
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= 8e-3, err
+
+
+# the shapes of tests/cuda_emu/conv3x3_mma_check.cpp: B, H, W, C, Cout,
+# strip (W 20, 130, 3, 72 and 200 ragged against 16- and 64-pixel tiles,
+# 200 in two column segments; Cout 16-128; C 16-128)
+EMU_SHAPES = ((2, 8, 20, 16, 16, 4), (1, 8, 16, 32, 48, 8),
+              (1, 4, 16, 64, 64, 2), (1, 16, 24, 48, 32, 16),
+              (1, 4, 130, 16, 16, 2), (1, 4, 16, 16, 128, 4),
+              (1, 2, 3, 16, 32, 1), (1, 3, 72, 32, 64, 1),
+              (1, 2, 200, 16, 32, 2), (1, 4, 16, 128, 64, 4))
+
+
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+@pytest.mark.parametrize("name", list(MMA))
+def test_conv_mma_at_the_emulation_shapes(rng, cuda_device, name, shape):
+    """Every shape the emulation runs; the im2col pair refuses C over 64
+    (its weight slab of 9C x 64 beside the ring of rows would not fit a
+    block's shared memory), as the emulation's check expects."""
+    b, h, w, c, cout, strip = shape
+    x = t(rng.normal(size=(b, h, w, c)).astype(np.float32), BF16,
+          cuda_device)
+    wt = t(conv_w(rng, 3, c, cout, std=0.1), BF16, cuda_device)
+    if name != "dots" and c > 64:
+        with pytest.raises(ValueError):
+            MMA[name](x, wt, strip)
+        return
+    got = MMA[name](x, wt, strip).float()
+    with ops.plain():
+        want = MMA[name](x, wt, strip).float()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 8e-3, err
+
+
+@pytest.mark.parametrize("shape,cout", [((16, 128, 128, 64), 64),
+                                        ((4, 64, 64, 32), 32),
+                                        ((2, 32, 20, 48), 16)])
+@pytest.mark.parametrize("name", ["im2col", "im2col2"])
+def test_conv_mma_im2col_bit_for_bit(rng, cuda_device, name, shape, cout):
+    """K8 and K9 use no atomics, and `strip` does not change their math:
+    two runs, and strip 16 against strip 32, give the same bits."""
+    x = t((0.1 * rng.normal(size=shape)).astype(np.float32), BF16,
+          cuda_device)
+    w = t(conv_w(rng, 3, shape[-1], cout, std=0.05), BF16, cuda_device)
+    fn = MMA[name]
+    first = fn(x, w, 16)
+    assert torch.equal(first, fn(x, w, 16))
+    assert torch.equal(first, fn(x, w, 32))
 
 
 def test_conv_mma_counts_launches(cuda_device):

@@ -2,11 +2,20 @@
 """The port's tensor-core kernels on the CPU: their source, compiled with
 the host C++ compiler against an emulation of the CUDA runtime and of the
 PTX primitives they use (tests/cuda_emu: ldmatrix .x4/.x2/.trans, mma.sync
-m16n8k16 bf16, cp.async, one thread per CUDA thread), is run and held
-against a float64 reference by one check program per source:
+m16n8k16 bf16, cp.async; and Hopper's mbarriers, TMA tiled loads from a
+tensor map and wgmma with A in registers, sm90_prims.h; one thread per
+CUDA thread), is run and held against a float64 reference by one check
+program per source:
 
-- ``csrc/conv3x3_mma.cu``, the three conv candidates of the microbench,
-  within one bf16 unit (tests/cuda_emu/conv3x3_mma_check.cpp);
+- ``csrc/conv3x3_mma.cu``, the three conv candidates of the microbench
+  (dots on mma.sync; im2col and im2col2, K8 and K9, on TMA, mbarriers and
+  wgmma, ``csrc/conv3x3_im2col_sm90.cuh``), within one bf16 unit
+  (tests/cuda_emu/conv3x3_mma_check.cpp), also on three SMs, where each
+  im2col block walks several units and its ring of rows wraps;
+- ``csrc/sm90.cuh``'s helpers with the Hopper emulation, unit case by unit
+  case against dense references (tests/cuda_emu/sm90_check.cpp), and two
+  misuses the emulation must catch (a wait that cannot complete, a wgmma
+  without its fence);
 - ``csrc/conv3x3_tc.cuh``, K2's bfloat16 path, at every block shape of
   each case's channel width, within one bf16 unit
   (tests/cuda_emu/conv3x3_tc_check.cpp), and the options that K3's and
@@ -60,7 +69,13 @@ NORM = [("instnorm.cuh", "instnorm_emu.cuh",
          [('#include "instnorm.cuh"', '#include "instnorm_emu.cuh"', 1)])]
 SOURCES = {
     "conv3x3_mma": [("conv3x3_mma.cu", "conv3x3_mma_emu.cpp",
-                     [(*INCLUDE_MMA, 1), (*SMEM, 2)])],
+                     [(*INCLUDE_MMA, 1), (*SMEM, 1),
+                      ('#include "conv3x3_im2col_sm90.cuh"',
+                       '#include "conv3x3_im2col_sm90_emu.cuh"', 1)]),
+                    ("conv3x3_im2col_sm90.cuh", "conv3x3_im2col_sm90_emu.cuh",
+                     [(*SMEM, 1),
+                      ('#include "sm90.cuh"', '#include "sm90_emu.cuh"', 1)])],
+    "sm90": [],
     "conv3x3_tc": [("conv3x3_tc.cuh", "conv3x3_tc_emu.cuh",
                     [(*INCLUDE_MMA, 1), (*SMEM, 1)])],
     "conv3x3_dw_tc": [("conv3x3_dw_tc.cuh", "conv3x3_dw_tc_emu.cuh",
@@ -80,8 +95,10 @@ def _replace(text: str, old: str, new: str, count: int) -> str:
 
 def _generate(out: Path, files) -> None:
     """Each ``(source, generated, subs)`` of ``files``: ``source`` of csrc
-    with the changes ``subs`` as ``generated``; mma_tile.cuh with its PTX
-    primitives and launch syntax given to the emulation as mma_tile_emu.cuh;
+    with the changes ``subs`` as ``generated``; sm90.cuh with its PTX part
+    given to the emulation (tests/cuda_emu/sm90_prims.h) as sm90_emu.cuh;
+    mma_tile.cuh with its PTX primitives and launch syntax given to the
+    emulation as mma_tile_emu.cuh;
     and the scalar helpers of common.cuh (dtype conversion, the leaky ReLU,
     its mask, ``mul_add_rn``, ``norm_act``, the epilogue kinds) as
     common_emu.cuh, into ``out``."""
@@ -95,6 +112,12 @@ def _generate(out: Path, files) -> None:
     end = c.index("// 4 consecutive elements")
     (out / "common_emu.cuh").write_text(
         "#pragma once\n" + c[start:end] + "}  // namespace smsut\n")
+    h = (CSRC / "sm90.cuh").read_text()
+    h = _replace(h, "#include <cuda.h>", '#include "sm90_prims.h"', 1)
+    h = _replace(h, *INCLUDE_MMA, 1)
+    start = h.index("// ---------------------------------------------------------------- PTX")
+    end = h.index("// ------------------------------------------------------------ end of PTX")
+    (out / "sm90_emu.cuh").write_text(h[:start] + h[end:])
     h = (CSRC / "mma_tile.cuh").read_text()
     h = _replace(h, '#include "common.cuh"',
                  '#include "shim.h"\n#include "common_emu.cuh"\n'
@@ -152,12 +175,42 @@ ENVS = {"copies_at_once": {},                    # cp.async lands at once
 @pytest.mark.parametrize("env", [
     ENVS["copies_at_once"], ENVS["copies_at_wait"],
     {"EMU_OPTIN": "120000"},   # a smaller block: some shapes refused
-], ids=["copies_at_once", "copies_at_wait", "small_shared_memory"])
+    {"EMU_SMS": "3"},          # im2col blocks walk several units each
+], ids=["copies_at_once", "copies_at_wait", "small_shared_memory",
+        "few_sms"])
 def test_conv3x3_mma_kernels_in_emulation(check_binary, env):
     lines = _run(check_binary, env)
+    wgmma = lines[-3].split(",")
+    assert "maps refused 0" in wgmma[2], lines[-3]
     if "EMU_OPTIN" in env:
+        # 120 KB: every im2col shape refused, the dots kernel runs some
         assert any("fits 0 " in l for l in lines)
         assert any("fits 1 " in l for l in lines)
+    else:
+        assert wgmma[0] != "wgmma 0", lines[-3]
+
+
+@pytest.fixture(scope="module")
+def sm90_binary(tmp_path_factory):
+    return _build(tmp_path_factory, "sm90")
+
+
+@pytest.mark.parametrize("case", ["mbarrier", "tma", "wgmma"])
+def test_sm90_primitives_in_emulation(sm90_binary, case):
+    run = subprocess.run([str(sm90_binary), case], capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0 and run.stdout.splitlines()[-1] == "OK", \
+        run.stdout + run.stderr
+
+
+@pytest.mark.parametrize("case,what", [
+    ("deadlock", "waits on a phase that cannot complete"),
+    ("unfenced", "without wgmma.fence")])
+def test_sm90_emulation_catches_misuse(sm90_binary, case, what):
+    run = subprocess.run([str(sm90_binary), case], capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 5 and what in run.stderr, \
+        run.stdout + run.stderr
 
 
 @pytest.mark.parametrize("env", [
