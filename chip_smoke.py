@@ -9,8 +9,10 @@
    tensor-core instructions of every tensor-core kernel instantiation in
    the built code (``cuobjdump -sass``) and fails where one lacks them:
    HMMA (mma.sync) in K2's and K5's, in those of K3's and K6's chains and
-   in K7's (the dots conv); HGMMA (wgmma) and UTMALDG (TMA loads), and no
-   HMMA, in K8's and K9's (the im2col pair).
+   in K7's mma.sync kernel (the dots conv at C over 64); HGMMA (wgmma) and
+   UTMALDG (TMA loads), and no HMMA, in K7's Hopper kernel and in K8's
+   and K9's (the im2col pair).  Prints K7's Hopper kernel's registers and
+   spills from ptxas, and whether ptxas ignored its setmaxnreg (C7508).
 2. Holds each forward kernel (K1 instance norm, K2 3x3 conv, K3 fused
    block, both block forms) against its plain PyTorch version on the card,
    at the U-Net's shapes, in float32 (TF32 off) and bfloat16, and times the
@@ -28,8 +30,11 @@
    2c. The same for the three tensor-core conv kernels (dots, im2col,
    im2col2, the candidates of the conv microbench), bfloat16, at the
    microbench's shape [16,128,128,64] -> 64 and at [4,64,64,32] -> 32,
-   each at strip 16 and 32; im2col and im2col2 two runs bit for bit, and
-   strip 32 bit for bit with strip 16 (strip does not change their math).
+   and dots alone at the step's [8,32,32,128] -> 128 (C over 64: K8 and
+   K9 refuse it), each at strip 16 and 32; each two runs bit for bit, and
+   strip 32 bit for bit with strip 16 (strip does not change their math);
+   K7's route printed and asserted at each shape: its Hopper kernel at
+   C <= 64, its mma.sync kernel at C 128.
 3. Serves the full-width U-Net (width 16, 256x256, batch 8, bfloat16,
    seeded random weights) through ``SupervisedUNet`` -> ``export_eval`` ->
    ``load_serving`` -> ``predict``, once with ``block_pallas`` off and once
@@ -138,8 +143,8 @@ CUDA_CORE_CONVS = ("conv_tile_kernel+stats", "conv_tile_kernel-stats",
 # instantiations, the SASS opcodes each must hold and those it must not
 # (K2 and K5; in K3's chain conv1, conv2 with the norm applied while
 # staging, the 1x1 shortcut; in K6's dn1 masked, dx plus the side term, the
-# float32 side term, and dw2 (norm applied), dw1, dws; K7 at three NCO;
-# K8 and K9 at three NCO each, on wgmma and TMA)
+# float32 side term, and dw2 (norm applied), dw1, dws; K7's mma.sync
+# kernel at three NCO and its Hopper kernel; K8 and K9, on wgmma and TMA)
 HMMA = (("HMMA",), ())
 TC_KERNELS = (("conv3x3", "conv3x3_tc_kernel", 12, *HMMA),
               ("conv3x3_dw", "conv3x3_dw_tc_kernel", 6, *HMMA),
@@ -147,6 +152,8 @@ TC_KERNELS = (("conv3x3", "conv3x3_tc_kernel", 12, *HMMA),
               ("block_bwd", "conv3x3_tc_kernel", 36, *HMMA),
               ("block_bwd", "conv3x3_dw_tc_kernel", 18, *HMMA),
               ("conv3x3_mma", "conv_dots_kernel", 3, *HMMA),
+              ("conv3x3_mma", "conv_dots_sm90_kernel", 1,
+               ("HGMMA", "UTMALDG"), ("HMMA",)),
               ("conv3x3_mma", "conv_im2col_sm90_kernel", 2,
                ("HGMMA", "UTMALDG"), ("HMMA",)))
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
@@ -160,6 +167,12 @@ F32_K6 = ((256, 32, 16), (256, 8, 16), (64, 64, 64))
 KERNELS = ("instnorm", "conv3x3", "block", "instnorm_bwd", "conv3x3_dw",
            "block_bwd", "conv3x3_dots", "conv3x3_im2col", "conv3x3_im2col2")
 MMA_VARIANTS = ("dots", "im2col", "im2col2")
+# phase 2c's shapes (B, H, W, C, Cout), the kernel K7 runs at each and the
+# variants held there: the microbench's, C 32, and the step's C-128 conv,
+# where K7 runs mma.sync and K8 and K9 refuse (their slab does not fit)
+MMA_SHAPES = (((16, 128, 128, 64, 64), "conv_dots_sm90_kernel", MMA_VARIANTS),
+              ((4, 64, 64, 32, 32), "conv_dots_sm90_kernel", MMA_VARIANTS),
+              ((8, 32, 32, 128, 128), "conv_dots_kernel", ("dots",)))
 PER_FORWARD = {False: {"instnorm": 28, "conv3x3": 18, "block": 0},
                True: {"instnorm": 1, "conv3x3": 0, "block": 9}}
 # training: launches per step (forward + backward; K2 runs the forward
@@ -507,17 +520,22 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
 
 def check_mma_kernels(torch, F, ops, conv_mma):
     """Phase 2c: the tensor-core conv kernels against their plain version
-    (bfloat16), timed beside cuDNN's conv on the channels-last view; K8 and
-    K9 (im2col, im2col2) two runs bit for bit at each strip, and strip 32
-    bit for bit with strip 16."""
+    (bfloat16), timed beside cuDNN's conv on the channels-last view; K7, K8
+    and K9 (dots, im2col, im2col2) two runs bit for bit at each strip, and
+    strip 32 bit for bit with strip 16, at MMA_SHAPES (K7 alone at C 128,
+    on its mma.sync kernel); K7's route at each shape."""
     rows = []
     cases = Cases(torch, seed=2)
-    for (b, h, w, c, co) in ((16, 128, 128, 64, 64), (4, 64, 64, 32, 32)):
+    for (b, h, w, c, co), kernel, variants in MMA_SHAPES:
         x = cases.randn(b, h, w, c, std=0.1, dtype=torch.bfloat16)
         wt = cases.randn(3, 3, c, co, std=0.05, dtype=torch.bfloat16)
         lib = lambda x=x, wt=wt: F.conv2d(x.permute(0, 3, 1, 2),
                                           wt.permute(3, 2, 0, 1), padding=1)
-        for variant in ("im2col", "im2col2"):
+        route = conv_mma.dots_route(b, h, w, c, co)
+        print(f"conv3x3_dots {[b, h, w, c]}->{co}: route {route}", flush=True)
+        if route != kernel:
+            raise AssertionError(f"conv3x3_dots {[b, h, w, c]}: route {route}")
+        for variant in variants:
             fn = getattr(conv_mma, f"conv3x3_{variant}")
             for strip in (16, 32):
                 same_twice(torch, f"conv3x3_{variant} strip={strip}",
@@ -527,7 +545,7 @@ def check_mma_kernels(torch, F, ops, conv_mma):
                 raise AssertionError(f"conv3x3_{variant} {[b, h, w, c]}: "
                                      f"strip 16 and 32 differ")
         for strip in (16, 32):
-            for variant in MMA_VARIANTS:
+            for variant in variants:
                 fn = getattr(conv_mma, f"conv3x3_{variant}")
                 record(torch, ops, rows, f"conv3x3_{variant}",
                        f"{[b, h, w, c]}->{co} strip={strip}", "bfloat16",
@@ -591,6 +609,21 @@ def sass_ops(path: Path) -> dict:
             for m in op.findall(line):
                 counts[fn][m] += 1
     return counts
+
+
+def ptxas_kernel(log: str, kernel: str) -> dict:
+    """ptxas's registers (at the kernel's entry: setmaxnreg moves them
+    later), spill stores and loads of the one kernel of a library's
+    ``-Xptxas -v`` log whose mangled name holds ``kernel``."""
+    blocks = log.split("Compiling entry function")[1:]
+    mine = [b for b in blocks if kernel in b.split("\n", 1)[0]]
+    if len(mine) != 1:
+        raise AssertionError(f"ptxas log: {len(mine)} entries for {kernel}")
+    b = mine[0]
+    num = lambda pat: int(re.search(pat, b).group(1))
+    return {"registers": num(r"Used (\d+) registers"),
+            "spill_stores": num(r"(\d+) bytes spill stores"),
+            "spill_loads": num(r"(\d+) bytes spill loads")}
 
 
 def zero(counters, routed) -> None:
@@ -944,7 +977,11 @@ def main() -> int:
         serial = log.count("wgmma.mma_async instructions are serialized")
         print(f"ptxas {name}: {len(regs)} kernels, registers max "
               f"{max(regs, default=0)}, {len(spills)} kernels spill, at most "
-              f"{max(spills, default=0)} bytes; {serial} wgmma serialized")
+              f"{max(spills, default=0)} bytes; {serial} wgmma serialized; "
+              f"{log.count('C7508')} setmaxnreg ignored (C7508)")
+    ptxas_dots = ptxas_kernel(_build.build_log("conv3x3_mma"),
+                              "conv_dots_sm90_kernel")
+    print(f"ptxas conv_dots_sm90_kernel: {ptxas_dots}", flush=True)
     sass, libs = {}, {}
     for lib, kernel, count, need, never in TC_KERNELS:
         if lib not in libs:
@@ -1008,7 +1045,8 @@ def main() -> int:
                       "smsut_tpu_torch/csrc/block_bwd.cu",
                       "smsut_tpu/ops/block_pallas.py:488")}
     for v, line, src in zip(MMA_VARIANTS, (63, 99, 139),
-                            ("conv3x3_mma.cu", "conv3x3_im2col_sm90.cuh",
+                            ("conv3x3_dots_sm90.cuh",
+                             "conv3x3_im2col_sm90.cuh",
                              "conv3x3_im2col_sm90.cuh")):
         main_case[f"conv3x3_{v}"] = (
             f"conv3x3_{v}", "[16, 128, 128, 64]->64 strip=16",
@@ -1030,6 +1068,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "sass_ops": sass,
+                   "ptxas_conv_dots_sm90_kernel": ptxas_dots,
                    "kernel_rows": rows,
                    "serve": {str(k): v for k, v in serve.items()},
                    "train": {str(k): v for k, v in train.items()},

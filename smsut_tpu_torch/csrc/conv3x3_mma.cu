@@ -15,15 +15,19 @@
 //   smsut_conv3x3_im2col2 `pallas_conv_im2col2` (:139, `_im2col2_kernel`
 //                         :120): the same with the next input's copy in
 //                         flight while the products run.
-// The two im2col kernels are Hopper kernels (TMA, mbarriers, wgmma, warp
-// specialisation): conv3x3_im2col_sm90.cuh.
+// All three are Hopper kernels (TMA, mbarriers, wgmma, warp
+// specialisation) where C <= 64: the im2col pair in
+// conv3x3_im2col_sm90.cuh, dots in conv3x3_dots_sm90.cuh (its weights held
+// in registers as wgmma's A).  dots takes C over 64 too, on the mma.sync
+// kernel below (`dots_route`).
 //
 // Bound on the H100, at the tool's shape x [16,128,128,64], w [3,3,64,64]:
 // 19.3 GFLOP, 0.0195 ms at 989 TF/s bf16; 67.2 MB moved (x and y 33.5 MB
 // each, w 74 KB), 0.0201 ms at 3.35 TB/s.  Bytes bound it, by a hair: the
 // conv does 288 operations per byte against the card's ~295.  To come near
 // it a kernel must read x about once and keep the tensor cores busy.
-// dots, here, is the first, simple version:
+// dots at C over 64 (and where the Hopper kernel's plan does not fit)
+// runs the first, simple version, here:
 //   - every product is a bf16 mma.sync.m16n8k16 with float32 accumulators
 //     (mma_tile.cuh), its operands fed from shared memory by ldmatrix;
 //   - one block of 256 threads walks a band of `strip` image rows of one
@@ -39,6 +43,7 @@
 // (`takes`).  Anything else returns cudaErrorInvalidValue.
 #include "mma_tile.cuh"
 #include "conv3x3_im2col_sm90.cuh"
+#include "conv3x3_dots_sm90.cuh"
 
 using namespace smsut;
 
@@ -170,8 +175,8 @@ int nco_of(int Cout) {
 }
 
 // Dynamic shared memory of `variant` (0 dots, 1 im2col, 2 im2col2): the
-// dots kernel's weight slab and ring of four rows; the im2col kernels'
-// plan at its least ring (im2col_geom: 3 slots, im2col2 4).
+// mma.sync dots kernel's weight slab and ring of four rows; the im2col
+// kernels' plan at its least ring (im2col_geom: 3 slots, im2col2 4).
 size_t smem_bytes(int variant, int W, int C, int Cout) {
   if (variant != 0)
     return im2col_geom(variant == 2, 1, 1, W, C, Cout, kSMs, 0)
@@ -180,20 +185,37 @@ size_t smem_bytes(int variant, int W, int C, int Cout) {
          (size_t)4 * (W + 2) * (C + 8) * sizeof(bf16);
 }
 
-// Everything the kernels need of a shape: C and Cout multiples of 16,
-// H % strip == 0, 16-byte aligned x, w and y, and the block's shared
-// memory within the device's limit.
-bool takes(int variant, int B, int H, int W, int C, int Cout, int strip,
-           const void* x, const void* w, const void* y) {
-  return B >= 1 && H >= 1 && W >= 1 && strip >= 1 && H % strip == 0 &&
-         C >= 16 && C % 16 == 0 && Cout >= 16 && Cout % 16 == 0 &&
-         (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0 &&
-         (uintptr_t)y % 16 == 0 &&
-         smem_bytes(variant, W, C, Cout) <= smem_optin_bytes();
+bool shape_ok(int B, int H, int W, int C, int Cout) {
+  return B >= 1 && H >= 1 && W >= 1 && C >= 16 && C % 16 == 0 &&
+         Cout >= 16 && Cout % 16 == 0;
 }
 
-// The dots kernel at NCO output channels per block, one block per band of
-// `strip` rows.
+// The dots kernel a shape runs, decided by shape before any launch: 2 the
+// Hopper kernel (C <= 64 and its plan fits the device's shared memory), 1
+// the mma.sync kernel (its weight slab and ring fit), 0 neither (refused).
+int dots_route(int B, int H, int W, int C, int Cout) {
+  if (!shape_ok(B, H, W, C, Cout)) return 0;
+  if (C <= 64 &&
+      dots_geom(B, H, W, C, Cout, sm_count(), smem_optin_bytes()).slots > 0)
+    return 2;
+  return smem_bytes(0, W, C, Cout) <= smem_optin_bytes() ? 1 : 0;
+}
+
+// Everything the kernels need of a shape: C and Cout multiples of 16,
+// H % strip == 0, 16-byte aligned x, w and y, and the block's shared
+// memory within the device's limit (dots: a route).
+bool takes(int variant, int B, int H, int W, int C, int Cout, int strip,
+           const void* x, const void* w, const void* y) {
+  return shape_ok(B, H, W, C, Cout) && strip >= 1 && H % strip == 0 &&
+         (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0 &&
+         (uintptr_t)y % 16 == 0 &&
+         (variant == 0 ? dots_route(B, H, W, C, Cout) != 0
+                       : smem_bytes(variant, W, C, Cout) <=
+                             smem_optin_bytes());
+}
+
+// The mma.sync dots kernel at NCO output channels per block, one block per
+// band of `strip` rows.
 template <int NCO>
 int launch_dots(const void* x, const void* w, void* y, int B, int H, int W,
                 int C, int Cout, int strip, cudaStream_t s) {
@@ -203,7 +225,7 @@ int launch_dots(const void* x, const void* w, void* y, int B, int H, int W,
                            (const bf16*)w, (bf16*)y, H, W, C, Cout, strip);
 }
 
-// `variant` 0 dots, 1 im2col, 2 im2col2; the im2col kernels pick their own
+// `variant` 0 dots, 1 im2col, 2 im2col2; the Hopper kernels pick their own
 // bands (im2col_geom), whatever `strip`.
 template <int V>
 int entry(const void* x, const void* w, void* y, int B, int H, int W, int C,
@@ -214,6 +236,8 @@ int entry(const void* x, const void* w, void* y, int B, int H, int W, int C,
   if constexpr (V != 0) {
     return launch_im2col_sm90<V == 2>(x, w, y, B, H, W, C, Cout, s);
   } else {
+    if (dots_route(B, H, W, C, Cout) == 2)
+      return launch_dots_sm90(x, w, y, B, H, W, C, Cout, s);
     switch (nco_of(Cout)) {
       case 64: return launch_dots<64>(x, w, y, B, H, W, C, Cout, strip, s);
       case 32: return launch_dots<32>(x, w, y, B, H, W, C, Cout, strip, s);
@@ -231,6 +255,13 @@ extern "C" int smsut_conv3x3_dots(const void* x, const void* w, void* y,
                                   int B, int H, int W, int C, int Cout,
                                   int strip, void* stream) {
   return entry<0>(x, w, y, B, H, W, C, Cout, strip, stream);
+}
+
+// The kernel smsut_conv3x3_dots runs at a shape (whatever strip and
+// alignment): 2 conv_dots_sm90_kernel, 1 conv_dots_kernel, 0 refused.
+extern "C" int smsut_conv3x3_dots_route(int B, int H, int W, int C,
+                                        int Cout) {
+  return dots_route(B, H, W, C, Cout);
 }
 
 extern "C" int smsut_conv3x3_im2col(const void* x, const void* w, void* y,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) pieces of the port's kernels, as small inline functions
 // over hand-written PTX: mbarriers, TMA tiled loads that complete on an
-// mbarrier, and warpgroup matrix products (wgmma) with their operands in
-// shared memory read through matrix descriptors, or A in registers.
+// mbarrier, warpgroup matrix products (wgmma) with their operands in
+// shared memory read through matrix descriptors, or A in registers, and
+// setmaxnreg, which moves registers between warpgroups.
 // Beside them, the descriptor's bits and the host side of TMA (a tensor
 // map encoded by the CUDA driver's cuTensorMapEncodeTiled, reached through the
 // runtime's entry point into it, so that no library links against libcuda).
@@ -205,6 +206,56 @@ __device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t adesc,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(adesc), "l"(bdesc), "r"(1));
+}
+
+// d += A B: wgmma.m64n128k16, bf16 operands, float32 accumulators; A is
+// the warp's m16k16 fragment in registers, B [16 x 128] through bdesc, not
+// transposed (K contiguous), as wgmma_ss128 reads it.  Issued by all 128
+// threads of the warpgroup.
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(1));
+}
+
+// The warpgroup's registers per thread, lowered to N (the producer's) or
+// raised to N (the consumers', which waits until the lowered ones are
+// free); N a multiple of 8 in [24, 256].  All four warps of the warpgroup
+// issue it.  ptxas honours it only where every warpgroup's path from the
+// kernel's entry is plain (one if/else by role that never reconverges).
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "N of 24-256, by 8");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "N of 24-256, by 8");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Four 8x8 b16 matrices from registers to shared memory, transposed:

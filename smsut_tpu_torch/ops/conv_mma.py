@@ -13,18 +13,21 @@ candidate it replaces does:
 - :func:`conv3x3_im2col2`: ``pallas_conv_im2col2`` (the same with the next
   input's copy in flight during the products).
 
-On a CUDA tensor each launches its kernel of ``csrc/conv3x3_mma.cu``: the
-dots kernel on bf16 ``mma.sync``, the im2col pair on Hopper's ``wgmma``,
-TMA and mbarriers (``csrc/conv3x3_im2col_sm90.cuh``); on a CPU tensor, or
-under ``ops.plain()``, it runs :func:`conv3x3_mma_plain`.  ``strip`` is the
-number of image rows one block (one Pallas strip) walks in the dots
-kernel; the im2col pair picks its own bands.  It does not change the
-math, and H must be a multiple of it.  On the card the kernels take
-bfloat16, C and Cout multiples of 16, 16-byte aligned tensors and a shape
-whose staged rows and weights fit a block's shared memory (the im2col
-pair: C up to 64); they refuse any other shape, and the wrapper raises
-``ValueError``.  The Pallas candidates have no backward, so neither do
-these.
+On a CUDA tensor each launches its kernel of ``csrc/conv3x3_mma.cu``, on
+Hopper's ``wgmma``, TMA and mbarriers: the im2col pair in
+``csrc/conv3x3_im2col_sm90.cuh``, dots in ``csrc/conv3x3_dots_sm90.cuh``
+(its weights held in registers).  dots takes C over 64 too, on a bf16
+``mma.sync`` kernel; :func:`dots_route` says which of the two a shape
+runs, decided by shape before the launch.  On a CPU tensor, or under
+``ops.plain()``, each runs :func:`conv3x3_mma_plain`.  ``strip`` is the
+number of image rows one block (one Pallas strip) walks in the mma.sync
+dots kernel; the Hopper kernels pick their own bands.  It does not
+change the math, and H must be a multiple of it.  On the card the
+kernels take bfloat16, C and Cout multiples of 16, 16-byte aligned
+tensors and a shape whose staged rows and weights fit a block's shared
+memory (the im2col pair: C up to 64); they refuse any other shape, and
+the wrapper raises ``ValueError``.  The Pallas candidates have no
+backward, so neither do these.
 """
 from __future__ import annotations
 
@@ -67,16 +70,33 @@ def _conv(variant: str, wrapper, x: torch.Tensor, w: torch.Tensor,
                            wd, c, cout, strip, stream_of(x)), name,
           f"the kernel does not take x {tuple(x.shape)}, Cout {cout}: C and "
           f"Cout must be multiples of 16, x, w and y 16-byte aligned, and a "
-          f"block's shared memory must hold W {wd} and C {c}")
+          f"block's shared memory must hold W {wd} and C {c}"
+          + (" (dots: C up to 64 on the Hopper kernel, else the mma.sync "
+             "kernel's weight slab and rows)" if variant == "dots" else ""))
     wrapper.launches += 1
     return y
 
 
 def conv3x3_dots(x: torch.Tensor, w: torch.Tensor,
                  strip: int = 16) -> torch.Tensor:
-    """Nine tap products per 16-pixel tile from a ring of staged input
-    rows (``pallas_conv_dots``)."""
+    """Nine tap products per row of pixels from a ring of staged input
+    rows (``pallas_conv_dots``): on the card, the Hopper kernel with the
+    taps' weights in registers where C <= 64, else mma.sync
+    (:func:`dots_route`)."""
     return _conv("dots", conv3x3_dots, x, w, strip)
+
+
+DOTS_ROUTES = {0: None, 1: "conv_dots_kernel", 2: "conv_dots_sm90_kernel"}
+
+
+def dots_route(b: int, h: int, w: int, c: int, cout: int) -> str | None:
+    """The kernel :func:`conv3x3_dots` runs at x [b,h,w,c] -> cout on this
+    process's current card (whatever strip and alignment):
+    ``"conv_dots_sm90_kernel"`` (C <= 64 and its ring fits the card's
+    shared memory), ``"conv_dots_kernel"`` (mma.sync) or None (refused).
+    Needs the card: it asks the built library."""
+    f = bind("conv3x3_mma", "smsut_conv3x3_dots_route", [I] * 5)
+    return DOTS_ROUTES[f(b, h, w, c, cout)]
 
 
 def conv3x3_im2col(x: torch.Tensor, w: torch.Tensor,

@@ -1,7 +1,9 @@
-// Runs the three kernels of smsut_tpu_torch/csrc/conv3x3_mma.cu (the dots
-// kernel, and the im2col pair of conv3x3_im2col_sm90.cuh) on the CPU
+// Runs the kernels of smsut_tpu_torch/csrc/conv3x3_mma.cu (dots on
+// conv3x3_dots_sm90.cuh where C <= 64 and its ring fits, else on the
+// mma.sync kernel, each shape's route printed and checked; the im2col pair
+// of conv3x3_im2col_sm90.cuh) on the CPU
 // through the emulation of shim.h, prims.h and sm90_prims.h (TMA,
-// mbarriers, wgmma), and holds every output
+// mbarriers, wgmma, setmaxnreg), and holds every output
 // against a float64 reference of the same bf16 inputs, rounded once to
 // bf16: each output must be within one bf16 unit of it.  Outputs start as
 // NaN, so an unwritten one fails.  A shape whose kernel does not fit the
@@ -59,10 +61,20 @@ int main() {
               }
             ref[((size_t)(b * s.H + i) * s.W + j) * s.Co + co] = acc;
           }
+    const int route = smsut_conv3x3_dots_route(s.B, s.H, s.W, s.C, s.Co);
     for (int variant = 0; variant < 3; ++variant) {
       std::vector<bf16> y(ny, __nv_bfloat16{0x7fc0});
-      const bool fits =
-          smem_bytes(variant, s.W, s.C, s.Co) <= (size_t)emu_optin;
+      // dots: on the Hopper kernel (route 2) where C <= 64 and its ring
+      // fits, else on the mma.sync kernel (1) where that fits
+      const int want_route =
+          s.C <= 64 && dots_geom(1, 1, s.W, s.C, s.Co, 1, 0).smem(4) <=
+                           (size_t)emu_optin
+              ? 2
+          : smem_bytes(0, s.W, s.C, s.Co) <= (size_t)emu_optin           ? 1
+                                                                          : 0;
+      const bool fits = variant == 0 ? want_route != 0
+                                     : smem_bytes(variant, s.W, s.C, s.Co) <=
+                                           (size_t)emu_optin;
       auto fn = variant == 0   ? smsut_conv3x3_dots
                 : variant == 1 ? smsut_conv3x3_im2col
                                : smsut_conv3x3_im2col2;
@@ -80,17 +92,20 @@ int main() {
           if (!(e <= worst)) worst = e;
         }
       }
-      const bool ok = fits ? rc == 0 && bad == 0 : rc != 0;
+      const bool ok = (fits ? rc == 0 && bad == 0 : rc != 0) &&
+                      (variant != 0 || route == want_route);
       printf("B%d H%d W%d C%d Cout%d strip%d variant %d: fits %d rc %d, "
-             "worst %.3g bf16 units, %zu outside one unit: %s\n",
-             s.B, s.H, s.W, s.C, s.Co, s.strip, variant, fits, rc, worst, bad,
-             ok ? "ok" : "FAILED");
+             "worst %.3g bf16 units, %zu outside one unit", s.B, s.H, s.W,
+             s.C, s.Co, s.strip, variant, fits, rc, worst, bad);
+      if (variant == 0) printf(", route %d", route);
+      printf(": %s\n", ok ? "ok" : "FAILED");
       failed += !ok;
     }
   }
   const long conflicts = emu_conflicts.load();
-  printf("wgmma %ld, TMA loads %ld, maps refused %d\n", emu_wgmma.load(),
-         emu_tma_loads.load(), emu_encode_errors);
+  printf("wgmma %ld, TMA loads %ld, maps refused %d, setmaxnreg %ld\n",
+         emu_wgmma.load(), emu_tma_loads.load(), emu_encode_errors,
+         emu_setmaxnreg_calls.load());
   printf("ldmatrix %ld, bank-conflicted phases %ld\n", emu_ldmatrix.load(),
          conflicts);
   printf("%s\n", failed || conflicts ? "FAIL" : "OK");

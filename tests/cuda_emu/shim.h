@@ -8,8 +8,9 @@
 // memory is its own buffer, 1024-byte aligned, filled with a garbage
 // pattern before the block so that a read of an unwritten byte shows.  The
 // launcher also keeps a barrier per full warpgroup of 128 threads (wgmma,
-// sm90_prims.h) and the count of each block's threads still running (the
-// mbarrier emulation's deadlock check).
+// sm90_prims.h), the count of each block's threads still running (the
+// mbarrier emulation's deadlock check) and a key per block run
+// (setmaxnreg's register pool).
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -20,6 +21,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <thread>
+#include <utility>
 #include <vector>
 using std::max;
 using std::min;
@@ -123,6 +125,10 @@ inline thread_local std::barrier<>** emu_wg_bar;
 inline std::atomic<int> emu_live_pool[kEmuMaxCluster];
 inline thread_local std::atomic<int>* emu_live;
 inline thread_local int emu_cluster_rank = 0, emu_cluster_size = 1;
+// the running block's key, new for every block of every launch: (launch,
+// block index within it)
+inline thread_local std::pair<long, long> emu_block_key;
+inline std::atomic<long> emu_launch_count{0};
 inline thread_local std::barrier<>* emu_cluster_bar;
 inline uint64_t __cvta_generic_to_shared(const void* p) {
   return (const unsigned char*)p - emu_smem;
@@ -152,6 +158,7 @@ void emu_launch_clusters(Kernel k, dim3 grid, int threads, size_t smem_bytes,
     exit(3);
   }
   const int n = cluster;
+  const long launch = ++emu_launch_count;
   const unsigned per_row = grid.x / n;
   const unsigned clusters = per_row * grid.y * grid.z;
   const size_t fill = std::min(kEmuSmem, (smem_bytes + 15) / 16 * 16);
@@ -190,6 +197,7 @@ void emu_launch_clusters(Kernel k, dim3 grid, int threads, size_t smem_bytes,
           cluster_bar.arrive_and_wait();
           blockIdx = {q % per_row * n + r, q / per_row % grid.y,
                       q / per_row / grid.y};
+          emu_block_key = {launch, (long)q * n + r};
           k(args...);
           emu_live->fetch_sub(1);
           cluster_bar.arrive_and_wait();

@@ -17,9 +17,16 @@
 //              retires their last group, then A B within float32 rounding;
 //              m64n128k16 with A transposed and B K-major, both landed by
 //              TMA, B read from a start one swizzle row and 32 bytes into
-//              the pattern (the conv kernels' tap shift and k16 step);
+//              the pattern (the conv kernels' tap shift and k16 step); and
+//              m64n128k16 with A from registers and the same B;
+//   setmaxnreg a producer warpgroup lowered to 24 registers and two
+//              consumer warpgroups raised to 240, as the conv kernels do;
 //   deadlock   a wait on a phase nobody completes: must fail (exit 5);
-//   unfenced   a wgmma without wgmma.fence before it: must fail (exit 5).
+//   unfenced   a wgmma without wgmma.fence before it: must fail (exit 5);
+//   nreg_warp  a setmaxnreg that one warp of the warpgroup skips: must
+//              fail (exit 5);
+//   nreg_unpaid a setmaxnreg.inc that no dec frees registers for: must
+//              fail (exit 5).
 //
 // Usage: sm90_check <case>; prints OK on success.  Built and run by
 // tests/test_torch_cuda_emu.py, which generates sm90_emu.cuh.
@@ -355,13 +362,116 @@ static void wgmma_ss_case(std::mt19937& rng) {
   printf("wgmma m64n128k16 SS: worst %.3g of sum |a b|\n", worst);
 }
 
+// m64n128k16 with A [64][32] from registers (each warp's fragments, as
+// wgmma_kernel packs them) and B = X [130 px][64 ch] K-major as in
+// wgmma_ss_kernel: from one pixel on, and 32 bytes into each row for the
+// second k16 step; one group of two
+__global__ void wgmma_rs128_kernel(CUtensorMap bmap, const uint16_t* A,
+                                   float* out, int* nan_before) {
+  const uint32_t F = 0, b_s = 1024;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane / 4, t = lane % 4;
+  if (tid == 0) {
+    mbar_init(F, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(F, 130 * 128);
+    tma_load_3d(b_s, &bmap, F, 0, 0, 0);
+  }
+  mbar_wait(F, 0);
+  auto pack = [&](int row, int k) {
+    return (uint32_t)A[row * 32 + k] | (uint32_t)A[row * 32 + k + 1] << 16;
+  };
+  uint32_t a[2][4];
+  for (int ks = 0; ks < 2; ++ks) {
+    const int r = 16 * w + g, k = 16 * ks + 2 * t;
+    a[ks][0] = pack(r, k);
+    a[ks][1] = pack(r + 8, k);
+    a[ks][2] = pack(r, k + 8);
+    a[ks][3] = pack(r + 8, k + 8);
+  }
+  float acc[64];
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  wgmma_fence();
+  for (int ks = 0; ks < 2; ++ks)
+    wgmma_rs128(acc, a[ks], wgmma_desc(b_s + 128 + 32 * ks, 16, 1024, 128));
+  wgmma_commit();
+  bool nan = std::isnan(acc[0]) && std::isnan(acc[63]);
+  wgmma_wait<0>();
+  nan_before[tid] = nan;
+  for (int j = 0; j < 16; ++j)
+    for (int h = 0; h < 2; ++h)
+      for (int e = 0; e < 2; ++e)
+        out[(16 * w + g + 8 * h) * 128 + 8 * j + 2 * t + e] =
+            acc[4 * j + 2 * h + e];
+}
+
+static void wgmma_rs128_case(std::mt19937& rng) {
+  std::normal_distribution<float> nd(0.f, 1.f);
+  std::vector<uint16_t> A(64 * 32), X(130 * 64);
+  for (auto& v : A) v = bits(nd(rng));
+  for (auto& v : X) v = bits(nd(rng));
+  const cuuint64_t dims[3] = {64, 130, 1};
+  const cuuint64_t str[2] = {128, 130 * 128};
+  const cuuint32_t box[3] = {64, 130, 1};
+  CUtensorMap map;
+  CHECK(bf16_tile_map(&map, X.data(), 3, dims, str, box, 128),
+        "encode the RS128 B");
+  std::vector<float> out(64 * 128, -1.f);
+  std::vector<int> nan(128, 0);
+  emu_launch(wgmma_rs128_kernel, dim3(1), 128, 1024 + 130 * 128 + 1024,
+             nullptr, map, A.data(), out.data(), nan.data());
+  for (int t = 0; t < 128; ++t)
+    CHECK(nan[t], "RS128 thread %d: accumulators readable before the wait",
+          t);
+  double worst = 0;
+  for (int m = 0; m < 64; ++m)
+    for (int px = 0; px < 128; ++px) {
+      double ref = 0, mag = 0;
+      for (int k = 0; k < 32; ++k) {
+        const double p = (double)val(A[m * 32 + k]) * val(X[(px + 1) * 64 + k]);
+        ref += p;
+        mag += std::fabs(p);
+      }
+      worst = std::max(worst, std::fabs(out[m * 128 + px] - ref) / (mag + 1e-30));
+    }
+  CHECK(worst <= 1e-6, "RS128: worst error %.3g of sum |a b|", worst);
+  printf("wgmma m64n128k16 RS: worst %.3g of sum |a b|\n", worst);
+}
+
 static void case_wgmma() {
   std::mt19937 rng(11);
   wgmma_case<16>(rng);
   wgmma_case<32>(rng);
   wgmma_case<64>(rng);
   wgmma_ss_case(rng);
+  wgmma_rs128_case(rng);
   printf("wgmma: %ld issued\n", emu_wgmma.load());
+}
+
+// ----------------------------------------------------------- setmaxnreg
+// 384 threads: warpgroup 2 lowers itself to 24 registers and ends,
+// warpgroups 0 and 1 raise themselves to 240 (128 24 + 256 240 = 64512,
+// the 168 a thread of the launch had) and record that they got there
+__global__ void nreg_kernel(int* done) {
+  if (threadIdx.x >= 256) {
+    setmaxnreg_dec<24>();
+    return;
+  }
+  setmaxnreg_inc<240>();
+  done[threadIdx.x] = 1;
+}
+
+static void case_setmaxnreg() {
+  std::vector<int> done(256, 0);
+  emu_launch(nreg_kernel, dim3(2), 384, 0, nullptr, done.data());
+  for (int t = 0; t < 256; ++t) CHECK(done[t], "thread %d did not finish", t);
+  CHECK(emu_setmaxnreg_calls.load() == 2 * 384, "%ld setmaxnreg",
+        emu_setmaxnreg_calls.load());
+  printf("setmaxnreg: 2 blocks of 384 threads, %ld issued\n",
+         emu_setmaxnreg_calls.load());
 }
 
 // --------------------------------------------------- misuse, must fail
@@ -380,11 +490,24 @@ __global__ void unfenced_kernel() {
   wgmma_wait<0>();
 }
 
+// warp 7 leaves its warpgroup's setmaxnreg to the other three
+__global__ void nreg_warp_kernel() {
+  if (threadIdx.x >= 128 && threadIdx.x < 224) setmaxnreg_dec<24>();
+}
+
+// an inc with no dec to pay for it
+__global__ void nreg_unpaid_kernel() {
+  if (threadIdx.x < 128) setmaxnreg_inc<240>();
+}
+
 int main(int argc, char** argv) {
   const std::string c = argc > 1 ? argv[1] : "";
   if (c == "mbarrier") case_mbarrier();
   else if (c == "tma") case_tma();
   else if (c == "wgmma") case_wgmma();
+  else if (c == "setmaxnreg") case_setmaxnreg();
+  else if (c == "nreg_warp") emu_launch(nreg_warp_kernel, dim3(1), 256, 0, nullptr);
+  else if (c == "nreg_unpaid") emu_launch(nreg_unpaid_kernel, dim3(1), 384, 0, nullptr);
   else if (c == "deadlock") emu_launch(deadlock_kernel, dim3(1), 64, 0, nullptr);
   else if (c == "unfenced") emu_launch(unfenced_kernel, dim3(1), 128, 2048, nullptr);
   else {

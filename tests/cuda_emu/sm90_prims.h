@@ -17,13 +17,21 @@
 //     a thread waits on its barrier with every arrival in, so a read before
 //     the wait, or a slot refilled while it is read, shows.
 //   - wgmma.mma_async bf16 -> float32: m64nNk16 with A in registers (the
-//     mma.m16n8k16 A fragment of each warp) and B transposed, and
-//     m64n128k16 with A transposed and B K-major, each operand in shared
-//     memory through a decoded descriptor (start, LBO, SBO, base offset,
-//     swizzle); wgmma.fence, commit_group and wait_group.  The products
-//     are computed at issue; the accumulators read NaN until the
-//     wait_group that retires the last group using them, and a batch of
-//     wgmma issued without a fence before it fails.
+//     mma.m16n8k16 A fragment of each warp) and B transposed, m64n128k16
+//     with A in registers and B K-major, and m64n128k16 with A transposed
+//     and B K-major, each operand in shared memory through a decoded
+//     descriptor (start, LBO, SBO, base offset, swizzle); wgmma.fence,
+//     commit_group and wait_group.  The products are computed at issue;
+//     the accumulators read NaN until the wait_group that retires the last
+//     group using them, and a batch of wgmma issued without a fence before
+//     it fails.
+//   - setmaxnreg.dec and .inc: each warpgroup of a block starts with the
+//     registers a kernel of __launch_bounds__(threads, 1) gets (65536 /
+//     threads, down to a multiple of 8); dec gives the difference to the
+//     block's pool and inc waits until the pool holds what it takes.  All
+//     128 threads of the warpgroup must issue the same one: a warp that
+//     does not, or an inc that no dec pays for, leaves every thread
+//     waiting, and that fails as a wait that cannot complete.
 //   - stmatrix.x4.trans and __syncwarp (every lane).
 #pragma once
 #include <chrono>
@@ -227,33 +235,103 @@ inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
   emu_mbar_arrive(bar, bytes);
 }
 
-// Blocks until the phase of parity `parity` has completed (the phase
-// before the current one, if its parity is `parity`).  Fails if every
-// running thread of the block has waited on a barrier for a second, or
-// this wait lasts two minutes (threads stuck elsewhere).
-inline bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  std::unique_lock<std::mutex> lock(emu_mbar_mu);
-  ++emu_mbar_waits;
+// Under emu_mbar_mu (`lock`): blocks until ready().  Fails, naming
+// `what`, if every running thread of the block has waited here (on a
+// barrier or setmaxnreg) for a second, or this wait lasts two minutes
+// (threads stuck elsewhere).
+template <typename Ready>
+inline void emu_block_until(std::unique_lock<std::mutex>& lock, Ready ready,
+                            const char* what) {
   std::atomic<int>& blocked = emu_mbar_blocked_pool[emu_cluster_rank];
   ++blocked;
   const auto started = std::chrono::steady_clock::now();
   auto stuck_since = started;
-  for (;;) {
-    EmuMbar& m = emu_mbar(bar);
-    emu_mbar_progress(m, true);
-    if ((m.phase & 1) != (long)(parity & 1)) break;
+  char msg[160];
+  while (!ready()) {
     emu_mbar_cv.wait_for(lock, std::chrono::milliseconds(20));
     const auto now = std::chrono::steady_clock::now();
     if (blocked.load() < emu_live->load()) stuck_since = now;
-    else if (now - stuck_since > std::chrono::seconds(1))
-      emu_fail("mbarrier: every thread waits on a phase that cannot "
-               "complete");
-    if (now - started > std::chrono::seconds(120))
-      emu_fail("mbarrier: a wait of over two minutes");
+    else if (now - stuck_since > std::chrono::seconds(1)) {
+      snprintf(msg, sizeof msg, "%s: every thread waits on a phase that "
+               "cannot complete", what);
+      emu_fail(msg);
+    }
+    if (now - started > std::chrono::seconds(120)) {
+      snprintf(msg, sizeof msg, "%s: a wait of over two minutes", what);
+      emu_fail(msg);
+    }
   }
   --blocked;
+}
+
+// Blocks until the phase of parity `parity` has completed (the phase
+// before the current one, if its parity is `parity`).
+inline bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lock(emu_mbar_mu);
+  ++emu_mbar_waits;
+  emu_block_until(lock, [&] {
+    EmuMbar& m = emu_mbar(bar);
+    emu_mbar_progress(m, true);
+    return (m.phase & 1) != (long)(parity & 1);
+  }, "mbarrier");
   return true;
 }
+
+// ----------------------------------------------------------- setmaxnreg
+// per block (emu_block_key): the registers per thread of each warpgroup,
+// the pool, and the setmaxnreg each warpgroup is gathering
+struct EmuRegs {
+  bool init = false;
+  long pool = 0;
+  int count[8], target[8], arrived[8];
+  bool inc[8];
+  long done[8];
+};
+inline std::map<std::pair<long, long>, EmuRegs> emu_regs;
+inline std::atomic<long> emu_setmaxnreg_calls{0};
+
+inline void emu_setmaxnreg(int n, bool inc) {
+  if (n % 8 || n < 24 || n > 256)
+    emu_fail("setmaxnreg: a count not a multiple of 8 in [24, 256]");
+  const int wg = threadIdx.x / 128;
+  if (wg >= (int)(blockDim.x / 128) || wg >= 8)
+    emu_fail("setmaxnreg: not in a warpgroup");
+  std::unique_lock<std::mutex> lock(emu_mbar_mu);
+  EmuRegs& r = emu_regs[emu_block_key];
+  if (!r.init) {
+    r.init = true;
+    for (int i = 0; i < 8; ++i) {
+      r.count[i] = std::min(255, (int)(65536 / blockDim.x)) / 8 * 8;
+      r.target[i] = r.arrived[i] = 0;
+      r.done[i] = 0;
+    }
+  }
+  if (inc ? n < r.count[wg] : n > r.count[wg])
+    emu_fail("setmaxnreg: an inc below or a dec above the current count");
+  if (r.arrived[wg] == 0) {
+    r.target[wg] = n;
+    r.inc[wg] = inc;
+  } else if (r.target[wg] != n || r.inc[wg] != inc) {
+    emu_fail("setmaxnreg: the warpgroup's threads issue different ones");
+  }
+  ++emu_setmaxnreg_calls;
+  const long gen = r.done[wg];
+  if (++r.arrived[wg] < 128) {
+    emu_block_until(lock, [&] { return r.done[wg] != gen; }, "setmaxnreg");
+    return;
+  }
+  // the warpgroup's last thread: dec frees, inc waits for the pool
+  const long need = (long)(n - r.count[wg]) * 128;
+  if (inc) emu_block_until(lock, [&] { return r.pool >= need; }, "setmaxnreg");
+  r.pool -= need;
+  r.count[wg] = n;
+  r.arrived[wg] = 0;
+  ++r.done[wg];
+  emu_mbar_cv.notify_all();
+}
+
+template <int N> inline void setmaxnreg_dec() { emu_setmaxnreg(N, false); }
+template <int N> inline void setmaxnreg_inc() { emu_setmaxnreg(N, true); }
 
 // ------------------------------------------------------------------ TMA
 inline void emu_tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -369,9 +447,11 @@ inline void emu_wg_issue(float* d, int n, const std::vector<float>& v) {
   for (int i = 0; i < n; ++i) d[i] = NAN;
 }
 
-template <int N>
-inline void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                     uint64_t bdesc) {
+// d += A B for m64nNk16, A from registers (each warp's rows as the
+// mma.m16n8k16 A fragment), B [16 x N] through its descriptor, transposed
+// (MN-major) or K-major
+inline void emu_wgmma_rs(float* d, int N, const uint32_t (&a)[4],
+                         uint64_t bdesc, bool mn_major) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int wg = threadIdx.x / 128;
   if (wg >= (int)(blockDim.x / 128)) emu_fail("wgmma: not in a warpgroup");
@@ -402,7 +482,8 @@ inline void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * j + 2 * t + e;
       float b[16];
-      for (int k = 0; k < 16; ++k) b[k] = emu_desc_elem(bdesc, col, k, true);
+      for (int k = 0; k < 16; ++k)
+        b[k] = emu_desc_elem(bdesc, col, k, mn_major);
       for (int h = 0; h < 2; ++h) {
         float s = 0.f;
         for (int k = 0; k < 16; ++k) s += A[h][k] * b[k];
@@ -411,6 +492,17 @@ inline void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
     }
   emu_wg_issue(d, N / 2, v);
   emu_wg_bar[wg]->arrive_and_wait();
+}
+
+template <int N>
+inline void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                     uint64_t bdesc) {
+  emu_wgmma_rs(d, N, a, bdesc, true);
+}
+
+inline void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4],
+                        uint64_t bdesc) {
+  emu_wgmma_rs(d, 128, a, bdesc, false);
 }
 
 // d += A B for m64n128k16 with both operands through descriptors: A

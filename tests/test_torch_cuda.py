@@ -5,9 +5,9 @@ K5's tensor-core paths at every 3x3 conv of the training step, K3's and
 K6's at the U-Net's nine blocks, their routing by dtype and their runs bit
 for bit, the launch counts of the U-Net's serving and training
 steps, and its gradients against the plain path; the three tensor-core conv
-kernels of the conv microbench (dots, im2col, im2col2; the im2col pair
-at the emulation's shapes and bit for bit across runs and strips) and the
-microbench itself.  Each test skips on a host without an NVIDIA GPU.
+kernels of the conv microbench (dots, im2col, im2col2: at the emulation's
+shapes, bit for bit across runs and strips, and dots' route by shape)
+and the microbench itself.  Each test skips on a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -658,10 +658,11 @@ def test_conv_mma_at_the_emulation_shapes(rng, cuda_device, name, shape):
 @pytest.mark.parametrize("shape,cout", [((16, 128, 128, 64), 64),
                                         ((4, 64, 64, 32), 32),
                                         ((2, 32, 20, 48), 16)])
-@pytest.mark.parametrize("name", ["im2col", "im2col2"])
+@pytest.mark.parametrize("name", list(MMA))
 def test_conv_mma_im2col_bit_for_bit(rng, cuda_device, name, shape, cout):
-    """K8 and K9 use no atomics, and `strip` does not change their math:
-    two runs, and strip 16 against strip 32, give the same bits."""
+    """K7, K8 and K9 use no atomics, and `strip` does not change their
+    math (K7 on its Hopper kernel at these shapes, which ignores it): two
+    runs, and strip 16 against strip 32, give the same bits."""
     x = t((0.1 * rng.normal(size=shape)).astype(np.float32), BF16,
           cuda_device)
     w = t(conv_w(rng, 3, shape[-1], cout, std=0.05), BF16, cuda_device)
@@ -669,6 +670,31 @@ def test_conv_mma_im2col_bit_for_bit(rng, cuda_device, name, shape, cout):
     first = fn(x, w, 16)
     assert torch.equal(first, fn(x, w, 16))
     assert torch.equal(first, fn(x, w, 32))
+
+
+@pytest.mark.parametrize("shape,cout,kernel", [
+    ((16, 128, 128, 64), 64, "conv_dots_sm90_kernel"),
+    ((4, 64, 64, 32), 32, "conv_dots_sm90_kernel"),
+    ((1, 4, 16, 128), 64, "conv_dots_kernel")])
+def test_conv_mma_dots_route(cuda_device, shape, cout, kernel):
+    """K7 runs its Hopper kernel at the microbench's shape and at C 32, and
+    the mma.sync kernel at C 128 (an emulation shape): by the route
+    function, and by the name of the one kernel the profiler sees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert conv_mma.dots_route(*shape, cout) == kernel
+    x = torch.randn(shape, device=cuda_device).to(BF16)
+    w = (0.05 * torch.randn((3, 3, shape[-1], cout),
+                            device=cuda_device)).to(BF16)
+    conv_mma.conv3x3_dots(x, w, 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        conv_mma.conv3x3_dots(x, w, 4)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "conv_dots" in e.key and e.self_device_time_total > 0]
+    assert len(names) == 1 and kernel + ("(" if "sm90" in kernel else "<") \
+        in names[0], names
 
 
 def test_conv_mma_counts_launches(cuda_device):

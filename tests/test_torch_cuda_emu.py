@@ -3,19 +3,24 @@
 the host C++ compiler against an emulation of the CUDA runtime and of the
 PTX primitives they use (tests/cuda_emu: ldmatrix .x4/.x2/.trans, mma.sync
 m16n8k16 bf16, cp.async; and Hopper's mbarriers, TMA tiled loads from a
-tensor map and wgmma with A in registers, sm90_prims.h; one thread per
+tensor map, wgmma with A in registers or shared memory, and setmaxnreg,
+sm90_prims.h; one thread per
 CUDA thread), is run and held against a float64 reference by one check
 program per source:
 
 - ``csrc/conv3x3_mma.cu``, the three conv candidates of the microbench
-  (dots on mma.sync; im2col and im2col2, K8 and K9, on TMA, mbarriers and
-  wgmma, ``csrc/conv3x3_im2col_sm90.cuh``), within one bf16 unit
+  (im2col and im2col2, K8 and K9, on TMA, mbarriers and wgmma,
+  ``csrc/conv3x3_im2col_sm90.cuh``; dots, K7, on the same ring with its
+  weights in registers and setmaxnreg, ``csrc/conv3x3_dots_sm90.cuh``,
+  where C <= 64 and that ring fits, else on mma.sync: each shape's route
+  checked), within one bf16 unit
   (tests/cuda_emu/conv3x3_mma_check.cpp), also on three SMs, where each
-  im2col block walks several units and its ring of rows wraps;
+  Hopper block walks several units and its ring of rows wraps;
 - ``csrc/sm90.cuh``'s helpers with the Hopper emulation, unit case by unit
-  case against dense references (tests/cuda_emu/sm90_check.cpp), and two
+  case against dense references (tests/cuda_emu/sm90_check.cpp), and four
   misuses the emulation must catch (a wait that cannot complete, a wgmma
-  without its fence);
+  without its fence, a setmaxnreg that one warp skips, an inc that no dec
+  pays for);
 - ``csrc/conv3x3_tc.cuh``, K2's bfloat16 path, at every block shape of
   each case's channel width, within one bf16 unit
   (tests/cuda_emu/conv3x3_tc_check.cpp), and the options that K3's and
@@ -71,10 +76,16 @@ SOURCES = {
     "conv3x3_mma": [("conv3x3_mma.cu", "conv3x3_mma_emu.cpp",
                      [(*INCLUDE_MMA, 1), (*SMEM, 1),
                       ('#include "conv3x3_im2col_sm90.cuh"',
-                       '#include "conv3x3_im2col_sm90_emu.cuh"', 1)]),
+                       '#include "conv3x3_im2col_sm90_emu.cuh"', 1),
+                      ('#include "conv3x3_dots_sm90.cuh"',
+                       '#include "conv3x3_dots_sm90_emu.cuh"', 1)]),
                     ("conv3x3_im2col_sm90.cuh", "conv3x3_im2col_sm90_emu.cuh",
                      [(*SMEM, 1),
-                      ('#include "sm90.cuh"', '#include "sm90_emu.cuh"', 1)])],
+                      ('#include "sm90.cuh"', '#include "sm90_emu.cuh"', 1)]),
+                    ("conv3x3_dots_sm90.cuh", "conv3x3_dots_sm90_emu.cuh",
+                     [(*SMEM, 1),
+                      ('#include "conv3x3_im2col_sm90.cuh"',
+                       '#include "conv3x3_im2col_sm90_emu.cuh"', 1)])],
     "sm90": [],
     "conv3x3_tc": [("conv3x3_tc.cuh", "conv3x3_tc_emu.cuh",
                     [(*INCLUDE_MMA, 1), (*SMEM, 1)])],
@@ -182,12 +193,23 @@ def test_conv3x3_mma_kernels_in_emulation(check_binary, env):
     lines = _run(check_binary, env)
     wgmma = lines[-3].split(",")
     assert "maps refused 0" in wgmma[2], lines[-3]
+    # dots' route per shape ("B1 H4 W16 C128 Cout64 strip4" -> "1")
+    routes = {l.split(" variant")[0]: l.split(", route ")[1][0]
+              for l in lines if ", route " in l}
+    assert len(routes) == 10, routes
     if "EMU_OPTIN" in env:
-        # 120 KB: every im2col shape refused, the dots kernel runs some
+        # 120 KB: every im2col shape and dots' Hopper ring refused, the
+        # mma.sync dots kernel runs the shapes whose slab fits
         assert any("fits 0 " in l for l in lines)
         assert any("fits 1 " in l for l in lines)
+        assert sorted(set(routes.values())) == ["0", "1"], routes
+        assert wgmma[3] == " setmaxnreg 0", lines[-3]
     else:
         assert wgmma[0] != "wgmma 0", lines[-3]
+        assert wgmma[3] != " setmaxnreg 0", lines[-3]
+        # dots on the Hopper kernel at C <= 64, on mma.sync at C 128
+        for shape, route in routes.items():
+            assert route == ("1" if " C128 " in shape else "2"), (shape, route)
 
 
 @pytest.fixture(scope="module")
@@ -195,7 +217,7 @@ def sm90_binary(tmp_path_factory):
     return _build(tmp_path_factory, "sm90")
 
 
-@pytest.mark.parametrize("case", ["mbarrier", "tma", "wgmma"])
+@pytest.mark.parametrize("case", ["mbarrier", "tma", "wgmma", "setmaxnreg"])
 def test_sm90_primitives_in_emulation(sm90_binary, case):
     run = subprocess.run([str(sm90_binary), case], capture_output=True,
                          text=True, timeout=300)
@@ -205,7 +227,9 @@ def test_sm90_primitives_in_emulation(sm90_binary, case):
 
 @pytest.mark.parametrize("case,what", [
     ("deadlock", "waits on a phase that cannot complete"),
-    ("unfenced", "without wgmma.fence")])
+    ("unfenced", "without wgmma.fence"),
+    ("nreg_warp", "setmaxnreg: every thread waits"),
+    ("nreg_unpaid", "setmaxnreg: every thread waits")])
 def test_sm90_emulation_catches_misuse(sm90_binary, case, what):
     run = subprocess.run([str(sm90_binary), case], capture_output=True,
                          text=True, timeout=300)
