@@ -60,8 +60,35 @@
    at batch 16 with 20 applications per chain: the three tensor-core
    kernels, K2 and the library conv, each checked against the plain
    version and timed; the launch counts must match the tool's calls.
-6. Prints the ``kernels`` JSON line (all nine kernels), then the device
-   line last.
+6. Runs the fit loop on a synthetic dataset that the port writes under
+   ``build/chip_smoke_fit/`` (3 patients per modality, 8 slices of 256x256
+   each; removed at the end):
+   6a. ``run_main`` (``-p train``) in this process at ``base_width=16``,
+   batch 8, bfloat16, the default ``data_aug`` with ``device_augment``, 2
+   epochs of 10 iterations, once per ``block_pallas`` mode, then ``-p test
+   -i 000 -wh best`` through ``python -m smsut_tpu_torch.trainer.unetTrainer``
+   in a subprocess.  Checks 20 steps, finite losses, the [TRN] and [TST]
+   lines, ``best.ckpt`` and ``last.ckpt``, a 2x5-row CSV, and the launch
+   counts of the run (20 steps and 8 eval forwards of the mode's kernels;
+   no route to plain PyTorch).
+   6b. The Trainer twice on one batch stream (float32, no augmentation, 2
+   epochs of 4 iterations), with the kernels and under ``ops.plain()``: the
+   per-epoch [TRN] losses within 1e-3 relative, the [TST] Dice per
+   modality within 0.01 and overall within 3e-3, the same best epoch.
+   6c. ``DeviceAugment`` on the card against the CPU on the same packed
+   parameters: the image within 2e-3, the mask equal but at rounding ties
+   (their share printed); its device ms per batch.
+   6d. Per block mode, a fit of 3 epochs of 30 iterations whose second
+   epoch's iterations (not the epoch's final read of the losses) run under
+   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any call
+   that waits on the card, and whose third runs under the profiler.
+   Prints the loop's median time per iteration and its quartiles beside
+   phase 4's bare ``train_step`` median, its device time per iteration and
+   idle share, the eval sweep's ms per batch and the test phase's
+   host-metric seconds.
+7. Prints the ``kernels`` JSON line (all nine kernels, launches summed over
+   the runs of phases 3-6, not over the checks against the plain path),
+   then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -212,6 +239,19 @@ GRAD_REL = 1e-3
 GRAD_COS = 0.9999
 BF16_ACC = 2.0
 LOSS_TOL = 1e-3   # float32: the first 3 losses, kernel vs plain path
+
+
+# phase 6: the fit loop on a synthetic dataset (3 patients per modality, 8
+# slices each: 1 train, 1 val, 1 test patient; 4 test batches of 8)
+FIT_DIR = ROOT / "build" / "chip_smoke_fit"
+FIT_EPOCHS, FIT_ITERS = 2, 10
+FIT_TEST_BATCHES = 4
+PARITY_ITERS = 4                  # 6b: float32, kernels vs plain path
+PARITY_DICE_TOL = 0.01            # per modality; overall PARITY_DICE_ALL
+PARITY_DICE_ALL = 3e-3
+AUG_TOL = 2e-3                    # 6c, tests/test_device_augment.py's bound
+TIE_EPS = 1e-3                    # a source coordinate this near k + 1/2
+WATCH_ITERS = 30                  # 6d: iterations of the watched epoch
 
 
 def smi() -> str:
@@ -949,6 +989,316 @@ def train_w8(torch, ops, counters, routed):
     return results
 
 
+def fit_args(data: Path, expr: Path, name: str, *sets) -> list:
+    """The trainer CLI's arguments for phase 6a's runs."""
+    args = ["--data_root", str(data), "--expr_root", str(expr), "-nm", name]
+    for kv in ("input_size=256", "base_width=16", "batch_size=8",
+               "compute_dtype=bfloat16", f"num_iter_per_epoch={FIT_ITERS}",
+               f"max_epoch={FIT_EPOCHS}", "device_augment=True",
+               "num_workers=4") + sets:
+        args += ["--set", kv]
+    return args
+
+
+def timed_steps(algo, stamps: list):
+    """Record the host clock at each ``train_step`` call of ``algo``."""
+    step = algo.train_step
+
+    def timed(state, batch, scalars):
+        stamps.append(time.perf_counter())
+        return step(state, batch, scalars)
+
+    algo.train_step = timed
+    return algo
+
+
+def quartiles(xs) -> tuple:
+    q1, med, q3 = statistics.quantiles(xs, n=4)
+    return statistics.median(xs), q1, q3
+
+
+def fit_cli(torch, counters, routed, data: Path) -> dict:
+    """Phase 6a: train through ``run_main`` in both block modes, then the
+    test phase through the module CLI in a subprocess."""
+    import numpy as np
+
+    from smsut_tpu_torch.train.cli import make_parser, run_main
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    expr = FIT_DIR / "expr"
+    results = {}
+    for fused in (False, True):
+        name = f"fit_block{int(fused)}"
+        args = fit_args(data, expr, name, f"block_pallas={fused}")
+        stamps = []
+        factory = lambda cfg, dev: timed_steps(SupervisedUNet(cfg, dev),
+                                               stamps)
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        run_main(factory, make_parser().parse_args(["-p", "train"] + args))
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        rc = routed_counts(routed)
+        steps = FIT_EPOCHS * FIT_ITERS
+        fwd = FIT_EPOCHS * FIT_TEST_BATCHES
+        want = {k: steps * PER_STEP[fused].get(k, 0)
+                + fwd * PER_FORWARD[fused].get(k, 0) for k in KERNELS}
+        model = expr / name / "000"
+        log = (model / "train.log").read_text()
+        losses = [float(x) for x in re.findall(r"\[TRN\].* loss: ([^/]+)/",
+                                               log)]
+        ckpt = torch.load(model / "ckpt" / "last.ckpt", map_location="cpu",
+                          weights_only=True)
+        period = [(b - a) * 1e3 for a, b in zip(stamps[FIT_ITERS:],
+                                                  stamps[FIT_ITERS + 1:])]
+        print(f"fit block_pallas={fused}: launches {counts} (expected {want}),"
+              f" routed {rc}; steps {ckpt['step']}; [TRN] losses {losses}; "
+              f"epoch-1 ms per iteration median/q1/q3 "
+              f"{quartiles(period)}", flush=True)
+        if counts != want or any(rc.values()):
+            raise AssertionError(f"fit launches {counts} != {want}, or "
+                                 f"routed {rc}")
+        if (ckpt["step"] != steps or len(losses) != FIT_EPOCHS
+                or not np.isfinite(losses).all()
+                or log.count("[TST]") != FIT_EPOCHS
+                or not (model / "ckpt" / "best.ckpt").is_file()
+                or "fit_block" not in (expr / "expriments.log").read_text()):
+            raise AssertionError(f"fit artifacts of {model}: step "
+                                 f"{ckpt['step']}, losses {losses}")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "smsut_tpu_torch.trainer.unetTrainer",
+             "-p", "test", "-i", "000", "-wh", "best"] + args, cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        test_s = time.perf_counter() - t0
+        if out.returncode:
+            raise AssertionError(f"-p test failed:\n{out.stderr[-3000:]}")
+        rows = [r for r in (model / "all_trois_matrix.csv").read_text()
+                .split("\n") if r]
+        vals = np.array([[float(v) for v in r.split(",")] for r in rows])
+        metrics_s = float(re.search(r"Test metrics cost ([0-9.]+)s",
+                                    out.stdout).group(1))
+        print(f"fit block_pallas={fused}: -p test in {test_s:.1f} s (host "
+              f"metrics {metrics_s:.3f} s); CSV {vals.shape}, mean Dice "
+              f"{vals[4, 4]:.4f}", flush=True)
+        if vals.shape != (10, 5) or not np.isfinite(vals).all():
+            raise AssertionError(f"trois CSV {vals.shape}: {rows}")
+        results[fused] = {"launches": counts, "routed": rc,
+                          "losses": losses, "step": ckpt["step"],
+                          "period_ms": period, "test_s": test_s,
+                          "test_metrics_s": metrics_s, "csv": vals.tolist()}
+    return results
+
+
+def fit_parity(torch, ops, data: Path) -> dict:
+    """Phase 6b: one batch stream through the Trainer with the kernels and
+    under ``ops.plain()``, float32."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.experiment import Experiment
+    from smsut_tpu_torch.train.loop import Trainer
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(base_root=str(data), expr_root=str(FIT_DIR / "expr"),
+                 input_size=256, base_width=16, batch_size=8,
+                 compute_dtype="float32", num_iter_per_epoch=PARITY_ITERS,
+                 max_epoch=FIT_EPOCHS, device_augment=False, data_aug={},
+                 num_workers=4)
+    runs = {}
+    for plain in (False, True):
+        algo = SupervisedUNet(cfg)
+        sums, scal = [], {}
+        step = algo.train_step
+
+        def recording(state, batch, scalars, step=step, sums=sums):
+            sums.append(batch["img"].double().sum())
+            return step(state, batch, scalars)
+
+        algo.train_step = recording
+        trainer = Trainer(algo, cfg, "train", experiment=Experiment(
+            cfg.expr_root, f"parity_plain{int(plain)}"))
+        trainer.exp.scalar = (lambda tag, v, e, scal=scal:
+                              scal.setdefault(tag, {}).__setitem__(e, float(v)))
+        with ops.plain() if plain else contextlib.nullcontext():
+            trainer.fit()
+        trainer.exp.close()
+        runs[plain] = (scal, torch.stack(sums).cpu().tolist())
+    (k, ksums), (p, psums) = runs[False], runs[True]
+    mods = ("ct", "t1in", "t1out", "t2")
+    loss_rel = max(abs(k["train/loss"][e] - p["train/loss"][e])
+                   / abs(p["train/loss"][e]) for e in range(FIT_EPOCHS))
+    dice = {m: max(abs(k[f"test/dice_{m}"][e] - p[f"test/dice_{m}"][e])
+                   for e in range(FIT_EPOCHS)) for m in mods}
+    dice_all = max(abs(k["test/dice"][e] - p["test/dice"][e])
+                   for e in range(FIT_EPOCHS))
+    best = lambda d: max(range(FIT_EPOCHS),
+                         key=lambda e: (d["test/dice"][e], e))
+    print(f"fit float32 kernels vs plain: [TRN] losses "
+          f"{[k['train/loss'][e] for e in range(FIT_EPOCHS)]} vs "
+          f"{[p['train/loss'][e] for e in range(FIT_EPOCHS)]}, rel err "
+          f"{loss_rel:.3g} (tol {LOSS_TOL}); [TST] Dice err per modality "
+          f"{dice} (tol {PARITY_DICE_TOL}), overall {dice_all:.3g} (tol "
+          f"{PARITY_DICE_ALL}); best epoch {best(k)} vs {best(p)}; same "
+          f"stream {ksums == psums}", flush=True)
+    if not (ksums == psums and loss_rel <= LOSS_TOL
+            and max(dice.values()) <= PARITY_DICE_TOL
+            and dice_all <= PARITY_DICE_ALL and best(k) == best(p)):
+        raise AssertionError(f"fit kernels vs plain: {runs}")
+    return {"kernels": k, "plain": p, "loss_rel": loss_rel,
+            "dice_err": dice, "dice_all_err": dice_all}
+
+
+def augment_card_vs_cpu(torch, data: Path) -> dict:
+    """Phase 6c: DeviceAugment on the card and on the CPU, same packed
+    parameters; its device time per batch."""
+    import random
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.data.dataset import SliceDataset
+    from smsut_tpu_torch.data.device_augment import DeviceAugment
+
+    img, msk = SliceDataset(str(data), "train", 0).gather_batch_u8(range(8))
+    cfg = Config()
+    card = DeviceAugment(cfg, random.Random(7))
+    cpu = DeviceAugment(cfg, device="cpu")
+    gimg, gmsk = torch.from_numpy(img).cuda(), torch.from_numpy(msk).cuda()
+    cimg, cmsk = torch.from_numpy(img), torch.from_numpy(msk)
+    worst, off, ties, total = 0.0, 0, 0, 0
+    for _ in range(4):
+        packed = torch.from_numpy(card.sample_params_packed(8, 256, 256))
+        gi, gm = card.apply(gimg, gmsk, packed.cuda())
+        ci, cm = cpu.apply(cimg, cmsk, packed)
+        worst = max(worst, float((gi.cpu() - ci).abs().max()))
+        sy, sx = cpu.source_coords(packed, 256, 256)
+        tie = (((sy - sy.floor() - 0.5).abs() < TIE_EPS)
+               | ((sx - sx.floor() - 0.5).abs() < TIE_EPS))
+        bad = gm.cpu() != cm
+        if bool((bad & ~tie).any()):
+            raise AssertionError("DeviceAugment mask differs off a tie")
+        off, ties, total = (off + int(bad.sum()), ties + int(tie.sum()),
+                            total + bad.numel())
+    gpacked = packed.cuda()
+    # device time from the profiler: a call is about 90 small launches, so
+    # a chain long enough for time_ms would fill the launch queue behind
+    # its sleep kernel and time the host instead
+    prof = profile_device(torch, lambda: card.apply(gimg, gmsk, gpacked))
+    ms = prof["device_ms"]
+    print(f"fit DeviceAugment card vs CPU: image max err {worst:.3g} (tol "
+          f"{AUG_TOL}); mask pixels off {off} of {total} (share "
+          f"{off / total:.3g}), all at ties (share of pixels within "
+          f"{TIE_EPS} of a tie {ties / total:.3g}); device "
+          f"{ms:.4f} ms per batch of 8 at 256^2 in "
+          f"{prof['kernels_per_call']} kernels; top: " + "; ".join(
+              f"{n[:40]} {t:.4f} ms x{k}" for n, t, k in prof["top"][:4]),
+          flush=True)
+    if not worst <= AUG_TOL:
+        raise AssertionError(f"DeviceAugment image err {worst}")
+    return {"img_err": worst, "mask_off": off, "tie_pixels": ties,
+            "pixels": total, "device_ms": ms, "profile": prof}
+
+
+def fit_watched(torch, data: Path, fused: bool) -> dict:
+    """Phase 6d: a fit of three epochs: the second's iterations run under
+    ``set_sync_debug_mode("error")`` and give the loop's time per
+    iteration, the third runs under the profiler and gives its device time
+    per iteration; the eval sweep's time."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import device_rows
+    from smsut_tpu_torch.train.experiment import Experiment
+    from smsut_tpu_torch.train.loop import Trainer
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(base_root=str(data), expr_root=str(FIT_DIR / "expr"),
+                 input_size=256, base_width=16, batch_size=8,
+                 compute_dtype="bfloat16", num_iter_per_epoch=WATCH_ITERS,
+                 max_epoch=3, num_workers=4, block_pallas=fused)
+    stamps, eval_s, prof = [], [], {}
+    trainer = Trainer(timed_steps(SupervisedUNet(cfg), stamps), cfg, "train",
+                      experiment=Experiment(cfg.expr_root,
+                                            f"watched{int(fused)}"))
+    epoch, drain, validate = (trainer.train_epoch, trainer._drain,
+                              trainer.validate_epoch)
+
+    def watched_epoch(*a):
+        if trainer.epoch == 2:
+            rows, wall = device_rows(torch, lambda: epoch(*a), 1)
+            prof.update(rows=rows[:8], wall_ms=wall,
+                        device_ms=sum(r[1] for r in rows),
+                        kernels=sum(r[2] for r in rows))
+            return None
+        if trainer.epoch == 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return epoch(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def unwatched_drain(*a):
+        torch.cuda.set_sync_debug_mode(0)
+        return drain(*a)
+
+    def timed_validate(*a):
+        t0 = time.perf_counter()
+        out = validate(*a)
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer.train_epoch = watched_epoch
+    trainer._drain = unwatched_drain
+    trainer.validate_epoch = timed_validate
+    trainer.fit()
+    trainer.exp.close()
+    period = [(b - a) * 1e3 for a, b in zip(stamps[WATCH_ITERS:2 * WATCH_ITERS],
+                                              stamps[WATCH_ITERS + 1:])]
+    med, q1, q3 = quartiles(period)
+    device = prof["device_ms"] / WATCH_ITERS
+    return {"period_ms": period, "median_ms": med, "quartiles_ms": [q1, q3],
+            "device_ms_per_iter": device,
+            "kernels_per_iter": prof["kernels"] / WATCH_ITERS,
+            "idle_share": 1 - device / med, "profiled_epoch": prof,
+            "eval_ms_per_batch": eval_s[-1] / FIT_TEST_BATCHES * 1e3,
+            "eval_s": eval_s}
+
+
+def fit_loop(torch, ops, counters, routed, train, card) -> dict:
+    """Phase 6: the fit loop, 6a-6d."""
+    from smsut_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    data = FIT_DIR / "data"
+    make_synthetic_dataset(str(data), n_patients_per_modality=3, n_slice=8,
+                           size=256)
+    cli = fit_cli(torch, counters, routed, data)
+    parity = fit_parity(torch, ops, data)
+    aug = augment_card_vs_cpu(torch, data)
+    watched = {}
+    for fused in (False, True):
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        w = watched[fused] = fit_watched(torch, data, fused)
+        torch.cuda.synchronize()
+        w["launches"] = {k: c.launches for k, c in counters.items()}
+        bare = train[fused]["median_ms"]
+        print(f"fit loop on {card}: bfloat16, w16, batch 8, device augment, "
+              f"block_pallas={fused}: median {w['median_ms']:.3f} ms per "
+              f"iteration, quartiles {w['quartiles_ms'][0]:.3f}-"
+              f"{w['quartiles_ms'][1]:.3f} (epoch 2 of {WATCH_ITERS} "
+              f"iterations; no host wait: set_sync_debug_mode error passed); "
+              f"phase 4's bare train_step median {bare:.3f} ms: the loop "
+              f"adds {w['median_ms'] - bare:.3f} ms per iteration; device "
+              f"{w['device_ms_per_iter']:.3f} ms per iteration in "
+              f"{w['kernels_per_iter']:.0f} kernels (epoch 3, profiled), "
+              f"idle share {w['idle_share']:.3f}; eval sweep "
+              f"{w['eval_ms_per_batch']:.3f} ms per batch", flush=True)
+    print(f"fit loop on {card}: DeviceAugment {aug['device_ms']:.4f} device "
+          f"ms per batch; test phase host metrics {cli[False]['test_metrics_s']:.3f}"
+          f" / {cli[True]['test_metrics_s']:.3f} s", flush=True)
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    return {"cli": cli, "parity": parity, "augment": aug,
+            "watched": {str(k): v for k, v in watched.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -1022,6 +1372,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bench = microbench(torch, counters)
     print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fit = fit_loop(torch, ops, counters, routed, train, card)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -1056,7 +1409,8 @@ def main() -> int:
     for name, (row_name, case, source, replaces) in main_case.items():
         r = next(r for r in rows if r["name"] == row_name
                  and r["case"] == case and r["dtype"] == "bfloat16")
-        runs = (*serve.values(), *train.values(), bench)
+        runs = (*serve.values(), *train.values(), *w8.values(), bench,
+                *fit["cli"].values(), *fit["watched"].values())
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -1073,7 +1427,10 @@ def main() -> int:
                    "serve": {str(k): v for k, v in serve.items()},
                    "train": {str(k): v for k, v in train.items()},
                    "train_w8": {str(k): v for k, v in w8.items()},
-                   "microbench": bench, "kernels": kernels}, f, indent=1)
+                   "microbench": bench, "fit": {
+                       "cli": {str(k): v for k, v in fit["cli"].items()},
+                       **{k: v for k, v in fit.items() if k != "cli"}},
+                   "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -167,3 +167,8 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def get_config() -> Config:
+    """The default configuration, on which ``--set`` overrides apply."""
+    return Config()

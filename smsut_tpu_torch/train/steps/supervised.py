@@ -97,3 +97,12 @@ class SupervisedUNet:
         """float32 seg logits [B, H, W, n_class] of NHWC ``img``."""
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         return torch.func.functional_call(self.net, params, (img,))
+
+    def eval_logits(self, state: TrainState,
+                    img: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        """``eval_fn`` with the state's own parameters."""
+        return self.eval_fn(state.params, img)
+
+    def epoch_scalars(self, epoch: int) -> Dict[str, float]:
+        """The per-epoch inputs of ``train_step``: none for this step."""
+        return {}

@@ -3,7 +3,9 @@
 ``chip_smoke.py``, which drives it on the card) imports JAX, flax, optax,
 orbax, anything of the JAX package ``smsut_tpu`` or of the JAX tools in
 ``tools/`` -- checked in the source, and in a fresh interpreter that
-imports every module."""
+imports every module.  And each imports only what the card's machine has:
+the standard library, numpy, scipy, torch, triton (inside a function) and
+the port itself -- no cv2, yaml, PIL or tensorboardX."""
 import ast
 import json
 import subprocess
@@ -31,6 +33,52 @@ def _modules():
             parts = parts[:-1]
         mods.append(".".join(parts))
     return mods
+
+
+ALLOWED = ("numpy", "scipy", "torch", "smsut_tpu_torch")
+LAZY_ONLY = ("triton",)
+
+
+def _strays(tree: ast.AST):
+    """Imported names outside the allow-list; triton only inside a
+    function."""
+    bad = []
+
+    def visit(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            inner = in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module]
+            for name in names:
+                root = name.split(".")[0]
+                if not (root in sys.stdlib_module_names or root in ALLOWED
+                        or root in LAZY_ONLY and inner):
+                    bad.append(name)
+            visit(child, inner)
+
+    visit(tree, False)
+    return bad
+
+
+def test_allow_list_flags_strays():
+    src = ("import cv2\nimport yaml\nfrom PIL import Image\n"
+           "import tensorboardX\nimport triton\nimport os, numpy\n"
+           "from scipy import ndimage\nfrom . import x\n"
+           "def f():\n    import triton.language as tl\n    import orbax\n")
+    assert _strays(ast.parse(src)) == ["cv2", "yaml", "PIL", "tensorboardX",
+                                       "triton", "orbax"]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_only_the_cards_packages(path):
+    bad = _strays(ast.parse(path.read_text()))
+    assert not bad, bad
 
 
 def _imported_names(path: Path):
