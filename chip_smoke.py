@@ -86,8 +86,37 @@
    phase 4's bare ``train_step`` median, its device time per iteration and
    idle share, the eval sweep's ms per batch and the test phase's
    host-metric seconds.
-7. Prints the ``kernels`` JSON line (all nine kernels, launches summed over
-   the runs of phases 3-6, not over the checks against the plain path),
+7. Trains the paper's method, ``uganConsis``, at the ``Config`` widths
+   (w16, 256x256, 8 labelled + 8 unlabelled, D max width 256):
+   7a. The WGAN-GP term's D-parameter gradients (``create_graph=True``)
+   of the w16 discriminator on x_hat [16,256,256,1], float32, with the
+   kernels, under ``ops.plain()`` and in float64 (plain): cosine at least
+   0.9999 per tensor and L2 of all within 1e-3 against the plain path,
+   and per-tensor rel_err within 1e-3 where the two float32 forwards agree
+   in the sign of every lrelu input (a flip switches that element's slope
+   in the second order; the flips are printed); K2, K5 and K4 launch in
+   the second backward, K1 at each of the 14 norms of the forward,
+   ``instance_norm.double_backward`` counts 14 and ``conv_src`` is the
+   one routed conv.
+   7b. ``UGANConsisAlgo`` with ``block_pallas`` off and on: 10 bf16 steps
+   on a fixed batch and fixed draws (the launches of every step equal,
+   ``conv_src`` routed 3 times a step, finite losses, G_seg falling), the
+   median and quartiles of steps 2-10, the profiler's device ms and
+   kernels per step, idle share and the D step's share of the device
+   time; float32 step 1 against the plain path: the D step from one init
+   (losses within rtol 5e-3 / atol 2e-3, D after Adam flip-aware: max
+   |dev| <= 2.1 lr, flip share < 1%), then the G step of both paths
+   against the kernel path's D (losses with the same bounds, the seg
+   tower's fc and pre_conv within rtol 2e-3 / atol 1e-4).
+   7c. ``uganConsisTrainer -p train`` through ``run_main`` on phase 6's
+   tree (2 epochs of 10 iterations, the default augmentation on the card,
+   epoch 2 under ``set_sync_debug_mode("error")``; the launches equal 20
+   of 7b's steps and 16 eval or translation forwards; the [TRN] and
+   [TST] lines, both translation grids, best and last checkpoints), ``-p
+   test -i 000 -wh best`` through ``python -m`` in a subprocess, and
+   ``--resume 000:last``.
+8. Prints the ``kernels`` JSON line (all nine kernels, launches summed over
+   the runs of phases 3-7, not over the checks against the plain path),
    then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
@@ -252,6 +281,23 @@ PARITY_DICE_ALL = 3e-3
 AUG_TOL = 2e-3                    # 6c, tests/test_device_augment.py's bound
 TIE_EPS = 1e-3                    # a source coordinate this near k + 1/2
 WATCH_ITERS = 30                  # 6d: iterations of the watched epoch
+
+# phase 7: the GAN (uganConsis) at the Config defaults' widths: w16,
+# 256^2, 8 labelled + 8 unlabelled, D max width 256
+GAN_STEPS = 10
+# 7b, float32 (TF32 off), one step, kernels vs plain path on the card:
+# tests/test_gan_training_parity.py's step-0 bounds on the losses and on
+# the segmentation tower's fc and pre_conv, and the flip-aware D check of
+# __graft_entry__.py (Adam's first update is lr * sign(g): a float32
+# rounding difference flips a near-zero gradient's whole 2 lr step)
+GAN_LOSS_RTOL, GAN_LOSS_ATOL = 5e-3, 2e-3
+GAN_SEG_RTOL, GAN_SEG_ATOL = 2e-3, 1e-4
+GAN_FLIP_DEV, GAN_FLIP_SHARE = 2.1, 0.01
+# the seg tower's parameters held after step 1
+GAN_SEG_TOWER = ("core.seg_decoder.fc.weight", "core.seg_decoder.fc.bias",
+                 "core.seg_encoder.pre_conv.weight")
+GAN_NAMES = ("D_real", "D_fake", "D_cls", "D_gp", "G_fake", "G_rec",
+             "G_cls", "G_seg", "G_semi", "G_nce")
 
 
 def smi() -> str:
@@ -1198,11 +1244,39 @@ def augment_card_vs_cpu(torch, data: Path) -> dict:
             "pixels": total, "device_ms": ms, "profile": prof}
 
 
+@contextlib.contextmanager
+def sync_checked_epoch(torch, index: int):
+    """Run the Trainer's ``index``-th training epoch (not the epoch's final
+    read of the losses) under ``set_sync_debug_mode("error")``, which
+    raises on any call that waits on the card."""
+    from smsut_tpu_torch.train.loop import Trainer
+
+    epoch, drain = Trainer.train_epoch, Trainer._drain
+
+    def watched(self, *a):
+        if self.epoch == index:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return epoch(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def unwatched_drain(self, *a):
+        torch.cuda.set_sync_debug_mode(0)
+        return drain(self, *a)
+
+    Trainer.train_epoch, Trainer._drain = watched, unwatched_drain
+    try:
+        yield
+    finally:
+        Trainer.train_epoch, Trainer._drain = epoch, drain
+
+
 def fit_watched(torch, data: Path, fused: bool) -> dict:
     """Phase 6d: a fit of three epochs: the second's iterations run under
-    ``set_sync_debug_mode("error")`` and give the loop's time per
-    iteration, the third runs under the profiler and gives its device time
-    per iteration; the eval sweep's time."""
+    ``set_sync_debug_mode("error")`` (:func:`sync_checked_epoch`) and give
+    the loop's time per iteration, the third runs under the profiler and
+    gives its device time per iteration; the eval sweep's time."""
     from smsut_tpu_torch.config import Config
     from smsut_tpu_torch.tools.profile_step import device_rows
     from smsut_tpu_torch.train.experiment import Experiment
@@ -1217,26 +1291,7 @@ def fit_watched(torch, data: Path, fused: bool) -> dict:
     trainer = Trainer(timed_steps(SupervisedUNet(cfg), stamps), cfg, "train",
                       experiment=Experiment(cfg.expr_root,
                                             f"watched{int(fused)}"))
-    epoch, drain, validate = (trainer.train_epoch, trainer._drain,
-                              trainer.validate_epoch)
-
-    def watched_epoch(*a):
-        if trainer.epoch == 2:
-            rows, wall = device_rows(torch, lambda: epoch(*a), 1)
-            prof.update(rows=rows[:8], wall_ms=wall,
-                        device_ms=sum(r[1] for r in rows),
-                        kernels=sum(r[2] for r in rows))
-            return None
-        if trainer.epoch == 1:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            return epoch(*a)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
-    def unwatched_drain(*a):
-        torch.cuda.set_sync_debug_mode(0)
-        return drain(*a)
+    validate = trainer.validate_epoch
 
     def timed_validate(*a):
         t0 = time.perf_counter()
@@ -1244,10 +1299,21 @@ def fit_watched(torch, data: Path, fused: bool) -> dict:
         eval_s.append(time.perf_counter() - t0)
         return out
 
-    trainer.train_epoch = watched_epoch
-    trainer._drain = unwatched_drain
-    trainer.validate_epoch = timed_validate
-    trainer.fit()
+    with sync_checked_epoch(torch, 1):
+        epoch = trainer.train_epoch
+
+        def profiled_epoch(*a):
+            if trainer.epoch != 2:
+                return epoch(*a)
+            rows, wall = device_rows(torch, lambda: epoch(*a), 1)
+            prof.update(rows=rows[:8], wall_ms=wall,
+                        device_ms=sum(r[1] for r in rows),
+                        kernels=sum(r[2] for r in rows))
+            return None
+
+        trainer.train_epoch = profiled_epoch
+        trainer.validate_epoch = timed_validate
+        trainer.fit()
     trainer.exp.close()
     period = [(b - a) * 1e3 for a, b in zip(stamps[WATCH_ITERS:2 * WATCH_ITERS],
                                               stamps[WATCH_ITERS + 1:])]
@@ -1294,9 +1360,378 @@ def fit_loop(torch, ops, counters, routed, train, card) -> dict:
     print(f"fit loop on {card}: DeviceAugment {aug['device_ms']:.4f} device "
           f"ms per batch; test phase host metrics {cli[False]['test_metrics_s']:.3f}"
           f" / {cli[True]['test_metrics_s']:.3f} s", flush=True)
-    shutil.rmtree(FIT_DIR, ignore_errors=True)
     return {"cli": cli, "parity": parity, "augment": aug,
             "watched": {str(k): v for k, v in watched.items()}}
+
+
+def gan_double_backward(torch, ops, counters, routed) -> dict:
+    """Phase 7a: the gradient penalty's D-parameter gradients (through
+    ``create_graph=True``) at the discriminator's full width on x_hat
+    [16,256,256,1], float32, kernels vs ``ops.plain()``, and both against
+    the plain path in float64; the lrelu sign flips between the runs; the
+    launches of the D forward and of the second backward."""
+    from smsut_tpu_torch.models.blocks import BottleBlock
+    from smsut_tpu_torch.models.layers import NormAct
+    from smsut_tpu_torch.models.ugan import Discriminator
+    from smsut_tpu_torch.ops.instnorm import instance_norm
+
+    D = Discriminator(256, 4, 16, 256, compute_dtype=torch.float32,
+                      device="cuda", seed=0)
+    params = {k: v.detach() for k, v in D.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x_hat = torch.randn((16, 256, 256, 1), device="cuda", generator=gen)
+    n_norms = sum(1 for m in D.modules() if isinstance(m, NormAct))
+    # the lrelu inputs' signs: the stem's, each bn1 (norm + lrelu) and
+    # block output
+    signs, run = {}, None
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o, name=name: signs.setdefault(run, {}).__setitem__(
+            name, o.detach() >= 0))
+        for name, m in D.named_modules()
+        if m is D.stem or isinstance(m, BottleBlock)
+        or (isinstance(m, NormAct) and m.act)]
+    runs = {}
+    for run, dt in (("kernel", torch.float32), ("plain", torch.float32),
+                    ("exact", torch.float64)):
+        D.compute_dtype = dt
+        leaves = {k: v.to(dt).requires_grad_() for k, v in params.items()}
+        xh = x_hat.to(dt).requires_grad_()
+        with (contextlib.nullcontext() if run == "kernel" else ops.plain()):
+            torch.cuda.synchronize()
+            zero(counters, routed)
+            src, _ = torch.func.functional_call(D, leaves, (xh,))
+            dydx, = torch.autograd.grad(src.sum(), xh, create_graph=True)
+            gp = (dydx.reshape(16, -1).square().sum(1).sqrt() - 1.0
+                  ).square().mean()
+            torch.cuda.synchronize()
+            first = {k: c.launches for k, c in counters.items()}
+            rc = routed_counts(routed)
+            db = instance_norm.double_backward
+            # the class head and the stem's bias do not reach dydx
+            grads = torch.autograd.grad(gp, list(leaves.values()),
+                                        allow_unused=True)
+            torch.cuda.synchronize()
+        second = {k: c.launches - first[k] for k, c in counters.items()}
+        grads = {k: g for k, g in zip(leaves, grads) if g is not None}
+        runs[run] = {"gp": gp.item(), "grads": grads,
+                     "forward_and_first": first, "second": second,
+                     "routed": rc,
+                     "double_backward": instance_norm.double_backward - db}
+    for h in hooks:
+        h.remove()
+    flips = {f"{a}_vs_{b}": {n: int((signs[a][n] != signs[b][n]).sum())
+                             for n in signs[b]
+                             if bool((signs[a][n] != signs[b][n]).any())}
+             for a, b in (("kernel", "plain"), ("kernel", "exact"),
+                          ("plain", "exact"))}
+    k, p, x = runs["kernel"], runs["plain"], runs["exact"]
+    # a norm bias behind a plain affine path reaches dydx only through an
+    # lrelu mask: its gradient is zero on every path
+    zeros = sorted(n for n, g in x["grads"].items() if not bool(g.any()))
+    if (k["grads"].keys() != p["grads"].keys()
+            or any(bool(r["grads"][n].any()) for n in zeros for r in (k, p))):
+        raise AssertionError(f"GP gradients of {sorted(k['grads'])} vs "
+                             f"{sorted(p['grads'])}, zero {zeros}")
+    names = [n for n in x["grads"] if n not in zeros]
+    c = grad_parity({n: k["grads"][n] for n in names},
+                    {n: p["grads"][n] for n in names})
+    err = {n: (rel_err(k["grads"][n], x["grads"][n]),
+               rel_err(p["grads"][n], x["grads"][n])) for n in names}
+    # an lrelu input that float32 rounding moves across 0 switches that
+    # element's slope in the second order, a step no summation order
+    # smooths: its layer's gradients and those of the layers after it
+    # (stem 0, block i, then the heads) are held by cosine and L2 alone,
+    # the rest per tensor by rel_err too
+    layer = lambda n: (0 if n.startswith("stem") else int(n[5:n.index(".")])
+                       if n.startswith("block") else D.n_blocks + 1)
+    first_flip = min((layer(f + ".") for f in flips["kernel_vs_plain"]),
+                     default=D.n_blocks + 2)
+    held = {n: rel_err(k["grads"][n], p["grads"][n]) for n in names
+            if layer(n) < first_flip}
+    print(f"gan 7a: D w16 on x_hat [16,256,256,1] float32: GP {k['gp']:.6g} "
+          f"(plain {p['gp']:.6g}, float64 {x['gp']:.10g}); its D-parameter "
+          f"gradients of {c['n']} tensors vs the plain path: rel err max "
+          f"{c['rel_max']:.3g} ({c['worst_rel']}), L2 of all "
+          f"{c['l2_all']:.3g}, cosine min {c['cos_min']:.8f} "
+          f"({c['worst_cos']}); rel err max against float64: kernel path "
+          f"{max(e for e, _ in err.values()):.3g}, plain path "
+          f"{max(e for _, e in err.values()):.3g}; lrelu sign flips "
+          f"{flips}; rel err max of the {len(held)} tensors before the "
+          f"first flip {max(held.values(), default=0.0):.3g}; zero on "
+          f"every path: {zeros}; launches in the forward "
+          f"and first backward {k['forward_and_first']}, in the second "
+          f"backward {k['second']}; instance_norm.double_backward "
+          f"{k['double_backward']} (norms {n_norms}); routed {k['routed']}",
+          flush=True)
+    sec, fwd = k["second"], k["forward_and_first"]
+    if not (c["cos_min"] >= GRAD_COS and c["l2_all"] <= GRAD_REL
+            and all(e <= GRAD_REL for e in held.values())):
+        raise AssertionError(f"GP gradients disagree: {c}, {held}, {err}")
+    if not (all(sec[n] > 0 for n in ("conv3x3", "conv3x3_dw", "instnorm_bwd"))
+            and fwd["instnorm"] == n_norms
+            and k["double_backward"] == n_norms == p["double_backward"]
+            and k["routed"] == {"conv3x3": 1, "block": 0}
+            and not any(p["second"].values())):
+        raise AssertionError(f"7a launches {runs}")
+    return {"gp": [k["gp"], p["gp"], x["gp"]], "grad_check": c,
+            "rel_err_before_first_flip": held,
+            "err_vs_float64": err, "sign_flips": flips, "norms": n_norms,
+            "zero_grads": zeros,
+            **{f"kernel_{n}": k[n] for n in ("forward_and_first", "second",
+                                             "routed", "double_backward")}}
+
+
+def gan_batch(torch, np) -> dict:
+    """8 labelled (modality 1) + 8 unlabelled (modality 2) ellipse slices
+    on the card."""
+    lb, ul = ellipse_batch(np, seed=0), ellipse_batch(np, seed=1)
+    return {"img": torch.from_numpy(lb["img"]).cuda(),
+            "msk": torch.from_numpy(lb["msk"]).cuda(),
+            "mdl": np.full(8, 1), "ul_img": torch.from_numpy(ul["img"]).cuda(),
+            "ul_mdl": np.full(8, 2)}
+
+
+def gan_f32_step(torch, ops, np, cfg, batch) -> dict:
+    """7b's float32 check of step 1, kernels vs ``ops.plain()``: the D
+    step from one init (its losses, and D after Adam flip-aware), then the
+    G step of both paths against one D, the kernel path's updated one (its
+    losses and the seg tower after SGD): Adam's sign flips in D would
+    otherwise move the G losses taken through it."""
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+
+    algo = UGANConsisAlgo(cfg)
+    init = algo.init_state(0)
+    g0, d0 = init.g_params, init.d_params
+    b = dict(batch, **algo.make_extra_batch())
+    scalars = algo.epoch_scalars(1)
+    out = {}
+    for plain in (False, True):
+        with ops.plain() if plain else contextlib.nullcontext():
+            st, dm = algo.d_step(algo.state_from_params(g0, d0),
+                                 algo.inputs(b))
+        out[plain] = [dm, st.d_params]
+    d1 = out[False][1]
+    for plain in (False, True):
+        with ops.plain() if plain else contextlib.nullcontext():
+            st, gm = algo.g_step(algo.state_from_params(g0, d1),
+                                 algo.inputs(b), scalars)
+        out[plain][0] = {k: v.item() for k, v in {**out[plain][0],
+                                                   **gm}.items()}
+        out[plain].append(st.g_params)
+    (km, kd, kg), (pm, pd, pg) = out[False], out[True]
+    loss_err = {n: abs(km[n] - pm[n]) - GAN_LOSS_RTOL * abs(pm[n])
+                for n in GAN_NAMES}
+    dev = torch.cat([(kd[k] - pd[k]).abs().flatten() for k in pd])
+    seg = {k: float(((kg[k] - pg[k]).abs() - GAN_SEG_RTOL * pg[k].abs()
+                     ).max()) for k in GAN_SEG_TOWER}
+    return {"losses": km, "plain_losses": pm,
+            "loss_over_rtol_max": max(loss_err.values()),
+            "worst_loss": max(loss_err, key=loss_err.get),
+            "d_dev_max": float(dev.max()),
+            "d_flip_share": float((dev > cfg.lr).float().mean()),
+            "seg_over_rtol_max": max(seg.values())}
+
+
+def d_step_ops(torch, fn) -> list:
+    """The 3 aten ops of one call of ``fn`` with the most device time of
+    their own, with their input shapes, and the device time under the
+    double backward of ``F.conv2d`` (the discriminator's stem):
+    [(op, ms, shapes), ..., ("aten::_convolution_double_backward", ms)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.key.startswith("aten::")]
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:3]
+    dd = sum(e.device_time_total for e in evs
+             if e.key == "aten::_convolution_double_backward")
+    return ([(e.key, e.self_device_time_total / 1e3, str(e.input_shapes))
+             for e in top] + [("aten::_convolution_double_backward",
+                               dd / 1e3)])
+
+
+def gan_step_modes(torch, ops, counters, routed) -> dict:
+    """Phase 7b: the uganConsis step at full width in both block modes."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import device_rows
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+
+    batch = gan_batch(torch, np)
+    results = {}
+    for fused in (False, True):
+        # the consistency gate open from step 0, so that every term of the
+        # loss runs
+        cfg = lambda dtn: Config(input_size=256, base_width=16, batch_size=8,
+                                 compute_dtype=dtn, block_pallas=fused,
+                                 consis_gate_step=0)
+        algo = UGANConsisAlgo(cfg("bfloat16"))
+        state = algo.init_state(0)
+        b = dict(batch, **algo.make_extra_batch())
+        scalars = algo.epoch_scalars(1)
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        losses, step_ms, per_step = [], [], None
+        for i in range(GAN_STEPS):
+            t0 = time.perf_counter()
+            state, m = algo.train_step(state, b, scalars)
+            losses.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                per_step = {k: c.launches for k, c in counters.items()}
+        counts = {k: c.launches for k, c in counters.items()}
+        rc = routed_counts(routed)
+        med, q1, q3 = quartiles(step_ms[1:])
+        seg = [x["G_seg"] for x in losses]
+        print(f"gan 7b block_pallas={fused}: launches per step {per_step}, "
+              f"routed {rc} in {GAN_STEPS} steps; G_seg "
+              f"{[round(x, 5) for x in seg]}; D_gp "
+              f"{[round(x['D_gp'], 3) for x in losses]}; step time first "
+              f"{step_ms[0]:.3f} ms, then median {med:.3f} ms, quartiles "
+              f"{q1:.3f}-{q3:.3f}", flush=True)
+        if (counts != {k: GAN_STEPS * v for k, v in per_step.items()}
+                or rc != {"conv3x3": 3 * GAN_STEPS, "block": 0}
+                or not all(per_step[k] for k in (
+                    ("instnorm", "instnorm_bwd", "conv3x3", "conv3x3_dw")
+                    + (("block", "block_bwd") if fused else ())))):
+            raise AssertionError(f"gan launches {counts}, routed {rc}")
+        if not (all(np.isfinite(list(x.values())).all() for x in losses)
+                and seg[-1] < seg[0]):
+            raise AssertionError(f"gan losses not finite, or G_seg not "
+                                 f"falling: {losses}")
+        zero(counters, routed)
+        algo.eval_fn(algo.eval_params(state), batch["img"])
+        torch.cuda.synchronize()
+        per_forward = {k: c.launches for k, c in counters.items()}
+        step = lambda: algo.train_step(state, b, scalars)
+        rows, _ = device_rows(torch, step, 3)
+        device = sum(r[1] for r in rows)
+        kernels = sum(r[2] for r in rows)
+        inp = algo.inputs(b)
+        drows, _ = device_rows(torch, lambda: algo.d_step(state, inp), 3)
+        d_ms = sum(r[1] for r in drows)
+        d_ops = d_step_ops(torch, lambda: algo.d_step(state, inp))
+        top = "; ".join(f"{n[:48]} {t:.3f} ms x{c}" for n, t, c in rows[:5])
+        print(f"gan 7b block_pallas={fused}: device {device:.3f} ms per step "
+              f"in {kernels} kernels, idle share {1 - device / med:.3f} of "
+              f"the median step; D step (x_fake, D loss with the GP's "
+              f"double backward, Adam) {d_ms:.3f} ms, share "
+              f"{d_ms / device:.3f}; eval forward launches {per_forward}; "
+              f"top: {top}", flush=True)
+        print(f"gan 7b block_pallas={fused}: D step's aten ops by device "
+              f"ms (input shapes): {d_ops}", flush=True)
+        f32 = gan_f32_step(torch, ops, np, cfg("float32"), batch)
+        print(f"gan 7b block_pallas={fused} float32 step 1, kernels vs plain"
+              f" (the G step of both against the kernel path's D): losses "
+              f"{f32['losses']} vs {f32['plain_losses']}, worst "
+              f"{f32['worst_loss']} over rtol by "
+              f"{f32['loss_over_rtol_max']:.3g} (atol {GAN_LOSS_ATOL}); D "
+              f"after Adam: max |dev| {f32['d_dev_max']:.3g} (bound "
+              f"{GAN_FLIP_DEV} lr), flip share {f32['d_flip_share']:.3g} "
+              f"(bound {GAN_FLIP_SHARE}); seg tower over rtol by "
+              f"{f32['seg_over_rtol_max']:.3g} (atol {GAN_SEG_ATOL})",
+              flush=True)
+        lr = cfg("float32").lr
+        if not (f32["loss_over_rtol_max"] <= GAN_LOSS_ATOL
+                and f32["d_dev_max"] <= GAN_FLIP_DEV * lr
+                and f32["d_flip_share"] < GAN_FLIP_SHARE
+                and f32["seg_over_rtol_max"] <= GAN_SEG_ATOL):
+            raise AssertionError(f"gan float32 step disagrees: {f32}")
+        results[fused] = {
+            "launches": counts, "per_step": per_step, "routed": rc,
+            "per_eval_forward": per_forward, "losses": losses,
+            "step_ms": step_ms, "median_ms": med, "quartiles_ms": [q1, q3],
+            "device_ms": device, "kernels_per_step": kernels,
+            "idle_share": 1 - device / med, "d_step_device_ms": d_ms,
+            "d_share": d_ms / device, "d_step_ops": d_ops, "top": rows[:16],
+            "float32": f32}
+    return results
+
+
+def gan_cli(torch, counters, routed, data: Path, per_step: dict,
+            per_forward: dict) -> dict:
+    """Phase 7c: ``uganConsisTrainer -p train`` through ``run_main`` on
+    phase 6's tree, its second epoch checked for host waits; ``-p test``
+    through the module CLI; ``--resume 000:last``."""
+    import numpy as np
+
+    from smsut_tpu_torch.train.cli import make_parser, run_main
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.utils.io import imread_gray
+
+    expr = FIT_DIR / "expr_gan"
+    args = fit_args(data, expr, "gan")
+    stamps = []
+    factory = lambda cfg, dev: timed_steps(UGANConsisAlgo(cfg, dev), stamps)
+    torch.cuda.synchronize()
+    zero(counters, routed)
+    with sync_checked_epoch(torch, 1):
+        run_main(factory, make_parser().parse_args(["-p", "train"] + args))
+    torch.cuda.synchronize()
+    counts = {k: c.launches for k, c in counters.items()}
+    steps = FIT_EPOCHS * FIT_ITERS
+    # each epoch: the eval sweep and the grid's translation to 4 modalities
+    fwd = FIT_EPOCHS * (FIT_TEST_BATCHES + 4)
+    want = {k: steps * per_step[k] + fwd * per_forward[k] for k in counts}
+    model = expr / "gan" / "000"
+    log = (model / "train.log").read_text()
+    losses = [float(x) for x in re.findall(r"\[TRN\].* loss: ([^/]+)/", log)]
+    ckpt = torch.load(model / "ckpt" / "last.ckpt", map_location="cpu",
+                      weights_only=True)
+    grids = [imread_gray(str(model / "sample" / f"train-{e}-images.png"))
+             for e in range(1, FIT_EPOCHS + 1)]
+    period = [(b - a) * 1e3 for a, b in zip(stamps[FIT_ITERS:],
+                                              stamps[FIT_ITERS + 1:])]
+    print(f"gan 7c: run_main -p train: launches {counts} (expected {want}), "
+          f"routed {routed_counts(routed)}; steps {ckpt['step']}; [TRN] "
+          f"losses {losses}; grids {[g.shape for g in grids]}; epoch-1 ms "
+          f"per iteration median/q1/q3 {quartiles(period)} (no host wait: "
+          f"set_sync_debug_mode error passed)", flush=True)
+    if (counts != want or ckpt["step"] != steps or len(losses) != FIT_EPOCHS
+            or not np.isfinite(losses).all()
+            or log.count("[TST]") != FIT_EPOCHS
+            or not (model / "ckpt" / "best.ckpt").is_file()
+            or any(g.shape != (16 * 256, 5 * 256) for g in grids)):
+        raise AssertionError(f"gan CLI artifacts of {model}: launches "
+                             f"{counts}, step {ckpt['step']}, losses {losses}")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "smsut_tpu_torch.trainer.uganConsisTrainer",
+         "-p", "test", "-i", "000", "-wh", "best"] + args, cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    test_s = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"gan -p test failed:\n{out.stderr[-3000:]}")
+    rows = [r for r in (model / "all_trois_matrix.csv").read_text()
+            .split("\n") if r]
+    vals = np.array([[float(v) for v in r.split(",")] for r in rows])
+    run_main(UGANConsisAlgo, make_parser().parse_args(
+        ["-p", "train", "--resume", "000:last"] + args))
+    resumed = (expr / "gan" / "001" / "train.log").read_text()
+    print(f"gan 7c: -p test in {test_s:.1f} s, CSV {vals.shape}, mean Dice "
+          f"{vals[4, 4]:.4f}; --resume 000:last: "
+          f"{'Load model from' in resumed}", flush=True)
+    if (vals.shape != (10, 5) or not np.isfinite(vals).all()
+            or "Load model from" not in resumed
+            or f"Resuming at epoch {FIT_EPOCHS}" not in resumed):
+        raise AssertionError(f"gan test/resume: {rows}\n{resumed[-2000:]}")
+    return {"launches": counts, "expected": want, "losses": losses,
+            "step": ckpt["step"], "period_ms": period, "test_s": test_s,
+            "csv": vals.tolist()}
+
+
+def gan_phase(torch, ops, counters, routed) -> dict:
+    """Phase 7: 7a, 7b and 7c (on phase 6's tree)."""
+    dd = gan_double_backward(torch, ops, counters, routed)
+    steps = gan_step_modes(torch, ops, counters, routed)
+    cli = gan_cli(torch, counters, routed, FIT_DIR / "data",
+                  steps[False]["per_step"], steps[False]["per_eval_forward"])
+    return {"double_backward": dd, "steps": steps, "cli": cli}
 
 
 def main() -> int:
@@ -1375,6 +1810,10 @@ def main() -> int:
     t0 = time.perf_counter()
     fit = fit_loop(torch, ops, counters, routed, train, card)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gan = gan_phase(torch, ops, counters, routed)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -1410,7 +1849,8 @@ def main() -> int:
         r = next(r for r in rows if r["name"] == row_name
                  and r["case"] == case and r["dtype"] == "bfloat16")
         runs = (*serve.values(), *train.values(), *w8.values(), bench,
-                *fit["cli"].values(), *fit["watched"].values())
+                *fit["cli"].values(), *fit["watched"].values(),
+                *gan["steps"].values(), gan["cli"])
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -1430,6 +1870,10 @@ def main() -> int:
                    "microbench": bench, "fit": {
                        "cli": {str(k): v for k, v in fit["cli"].items()},
                        **{k: v for k, v in fit.items() if k != "cli"}},
+                   "gan": {"double_backward": gan["double_backward"],
+                           "steps": {str(k): v for k, v in
+                                     gan["steps"].items()},
+                           "cli": gan["cli"]},
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,10 @@
 
 Port of the unpacked path of ``smsut_tpu/models/blocks.py``: 5x5 stem,
 residual BasicBlocks with a 1x1+norm shortcut on channel change, max-pool
-downsampling, 2x2 stride-2 transposed-conv upsampling with skip concat,
-widths w/2, w .. 16w.  Module and parameter names mirror the flax tree
-(models/transplant.py maps one onto the other).
+downsampling, 2x2 stride-2 transposed-conv (or bilinear + 1x1)
+upsampling with skip concat, widths w/2, w .. 16w; and the
+discriminator's BottleBlock.  Module and parameter names mirror the flax
+tree (models/transplant.py maps one onto the other).
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ from torch import nn
 from smsut_tpu_torch.models.layers import (
     Conv,
     NormAct,
+    avg_pool2,
     kaiming_normal_fan_out,
     max_pool2,
+    upsample_bilinear2,
 )
 from smsut_tpu_torch.ops import block as k3
 from smsut_tpu_torch.ops.block import basic_block
@@ -87,16 +90,59 @@ class ConvTranspose2x2(nn.Module):
 
 
 class UpSampleAndConcat(nn.Module):
-    """2x transposed-conv upsample, then channel concat with the skip."""
+    """2x upsample, then channel concat with the skip: a 2x2 stride-2
+    transposed conv (``up``), or with ``transposed=False`` half-pixel
+    bilinear then a 1x1 conv (``up_conv``)."""
 
     def __init__(self, cin: int, features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 transposed: bool = True):
         super().__init__()
-        self.up = ConvTranspose2x2(cin, features, generator)
+        if transposed:
+            self.up = ConvTranspose2x2(cin, features, generator)
+        else:
+            self.up_conv = Conv(cin, features, 1, generator)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        y = self.up(x)
+        if hasattr(self, "up"):
+            y = self.up(x)
+        else:
+            y = self.up_conv(upsample_bilinear2(x))
         return torch.cat([y, skip.to(y.dtype)], dim=-1)
+
+
+class BottleBlock(nn.Module):
+    """The discriminator's residual block: conv3x3 + norm + lrelu, a 2x2
+    average pool with ``stride`` 2, conv3x3 + norm; the shortcut is the
+    pooled input, through a 1x1 conv + norm (``short_conv``,
+    ``short_norm``) when channels change; lrelu after the sum.  Its 3x3
+    convs and norms run K2/K5 and K1/K4, twice differentiable (the
+    gradient penalty)."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if stride not in (1, 2):
+            raise ValueError(f"BottleBlock: stride {stride} is not 1 or 2")
+        self.stride = stride
+        self.conv1 = Conv(cin, features, 3, generator)
+        self.bn1 = NormAct(features, "lrelu")
+        self.conv2 = Conv(features, features, 3, generator)
+        self.bn2 = NormAct(features, None)
+        self.has_shortcut = cin != features
+        if self.has_shortcut:
+            self.short_conv = Conv(cin, features, 1, generator)
+            self.short_norm = NormAct(features, None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.bn1(self.conv1(x))
+        idn = x
+        if self.stride == 2:
+            y, idn = avg_pool2(y), avg_pool2(x)
+        y = self.bn2(self.conv2(y))
+        if self.has_shortcut:
+            idn = self.short_norm(self.short_conv(idn))
+        return lrelu(y + idn)
 
 
 _MULTS = (1, 2, 4, 8)

@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """Shared low-level layers, NHWC.
 
-Port of the parts of ``smsut_tpu/models/layers.py`` that the U-Net uses.
+Port of the parts of ``smsut_tpu/models/layers.py`` that the U-Net, the
+UGAN towers and the discriminator use.
 Activations flow in the compute dtype (bfloat16 by default); parameters
 and normalisation statistics stay float32.  Conv weights are stored HWIO
 [k, k, Cin, Cout], the layout the kernels read and the flax layout.
@@ -16,7 +17,8 @@ conv does not take to XLA (``conv_pallas.enabled_for``).  The weights are
 cast to the activation dtype per call, and the gradient comes back through
 that cast to the float32 parameter.  The other convs (5x5 stem, 1x1 head
 and shortcut) and the pooling stay plain PyTorch with autograd, as XLA
-computed them in the JAX package.
+computed them in the JAX package.  Every op here is twice
+differentiable, for the discriminator's gradient penalty.
 """
 from __future__ import annotations
 
@@ -49,27 +51,36 @@ def conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     k = w.shape[0]
     if k == 1:
         return x @ w[0, 0]
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=k // 2)
+    # a contiguous weight: the CPU's float64 conv (slow_conv2d) refuses a
+    # strided one in its double backward
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(),
+                 padding=k // 2)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 class Conv(nn.Module):
-    """Bias-free SAME conv, torch Conv2d(k, padding=k//2) semantics."""
+    """SAME conv, torch Conv2d(k, padding=k//2) semantics; with
+    ``use_bias`` a float32 bias (zeros at init, flax's default) added
+    after the conv in the activation dtype, as flax adds it."""
 
     def __init__(self, cin: int, features: int, kernel: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(kaiming_normal_fan_out(
             (kernel, kernel, cin, features), kernel * kernel * features,
             generator))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
-        if w.shape[0] == 3:
-            if k2.takes(x.shape, w.shape[-1], x.dtype):
-                return conv3x3(x, w)
-            conv3x3.routed += 1
-        return conv_plain(x, w)
+        if w.shape[0] == 3 and k2.takes(x.shape, w.shape[-1], x.dtype):
+            y = conv3x3(x, w)
+        else:
+            if w.shape[0] == 3:
+                conv3x3.routed += 1
+            y = conv_plain(x, w)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class NormAct(nn.Module):
@@ -93,3 +104,19 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x[:, : h - h % 2, : w - w % 2]
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool, NHWC, VALID (odd edges dropped)."""
+    b, h, w, c = x.shape
+    x = x[:, : h - h % 2, : w - w % 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+def upsample_bilinear2(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample with half-pixel centres, NHWC: the JAX
+    package's ``jax.image.resize(..., "bilinear")`` at x2, whose edge
+    weights renormalise to the edge pixel as the clamp here does."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                      mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1)

@@ -1,11 +1,13 @@
 # -*- coding: utf-8 -*-
-"""Carry U-Net weights between the flax parameter tree of the JAX package
-and the port's ``state_dict``.
+"""Carry weights between the flax parameter trees of the JAX package and
+the port's ``state_dict``: the U-Net, the UGAN generators (``UGAN``,
+``UGANnce`` with its ``netF``) and the discriminator.
 
 Paths match one for one (``encoder/layer1/conv1/kernel`` <->
-``encoder.layer1.conv1.weight``).  Conv kernels are HWIO on both sides;
-norms map ``scale``/``bias`` to ``weight``/``bias``.  The one reshaping is
-the transposed conv: flax's ``ConvTranspose`` (``transpose_kernel=False``)
+``encoder.layer1.conv1.weight``).  Conv kernels are HWIO on both sides,
+Dense kernels [in, out]; norms map ``scale``/``bias`` to
+``weight``/``bias``; conv and Dense biases keep their name.  The one
+reshaping is the transposed conv: flax's ``ConvTranspose`` (``transpose_kernel=False``)
 convolves the stride-dilated input with its kernel, so output subpixel
 (dy, dx) takes the tap ``kernel[1-dy, 1-dx]``; the port stores those taps
 as ``weight[ci, dy, dx, co]``.  Both directions only flip and transpose,
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from smsut_tpu_torch.ops import acc
+
 _CONVT = "up"   # UpSampleAndConcat's ConvTranspose child, in both trees
 
 
@@ -34,13 +38,13 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield prefix + (str(k),), v
 
 
-def unet_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax ``params`` tree -> the port's ``state_dict`` (float32, CPU)."""
     out = {}
     for path, leaf in _leaves(tree):
         *mods, name = path
         a = np.array(leaf, np.float32)   # a writable copy
-        if name == "kernel" and mods[-1] == _CONVT:
+        if name == "kernel" and mods[-1:] == [_CONVT]:
             a = a[::-1, ::-1].transpose(2, 0, 1, 3)
         tname = "weight" if name in ("kernel", "scale") else name
         out[".".join(mods + [tname])] = torch.from_numpy(
@@ -48,22 +52,28 @@ def unet_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def unet_to_flax(state: Union[nn.Module, Mapping[str, torch.Tensor]]
-                 ) -> Dict[str, Any]:
+def to_flax(state: Union[nn.Module, Mapping[str, torch.Tensor]]
+            ) -> Dict[str, Any]:
     """The port's module or ``state_dict`` -> a flax ``params`` tree of
-    numpy float32 arrays."""
+    numpy float32 arrays (float64 for float64 tensors)."""
     if isinstance(state, nn.Module):
         state = state.state_dict()
     tree: Dict[str, Any] = {}
     for key, t in state.items():
         *mods, name = key.split(".")
-        a = t.detach().cpu().float().numpy()
-        if name == "weight" and mods[-1] == _CONVT:
+        a = acc(t.detach().cpu()).numpy().copy()  # no alias
+        if name == "weight" and mods[-1:] == [_CONVT]:
             a, name = a.transpose(1, 2, 0, 3)[::-1, ::-1], "kernel"
         elif name == "weight":
-            name = "kernel" if a.ndim == 4 else "scale"
+            name = "kernel" if a.ndim >= 2 else "scale"
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(a)
     return tree
+
+
+# one mapping serves every model of the port: the U-Net takes the plain
+# names, the GAN's generators and discriminator these
+ugan_from_flax = disc_from_flax = from_flax
+ugan_to_flax = disc_to_flax = to_flax

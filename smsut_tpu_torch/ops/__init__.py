@@ -34,6 +34,12 @@ def plain():
         _PLAIN.reset(token)
 
 
+def acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the accumulation type: float32, or float64 for a float64
+    tensor (the plain versions' own checks, such as gradgradcheck)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def on_card(x: torch.Tensor) -> bool:
     """True where the wrapper must launch its kernel."""
     return x.is_cuda and not _PLAIN.get()

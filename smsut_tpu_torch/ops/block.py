@@ -31,7 +31,6 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from smsut_tpu_torch.ops import DTYPES, on_card, require, require_like
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
@@ -323,8 +322,13 @@ class _BasicBlock(torch.autograd.Function):
         return out
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "basic_block (K3/K6) is once differentiable: a create_graph "
+                "backward through a fused block is not supported (nothing "
+                "takes a second derivative through the generator's blocks; "
+                "block_pallas=False runs the twice-differentiable chain)")
         x, w1, s1, w2, s2, ws, ss, *res = ctx.saved_tensors
         bwd = basic_block_bwd if ctx.kernel else basic_block_bwd_plain
         dx, dw1, dw2, dws, dsb = bwd(g.contiguous(), x, w1, s1, w2, s2, ws,

@@ -14,6 +14,8 @@ bfloat16 to the tensor-core kernels (``conv3x3_tc.cuh``,
 dtype) and :func:`conv3x3_dw_plain`.  :func:`conv3x3` is the differentiable
 op, wired as ``_vjp_bwd`` wires the TPU kernels: dx is K2 itself on the
 cotangent with the kernel flipped in space and IO-transposed, dw is K5.
+It is twice differentiable (the discriminator's gradient penalty): the
+second order is K2 and K5 again (:class:`_Conv3x3Dw`).
 """
 from __future__ import annotations
 
@@ -21,9 +23,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
-from smsut_tpu_torch.ops import DTYPES, on_card, require, require_like
+from smsut_tpu_torch.ops import DTYPES, acc, on_card, require, require_like
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 
@@ -32,7 +33,7 @@ def conv_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     accumulated tap by tap in float32 (float32 result)."""
     k = w.shape[0]
     b, h, wd, _ = x.shape
-    xf, wf = x.float(), w.float()
+    xf, wf = acc(x), acc(w)
     r = k // 2
     xp = F.pad(xf, (0, 0, r, r, r, r)) if r else xf
     y = None
@@ -49,9 +50,9 @@ def dw_f32(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     padded) times g, the batch-accumulated correlation."""
     b, h, wd, cin = x.shape
     r = k // 2
-    xf = x.float()
+    xf = acc(x)
     xp = F.pad(xf, (0, 0, r, r, r, r)) if r else xf
-    gf = g.float().reshape(-1, g.shape[-1])
+    gf = acc(g).reshape(-1, g.shape[-1])
     taps = [xp[:, u:u + h, v:v + wd, :].reshape(-1, cin).T @ gf
             for u in range(k) for v in range(k)]
     return torch.stack(taps).reshape(k, k, cin, g.shape[-1])
@@ -167,35 +168,76 @@ conv3x3_dw.launches = 0
 
 class _Conv3x3(torch.autograd.Function):
     """K2 forward; backward dx = K2(g, flip_io(w)), dw = K5(x, g) cast to
-    w's dtype (``conv_pallas._vjp_bwd``).  The backward takes the path the
-    forward took, fixed when the forward ran."""
+    w's dtype (``conv_pallas._vjp_bwd``).  ``kernel`` fixes the path of the
+    forward and of every derivative: autograd runs a CUDA backward on its
+    own thread, which does not see ``ops.plain()``.  The backward is made
+    of the differentiable ops :func:`_conv` and :class:`_Conv3x3Dw`, so
+    under ``create_graph=True`` autograd records it, and the second order
+    runs on K2 and K5 too; without it, each derivative is one K2 or K5
+    call."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        ctx.kernel = on_card(x)
+    def forward(ctx, x, w, kernel):
+        ctx.kernel = kernel
         ctx.save_for_backward(x, w)
-        return conv3x3_fwd(x, w)
+        return (conv3x3_fwd if kernel else conv3x3_plain)(x, w)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g = g.contiguous()
-        fwd, dwf = ((conv3x3_fwd, conv3x3_dw) if ctx.kernel
-                    else (conv3x3_plain, conv3x3_dw_plain))
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = fwd(g, flip_io(w))
+            dx = _conv(g, flip_io(w), ctx.kernel)
         if ctx.needs_input_grad[1]:
-            dw = dwf(x, g).to(w.dtype)
-        return dx, dw
+            dw = _dw(x, g, ctx.kernel).to(w.dtype)
+        return dx, dw, None
+
+
+class _Conv3x3Dw(torch.autograd.Function):
+    """K5 as a differentiable op: float32 dw [3,3,Cin,Cout] of x and the
+    output cotangent g.  dw is bilinear in (x, g), so for a cotangent H of
+    dw: dg = conv(x, H) and dx = conv(g, flip_io(H)), K2 at the shapes of
+    the forward conv and of its dx."""
+
+    @staticmethod
+    def forward(ctx, x, g, kernel):
+        ctx.kernel = kernel
+        ctx.save_for_backward(x, g)
+        return (conv3x3_dw if kernel else conv3x3_dw_plain)(x, g)
+
+    @staticmethod
+    def backward(ctx, h):
+        x, g = ctx.saved_tensors
+        h = h.to(x.dtype).contiguous()
+        dx = dg = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv(g, flip_io(h), ctx.kernel)
+        if ctx.needs_input_grad[1]:
+            dg = _conv(x, h, ctx.kernel)
+        return dx, dg, None
+
+
+def _needs_graph(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, kernel: bool) -> torch.Tensor:
+    if _needs_graph(x, w):
+        return _Conv3x3.apply(x, w, kernel)
+    return (conv3x3_fwd if kernel else conv3x3_plain)(x, w)
+
+
+def _dw(x: torch.Tensor, g: torch.Tensor, kernel: bool) -> torch.Tensor:
+    if _needs_graph(x, g):
+        return _Conv3x3Dw.apply(x, g, kernel)
+    return (conv3x3_dw if kernel else conv3x3_dw_plain)(x, g)
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The differentiable op.  Without autograd it is one K2 call."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _Conv3x3.apply(x, w)
-    return conv3x3_fwd(x, w)
+    """The differentiable op, twice differentiable.  Without autograd it is
+    one K2 call."""
+    return _conv(x, w, on_card(x))
 
 
 # 3x3 convs the model layer sent to plain PyTorch (not :func:`takes`)

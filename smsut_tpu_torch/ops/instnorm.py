@@ -9,7 +9,10 @@ for any number of channels, in one launch or two by the :func:`plan` the
 shape gets (decided once per shape, dtype and device), with the stream's
 :func:`tickets`; on a CPU tensor they run :func:`instance_norm_plain` and
 :func:`instance_norm_bwd_plain`, the same math in PyTorch.
-:func:`instance_norm` is the differentiable op: K1 forward, K4 backward.
+:func:`instance_norm` is the differentiable op: K1 forward, K4 backward,
+and twice differentiable (the discriminator's gradient penalty): the
+second order is K4's forward again plus plain PyTorch terms
+(:class:`_InstanceNormBwd`).
 """
 from __future__ import annotations
 
@@ -18,9 +21,9 @@ import functools
 from typing import Dict, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
-from smsut_tpu_torch.ops import DTYPES, on_card, require, require_like
+from smsut_tpu_torch.ops import (DTYPES, acc, on_card, require,
+                                 require_like)
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 NEG_SLOPE = 0.01
@@ -44,7 +47,7 @@ def instance_norm_plain(x: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, act: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K1: (out in x's dtype, mean [B,C], rstd [B,C])."""
-    xf = x.float()
+    xf = acc(x)
     mean, rstd = stats(xf)
     y = (xf - mean[:, None, None]) * rstd[:, None, None] * scale + bias
     return (lrelu(y) if act else y).to(x.dtype), mean, rstd
@@ -58,8 +61,8 @@ def norm_bwd_terms(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     """(d, xhat, S_d, S_dxhat) in float32: the cotangent after the lrelu
     mask of ``_make_bwd_kernel`` (``y >= 0``), xhat, and their per-(sample,
     channel) sums over H*W."""
-    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
-    d = g.float()
+    xhat = (acc(x) - mean[:, None, None]) * rstd[:, None, None]
+    d = acc(g)
     if act:
         d = torch.where(xhat * scale + bias >= 0, d, NEG_SLOPE * d)
     return d, xhat, d.sum(dim=(1, 2)), (d * xhat).sum(dim=(1, 2))
@@ -229,33 +232,80 @@ instance_norm_bwd.launches = 0
 
 
 class _InstanceNorm(torch.autograd.Function):
-    """K1 forward, K4 backward.  The backward takes the path the forward
-    took (kernel or plain), fixed when the forward ran: autograd runs a
-    CUDA backward on its own thread, which does not see ``ops.plain()``."""
+    """K1 forward, K4 backward.  ``kernel`` fixes the path (kernel or
+    plain) of the backward and of the second order when the forward runs:
+    autograd runs a CUDA backward on its own thread, which does not see
+    ``ops.plain()``.  The backward is :class:`_InstanceNormBwd`, itself
+    differentiable, so that ``create_graph=True`` records it."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, act):
-        ctx.kernel = on_card(x)
-        ctx.act = act
-        out, mean, rstd = instance_norm_fwd(x, scale, bias, act)
+    def forward(ctx, x, scale, bias, act, kernel):
+        ctx.kernel, ctx.act = kernel, act
+        fwd = instance_norm_fwd if kernel else instance_norm_plain
+        out, mean, rstd = fwd(x, scale, bias, act)
         ctx.save_for_backward(x, scale, bias, mean, rstd)
         return out
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         x, scale, bias, mean, rstd = ctx.saved_tensors
-        bwd = instance_norm_bwd if ctx.kernel else instance_norm_bwd_plain
-        dx, dscale, dbias = bwd(x, g.contiguous(), mean, rstd, scale, bias,
-                                ctx.act)
-        return dx, dscale, dbias, None
+        args = (x, g.contiguous(), mean, rstd, scale, bias, ctx.act)
+        if torch.is_grad_enabled():
+            dx, dscale, dbias = _InstanceNormBwd.apply(*args, ctx.kernel)
+        else:
+            dx, dscale, dbias = (instance_norm_bwd if ctx.kernel
+                                 else instance_norm_bwd_plain)(*args)
+        return dx, dscale, dbias, None, None
+
+
+class _InstanceNormBwd(torch.autograd.Function):
+    """K4 as a differentiable op of (x, g, scale, bias): its forward is K4
+    (or its plain version), its backward the second-order terms.  No TPU
+    kernel computes those (XLA does, in the JAX package's gradient
+    penalty), so they are plain PyTorch: autograd through
+    :func:`instance_norm_bwd_plain`'s math, recomputed from x, g, scale and
+    bias with the statistics taken again from x, so that their dependence
+    on x is differentiated.  The lrelu mask is piecewise constant: it
+    contributes nothing in x, scale or bias, and the term in g is the
+    forward's JVP along the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, g, mean, rstd, scale, bias, act, kernel):
+        ctx.act = act
+        ctx.save_for_backward(x, g, scale, bias)
+        bwd = instance_norm_bwd if kernel else instance_norm_bwd_plain
+        return bwd(x, g, mean, rstd, scale, bias, act)
+
+    @staticmethod
+    def backward(ctx, hdx, hdscale, hdbias):
+        instance_norm.double_backward += 1
+        saved = ctx.saved_tensors
+        need = [ctx.needs_input_grad[i] for i in (0, 1, 4, 5)]
+        with torch.enable_grad():
+            x, g, scale, bias = [t.detach().requires_grad_(n)
+                                 for t, n in zip(saved, need)]
+            mean, rstd = stats(acc(x))
+            outs = instance_norm_bwd_plain(x, g, mean, rstd, scale, bias,
+                                           ctx.act)
+            pairs = [(o, h) for o, h in zip(outs, (hdx, hdscale, hdbias))
+                     if o.requires_grad]
+            wrt = [t for t, n in zip((x, g, scale, bias), need) if n]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [h for _, h in pairs],
+                allow_unused=True))
+        dx, dg, dscale, dbias = [next(got) if n else None for n in need]
+        return dx, dg, None, None, dscale, dbias, None, None
 
 
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   act: bool) -> torch.Tensor:
-    """The differentiable op.  Without autograd (serving, no_grad) it is one
-    K1 call that saves nothing."""
+    """The differentiable op, twice differentiable.  Without autograd
+    (serving, no_grad) it is one K1 call that saves nothing."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
-        return _InstanceNorm.apply(x, scale, bias, act)
+        return _InstanceNorm.apply(x, scale, bias, act, on_card(x))
     return instance_norm_fwd(x, scale, bias, act)[0]
+
+
+# calls of the second-order terms (:class:`_InstanceNormBwd`'s backward)
+instance_norm.double_backward = 0

@@ -1,18 +1,22 @@
 # -*- coding: utf-8 -*-
-"""Segmentation losses over NHWC logits, in float32.
+"""Segmentation losses over NHWC logits, in float32 (float64 for float64
+logits).
 
 Port of the unpacked losses of ``smsut_tpu/ops/losses.py``:
 ``one_hot_last``, ``get_tp_fp_fn``, ``soft_dice_loss``,
 ``cross_entropy_loss`` and ``dice_and_ce_loss`` (the reference's
 ``DiceAndCrossEntropyLoss`` with ``batch_dice=True``, the loss of every
-trainer).  No kernel: the JAX package leaves them to XLA too.
+trainer), and the GAN's ``argmax_consistency_loss``, ``patch_nce_loss``,
+``nce_loss_over_layers``, ``l1_loss`` and ``softmax_ce_with_logits``.  No kernel: the JAX package leaves them to XLA too.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from smsut_tpu_torch.ops import acc
 
 
 def one_hot_last(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -36,7 +40,7 @@ def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
                    batch_dice: bool = True,
                    smooth: float = 1e-5) -> torch.Tensor:
     """Softmax, tp/fp/fn, background channel excluded, 1 - mean dice."""
-    probs = torch.softmax(logits.float(), dim=-1)
+    probs = torch.softmax(acc(logits), dim=-1)
     tp, fp, fn = get_tp_fp_fn(probs, labels, batch_dice)
     dc = (2.0 * tp + smooth) / (2.0 * tp + fp + fn + smooth + 1e-8)
     dc = dc[1:] if batch_dice else dc[:, 1:]
@@ -48,7 +52,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        reduce: bool = True) -> torch.Tensor:
     """nn.CrossEntropyLoss over [B,H,W,C] logits and [B,H,W] labels; with
     ``class_weights`` the mean is weighted by the per-pixel class weight."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(acc(logits), dim=-1)
     gt = one_hot_last(labels, logits.shape[-1])
     nll = -(logp * gt).sum(dim=-1)
     if class_weights is not None:
@@ -70,7 +74,7 @@ def dice_and_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
         dc = soft_dice_loss(logits, labels, batch_dice) if weight_dc else 0.0
         ce = cross_entropy_loss(logits, labels) if weight_ce else 0.0
         return weight_dc * dc + weight_ce * ce
-    x = logits.float()
+    x = acc(logits)
     m = x.amax(dim=-1, keepdim=True).detach()
     e = torch.exp(x - m)
     s = e.sum(dim=-1, keepdim=True)
@@ -85,3 +89,58 @@ def dice_and_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     dc = 1.0 - dcv.mean()
     nll = -((x * gt).sum(dim=-1) - m[..., 0] - torch.log(s[..., 0]))
     return weight_dc * dc + weight_ce * nll.mean()
+
+
+def argmax_consistency_loss(source_logits: torch.Tensor,
+                            target_logits: torch.Tensor,
+                            weight_dc: float = 0.5,
+                            weight_ce: float = 0.5) -> torch.Tensor:
+    """SMSUT consistency: Dice+CE (batch dice) of the source logits against
+    the argmax of the target logits, which carries no gradient."""
+    target = torch.argmax(target_logits.detach(), dim=-1)
+    return dice_and_ce_loss(source_logits, target, weight_dc, weight_ce,
+                            batch_dice=True)
+
+
+def patch_nce_loss(feat_q: torch.Tensor, feat_k: torch.Tensor, n_bmm: int,
+                   temperature: float = 0.07) -> torch.Tensor:
+    """PatchNCE over L2-normalised pools [B*P, C], ``feat_k`` detached;
+    the negatives are taken within groups of ``n_bmm`` rows' pools, as
+    the reference builds the loss with ``batch_size`` even for a pool from
+    a 2x batch (the group quirk, kept).  The per-patch loss [B*P]."""
+    feat_q = acc(feat_q)
+    feat_k = acc(feat_k.detach())
+    n, dim = feat_q.shape
+    l_pos = (feat_q * feat_k).sum(dim=1, keepdim=True)
+    q = feat_q.reshape(n_bmm, -1, dim)
+    k = feat_k.reshape(n_bmm, -1, dim)
+    npatches = q.shape[1]
+    l_neg = torch.bmm(q, k.transpose(1, 2))
+    eye = torch.eye(npatches, dtype=torch.bool, device=q.device)[None]
+    l_neg = l_neg.masked_fill(eye, -10.0).reshape(-1, npatches)
+    logits = torch.cat([l_pos, l_neg], dim=1) / temperature
+    return -torch.log_softmax(logits, dim=1)[:, 0]
+
+
+def nce_loss_over_layers(feat_x_pools: Sequence[torch.Tensor],
+                         feat_f_pools: Sequence[torch.Tensor], n_bmm: int,
+                         temperature: float = 0.07) -> torch.Tensor:
+    """The mean over the NCE layers of the mean PatchNCE; the queries are
+    the reconstruction pass's pools, the keys the translation pass's."""
+    total = 0.0
+    for f_x, f_f in zip(feat_x_pools, feat_f_pools):
+        total = total + patch_nce_loss(f_f, f_x, n_bmm, temperature).mean()
+    return total / len(feat_x_pools)
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (acc(a) - acc(b)).abs().mean()
+
+
+def softmax_ce_with_logits(logits: torch.Tensor,
+                           target_index: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over [B, C] classifier logits (the discriminator's
+    modality head)."""
+    logp = torch.log_softmax(acc(logits), dim=-1)
+    return -(logp * one_hot_last(target_index, logits.shape[-1])).sum(
+        dim=-1).mean()

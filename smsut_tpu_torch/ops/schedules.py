@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
-"""The poly learning-rate schedule as a function of the step counter.
+"""The poly learning-rate schedule as a function of the step counter, and
+the sigmoid rampup.
 
-Port of ``poly_lr_schedule`` and ``poly_lr_host`` of
+Port of ``poly_lr_schedule``, ``poly_lr_host`` and ``sigmoid_rampup`` of
 ``smsut_tpu/ops/schedules.py``.  The reference mutates the optimizer's LR
 after each step, so step k trains with poly(max(k - 1, 0)); both functions
 keep that one-step lag, and clamp the base at 0 past ``total_iters``.
@@ -9,6 +10,8 @@ keep that one-step lag, and clamp the base at 0 past ``total_iters``.
 from __future__ import annotations
 
 from typing import Callable
+
+import numpy as np
 
 
 def poly_lr_host(base_lr: float, step: int, total_iters: int,
@@ -27,3 +30,13 @@ def poly_lr_schedule(base_lr: float, total_iters: int,
         return poly_lr_host(base_lr, count, total_iters, power)
 
     return schedule
+
+
+def sigmoid_rampup(current: float, rampup_length: float) -> float:
+    """exp(-5 (1 - t)^2), t = current / rampup_length clipped to [0, 1];
+    1 for a zero length.  Host-side."""
+    if rampup_length == 0:
+        return 1.0
+    current = np.clip(current, 0.0, rampup_length)
+    phase = 1.0 - current / rampup_length
+    return float(np.exp(-5.0 * phase * phase))

@@ -2,21 +2,24 @@
 """Checkpoints under the reference's tags (``best``, ``last``, ...).
 
 Port of ``smsut_tpu/train/checkpoints.py``: each tag holds the full train
-state -- step, parameters and momentum traces -- so that a run can resume.
+state -- step, parameters and optimizer state -- so that a run can resume.
 Where the JAX package writes an orbax directory, the port writes one
-``torch.save`` file, ``{ckpt_root}/{prefix}.ckpt``, of
-``{"step", "params", "opt_state"}`` with float32 CPU tensors.
+``torch.save`` file, ``{ckpt_root}/{prefix}.ckpt``, with float32 CPU
+tensors: ``{"step", "params", "opt_state"}`` for a ``TrainState``, and
+``{"step", "g_params", "g_opt_state", "d_params", "d_opt_mu",
+"d_opt_nu", "d_opt_count"}`` for a ``GANTrainState`` (SGD traces of G,
+Adam moments and update count of D).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 from os.path import join as pjoin
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import torch
 
-from smsut_tpu_torch.train.state import TrainState
+from smsut_tpu_torch.train.state import AdamState, GANTrainState, TrainState
 
 
 def _path(ckpt_root: str, prefix: str) -> str:
@@ -28,28 +31,42 @@ def _host(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for k, v in tree.items()}
 
 
-def save_state(state: TrainState, ckpt_root: str, prefix: str) -> str:
+def _trees(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The state's tensor trees by their checkpoint names."""
+    if isinstance(state, GANTrainState):
+        return {"g_params": state.g_params, "g_opt_state": state.g_opt_state,
+                "d_params": state.d_params,
+                "d_opt_mu": state.d_opt_state.mu,
+                "d_opt_nu": state.d_opt_state.nu}
+    return {"params": state.params, "opt_state": state.opt_state}
+
+
+def save_state(state: Union[TrainState, GANTrainState], ckpt_root: str,
+               prefix: str) -> str:
     path = _path(ckpt_root, prefix)
-    torch.save({"step": int(state.step), "params": _host(state.params),
-                "opt_state": _host(state.opt_state)}, path)
+    raw = {"step": int(state.step),
+           **{k: _host(v) for k, v in _trees(state).items()}}
+    if isinstance(state, GANTrainState):
+        raw["d_opt_count"] = int(state.d_opt_state.count)
+    torch.save(raw, path)
     return path
 
 
 def load_raw(ckpt_root: str, prefix: str) -> Dict[str, Any]:
-    """A checkpoint as saved: ``{"step", "params", "opt_state"}`` on the
-    CPU."""
+    """A checkpoint as saved, on the CPU."""
     return torch.load(_path(ckpt_root, prefix), map_location="cpu",
                       weights_only=True)
 
 
-def load_state(template: TrainState, ckpt_root: str, prefix: str
-               ) -> TrainState:
+def load_state(template: Union[TrainState, GANTrainState], ckpt_root: str,
+               prefix: str) -> Union[TrainState, GANTrainState]:
     """Restore into ``template``'s structure: each tensor takes the
     template's device and dtype; a missing or extra key raises."""
     raw = load_raw(ckpt_root, prefix)
 
-    def like(tree: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor],
-             what: str) -> Dict[str, torch.Tensor]:
+    def like(tree: Dict[str, torch.Tensor], what: str
+             ) -> Dict[str, torch.Tensor]:
+        saved = raw[what]
         if saved.keys() != tree.keys():
             raise KeyError(f"{what}: checkpoint keys differ from the state's "
                            f"({sorted(set(saved) ^ set(tree))})")
@@ -61,7 +78,11 @@ def load_state(template: TrainState, ckpt_root: str, prefix: str
             out[k] = saved[k].to(t.device, t.dtype).contiguous()
         return out
 
-    return dataclasses.replace(
-        template, step=int(raw["step"]),
-        params=like(template.params, raw["params"], "params"),
-        opt_state=like(template.opt_state, raw["opt_state"], "opt_state"))
+    trees = {k: like(v, k) for k, v in _trees(template).items()}
+    if isinstance(template, GANTrainState):
+        return dataclasses.replace(
+            template, step=int(raw["step"]), g_params=trees["g_params"],
+            g_opt_state=trees["g_opt_state"], d_params=trees["d_params"],
+            d_opt_state=AdamState(int(raw["d_opt_count"]), trees["d_opt_mu"],
+                                  trees["d_opt_nu"]))
+    return dataclasses.replace(template, step=int(raw["step"]), **trees)

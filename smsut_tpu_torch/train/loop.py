@@ -2,7 +2,8 @@
 """The fit / validate / test harness.
 
 Port of ``smsut_tpu/train/loop.py`` ``Trainer``: one generic epoch loop
-drives an algorithm object (``SupervisedUNet``) while the host keeps the
+drives an algorithm object (``SupervisedUNet``, the GAN algorithms of
+``train/steps/gan.py``) while the host keeps the
 reference's semantics -- in-turn loaders, per-modality loss metering, the
 slice->volume scatter for evaluation, mean-Dice model selection, best/last
 checkpoints, and the trois CSV in the test phase.
@@ -92,9 +93,14 @@ class Trainer:
         self._log_param_counts()
 
     def _log_param_counts(self) -> None:
-        """The reference's startup parameter-count log line."""
-        n = count_param_number(self.state.params)
-        self.info(f"[net] Number of parameters: {n} ({n / 1e6:.4f}M)")
+        """The reference's startup parameter-count log line, per network."""
+        for label, attr in (("net", "params"), ("G", "g_params"),
+                            ("D", "d_params")):
+            tree = getattr(self.state, attr, None)
+            if tree is not None:
+                n = count_param_number(tree)
+                self.info(f"[{label}] Number of parameters: {n} "
+                          f"({n / 1e6:.4f}M)")
 
     # ------------------------------------------------------------------ utils
     def info(self, s):
@@ -162,19 +168,25 @@ class Trainer:
 
         self._ul_loader = ul_loader  # algorithms with host-side pseudo-labels
         lb_itr, ul_itr = _Cycler(lb_loader), _Cycler(ul_loader)
+        if hasattr(self.algo, "set_fixed_batch"):
+            self._set_fixed_batch(lb_itr, ul_itr, raw)
         max_epoch = (self.algo.max_epoch if hasattr(self.algo, "max_epoch")
                      else cfg.max_epoch)
         best_prefix = getattr(self.algo, "best_prefix", "best")
         last_prefix = getattr(self.algo, "last_prefix", "last")
         if self.epoch:
-            # a resumed run takes the batches the uninterrupted run would:
-            # the loaders' streams are advanced past the epochs done
+            # a resumed run takes the batches (and random draws) the
+            # uninterrupted run would: the streams are advanced past the
+            # epochs done
             self.info(f"Resuming at epoch {self.epoch} (step "
                       f"{int(self.state.step)}).")
-            for _ in range(self.epoch * self._iters_per_epoch()):
+            done = self.epoch * self._iters_per_epoch()
+            for _ in range(done):
                 lb_itr.next()
                 if getattr(self.algo, "uses_unlabeled", False):
                     ul_itr.next()
+            if hasattr(self.algo, "skip_draws"):
+                self.algo.skip_draws(done)
         for epoch in range(self.epoch, max_epoch):
             if hasattr(self.algo, "on_epoch_start"):
                 self.algo.on_epoch_start(self, epoch)
@@ -222,6 +234,22 @@ class Trainer:
                 self.algo.on_epoch_end(self, epoch)
 
         self.save_model(last_prefix)
+
+    def _set_fixed_batch(self, lb_itr: _Cycler, ul_itr: _Cycler,
+                         raw: bool) -> None:
+        """The fixed images of the per-epoch translation grid: the first
+        labelled batch and, for an algorithm that uses them, the first
+        unlabelled one, as host arrays normalised to [-1, 1] (the
+        augmentation's mapping, without the warp)."""
+        b = _split(lb_itr.next())[0]
+        img, mdl = np.asarray(b.img), np.asarray(b.mdl)
+        if getattr(self.algo, "uses_unlabeled", False):
+            u = _split(ul_itr.next())[0]
+            img = np.concatenate([img, np.asarray(u.img)])
+            mdl = np.concatenate([mdl, np.asarray(u.mdl)])
+        if raw:  # uint8 [B,H,W] batches
+            img = (img.astype(np.float32) / 255.0 - 0.5)[..., None] / 0.5
+        self.algo.set_fixed_batch(img, mdl)
 
     def _producer_hook(self, da: Optional[DeviceAugment]):
         """Loader hook, run in the producer thread: Batch -> (Batch with

@@ -18,6 +18,8 @@ off differs only in summation order; bfloat16 also in which values round
 up or down (a one-unit flip is 2^-8 of the value, and in K3 a flip in the
 normalised activation feeds the second conv).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -733,3 +735,78 @@ def test_microbench_runs_on_the_card(cuda_device):
                                          microbench_conv.candidates()]
     assert all(r["rel_err"] <= microbench_conv.REL_TOL and r["us"] > 0
                for r in rows)
+
+
+def _second_order(fn, inputs, plain):
+    """Gradients in ``inputs`` of the squared norm of fn's input gradient
+    (a gradient penalty): the double backward, kernel path or plain."""
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    with ops.plain() if plain else contextlib.nullcontext():
+        y = fn(*leaves)
+        g, = torch.autograd.grad((y.float() * y.float().sin()).sum(),
+                                 leaves[0], create_graph=True)
+        return torch.autograd.grad(g.float().square().sum(), leaves)
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-4), (BF16, 0.03)])
+def test_conv3x3_double_backward(rng, cuda_device, dtype, tol):
+    """The second order of the 3x3 conv runs K2 and K5 and agrees with the
+    plain path."""
+    x = t(rng.standard_normal((2, 32, 32, 16)), dtype, cuda_device)
+    w = t(conv_w(rng, 3, 16, 32), dtype, cuda_device)
+    before = (conv3x3.conv3x3_fwd.launches, conv3x3.conv3x3_dw.launches)
+    got = _second_order(conv3x3.conv3x3, (x, w), False)
+    assert (conv3x3.conv3x3_fwd.launches - before[0] >= 4
+            and conv3x3.conv3x3_dw.launches - before[1] >= 2)
+    want = _second_order(conv3x3.conv3x3, (x, w), True)
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= tol
+
+
+@pytest.mark.parametrize("act", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-4), (BF16, 0.05)])
+def test_instnorm_double_backward(rng, cuda_device, act, dtype, tol):
+    """The second order of the instance norm: K1 and K4 at first order,
+    the plain terms of ``_InstanceNormBwd`` at second, against the plain
+    path."""
+    x = t(rng.standard_normal((2, 32, 32, 16)), dtype, cuda_device)
+    s, b = (t(a, F32, cuda_device) for a in norm_params(rng, 16))
+    fn = lambda x, s, b: instnorm.instance_norm(x, s, b, act)
+    before = (instnorm.instance_norm_fwd.launches,
+              instnorm.instance_norm_bwd.launches,
+              instnorm.instance_norm.double_backward)
+    got = _second_order(fn, (x, s, b), False)
+    assert (instnorm.instance_norm_fwd.launches > before[0]
+            and instnorm.instance_norm_bwd.launches > before[1]
+            and instnorm.instance_norm.double_backward > before[2])
+    want = _second_order(fn, (x, s, b), True)
+    for a, w in zip(got, want):
+        assert rel_err(a, w) <= tol
+
+
+def test_discriminator_gradient_penalty(cuda_device):
+    """The GP's D-parameter gradients of a w16 discriminator at 64^2,
+    float32, kernels against the plain path; every 3x3 conv but
+    ``conv_src`` is taken."""
+    from smsut_tpu_torch.models.ugan import Discriminator
+
+    D = Discriminator(64, 4, 16, 256, compute_dtype=F32, device=cuda_device,
+                      seed=3)
+    x = torch.randn((4, 64, 64, 1), device=cuda_device)
+    runs = []
+    for plain in (False, True):
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in D.state_dict().items()}
+        xh = x.clone().requires_grad_()
+        routed = conv3x3.conv3x3.routed
+        with ops.plain() if plain else contextlib.nullcontext():
+            src, _ = torch.func.functional_call(D, params, (xh,))
+            g, = torch.autograd.grad(src.sum(), xh, create_graph=True)
+            gp = (g.reshape(4, -1).norm(dim=1) - 1).square().mean()
+            # the class head and the stem's bias do not reach g
+            runs.append(torch.autograd.grad(gp, list(params.values()),
+                                            allow_unused=True))
+        assert conv3x3.conv3x3.routed - routed == 1
+    for a, b in zip(*runs):
+        assert (a is None) == (b is None)
+        assert a is None or rel_err(a, b) <= 1e-3

@@ -15,7 +15,7 @@ import torch
 from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.data.dataset import Batch
 from smsut_tpu_torch.data.synthetic import make_synthetic_dataset
-from smsut_tpu_torch.models.transplant import unet_from_flax
+from smsut_tpu_torch.models.transplant import from_flax
 from smsut_tpu_torch.train import experiment as port_experiment
 from smsut_tpu_torch.train import loop as port_loop
 from smsut_tpu_torch.train.cli import make_parser, run_main
@@ -223,7 +223,7 @@ def test_replay_matches_jax_trainer(jax_run, tmp_path, monkeypatch, scalars):
                  data_aug=dict(Config().data_aug, resizeCrop_size=SIZE))
     algo = SupervisedUNet(cfg, device="cpu")
     trainer = port_loop.Trainer(algo, cfg, "train")
-    trainer.state = algo.state_from_params(unet_from_flax(init))
+    trainer.state = algo.state_from_params(from_flax(init))
     real = port_loop.get_loader
 
     def replaying(root, phase, fold, bs, *a, **kw):
@@ -271,7 +271,7 @@ def test_eval_on_one_set_of_weights(jax_run, tmp_path):
     from smsut_tpu.ops import metrics as jm
     from smsut_tpu.train.steps.supervised import SupervisedUNet as JAlgo
     from smsut_tpu_torch.data.dataset import get_label_npys, get_loader
-    from smsut_tpu_torch.models.transplant import unet_to_flax
+    from smsut_tpu_torch.models.transplant import to_flax
     from smsut_tpu_torch.ops import metrics as pm
 
     data, init, _, _, _, jcfg = jax_run
@@ -280,7 +280,7 @@ def test_eval_on_one_set_of_weights(jax_run, tmp_path):
                  compute_dtype="float32")
     algo = SupervisedUNet(cfg, device="cpu")
     trainer = port_loop.Trainer(algo, cfg, "train")
-    trainer.state = algo.state_from_params(unet_from_flax(init))
+    trainer.state = algo.state_from_params(from_flax(init))
     _, gt = get_label_npys(data, "test")
     _, got = trainer.validate_epoch(get_loader(data, "test", 0, BATCH, cfg=cfg),
                                     gt)
@@ -288,7 +288,7 @@ def test_eval_on_one_set_of_weights(jax_run, tmp_path):
 
     jalgo = JAlgo(jcfg)
     params = jax.tree_util.tree_map(jnp.asarray,
-                                    unet_to_flax(trainer.state.params))
+                                    to_flax(trainer.state.params))
     fwd = jax.jit(jalgo.eval_fn)
     want = {k: np.zeros_like(v) for k, v in gt.items()}
     for b in j_get_loader(data, "test", 0, BATCH, cfg=jcfg):

@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from smsut_tpu.ops import instnorm_pallas as inp
-from smsut_tpu_torch.ops import instnorm
+from smsut_tpu_torch.ops import block, instnorm
 from torch_port_helpers import norm_params, t
 
 
@@ -143,15 +143,30 @@ def test_backward_matches_pallas_vjp(rng, act):
 
 
 def test_double_backward_raises(rng):
-    """The backward is once-differentiable: a gradient of a gradient (the
-    discriminator's WGAN-GP penalty) raises instead of returning wrong
-    values, until the double backward is ported."""
+    """A gradient of a gradient (the discriminator's WGAN-GP penalty)
+    through the instance norm agrees with JAX's; the op that raises on it
+    is the fused block (K3/K6, once differentiable), not the norm."""
     x, s, b = _inputs(rng)
     xt = t(x).requires_grad_()
     out = instnorm.instance_norm(xt, t(s), t(b), True)
     (gx,) = torch.autograd.grad((out * out).sum(), xt, create_graph=True)
-    with pytest.raises(RuntimeError):
-        gx.sum().backward()
+    gx.sum().backward()
+
+    def jgrad_sum(xj):
+        f = lambda a: jnp.sum(jnp.square(inp.instance_norm_lrelu_reference(
+            a, jnp.asarray(s), jnp.asarray(b))))
+        return jnp.sum(jax.grad(f)(xj))
+
+    want = np.asarray(jax.grad(jgrad_sum)(jnp.asarray(x)))
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-4,
+                               atol=1e-5 * max(1.0, np.abs(want).max()))
+    w1, w2, ws = (t(0.1 * rng.normal(size=(k, k, ci, 16)).astype(
+        np.float32)).requires_grad_() for k, ci in ((3, 8), (3, 16), (1, 8)))
+    ones, zeros = torch.ones(16), torch.zeros(16)
+    y = block.basic_block(t(rng.normal(size=(1, 4, 4, 8)).astype(np.float32)),
+                          w1, ones, zeros, w2, ones, zeros, ws, ones, zeros)
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        torch.autograd.grad(y.sum(), w1, create_graph=True)
 
 
 def test_cpu_tensor_takes_plain_path_without_launch(rng):

@@ -7,9 +7,10 @@ Pallas kernels do not take to XLA (``conv_pallas.enabled_for``,
 ``block_pallas.enabled_for``).
 
 A truth table over every 3x3 conv and every BasicBlock of the U-Net at
-width 16 and 8, and a conv with one output channel (the discriminator's
-``conv_src``); the sites are read off the port's model, so a new site
-without a row fails.  On the CPU the wrappers run their plain versions,
+width 16 and 8 (the UGAN towers' convs at width 16 are the U-Net's), and
+every 3x3 conv of the discriminator at width 16, whose ``conv_src`` has
+one output channel; the sites are read off the port's models, so a new
+site without a row fails.  On the CPU the wrappers run their plain versions,
 so the routes are counted here without a card."""
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import torch
 from smsut_tpu_torch.models import UNet
 from smsut_tpu_torch.models.blocks import BasicBlock
 from smsut_tpu_torch.models.layers import Conv
+from smsut_tpu_torch.models.ugan import Discriminator, UGANnce
 from smsut_tpu_torch.ops import block, conv3x3
 
 BF16 = torch.bfloat16
@@ -35,6 +37,12 @@ CONVS = {
         (64, 128): True, (128, 128): True, (128, 64): True, (64, 32): True,
         (32, 16): True, (16, 8): False},
 }
+# (Cin, Cout) of the discriminator's 3x3 convs at width 16 (256^2 input,
+# max width 256, the GAN's D): its five BottleBlocks' convs, all taken,
+# and conv_src (Cout 1), routed
+D_CONVS = {(16, 32): True, (32, 32): True, (32, 64): True, (64, 64): True,
+           (64, 128): True, (128, 128): True, (128, 256): True,
+           (256, 256): True, (256, 1): False}
 # (Cin, Cout) of the U-Net's BasicBlocks, all of the shortcut form
 BLOCKS = {
     16: {(8, 16): True, (16, 32): True, (32, 64): True, (64, 128): True,
@@ -62,12 +70,27 @@ def test_tables_cover_every_site(width):
     assert blocks == set(BLOCKS[width])
 
 
+def _convs(net):
+    return {tuple(m.weight.shape[2:]) for m in net.modules()
+            if isinstance(m, Conv) and m.weight.shape[0] == 3}
+
+
+def test_gan_tables_cover_every_site():
+    """The UGAN towers at width 16 have the U-Net's 3x3 convs; the
+    discriminator's are D_CONVS."""
+    assert _convs(UGANnce(5, 4, 16, device="cpu")) == set(CONVS[16])
+    assert _convs(Discriminator(256, 4, 16, 256, device="cpu")) == set(
+        D_CONVS)
+
+
 @pytest.mark.parametrize("width,cin,cout,want",
                          [(w, ci, co, v) for w, t in CONVS.items()
                           for (ci, co), v in t.items()]
+                         + [("D", ci, co, v)
+                            for (ci, co), v in D_CONVS.items()]
                          + [(0, 64, 1, False)])
 def test_conv3x3_takes(width, cin, cout, want):
-    """Width 0: the discriminator's ``conv_src`` (Cout 1)."""
+    """Width "D": the discriminator's; 0: a ``conv_src`` at Cin 64."""
     for dt in (BF16, torch.float32):
         assert conv3x3.takes((8, 32, 32, cin), cout, dt) is want
     assert not conv3x3.takes((8, 32, 32, cin), cout, torch.float16)
@@ -105,3 +128,19 @@ def test_forward_counts_routed_calls(fused, convs, blocks):
         got = (conv3x3.conv3x3.routed - before[0],
                block.basic_block.routed - before[1])
         assert got == want and bool(torch.isfinite(y).all())
+
+
+def test_discriminator_forward_routes_conv_src():
+    """A w16 discriminator forward routes its one Cout-1 conv and no
+    other; so does its gradient penalty's double backward (the route is
+    fixed at the forward)."""
+    D = Discriminator(64, 4, 16, 256, compute_dtype=torch.float32,
+                      device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 64, 64, 1)).astype(np.float32)).requires_grad_()
+    before = conv3x3.conv3x3.routed
+    src, _ = D(x)
+    g, = torch.autograd.grad(src.sum(), x, create_graph=True)
+    torch.autograd.grad(g.square().sum(), list(D.parameters()),
+                        allow_unused=True)
+    assert conv3x3.conv3x3.routed - before == 1

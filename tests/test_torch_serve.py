@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from smsut_tpu.config import Config as JConfig
 from smsut_tpu.train.steps.supervised import SupervisedUNet as JSupervisedUNet
 from smsut_tpu_torch.config import Config
-from smsut_tpu_torch.models.transplant import unet_from_flax
+from smsut_tpu_torch.models.transplant import from_flax
 from smsut_tpu_torch.serve import MANIFEST, export_eval, load_serving
 from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
@@ -34,7 +34,7 @@ def exported(tmp_path_factory):
         jalgo.init_state(jax.random.PRNGKey(0))))
     cfg = Config(**_CFG)
     out = str(tmp_path_factory.mktemp("serving"))
-    export_eval(SupervisedUNet(cfg, device="cpu"), unet_from_flax(params),
+    export_eval(SupervisedUNet(cfg, device="cpu"), from_flax(params),
                 cfg, out)
     return jalgo, params, cfg, out
 
@@ -86,7 +86,7 @@ def test_block_pallas_export_matches_unfused(exported, tmp_path, rng):
     """On the CPU both block modes run plain versions of the same math."""
     _, params, _, out = exported
     cfg = Config(**_CFG, block_pallas=True)
-    export_eval(SupervisedUNet(cfg, device="cpu"), unet_from_flax(params),
+    export_eval(SupervisedUNet(cfg, device="cpu"), from_flax(params),
                 cfg, str(tmp_path))
     img = rng.normal(size=(2, 32, 32, 1)).astype(np.float32)
     fused = load_serving(str(tmp_path), device="cpu")[0](img)

@@ -14,7 +14,7 @@ import jax
 from smsut_tpu.config import Config as JConfig
 from smsut_tpu.train.steps.supervised import SupervisedUNet as JSupervisedUNet
 from smsut_tpu_torch.config import Config
-from smsut_tpu_torch.models.transplant import unet_from_flax, unet_to_flax
+from smsut_tpu_torch.models.transplant import from_flax, to_flax
 from smsut_tpu_torch.ops import block, conv3x3, instnorm
 from smsut_tpu_torch.train.state import TrainState
 from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
@@ -67,14 +67,14 @@ def test_train_steps_match_jax(reference, block_pallas):
     init, batches, want_losses, want = reference
     algo = SupervisedUNet(Config(**_CFG, block_pallas=block_pallas),
                           device="cpu")
-    state = algo.state_from_params(unet_from_flax(init))
+    state = algo.state_from_params(from_flax(init))
     losses = []
     for bt in batches:
         state, m = algo.train_step(state, bt, {})
         losses.append(m["loss"].item())
     assert isinstance(state, TrainState) and state.step == STEPS
     np.testing.assert_allclose(losses, want_losses, rtol=2e-3, atol=2e-4)
-    got = dict(_flat(unet_to_flax(state.params)))
+    got = dict(_flat(to_flax(state.params)))
     assert got.keys() == want.keys()
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, rtol=5e-3, atol=5e-4,

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 
 from smsut_tpu.models import UNet as JUNet
 from smsut_tpu_torch.models import UNet
-from smsut_tpu_torch.models.transplant import unet_from_flax, unet_to_flax
+from smsut_tpu_torch.models.transplant import from_flax, to_flax
 
 W = 8
 
@@ -33,7 +33,7 @@ def test_forward_matches_jax(reference, block_fused):
     x, params, want = reference
     net = UNet(5, W, compute_dtype=torch.float32, block_fused=block_fused,
                device="cpu")
-    net.load_state_dict(unet_from_flax(params))
+    net.load_state_dict(from_flax(params))
     with torch.no_grad():
         got = net(torch.from_numpy(x))
     assert got.dtype == torch.float32
@@ -50,7 +50,7 @@ def _flat(tree, prefix=()):
 
 def test_flax_round_trip_is_exact(reference):
     _, params, _ = reference
-    back = dict(_flat(unet_to_flax(unet_from_flax(params))))
+    back = dict(_flat(to_flax(from_flax(params))))
     orig = dict(_flat(params))
     assert back.keys() == orig.keys()
     for k, v in orig.items():
@@ -60,7 +60,7 @@ def test_flax_round_trip_is_exact(reference):
 def test_torch_round_trip_is_exact():
     net = UNet(5, W, compute_dtype=torch.float32, device="cpu", seed=3)
     state = net.state_dict()
-    back = unet_from_flax(unet_to_flax(net))
+    back = from_flax(to_flax(net))
     assert back.keys() == state.keys()
     for k, v in state.items():
         assert torch.equal(back[k], v), k
@@ -70,7 +70,7 @@ def test_init_matches_flax_tree_and_scale(reference):
     """The port's seeded init has the flax tree's paths and shapes, and the
     kaiming fan_out scale of its conv kernels."""
     _, params, _ = reference
-    mine = dict(_flat(unet_to_flax(UNet(5, W, device="cpu", seed=1))))
+    mine = dict(_flat(to_flax(UNet(5, W, device="cpu", seed=1))))
     ref = dict(_flat(params))
     assert {k: v.shape for k, v in mine.items()} == \
         {k: v.shape for k, v in ref.items()}
