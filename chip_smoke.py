@@ -63,7 +63,8 @@
 6. Runs the fit loop on a synthetic dataset that the port writes under
    ``build/chip_smoke_fit/`` (3 patients per modality, 8 slices of 256x256
    each; removed at the end):
-   6a. ``run_main`` (``-p train``) in this process at ``base_width=16``,
+   6a. ``run_main`` (``-p train``, iterations and eval sweeps replayed as
+   CUDA graphs) in this process at ``base_width=16``,
    batch 8, bfloat16, the default ``data_aug`` with ``device_augment``, 2
    epochs of 10 iterations, once per ``block_pallas`` mode, then ``-p test
    -i 000 -wh best`` through ``python -m smsut_tpu_torch.trainer.unetTrainer``
@@ -72,7 +73,8 @@
    counts of the run (20 steps and 8 eval forwards of the mode's kernels;
    no route to plain PyTorch).
    6b. The Trainer twice on one batch stream (float32, no augmentation, 2
-   epochs of 4 iterations), with the kernels and under ``ops.plain()``: the
+   epochs of 4 iterations, eager: ``capture=False``), with the kernels and
+   under ``ops.plain()``: the
    per-epoch [TRN] losses within 1e-3 relative, the [TST] Dice per
    modality within 0.01 and overall within 3e-3, the same best epoch.
    6c. ``DeviceAugment`` on the card against the CPU on the same packed
@@ -82,8 +84,9 @@
    epoch's iterations (not the epoch's final read of the losses) run under
    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any call
    that waits on the card, and whose third runs under the profiler.
-   Prints the loop's median time per iteration and its quartiles beside
-   phase 4's bare ``train_step`` median, its device time per iteration and
+   Prints the loop's time per iteration (the second epoch's wall time
+   over its iterations) beside phase 4's eager bare ``train_step``
+   median, its device time per iteration and
    idle share, the eval sweep's ms per batch and the test phase's
    host-metric seconds.
 7. Trains the paper's method, ``uganConsis``, at the ``Config`` widths
@@ -115,9 +118,40 @@
    [TST] lines, both translation grids, best and last checkpoints), ``-p
    test -i 000 -wh best`` through ``python -m`` in a subprocess, and
    ``--resume 000:last``.
-8. Prints the ``kernels`` JSON line (all nine kernels, launches summed over
-   the runs of phases 3-7, not over the checks against the plain path),
-   then the device line last.
+8. Runs the JAX package's dispatch on the card: each training iteration,
+   eval batch and serving forward replayed as a CUDA graph
+   (``smsut_tpu_torch/train/graphs.py`` ``Replay``), held against the
+   eager path in the same process:
+   8a. The w16 U-Net's iteration in both block modes: 10 bfloat16 replays
+   (launches counted as 10 eager steps, loss finite and falling), then
+   10 float32 replays against 10 eager iterations from one init (phase
+   4's loss and parameter rules).  In a child process (a process that
+   held large profiler sessions loses records from later ones), one
+   replay of each 8a and 8b iteration runs the port's kernels of one
+   eager iteration, by the profiler's names and counts, and as many
+   device operations.
+   8b. ``uganConsis`` (w16, 8 + 8) in both block modes, float32, 10
+   replays, each against an eager step from a copy of the state before it
+   and the same draws, the consistency gate opening at step 3 and
+   ``lambda_semi`` changing at step 5 (7b's float32 rules at every step;
+   G_semi 0 before the gate and positive after; at step 5 the replay 10x
+   nearer the eager step with the new weight than one with the old).
+   8c. The U-Net and uganConsis fits on phase 6's tree at the Config's
+   dispatch (``steps_per_dispatch`` 8, ``eval_scan``), float32, epoch 2
+   under ``set_sync_debug_mode("error")``, against the eager fit
+   (``steps_per_dispatch`` 1, no scan, ``capture=False``) on the same
+   recorded batches: 6b's bounds on the [TRN] losses, [TST] Dice and best
+   epoch (uganConsis with its bilinear upsampling done by slices, whose
+   backward has no atomics; a second eager fit shows the spread left).
+   8d. ``predict`` replayed against eager: the logits equal.
+   8e. Eager and replayed blocks in turns (6 rounds): the U-Net
+   iteration, the uganConsis iteration (bfloat16), the eval sweep per
+   batch and the serving latency, each with its median and quartiles,
+   device ms, kernels and idle share, printed with the card's name and
+   power limit.
+9. Prints the ``kernels`` JSON line (all nine kernels, launches summed over
+   the runs of phases 3-8, replays included, not over the checks against
+   the plain path), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -1046,16 +1080,33 @@ def fit_args(data: Path, expr: Path, name: str, *sets) -> list:
     return args
 
 
-def timed_steps(algo, stamps: list):
-    """Record the host clock at each ``train_step`` call of ``algo``."""
-    step = algo.train_step
+@contextlib.contextmanager
+def epoch_clock(spans: list):
+    """Record the host clock's (start, end) of every ``Trainer.train_epoch``
+    call, the epoch's one read of its metrics included: an epoch's wall
+    time over its iterations is the loop's time per iteration (with
+    ``steps_per_dispatch`` the iterations leave in bursts, so the gaps
+    between them say nothing)."""
+    from smsut_tpu_torch.train.loop import Trainer
 
-    def timed(state, batch, scalars):
-        stamps.append(time.perf_counter())
-        return step(state, batch, scalars)
+    epoch = Trainer.train_epoch
 
-    algo.train_step = timed
-    return algo
+    def timed(self, *a):
+        t0 = time.perf_counter()
+        try:
+            return epoch(self, *a)
+        finally:
+            spans.append((t0, time.perf_counter()))
+
+    Trainer.train_epoch = timed
+    try:
+        yield
+    finally:
+        Trainer.train_epoch = epoch
+
+
+def per_iteration_ms(span, iters: int) -> float:
+    return (span[1] - span[0]) * 1e3 / iters
 
 
 def quartiles(xs) -> tuple:
@@ -1076,12 +1127,12 @@ def fit_cli(torch, counters, routed, data: Path) -> dict:
     for fused in (False, True):
         name = f"fit_block{int(fused)}"
         args = fit_args(data, expr, name, f"block_pallas={fused}")
-        stamps = []
-        factory = lambda cfg, dev: timed_steps(SupervisedUNet(cfg, dev),
-                                               stamps)
+        spans = []
         torch.cuda.synchronize()
         zero(counters, routed)
-        run_main(factory, make_parser().parse_args(["-p", "train"] + args))
+        with epoch_clock(spans):
+            run_main(SupervisedUNet,
+                     make_parser().parse_args(["-p", "train"] + args))
         torch.cuda.synchronize()
         counts = {k: c.launches for k, c in counters.items()}
         rc = routed_counts(routed)
@@ -1095,12 +1146,11 @@ def fit_cli(torch, counters, routed, data: Path) -> dict:
                                                log)]
         ckpt = torch.load(model / "ckpt" / "last.ckpt", map_location="cpu",
                           weights_only=True)
-        period = [(b - a) * 1e3 for a, b in zip(stamps[FIT_ITERS:],
-                                                  stamps[FIT_ITERS + 1:])]
+        period = per_iteration_ms(spans[1], FIT_ITERS)
         print(f"fit block_pallas={fused}: launches {counts} (expected {want}),"
               f" routed {rc}; steps {ckpt['step']}; [TRN] losses {losses}; "
-              f"epoch-1 ms per iteration median/q1/q3 "
-              f"{quartiles(period)}", flush=True)
+              f"epoch-1 ms per iteration (its wall time over {FIT_ITERS}) "
+              f"{period:.3f}", flush=True)
         if counts != want or any(rc.values()):
             raise AssertionError(f"fit launches {counts} != {want}, or "
                                  f"routed {rc}")
@@ -1155,15 +1205,16 @@ def fit_parity(torch, ops, data: Path) -> dict:
     for plain in (False, True):
         algo = SupervisedUNet(cfg)
         sums, scal = [], {}
-        step = algo.train_step
+        step = algo.step
 
         def recording(state, batch, scalars, step=step, sums=sums):
             sums.append(batch["img"].double().sum())
             return step(state, batch, scalars)
 
-        algo.train_step = recording
+        algo.step = recording
+        # eager: the recording reads every iteration's batch
         trainer = Trainer(algo, cfg, "train", experiment=Experiment(
-            cfg.expr_root, f"parity_plain{int(plain)}"))
+            cfg.expr_root, f"parity_plain{int(plain)}"), capture=False)
         trainer.exp.scalar = (lambda tag, v, e, scal=scal:
                               scal.setdefault(tag, {}).__setitem__(e, float(v)))
         with ops.plain() if plain else contextlib.nullcontext():
@@ -1287,8 +1338,8 @@ def fit_watched(torch, data: Path, fused: bool) -> dict:
                  input_size=256, base_width=16, batch_size=8,
                  compute_dtype="bfloat16", num_iter_per_epoch=WATCH_ITERS,
                  max_epoch=3, num_workers=4, block_pallas=fused)
-    stamps, eval_s, prof = [], [], {}
-    trainer = Trainer(timed_steps(SupervisedUNet(cfg), stamps), cfg, "train",
+    spans, eval_s, prof = [], [], {}
+    trainer = Trainer(SupervisedUNet(cfg), cfg, "train",
                       experiment=Experiment(cfg.expr_root,
                                             f"watched{int(fused)}"))
     validate = trainer.validate_epoch
@@ -1299,7 +1350,7 @@ def fit_watched(torch, data: Path, fused: bool) -> dict:
         eval_s.append(time.perf_counter() - t0)
         return out
 
-    with sync_checked_epoch(torch, 1):
+    with sync_checked_epoch(torch, 1), epoch_clock(spans):
         epoch = trainer.train_epoch
 
         def profiled_epoch(*a):
@@ -1315,14 +1366,12 @@ def fit_watched(torch, data: Path, fused: bool) -> dict:
         trainer.validate_epoch = timed_validate
         trainer.fit()
     trainer.exp.close()
-    period = [(b - a) * 1e3 for a, b in zip(stamps[WATCH_ITERS:2 * WATCH_ITERS],
-                                              stamps[WATCH_ITERS + 1:])]
-    med, q1, q3 = quartiles(period)
+    per_iter = per_iteration_ms(spans[1], WATCH_ITERS)
     device = prof["device_ms"] / WATCH_ITERS
-    return {"period_ms": period, "median_ms": med, "quartiles_ms": [q1, q3],
+    return {"ms_per_iter": per_iter,
             "device_ms_per_iter": device,
             "kernels_per_iter": prof["kernels"] / WATCH_ITERS,
-            "idle_share": 1 - device / med, "profiled_epoch": prof,
+            "idle_share": 1 - device / per_iter, "profiled_epoch": prof,
             "eval_ms_per_batch": eval_s[-1] / FIT_TEST_BATCHES * 1e3,
             "eval_s": eval_s}
 
@@ -1347,12 +1396,12 @@ def fit_loop(torch, ops, counters, routed, train, card) -> dict:
         w["launches"] = {k: c.launches for k, c in counters.items()}
         bare = train[fused]["median_ms"]
         print(f"fit loop on {card}: bfloat16, w16, batch 8, device augment, "
-              f"block_pallas={fused}: median {w['median_ms']:.3f} ms per "
-              f"iteration, quartiles {w['quartiles_ms'][0]:.3f}-"
-              f"{w['quartiles_ms'][1]:.3f} (epoch 2 of {WATCH_ITERS} "
+              f"steps_per_dispatch 8 and eval_scan (replayed graphs), "
+              f"block_pallas={fused}: {w['ms_per_iter']:.3f} ms per "
+              f"iteration (epoch 2's wall time over its {WATCH_ITERS} "
               f"iterations; no host wait: set_sync_debug_mode error passed); "
-              f"phase 4's bare train_step median {bare:.3f} ms: the loop "
-              f"adds {w['median_ms'] - bare:.3f} ms per iteration; device "
+              f"phase 4's eager bare train_step median {bare:.3f} ms: "
+              f"difference {w['ms_per_iter'] - bare:.3f} ms; device "
               f"{w['device_ms_per_iter']:.3f} ms per iteration in "
               f"{w['kernels_per_iter']:.0f} kernels (epoch 3, profiled), "
               f"idle share {w['idle_share']:.3f}; eval sweep "
@@ -1508,13 +1557,13 @@ def gan_f32_step(torch, ops, np, cfg, batch) -> dict:
     for plain in (False, True):
         with ops.plain() if plain else contextlib.nullcontext():
             st, dm = algo.d_step(algo.state_from_params(g0, d0),
-                                 algo.inputs(b))
+                                 algo.step_inputs(algo.inputs(b)))
         out[plain] = [dm, st.d_params]
     d1 = out[False][1]
     for plain in (False, True):
         with ops.plain() if plain else contextlib.nullcontext():
             st, gm = algo.g_step(algo.state_from_params(g0, d1),
-                                 algo.inputs(b), scalars)
+                                 algo.step_inputs(algo.inputs(b)), scalars)
         out[plain][0] = {k: v.item() for k, v in {**out[plain][0],
                                                    **gm}.items()}
         out[plain].append(st.g_params)
@@ -1612,7 +1661,7 @@ def gan_step_modes(torch, ops, counters, routed) -> dict:
         rows, _ = device_rows(torch, step, 3)
         device = sum(r[1] for r in rows)
         kernels = sum(r[2] for r in rows)
-        inp = algo.inputs(b)
+        inp = algo.step_inputs(algo.inputs(b))
         drows, _ = device_rows(torch, lambda: algo.d_step(state, inp), 3)
         d_ms = sum(r[1] for r in drows)
         d_ops = d_step_ops(torch, lambda: algo.d_step(state, inp))
@@ -1666,12 +1715,12 @@ def gan_cli(torch, counters, routed, data: Path, per_step: dict,
 
     expr = FIT_DIR / "expr_gan"
     args = fit_args(data, expr, "gan")
-    stamps = []
-    factory = lambda cfg, dev: timed_steps(UGANConsisAlgo(cfg, dev), stamps)
+    spans = []
     torch.cuda.synchronize()
     zero(counters, routed)
-    with sync_checked_epoch(torch, 1):
-        run_main(factory, make_parser().parse_args(["-p", "train"] + args))
+    with sync_checked_epoch(torch, 1), epoch_clock(spans):
+        run_main(UGANConsisAlgo,
+                 make_parser().parse_args(["-p", "train"] + args))
     torch.cuda.synchronize()
     counts = {k: c.launches for k, c in counters.items()}
     steps = FIT_EPOCHS * FIT_ITERS
@@ -1685,13 +1734,12 @@ def gan_cli(torch, counters, routed, data: Path, per_step: dict,
                       weights_only=True)
     grids = [imread_gray(str(model / "sample" / f"train-{e}-images.png"))
              for e in range(1, FIT_EPOCHS + 1)]
-    period = [(b - a) * 1e3 for a, b in zip(stamps[FIT_ITERS:],
-                                              stamps[FIT_ITERS + 1:])]
+    period = per_iteration_ms(spans[1], FIT_ITERS)
     print(f"gan 7c: run_main -p train: launches {counts} (expected {want}), "
           f"routed {routed_counts(routed)}; steps {ckpt['step']}; [TRN] "
           f"losses {losses}; grids {[g.shape for g in grids]}; epoch-1 ms "
-          f"per iteration median/q1/q3 {quartiles(period)} (no host wait: "
-          f"set_sync_debug_mode error passed)", flush=True)
+          f"per iteration (its wall time over {FIT_ITERS}) {period:.3f} (no "
+          f"host wait: set_sync_debug_mode error passed)", flush=True)
     if (counts != want or ckpt["step"] != steps or len(losses) != FIT_EPOCHS
             or not np.isfinite(losses).all()
             or log.count("[TST]") != FIT_EPOCHS
@@ -1732,6 +1780,622 @@ def gan_phase(torch, ops, counters, routed) -> dict:
     cli = gan_cli(torch, counters, routed, FIT_DIR / "data",
                   steps[False]["per_step"], steps[False]["per_eval_forward"])
     return {"double_backward": dd, "steps": steps, "cli": cli}
+
+
+# phase 8: the JAX package's dispatch on the card, as CUDA graphs
+REPLAY_STEPS = 10
+GATE_STEP = 3               # 8b: the consistency gate opens in the window
+LAMBDA_EPOCHS = (0, 100)    # 8b: lambda_semi's epochs, steps 0-4 and 5-9
+TIMING_ROUNDS = 6           # 8e: rounds of eager and replayed blocks
+TIMING_UNITS = {"unet": 10, "gan": 5, "eval": 2, "serve": 10}
+
+
+def kernel_counts(rows) -> dict:
+    """{kernel: launches} of (kernel, launches) pairs, copies and fills
+    left out."""
+    return {k: n for k, n in rows if not k.startswith(("Memcpy", "Memset"))}
+
+
+def replay_against_eager(torch, eager, replay, inputs: int) -> dict:
+    """The profiler's device work of one eager call and of one replay,
+    ``inputs`` the copies the replay makes into its graph's buffers: the
+    port's kernels (``smsut::``) alike by name and count, and as many
+    device operations (kernels, copies and fills) in the graph as the
+    eager call launches.  PyTorch may do a step's copy as a kernel in one
+    and as a memcpy in the other (a ``torch.cat`` in the GAN step), so
+    kernels alone may differ by those.  Each session opens with a short
+    sleep kernel, left out of the counts, and each side's count of each
+    kernel is the largest of three sessions of one call."""
+    from smsut_tpu_torch.tools.profile_step import device_rows
+
+    pad = lambda: torch.cuda._sleep(1000)
+    rows, _ = device_rows(torch, lambda: (pad(), pad()), 1)
+    pads = {k for k, _, _ in rows}
+
+    def counted(fn):
+        out = {}
+        for _ in range(3):
+            rows, _ = device_rows(torch, lambda: (pad(), fn()), 1)
+            for k, _, n in rows:
+                if k not in pads:
+                    out[k] = max(out.get(k, 0), n)
+        return out
+
+    e, r = counted(eager), counted(replay)
+    ek, rk = kernel_counts(e.items()), kernel_counts(r.items())
+    ours = lambda d: {k: n for k, n in d.items() if k.startswith("void smsut")
+                      or k.startswith("smsut")}
+    eops, rops = sum(e.values()), sum(r.values()) - inputs
+    if ours(ek) != ours(rk) or eops != rops:
+        diff = {k: (e.get(k), r.get(k)) for k in set(e) | set(r)
+                if e.get(k) != r.get(k)}
+        raise AssertionError(f"replay's device work differs from eager: "
+                             f"{eops} vs {rops} operations; {diff}")
+    return {"kernels": sum(rk.values()), "eager_kernels": sum(ek.values()),
+            "operations": rops, "ours": sum(ours(rk).values())}
+
+
+def replay_kernels() -> dict:
+    """One replay against one eager iteration by the profiler
+    (:func:`replay_against_eager`), the U-Net (bf16) and uganConsis
+    (float32) iterations of 8a and 8b in both block modes.  Run in a
+    process of its own (:func:`replay_kernels_clean`): once a process has
+    held large profiler sessions, later sessions lose records (ROADMAP
+    C3), and phases 6d and 7 hold tens of thousands of kernels."""
+    import numpy as np
+    import torch
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import iteration
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for fused in (False, True):
+        cfg = Config(input_size=256, base_width=16, batch_size=8,
+                     compute_dtype="bfloat16", block_pallas=fused)
+        algo = SupervisedUNet(cfg)
+        inp = algo.inputs({k: torch.from_numpy(v).cuda()
+                           for k, v in ellipse_batch(np).items()})
+        runs = [iteration(algo, algo.init_state(0), inp, capture=c)
+                for c in (False, True)]
+        for run in runs:
+            run()
+            run()
+        out[f"unet {fused}"] = replay_against_eager(torch, *runs, len(inp))
+        gan = UGANConsisAlgo(cfg.replace(compute_dtype="float32"))
+        ginp = gan.inputs(dict(gan_batch(torch, np),
+                               **gan.make_extra_batch()))
+        scal = {"lambda_semi": torch.tensor(1.0, device="cuda")}
+        runs = [iteration(gan, gan.init_state(0), ginp, scal, capture=c)
+                for c in (False, True)]
+        for run in runs:
+            run()
+            run()
+        out[f"gan {fused}"] = replay_against_eager(torch, *runs, len(ginp))
+        del runs, gan, algo
+        torch.cuda.empty_cache()
+    return out
+
+
+def replay_kernels_clean() -> dict:
+    """:func:`replay_kernels` in a child process; its result."""
+    code = ("import json, chip_smoke; "
+            "print('KERNELS ' + json.dumps(chip_smoke.replay_kernels()))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    line = [x for x in out.stdout.splitlines() if x.startswith("KERNELS ")]
+    if out.returncode or not line:
+        raise AssertionError(f"replay kernels:\n{out.stderr[-3000:]}")
+    res = json.loads(line[-1][len("KERNELS "):])
+    for k, v in res.items():
+        print(f"replay 8a/8b {k.replace(' ', ' block_pallas=')}: one replay "
+              f"runs {v['kernels']} kernels ({v['ours']} of the port's) and "
+              f"{v['operations']} device operations besides its input "
+              f"copies, as the eager iteration ({v['eager_kernels']} "
+              f"kernels), by the profiler", flush=True)
+    return res
+
+
+def replay_unet(torch, counters, routed) -> dict:
+    """8a: the w16 U-Net's iteration replayed against eager from one init,
+    both block modes."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import iteration
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ellipse_batch(np).items()}
+    out = {}
+    for fused in (False, True):
+        cfg = lambda dtn: Config(input_size=256, base_width=16, batch_size=8,
+                                 compute_dtype=dtn, block_pallas=fused)
+        algo = SupervisedUNet(cfg("bfloat16"))
+        inp = algo.inputs(batch)
+        eager = iteration(algo, algo.init_state(0), inp, capture=False)
+        replay = iteration(algo, algo.init_state(0), inp)
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        losses = [float(replay()["loss"]) for _ in range(REPLAY_STEPS)]
+        counts = {k: c.launches for k, c in counters.items()}
+        want = {k: REPLAY_STEPS * PER_STEP[fused].get(k, 0) for k in KERNELS}
+        eager_losses = [float(eager()["loss"]) for _ in range(REPLAY_STEPS)]
+        print(f"replay 8a block_pallas={fused} bfloat16: launches {counts} "
+              f"(expected {want}); replayed losses "
+              f"{[round(x, 5) for x in losses]}, eager "
+              f"{[round(x, 5) for x in eager_losses]}", flush=True)
+        if counts != want or any(routed_counts(routed).values()):
+            raise AssertionError(f"8a replayed launches {counts} != {want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"replayed loss not finite and falling: "
+                                 f"{losses}")
+        a32 = SupervisedUNet(cfg("float32"))
+        i32 = a32.inputs(batch)
+        states = [a32.init_state(0), a32.init_state(0)]
+        runs = [iteration(a32, st, i32, capture=c)
+                for st, c in zip(states, (False, True))]
+        l32 = [[float(r()["loss"]) for _ in range(REPLAY_STEPS)]
+               for r in runs]
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(l32[1], l32[0]))
+        par = grad_parity(states[1].params, states[0].params)
+        exact = all(torch.equal(states[1].params[k], v)
+                    for k, v in states[0].params.items())
+        print(f"replay 8a block_pallas={fused} float32: {REPLAY_STEPS} "
+              f"losses replayed vs eager rel err {lerr:.3g} (tol {LOSS_TOL});"
+              f" parameters after them rel err max {par['rel_max']:.3g} "
+              f"({par['worst_rel']}), L2 of all {par['l2_all']:.3g}, cosine "
+              f"min {par['cos_min']:.6f}; equal to the bit: {exact}",
+              flush=True)
+        if not (lerr <= LOSS_TOL and par["rel_max"] <= GRAD_REL
+                and par["l2_all"] <= GRAD_REL and par["cos_min"] >= GRAD_COS):
+            raise AssertionError(f"8a float32 replay vs eager: {lerr}, "
+                                 f"{par}")
+        out[fused] = {"launches": counts, "losses": losses,
+                      "eager_losses": eager_losses,
+                      "f32_losses": l32, "f32_params": par,
+                      "f32_bit_equal": exact}
+    return out
+
+
+def clone_gan_state(torch, st):
+    """A deep copy of a GANTrainState's tensors (the optimizers shared)."""
+    import dataclasses
+
+    from smsut_tpu_torch.train.state import AdamState
+
+    tree = lambda t: {k: v.clone() for k, v in t.items()}
+    return dataclasses.replace(
+        st, g_params=tree(st.g_params), g_opt_state=tree(st.g_opt_state),
+        d_params=tree(st.d_params), count=st.count.clone(),
+        d_opt_state=AdamState(st.d_opt_state.count.clone(),
+                              tree(st.d_opt_state.mu),
+                              tree(st.d_opt_state.nu)))
+
+
+def gan_step_against(torch, got, want, lr) -> dict:
+    """One step's results, replayed (``got``) against eager (``want``),
+    each (metrics, state after): 7b's float32 rules, the losses over rtol,
+    D flip-aware, the seg tower over rtol, and G's largest per-tensor
+    rel_err."""
+    (gm, gs), (wm, ws) = got, want
+    dev = torch.cat([(gs.d_params[k] - ws.d_params[k]).abs().flatten()
+                     for k in ws.d_params])
+    return {
+        "loss_over": max(abs(gm[n] - wm[n]) - GAN_LOSS_RTOL * abs(wm[n])
+                         for n in GAN_NAMES),
+        "d_dev_max": float(dev.max()),
+        "d_flip_share": float((dev > lr).float().mean()),
+        "seg_over": max(float(((gs.g_params[k] - ws.g_params[k]).abs()
+                               - GAN_SEG_RTOL * ws.g_params[k].abs()).max())
+                        for k in GAN_SEG_TOWER),
+        "g_rel": max(rel_err(gs.g_params[k], v)
+                     for k, v in ws.g_params.items())}
+
+
+def replay_gan(torch, counters, routed) -> dict:
+    """8b: the uganConsis iteration (w16, 8 + 8) replayed against eager,
+    float32, both block modes, 10 steps in lock step: before each replay
+    the state is copied and the eager step runs on the copy with the same
+    inputs, so each step is held to 7b's float32 rules from one state
+    (float32 chaos, Adam's sign steps and the bilinear upsampling's
+    atomic backward, would otherwise part two runs of 10 steps whatever
+    the dispatch).  The gate opens at step GATE_STEP (G_semi 0 before,
+    positive after, in the replay); ``lambda_semi`` changes at step 5, in
+    the device scalar the replay reads: there an eager step that keeps
+    the old weight must land at least 10x further from the replay than
+    the eager step with the new one."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.graphs import Replay
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+
+    batch = gan_batch(torch, np)
+    out = {}
+    for fused in (False, True):
+        cfg = Config(input_size=256, base_width=16, batch_size=8,
+                     compute_dtype="float32", block_pallas=fused,
+                     consis_gate_step=GATE_STEP)
+        algo = UGANConsisAlgo(cfg)
+        inps = [algo.inputs(dict(batch, **algo.make_extra_batch()))
+                for _ in range(REPLAY_STEPS)]
+        lams = [float(algo.epoch_scalars(e)["lambda_semi"])
+                for e in LAMBDA_EPOCHS]
+        state = algo.init_state(0)
+        scal = {"lambda_semi": torch.zeros((), device="cuda")}
+        step = Replay(lambda x: algo.step(state, x, scal), algo.device)
+        eager_scal = {"lambda_semi": torch.zeros((), device="cuda")}
+        eager = lambda st, x, lam: (eager_scal["lambda_semi"].fill_(lam),
+                                    algo.step(st, x, eager_scal))[1]
+        host = lambda m: {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        rows, gate, frozen = [], [], None
+        for i, inp in enumerate(inps):
+            lam = lams[i >= REPLAY_STEPS // 2]
+            before = clone_gan_state(torch, state)
+            old = (clone_gan_state(torch, state)
+                   if i == REPLAY_STEPS // 2 else None)
+            scal["lambda_semi"].fill_(lam)
+            counts0 = {k: c.launches for k, c in counters.items()}
+            got = host(step(inp))
+            state.step += 1
+            launched = {k: c.launches - counts0[k]
+                        for k, c in counters.items()}
+            want = host(eager(before, inp, lam))
+            rows.append(gan_step_against(torch, (got, state),
+                                         (want, before), cfg.lr))
+            rows[-1]["launches"] = launched
+            gate.append(got["G_semi"])
+            if old is not None:
+                eager(old, inp, lams[0])
+                frozen = gan_step_against(torch, (got, state),
+                                          (want, old), cfg.lr)["g_rel"]
+        counts = {k: c.launches for k, c in counters.items()}
+        worst = {k: max(r[k] for r in rows) for k in
+                 ("loss_over", "d_dev_max", "d_flip_share", "seg_over",
+                  "g_rel")}
+        g5 = rows[REPLAY_STEPS // 2]["g_rel"]
+        per_step = rows[0]["launches"]
+        print(f"replay 8b block_pallas={fused} float32, {REPLAY_STEPS} "
+              f"steps in lock step: launches per replay {per_step} (each "
+              f"step alike: {all(r['launches'] == per_step for r in rows)});"
+              f" G_semi replayed {[round(x, 5) for x in gate]} (gate at step "
+              f"{GATE_STEP}); lambda_semi {lams}; worst over the steps: "
+              f"losses over rtol by {worst['loss_over']:.3g} (atol "
+              f"{GAN_LOSS_ATOL}), D max |dev| {worst['d_dev_max']:.3g} "
+              f"(bound {GAN_FLIP_DEV} lr), flip share "
+              f"{worst['d_flip_share']:.3g}, seg tower over rtol by "
+              f"{worst['seg_over']:.3g} (atol {GAN_SEG_ATOL}), G rel err "
+              f"{worst['g_rel']:.3g}; step 5's G rel err {g5:.3g} against "
+              f"{frozen:.3g} for an eager step with the old weight",
+              flush=True)
+        if (any(r["launches"] != per_step for r in rows)
+                or any(gate[:GATE_STEP])
+                or not all(g > 0 for g in gate[GATE_STEP:])
+                or worst["loss_over"] > GAN_LOSS_ATOL
+                or worst["d_dev_max"] > GAN_FLIP_DEV * cfg.lr
+                or worst["d_flip_share"] >= GAN_FLIP_SHARE
+                or worst["seg_over"] > GAN_SEG_ATOL
+                or not frozen >= 10 * max(g5, 1e-7)):
+            raise AssertionError(f"8b replay vs eager: {worst}, gate "
+                                 f"{gate}, frozen {frozen} vs {g5}")
+        out[fused] = {"launches": {k: sum(r["launches"][k] for r in rows)
+                                   for k in per_step},
+                      "per_step": per_step, "eager_and_replayed": counts,
+                      "g_semi": gate, "worst": worst, "steps": rows,
+                      "frozen_weight_g_rel": frozen}
+        del step, state, inps
+        torch.cuda.empty_cache()
+    return out
+
+
+class LoaderTape:
+    """A train or val loader whose consumed items are recorded (``items``
+    empty) or handed out again: the eager fit of 8c then takes the batches,
+    augmentation parameters and order the replayed fit took, whatever the
+    producer threads' timing did to the shared sampler stream (ROADMAP
+    C2)."""
+
+    def __init__(self, loader, items: list, replay: bool):
+        self.__dict__.update(loader=loader, items=items, replay=replay,
+                             dataset=loader.dataset)
+
+    def __setattr__(self, name, value):   # the Trainer's producer hook
+        setattr(self.loader, name, value)
+
+    def iter_cycle(self):
+        if self.replay:
+            yield from self.items
+            raise AssertionError("the tape ran out")
+        for item in self.loader.iter_cycle():
+            self.items.append(item)
+            yield item
+
+
+def taped_fit(torch, ops, algo, cfg, name: str, tapes: dict, replay: bool,
+              capture: bool, watch: bool) -> dict:
+    """A Trainer.fit whose train and val loaders are ``tapes``; its
+    logged scalars."""
+    from smsut_tpu_torch.train import loop as port_loop
+    from smsut_tpu_torch.train.experiment import Experiment
+    from smsut_tpu_torch.train.loop import Trainer
+
+    real = port_loop.get_loader
+
+    def taped(root, phase, *a, **kw):
+        loader = real(root, phase, *a, **kw)
+        if phase not in tapes:
+            return loader
+        return LoaderTape(loader, tapes[phase], replay)
+
+    scal = {}
+    trainer = Trainer(algo, cfg, "train", experiment=Experiment(
+        cfg.expr_root, name), capture=capture)
+    trainer.exp.scalar = (lambda tag, v, e:
+                          scal.setdefault(tag, {}).__setitem__(e, float(v)))
+    port_loop.get_loader = taped
+    try:
+        with sync_checked_epoch(torch, 1) if watch else \
+                contextlib.nullcontext():
+            trainer.fit()
+    finally:
+        port_loop.get_loader = real
+        trainer.exp.close()
+    return scal
+
+
+def fit_diff(got: dict, want: dict) -> dict:
+    """6b's measures between two fits' scalars: the [TRN] losses' largest
+    relative error, the [TST] Dice errors per modality and overall, and
+    whether the best epochs agree."""
+    e = range(FIT_EPOCHS)
+    best = lambda d: max(e, key=lambda i: (d["test/dice"][i], i))
+    return {"loss_rel": max(abs(got["train/loss"][i] - want["train/loss"][i])
+                            / abs(want["train/loss"][i]) for i in e),
+            "dice": {m: max(abs(got[f"test/dice_{m}"][i]
+                                - want[f"test/dice_{m}"][i]) for i in e)
+                     for m in ("ct", "t1in", "t1out", "t2")},
+            "dice_all": max(abs(got["test/dice"][i] - want["test/dice"][i])
+                            for i in e),
+            "best_equal": best(got) == best(want)}
+
+
+def within_6b(d: dict) -> bool:
+    return (d["loss_rel"] <= LOSS_TOL and max(d["dice"].values())
+            <= PARITY_DICE_TOL and d["dice_all"] <= PARITY_DICE_ALL
+            and d["best_equal"])
+
+
+def upsample_bilinear2_sliced(x):
+    """``models/layers.py`` ``upsample_bilinear2``'s math (2x, half-pixel
+    centres, edges clamped), NHWC, from slices and weighted sums: its
+    backward accumulates in a fixed order, where ``F.interpolate``'s CUDA
+    backward adds with atomics, so two fits through it can be held to each
+    other."""
+    import torch
+
+    def up(t, dim):
+        n = t.shape[dim]
+        prev = torch.cat([t.narrow(dim, 0, 1), t.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([t.narrow(dim, 1, n - 1), t.narrow(dim, n - 1, 1)],
+                        dim)
+        return torch.stack([0.25 * prev + 0.75 * t, 0.75 * t + 0.25 * nxt],
+                           dim + 1).flatten(dim, dim + 1)
+
+    return up(up(x, 1), 2)
+
+
+def replay_fits(torch, ops, counters, routed, data: Path) -> dict:
+    """8c: the U-Net and uganConsis fits at the Config's dispatch
+    (steps_per_dispatch 8, eval_scan), float32, epoch 2 under
+    set_sync_debug_mode("error"), against the eager fit
+    (steps_per_dispatch 1, eval_scan off, capture=False) on the same
+    recorded batches: 6b's bounds.  The uganConsis fits run the decoders'
+    bilinear upsampling as :func:`upsample_bilinear2_sliced` (its
+    ``F.interpolate`` backward adds with atomics, and two eager fits
+    through it part by about 6b's bounds; 8b holds the step with it), and
+    a second eager fit shows what is left to chance."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.models import blocks
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    base = Config(base_root=str(data), expr_root=str(FIT_DIR / "expr8"),
+                  input_size=256, base_width=16, batch_size=8,
+                  compute_dtype="float32", num_iter_per_epoch=FIT_ITERS,
+                  max_epoch=FIT_EPOCHS, num_workers=4)
+    eager_cfg = base.replace(steps_per_dispatch=1, eval_scan=False)
+    out = {}
+    for name, cls in (("unet", SupervisedUNet), ("uganConsis",
+                                                   UGANConsisAlgo)):
+        tapes = {"train": [], "val": []}
+        up = blocks.upsample_bilinear2
+        if name == "uganConsis":
+            blocks.upsample_bilinear2 = upsample_bilinear2_sliced
+        try:
+            torch.cuda.synchronize()
+            zero(counters, routed)
+            got = taped_fit(torch, ops, cls(base), base, f"replay_{name}",
+                            tapes, replay=False, capture=True, watch=True)
+            torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters.items()}
+            eager = [taped_fit(torch, ops, cls(eager_cfg), eager_cfg,
+                               f"eager{k}_{name}", tapes, replay=True,
+                               capture=False, watch=False) for k in range(2)]
+        finally:
+            blocks.upsample_bilinear2 = up
+        d, spread = fit_diff(got, eager[0]), fit_diff(eager[1], eager[0])
+        print(f"replay 8c {name}: fit at steps_per_dispatch 8 + eval_scan "
+              f"(replayed; epoch 2 under set_sync_debug_mode error) vs the "
+              f"eager fit on the same batches: [TRN] losses "
+              f"{[got['train/loss'][i] for i in range(FIT_EPOCHS)]} vs "
+              f"{[eager[0]['train/loss'][i] for i in range(FIT_EPOCHS)]}: "
+              f"{d} (6b's bounds: loss {LOSS_TOL}, Dice {PARITY_DICE_TOL} "
+              f"per modality, {PARITY_DICE_ALL} overall); a second eager "
+              f"fit vs the first: {spread}; launches {counts}", flush=True)
+        if not within_6b(d):
+            raise AssertionError(f"8c {name}: {d}, eager spread {spread}")
+        out[name] = {"replayed": got, "eager": eager, "diff": d,
+                     "eager_spread": spread, "launches": counts}
+    return out
+
+
+def replay_predict(torch, counters, routed) -> dict:
+    """8d: ``predict`` replayed against eager at the manifest's shape: the
+    logits equal."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.serve import export_eval, load_serving
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(input_size=256, base_width=16, batch_size=8,
+                 compute_dtype="bfloat16")
+    algo = SupervisedUNet(cfg)
+    art = ROOT / "build" / "chip_smoke_serving" / "replay"
+    export_eval(algo, algo.init_params(seed=0), cfg, str(art))
+    replayed, _ = load_serving(str(art))
+    eager, _ = load_serving(str(art), capture=False)
+    rng = np.random.default_rng(1)
+    reqs = [torch.from_numpy(((rng.integers(0, 256, (8, 256, 256, 1))
+                               / 255.0 - 0.5) / 0.5).astype(np.float32))
+            .cuda() for _ in range(5)]
+    zero(counters, routed)
+    got = [replayed(r) for r in reqs]
+    counts = {k: c.launches for k, c in counters.items()}
+    want = {k: PER_FORWARD[False].get(k, 0) * len(reqs) for k in KERNELS}
+    diff = max(float((g - eager(r)).abs().max()) for g, r in zip(got, reqs))
+    print(f"replay 8d: predict replayed vs eager, {len(reqs)} requests: "
+          f"logits max |diff| {diff} (must be 0); launches {counts} "
+          f"(expected {want})", flush=True)
+    if diff != 0 or counts != want:
+        raise AssertionError(f"8d: diff {diff}, launches {counts}")
+    return {"max_abs_diff": diff, "launches": counts}
+
+
+def timed_blocks(torch, fns: dict, units: int, rounds: int) -> dict:
+    """Host ms per unit of each of ``fns`` ({mode: one unit}): blocks of
+    ``units`` calls ended by a synchronise, the modes in turns (their order
+    reversed every other round, since the host's pace drifts within a
+    process); per mode the median and quartiles over the rounds."""
+    samples = {m: [] for m in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for m in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(units):
+                fns[m]()
+            torch.cuda.synchronize()
+            samples[m].append((time.perf_counter() - t0) * 1e3 / units)
+    return {m: dict(zip(("median_ms", "q1_ms", "q3_ms"), quartiles(v)),
+                    samples_ms=v) for m, v in samples.items()}
+
+
+def replay_timing(torch, card: str, data: Path) -> dict:
+    """8e: eager against replayed, in alternating blocks in one process:
+    the U-Net iteration, the uganConsis iteration (bfloat16, w16; 8 + 8),
+    the eval sweep per batch and the serving latency; each with the
+    profiler's device ms and kernels per unit and the idle share."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.data.dataset import get_label_npys, get_loader
+    from smsut_tpu_torch.serve import export_eval, load_serving
+    from smsut_tpu_torch.tools.profile_step import device_rows, iteration
+    from smsut_tpu_torch.train.experiment import Experiment
+    from smsut_tpu_torch.train.loop import Trainer
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(base_root=str(data), expr_root=str(FIT_DIR / "expr8e"),
+                 input_size=256, base_width=16, batch_size=8,
+                 compute_dtype="bfloat16", num_workers=4)
+    paths = {}
+    unet = SupervisedUNet(cfg)
+    inp = unet.inputs({k: torch.from_numpy(v).cuda()
+                       for k, v in ellipse_batch(np).items()})
+    paths["unet"] = {c: iteration(unet, unet.init_state(0), inp, capture=c)
+                     for c in (False, True)}
+    gan = UGANConsisAlgo(cfg)
+    ginp = gan.inputs(dict(gan_batch(torch, np), **gan.make_extra_batch()))
+    scal = {k: torch.tensor(float(v), device="cuda")
+            for k, v in gan.epoch_scalars(1).items()}
+    paths["gan"] = {c: iteration(gan, gan.init_state(0), ginp, scal,
+                                 capture=c) for c in (False, True)}
+    loader = get_loader(str(data), "test", 0, 8, cfg=cfg)
+    _, npys = get_label_npys(str(data), "test")
+    trainers = {c: Trainer(SupervisedUNet(cfg), cfg.replace(eval_scan=c),
+                           "train", experiment=Experiment(
+                               cfg.expr_root, f"timing{int(c)}"), capture=c)
+                for c in (False, True)}
+    paths["eval"] = {c: (lambda t=t: t.validate_epoch(loader, npys))
+                     for c, t in trainers.items()}
+    art = ROOT / "build" / "chip_smoke_serving" / "timing"
+    export_eval(unet, unet.init_params(seed=0), cfg, str(art))
+    req = torch.from_numpy(((np.random.default_rng(2).integers(
+        0, 256, (8, 256, 256, 1)) / 255.0 - 0.5) / 0.5).astype(
+            np.float32)).cuda()
+    preds = {c: load_serving(str(art), capture=c)[0] for c in (False, True)}
+    paths["serve"] = {c: (lambda p=p: p(req)) for c, p in preds.items()}
+    out = {}
+    for name, fns in paths.items():
+        for fn in fns.values():   # warm-up; the replays capture here
+            fn()
+            fn()
+        per = FIT_TEST_BATCHES if name == "eval" else 1
+        t = timed_blocks(torch, {("replayed" if c else "eager"): f
+                                 for c, f in fns.items()},
+                         TIMING_UNITS[name], TIMING_ROUNDS)
+        for c, f in fns.items():
+            mode = "replayed" if c else "eager"
+            rows, _ = device_rows(torch, f, 3)
+            r = t[mode]
+            for k in ("median_ms", "q1_ms", "q3_ms"):
+                r[k] /= per
+            r["samples_ms"] = [x / per for x in r["samples_ms"]]
+            r["device_ms"] = sum(x[1] for x in rows) / per
+            r["kernels"] = sum(kernel_counts(
+                (k, n) for k, _, n in rows).values()) / per
+            r["idle_share"] = 1 - r["device_ms"] / r["median_ms"]
+        for mode, r in t.items():
+            print(f"replay 8e on {card}: {name} {mode}: median "
+                  f"{r['median_ms']:.3f} ms per "
+                  f"{'batch' if name == 'eval' else 'unit'}, quartiles "
+                  f"{r['q1_ms']:.3f}-{r['q3_ms']:.3f} ({TIMING_ROUNDS} "
+                  f"blocks of {TIMING_UNITS[name]}); device "
+                  f"{r['device_ms']:.3f} ms in {r['kernels']:.0f} kernels; "
+                  f"idle share {r['idle_share']:.3f}", flush=True)
+        out[name] = t
+    del trainers, paths, preds
+    torch.cuda.empty_cache()
+    return out
+
+
+def dispatch_phase(torch, ops, counters, routed, card: str) -> dict:
+    """Phase 8: 8a-8e (8c and 8e on phase 6's tree)."""
+    import torch.backends.cudnn as cudnn
+
+    # cuDNN (the GAN's routed Cout-1 conv) picks deterministic algorithms
+    # here, so that eager and replayed runs can be held to each other
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        a = replay_unet(torch, counters, routed)
+        b = replay_gan(torch, counters, routed)
+        c = replay_fits(torch, ops, counters, routed, FIT_DIR / "data")
+    finally:
+        cudnn.deterministic = det
+    d = replay_predict(torch, counters, routed)
+    e = replay_timing(torch, card, FIT_DIR / "data")
+    k = replay_kernels_clean()
+    return {"unet": a, "gan": b, "fits": c, "predict": d, "timing": e,
+            "kernels": k}
 
 
 def main() -> int:
@@ -1813,6 +2477,9 @@ def main() -> int:
     t0 = time.perf_counter()
     gan = gan_phase(torch, ops, counters, routed)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dispatch = dispatch_phase(torch, ops, counters, routed, card)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
@@ -1850,7 +2517,9 @@ def main() -> int:
                  and r["case"] == case and r["dtype"] == "bfloat16")
         runs = (*serve.values(), *train.values(), *w8.values(), bench,
                 *fit["cli"].values(), *fit["watched"].values(),
-                *gan["steps"].values(), gan["cli"])
+                *gan["steps"].values(), gan["cli"],
+                *dispatch["unet"].values(), *dispatch["gan"].values(),
+                *dispatch["fits"].values(), dispatch["predict"])
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -1874,6 +2543,7 @@ def main() -> int:
                            "steps": {str(k): v for k, v in
                                      gan["steps"].items()},
                            "cli": gan["cli"]},
+                   "dispatch": json.loads(json.dumps(dispatch, default=str)),
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

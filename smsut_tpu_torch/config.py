@@ -9,11 +9,15 @@ jax-free modules.
 Knobs that shape the TPU lowering only are accepted and are no-ops in the
 port for now: ``pack_levels``, ``pack_mode``, ``pack_w0``, ``d_pack_deep``,
 ``d_pack_mode``, ``pair_towers``, ``layout_pin``, ``pool_pack_fused``,
-``norm_stats`` (the port always takes f32 ``reduce`` statistics),
-``steps_per_dispatch``, ``eval_scan``, and the GAN step's
-``d_concat_hat``, ``packed_loss_tails`` and ``remat``.  The port runs the
-unpacked NHWC graph, with real and fake through one D apply and x_hat
-through another.
+``norm_stats`` (the port always takes f32 ``reduce`` statistics), and
+the GAN step's ``d_concat_hat``, ``packed_loss_tails`` and ``remat``.  The
+port runs the unpacked NHWC graph, with real and fake through one D apply
+and x_hat through another.
+
+``steps_per_dispatch`` and ``eval_scan`` govern the fit loop's dispatch as
+in the JAX package: T iterations staged per dispatch, and the eval sweep
+from a test set kept on the card; on the card each iteration and each
+eval batch is a CUDA graph replay (train/loop.py).
 
 The kernel knobs keep their names: ``block_pallas`` selects, on a CUDA
 device, the fused residual-block kernel (K3) instead of the conv (K2) +

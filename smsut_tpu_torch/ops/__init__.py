@@ -11,11 +11,19 @@ before any wrapper is called, by shape alone (``conv3x3.takes``,
 :func:`plain` makes the wrappers run their plain versions on any device,
 so that a caller can hold the kernel path against the plain one on the
 card.  Launches made there are not counted.
+
+Every wrapper counts its launches, and the model layer its routes, in an
+attribute of a function (``instance_norm_fwd.launches``,
+``conv3x3.routed``), registered with :func:`counter`.  They count Python
+calls: a CUDA graph's replay makes none, so ``train/graphs.py`` records
+the counts a capture saw (:func:`counts`) and adds them at each replay
+(:func:`add_counts`).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -32,6 +40,32 @@ def plain():
         yield
     finally:
         _PLAIN.reset(token)
+
+
+# (function, attribute) of every launch and route counter
+_COUNTERS: List[Tuple[object, str]] = []
+
+
+def counter(fn, attr: str = "launches") -> None:
+    """Register ``fn.<attr>`` as a counter, starting at 0."""
+    setattr(fn, attr, 0)
+    _COUNTERS.append((fn, attr))
+
+
+def counts() -> List[int]:
+    """Every counter's value, in registration order."""
+    return [getattr(f, a) for f, a in _COUNTERS]
+
+
+def add_counts(delta: Sequence[int]) -> None:
+    """Add ``delta`` (as :func:`counts` orders it) to the counters."""
+    for (f, a), d in zip(_COUNTERS, delta):
+        setattr(f, a, getattr(f, a) + d)
+
+
+def plain_active() -> bool:
+    """True inside :func:`plain`."""
+    return _PLAIN.get()
 
 
 def acc(t: torch.Tensor) -> torch.Tensor:

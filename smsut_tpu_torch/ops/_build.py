@@ -128,6 +128,11 @@ def check(rc: int, what: str, refused: str = "") -> None:
 
 
 def stream_of(t) -> int:
+    """The current stream of t's device: the capturing stream while a CUDA
+    graph is captured, so every launch joins the graph.  The entry points'
+    other host calls (the shared-memory and cluster opt-ins, the occupancy
+    queries, ``cudaGetLastError``) are no stream work, and the one-time
+    ones ran at the graph's eager warm-up."""
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -32,7 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from smsut_tpu_torch.ops import DTYPES, on_card, require, require_like
+from smsut_tpu_torch.ops import (DTYPES, counter, on_card, require,
+                                 require_like)
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 from smsut_tpu_torch.ops.conv3x3 import conv_f32, dw_f32, flip_io
 from smsut_tpu_torch.ops.instnorm import (
@@ -248,7 +249,7 @@ def basic_block_fwd(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
     return (out, Residuals(y1, y2, u, gh, st)) if save else out
 
 
-basic_block_fwd.launches = 0
+counter(basic_block_fwd)
 
 
 def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
@@ -306,7 +307,7 @@ def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     return dx, dw1, dw2, dws, dsb
 
 
-basic_block_bwd.launches = 0
+counter(basic_block_bwd)
 
 
 class _BasicBlock(torch.autograd.Function):
@@ -355,4 +356,4 @@ def basic_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
 
 
 # blocks the model layer ran as the unfused chain (not :func:`takes`)
-basic_block.routed = 0
+counter(basic_block, "routed")

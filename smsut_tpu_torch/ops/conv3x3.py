@@ -24,7 +24,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from smsut_tpu_torch.ops import DTYPES, acc, on_card, require, require_like
+from smsut_tpu_torch.ops import (DTYPES, acc, counter, on_card, require,
+                                 require_like)
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 
@@ -90,7 +91,9 @@ def takes(x_shape, cout: int, dtype: torch.dtype) -> bool:
     dw rules hold for a forward with no gradient too (a serving conv with
     Cout 8 goes to plain PyTorch, as it would in training); the model layer
     sends the rest to plain PyTorch (``models/layers.py`` ``Conv``), since
-    autograd fixes the backward's path when the forward runs."""
+    autograd fixes the backward's path when the forward runs.  Under a
+    second order the dx's own dw (Cout = this Cin) runs plain PyTorch
+    where K5 does not take it (:func:`_dw`)."""
     cin = x_shape[-1]
     return (dtype in DTYPES and len(x_shape) == 4
             and cout % K2_MULT == 0 and cin % K2_MULT == 0
@@ -132,7 +135,7 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-conv3x3_fwd.launches = 0
+counter(conv3x3_fwd)
 
 
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -163,7 +166,7 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-conv3x3_dw.launches = 0
+counter(conv3x3_dw)
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -229,6 +232,11 @@ def _conv(x: torch.Tensor, w: torch.Tensor, kernel: bool) -> torch.Tensor:
 
 
 def _dw(x: torch.Tensor, g: torch.Tensor, kernel: bool) -> torch.Tensor:
+    if kernel and g.shape[-1] % K5_COUT_MULT:
+        # the second order's dw of a conv's dx (Cout = the conv's Cin,
+        # which :func:`takes` holds to K2_MULT only): K5 does not take it
+        conv3x3.routed += 1
+        kernel = False
     if _needs_graph(x, g):
         return _Conv3x3Dw.apply(x, g, kernel)
     return (conv3x3_dw if kernel else conv3x3_dw_plain)(x, g)
@@ -240,5 +248,6 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _conv(x, w, on_card(x))
 
 
-# 3x3 convs the model layer sent to plain PyTorch (not :func:`takes`)
-conv3x3.routed = 0
+# 3x3 convs the model layer sent to plain PyTorch (not :func:`takes`), and
+# second-order weight gradients K5 does not take (:func:`_dw`)
+counter(conv3x3, "routed")

@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from smsut_tpu_torch.ops import on_card, require, require_like
+from smsut_tpu_torch.ops import counter, on_card, require, require_like
 from smsut_tpu_torch.ops._build import I, P, bind, check, stream_of
 from smsut_tpu_torch.ops.conv3x3 import conv_f32
 
@@ -112,6 +112,5 @@ def conv3x3_im2col2(x: torch.Tensor, w: torch.Tensor,
     return _conv("im2col2", conv3x3_im2col2, x, w, strip)
 
 
-conv3x3_dots.launches = 0
-conv3x3_im2col.launches = 0
-conv3x3_im2col2.launches = 0
+for _f in (conv3x3_dots, conv3x3_im2col, conv3x3_im2col2):
+    counter(_f)

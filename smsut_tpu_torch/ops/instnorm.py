@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from smsut_tpu_torch.ops import (DTYPES, acc, on_card, require,
+from smsut_tpu_torch.ops import (DTYPES, acc, counter, on_card, require,
                                  require_like)
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
@@ -158,7 +158,9 @@ def tickets(x: torch.Tensor) -> torch.Tensor:
     """The norm sums' tickets for x's device and current stream: zero
     between calls, since the block that takes a ticket last resets it and
     the calls on one stream run one after another.  Calls on two streams at
-    once take two arrays."""
+    once take two arrays.  A CUDA graph takes the array of the stream it
+    was captured on, made by the eager warm-up on that stream
+    (train/graphs.py), and its replays leave it zero as calls do."""
     key = (x.device.index or 0, stream_of(x))
     t = _tickets.get(key)
     if t is None:
@@ -197,7 +199,7 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
     return out, mean, rstd
 
 
-instance_norm_fwd.launches = 0
+counter(instance_norm_fwd)
 
 
 def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
@@ -228,7 +230,7 @@ def instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     return dx, dsb[1], dsb[0]
 
 
-instance_norm_bwd.launches = 0
+counter(instance_norm_bwd)
 
 
 class _InstanceNorm(torch.autograd.Function):
@@ -308,4 +310,4 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 # calls of the second-order terms (:class:`_InstanceNormBwd`'s backward)
-instance_norm.double_backward = 0
+counter(instance_norm, "double_backward")

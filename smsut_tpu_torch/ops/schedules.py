@@ -6,6 +6,10 @@ Port of ``poly_lr_schedule``, ``poly_lr_host`` and ``sigmoid_rampup`` of
 ``smsut_tpu/ops/schedules.py``.  The reference mutates the optimizer's LR
 after each step, so step k trains with poly(max(k - 1, 0)); both functions
 keep that one-step lag, and clamp the base at 0 past ``total_iters``.
+:func:`poly_lr_table` lists ``poly_lr_host`` by step count, so that the
+train states read the LR on the card from their device step counter
+(train/state.py): the same float64 values, rounded once to the
+parameters' dtype, as the host floats the optimizer took before.
 """
 from __future__ import annotations
 
@@ -30,6 +34,14 @@ def poly_lr_schedule(base_lr: float, total_iters: int,
         return poly_lr_host(base_lr, count, total_iters, power)
 
     return schedule
+
+
+def poly_lr_table(base_lr: float, total_iters: int,
+                  power: float = 0.9) -> np.ndarray:
+    """float64 [total_iters + 2]: row k is ``poly_lr_host`` at count k.  The
+    last row, 0, is the LR of every count past it."""
+    return np.array([poly_lr_host(base_lr, k, total_iters, power)
+                     for k in range(total_iters + 2)], np.float64)
 
 
 def sigmoid_rampup(current: float, rampup_length: float) -> float:

@@ -10,6 +10,10 @@ logits [B, H, W, n_class] (argmax -> label map).
 Unlike the JAX package's StableHLO artifact, which runs without the model
 code, this artifact is the parameter file plus the manifest: ``load_serving``
 rebuilds the model from the manifest, so serving it needs this package.
+On the card ``predict`` replays a CUDA graph of the forward at the
+manifest's one input shape (train/graphs.py ``Replay``; the first request
+warms it, the second captures it); ``load_serving(..., capture=False)``
+runs the forward eagerly.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.device import resolve_device
+from smsut_tpu_torch.train.graphs import Replay
 
 ARTIFACT = "params.pt"
 MANIFEST = "manifest.json"
@@ -61,13 +66,14 @@ def export_eval(algo, params: Any, cfg: Config, out_dir: str,
 
 
 def load_serving(out_dir: str,
-                 device: Optional[Union[str, torch.device]] = None
-                 ) -> Tuple[Callable, dict]:
+                 device: Optional[Union[str, torch.device]] = None,
+                 capture: bool = True) -> Tuple[Callable, dict]:
     """Load an exported model; returns (predict, manifest).
 
     ``predict(img) -> seg logits`` takes a float32 array or tensor of the
     manifest's input shape and returns a float32 tensor on ``device``: the
-    card unless ``device`` names another (no CUDA and no device raises)."""
+    card unless ``device`` names another (no CUDA and no device raises).
+    ``capture=False`` runs the forward eagerly on the card."""
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
     device = resolve_device(device)
@@ -88,10 +94,17 @@ def load_serving(out_dir: str,
         os.path.join(out_dir, manifest["artifact"]), map_location="cpu",
         weights_only=True))
 
+    forward = Replay(lambda inp: {"logits": algo.eval_fn(params,
+                                                         inp["img"])},
+                     device, capture)
+
     def predict(img) -> torch.Tensor:
         if list(img.shape) != shape:
             raise ValueError(f"input shape {list(img.shape)} != the "
                              f"manifest's {shape}")
-        return algo.eval_fn(params, img)
+        logits = forward({"img": torch.as_tensor(img, dtype=torch.float32)})
+        # a replay's output is the graph's buffer, which the next overwrites
+        return logits["logits"].clone() if forward.captures else \
+            logits["logits"]
 
     return predict, manifest

@@ -12,9 +12,11 @@ cores.
 
 Run as a tool, it trains the w16 U-Net (256x256, batch 8, bfloat16
 compute, parameters drawn from seed 0, one seeded random batch)
-:data:`STEPS` steps in each block mode on the card and prints one JSON
-line per mode: the host times of those steps and :func:`step_profile` of
-three more.  It profiles the ``smsut_tpu_torch`` found first on
+:data:`STEPS` steps in each block mode on the card, eagerly and as
+replays of a CUDA graph of the iteration (:func:`iteration`, the fit
+loop's dispatch), and prints one JSON line per mode: the host times of
+those steps and :func:`step_profile` of three more, per replayed
+iteration where it replays.  It profiles the ``smsut_tpu_torch`` found first on
 ``sys.path``; another checkout's package with
 ``PYTHONPATH=<checkout> python <this file>``.
 
@@ -150,7 +152,28 @@ def step_profile(torch, step, fused: bool, step_ms: Sequence[float]
             "top": rows[:16]}
 
 
-def profile_mode(torch, fused: bool) -> dict:
+def iteration(algo, state, inp, scalars=None, capture: bool = True):
+    """One training iteration of ``algo`` on the fixed device inputs
+    ``inp`` as a callable: ``algo.step`` replayed as a CUDA graph on the
+    card when ``capture`` (train/graphs.py; its first call warms the graph
+    up, its second captures it), eager otherwise; the host step advanced.
+    A call returns the step's metrics (a replay's: the graph's buffers,
+    valid until the next call)."""
+    from smsut_tpu_torch.train.graphs import Replay
+
+    scalars = {} if scalars is None else scalars
+    step = Replay(lambda x: algo.step(state, x, scalars), algo.device,
+                  capture)
+
+    def run():
+        out = step(inp)
+        state.step += 1
+        return out
+
+    return run
+
+
+def profile_mode(torch, fused: bool, capture: bool) -> dict:
     from smsut_tpu_torch.config import Config
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
@@ -163,15 +186,17 @@ def profile_mode(torch, fused: bool) -> dict:
              "msk": torch.randint(0, cfg.n_class, (8, 256, 256), generator=g,
                                   device="cuda")}
     state = algo.init_state(seed=0)
+    run = iteration(algo, state, algo.inputs(batch), capture=capture)
+    if capture:
+        run()   # the graph's warm-up: the timed first call captures it
     step_ms = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
-        state, _ = algo.train_step(state, batch, {})
+        run()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    return {"block_pallas": fused, "step_ms": step_ms,
-            **step_profile(torch, lambda: algo.train_step(state, batch, {}),
-                           fused, step_ms)}
+    return {"block_pallas": fused, "replayed": capture, "step_ms": step_ms,
+            **step_profile(torch, run, fused, step_ms)}
 
 
 def main() -> int:
@@ -180,7 +205,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step times the card: no CUDA device")
     for fused in (False, True):
-        print(json.dumps(profile_mode(torch, fused)), flush=True)
+        for capture in (False, True):
+            print(json.dumps(profile_mode(torch, fused, capture)),
+                  flush=True)
     return 0
 
 

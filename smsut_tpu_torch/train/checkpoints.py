@@ -8,7 +8,8 @@ Where the JAX package writes an orbax directory, the port writes one
 tensors: ``{"step", "params", "opt_state"}`` for a ``TrainState``, and
 ``{"step", "g_params", "g_opt_state", "d_params", "d_opt_mu",
 "d_opt_nu", "d_opt_count"}`` for a ``GANTrainState`` (SGD traces of G,
-Adam moments and update count of D).
+Adam moments and update count of D).  A restored state's device step
+counter is set from the saved ``step``.
 """
 from __future__ import annotations
 
@@ -79,10 +80,15 @@ def load_state(template: Union[TrainState, GANTrainState], ckpt_root: str,
         return out
 
     trees = {k: like(v, k) for k, v in _trees(template).items()}
+    step = int(raw["step"])
+    count = lambda n: torch.full((), n, dtype=torch.int64,
+                                 device=template.count.device)
     if isinstance(template, GANTrainState):
         return dataclasses.replace(
-            template, step=int(raw["step"]), g_params=trees["g_params"],
+            template, step=step, g_params=trees["g_params"],
             g_opt_state=trees["g_opt_state"], d_params=trees["d_params"],
-            d_opt_state=AdamState(int(raw["d_opt_count"]), trees["d_opt_mu"],
-                                  trees["d_opt_nu"]))
-    return dataclasses.replace(template, step=int(raw["step"]), **trees)
+            d_opt_state=AdamState(count(int(raw["d_opt_count"])),
+                                  trees["d_opt_mu"], trees["d_opt_nu"]),
+            count=count(step))
+    return dataclasses.replace(template, step=step, count=count(step),
+                               **trees)

@@ -57,10 +57,11 @@ def apply_overrides(cfg: Config, overrides) -> Config:
     return cfg
 
 
-def run_main(algo_factory, args=None) -> None:
+def run_main(algo_factory, args=None, capture: bool = True) -> None:
     """Seed the host RNGs and drive the train or test phase, as each
     reference trainer's ``__main__`` block does.  ``algo_factory(cfg,
-    device)`` builds the algorithm."""
+    device)`` builds the algorithm; ``capture=False`` runs the Trainer's
+    iterations and eval sweep eagerly instead of as CUDA graphs."""
     if args is None:
         args = make_parser().parse_args()
     cfg = get_config()
@@ -84,7 +85,7 @@ def run_main(algo_factory, args=None) -> None:
     from smsut_tpu_torch.train.loop import Trainer
 
     algo = algo_factory(cfg, getattr(args, "device", None))
-    trainer = Trainer(algo, cfg, args.phase, args)
+    trainer = Trainer(algo, cfg, args.phase, args, capture=capture)
     try:
         if args.phase == "train":
             trainer.exp.register_experiment_args(args)  # expriments.log

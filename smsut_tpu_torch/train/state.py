@@ -21,35 +21,81 @@ the per-iteration poly LR:
 Every update runs as a few multi-tensor (``_foreach``) ops for all
 parameters, in place: the parameter and optimizer tensors passed in are
 consumed (the JAX step donates its state buffers the same way).
+
+The step counts live on the device, as 0-d int64 tensors (``count``), and
+every update reads its LR and Adam's bias corrections from float64 host
+tables (:func:`poly_lr_table`, :func:`bias_corrections`) copied to the
+device, indexed there by the count.  No value of an update is a host number
+that changes from step to step, so a CUDA graph of the step
+(``train/graphs.py``) replays it right.  The host's ``step`` is a mirror of
+``count``: the caller advances it, and nothing reads the count back.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Dict
 
+import numpy as np
 import torch
 
 from smsut_tpu_torch.config import Config
-from smsut_tpu_torch.ops.schedules import poly_lr_schedule
+from smsut_tpu_torch.ops.schedules import poly_lr_table
 
 Params = Dict[str, torch.Tensor]
 
+# rows of Adam's bias-correction tables: past 2^15 updates 1 - 0.999^k
+# rounds to 1 in float32, so the last row stands for every later count
+ADAM_ROWS = 1 << 15
 
-@dataclasses.dataclass(frozen=True)
+
+def bias_corrections(b: float, rows: int) -> np.ndarray:
+    """float64 [rows]: row k is 1 - b^k, as the host computed it."""
+    return np.array([1.0 - b ** k for k in range(rows)], np.float64)
+
+
+def zero_count(params: Params) -> torch.Tensor:
+    """A 0-d int64 step counter at 0 on the parameters' device."""
+    dev = next(iter(params.values())).device
+    return torch.zeros((), dtype=torch.int64, device=dev)
+
+
+class _Tables:
+    """Host float64 tables, copied once to each (device, dtype) asked for,
+    and read at a device count (clamped to the last row) without a host
+    wait."""
+
+    def __init__(self, **tables: np.ndarray):
+        self.host = tables
+        self._dev: Dict[tuple, torch.Tensor] = {}
+
+    def at(self, name: str, count: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+        key = (name, count.device, dtype)
+        t = self._dev.get(key)
+        if t is None:
+            t = self._dev[key] = torch.from_numpy(self.host[name]).to(
+                count.device, dtype)
+        i = torch.clamp(count, max=t.shape[0] - 1).reshape(1)
+        return t.index_select(0, i).reshape(())
+
+
 class SGD:
-    """The optimizer's settings; ``lr`` maps the step count to the LR."""
-    lr: Callable[[int], float]
-    weight_decay: float
-    momentum: float = 0.9
+    """The optimizer's settings; ``lr_table`` row k is the LR at count k."""
+
+    def __init__(self, lr_table: np.ndarray, weight_decay: float,
+                 momentum: float = 0.9):
+        self.tables = _Tables(lr=lr_table)
+        self.weight_decay = weight_decay
+        self.momentum = momentum
 
     def init(self, params: Params) -> Params:
         return {k: torch.zeros_like(v) for k, v in params.items()}
 
     @torch.no_grad()
     def update_(self, params: Params, traces: Params, grads: Params,
-                count: int) -> None:
+                count: torch.Tensor) -> None:
         """One update of ``params`` and ``traces`` in place, at the LR of
-        ``count`` earlier updates."""
+        ``count`` (a device tensor) earlier updates."""
         keys = list(params)
         ps = [params[k] for k in keys]
         ts = [traces[k] for k in keys]
@@ -57,43 +103,49 @@ class SGD:
                                alpha=self.weight_decay)
         torch._foreach_mul_(ts, self.momentum)
         torch._foreach_add_(ts, d)
-        torch._foreach_add_(ps, ts, alpha=-self.lr(count))
+        lr = self.tables.at("lr", count, ps[0].dtype)
+        torch._foreach_sub_(ps, torch._foreach_mul(ts, lr))
 
 
 def make_sgd(cfg: Config, momentum: float = 0.9) -> SGD:
-    return SGD(poly_lr_schedule(cfg.lr, cfg.total_iters), cfg.weight_decay,
+    return SGD(poly_lr_table(cfg.lr, cfg.total_iters), cfg.weight_decay,
                momentum)
 
 
 @dataclasses.dataclass
 class AdamState:
-    """Adam's count of updates made and its first and second moments."""
-    count: int
+    """Adam's count of updates made (a 0-d int64 device tensor) and its
+    first and second moments."""
+    count: torch.Tensor
     mu: Params
     nu: Params
 
 
-@dataclasses.dataclass(frozen=True)
 class Adam:
-    """The optimizer's settings; ``lr`` maps the update count to the LR."""
-    lr: Callable[[int], float]
-    weight_decay: float
-    b1: float = 0.9
-    b2: float = 0.999
-    eps: float = 1e-8
+    """The optimizer's settings; ``lr_table`` row k is the LR at count k."""
+
+    def __init__(self, lr_table: np.ndarray, weight_decay: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        rows = max(len(lr_table), ADAM_ROWS)
+        self.tables = _Tables(lr=lr_table, c1=bias_corrections(b1, rows),
+                              c2=bias_corrections(b2, rows))
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params: Params) -> AdamState:
         zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
-        return AdamState(0, zeros(), zeros())
+        return AdamState(zero_count(params), zeros(), zeros())
 
     @torch.no_grad()
     def update_(self, params: Params, state: AdamState,
                 grads: Params) -> AdamState:
-        """One update of ``params`` and the moments in place."""
+        """One update of ``params``, the moments and the count in place;
+        returns ``state``."""
         keys = list(params)
         ps = [params[k] for k in keys]
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
+        dt = ps[0].dtype
         d = torch._foreach_add([grads[k] for k in keys], ps,
                                alpha=self.weight_decay)
         torch._foreach_mul_(mu, self.b1)
@@ -101,45 +153,57 @@ class Adam:
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, d, d, value=1.0 - self.b2)
         k = state.count + 1
-        den = torch._foreach_div(nu, 1.0 - self.b2 ** k)
+        den = torch._foreach_div(nu, self.tables.at("c2", k, dt))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu, 1.0 - self.b1 ** k)
+        upd = torch._foreach_div(mu, self.tables.at("c1", k, dt))
         torch._foreach_div_(upd, den)
-        torch._foreach_add_(ps, upd, alpha=-self.lr(state.count))
-        return AdamState(k, state.mu, state.nu)
+        torch._foreach_mul_(upd, self.tables.at("lr", state.count, dt))
+        torch._foreach_sub_(ps, upd)
+        state.count.add_(1)
+        return state
 
 
 def make_adam(cfg: Config, b1: float = 0.9, b2: float = 0.999) -> Adam:
-    return Adam(poly_lr_schedule(cfg.lr, cfg.total_iters), cfg.weight_decay,
+    return Adam(poly_lr_table(cfg.lr, cfg.total_iters), cfg.weight_decay,
                 b1, b2)
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, float32 parameters and momentum traces."""
+    """Step count (host mirror), float32 parameters, momentum traces and
+    the device step count."""
     step: int
     params: Params
     opt_state: Params
     tx: SGD
+    count: torch.Tensor
 
     @classmethod
     def create(cls, params: Params, tx: SGD) -> "TrainState":
-        return cls(step=0, params=params, opt_state=tx.init(params), tx=tx)
+        return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
+                   count=zero_count(params))
+
+    def update(self, grads: Params) -> None:
+        """One SGD update at the device count's LR, in place, and the
+        device count advanced; the host ``step`` is left to the caller."""
+        self.tx.update_(self.params, self.opt_state, grads, self.count)
+        self.count.add_(1)
 
     def apply_gradients(self, grads: Params) -> "TrainState":
-        """One SGD update, in place; the state passed in is consumed."""
-        self.tx.update_(self.params, self.opt_state, grads, self.step)
-        return dataclasses.replace(self, step=self.step + 1)
+        """:meth:`update` and the host ``step`` advanced; returns self."""
+        self.update(grads)
+        self.step += 1
+        return self
 
 
 @dataclasses.dataclass
 class GANTrainState:
-    """Generator (SGD) + discriminator (Adam).  One ``step`` counter
-    counts the iterations; the train step advances it after both updates,
-    so it is also the generator's count of earlier updates (the LR of its
-    SGD), as the reference's shared ``self.iter`` drives both poly
-    schedules."""
+    """Generator (SGD) + discriminator (Adam).  One step counter counts the
+    iterations (``count`` on the device, ``step`` its host mirror); the
+    train step advances it after both updates, so it is also the
+    generator's count of earlier updates (the LR of its SGD), as the
+    reference's shared ``self.iter`` drives both poly schedules."""
     step: int
     g_params: Params
     g_opt_state: Params
@@ -147,6 +211,7 @@ class GANTrainState:
     d_opt_state: AdamState
     g_tx: SGD
     d_tx: Adam
+    count: torch.Tensor
 
     @classmethod
     def create(cls, g_params: Params, d_params: Params, cfg: Config,
@@ -154,14 +219,14 @@ class GANTrainState:
         g_tx, d_tx = make_sgd(cfg), make_adam(cfg, beta1, beta2)
         return cls(step=0, g_params=g_params, g_opt_state=g_tx.init(g_params),
                    d_params=d_params, d_opt_state=d_tx.init(d_params),
-                   g_tx=g_tx, d_tx=d_tx)
+                   g_tx=g_tx, d_tx=d_tx, count=zero_count(g_params))
 
     def apply_d_gradients(self, grads: Params) -> "GANTrainState":
         """One Adam update of D, in place."""
-        return dataclasses.replace(self, d_opt_state=self.d_tx.update_(
-            self.d_params, self.d_opt_state, grads))
+        self.d_tx.update_(self.d_params, self.d_opt_state, grads)
+        return self
 
     def apply_g_gradients(self, grads: Params) -> "GANTrainState":
-        """One SGD update of G, in place."""
-        self.g_tx.update_(self.g_params, self.g_opt_state, grads, self.step)
+        """One SGD update of G, in place, at the device count's LR."""
+        self.g_tx.update_(self.g_params, self.g_opt_state, grads, self.count)
         return self

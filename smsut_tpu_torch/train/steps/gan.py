@@ -24,8 +24,15 @@ PatchNCE ``patch_ids``) are inputs of the step, in the batch:
 :meth:`UGANBase.make_extra_batch` draws them from the algorithm's own CPU
 ``torch.Generator`` (seeded from ``cfg.seed``), so a test can feed it the
 JAX package's draws instead.  Nothing in the step waits on the card: the
-modality vectors are built on the host from ``mdl`` and ``mj`` and copied
-from pinned memory.
+modality vectors and labels are built on the host from ``mdl`` and ``mj``
+(:meth:`UGANBase.host_inputs`) and copied from pinned memory.
+
+:meth:`UGANBase.step` is the iteration's device part alone, so the fit loop
+replays it as a CUDA graph (``train/graphs.py``): the consistency gate is
+taken from the state's device step count, ``lambda_semi`` and
+``lambda_shp`` may be device tensors that the loop sets per epoch, the LRs
+and Adam's bias corrections are read on the device (train/state.py), and
+the step advances the device count; the host ``step`` is the caller's.
 
 ``d_concat_hat``, ``packed_loss_tails`` and ``remat`` are accepted and do
 nothing (config.py).
@@ -57,6 +64,11 @@ Params = Dict[str, torch.Tensor]
 def label2onehot(mdl, n_modal: int) -> np.ndarray:
     """float32 one-hot rows of the host labels ``mdl``."""
     return np.eye(n_modal, dtype=np.float32)[np.asarray(mdl)]
+
+
+def _weight(w):
+    """A loss weight: a 0-d device tensor as it is, a number as a float."""
+    return w if isinstance(w, torch.Tensor) else float(w)
 
 
 def _grads(loss: torch.Tensor, leaves: Params) -> Params:
@@ -146,12 +158,11 @@ class UGANBase:
                                            self.cfg.nce_patches)
 
     def make_extra_batch(self) -> Dict[str, object]:
-        """The step's random draws from the algorithm's generator: the
-        target modality ``mj`` (a host int), the GP's ``alpha`` [n,1,1,1]
-        from a normal, and ``patch_ids`` [nce_patches], on the device."""
+        """The step's random draws from the algorithm's generator, on the
+        host: the target modality ``mj`` (an int), the GP's ``alpha``
+        [n,1,1,1] from a normal, and ``patch_ids`` [nce_patches]."""
         mj, alpha, ids = self._draw()
-        return {"mj": mj, "alpha": self._to_device(alpha),
-                "patch_ids": self._to_device(ids)}
+        return {"mj": mj, "alpha": alpha, "patch_ids": ids}
 
     def skip_draws(self, n: int) -> None:
         """Advance the generator past ``n`` steps' draws (a resumed run
@@ -198,35 +209,58 @@ class UGANBase:
                  + self.lambda_gp * d_gp)
         return total, (d_real, d_fake, d_cls, d_gp), dydx
 
-    def inputs(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        """The step's tensors on the device from ``batch``: ``img``
-        [bs,H,W,1], ``msk``, ``mdl`` (host), with ``uses_unlabeled``
-        ``ul_img`` and ``ul_mdl``, and the draws ``mj``, ``alpha``,
-        ``patch_ids`` (:meth:`make_extra_batch`).  The modality vectors
-        and labels are built on the host from ``mdl`` and ``mj``."""
+    def host_inputs(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """The step's small inputs as CPU tensors, built on the host from
+        ``batch``'s ``mdl`` (with ``uses_unlabeled`` and ``ul_mdl``) and
+        the draws ``mj``, ``alpha`` and ``patch_ids``
+        (:meth:`make_extra_batch`): the modality vectors ``vec_ot`` and
+        ``vec_to``, the labels ``mdl`` and ``modal_trg``, ``alpha``
+        [n,1,1,1] and, for the PatchNCE variants, ``patch_ids``."""
         cfg = self.cfg
-        x_real = self._to_device(batch["img"], torch.float32)
         mdl = np.asarray(batch["mdl"])
         if self.uses_unlabeled:
-            x_real = torch.cat([x_real, self._to_device(batch["ul_img"],
-                                                        torch.float32)])
             mdl = np.concatenate([mdl, np.asarray(batch["ul_mdl"])])
-        n = x_real.shape[0]
+        n = mdl.shape[0]
         mj = int(batch["mj"])
         vec_org = label2onehot(mdl, cfg.n_modal)
         vec_trg = label2onehot(np.full(n, mj), cfg.n_modal)
-        vecs = self._to_device(np.stack([vec_trg - vec_org,
-                                         vec_org - vec_trg]))
-        labels = self._to_device(np.stack([mdl, np.full(n, mj)]).astype(
-            np.int64))
-        return {"x_real": x_real,
-                "y_real": self._to_device(batch["msk"]).long(),
-                "vec_ot": vecs[0], "vec_to": vecs[1], "mdl": labels[0],
-                "modal_trg": labels[1],
-                "alpha": self._to_device(batch["alpha"],
-                                         torch.float32).reshape(n, 1, 1, 1),
-                "patch_ids": (self._to_device(batch["patch_ids"]).long()
-                              if self.with_nce else None)}
+        out = {"vec_ot": torch.from_numpy(vec_trg - vec_org),
+               "vec_to": torch.from_numpy(vec_org - vec_trg),
+               "mdl": torch.from_numpy(mdl.astype(np.int64)),
+               "modal_trg": torch.full((n,), mj, dtype=torch.int64),
+               "alpha": torch.as_tensor(np.array(batch["alpha"],
+                                                 np.float32)).reshape(
+                                                     n, 1, 1, 1)}
+        if self.with_nce:
+            out["patch_ids"] = torch.as_tensor(
+                np.array(batch["patch_ids"])).long()
+        return out
+
+    def inputs(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """:meth:`step`'s tensors on the device from ``batch``: ``img``
+        [bs,H,W,1] and ``msk``, with ``uses_unlabeled`` ``ul_img``, and
+        :meth:`host_inputs` copied from pinned memory."""
+        inp = {k: self._to_device(v)
+               for k, v in self.host_inputs(batch).items()}
+        inp["img"] = self._to_device(batch["img"], torch.float32)
+        inp["msk"] = self._to_device(batch["msk"]).long()
+        if self.uses_unlabeled:
+            inp["ul_img"] = self._to_device(batch["ul_img"], torch.float32)
+        return inp
+
+    def step_inputs(self, inp: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, Optional[torch.Tensor]]:
+        """:meth:`d_step`'s and :meth:`g_step`'s view of :meth:`step`'s
+        tensors: ``x_real`` (labelled, then unlabelled images), ``y_real``
+        and ``patch_ids`` None without PatchNCE."""
+        x_real = inp["img"]
+        if self.uses_unlabeled:
+            x_real = torch.cat([x_real, inp["ul_img"]])
+        out = {k: inp[k] for k in ("vec_ot", "vec_to", "mdl", "modal_trg",
+                                   "alpha")}
+        out.update(x_real=x_real, y_real=inp["msk"],
+                   patch_ids=inp.get("patch_ids"))
+        return out
 
     def d_step(self, state: GANTrainState, inp: Mapping
                ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
@@ -251,7 +285,9 @@ class UGANBase:
         bs = cfg.batch_size
         x_real, y_real, patch_ids = inp["x_real"], inp["y_real"], \
             inp["patch_ids"]
-        gate = float(state.step >= cfg.consis_gate_step)
+        # on the device, from the device count: a replayed graph of the
+        # step opens the gate at its step
+        gate = (state.count >= cfg.consis_gate_step).to(x_real.dtype)
         g_leaves = {k: v.detach().requires_grad_()
                     for k, v in state.g_params.items()}
         y_fake, x_fake, feat_x = self._g_forward(g_leaves, x_real,
@@ -271,12 +307,12 @@ class UGANBase:
         if self.variant == "ugan":
             g_shp = dice_and_ce_loss(y_rec, y_real, cfg.weight_dc,
                                      cfg.weight_ce, batch_dice=True)
-            total = total + float(scalars["lambda_shp"]) * g_shp
+            total = total + _weight(scalars["lambda_shp"]) * g_shp
             metrics["G_shp"] = g_shp
         if self.variant == "uganConsis":
             g_semi = argmax_consistency_loss(y_rec, y_fake, cfg.weight_dc,
                                              cfg.weight_ce) * gate
-            total = total + float(scalars["lambda_semi"]) * g_semi
+            total = total + _weight(scalars["lambda_semi"]) * g_semi
             metrics["G_semi"] = g_semi
         if self.with_nce:
             g_nce = nce_loss_over_layers([feat_x], [feat_f], bs,
@@ -285,18 +321,27 @@ class UGANBase:
             metrics["G_nce"] = g_nce
         return state.apply_g_gradients(_grads(total, g_leaves)), metrics
 
+    def step(self, state: GANTrainState, inp: Mapping[str, torch.Tensor],
+             scalars: Mapping) -> Dict[str, torch.Tensor]:
+        """The iteration on the device (:meth:`d_step`, :meth:`g_step`,
+        the device count advanced; not the host ``step``) on
+        :meth:`inputs`' tensors; ``scalars``: :meth:`epoch_scalars`, as
+        numbers or 0-d device tensors."""
+        inp = self.step_inputs(inp)
+        state, d_metrics = self.d_step(state, inp)
+        state, g_metrics = self.g_step(state, inp, scalars)
+        state.count.add_(1)
+        return {k: v.detach() for k, v in {**d_metrics, **g_metrics}.items()}
+
     def train_step(self, state: GANTrainState, batch: Mapping,
                    scalars: Mapping) -> Tuple[GANTrainState,
                                               Dict[str, torch.Tensor]]:
-        """One iteration (:meth:`inputs`, :meth:`d_step`, :meth:`g_step`);
-        ``scalars``: :meth:`epoch_scalars`.  The state passed in is
-        consumed."""
-        inp = self.inputs(batch)
-        state, d_metrics = self.d_step(state, inp)
-        state, g_metrics = self.g_step(state, inp, scalars)
+        """One iteration (:meth:`inputs`, :meth:`step`, the host step
+        advanced); ``scalars``: :meth:`epoch_scalars`.  The state passed
+        in is consumed (updated in place)."""
+        metrics = self.step(state, self.inputs(batch), scalars)
         state.step += 1
-        return state, {k: v.detach()
-                       for k, v in {**d_metrics, **g_metrics}.items()}
+        return state, metrics
 
     # -------------------------------------------------------------- public
     @torch.inference_mode()

@@ -7,6 +7,12 @@ poly-LR update.  On the card the backward runs the backward kernels: K4
 for every instance norm, K2 (dx) and K5 (dw) for every 3x3 conv, or K6 for
 every residual block with ``block_pallas``.  The eval forward serves
 (``serve.py``).
+
+:meth:`SupervisedUNet.step` is the iteration's device part alone: it reads
+its tensors and the state's, and updates the state in place, with the LR
+read on the device at the state's device count, so the fit loop replays
+it as a CUDA graph (``train/graphs.py``).  :meth:`train_step` is
+:meth:`inputs`, :meth:`step` and the host step mirror advanced.
 """
 from __future__ import annotations
 
@@ -75,13 +81,31 @@ class SupervisedUNet:
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
+    def inputs(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """:meth:`step`'s tensors of ``batch = {"img", "msk"}`` on the
+        device: ``img`` float32 [B,H,W,1], ``msk`` int64 [B,H,W]."""
+        return {"img": torch.as_tensor(batch["img"], dtype=torch.float32,
+                                       device=self.device),
+                "msk": torch.as_tensor(batch["msk"],
+                                       device=self.device).long()}
+
+    def step(self, state: TrainState, inp: Mapping[str, torch.Tensor],
+             scalars: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+        """The iteration on the device: Dice+CE loss, gradients, SGD at the
+        state's device count, the count advanced (not the host ``step``).
+        ``scalars`` is unused here, as in the JAX step."""
+        loss, grads = self.value_and_grad(state.params, inp)
+        state.update(grads)
+        return {"loss": loss}
+
     def train_step(self, state: TrainState, batch: Mapping,
                    scalars: Optional[Mapping] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One iteration; ``scalars`` is unused here, as in the JAX step.
-        The state passed in is consumed (``TrainState.apply_gradients``)."""
-        loss, grads = self.value_and_grad(state.params, batch)
-        return state.apply_gradients(grads), {"loss": loss}
+        """One iteration: :meth:`inputs`, :meth:`step`, the host step
+        advanced.  The state passed in is consumed (updated in place)."""
+        metrics = self.step(state, self.inputs(batch))
+        state.step += 1
+        return state, metrics
 
     def eval_params(self, state: Union[TrainState, Mapping[str, torch.Tensor]]
                     ) -> Params:
