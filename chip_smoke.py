@@ -149,9 +149,32 @@
    batch and the serving latency, each with its median and quartiles,
    device ms, kernels and idle share, printed with the card's name and
    power limit.
-9. Prints the ``kernels`` JSON line (all nine kernels, launches summed over
-   the runs of phases 3-8, replays included, not over the checks against
-   the plain path), then the device line last.
+9. The semi-supervised zoo at w16, 256x256, 8 + 8: Mean Teacher,
+   cross-pseudo supervision and CoraNet's stages A and B.
+   9a. Per algorithm and block mode, step 1's gradients with every loss
+   term live against the plain path (phase 4's rules, float32 and
+   bfloat16), and 10 replayed bfloat16 iterations: the launches per
+   iteration (Mean Teacher a student step at 16 images and a teacher
+   forward, cross-pseudo supervision two student steps, CoraNet B two
+   student applies of 8 and a teacher forward), nothing routed, the loss
+   falling.
+   9b. Mean Teacher from count 99 and CoraNet B from count 999, float32:
+   the consistency gate (and Mean Teacher's EMA alpha) flips inside four
+   replayed steps, held against the plain path.
+   9c. Five float32 iterations replayed against eager, both block modes,
+   to the bit; then eager and replayed bfloat16 blocks in turns (8e's
+   rules): ms, device ms, kernels and idle share per iteration.
+   9d. ``meanTeacherTrainer``, ``crossPseTrainer`` and ``coraNetTrainer``
+   (stage A, then stage B from its ``pre_best``, the pseudo-labels made at
+   both epochs) on phase 6's tree, 2 epochs of 10, epoch 1 under
+   ``set_sync_debug_mode("error")``, launches asserted; ``-p test`` and
+   ``-p pseudo`` of each.
+   9e. ``export_eval`` -> ``load_serving`` -> ``predict`` of each and of
+   ``uganConsis``, float32: the served logits equal ``eval_fn``'s to the
+   bit.
+10. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-9, replays included, not over the checks
+   against the plain path), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -2398,6 +2421,513 @@ def dispatch_phase(torch, ops, counters, routed, card: str) -> dict:
             "kernels": k}
 
 
+# phase 9: the semi-supervised zoo (Mean Teacher, cross-pseudo
+# supervision, CoraNet's stages A and B) at the Config's widths: w16,
+# 256^2, 8 labelled + 8 unlabelled (CoraNet B: 8 labelled + 8 pseudo)
+ZOO = ("meanTeacher", "crossPse", "coraPre", "coraNet")
+# the device count from which every loss term is live (Mean Teacher's
+# consistency gate and EMA alpha, CoraNet B's certain and uncertain terms)
+ZOO_GATE = {"meanTeacher": 100, "crossPse": 0, "coraPre": 0,
+            "coraNet": 1000}
+ZOO_STEPS = 10
+ZOO_TERMS = {"meanTeacher": "semi_loss", "coraNet": "certain_loss"}
+# 9b: a consistency term is a mean of squared differences of two nearly
+# equal softmaxes, so float32 summation order moves it by more of itself
+# than a loss: relative ZOO_TERM_TOL plus ZOO_TERM_ATOL
+ZOO_TERM_TOL, ZOO_TERM_ATOL = 1e-2, 1e-6
+ZOO_CLI = {"meanTeacher": "meanTeacherTrainer",
+           "crossPse": "crossPseTrainer"}
+
+
+def zoo_algo(name: str, cfg):
+    """The algorithm of zoo name ``name`` (serve.py ``factories``; its
+    ``coraNet`` is stage B), and CoraNet's stage A for ``coraPre``."""
+    from smsut_tpu_torch.serve import factories
+    from smsut_tpu_torch.train.steps.coranet import CoraNet
+
+    if name == "coraPre":
+        return CoraNet(cfg, stage="pre")
+    return factories()[name][1](cfg, None)
+
+
+def zoo_per_step(name: str, fused: bool) -> dict:
+    """Launches per iteration: a student forward and backward at 16
+    images counts as one U-Net step; Mean Teacher adds the teacher's
+    forward, cross-pseudo supervision runs two students, CoraNet B two
+    student applies of 8 and the teacher's forward."""
+    s, f = PER_STEP[fused], PER_FORWARD[fused]
+    n_step, n_fwd = {"meanTeacher": (1, 1), "crossPse": (2, 0),
+                     "coraPre": (1, 0), "coraNet": (2, 1)}[name]
+    return {k: n_step * s.get(k, 0) + n_fwd * f.get(k, 0) for k in KERNELS}
+
+
+def zoo_inputs(torch, np, algo, name: str) -> dict:
+    """Fixed step inputs on the card: ellipse batches (labelled, seed 0;
+    unlabelled, seed 1; CoraNet B's pseudo batch, seed 2, with a random
+    certainty mask of 70% ones)."""
+    lb, ul = ellipse_batch(np, seed=0), ellipse_batch(np, seed=1)
+    batch = {"img": lb["img"], "msk": lb["msk"], "ul_img": ul["img"]}
+    if name == "coraNet":
+        p = ellipse_batch(np, seed=2)
+        batch.update(pse_img=p["img"], pse_lab=p["msk"], pse_mask=(
+            np.random.default_rng(3).random(p["msk"].shape) < 0.7).astype(
+                np.float32))
+    return algo.inputs({k: torch.from_numpy(v).cuda()
+                        for k, v in batch.items()})
+
+
+def zoo_scalars(torch, algo) -> dict:
+    return {k: torch.tensor(float(v), device="cuda")
+            for k, v in algo.epoch_scalars(3).items()}
+
+
+def zoo_state(algo, count: int):
+    """``init_state(0)`` at device count ``count``."""
+    st = algo.init_state(0)
+    st.step = count
+    st.count.fill_(count)
+    return st
+
+
+def clone_train_state(st):
+    """A deep copy of a TrainState's tensors (the optimizer shared)."""
+    import dataclasses
+
+    tree = lambda t: None if t is None else {k: v.clone()
+                                             for k, v in t.items()}
+    return dataclasses.replace(
+        st, params=tree(st.params), opt_state=tree(st.opt_state),
+        ema_params=tree(st.ema_params), params2=tree(st.params2),
+        opt_state2=tree(st.opt_state2), count=st.count.clone())
+
+
+def zoo_grads(ops, algo, state, inp, scal, plain: bool):
+    """One step's metrics and the gradients it would apply (net 2's keyed
+    ``net2.<name>``), the update itself skipped."""
+    grads = {}
+
+    def capture(g, g2=None):
+        grads.update(g)
+        grads.update({f"net2.{k}": v for k, v in (g2 or {}).items()})
+
+    state.update = capture
+    with ops.plain() if plain else contextlib.nullcontext():
+        m = algo.step(state, inp, scal)
+    return {k: float(v) for k, v in m.items()}, grads
+
+
+def zoo_steps(torch, ops, counters, routed) -> dict:
+    """9a: per algorithm and block mode, step 1's gradients with every
+    loss term live (float32 and bfloat16) against the plain path under
+    phase 4's rules, then 10 replayed bfloat16 iterations: the launches of
+    each, nothing routed, the loss finite and falling."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    out = {}
+    for name in ZOO:
+        for fused in (False, True):
+            cfg = lambda dtn: Config(input_size=256, base_width=16,
+                                     batch_size=8, compute_dtype=dtn,
+                                     block_pallas=fused)
+            grads, metrics = {}, {}
+            for dtn in ("float32", "bfloat16"):
+                algo = zoo_algo(name, cfg(dtn))
+                inp, scal = zoo_inputs(torch, np, algo, name), \
+                    zoo_scalars(torch, algo)
+                st = zoo_state(algo, ZOO_GATE[name])
+                for plain in (False, True):
+                    metrics[dtn, plain], grads[dtn, plain] = zoo_grads(
+                        ops, algo, clone_train_state(st), inp, scal, plain)
+            c32 = grad_parity(grads["float32", False], grads["float32", True])
+            a = bf16_accuracy(grads["bfloat16", False],
+                              grads["bfloat16", True], grads["float32", True])
+            lerr = abs(metrics["float32", False]["loss"]
+                       - metrics["float32", True]["loss"]) / abs(
+                           metrics["float32", True]["loss"])
+            st = zoo_state(algo, ZOO_GATE[name])   # bfloat16
+            run = iteration(algo, st, inp, scal)
+            torch.cuda.synchronize()
+            zero(counters, routed)
+            losses = [float(run()["loss"]) for _ in range(ZOO_STEPS)]
+            counts = {k: c.launches for k, c in counters.items()}
+            rc = routed_counts(routed)
+            want = {k: ZOO_STEPS * v
+                    for k, v in zoo_per_step(name, fused).items()}
+            print(f"zoo 9a {name} block_pallas={fused}: float32 step-1 "
+                  f"gradients of {c32['n']} tensors vs the plain path: rel "
+                  f"err max {c32['rel_max']:.3g} ({c32['worst_rel']}), L2 "
+                  f"of all {c32['l2_all']:.3g}, cosine min "
+                  f"{c32['cos_min']:.6f} ({c32['worst_cos']}); loss rel err "
+                  f"{lerr:.3g}; bfloat16 vs the float32 plain gradient: "
+                  f"kernel err max {a['kernel_err_max']:.3g}, plain "
+                  f"{a['plain_err_max']:.3g}, closest to the bound "
+                  f"{a['worst']} ({a['kernel_err']:.3g} vs "
+                  f"{a['plain_err']:.3g}); {ZOO_STEPS} replayed bfloat16 "
+                  f"steps: launches {counts} (expected {want}), routed "
+                  f"{rc}, losses {[round(x, 5) for x in losses]}",
+                  flush=True)
+            if not (c32["rel_max"] <= GRAD_REL and c32["l2_all"] <= GRAD_REL
+                    and c32["cos_min"] >= GRAD_COS and a["worst_over"] <= 0
+                    and lerr <= LOSS_TOL):
+                raise AssertionError(f"9a {name} {fused}: {c32}, {a}, {lerr}")
+            if counts != want or any(rc.values()):
+                raise AssertionError(f"9a {name} {fused}: launches {counts} "
+                                     f"!= {want}, routed {rc}")
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"9a {name} {fused}: losses {losses}")
+            out[f"{name} {fused}"] = {
+                "launches": counts, "routed": rc, "losses": losses,
+                "f32": c32, "bf16": a, "loss_rel": lerr}
+            del run, st, algo, grads
+            torch.cuda.empty_cache()
+    return out
+
+
+def zoo_gates(torch, ops) -> dict:
+    """9b: Mean Teacher from count 99 and CoraNet B from count 999, float32,
+    four replayed steps against four eager steps of the plain path from
+    one init: the gated term 0 at the first step and positive after,
+    Mean Teacher's alpha 0 and then 0.99; the losses within LOSS_TOL, the
+    gated terms within ZOO_TERM_TOL (+ ZOO_TERM_ATOL)."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    out = {}
+    for name, term in ZOO_TERMS.items():
+        cfg = Config(input_size=256, base_width=16, batch_size=8,
+                     compute_dtype="float32")
+        algo = zoo_algo(name, cfg)
+        inp, scal = zoo_inputs(torch, np, algo, name), zoo_scalars(torch,
+                                                                   algo)
+        start = ZOO_GATE[name] - 1
+        runs = []
+        for plain in (False, True):
+            run = iteration(algo, zoo_state(algo, start), inp, scal,
+                            capture=not plain)
+            with ops.plain() if plain else contextlib.nullcontext():
+                runs.append([{k: float(v) for k, v in run().items()}
+                             for _ in range(4)])
+        got, want = runs
+        over = max(abs(g[k] - w[k]) - (ZOO_TERM_TOL if k != "loss"
+                                       else LOSS_TOL) * abs(w[k])
+                   for g, w in zip(got, want) for k in w)
+        gated = [g[term] for g in got]
+        alpha = [g.get("alpha") for g in got]
+        print(f"zoo 9b {name} from count {start}, float32, replayed kernels"
+              f" vs eager plain: {term} {[f'{x:.4g}' for x in gated]} (plain"
+              f" {[round(w[term], 6) for w in want]}); alpha {alpha}; worst "
+              f"excess over the bounds {over:.3g} (atol {ZOO_TERM_ATOL})",
+              flush=True)
+        if (gated[0] != 0 or not all(x > 0 for x in gated[1:])
+                or over > ZOO_TERM_ATOL
+                or (name == "meanTeacher"
+                    and (alpha[0] != 0 or abs(alpha[1] - 0.99) > 1e-6))):
+            raise AssertionError(f"9b {name}: {got} vs {want}")
+        out[name] = {"replayed": got, "plain": want, "over": over}
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_replays(torch) -> dict:
+    """9c, under deterministic cuDNN: five float32 iterations replayed
+    against five eager ones from one init, both block modes: the metrics
+    and every tree to the bit."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    out = {}
+    for name in ZOO:
+        for fused in (False, True):
+            algo = zoo_algo(name, Config(input_size=256, base_width=16,
+                                         batch_size=8, compute_dtype="float32",
+                                         block_pallas=fused))
+            inp, scal = zoo_inputs(torch, np, algo, name), \
+                zoo_scalars(torch, algo)
+            states = [zoo_state(algo, ZOO_GATE[name]) for _ in range(2)]
+            ms = [[{k: float(v) for k, v in run().items()} for _ in range(5)]
+                  for run in (iteration(algo, st, inp, scal, capture=c)
+                              for st, c in zip(states, (False, True)))]
+            same = ms[0] == ms[1] and all(
+                torch.equal(getattr(states[1], t)[k], v)
+                for t in ("params", "ema_params", "params2")
+                if getattr(states[0], t) is not None
+                for k, v in getattr(states[0], t).items())
+            print(f"zoo 9c {name} block_pallas={fused} float32: 5 replayed "
+                  f"iterations equal eager to the bit: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"9c {name} {fused}: {ms}")
+            out[f"{name} {fused}"] = same
+            del states
+    return out
+
+
+def zoo_cudnn(torch, ops) -> dict:
+    """9c's cause: Mean Teacher's eager step, four times from one state
+    with cuDNN's default algorithm choice and four times deterministic,
+    in float32 and bfloat16: the tensors whose gradient differs between
+    runs, and the kernels that each setting alone launches (the stem
+    conv's weight gradient, Cin 1, the step's one cuDNN op)."""
+    import numpy as np
+    import torch.backends.cudnn as cudnn
+    from torch.profiler import ProfilerActivity, profile
+
+    from smsut_tpu_torch.config import Config
+
+    name = "meanTeacher"
+    det = cudnn.deterministic
+    out = {}
+    try:
+        for dtn in ("float32", "bfloat16"):
+            algo = zoo_algo(name, Config(input_size=256, base_width=16,
+                                         batch_size=8, compute_dtype=dtn))
+            inp, scal = zoo_inputs(torch, np, algo, name), \
+                zoo_scalars(torch, algo)
+            st = zoo_state(algo, ZOO_GATE[name])
+            grads = lambda: zoo_grads(ops, algo, clone_train_state(st), inp,
+                                      scal, False)[1]
+            seen = {}
+            for flag in (False, True):
+                cudnn.deterministic = flag
+                runs = [grads() for _ in range(4)]
+                with profile(activities=[ProfilerActivity.CUDA]) as p:
+                    grads()
+                    torch.cuda.synchronize()
+                seen[flag] = (
+                    sorted({k for r in runs[1:] for k in r
+                            if not torch.equal(r[k], runs[0][k])}),
+                    {e.key.split("<")[0].split("(")[0]
+                     for e in p.key_averages()
+                     if e.device_type.name == "CUDA"})
+            only = {flag: sorted(seen[flag][1] - seen[not flag][1])
+                    for flag in (False, True)}
+            print(f"zoo 9c cuDNN, {name} eager {dtn}: gradients differing "
+                  f"across 4 steps, default {seen[False][0]}, deterministic "
+                  f"{seen[True][0]}; kernels of the default alone "
+                  f"{only[False]}, of deterministic alone {only[True]}",
+                  flush=True)
+            if seen[True][0]:
+                raise AssertionError(f"9c {name} {dtn}: deterministic cuDNN "
+                                     f"steps differ in {seen[True][0]}")
+            out[dtn] = {"differ": seen[False][0], "default_only": only[False],
+                        "deterministic_only": only[True]}
+            del algo, st
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic = det
+    return out
+
+
+def zoo_timing(torch, counters, routed, card: str) -> dict:
+    """9c's timing, with cuDNN's default algorithm choice as the Trainer
+    runs it (8e's rules): bfloat16 eager and replayed blocks in turns,
+    median and quartile ms, the profiler's device ms, kernels and idle
+    share per iteration, and the launches counted over one replay."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import device_rows, iteration
+
+    out = {}
+    for name in ZOO:
+        algo = zoo_algo(name, Config(input_size=256, base_width=16,
+                                     batch_size=8, compute_dtype="bfloat16"))
+        inp, scal = zoo_inputs(torch, np, algo, name), zoo_scalars(torch,
+                                                                   algo)
+        fns = {mode: iteration(algo, zoo_state(algo, ZOO_GATE[name]), inp,
+                               scal, capture=c)
+               for mode, c in (("eager", False), ("replayed", True))}
+        for fn in fns.values():
+            fn()
+            fn()
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        fns["replayed"]()
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items() if c.launches}
+        t = timed_blocks(torch, fns, TIMING_UNITS["gan"], TIMING_ROUNDS)
+        for mode, fn in fns.items():
+            rows, _ = device_rows(torch, fn, 3)
+            r = t[mode]
+            r["device_ms"] = sum(x[1] for x in rows)
+            r["kernels"] = sum(kernel_counts(
+                (k, n) for k, _, n in rows).values())
+            r["idle_share"] = 1 - r["device_ms"] / r["median_ms"]
+            print(f"zoo 9c on {card}: {name} {mode} bfloat16: median "
+                  f"{r['median_ms']:.3f} ms per iteration, quartiles "
+                  f"{r['q1_ms']:.3f}-{r['q3_ms']:.3f} ({TIMING_ROUNDS} "
+                  f"blocks of {TIMING_UNITS['gan']}); device "
+                  f"{r['device_ms']:.3f} ms in {r['kernels']:.0f} kernels; "
+                  f"idle share {r['idle_share']:.3f}; launches counted over "
+                  f"one replay {counts}", flush=True)
+        if counts != {k: v for k, v in zoo_per_step(name, False).items()
+                      if v}:
+            raise AssertionError(f"9c {name}: launches of one replay "
+                                 f"{counts}")
+        t["launches"] = counts
+        out[name] = t
+        del fns
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_cli(torch, counters, routed, data: Path) -> dict:
+    """9d: the CLIs on phase 6's tree, 2 epochs of 10 iterations each,
+    epoch 1 under set_sync_debug_mode("error"): ``meanTeacherTrainer`` and
+    ``crossPseTrainer`` through ``run_main``, CoraNet's stage A, then
+    stage B from its ``pre_best`` (pred_step 1: the pseudo-labels made at
+    both epochs); the launches of each training run; then ``-p test`` (the
+    trois CSV) and ``-p pseudo`` (the PNG dumps) of each."""
+    import numpy as np
+
+    from smsut_tpu_torch.train.cli import make_parser, run_main
+    from smsut_tpu_torch.train.steps.cross_pseudo import CrossPseudo
+    from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
+    from smsut_tpu_torch.trainer import coraNetTrainer
+
+    from smsut_tpu_torch.data.dataset import get_label_npys, get_loader
+
+    expr = FIT_DIR / "expr_zoo"
+    slices, _ = get_label_npys(str(data), "test")
+    steps = FIT_EPOCHS * FIT_ITERS
+    fwd = FIT_EPOCHS * FIT_TEST_BATCHES
+    # CoraNet B's sweep: the val slices, in chunks of 8
+    sweep = -(-len(get_loader(str(data), "val", 0, 1).dataset) // 8)
+    stage = ("pre_epoch=2", "cora_epoch=2", "pred_step=1")
+    plan = (("meanTeacher", "mt", (), MeanTeacher, None),
+            ("crossPse", "cps", (), CrossPseudo, None),
+            ("coraPre", "cora", (), None, stage),
+            ("coraNet", "cora", ("-i", "000"), None, stage))
+    out = {}
+    for name, nm, extra, cls, sets in plan:
+        args = fit_args(data, expr, nm, *(sets or ()))
+        argv = ["-p", "train", *extra] + args
+        spans = []
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        with sync_checked_epoch(torch, 1), epoch_clock(spans):
+            if cls is not None:
+                run_main(cls, make_parser().parse_args(argv))
+            else:
+                coraNetTrainer.main(make_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        n_sweep = FIT_EPOCHS * sweep if name == "coraNet" else 0
+        want = {k: steps * v + (fwd + n_sweep) * PER_FORWARD[False].get(k, 0)
+                for k, v in zoo_per_step(name, False).items()}
+        idx = "001" if name == "coraNet" else "000"
+        model = expr / nm / idx
+        log = (model / "train.log").read_text()
+        losses = [float(x) for x in re.findall(r"\[TRN\].* loss: ([^/]+)/",
+                                               log)]
+        last = "pre_last" if name == "coraPre" else "last"
+        ckpt = torch.load(model / "ckpt" / f"{last}.ckpt",
+                          map_location="cpu", weights_only=True)
+        period = per_iteration_ms(spans[1], FIT_ITERS)
+        plab = re.findall(r"Pseudo label dice : ([0-9.e-]+)", log)
+        print(f"zoo 9d {name}: -p train launches {counts} (expected {want}),"
+              f" routed {routed_counts(routed)}; steps {ckpt['step']}; [TRN] "
+              f"losses {losses}; epoch-1 ms per iteration {period:.3f} (no "
+              f"host wait: set_sync_debug_mode error passed); pseudo-label "
+              f"Dice {plab}", flush=True)
+        if (counts != want or any(routed_counts(routed).values())
+                or ckpt["step"] != steps or len(losses) != FIT_EPOCHS
+                or not np.isfinite(losses).all()
+                or log.count("[TST]") != FIT_EPOCHS
+                or (name == "coraNet" and len(plab) != FIT_EPOCHS)):
+            raise AssertionError(f"9d {name}: launches {counts} vs {want}, "
+                                 f"step {ckpt['step']}, losses {losses}")
+        out[name] = {"launches": counts, "expected": want, "losses": losses,
+                     "period_ms": period, "plab_dice": plab}
+        if name == "coraPre":
+            continue
+        best = "best"
+        for phase in ("test", "pseudo"):
+            argv = ["-p", phase, "-i", idx, "-wh", best] + args
+            t0 = time.perf_counter()
+            if cls is not None:
+                run_main(cls, make_parser().parse_args(argv))
+            else:
+                coraNetTrainer.main(make_parser().parse_args(argv))
+            out[name][f"{phase}_s"] = time.perf_counter() - t0
+        rows = [r for r in (model / "all_trois_matrix.csv").read_text()
+                .split("\n") if r]
+        vals = np.array([[float(v) for v in r.split(",")] for r in rows])
+        dumps = sorted((model / "pseudo").iterdir())
+        kinds = {k: sum(p.name.endswith(k + ".png") for p in dumps)
+                 for k in ("pse", "gt", "ori")}
+        print(f"zoo 9d {name}: -p test {out[name]['test_s']:.1f} s, CSV "
+              f"{vals.shape}, mean Dice {vals[4, 4]:.4f}; -p pseudo "
+              f"{out[name]['pseudo_s']:.1f} s, dumps {kinds}", flush=True)
+        if (vals.shape != (10, 5) or not np.isfinite(vals).all()
+                or any(n != slices for n in kinds.values())):
+            raise AssertionError(f"9d {name}: CSV {vals.shape}, dumps "
+                                 f"{kinds}")
+        out[name]["csv"] = vals.tolist()
+    return out
+
+
+def zoo_serving(torch) -> dict:
+    """9e: ``export_eval`` -> ``load_serving`` -> ``predict`` of each new
+    algorithm and of ``uganConsis``, float32: the served logits equal the
+    algorithm's ``eval_fn`` on the same parameters to the bit."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.serve import export_eval, load_serving
+
+    cfg = Config(input_size=256, base_width=16, batch_size=8,
+                 compute_dtype="float32")
+    req = torch.from_numpy(ellipse_batch(np, seed=5)["img"]).cuda()
+    out = {}
+    for name in ("meanTeacher", "crossPse", "coraNet", "uganConsis"):
+        algo = zoo_algo(name, cfg)
+        params = algo.eval_params(algo.init_state(0))
+        art = ROOT / "build" / "chip_smoke_serving" / f"zoo_{name}"
+        export_eval(algo, params, cfg, str(art))
+        predict, manifest = load_serving(str(art))
+        got = [predict(req) for _ in range(3)]
+        want = algo.eval_fn(params, req)
+        diff = max(float((g - want).abs().max()) for g in got)
+        print(f"zoo 9e {manifest['algo']}: served logits {tuple(got[0].shape)}"
+              f" vs eval_fn max |diff| {diff} (must be 0)", flush=True)
+        if diff != 0 or list(got[0].shape) != manifest["output"]["shape"]:
+            raise AssertionError(f"9e {name}: diff {diff}")
+        out[manifest["algo"]] = diff
+        del predict, algo
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(torch, ops, counters, routed, card: str) -> dict:
+    """Phase 9: 9a-9e (9d on phase 6's tree)."""
+    import torch.backends.cudnn as cudnn
+
+    a = zoo_steps(torch, ops, counters, routed)
+    b = zoo_gates(torch, ops)
+    # cuDNN picks deterministic algorithms for the bit-equality checks
+    # alone: its default float32 weight gradient of the stem conv
+    # (wgrad_alg0, which adds with atomics) differs from run to run
+    n = zoo_cudnn(torch, ops)
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        c = zoo_replays(torch)
+        e = zoo_serving(torch)
+    finally:
+        cudnn.deterministic = det
+    t = zoo_timing(torch, counters, routed, card)
+    d = zoo_cli(torch, counters, routed, FIT_DIR / "data")
+    return {"steps": a, "gates": b, "cudnn": n, "replays": c, "timing": t,
+            "cli": d, "serving": e}
+
+
 def main() -> int:
     import torch
 
@@ -2480,6 +3010,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dispatch = dispatch_phase(torch, ops, counters, routed, card)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    zoo = zoo_phase(torch, ops, counters, routed, card)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
@@ -2519,7 +3052,8 @@ def main() -> int:
                 *fit["cli"].values(), *fit["watched"].values(),
                 *gan["steps"].values(), gan["cli"],
                 *dispatch["unet"].values(), *dispatch["gan"].values(),
-                *dispatch["fits"].values(), dispatch["predict"])
+                *dispatch["fits"].values(), dispatch["predict"],
+                *zoo["steps"].values(), *zoo["cli"].values())
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -2544,6 +3078,7 @@ def main() -> int:
                                      gan["steps"].items()},
                            "cli": gan["cli"]},
                    "dispatch": json.loads(json.dumps(dispatch, default=str)),
+                   "zoo": json.loads(json.dumps(zoo, default=str)),
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,10 @@
 # -*- coding: utf-8 -*-
 """Carry weights between the flax parameter trees of the JAX package and
-the port's ``state_dict``: the U-Net, the UGAN generators (``UGAN``,
-``UGANnce`` with its ``netF``) and the discriminator.
+the port's ``state_dict``: the U-Net (CoraNet's 13-channel one too), the
+UGAN generators (``UGAN``, ``UGANnce`` with its ``netF``) and the
+discriminator; and a JAX train state's parameter trees at once
+(:func:`state_trees_from_flax`: the parameters, Mean Teacher's and
+CoraNet's ``ema_params``, cross-pseudo supervision's ``params2``).
 
 Paths match one for one (``encoder/layer1/conv1/kernel`` <->
 ``encoder.layer1.conv1.weight``).  Conv kernels are HWIO on both sides,
@@ -71,6 +74,20 @@ def to_flax(state: Union[nn.Module, Mapping[str, torch.Tensor]]
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(a)
     return tree
+
+
+# the parameter trees a JAX TrainState may hold, by field name
+STATE_TREES = ("params", "ema_params", "params2")
+
+
+def state_trees_from_flax(state: Any) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The parameter trees of a JAX ``TrainState`` (read as attributes of
+    ``jax.device_get(state)`` or keys of a mapping) that are present, as
+    the port's ``state_dict``s by field name: ``params`` always,
+    ``ema_params`` and ``params2`` where the state holds them."""
+    get = (state.get if isinstance(state, Mapping)
+           else lambda k: getattr(state, k, None))
+    return {k: from_flax(get(k)) for k in STATE_TREES if get(k) is not None}
 
 
 # one mapping serves every model of the port: the U-Net takes the plain

@@ -7,11 +7,21 @@ Port of the unpacked losses of ``smsut_tpu/ops/losses.py``:
 ``cross_entropy_loss`` and ``dice_and_ce_loss`` (the reference's
 ``DiceAndCrossEntropyLoss`` with ``batch_dice=True``, the loss of every
 trainer), and the GAN's ``argmax_consistency_loss``, ``patch_nce_loss``,
-``nce_loss_over_layers``, ``l1_loss`` and ``softmax_ce_with_logits``.  No kernel: the JAX package leaves them to XLA too.
+``nce_loss_over_layers``, ``l1_loss`` and ``softmax_ce_with_logits``; Mean
+Teacher's ``softmax_mse_consistency``; and CoraNet's three-head losses
+(``split_heads``, ``coranet_weights``, ``three_head_losses`` and the stage-B
+terms of ``smsut_tpu/train/steps/coranet.py``) in their plain form.  The
+JAX package evaluates the CoraNet tail channel-first in one fused pass, a
+TPU lane-padding device with the same math (its own tests hold it against
+the plain form); the packed variants (``dice_and_ce_loss_packed*``,
+``softmax_mse_consistency_packed``, ``argmax_packed``) serve
+``pack_levels``/``packed_loss_tails``, which do nothing in the port
+(config.py), and are not ported.  No kernel: the JAX package leaves them
+to XLA too.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -144,3 +154,75 @@ def softmax_ce_with_logits(logits: torch.Tensor,
     logp = torch.log_softmax(acc(logits), dim=-1)
     return -(logp * one_hot_last(target_index, logits.shape[-1])).sum(
         dim=-1).mean()
+
+
+def softmax_mse_consistency(student_logits: torch.Tensor,
+                            teacher_logits: torch.Tensor) -> torch.Tensor:
+    """Mean Teacher's consistency: the mean squared difference of the two
+    softmaxes over the last axis."""
+    ps = torch.softmax(acc(student_logits), dim=-1)
+    pt = torch.softmax(acc(teacher_logits), dim=-1)
+    return (ps - pt).square().mean()
+
+
+# ---------------------------------------------------------------------------
+# CoraNet: one shared background logit and three heads of n_label channels
+# (normal, conservative, radical), NHWC
+# ---------------------------------------------------------------------------
+
+def coranet_weights(n_label: int, device: Union[str, torch.device] = "cpu"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chaos variant's class weights of the conservative and radical
+    heads' CE: [1, 5, ..., 5] over-weighs the organs, [5, 1, ..., 1] the
+    background (a quirk of the reference's configuration, kept)."""
+    w_con = torch.tensor([1.0] + [5.0] * n_label, device=device)
+    w_rad = torch.tensor([5.0] + [1.0] * n_label, device=device)
+    return w_con, w_rad
+
+
+def split_heads(out: torch.Tensor, n_label: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[..., 3 n_label + 1] -> the three heads' (1 + n_label)-channel
+    logits, each led by the shared background channel."""
+    back = out[..., :1]
+    return tuple(torch.cat([back, out[..., 1 + k * n_label:
+                                      1 + (k + 1) * n_label]], dim=-1)
+                 for k in range(3))
+
+
+def three_head_losses(out: torch.Tensor, msk: torch.Tensor,
+                      w_con: torch.Tensor, w_rad: torch.Tensor,
+                      n_label: int, weight_dc: float, weight_ce: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(cedc, con, rad): Dice+CE (batch dice) of head 0, and the class-
+    weighted CE of heads 1 and 2."""
+    h0, h1, h2 = split_heads(out, n_label)
+    cedc = dice_and_ce_loss(h0, msk, weight_dc, weight_ce, batch_dice=True)
+    return (cedc, cross_entropy_loss(h1, msk, w_con),
+            cross_entropy_loss(h2, msk, w_rad))
+
+
+def masked_certain_loss(h0: torch.Tensor, labels: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """CoraNet's certain term on pseudo-labels: (CE of head 0 over the
+    pixels where ``mask`` is 1, and its per-image soft Dice) / 2."""
+    nll = cross_entropy_loss(h0, labels, reduce=False)
+    mask = mask.to(nll.dtype)
+    ce = (nll * mask).sum() / (mask.sum() + 1e-16)
+    return (ce + soft_dice_loss(h0, labels, batch_dice=False)) / 2.0
+
+
+def masked_head_mse(student: torch.Tensor, teacher: torch.Tensor,
+                    n_label: int, umask: torch.Tensor) -> torch.Tensor:
+    """CoraNet's uncertain term before its weight: the squared difference
+    of the student's and the teacher's softmaxes, summed over the three
+    heads' channels and the pixels where ``umask`` is 1, over the count of
+    those pixels, over 3."""
+    umask = umask.to(acc(student).dtype)
+    dist = 0.0
+    for s, t in zip(split_heads(student, n_label),
+                    split_heads(teacher.detach(), n_label)):
+        d = (torch.softmax(acc(s), dim=-1)
+             - torch.softmax(acc(t), dim=-1)).square().sum(dim=-1)
+        dist = dist + (d * umask).sum()
+    return dist / (umask.sum() + 1e-16) / 3.0

@@ -1,9 +1,9 @@
 # -*- coding: utf-8 -*-
-"""The poly learning-rate schedule as a function of the step counter, and
-the sigmoid rampup.
+"""The poly learning-rate schedule as a function of the step counter, the
+sigmoid rampup and the EMA decay of Mean Teacher and CoraNet.
 
-Port of ``poly_lr_schedule``, ``poly_lr_host`` and ``sigmoid_rampup`` of
-``smsut_tpu/ops/schedules.py``.  The reference mutates the optimizer's LR
+Port of ``poly_lr_schedule``, ``poly_lr_host``, ``sigmoid_rampup`` and
+``mean_teacher_alpha`` of ``smsut_tpu/ops/schedules.py``.  The reference mutates the optimizer's LR
 after each step, so step k trains with poly(max(k - 1, 0)); both functions
 keep that one-step lag, and clamp the base at 0 past ``total_iters``.
 :func:`poly_lr_table` lists ``poly_lr_host`` by step count, so that the
@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
+import torch
 
 
 def poly_lr_host(base_lr: float, step: int, total_iters: int,
@@ -52,3 +53,28 @@ def sigmoid_rampup(current: float, rampup_length: float) -> float:
     current = np.clip(current, 0.0, rampup_length)
     phase = 1.0 - current / rampup_length
     return float(np.exp(-5.0 * phase * phase))
+
+
+def mean_teacher_alpha(iteration: int, ema_decay: float = 0.99) -> float:
+    """The EMA decay: 0 for the first 100 iterations, then min(1 - 1/(t +
+    1), ``ema_decay``).  Host-side."""
+    if iteration < 100:
+        return 0.0
+    return min(1.0 - 1.0 / (iteration + 1), ema_decay)
+
+
+def ema_alpha(iteration: torch.Tensor, ema_decay: float = 0.99
+              ) -> torch.Tensor:
+    """:func:`mean_teacher_alpha` of a 0-d device count, on the device and
+    in float32 as the JAX step computes it, so that a replayed graph reads
+    the count it runs at."""
+    it = iteration.to(torch.float32)
+    return torch.where(it < 100, torch.zeros_like(it),
+                       torch.clamp(1.0 - 1.0 / (it + 1.0), max=ema_decay))
+
+
+def gate(count: torch.Tensor, at: int,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """1 from device count ``at`` on, else 0, as a 0-d tensor of ``dtype``
+    on the count's device."""
+    return (count >= at).to(dtype)

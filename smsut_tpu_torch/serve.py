@@ -1,8 +1,12 @@
 # -*- coding: utf-8 -*-
 """Serving export: save a model's eval parameters with a manifest, and load
-them back as a ``predict`` function.
+them back as a ``predict`` function, for every algorithm of the port
+(:func:`factories`: the U-Net, Mean Teacher's student, cross-pseudo
+supervision's net 1, CoraNet's head 0, the UGAN family's segmentation
+logits; :func:`_seg_logits_fn` as in the JAX package's ``serve.py``).
 
-The manifest keeps the I/O contract of the JAX package's ``serve.py``.
+The manifest keeps the I/O contract of the JAX package's ``serve.py``,
+``algo`` the algorithm's class name.
 Input: ``img`` float32 [B, input_size, input_size, 1], already
 ToTensor+Normalize(0.5, 0.5) normalised to [-1, 1].  Output: float32 seg
 logits [B, H, W, n_class] (argmax -> label map).
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -32,13 +36,51 @@ MANIFEST = "manifest.json"
 PLATFORMS = ("cuda", "cpu")
 
 
+def factories() -> Dict[str, Tuple[str, Callable]]:
+    """Zoo name (tools/export_serving.py's MODEL) -> (the class name,
+    which the manifest holds as ``algo``, and ``factory(cfg, device)``) of
+    every servable algorithm (CoraNet's stage B reads head 0, as its test
+    phase does)."""
+    from smsut_tpu_torch.train.steps.coranet import CoraNet
+    from smsut_tpu_torch.train.steps.cross_pseudo import CrossPseudo
+    from smsut_tpu_torch.train.steps.gan import (UGANConsisAlgo, UGANShp0Algo,
+                                                 UGANTrainerAlgo)
+    from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    out = {name: (c.__name__, c) for name, c in (
+        ("unet", SupervisedUNet), ("meanTeacher", MeanTeacher),
+        ("crossPse", CrossPseudo), ("ugan", UGANTrainerAlgo),
+        ("uganShp0", UGANShp0Algo), ("uganConsis", UGANConsisAlgo))}
+    out["coraNet"] = ("CoraNet", lambda cfg, device: CoraNet(
+        cfg, device, stage="cora"))
+    return out
+
+
+def _by_class() -> Dict[str, Callable]:
+    """Class name -> factory, of :func:`factories`."""
+    return dict(factories().values())
+
+
+def _seg_logits_fn(algo) -> Callable:
+    """The algorithm's eval forward reduced to bare segmentation logits
+    (an eval_fn that returns a tuple serves its first element)."""
+
+    def fn(params, img):
+        out = algo.eval_fn(params, img)
+        return out[0] if isinstance(out, tuple) else out
+
+    return fn
+
+
 def export_eval(algo, params: Any, cfg: Config, out_dir: str,
                 batch_size: int = 0) -> str:
-    """Write ``params`` and the manifest to ``out_dir``; return the
-    parameter file's path.  ``batch_size`` defaults to cfg.batch_size."""
-    if type(algo).__name__ != "SupervisedUNet":
-        raise NotImplementedError(f"serving {type(algo).__name__} is not "
-                                  f"ported yet")
+    """Write ``params`` (the algorithm's ``eval_params``) and the manifest
+    to ``out_dir``; return the parameter file's path.  ``batch_size``
+    defaults to cfg.batch_size."""
+    if type(algo).__name__ not in _by_class():
+        raise NotImplementedError(f"serving {type(algo).__name__}: not one "
+                                  f"of {sorted(_by_class())}")
     bs = batch_size or cfg.batch_size
     hw = cfg.input_size
     os.makedirs(out_dir, exist_ok=True)
@@ -60,7 +102,8 @@ def export_eval(algo, params: Any, cfg: Config, out_dir: str,
             "model": {"base_width": cfg.base_width,
                       "img_channels": cfg.img_channels,
                       "compute_dtype": cfg.compute_dtype,
-                      "block_pallas": bool(cfg.block_pallas)},
+                      "block_pallas": bool(cfg.block_pallas),
+                      "n_modal": cfg.n_modal, "netF_nc": cfg.netF_nc},
         }, f, indent=2)
     return path
 
@@ -74,28 +117,28 @@ def load_serving(out_dir: str,
     manifest's input shape and returns a float32 tensor on ``device``: the
     card unless ``device`` names another (no CUDA and no device raises).
     ``capture=False`` runs the forward eagerly on the card."""
-    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
-
     device = resolve_device(device)
     with open(os.path.join(out_dir, MANIFEST)) as f:
         manifest = json.load(f)
-    if manifest["algo"] != "SupervisedUNet":
-        raise NotImplementedError(f"serving {manifest['algo']} is not "
-                                  f"ported yet")
+    factory = _by_class().get(manifest["algo"])
+    if factory is None:
+        raise NotImplementedError(f"serving {manifest['algo']}: not one of "
+                                  f"{sorted(_by_class())}")
     shape = manifest["input"]["shape"]
     m = manifest["model"]
     cfg = Config(input_size=shape[1], batch_size=shape[0],
                  img_channels=m["img_channels"], base_width=m["base_width"],
                  n_label=manifest["n_class"] - 1,
                  compute_dtype=m["compute_dtype"],
-                 block_pallas=m["block_pallas"])
-    algo = SupervisedUNet(cfg, device)
+                 block_pallas=m["block_pallas"],
+                 **{k: m[k] for k in ("n_modal", "netF_nc") if k in m})
+    algo = factory(cfg, device)
     params = algo.eval_params(torch.load(
         os.path.join(out_dir, manifest["artifact"]), map_location="cpu",
         weights_only=True))
+    seg = _seg_logits_fn(algo)
 
-    forward = Replay(lambda inp: {"logits": algo.eval_fn(params,
-                                                         inp["img"])},
+    forward = Replay(lambda inp: {"logits": seg(params, inp["img"])},
                      device, capture)
 
     def predict(img) -> torch.Tensor:

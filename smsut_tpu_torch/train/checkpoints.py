@@ -5,7 +5,9 @@ Port of ``smsut_tpu/train/checkpoints.py``: each tag holds the full train
 state -- step, parameters and optimizer state -- so that a run can resume.
 Where the JAX package writes an orbax directory, the port writes one
 ``torch.save`` file, ``{ckpt_root}/{prefix}.ckpt``, with float32 CPU
-tensors: ``{"step", "params", "opt_state"}`` for a ``TrainState``, and
+tensors: ``{"step", "params", "opt_state"}`` for a ``TrainState``, with
+``ema_params`` (Mean Teacher, CoraNet) and ``params2``/``opt_state2``
+(cross-pseudo supervision) where the state holds them, and
 ``{"step", "g_params", "g_opt_state", "d_params", "d_opt_mu",
 "d_opt_nu", "d_opt_count"}`` for a ``GANTrainState`` (SGD traces of G,
 Adam moments and update count of D).  A restored state's device step
@@ -39,7 +41,11 @@ def _trees(state) -> Dict[str, Dict[str, torch.Tensor]]:
                 "d_params": state.d_params,
                 "d_opt_mu": state.d_opt_state.mu,
                 "d_opt_nu": state.d_opt_state.nu}
-    return {"params": state.params, "opt_state": state.opt_state}
+    trees = {"params": state.params, "opt_state": state.opt_state}
+    for name in ("ema_params", "params2", "opt_state2"):
+        if getattr(state, name) is not None:
+            trees[name] = getattr(state, name)
+    return trees
 
 
 def save_state(state: Union[TrainState, GANTrainState], ckpt_root: str,

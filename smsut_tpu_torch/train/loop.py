@@ -2,8 +2,9 @@
 """The fit / validate / test harness.
 
 Port of ``smsut_tpu/train/loop.py`` ``Trainer``: one generic epoch loop
-drives an algorithm object (``SupervisedUNet``, the GAN algorithms of
-``train/steps/gan.py``) while the host keeps the
+drives an algorithm object (``SupervisedUNet``, ``MeanTeacher``,
+``CrossPseudo``, ``CoraNet``, the GAN algorithms of ``train/steps/gan.py``)
+while the host keeps the
 reference's semantics -- in-turn loaders, per-modality loss metering, the
 slice->volume scatter for evaluation, mean-Dice model selection, best/last
 checkpoints, and the trois CSV in the test phase.
@@ -27,6 +28,14 @@ one iteration at a time.  ``eval_scan`` keeps the test set on the card as
 uint8 stacks and replays one graph of the eval forward per batch;
 ``eval_scan=False`` runs the per-batch eager sweep.  ``Trainer(...,
 capture=False)`` runs the same iterations and sweep eagerly.
+
+Each stream of host draws has its own generator (ROADMAP C: the JAX
+package shares one between both loaders, whose producer threads then draw
+from it in an order that follows their timing): the labelled loader's
+order and host augmentation ``labeled_loader_rng`` (``random.Random(seed)``,
+the JAX package's stream for a run that draws one loader), the unlabelled
+loader's ``unlabeled_loader_rng`` (seed + 303), and CoraNet's pseudo-label
+sweep ``pseudo_sweep_rng`` (seed + 404), each made when ``fit`` starts.
 
 Not ported: the mesh and multi-host runs, and ``profile_dir`` tracing;
 those knobs are accepted and do nothing (config.py).
@@ -127,8 +136,8 @@ class Trainer:
 
     def _log_param_counts(self) -> None:
         """The reference's startup parameter-count log line, per network."""
-        for label, attr in (("net", "params"), ("G", "g_params"),
-                            ("D", "d_params")):
+        for label, attr in (("net", "params"), ("net2", "params2"),
+                            ("G", "g_params"), ("D", "d_params")):
             tree = getattr(self.state, attr, None)
             if tree is not None:
                 n = count_param_number(tree)
@@ -165,10 +174,12 @@ class Trainer:
     def fit(self, loader_type: str = "inTurn") -> None:
         cfg = self.cfg
         tic = time.time()
-        data_rng = random.Random(cfg.seed)
+        self.labeled_loader_rng = random.Random(cfg.seed)
+        self.unlabeled_loader_rng = random.Random(cfg.seed + 303)
+        self.pseudo_sweep_rng = random.Random(cfg.seed + 404)
         raw = bool(cfg.device_augment)
-        self.device_aug = (DeviceAugment(cfg, data_rng, self.device)
-                           if raw else None)
+        self.device_aug = (DeviceAugment(cfg, self.labeled_loader_rng,
+                                         self.device) if raw else None)
         if loader_type not in ("inTurn", "balance"):
             raise NotImplementedError(loader_type)
         if self._chunk_T > 1:
@@ -176,10 +187,12 @@ class Trainer:
             cfg = cfg.replace(prefetch_depth=max(cfg.prefetch_depth,
                                                  2 * self._chunk_T))
         lb_loader = get_loader(cfg.base_root, "train", self.fold, cfg.batch_size,
-                               cfg.data_aug, cfg=cfg, rng=data_rng, raw=raw,
+                               cfg.data_aug, cfg=cfg,
+                               rng=self.labeled_loader_rng, raw=raw,
                                loader_type=loader_type)
         ul_loader = get_loader(cfg.base_root, "val", self.fold, cfg.batch_size,
-                               cfg.data_aug, cfg=cfg, rng=data_rng, raw=raw,
+                               cfg.data_aug, cfg=cfg,
+                               rng=self.unlabeled_loader_rng, raw=raw,
                                loader_type=loader_type)
         test_loader = get_loader(cfg.base_root, "test", 0, cfg.batch_size, cfg=cfg)
         # the producer threads draw the augmentation's parameters, from

@@ -3,7 +3,8 @@
 
 Port of ``make_sgd``, ``make_adam``, ``TrainState`` and ``GANTrainState``
 of ``smsut_tpu/train/state.py``, as optax's chains run them, both under
-the per-iteration poly LR:
+the per-iteration poly LR (and :func:`make_constant_sgd`, the chain of
+CoraNet's stage A, ``optax.scale(-lr)``: no poly, no lag):
 
 - SGD (momentum 0.9, weight_decay 1e-3), ``add_decayed_weights ->
   trace(momentum) -> scale_by_learning_rate``:
@@ -33,7 +34,7 @@ that changes from step to step, so a CUDA graph of the step
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -107,9 +108,17 @@ class SGD:
         torch._foreach_sub_(ps, torch._foreach_mul(ts, lr))
 
 
-def make_sgd(cfg: Config, momentum: float = 0.9) -> SGD:
-    return SGD(poly_lr_table(cfg.lr, cfg.total_iters), cfg.weight_decay,
-               momentum)
+def make_sgd(cfg: Config, momentum: float = 0.9,
+             total_iters: Optional[int] = None) -> SGD:
+    """SGD under the poly LR over ``total_iters`` (``cfg.total_iters``
+    unless given)."""
+    return SGD(poly_lr_table(cfg.lr, total_iters or cfg.total_iters),
+               cfg.weight_decay, momentum)
+
+
+def make_constant_sgd(cfg: Config, momentum: float = 0.9) -> SGD:
+    """SGD at ``cfg.lr`` for every count: a one-row table."""
+    return SGD(np.array([cfg.lr], np.float64), cfg.weight_decay, momentum)
 
 
 @dataclasses.dataclass
@@ -172,23 +181,46 @@ def make_adam(cfg: Config, b1: float = 0.9, b2: float = 0.999) -> Adam:
 @dataclasses.dataclass
 class TrainState:
     """Step count (host mirror), float32 parameters, momentum traces and
-    the device step count."""
+    the device step count; Mean Teacher and CoraNet add the teacher's EMA
+    parameters (``ema_params``), cross-pseudo supervision a second network
+    (``params2``, ``opt_state2``) under the same optimizer and count."""
     step: int
     params: Params
     opt_state: Params
     tx: SGD
     count: torch.Tensor
+    ema_params: Optional[Params] = None
+    params2: Optional[Params] = None
+    opt_state2: Optional[Params] = None
 
     @classmethod
-    def create(cls, params: Params, tx: SGD) -> "TrainState":
+    def create(cls, params: Params, tx: SGD,
+               ema_params: Optional[Params] = None,
+               params2: Optional[Params] = None) -> "TrainState":
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
-                   count=zero_count(params))
+                   count=zero_count(params), ema_params=ema_params,
+                   params2=params2,
+                   opt_state2=None if params2 is None else tx.init(params2))
 
-    def update(self, grads: Params) -> None:
-        """One SGD update at the device count's LR, in place, and the
-        device count advanced; the host ``step`` is left to the caller."""
+    def update(self, grads: Params, grads2: Optional[Params] = None) -> None:
+        """One SGD update at the device count's LR, in place (of both
+        networks with ``grads2``, at the same LR), and the device count
+        advanced once; the host ``step`` is left to the caller."""
         self.tx.update_(self.params, self.opt_state, grads, self.count)
+        if grads2 is not None:
+            self.tx.update_(self.params2, self.opt_state2, grads2,
+                            self.count)
         self.count.add_(1)
+
+    @torch.no_grad()
+    def ema_update_(self, alpha: torch.Tensor) -> None:
+        """``ema = ema * alpha + params * (1 - alpha)`` in place, ``alpha``
+        a 0-d device tensor."""
+        keys = list(self.ema_params)
+        ema = [self.ema_params[k] for k in keys]
+        torch._foreach_mul_(ema, alpha)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [self.params[k] for k in keys], 1.0 - alpha))
 
     def apply_gradients(self, grads: Params) -> "TrainState":
         """:meth:`update` and the host ``step`` advanced; returns self."""

@@ -22,3 +22,9 @@ def setup_compute(cfg: Config) -> torch.dtype:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return _DTYPES[cfg.compute_dtype]
+
+
+def loss_weight(w):
+    """A loss weight of a step: a 0-d device tensor as it is (set per epoch,
+    read by a replayed graph), a number as a float."""
+    return w if isinstance(w, torch.Tensor) else float(w)

@@ -55,7 +55,7 @@ from smsut_tpu_torch.ops.losses import (argmax_consistency_loss,
                                         softmax_ce_with_logits)
 from smsut_tpu_torch.ops.schedules import sigmoid_rampup
 from smsut_tpu_torch.train.state import GANTrainState
-from smsut_tpu_torch.train.steps import setup_compute
+from smsut_tpu_torch.train.steps import loss_weight, setup_compute
 from smsut_tpu_torch.utils.io import imwrite_gray
 
 Params = Dict[str, torch.Tensor]
@@ -64,11 +64,6 @@ Params = Dict[str, torch.Tensor]
 def label2onehot(mdl, n_modal: int) -> np.ndarray:
     """float32 one-hot rows of the host labels ``mdl``."""
     return np.eye(n_modal, dtype=np.float32)[np.asarray(mdl)]
-
-
-def _weight(w):
-    """A loss weight: a 0-d device tensor as it is, a number as a float."""
-    return w if isinstance(w, torch.Tensor) else float(w)
 
 
 def _grads(loss: torch.Tensor, leaves: Params) -> Params:
@@ -307,12 +302,12 @@ class UGANBase:
         if self.variant == "ugan":
             g_shp = dice_and_ce_loss(y_rec, y_real, cfg.weight_dc,
                                      cfg.weight_ce, batch_dice=True)
-            total = total + _weight(scalars["lambda_shp"]) * g_shp
+            total = total + loss_weight(scalars["lambda_shp"]) * g_shp
             metrics["G_shp"] = g_shp
         if self.variant == "uganConsis":
             g_semi = argmax_consistency_loss(y_rec, y_fake, cfg.weight_dc,
                                              cfg.weight_ce) * gate
-            total = total + _weight(scalars["lambda_semi"]) * g_semi
+            total = total + loss_weight(scalars["lambda_semi"]) * g_semi
             metrics["G_semi"] = g_semi
         if self.with_nce:
             g_nce = nce_loss_over_layers([feat_x], [feat_f], bs,

@@ -101,9 +101,10 @@ class SupervisedUNet:
     def train_step(self, state: TrainState, batch: Mapping,
                    scalars: Optional[Mapping] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One iteration: :meth:`inputs`, :meth:`step`, the host step
-        advanced.  The state passed in is consumed (updated in place)."""
-        metrics = self.step(state, self.inputs(batch))
+        """One iteration: :meth:`inputs`, :meth:`step` (with ``scalars``,
+        :meth:`epoch_scalars`), the host step advanced.  The state passed
+        in is consumed (updated in place)."""
+        metrics = self.step(state, self.inputs(batch), scalars)
         state.step += 1
         return state, metrics
 

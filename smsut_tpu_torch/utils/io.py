@@ -18,7 +18,10 @@ the JAX package reads and writes these files through PyYAML and OpenCV.
 - PNG: 8-bit greyscale (colour type 0), non-interlaced, as ``cv2.imwrite``
   writes a 2-D uint8 array; all five row filters on read, the Sub filter on
   write (as OpenCV writes them).  Any other kind of PNG raises
-  ``ValueError``.
+  ``ValueError``.  :func:`imwrite_rgb` writes 8-bit RGB (colour type 2),
+  for the pseudo phase's colour dumps, where the JAX package writes JPEGs
+  through PIL.
+- :func:`colorize`: a copy of the JAX package's overlay palette.
 """
 from __future__ import annotations
 
@@ -255,6 +258,40 @@ def imwrite_gray(path: str, img: np.ndarray) -> bool:
     with open(path, "wb") as f:
         f.write(data)
     return True
+
+
+def imwrite_rgb(path: str, img: np.ndarray) -> bool:
+    """Write an [H, W, 3] uint8 array as an 8-bit RGB PNG (Sub filter on
+    every row, over the pixel to the left)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3 \
+            or 0 in img.shape:
+        raise ValueError(f"imwrite_rgb: expected an [H, W, 3] uint8 image, "
+                         f"got {img.dtype} {img.shape}")
+    h, w, _ = img.shape
+    flat = img.reshape(h, 3 * w)
+    rows = np.empty((h, 3 * w + 1), np.uint8)
+    rows[:, 0] = 1
+    rows[:, 1:4] = flat[:, :3]
+    rows[:, 4:] = flat[:, 3:] - flat[:, :-3]      # wraps mod 256
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    data = (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+    return True
+
+
+def colorize(mask: np.ndarray) -> np.ndarray:
+    """The overlay palette of label maps: float64 [H, W, 3], red, green,
+    blue and yellow for labels 1-4, black elsewhere."""
+    colors = [(255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0)]
+    h, w = mask.shape
+    color_img = np.zeros((h, w, 3))
+    for i in range(1, 5):
+        color_img[mask == i, :] = colors[i - 1][:]
+    return color_img
 
 
 def _unfilter_loop(kind: int, filt: np.ndarray, prior: np.ndarray

@@ -1038,3 +1038,108 @@ def test_failed_capture_raises(cuda_device):
     step({"x": x})                      # the eager warm-up
     with pytest.raises(RuntimeError):
         step({"x": x})                  # the capture
+
+
+# ------------------------------------------------- the semi-supervised zoo
+# Mean Teacher, cross-pseudo supervision and CoraNet's two stages: each
+# iteration replayed against eager, and one step against the plain path
+
+ZOO = ("meanTeacher", "crossPse", "coraPre", "coraCora")
+# the device count each starts at: Mean Teacher's gate and EMA alpha flip
+# at 100, CoraNet stage B's gate at 1000, inside five iterations
+ZOO_START = {"meanTeacher": 98, "crossPse": 0, "coraPre": 98,
+             "coraCora": 998}
+
+
+def _zoo(name, device, fused=False, dtype="float32", hw=64, bs=2):
+    """(algorithm, step inputs on the card, epoch scalars as 0-d device
+    tensors) at w16: labelled and unlabelled ellipses, and for CoraNet's
+    stage B a pseudo batch with a random certainty mask.  Mean Teacher
+    draws its teacher noise on the card from the count."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.coranet import CoraNet
+    from smsut_tpu_torch.train.steps.cross_pseudo import CrossPseudo
+    from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
+
+    cfg = Config(input_size=hw, base_width=16, batch_size=bs,
+                 compute_dtype=dtype, block_pallas=fused)
+    algo = {"meanTeacher": lambda: MeanTeacher(cfg, device),
+            "crossPse": lambda: CrossPseudo(cfg, device),
+            "coraPre": lambda: CoraNet(cfg, device, stage="pre"),
+            "coraCora": lambda: CoraNet(cfg, device, stage="cora")}[name]()
+    rng = np.random.default_rng(4)
+    batch = dict(_ellipses(rng, bs, hw), ul_img=_ellipses(rng, bs, hw)["img"])
+    if name == "coraCora":
+        p = _ellipses(rng, bs, hw)
+        batch.update(pse_img=p["img"], pse_lab=p["msk"],
+                     pse_mask=(rng.random((bs, hw, hw)) < 0.7).astype(
+                         np.float32))
+    scalars = {k: torch.tensor(float(v), device=device)
+               for k, v in algo.epoch_scalars(3).items()}
+    return algo, algo.inputs(batch), scalars
+
+
+def _at(state, count):
+    state.step = count
+    state.count.fill_(count)
+    return state
+
+
+_TREES = ("params", "ema_params", "params2")
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_iteration_replays_as_eager(cuda_device, name):
+    """Five float32 iterations (w16, 64^2, 2 + 2) replayed as a CUDA graph
+    against five eager ones from one init, across the gates: the same
+    metrics, the parameters (and EMA, and net 2) within 1e-5, the replays'
+    launches counted as the eager iterations'."""
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    algo, inp, scal = _zoo(name, cuda_device)
+    states = [_at(algo.init_state(0), ZOO_START[name]) for _ in range(2)]
+    metrics, counts = [], []
+    for st, capture in zip(states, (False, True)):
+        run = iteration(algo, st, inp, scal, capture=capture)
+        before = ops.counts()
+        metrics.append([{k: float(v) for k, v in run().items()}
+                        for _ in range(5)])
+        counts.append([a - b for a, b in zip(ops.counts(), before)])
+    assert metrics[0] == metrics[1]
+    assert counts[0] == counts[1] and any(counts[1])
+    for tree in _TREES:
+        a, b = getattr(states[0], tree), getattr(states[1], tree)
+        assert (a is None) == (b is None)
+        for k, v in (a or {}).items():
+            assert torch.allclose(b[k], v, rtol=1e-5, atol=1e-6), (tree, k)
+    if name == "meanTeacher":   # the gate opens and alpha leaves 0 at 100
+        semi = [m["semi_loss"] for m in metrics[1]]
+        assert semi[:2] == [0.0, 0.0] and all(s > 0 for s in semi[2:])
+        assert metrics[1][1]["alpha"] == 0 and metrics[1][2]["alpha"] > 0.98
+    if name == "coraCora":
+        cert = [m["certain_loss"] for m in metrics[1]]
+        assert cert[:2] == [0.0, 0.0] and all(c > 0 for c in cert[2:])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_step_matches_plain(cuda_device, name, fused):
+    """One float32 step past the gates, kernels against the plain path on
+    the card from one state: the metrics within 1e-3, and every tensor's
+    update (the SGD step, so the gradient) within 1e-2 of its L2 norm, as
+    test_unet_gradients_match_plain holds the U-Net's gradients."""
+    algo, inp, scal = _zoo(name, cuda_device, fused)
+    runs = []
+    for plain in (False, True):
+        st = _at(algo.init_state(0), max(ZOO_START[name] + 2, 0))
+        before = {k: v.clone() for k, v in st.params.items()}
+        with ops.plain() if plain else contextlib.nullcontext():
+            m = algo.step(st, inp, scal)
+        runs.append(({k: float(v) for k, v in m.items()},
+                     {k: st.params[k] - v for k, v in before.items()}))
+    (mk, dk), (mp, dp) = runs
+    for k, w in mp.items():
+        assert abs(mk[k] - w) <= 1e-3 * max(1.0, abs(w)), (k, mk[k], w)
+    for k, w in dp.items():
+        err = float((dk[k] - w).norm() / max(float(w.norm()), 1e-30))
+        assert err <= 1e-2, (k, err)

@@ -130,9 +130,9 @@ def test_cli_refusals(data_root, tmp_path):
     with pytest.raises(SystemExit):
         run_main(SupervisedUNet, make_parser().parse_args(
             ["-p", "test"] + _args(data_root, str(tmp_path))))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(SystemExit):
         run_main(SupervisedUNet, make_parser().parse_args(
-            ["-p", "pseudo", "-i", "000"] + _args(data_root, str(tmp_path))))
+            ["-p", "pseudo"] + _args(data_root, str(tmp_path))))
     with pytest.raises(SystemExit):
         run_main(SupervisedUNet, make_parser().parse_args(
             ["-p", "train", "--set", "no_such_knob=1"]

@@ -92,3 +92,70 @@ def test_block_pallas_export_matches_unfused(exported, tmp_path, rng):
     fused = load_serving(str(tmp_path), device="cpu")[0](img)
     plain = load_serving(out, device="cpu")[0](img)
     torch.testing.assert_close(fused, plain, rtol=1e-4, atol=1e-5)
+
+
+def _zoo(name):
+    """(JAX algorithm, port algorithm class) of a served algorithm."""
+    from smsut_tpu.train.steps.coranet import CoraNet as JCoraNet
+    from smsut_tpu.train.steps.cross_pseudo import CrossPseudo as JCPS
+    from smsut_tpu.train.steps.gan import UGANConsisAlgo as JConsis
+    from smsut_tpu.train.steps.mean_teacher import MeanTeacher as JMT
+    from smsut_tpu_torch.train.steps.coranet import CoraNet
+    from smsut_tpu_torch.train.steps.cross_pseudo import CrossPseudo
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
+
+    cfg = JConfig(**_CFG, nce_patches=4)
+    port = lambda cls, **kw: (lambda c, d: cls(c, d, **kw))
+    return {"MeanTeacher": (JMT(cfg), MeanTeacher),
+            "CrossPseudo": (JCPS(cfg), CrossPseudo),
+            "CoraNet": (JCoraNet(cfg, stage="cora"),
+                        port(CoraNet, stage="cora")),
+            "UGANConsisAlgo": (JConsis(cfg), UGANConsisAlgo)}[name]
+
+
+@pytest.mark.parametrize("name", ["MeanTeacher", "CrossPseudo", "CoraNet",
+                                  "UGANConsisAlgo"])
+def test_zoo_predict_matches_jax_eval(name, tmp_path, rng):
+    """Each semi-supervised algorithm and the paper's method, exported from
+    the JAX package's weights (the student, net 1, the 13-channel U-Net's
+    head 0, the generator's segmentation logits) and served: the manifest
+    names the class, and ``predict`` matches the JAX ``eval_fn``."""
+    jalgo, factory = _zoo(name)
+    params = jax.device_get(jalgo.eval_params(
+        jalgo.init_state(jax.random.PRNGKey(0))))
+    cfg = Config(**_CFG, nce_patches=4)
+    algo = factory(cfg, "cpu")
+    export_eval(algo, algo.eval_params(from_flax(params)), cfg,
+                str(tmp_path))
+    predict, manifest = load_serving(str(tmp_path), device="cpu")
+    assert manifest["algo"] == type(algo).__name__ == name
+    assert manifest["output"]["shape"] == [2, 32, 32, 5]
+    img = rng.normal(size=(2, 32, 32, 1)).astype(np.float32)
+    want = np.asarray(jalgo.eval_fn(params, jnp.asarray(img)))
+    got = predict(img).numpy()
+    assert got.shape == want.shape == (2, 32, 32, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-4)
+
+
+def test_export_tool_serves_a_checkpoint(tmp_path, rng):
+    """tools/export_serving.py: a saved CoraNet checkpoint -> the served
+    head 0 of its parameters."""
+    from smsut_tpu_torch.tools import export_serving
+    from smsut_tpu_torch.train import checkpoints
+    from smsut_tpu_torch.train.steps.coranet import CoraNet
+
+    cfg = Config(**_CFG)
+    algo = CoraNet(cfg, "cpu", stage="pre")
+    state = algo.init_state(3)
+    ckpt = tmp_path / "run" / "ckpt"
+    ckpt.mkdir(parents=True)
+    checkpoints.save_state(state, str(ckpt), "pre_best")
+    sets = [a for kv in _CFG.items() for a in ("--set", "%s=%r" % kv)]
+    export_serving.main(["coraNet", f"{tmp_path / 'run'}:pre_best",
+                         str(tmp_path / "out"), "--device", "cpu"] + sets)
+    predict, manifest = load_serving(str(tmp_path / "out"), device="cpu")
+    assert manifest["algo"] == "CoraNet"
+    img = rng.normal(size=(2, 32, 32, 1)).astype(np.float32)
+    torch.testing.assert_close(predict(img),
+                               algo.eval_fn(state.params, img))

@@ -40,3 +40,57 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     want = want.float()
     return float((got.float() - want).abs().max()
                  / max(1.0, float(want.abs().max())))
+
+
+# the JAX package's strict-parity mode of the semi-supervised steps: float32
+# end to end, unpacked, reduced statistics, host augmentation, one step a
+# dispatch, no tower pairing
+STRICT = dict(compute_dtype="float32", pack_levels=0, norm_stats="reduce",
+              device_augment=False, steps_per_dispatch=1, pair_towers=False,
+              packed_loss_tails=False)
+
+
+def flat(tree, prefix=()):
+    """A nested mapping's leaves as numpy arrays by '/'-joined path."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), np.asarray(v)
+
+
+def assert_trees_close(got, want, what: str, rtol=5e-3, atol=5e-4) -> None:
+    """Two flax-layout trees leaf by leaf (tests/test_torch_train.py's
+    bounds by default)."""
+    got, want = dict(flat(got)), dict(flat(want))
+    assert got.keys() == want.keys(), what
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=rtol, atol=atol,
+                                   err_msg=f"{what}/{k}")
+
+
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """The port's CPU steps share the process with XLA's thread pool; with
+    torch's default of one thread per core the two oversubscribe the host
+    (tests/test_torch_train.py).  Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def at_count(jstate, count: int):
+    """A JAX TrainState moved to step ``count``, its optimizers' counts
+    too (optax's schedules read their own count, which the JAX steps keep
+    equal to the step)."""
+    import jax
+    import jax.numpy as jnp
+
+    to = lambda leaf: (jnp.asarray(count, leaf.dtype)
+                       if jnp.issubdtype(leaf.dtype, jnp.integer)
+                       and leaf.ndim == 0 else leaf)
+    kw = {"opt_state": jax.tree_util.tree_map(to, jstate.opt_state)}
+    if jstate.opt_state2 is not None:
+        kw["opt_state2"] = jax.tree_util.tree_map(to, jstate.opt_state2)
+    return jstate.replace(step=jnp.asarray(count, jnp.int32), **kw)
