@@ -172,8 +172,30 @@
    9e. ``export_eval`` -> ``load_serving`` -> ``predict`` of each and of
    ``uganConsis``, float32: the served logits equal ``eval_fn``'s to the
    bit.
-10. Prints the ``kernels`` JSON line (all nine kernels, launches summed
-   over the runs of phases 3-9, replays included, not over the checks
+10. M3L's masked-consistency SegFormer and the dual-task U-Net:
+   10a. ``DTCUNet`` at its own width 64, 256x256, batch 8, batch norm +
+   ReLU and instance norm + leaky ReLU (``block_pallas`` off and on): the
+   forward and a backward of a loss over both heads, float32 and
+   bfloat16, against the plain path under phase 4's rules, the launches
+   of the forward and of the backward, nothing routed; and K1-K6 against
+   their plain versions at every distinct DTC w64 shape (channels up to
+   1024; bfloat16 at all, float32 at the widest; phase 2's bounds).
+   10b. The M3L iteration at the Config defaults (256x256, 8 + 8): 10
+   replayed bfloat16 iterations (finite losses, no launch of the port's
+   kernels: the JAX M3L reaches no Pallas kernel either), eager and
+   replayed blocks in turns (8e's rules: ms, device ms, kernels, idle
+   share); float32 step 1 on the card against the port's step on the CPU
+   from the same weights and mask (losses within 1e-4 relative, the
+   student after Adam flip-aware); five float32 replays against eager
+   across the EMA's gate at count 100, to the bit under deterministic
+   cuDNN.
+   10c. ``M3LTrainer -p train`` through ``run_main`` on phase 6's tree (2
+   epochs of 10, epoch 1 under ``set_sync_debug_mode("error")``), then
+   ``-p test`` and ``-p pseudo``.
+   10d. ``export_eval`` -> ``load_serving`` -> ``predict`` of M3L: the
+   served logits equal ``eval_fn``'s at the same batch to the bit.
+11. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-10, replays included, not over the checks
    against the plain path), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
@@ -2928,6 +2950,517 @@ def zoo_phase(torch, ops, counters, routed, card: str) -> dict:
             "cli": d, "serving": e}
 
 
+# phase 10: M3L's masked-consistency SegFormer and the dual-task U-Net.
+# 10a: DTCUNet at its own width (64), 256^2, batch 8, in three
+# configurations: batch norm + ReLU (the model's default), instance norm +
+# leaky ReLU unfused and with block_pallas
+DTC_WIDTH, DTC_OUT = 64, 5
+DTC_CONFIGS = (("batch", "relu", False), ("instance", "lrelu", False),
+               ("instance", "lrelu", True))
+# the distinct shapes of DTC w64 at 256^2: its 18 3x3 convs (map side,
+# Cin, Cout), its norms (map side, channels) and its nine blocks, all of
+# the shortcut form (map side, Cin, Cout); bfloat16 holds K1-K6 at each,
+# float32 at the widest rows
+DTC_CONVS = ((256, 32, 64), (256, 64, 64), (128, 64, 128), (128, 128, 128),
+             (64, 128, 256), (64, 256, 256), (32, 256, 512), (32, 512, 512),
+             (16, 512, 1024), (16, 1024, 1024), (32, 1024, 512),
+             (64, 512, 256), (128, 256, 128), (256, 128, 64))
+DTC_NORMS = ((256, 32), (256, 64), (128, 128), (64, 256), (32, 512),
+             (16, 1024))
+DTC_BLOCKS = ((256, 32, 64), (128, 64, 128), (64, 128, 256),
+              (32, 256, 512), (16, 512, 1024), (32, 1024, 512),
+              (64, 512, 256), (128, 256, 128), (256, 128, 64))
+F32_DTC_CONVS = ((16, 1024, 1024), (32, 1024, 512))
+F32_DTC_NORMS = ((16, 1024),)
+F32_DTC_BLOCKS = ((16, 512, 1024), (32, 1024, 512))
+# 10b: the M3L iteration at the Config defaults (256^2, 8 + 8)
+M3L_STEPS = 10
+M3L_LOSS_TOL = 1e-4      # float32 step 1, card vs the port on the CPU
+M3L_REPLAYS = 5          # float32 iterations replayed against eager
+M3L_GATE = 98            # the EMA's alpha leaves 0 at count 100
+
+
+def dtc_launches(norm: str, fused: bool) -> dict:
+    """The launches of one forward and of one backward of DTCUNet: its
+    U-Net's 18 3x3 convs (K2 forward, K2 dx and K5 backward) and, with
+    instance norm, its 28 norms (K1, K4); with block_pallas its nine
+    blocks (K3, K6) and the stem's norm."""
+    inst = norm == "instance"
+    if inst and fused:
+        return ({"instnorm": 1, "block": 9},
+                {"instnorm_bwd": 1, "block_bwd": 9})
+    return ({"conv3x3": 18, "instnorm": 28 if inst else 0},
+            {"conv3x3": 18, "conv3x3_dw": 18,
+             "instnorm_bwd": 28 if inst else 0})
+
+
+def dtc_run(torch, ops, counters, routed, net, x, cots, plain: bool):
+    """One forward and backward of sum(out1 * c1) + sum(out2 * c2): the
+    heads, every parameter's gradient, and the forward's and the
+    backward's launches and routes."""
+    params = dict(net.named_parameters())
+    with ops.plain() if plain else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        o1, o2 = net(x)
+        torch.cuda.synchronize()
+        fwd = {k: c.launches for k, c in counters.items() if c.launches}
+        rc = routed_counts(routed)
+        zero(counters, routed)
+        loss = ((o1 * cots[0].to(o1.dtype)).sum()
+                + (o2 * cots[1].to(o2.dtype)).sum())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        bwd = {k: c.launches for k, c in counters.items() if c.launches}
+    return ((o1.detach(), o2.detach()), dict(zip(params, grads)), fwd, bwd,
+            rc)
+
+
+def dtc_timing(torch, net, x, cots) -> dict:
+    """The kernel path's forward and backward of ``net``: device ms per
+    call (CUDA events around 3 calls, a sleep kernel holding the stream),
+    and the profiler's device ms, kernels and heaviest kernels."""
+    from smsut_tpu_torch.tools.profile_step import device_rows
+
+    params = list(net.parameters())
+
+    def fwd_bwd():
+        o1, o2 = net(x)
+        loss = (o1 * cots[0]).sum() + (o2 * cots[1]).sum()
+        return torch.autograd.grad(loss, params)
+
+    ms = time_ms(fwd_bwd, 3)
+    rows, _ = device_rows(torch, fwd_bwd, 2)
+    return {"ms": ms, "device_ms": sum(r[1] for r in rows),
+            "kernels": sum(r[2] for r in rows),
+            "top": [(k.split("(")[0][-48:], round(t, 3)) for k, t, _ in
+                    rows[:6]]}
+
+
+def l2_rel(got: dict, ref: dict) -> float:
+    """||got - ref|| / ||ref|| over all tensors of ``ref`` together."""
+    d2 = sum(float(((got[k].double() - r.double()) ** 2).sum())
+             for k, r in ref.items())
+    return (d2 / sum(float((r.double() ** 2).sum())
+                     for r in ref.values())) ** 0.5
+
+
+def dtc_models(torch, ops, counters, routed) -> dict:
+    """10a, the model: per configuration the forward and a backward of a
+    loss over both heads, float32 (TF32 off) and bfloat16 against
+    ops.plain(), with a float64 plain run as the reference; the launches
+    of the forward and of the backward, nothing routed.  Phase 4's rules,
+    with its float32 L2 and per-tensor rel_err read against float64: at
+    width 64 a float32 summation difference moves a pre-activation across
+    0, and ReLU (or the leaky slope) then gates that element's gradient
+    differently on the two paths (measured: per-tensor rel_err up to 0.049,
+    L2 of all 5e-3 with batch norm + ReLU), so the float32 kernel path
+    must be no less accurate than the float32 plain path against float64,
+    ||K32 - P64|| <= BF16_ACC * ||P32 - P64|| + GRAD_REL * ||P64|| over all
+    gradients, with per-tensor cosine (K32, P32) at least GRAD_COS and the
+    heads within LOGIT_TOL; bfloat16 as phase 4: per tensor, and for the
+    heads, no less accurate than the bfloat16 plain path against the
+    float32 plain one."""
+    import numpy as np
+
+    from smsut_tpu_torch.models.dtc import DTCUNet
+
+    x = torch.from_numpy(ellipse_batch(np, seed=7)["img"]).cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cots = [torch.randn((8, 256, 256, DTC_OUT), generator=g, device="cuda")
+            for _ in range(2)]
+    out = {}
+    for norm, act, fused in DTC_CONFIGS:
+        runs = {}
+        for dtn, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+            net = DTCUNet(DTC_OUT, DTC_WIDTH, norm_type=norm, act_type=act,
+                          compute_dtype=dt, block_fused=fused, seed=0)
+            for plain in (False, True):
+                runs[dtn, plain] = dtc_run(torch, ops, counters, routed,
+                                           net, x, cots, plain)
+            if dtn == "bfloat16":
+                timing = dtc_timing(torch, net, x, cots)
+            del net
+        net = DTCUNet(DTC_OUT, DTC_WIDTH, norm_type=norm, act_type=act,
+                      compute_dtype=torch.float64, block_fused=fused,
+                      seed=0).double()
+        exact = dtc_run(torch, ops, counters, routed, net, x.double(), cots,
+                        True)
+        del net
+        want_f, want_b = dtc_launches(norm, fused)
+        heads = {k: {"fc1": r[0][0], "fc2": r[0][1]} for k, r in runs.items()}
+        head_err = max(rel_err(a, w) for a, w in zip(
+            runs["float32", False][0], runs["float32", True][0]))
+        ha = bf16_accuracy(heads["bfloat16", False], heads["bfloat16", True],
+                           heads["float32", True])
+        c32 = grad_parity(runs["float32", False][1], runs["float32", True][1])
+        x64 = {"kernel": l2_rel(runs["float32", False][1], exact[1]),
+               "plain": l2_rel(runs["float32", True][1], exact[1])}
+        a = bf16_accuracy(runs["bfloat16", False][1],
+                          runs["bfloat16", True][1],
+                          runs["float32", True][1])
+        label = f"{norm}/{act} block_pallas={fused}"
+        counts = {dtn: runs[dtn, False][2:5] for dtn in ("float32",
+                                                          "bfloat16")}
+        print(f"dtc 10a {label} w{DTC_WIDTH} [8,256,256,1]: float32 heads "
+              f"rel err vs plain {head_err:.3g}; bfloat16 heads vs the "
+              f"float32 plain heads: kernel {ha['kernel_err_max']:.3g}, "
+              f"plain {ha['plain_err_max']:.3g}; float32 gradients of "
+              f"{c32['n']} tensors vs plain: rel err max "
+              f"{c32['rel_max']:.3g} ({c32['worst_rel']}), L2 of all "
+              f"{c32['l2_all']:.3g}, cosine min {c32['cos_min']:.6f} "
+              f"({c32['worst_cos']}); L2 of all vs float64: kernel "
+              f"{x64['kernel']:.3g}, plain {x64['plain']:.3g}; bfloat16 vs "
+              f"the float32 plain gradient: kernel err max "
+              f"{a['kernel_err_max']:.3g}, plain {a['plain_err_max']:.3g}, "
+              f"closest to the bound {a['worst']} ({a['kernel_err']:.3g} vs "
+              f"{a['plain_err']:.3g}); launches forward "
+              f"{counts['bfloat16'][0]} backward {counts['bfloat16'][1]} "
+              f"(expected {want_f}, {want_b}), routed "
+              f"{counts['bfloat16'][2]}; bfloat16 forward + backward "
+              f"{timing['ms']:.3f} ms (CUDA events), device "
+              f"{timing['device_ms']:.3f} ms in {timing['kernels']} kernels"
+              f" (profiler), heaviest {timing['top'][:3]}", flush=True)
+        for dtn, (fwd, bwd, rc) in counts.items():
+            if (fwd != {k: v for k, v in want_f.items() if v}
+                    or bwd != {k: v for k, v in want_b.items() if v}
+                    or any(rc.values())):
+                raise AssertionError(f"10a {label} {dtn}: launches {fwd}, "
+                                     f"{bwd}, routed {rc}")
+        if not (head_err <= LOGIT_TOL["float32"] and ha["worst_over"] <= 0
+                and x64["kernel"] <= BF16_ACC * x64["plain"] + GRAD_REL
+                and c32["cos_min"] >= GRAD_COS and a["worst_over"] <= 0):
+            raise AssertionError(f"10a {label}: heads {head_err}, {ha}, "
+                                 f"{c32}, {x64}, {a}")
+        launches = {k: sum(c[0].get(k, 0) + c[1].get(k, 0)
+                           for c in counts.values()) for k in KERNELS}
+        out[label] = {"launches": launches, "heads": head_err,
+                      "heads_bf16": ha, "f32": c32, "f64": x64,
+                      "bf16": a, "forward": counts["bfloat16"][0],
+                      "backward": counts["bfloat16"][1], "timing": timing}
+        del runs, exact
+        torch.cuda.empty_cache()
+    return out
+
+
+def dtc_kernel_shapes(torch, ops, instnorm, conv3x3, block) -> list:
+    """10a, the kernels: K1 and K4 at DTC's norms (both activations; two
+    runs bit for bit), K2, K2 as dx and K5 at its 18 convs' 14 distinct
+    shapes, K3 and K6 at its nine blocks, in bfloat16, and float32 at the
+    widest, each against its plain version under phase 2's bounds (TOL)."""
+    cases = Cases(torch, seed=10)
+    rows = []
+
+    def hold(name, label, dn, fn, args):
+        as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+        with ops.plain():
+            want = as_tuple(fn(*args))
+        got = as_tuple(fn(*args))
+        err = max(rel_err(a, w) for a, w in zip(got, want) if w is not None)
+        rows.append({"name": name, "case": label, "dtype": dn,
+                     "rel_err": err, "tol": TOL[(name, dn)]})
+        if not err <= TOL[(name, dn)]:
+            raise AssertionError(f"10a {name} {label} {dn}: error {err}")
+
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[-1]
+        f32 = dt == torch.float32
+        for hw, c in F32_DTC_NORMS if f32 else DTC_NORMS:
+            for act in (True, False):
+                shape = (8, hw, hw, c)
+                x = cases.randn(*shape, mean=0.3, dtype=dt)
+                gy = cases.randn(*shape, dtype=dt)
+                s, bb = cases.norm_params(c)
+                same_twice(torch, "instnorm", shape,
+                           instnorm.instance_norm_fwd, (x, s, bb, act))
+                hold("instnorm", f"{list(shape)} act={act}", dn,
+                     lambda *a: instnorm.instance_norm_fwd(*a)[0],
+                     (x, s, bb, act))
+                _, mean, rstd = instnorm.instance_norm_fwd(x, s, bb, act)
+                same_twice(torch, "instnorm_bwd", shape,
+                           instnorm.instance_norm_bwd,
+                           (x, gy, mean, rstd, s, bb, act))
+                hold("instnorm_bwd", f"{list(shape)} act={act}", dn,
+                     instnorm.instance_norm_bwd,
+                     (x, gy, mean, rstd, s, bb, act))
+        for hw, ci, co in F32_DTC_CONVS if f32 else DTC_CONVS:
+            x = cases.randn(8, hw, hw, ci, dtype=dt)
+            gy = cases.randn(8, hw, hw, co, dtype=dt)
+            w = cases.conv_w(3, ci, co, dt)
+            label = f"{[8, hw, hw, ci]}->{co}"
+            hold("conv3x3", label, dn, conv3x3.conv3x3_fwd, (x, w))
+            hold("conv3x3_dx", f"{[8, hw, hw, co]}->{ci}", dn,
+                 conv3x3.conv3x3_fwd, (gy, conv3x3.flip_io(w)))
+            hold("conv3x3_dw", label, dn, conv3x3.conv3x3_dw, (x, gy))
+        for hw, ci, co in F32_DTC_BLOCKS if f32 else DTC_BLOCKS:
+            args = cases.block_args(8, hw, hw, ci, co, dt)
+            label = f"shortcut {[8, hw, hw, ci]}->{co}"
+            hold("block", label, dn, block.basic_block_fwd, tuple(args))
+            x, w1, s1, _, w2, s2, _, ws, ss, _ = args
+            _, res = block.basic_block_fwd(*args, save=True)
+            gy = cases.randn(8, hw, hw, co, dtype=dt)
+            hold("block_bwd", label, dn, block.basic_block_bwd,
+                 (gy, x, w1, s1, w2, s2, ws, ss, res))
+        torch.cuda.empty_cache()
+    worst = {}
+    for r in rows:
+        k = (r["name"], r["dtype"])
+        if k not in worst or r["rel_err"] > worst[k]["rel_err"]:
+            worst[k] = r
+    print("dtc 10a kernels at the DTC w64 shapes, against their plain "
+          f"versions: {len(rows)} checks; worst per kernel and dtype "
+          + "; ".join(f"{n} {d} {r['rel_err']:.3g} (tol {r['tol']}) at "
+                      f"{r['case']}" for (n, d), r in sorted(worst.items())),
+          flush=True)
+    return rows
+
+
+def m3l_algo(dtn: str, device=None):
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.m3l import M3L
+
+    return M3L(Config(input_size=256, batch_size=8, compute_dtype=dtn),
+               device)
+
+
+def m3l_steps(torch, counters, routed, card: str) -> dict:
+    """10b: 10 replayed bfloat16 iterations at the Config defaults (256^2,
+    8 + 8: student and teacher each see 16 images), finite losses, no
+    launch of the port's kernels; then eager and replayed blocks in turns
+    (8e's rules): ms, device ms, kernels and idle share per iteration."""
+    import numpy as np
+
+    from smsut_tpu_torch.tools.profile_step import device_rows, iteration
+
+    algo = m3l_algo("bfloat16")
+    inp = zoo_inputs(torch, np, algo, "M3L")
+    scal = zoo_scalars(torch, algo)
+    run = iteration(algo, algo.init_state(0), inp, scal)
+    torch.cuda.synchronize()
+    zero(counters, routed)
+    metrics = [{k: float(v) for k, v in run().items()}
+               for _ in range(M3L_STEPS)]
+    torch.cuda.synchronize()
+    counts = {k: c.launches for k, c in counters.items()}
+    losses = [m["loss"] for m in metrics]
+    semi = [m["semi_loss"] for m in metrics]
+    print(f"m3l 10b: {M3L_STEPS} replayed bfloat16 iterations at 256^2, 8 + "
+          f"8: losses {[round(x, 5) for x in losses]}, semi "
+          f"{[round(x, 5) for x in semi]}; launches {counts} (M3L runs none "
+          f"of the port's kernels), routed {routed_counts(routed)}",
+          flush=True)
+    if (not np.isfinite(losses + semi).all() or any(counts.values())
+            or any(routed_counts(routed).values())):
+        raise AssertionError(f"10b: {metrics}, {counts}")
+    del run
+    fns = {mode: iteration(algo, algo.init_state(0), inp, scal, capture=c)
+           for mode, c in (("eager", False), ("replayed", True))}
+    for fn in fns.values():
+        fn()
+        fn()
+    t = timed_blocks(torch, fns, TIMING_UNITS["gan"], TIMING_ROUNDS)
+    for mode, fn in fns.items():
+        rows, _ = device_rows(torch, fn, 3)
+        r = t[mode]
+        r["device_ms"] = sum(x[1] for x in rows)
+        r["kernels"] = sum(kernel_counts((k, n) for k, _, n in rows).values())
+        r["idle_share"] = 1 - r["device_ms"] / r["median_ms"]
+        r["top"] = [(k[:90], ms, n) for k, ms, n in rows[:8]]
+        print(f"m3l 10b on {card}: {mode} bfloat16: median "
+              f"{r['median_ms']:.3f} ms per iteration, quartiles "
+              f"{r['q1_ms']:.3f}-{r['q3_ms']:.3f} ({TIMING_ROUNDS} blocks of "
+              f"{TIMING_UNITS['gan']}); device {r['device_ms']:.3f} ms in "
+              f"{r['kernels']:.0f} kernels; idle share "
+              f"{r['idle_share']:.3f}; heaviest "
+              f"{[(k[:60], round(ms, 3)) for k, ms, _ in rows[:4]]}",
+              flush=True)
+    del fns
+    torch.cuda.empty_cache()
+    return {"losses": losses, "semi": semi, "launches": counts,
+            "timing": t}
+
+
+def m3l_card_vs_cpu(torch) -> dict:
+    """10b: float32 step 1 on the card against the port's step on the CPU
+    from the same weights, batch and mask grid (TF32 off): the losses
+    within M3L_LOSS_TOL relative, the student after Adam's first update
+    flip-aware (every element within 2.1 lr, under 1% beyond lr: the
+    first update is about lr * sign(g))."""
+    import numpy as np
+
+    from smsut_tpu_torch.train.steps.m3l import mask_grid
+
+    card, cpu = m3l_algo("float32"), m3l_algo("float32", "cpu")
+    params = {k: v.cpu() for k, v in card.init_params(0).items()}
+    lb, ul = ellipse_batch(np, seed=0), ellipse_batch(np, seed=1)
+    grid = mask_grid(torch.tensor(0), card.grid_shape(16, 256, 256),
+                     card.cfg.seed)
+    batch = {"img": lb["img"], "msk": lb["msk"], "ul_img": ul["img"],
+             "mask": grid.numpy()}
+    out = []
+    for algo in (card, cpu):
+        st = algo.state_from_params(params)
+        m = algo.step(st, algo.inputs(batch), algo.epoch_scalars(3))
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: v.cpu() for k, v in st.params.items()}))
+    (mg, pg), (mc, pc) = out
+    lr = card.cfg.lr
+    loss_err = {k: abs(mg[k] - mc[k]) / abs(mc[k])
+                for k in ("loss", "semi_loss")}
+    dev = torch.cat([(pg[k] - pc[k]).abs().flatten() for k in pc])
+    dmax, share = float(dev.max()), float((dev > lr).float().mean())
+    print(f"m3l 10b float32 step 1, card vs the port on the CPU: loss "
+          f"{mg['loss']:.6f} vs {mc['loss']:.6f}, semi {mg['semi_loss']:.6f}"
+          f" vs {mc['semi_loss']:.6f} (rel {loss_err}); student after Adam "
+          f"max |dev| {dmax:.3g} (bound {GAN_FLIP_DEV} lr = "
+          f"{GAN_FLIP_DEV * lr:.3g}), share beyond lr {share:.3g}",
+          flush=True)
+    if (max(loss_err.values()) > M3L_LOSS_TOL or dmax > GAN_FLIP_DEV * lr
+            or share >= GAN_FLIP_SHARE):
+        raise AssertionError(f"10b card vs cpu: {loss_err}, {dmax}, {share}")
+    return {"card": mg, "cpu": mc, "loss_rel": loss_err, "dev_max": dmax,
+            "flip_share": share}
+
+
+def m3l_replays(torch) -> dict:
+    """10b, under deterministic cuDNN: five float32 iterations replayed
+    against five eager ones from one init at count 98 (the EMA's alpha
+    leaves 0 at 100), the mask drawn on the card from the count: the
+    metrics, the student and the teacher to the bit."""
+    import numpy as np
+
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    algo = m3l_algo("float32")
+    inp, scal = zoo_inputs(torch, np, algo, "M3L"), zoo_scalars(torch, algo)
+    states = [zoo_state(algo, M3L_GATE) for _ in range(2)]
+    ms = [[{k: float(v) for k, v in run().items()}
+           for _ in range(M3L_REPLAYS)]
+          for run in (iteration(algo, st, inp, scal, capture=c)
+                      for st, c in zip(states, (False, True)))]
+    same = ms[0] == ms[1] and all(
+        torch.equal(getattr(states[1], t)[k], v)
+        for t in ("params", "ema_params")
+        for k, v in getattr(states[0], t).items())
+    alpha = [m["alpha"] for m in ms[1]]
+    print(f"m3l 10b float32: {M3L_REPLAYS} replayed iterations equal eager "
+          f"to the bit: {same}; alpha {alpha}", flush=True)
+    if not same or alpha[1] != 0 or abs(alpha[2] - 0.99) > 1e-6:
+        raise AssertionError(f"10b replays: {ms}")
+    return {"same": same, "metrics": ms[1]}
+
+
+def m3l_cli(torch, counters, routed, data: Path) -> dict:
+    """10c: ``M3LTrainer -p train`` through ``run_main`` on phase 6's tree,
+    2 epochs of 10 (epoch 1 under set_sync_debug_mode("error")), then
+    ``-p test`` (the trois CSV) and ``-p pseudo`` (the PNG dumps)."""
+    import numpy as np
+
+    from smsut_tpu_torch.data.dataset import get_label_npys
+    from smsut_tpu_torch.train.cli import make_parser, run_main
+    from smsut_tpu_torch.train.steps.m3l import M3L
+
+    expr = FIT_DIR / "expr_m3l"
+    slices, _ = get_label_npys(str(data), "test")
+    args = fit_args(data, expr, "m3l")
+    spans = []
+    torch.cuda.synchronize()
+    zero(counters, routed)
+    with sync_checked_epoch(torch, 1), epoch_clock(spans):
+        run_main(M3L, make_parser().parse_args(["-p", "train"] + args))
+    torch.cuda.synchronize()
+    counts = {k: c.launches for k, c in counters.items()}
+    model = expr / "m3l" / "000"
+    log = (model / "train.log").read_text()
+    losses = [float(x) for x in re.findall(r"\[TRN\].* loss: ([^/]+)/", log)]
+    ckpt = torch.load(model / "ckpt" / "last.ckpt", map_location="cpu",
+                      weights_only=True)
+    period = per_iteration_ms(spans[1], FIT_ITERS)
+    steps = FIT_EPOCHS * FIT_ITERS
+    print(f"m3l 10c: -p train launches {counts} (none expected), routed "
+          f"{routed_counts(routed)}; steps {ckpt['step']}, Adam count "
+          f"{ckpt['opt_count']}; [TRN] losses {losses}; epoch-1 ms per "
+          f"iteration {period:.3f} (no host wait: set_sync_debug_mode error "
+          f"passed)", flush=True)
+    if (any(counts.values()) or ckpt["step"] != steps
+            or ckpt["opt_count"] != steps or len(losses) != FIT_EPOCHS
+            or not np.isfinite(losses).all()
+            or log.count("[TST]") != FIT_EPOCHS):
+        raise AssertionError(f"10c: {counts}, {ckpt['step']}, {losses}")
+    out = {"launches": counts, "losses": losses, "period_ms": period}
+    for phase in ("test", "pseudo"):
+        t0 = time.perf_counter()
+        run_main(M3L, make_parser().parse_args(
+            ["-p", phase, "-i", "000", "-wh", "best"] + args))
+        out[f"{phase}_s"] = time.perf_counter() - t0
+    rows = [r for r in (model / "all_trois_matrix.csv").read_text()
+            .split("\n") if r]
+    vals = np.array([[float(v) for v in r.split(",")] for r in rows])
+    dumps = sorted((model / "pseudo").iterdir())
+    kinds = {k: sum(p.name.endswith(k + ".png") for p in dumps)
+             for k in ("pse", "gt", "ori")}
+    print(f"m3l 10c: -p test {out['test_s']:.1f} s, CSV {vals.shape}, mean "
+          f"Dice {vals[4, 4]:.4f}; -p pseudo {out['pseudo_s']:.1f} s, dumps "
+          f"{kinds}", flush=True)
+    if (vals.shape != (10, 5) or not np.isfinite(vals).all()
+            or any(n != slices for n in kinds.values())):
+        raise AssertionError(f"10c: CSV {vals.shape}, dumps {kinds}")
+    out["csv"] = vals.tolist()
+    return out
+
+
+def m3l_serving(torch) -> dict:
+    """10d: ``export_eval`` -> ``load_serving`` -> ``predict`` of M3L,
+    float32 (deterministic cuDNN): the served logits equal ``eval_fn``'s at
+    the same batch to the bit (the head's batch norm takes the batch's
+    statistics)."""
+    import numpy as np
+
+    from smsut_tpu_torch.serve import export_eval, load_serving
+
+    algo = m3l_algo("float32")
+    params = algo.eval_params(algo.init_state(0))
+    req = torch.from_numpy(ellipse_batch(np, seed=5)["img"]).cuda()
+    art = ROOT / "build" / "chip_smoke_serving" / "m3l"
+    export_eval(algo, params, algo.cfg, str(art))
+    predict, manifest = load_serving(str(art))
+    got = [predict(req) for _ in range(3)]
+    want = algo.eval_fn(params, req)
+    diff = max(float((g - want).abs().max()) for g in got)
+    print(f"m3l 10d {manifest['algo']}: served logits {tuple(got[0].shape)} "
+          f"vs eval_fn max |diff| {diff} (must be 0)", flush=True)
+    if diff != 0 or list(got[0].shape) != manifest["output"]["shape"]:
+        raise AssertionError(f"10d: diff {diff}")
+    return {"diff": diff}
+
+
+def m3l_dtc_phase(torch, ops, counters, routed, card: str,
+                  instnorm, conv3x3, block) -> dict:
+    """Phase 10: 10a-10d (10c on phase 6's tree)."""
+    import torch.backends.cudnn as cudnn
+
+    t0 = time.perf_counter()
+    a = dtc_models(torch, ops, counters, routed)
+    rows = dtc_kernel_shapes(torch, ops, instnorm, conv3x3, block)
+    t1 = time.perf_counter()
+    b = m3l_steps(torch, counters, routed, card)
+    b["card_vs_cpu"] = m3l_card_vs_cpu(torch)
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        b["replays"] = m3l_replays(torch)
+        d = m3l_serving(torch)
+    finally:
+        cudnn.deterministic = det
+    t2 = time.perf_counter()
+    c = m3l_cli(torch, counters, routed, FIT_DIR / "data")
+    print(f"phase 10: 10a {t1 - t0:.1f} s, 10b and 10d {t2 - t1:.1f} s, 10c "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    return {"dtc": a, "dtc_kernels": rows, "m3l": b, "m3l_cli": c,
+            "m3l_serving": d}
+
+
 def main() -> int:
     import torch
 
@@ -3013,6 +3546,10 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo = zoo_phase(torch, ops, counters, routed, card)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    m3l_dtc = m3l_dtc_phase(torch, ops, counters, routed, card, instnorm,
+                            conv3x3, block)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
@@ -3053,7 +3590,9 @@ def main() -> int:
                 *gan["steps"].values(), gan["cli"],
                 *dispatch["unet"].values(), *dispatch["gan"].values(),
                 *dispatch["fits"].values(), dispatch["predict"],
-                *zoo["steps"].values(), *zoo["cli"].values())
+                *zoo["steps"].values(), *zoo["cli"].values(),
+                *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
+                m3l_dtc["m3l_cli"])
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -3079,6 +3618,7 @@ def main() -> int:
                            "cli": gan["cli"]},
                    "dispatch": json.loads(json.dumps(dispatch, default=str)),
                    "zoo": json.loads(json.dumps(zoo, default=str)),
+                   "m3l_dtc": json.loads(json.dumps(m3l_dtc, default=str)),
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

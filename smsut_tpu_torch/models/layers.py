@@ -2,7 +2,9 @@
 """Shared low-level layers, NHWC.
 
 Port of the parts of ``smsut_tpu/models/layers.py`` that the U-Net, the
-UGAN towers and the discriminator use.
+UGAN towers, the discriminator and the dual-task U-Net (``models/dtc.py``)
+use: the convs, ``NormAct`` with instance norm or training-mode batch norm
+(``BatchNorm``) and leaky ReLU or ReLU, the pools and the 2x upsample.
 Activations flow in the compute dtype (bfloat16 by default); parameters
 and normalisation statistics stay float32.  Conv weights are stored HWIO
 [k, k, Cin, Cout], the layout the kernels read and the flax layout.
@@ -23,26 +25,55 @@ differentiable, for the discriminator's gradient penalty.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smsut_tpu_torch.ops import acc
 from smsut_tpu_torch.ops import conv3x3 as k2
 from smsut_tpu_torch.ops.conv3x3 import conv3x3
-from smsut_tpu_torch.ops.instnorm import instance_norm
+from smsut_tpu_torch.ops.instnorm import instance_norm, lrelu
 
 # torch.nn.init.calculate_gain('leaky_relu') uses negative_slope=0.01.
 _LRELU_GAIN2 = 2.0 / (1.0 + 0.01 ** 2)
+BN_EPS = 1e-5
 
 
 def kaiming_normal_fan_out(shape, fan_out: int,
-                           generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Kaiming-normal, mode='fan_out', leaky-ReLU gain (the JAX package's
+                           generator: Optional[torch.Generator],
+                           act_type: Optional[str] = "lrelu") -> torch.Tensor:
+    """Kaiming-normal, mode='fan_out', with the gain of ``act_type`` (2 for
+    ReLU, the leaky-ReLU gain otherwise: the JAX package's
     ``kaiming_normal_fan_out``), float32 on the CPU."""
-    std = math.sqrt(_LRELU_GAIN2 / fan_out)
-    return torch.randn(shape, generator=generator) * std
+    gain2 = 2.0 if act_type == "relu" else _LRELU_GAIN2
+    return torch.randn(shape, generator=generator) * math.sqrt(gain2 / fan_out)
+
+
+def activation(act_type: Optional[str]) -> Callable[[torch.Tensor],
+                                                     torch.Tensor]:
+    """``"relu"``, ``"lrelu"`` (slope 0.01) or ``None`` (identity): the
+    JAX package's ``get_act``."""
+    if act_type == "relu":
+        return torch.relu
+    if act_type == "lrelu":
+        return lrelu
+    if act_type is None:
+        return lambda y: y
+    raise NotImplementedError(act_type)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = BN_EPS) -> torch.Tensor:
+    """Training-mode BatchNorm2d over NHWC ``x``: statistics over (B, H, W)
+    in float32 (float64 for float64 ``x``), var = E[x^2] - E[x]^2, no
+    running averages; the result in ``x``'s dtype."""
+    xf = acc(x)
+    mean = xf.mean(dim=(0, 1, 2))
+    var = (xf * xf).mean(dim=(0, 1, 2)) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var + eps) * scale + bias
+    return y.to(x.dtype)
 
 
 def conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -65,11 +96,11 @@ class Conv(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel: int,
                  generator: Optional[torch.Generator] = None,
-                 use_bias: bool = False):
+                 use_bias: bool = False, act_type: Optional[str] = "lrelu"):
         super().__init__()
         self.weight = nn.Parameter(kaiming_normal_fan_out(
             (kernel, kernel, cin, features), kernel * kernel * features,
-            generator))
+            generator, act_type))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -84,19 +115,28 @@ class Conv(nn.Module):
 
 
 class NormAct(nn.Module):
-    """InstanceNorm2d(affine=True, eps 1e-5) with f32 statistics, then
-    LeakyReLU(0.01) when ``act_type == "lrelu"``."""
+    """A norm with f32 statistics and eps 1e-5, then ``act_type`` (None,
+    ``"lrelu"`` or ``"relu"``).  ``norm_type`` ``"instance"``:
+    InstanceNorm2d(affine=True), kernel K1 (with the leaky ReLU fused);
+    ``"batch"``: training-mode batch norm (:func:`batch_norm`)."""
 
-    def __init__(self, features: int, act_type: Optional[str] = None):
+    def __init__(self, features: int, act_type: Optional[str] = None,
+                 norm_type: str = "instance"):
         super().__init__()
-        if act_type not in (None, "lrelu"):
-            raise NotImplementedError(act_type)
-        self.act = act_type == "lrelu"
+        if norm_type not in ("instance", "batch"):
+            raise NotImplementedError(norm_type)
+        self.norm_type = norm_type
+        self.act_type = act_type
+        self.act = activation(act_type)
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm(x, self.weight, self.bias, self.act)
+        if self.norm_type == "batch":
+            return self.act(batch_norm(x, self.weight, self.bias))
+        if self.act_type == "lrelu":
+            return instance_norm(x, self.weight, self.bias, True)
+        return self.act(instance_norm(x, self.weight, self.bias, False))
 
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,20 @@
 # -*- coding: utf-8 -*-
 """Carry weights between the flax parameter trees of the JAX package and
 the port's ``state_dict``: the U-Net (CoraNet's 13-channel one too), the
-UGAN generators (``UGAN``, ``UGANnce`` with its ``netF``) and the
-discriminator; and a JAX train state's parameter trees at once
+UGAN generators (``UGAN``, ``UGANnce`` with its ``netF``), the
+discriminator, the dual-task U-Net (``DTCUNet``) and M3L's SegFormer
+(``LinearFusionMaskedConsistencyMixBatch``); and a JAX train state's
+parameter trees at once
 (:func:`state_trees_from_flax`: the parameters, Mean Teacher's and
 CoraNet's ``ema_params``, cross-pseudo supervision's ``params2``).
 
 Paths match one for one (``encoder/layer1/conv1/kernel`` <->
-``encoder.layer1.conv1.weight``).  Conv kernels are HWIO on both sides,
-Dense kernels [in, out]; norms map ``scale``/``bias`` to
-``weight``/``bias``; conv and Dense biases keep their name.  The one
+``encoder.layer1.conv1.weight``).  Conv kernels are HWIO on both sides
+(the SegFormer's depthwise kernel (3, 3, 1, C), its spatial-reduction
+conv (sr, sr, C, C)), Dense kernels [in, out]; norms (instance, batch and
+LayerNorm) map ``scale``/``bias`` to ``weight``/``bias``; conv and Dense
+biases keep their name, and so do the SegFormer's own leaves,
+``backbone/mask_token``, ``fuse_scale`` and ``fuse_bias``.  The one
 reshaping is the transposed conv: flax's ``ConvTranspose`` (``transpose_kernel=False``)
 convolves the stride-dilated input with its kernel, so output subpixel
 (dy, dx) takes the tap ``kernel[1-dy, 1-dx]``; the port stores those taps

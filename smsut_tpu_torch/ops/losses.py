@@ -8,7 +8,8 @@ Port of the unpacked losses of ``smsut_tpu/ops/losses.py``:
 ``DiceAndCrossEntropyLoss`` with ``batch_dice=True``, the loss of every
 trainer), and the GAN's ``argmax_consistency_loss``, ``patch_nce_loss``,
 ``nce_loss_over_layers``, ``l1_loss`` and ``softmax_ce_with_logits``; Mean
-Teacher's ``softmax_mse_consistency``; and CoraNet's three-head losses
+Teacher's ``softmax_mse_consistency``; M3L's ``soft_cross_entropy``
+(``smsut_tpu/train/steps/m3l.py``); and CoraNet's three-head losses
 (``split_heads``, ``coranet_weights``, ``three_head_losses`` and the stage-B
 terms of ``smsut_tpu/train/steps/coranet.py``) in their plain form.  The
 JAX package evaluates the CoraNet tail channel-first in one fused pass, a
@@ -163,6 +164,14 @@ def softmax_mse_consistency(student_logits: torch.Tensor,
     ps = torch.softmax(acc(student_logits), dim=-1)
     pt = torch.softmax(acc(teacher_logits), dim=-1)
     return (ps - pt).square().mean()
+
+
+def soft_cross_entropy(logits: torch.Tensor,
+                       target_probs: torch.Tensor) -> torch.Tensor:
+    """nn.CrossEntropyLoss with probability targets over the last axis:
+    -mean over pixels of sum(target * log_softmax(logits))."""
+    logp = torch.log_softmax(acc(logits), dim=-1)
+    return -(target_probs * logp).sum(dim=-1).mean()
 
 
 # ---------------------------------------------------------------------------

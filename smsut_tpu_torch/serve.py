@@ -2,8 +2,9 @@
 """Serving export: save a model's eval parameters with a manifest, and load
 them back as a ``predict`` function, for every algorithm of the port
 (:func:`factories`: the U-Net, Mean Teacher's student, cross-pseudo
-supervision's net 1, CoraNet's head 0, the UGAN family's segmentation
-logits; :func:`_seg_logits_fn` as in the JAX package's ``serve.py``).
+supervision's net 1, CoraNet's head 0, M3L's SegFormer student, the UGAN
+family's segmentation logits; :func:`_seg_logits_fn` as in the JAX
+package's ``serve.py``).
 
 The manifest keeps the I/O contract of the JAX package's ``serve.py``,
 ``algo`` the algorithm's class name.
@@ -45,12 +46,13 @@ def factories() -> Dict[str, Tuple[str, Callable]]:
     from smsut_tpu_torch.train.steps.cross_pseudo import CrossPseudo
     from smsut_tpu_torch.train.steps.gan import (UGANConsisAlgo, UGANShp0Algo,
                                                  UGANTrainerAlgo)
+    from smsut_tpu_torch.train.steps.m3l import M3L
     from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
     out = {name: (c.__name__, c) for name, c in (
         ("unet", SupervisedUNet), ("meanTeacher", MeanTeacher),
-        ("crossPse", CrossPseudo), ("ugan", UGANTrainerAlgo),
+        ("crossPse", CrossPseudo), ("M3L", M3L), ("ugan", UGANTrainerAlgo),
         ("uganShp0", UGANShp0Algo), ("uganConsis", UGANConsisAlgo))}
     out["coraNet"] = ("CoraNet", lambda cfg, device: CoraNet(
         cfg, device, stage="cora"))

@@ -5,7 +5,7 @@ JAX package's ``tools/export_serving.py``:
     python -m smsut_tpu_torch.tools.export_serving MODEL EXPR_DIR[:TAG] \
         OUT_DIR [--set K=V ...] [--device cpu]
 
-MODEL is a zoo name (serve.py ``factories``: unet, meanTeacher,
+MODEL is a zoo name (serve.py ``factories``: unet, meanTeacher, M3L,
 crossPse, coraNet, ugan, uganShp0, uganConsis), EXPR_DIR a numbered
 experiment directory holding ``ckpt/`` (TAG: ``best`` by default;
 CoraNet's stage A saves ``pre_best``), OUT_DIR the directory for the

@@ -5,9 +5,11 @@ Port of ``smsut_tpu/train/checkpoints.py``: each tag holds the full train
 state -- step, parameters and optimizer state -- so that a run can resume.
 Where the JAX package writes an orbax directory, the port writes one
 ``torch.save`` file, ``{ckpt_root}/{prefix}.ckpt``, with float32 CPU
-tensors: ``{"step", "params", "opt_state"}`` for a ``TrainState``, with
-``ema_params`` (Mean Teacher, CoraNet) and ``params2``/``opt_state2``
-(cross-pseudo supervision) where the state holds them, and
+tensors: ``{"step", "params", "opt_state"}`` for a ``TrainState`` under
+SGD, ``{"step", "params", "opt_mu", "opt_nu", "opt_count"}`` under Adam
+(M3L: the moments and the update count), with ``ema_params`` (Mean
+Teacher, CoraNet, M3L) and ``params2``/``opt_state2`` (cross-pseudo
+supervision) where the state holds them, and
 ``{"step", "g_params", "g_opt_state", "d_params", "d_opt_mu",
 "d_opt_nu", "d_opt_count"}`` for a ``GANTrainState`` (SGD traces of G,
 Adam moments and update count of D).  A restored state's device step
@@ -41,7 +43,11 @@ def _trees(state) -> Dict[str, Dict[str, torch.Tensor]]:
                 "d_params": state.d_params,
                 "d_opt_mu": state.d_opt_state.mu,
                 "d_opt_nu": state.d_opt_state.nu}
-    trees = {"params": state.params, "opt_state": state.opt_state}
+    trees = {"params": state.params}
+    if isinstance(state.opt_state, AdamState):
+        trees.update(opt_mu=state.opt_state.mu, opt_nu=state.opt_state.nu)
+    else:
+        trees["opt_state"] = state.opt_state
     for name in ("ema_params", "params2", "opt_state2"):
         if getattr(state, name) is not None:
             trees[name] = getattr(state, name)
@@ -55,6 +61,8 @@ def save_state(state: Union[TrainState, GANTrainState], ckpt_root: str,
            **{k: _host(v) for k, v in _trees(state).items()}}
     if isinstance(state, GANTrainState):
         raw["d_opt_count"] = int(state.d_opt_state.count)
+    elif isinstance(state.opt_state, AdamState):
+        raw["opt_count"] = int(state.opt_state.count)
     torch.save(raw, path)
     return path
 
@@ -96,5 +104,9 @@ def load_state(template: Union[TrainState, GANTrainState], ckpt_root: str,
             d_opt_state=AdamState(count(int(raw["d_opt_count"])),
                                   trees["d_opt_mu"], trees["d_opt_nu"]),
             count=count(step))
+    if isinstance(template.opt_state, AdamState):
+        trees["opt_state"] = AdamState(count(int(raw["opt_count"])),
+                                       trees.pop("opt_mu"),
+                                       trees.pop("opt_nu"))
     return dataclasses.replace(template, step=step, count=count(step),
                                **trees)

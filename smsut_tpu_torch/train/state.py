@@ -19,6 +19,12 @@ CoraNet's stage A, ``optax.scale(-lr)``: no poly, no lag):
   k the updates made including this one, lr = poly at the optimizer's own
   count of earlier updates.
 
+Both optimizers take one call, ``tx.update_(params, opt_state, grads,
+count)`` with ``count`` the caller's device count of earlier updates, so a
+``TrainState`` runs either (M3L's is Adam): SGD reads its LR at ``count``;
+Adam keeps its own count in its state (``AdamState.count``, as optax's
+``scale_by_adam`` does) and reads its LR and bias corrections there.
+
 Every update runs as a few multi-tensor (``_foreach``) ops for all
 parameters, in place: the parameter and optimizer tensors passed in are
 consumed (the JAX step donates its state buffers the same way).
@@ -34,7 +40,7 @@ that changes from step to step, so a CUDA graph of the step
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -146,10 +152,12 @@ class Adam:
         return AdamState(zero_count(params), zeros(), zeros())
 
     @torch.no_grad()
-    def update_(self, params: Params, state: AdamState,
-                grads: Params) -> AdamState:
-        """One update of ``params``, the moments and the count in place;
-        returns ``state``."""
+    def update_(self, params: Params, state: AdamState, grads: Params,
+                count: Optional[torch.Tensor] = None) -> AdamState:
+        """One update of ``params``, the moments and the count in place, at
+        the LR and bias corrections of ``state.count``; returns ``state``.
+        ``count``, the caller's step count, is taken for the optimizers'
+        shared call and not read."""
         keys = list(params)
         ps = [params[k] for k in keys]
         mu = [state.mu[k] for k in keys]
@@ -180,21 +188,22 @@ def make_adam(cfg: Config, b1: float = 0.9, b2: float = 0.999) -> Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count (host mirror), float32 parameters, momentum traces and
-    the device step count; Mean Teacher and CoraNet add the teacher's EMA
-    parameters (``ema_params``), cross-pseudo supervision a second network
+    """Step count (host mirror), float32 parameters, the optimizer's state
+    (SGD's momentum traces, or Adam's ``AdamState``) and the device step
+    count; Mean Teacher, CoraNet and M3L add the teacher's EMA parameters
+    (``ema_params``), cross-pseudo supervision a second network
     (``params2``, ``opt_state2``) under the same optimizer and count."""
     step: int
     params: Params
-    opt_state: Params
-    tx: SGD
+    opt_state: Union[Params, AdamState]
+    tx: Union[SGD, Adam]
     count: torch.Tensor
     ema_params: Optional[Params] = None
     params2: Optional[Params] = None
-    opt_state2: Optional[Params] = None
+    opt_state2: Optional[Union[Params, AdamState]] = None
 
     @classmethod
-    def create(cls, params: Params, tx: SGD,
+    def create(cls, params: Params, tx: Union[SGD, Adam],
                ema_params: Optional[Params] = None,
                params2: Optional[Params] = None) -> "TrainState":
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
@@ -203,9 +212,9 @@ class TrainState:
                    opt_state2=None if params2 is None else tx.init(params2))
 
     def update(self, grads: Params, grads2: Optional[Params] = None) -> None:
-        """One SGD update at the device count's LR, in place (of both
-        networks with ``grads2``, at the same LR), and the device count
-        advanced once; the host ``step`` is left to the caller."""
+        """One optimizer update at the device count, in place (of both
+        networks with ``grads2``), and the device count advanced once; the
+        host ``step`` is left to the caller."""
         self.tx.update_(self.params, self.opt_state, grads, self.count)
         if grads2 is not None:
             self.tx.update_(self.params2, self.opt_state2, grads2,
@@ -255,7 +264,7 @@ class GANTrainState:
 
     def apply_d_gradients(self, grads: Params) -> "GANTrainState":
         """One Adam update of D, in place."""
-        self.d_tx.update_(self.d_params, self.d_opt_state, grads)
+        self.d_tx.update_(self.d_params, self.d_opt_state, grads, self.count)
         return self
 
     def apply_g_gradients(self, grads: Params) -> "GANTrainState":

@@ -44,7 +44,7 @@ Params = Dict[str, torch.Tensor]
 _M32 = 0xFFFFFFFF
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
+def mix32(x: torch.Tensor) -> torch.Tensor:
     """A 32-bit integer hash of int64 values in [0, 2^32); every product
     stays below 2^63."""
     x = x ^ (x >> 16)
@@ -59,9 +59,9 @@ def teacher_noise(count: torch.Tensor, shape, seed: int) -> torch.Tensor:
     device, z standard normal by Box-Muller from a hash of (``seed``,
     ``count``, element): a function of the device count, no host value."""
     n = math.prod(shape)
-    key = _mix32((count.to(torch.int64) * 0x2545F491
+    key = mix32((count.to(torch.int64) * 0x2545F491
                   + seed * 0x9E3779B1 + 0x632BE5AB) & _M32)
-    h = _mix32(_mix32(torch.arange(2 * n, device=count.device)) ^ key)
+    h = mix32(mix32(torch.arange(2 * n, device=count.device)) ^ key)
     u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
     z = torch.sqrt(-2.0 * torch.log(u[:n])) * torch.cos(2.0 * math.pi * u[n:])
     return torch.clamp(0.01 * z, -0.02, 0.02).view(shape)

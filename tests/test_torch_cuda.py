@@ -7,7 +7,10 @@ for bit, the launch counts of the U-Net's serving and training
 steps, and its gradients against the plain path; the three tensor-core conv
 kernels of the conv microbench (dots, im2col, im2col2: at the emulation's
 shapes, bit for bit across runs and strips, and dots' route by shape)
-and the microbench itself.  Each test skips on a host without an NVIDIA GPU.
+and the microbench itself; the semi-supervised zoo's and M3L's
+iterations replayed against eager, and the dual-task U-Net's launches
+and gradients in its three norm and activation configurations.  Each
+test skips on a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1143,3 +1146,148 @@ def test_zoo_step_matches_plain(cuda_device, name, fused):
     for k, w in dp.items():
         err = float((dk[k] - w).norm() / max(float(w.norm()), 1e-30))
         assert err <= 1e-2, (k, err)
+
+
+# ------------------------------------------ the dual-task U-Net and M3L
+# DTCUNet runs K1-K6 (K2 and K5 under batch norm too); M3L's SegFormer
+# runs none of the port's kernels, and is held against the CPU and its
+# own eager path
+
+DTC_CONFIGS = [("batch", "relu", False), ("instance", "lrelu", False),
+               ("instance", "lrelu", True)]
+
+
+def _dtc_launches(norm, fused):
+    """K1, K2, K3, K4, K5, K6 launches of one forward and one backward."""
+    if norm == "instance" and fused:
+        return (1, 0, 9, 0, 0, 0), (0, 0, 0, 1, 0, 9)
+    k1 = 28 if norm == "instance" else 0
+    return (k1, 18, 0, 0, 0, 0), (0, 18, 0, k1, 18, 0)
+
+
+def _dtc_pass(net, x, cots, plain):
+    counters = (instnorm.instance_norm_fwd, conv3x3.conv3x3_fwd,
+                block.basic_block_fwd, instnorm.instance_norm_bwd,
+                conv3x3.conv3x3_dw, block.basic_block_bwd)
+    count = lambda: tuple(c.launches for c in counters)
+    params = dict(net.named_parameters())
+    with ops.plain() if plain else contextlib.nullcontext():
+        c0 = count()
+        o1, o2 = net(x)
+        c1 = count()
+        loss = ((o1 * cots[0].to(o1.dtype)).sum()
+                + (o2 * cots[1].to(o2.dtype)).sum())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        c2 = count()
+    fwd = tuple(b - a for a, b in zip(c0, c1))
+    bwd = tuple(b - a for a, b in zip(c1, c2))
+    return (o1, o2), dict(zip(params, grads)), fwd, bwd
+
+
+@pytest.mark.parametrize("norm,act,fused", DTC_CONFIGS)
+def test_dtc_launches_and_gradients_match_plain(cuda_device, norm, act,
+                                                fused):
+    """DTCUNet at w16, 64^2, batch 2, float32: the launches of a forward
+    and a backward over both heads, the heads within 1e-3 of the plain
+    path, and the gradients held as chip_smoke.py 10a holds them: per
+    tensor cosine against the plain path at least 0.9999, and over all
+    tensors no further from a float64 plain run than 2x the float32 plain
+    path's distance + 1e-3 (ReLU's gate makes a pre-activation within
+    rounding of 0 a flip of its element's gradient)."""
+    from smsut_tpu_torch.models.dtc import DTCUNet
+
+    rng = np.random.default_rng(12)
+    x = t(rng.normal(size=(2, 64, 64, 1)), device=cuda_device)
+    cots = [t(rng.normal(size=(2, 64, 64, 3)), device=cuda_device)
+            for _ in range(2)]
+    make = lambda dt: DTCUNet(3, 16, norm_type=norm, act_type=act,
+                              compute_dtype=dt, block_fused=fused,
+                              device=cuda_device, seed=0)
+    net = make(F32)
+    kern = _dtc_pass(net, x, cots, False)
+    plain = _dtc_pass(net, x, cots, True)
+    exact = _dtc_pass(make(torch.float64).double(), x.double(), cots, True)
+    assert (kern[2], kern[3]) == _dtc_launches(norm, fused)
+    for a, w in zip(kern[0], plain[0]):
+        assert rel_err(a, w) <= 1e-3
+    dist = lambda g: sum(float(((g[k].double() - v) ** 2).sum())
+                         for k, v in exact[1].items()) ** 0.5
+    ref = sum(float((v ** 2).sum()) for v in exact[1].values()) ** 0.5
+    assert dist(kern[1]) <= 2 * dist(plain[1]) + 1e-3 * ref
+    for k, w in plain[1].items():
+        g = kern[1][k]
+        cos = float((g.double() * w.double()).sum()
+                    / (g.double().norm() * w.double().norm()))
+        assert cos >= 0.9999, (k, cos)
+
+
+def _m3l(device, hw=64, bs=2):
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.m3l import M3L
+
+    algo = M3L(Config(input_size=hw, batch_size=bs, compute_dtype="float32"),
+               device)
+    rng = np.random.default_rng(4)
+    batch = dict(_ellipses(rng, bs, hw), ul_img=_ellipses(rng, bs, hw)["img"])
+    return algo, batch
+
+
+def test_m3l_iteration_replays_as_eager(cuda_device):
+    """Five float32 M3L iterations (64^2, 2 + 2, the mask drawn on the card
+    from the count) replayed as a CUDA graph against five eager ones from
+    one init at count 98, under deterministic cuDNN: the metrics, the
+    student and the teacher to the bit; the EMA's alpha leaves 0 at 100;
+    no launch of the port's kernels."""
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    algo, batch = _m3l(cuda_device)
+    inp = algo.inputs(batch)
+    scal = {k: torch.tensor(float(v), device=cuda_device)
+            for k, v in algo.epoch_scalars(3).items()}
+    states = [_at(algo.init_state(0), 98) for _ in range(2)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        metrics, counts = [], []
+        for st, capture in zip(states, (False, True)):
+            run = iteration(algo, st, inp, scal, capture=capture)
+            before = ops.counts()
+            metrics.append([{k: float(v) for k, v in run().items()}
+                            for _ in range(5)])
+            counts.append([a - b for a, b in zip(ops.counts(), before)])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert metrics[0] == metrics[1]
+    assert not any(counts[0]) and not any(counts[1])
+    for tree in ("params", "ema_params"):
+        for k, v in getattr(states[0], tree).items():
+            assert torch.equal(getattr(states[1], tree)[k], v), (tree, k)
+    alpha = [m["alpha"] for m in metrics[1]]
+    assert alpha[:2] == [0.0, 0.0] and alpha[2] == pytest.approx(0.99)
+
+
+def test_m3l_step_card_matches_cpu(cuda_device):
+    """One float32 M3L step (64^2, 2 + 2) on the card and on the CPU from
+    the same weights, batch and mask grid, TF32 off: the losses within
+    1e-4 relative; the student after Adam's first update, about lr *
+    sign(g), flip-aware (within 2.1 lr, under 1% beyond lr)."""
+    from smsut_tpu_torch.train.steps.m3l import mask_grid
+
+    card, batch = _m3l(cuda_device)
+    cpu, _ = _m3l("cpu")
+    params = {k: v.cpu() for k, v in card.init_params(0).items()}
+    batch["mask"] = mask_grid(torch.tensor(0), card.grid_shape(4, 64, 64),
+                              0).numpy()
+    out = []
+    for algo in (card, cpu):
+        st = algo.state_from_params(params)
+        m = algo.step(st, algo.inputs(batch), algo.epoch_scalars(3))
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: v.cpu() for k, v in st.params.items()}))
+    (mg, pg), (mc, pc) = out
+    for k in ("loss", "semi_loss"):
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), (k, mg[k], mc[k])
+    lr = card.cfg.lr
+    dev = torch.cat([(pg[k] - pc[k]).abs().flatten() for k in pc])
+    assert float(dev.max()) <= 2.1 * lr
+    assert float((dev > lr).float().mean()) < 0.01

@@ -99,31 +99,38 @@ def _zoo(name):
     from smsut_tpu.train.steps.coranet import CoraNet as JCoraNet
     from smsut_tpu.train.steps.cross_pseudo import CrossPseudo as JCPS
     from smsut_tpu.train.steps.gan import UGANConsisAlgo as JConsis
+    from smsut_tpu.train.steps.m3l import M3L as JM3L
     from smsut_tpu.train.steps.mean_teacher import MeanTeacher as JMT
     from smsut_tpu_torch.train.steps.coranet import CoraNet
     from smsut_tpu_torch.train.steps.cross_pseudo import CrossPseudo
     from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.m3l import M3L
     from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
 
     cfg = JConfig(**_CFG, nce_patches=4)
     port = lambda cls, **kw: (lambda c, d: cls(c, d, **kw))
     return {"MeanTeacher": (JMT(cfg), MeanTeacher),
             "CrossPseudo": (JCPS(cfg), CrossPseudo),
+            "M3L": (JM3L(cfg), M3L),
             "CoraNet": (JCoraNet(cfg, stage="cora"),
                         port(CoraNet, stage="cora")),
             "UGANConsisAlgo": (JConsis(cfg), UGANConsisAlgo)}[name]
 
 
 @pytest.mark.parametrize("name", ["MeanTeacher", "CrossPseudo", "CoraNet",
-                                  "UGANConsisAlgo"])
+                                  "M3L", "UGANConsisAlgo"])
 def test_zoo_predict_matches_jax_eval(name, tmp_path, rng):
     """Each semi-supervised algorithm and the paper's method, exported from
     the JAX package's weights (the student, net 1, the 13-channel U-Net's
-    head 0, the generator's segmentation logits) and served: the manifest
-    names the class, and ``predict`` matches the JAX ``eval_fn``."""
+    head 0, M3L's SegFormer, the generator's segmentation logits) and
+    served: the manifest names the class, and ``predict`` matches the JAX
+    ``eval_fn`` (M3L's at the same batch: its head's batch norm takes the
+    batch's statistics)."""
     jalgo, factory = _zoo(name)
+    # the SegFormer runs op by op for tens of seconds unjitted
+    jit = jax.jit if name == "M3L" else (lambda f: f)
     params = jax.device_get(jalgo.eval_params(
-        jalgo.init_state(jax.random.PRNGKey(0))))
+        jit(jalgo.init_state)(jax.random.PRNGKey(0))))
     cfg = Config(**_CFG, nce_patches=4)
     algo = factory(cfg, "cpu")
     export_eval(algo, algo.eval_params(from_flax(params)), cfg,
@@ -132,7 +139,7 @@ def test_zoo_predict_matches_jax_eval(name, tmp_path, rng):
     assert manifest["algo"] == type(algo).__name__ == name
     assert manifest["output"]["shape"] == [2, 32, 32, 5]
     img = rng.normal(size=(2, 32, 32, 1)).astype(np.float32)
-    want = np.asarray(jalgo.eval_fn(params, jnp.asarray(img)))
+    want = np.asarray(jit(jalgo.eval_fn)(params, jnp.asarray(img)))
     got = predict(img).numpy()
     assert got.shape == want.shape == (2, 32, 32, 5)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-4)

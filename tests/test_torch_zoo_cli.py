@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """The semi-supervised trainers' CLIs on the CPU (``--device cpu``, a tiny
-synthetic tree): Mean Teacher, cross-pseudo supervision and CoraNet's two
-stages train, test (the trois CSV), resume and write the ``-p pseudo``
+synthetic tree): Mean Teacher, cross-pseudo supervision, M3L and CoraNet's
+two stages train, test (the trois CSV), resume and write the ``-p pseudo``
 dumps (PNG, read back with PIL), and the GAN's ``-p pseudo`` its
 translation strips.  With each stream of host draws on its own generator
 (the Trainer's ``labeled_loader_rng``, ``unlabeled_loader_rng``,
@@ -25,6 +25,7 @@ from smsut_tpu_torch.train.cli import make_parser, run_main
 from smsut_tpu_torch.train.steps.coranet import CoraNet
 from smsut_tpu_torch.train.steps.cross_pseudo import CrossPseudo
 from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+from smsut_tpu_torch.train.steps.m3l import M3L
 from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
 from smsut_tpu_torch.trainer import coraNetTrainer
 from torch_port_helpers import few_torch_threads
@@ -123,7 +124,7 @@ def _resume_equal(cls, data_root, expr, scalars, whole: str, name: str,
         pjoin(expr, name, resumed, "train.log")).read()
 
 
-@pytest.mark.parametrize("cls", [MeanTeacher, CrossPseudo])
+@pytest.mark.parametrize("cls", [MeanTeacher, CrossPseudo, M3L])
 def test_cli_train_test_resume_pseudo(cls, data_root, tmp_path, scalars):
     expr = str(tmp_path / "expr")
     name = cls.__name__
@@ -135,12 +136,17 @@ def test_cli_train_test_resume_pseudo(cls, data_root, tmp_path, scalars):
         assert "[net2] Number of parameters" in log
     raw = checkpoints.load_raw(pjoin(model, "ckpt"), "last")
     assert raw["step"] == 2 * ITERS
-    assert {"params", "opt_state"} < raw.keys()
-    assert ("ema_params" in raw) == (cls is MeanTeacher)
+    # M3L's Adam keeps its moments and its own count
+    opt = ({"opt_mu", "opt_nu", "opt_count"} if cls is M3L
+           else {"opt_state"})
+    assert {"params"} | opt < raw.keys()
+    if cls is M3L:
+        assert raw["opt_count"] == 2 * ITERS
+    assert ("ema_params" in raw) == (cls in (MeanTeacher, M3L))
     assert ("params2" in raw) == ("opt_state2" in raw) == (cls is CrossPseudo)
 
     module = {MeanTeacher: "meanTeacherTrainer",
-              CrossPseudo: "crossPseTrainer"}[cls]
+              CrossPseudo: "crossPseTrainer", M3L: "M3LTrainer"}[cls]
     out = subprocess.run(
         [sys.executable, "-m", f"smsut_tpu_torch.trainer.{module}",
          "-p", "test", "-i", "000", "-wh", "best"] + _args(data_root, expr),
