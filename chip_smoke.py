@@ -194,7 +194,33 @@
    ``-p test`` and ``-p pseudo``.
    10d. ``export_eval`` -> ``load_serving`` -> ``predict`` of M3L: the
    served logits equal ``eval_fn``'s at the same batch to the bit.
-11. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+11. Data parallelism across processes (``torch.distributed``), each rank
+   a child process (the kernels are built before the children start):
+   11a. One rank over NCCL (a group of one), replayed: the U-Net
+   iteration (w16, 256x256, batch 8) and the ``uganConsis`` iteration
+   (w16, 8 + 8, the decoders' upsampling in fixed order as in 8c),
+   float32, 2 warm-up calls and 5 replays each under deterministic cuDNN:
+   the parameters equal those of the run with no group to the bit; then
+   in bfloat16 one replay's device operations in the group against no
+   group (the profiler; at one rank NCCL's in-place all-reduce launches
+   nothing), and the device ms, kernels and idle share beside 8e's.
+   11b. Two ranks on the one card over gloo, eager, against one process
+   at the global batch: U-Net w16, 256x256, global batch 8 (4 a rank),
+   float32, 3 steps (the loss within 1e-4, the parameter checksum within
+   1e-5 relative, both ranks' parameters equal to the bit; labels 1 and
+   2 cleared in the batch's second half, so that a rank's Dice alone
+   differs from the global one), one ``block_pallas`` step a rank;
+   ``uganConsis`` w16, 8 + 8 (4 + 4 a rank), one float32 step under 7b's
+   rules; the launches and routed calls of a rank's step (nothing routed
+   at w16 but the D's Cout-1 conv) and its time.
+   11c. ``unetTrainer -p train`` through ``torch.distributed.run``, two
+   ranks (gloo: eager, logged) on phase 6's tree, float32, 2 epochs of
+   10 with augmentation, deterministic cuDNN, against the one-process fit
+   under 6b's rules or, where larger, twice the distance of a fit from
+   weights one ulp away (the fit is chaotic); one ``train.log`` and one
+   set of checkpoints; then ``-p test`` in one process from the two-rank
+   checkpoint.
+12. Prints the ``kernels`` JSON line (all nine kernels, launches summed
    over the runs of phases 3-10, replays included, not over the checks
    against the plain path), then the device line last.
 
@@ -3461,6 +3487,582 @@ def m3l_dtc_phase(torch, ops, counters, routed, card: str,
             "m3l_serving": d}
 
 
+# phase 11: data parallelism across processes (torch.distributed)
+DP_DIR = FIT_DIR / "dp"
+DP_REPLAYS = 5            # 11a: replays after the warm-up call and capture
+DP_STEPS = 3              # 11b: the U-Net's eager steps
+DP_LOSS_TOL = 1e-4        # 11b: the U-Net's loss, two ranks vs one process
+DP_SUM_TOL = 1e-5         # 11b: its parameter checksum, relative
+DP_GLOBAL = 8             # the global batch (11b, 11c)
+DP_TIMEOUT_S = 300
+
+
+def dp_batch(np) -> dict:
+    """Phase 4's ellipse batch with labels 1 and 2 cleared in its second
+    half, so that either rank's batch Dice alone differs from the global
+    one."""
+    b = ellipse_batch(np)
+    half = b["msk"][DP_GLOBAL // 2:]
+    half[(half == 1) | (half == 2)] = 0
+    return b
+
+
+def kernel_counters():
+    """({kernel: its counter}, {conv3x3/block: the routing counter})."""
+    from smsut_tpu_torch.ops import block, conv3x3, conv_mma, instnorm
+
+    counters = {"instnorm": instnorm.instance_norm_fwd,
+                "conv3x3": conv3x3.conv3x3_fwd, "block": block.basic_block_fwd,
+                "instnorm_bwd": instnorm.instance_norm_bwd,
+                "conv3x3_dw": conv3x3.conv3x3_dw,
+                "block_bwd": block.basic_block_bwd}
+    counters.update({f"conv3x3_{v}": getattr(conv_mma, f"conv3x3_{v}")
+                     for v in MMA_VARIANTS})
+    routed = {"conv3x3": conv3x3.conv3x3, "block": block.basic_block}
+    return counters, routed
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_child(fn: str, env: dict = None, timeout: int = DP_TIMEOUT_S):
+    """A child process that imports the port, opens the card (the built
+    kernels are loaded from ``build/kernels``) and waits for
+    :func:`child_result`, which has it run ``chip_smoke.<fn>()`` and
+    reads its JSON result; started ahead, its start-up overlaps the
+    phases before.  A child whose parent ends without asking exits."""
+    import os
+
+    code = ("import json, sys, torch, chip_smoke; torch.cuda.init(); "
+            "sys.stdin.readline().strip() == 'go' or sys.exit(3); "
+            f"print('DP ' + json.dumps(chip_smoke.{fn}()))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env=dict(os.environ, **(env or {})),
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), timeout
+
+
+def child_result(child, go: bool = True) -> dict:
+    """The child's result, after asking it to run (``go``; False where the
+    caller asked it already)."""
+    proc, timeout = child
+    try:
+        out, err = proc.communicate("go\n" if go else None, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"a child did not end within {timeout} s")
+    line = [x for x in out.splitlines() if x.startswith("DP ")]
+    if proc.returncode or not line:
+        raise AssertionError(f"child failed ({proc.returncode}):\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+    return json.loads(line[-1][3:])
+
+
+def tree_equal(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def tree_sha(tree: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(tree[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tree_checksum(tree: dict) -> float:
+    return float(sum(float(v.detach().double().abs().sum())
+                     for v in tree.values()))
+
+
+def dp_iterations(torch, np, dtn: str) -> dict:
+    """{name: (algo, device inputs, scalars)} of the U-Net iteration (w16,
+    256x256, batch 8) and the uganConsis iteration (w16, 8 + 8)."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(input_size=256, base_width=16, batch_size=8,
+                 compute_dtype=dtn, consis_gate_step=0)
+    unet = SupervisedUNet(cfg)
+    inp = unet.inputs({k: torch.from_numpy(v).cuda()
+                       for k, v in ellipse_batch(np).items()})
+    gan = UGANConsisAlgo(cfg)
+    ginp = gan.inputs(dict(gan_batch(torch, np), **gan.make_extra_batch()))
+    scal = {k: torch.tensor(float(v), device="cuda")
+            for k, v in gan.epoch_scalars(1).items()}
+    return {"unet": (unet, inp, {}), "gan": (gan, ginp, scal)}
+
+
+def dp_world1() -> dict:
+    """11a, in a child process: each iteration replayed with no group,
+    then in a group of one over NCCL (the gradient all-reduce and the
+    batch Dice's sums captured in the graph): float32 under deterministic
+    cuDNN, the decoders' upsampling in fixed order (8c: F.interpolate's
+    backward adds with atomics), the parameters compared to the bit; and
+    bfloat16 at the defaults, one replay's device operations with no
+    group and in the group (profiler), and in the group its timing."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.models import blocks
+    from smsut_tpu_torch.parallel import distributed
+    from smsut_tpu_torch.tools.profile_step import device_rows, iteration
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    up = blocks.upsample_bilinear2
+
+    def replayed_f32():
+        cudnn.deterministic = True
+        blocks.upsample_bilinear2 = upsample_bilinear2_sliced
+        try:
+            out = {}
+            for name, (algo, inp, scal) in dp_iterations(
+                    torch, np, "float32").items():
+                state = algo.init_state(0)
+                run = iteration(algo, state, inp, scal)
+                for _ in range(2 + DP_REPLAYS):
+                    run()
+                torch.cuda.synchronize()
+                trees = ("params",) if hasattr(state, "params") else (
+                    "g_params", "d_params")
+                out[name] = {t: {k: v.clone() for k, v in
+                                 getattr(state, t).items()} for t in trees}
+            return out
+        finally:
+            cudnn.deterministic = False
+            blocks.upsample_bilinear2 = up
+
+    def bf16_replays():
+        return {name: iteration(algo, algo.init_state(0), inp, scal)
+                for name, (algo, inp, scal) in dp_iterations(
+                    torch, np, "bfloat16").items()}
+
+    def device_ops(run):
+        run()
+        run()
+        rows, _ = device_rows(torch, run, 3)
+        return {k: [ms, n] for k, ms, n in rows}
+
+    alone = replayed_f32()
+    alone_ops = {n: device_ops(r) for n, r in bf16_replays().items()}
+    torch.cuda.empty_cache()
+    if not distributed.initialize(f"localhost:{free_port()}", 1, 0):
+        raise AssertionError("no group")
+    out = {"backend": distributed.backend()}
+    grouped = replayed_f32()
+    out["bit_equal"] = {n: all(tree_equal(torch, alone[n][t], grouped[n][t])
+                               for t in alone[n]) for n in alone}
+    del alone, grouped
+    torch.cuda.empty_cache()
+    for name, run in bf16_replays().items():
+        ops_ = device_ops(run)
+        t = timed_blocks(torch, {"replayed": run}, TIMING_UNITS[name],
+                         TIMING_ROUNDS)["replayed"]
+        device = sum(v[0] for v in ops_.values())
+        a = alone_ops[name]
+        out[name] = {
+            "median_ms": t["median_ms"], "q1_ms": t["q1_ms"],
+            "q3_ms": t["q3_ms"], "device_ms": device,
+            "kernels": sum(kernel_counts((k, v[1]) for k, v in
+                                         ops_.items()).values()),
+            "idle_share": 1 - device / t["median_ms"],
+            "nccl": {k: v for k, v in ops_.items() if "nccl" in k.lower()},
+            "alone_device_ms": sum(v[0] for v in a.values()),
+            "alone_kernels": sum(kernel_counts((k, v[1]) for k, v in
+                                               a.items()).values()),
+            "added": {k: v[1] - a.get(k, [0, 0])[1] for k, v in ops_.items()
+                      if v[1] != a.get(k, [0, 0])[1]}}
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def dp_rank() -> dict:
+    """11b, one rank of two on the one card (gloo, eager; the group from
+    the SMSUT_* variables): the U-Net's DP_STEPS float32 steps and one
+    block_pallas step on the rank's 4 rows, one float32 uganConsis step on
+    its 4 + 4; metrics averaged over the ranks, launches and routed calls
+    per step, step times, and the trees after (the GAN's written to
+    DP_DIR for the parent)."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.parallel import distributed
+    from smsut_tpu_torch.parallel.mesh import mean_over_ranks
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    if not distributed.initialize():
+        raise AssertionError("no group")
+    rank = distributed.process_index()
+    sl = distributed.local_batch_slice(DP_GLOBAL)
+    counters, routed = kernel_counters()
+    counts = lambda: {k: c.launches for k, c in counters.items()}
+    out = {"rank": rank, "world": distributed.process_count(),
+           "backend": distributed.backend()}
+
+    def timed_step(algo, state, batch, scal=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = algo.train_step(state, batch, scal)
+        m = {k: float(mean_over_ranks(v)) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return state, m, (time.perf_counter() - t0) * 1e3
+
+    cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                 compute_dtype="float32", consis_gate_step=0)
+    unet = SupervisedUNet(cfg)
+    state = unet.init_state(0)
+    batch = {k: torch.from_numpy(v[sl]).cuda()
+             for k, v in dp_batch(np).items()}
+    zero(counters, routed)
+    losses, ms = [], []
+    for _ in range(DP_STEPS):
+        state, m, t = timed_step(unet, state, batch)
+        losses.append(m["loss"])
+        ms.append(t)
+    out["unet"] = {"losses": losses, "step_ms": ms,
+                   "launches": {k: v // DP_STEPS for k, v in counts().items()},
+                   "routed": routed_counts(routed),
+                   "checksum": tree_checksum(state.params),
+                   "sha": tree_sha(state.params)}
+    fused = SupervisedUNet(cfg.replace(block_pallas=True,
+                                       compute_dtype="bfloat16"))
+    zero(counters, routed)
+    fused.train_step(fused.init_state(0), batch)
+    out["unet_block"] = {"launches": counts(),
+                         "routed": routed_counts(routed)}
+    gan = UGANConsisAlgo(cfg)
+    gst = gan.init_state(0)
+    full = dict(gan_batch(torch, np),
+                msk=torch.from_numpy(dp_batch(np)["msk"]).cuda())
+    gb = {k: v[sl] for k, v in full.items()}
+    scal = gan.epoch_scalars(1)
+    zero(counters, routed)
+    gst, gm, t = timed_step(gan, gst, dict(gb, **gan.make_extra_batch()),
+                            scal)
+    out["gan"] = {"metrics": gm, "launches": counts(),
+                  "routed": routed_counts(routed),
+                  "g_sha": tree_sha(gst.g_params),
+                  "d_sha": tree_sha(gst.d_params), "first_ms": t}
+    if rank == 0:
+        torch.save({"g_params": {k: v.cpu() for k, v in gst.g_params.items()},
+                    "d_params": {k: v.cpu() for k, v in gst.d_params.items()}},
+                   DP_DIR / "gan_rank0.pt")
+    _, _, out["gan"]["step_ms"] = timed_step(
+        gan, gst, dict(gb, **gan.make_extra_batch()), scal)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def dp_two_ranks(torch, np, counters, routed, kids) -> dict:
+    """11b: the two ranks (``kids``, :func:`dp_spawn`'s) against one
+    process at the global batch, here."""
+    import types
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    # both ranks are asked before either is read: each waits for the other
+    for proc, _ in kids:
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+    r0, r1 = [child_result(k, go=False) for k in kids]
+    import torch.backends.cudnn as cudnn
+
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                     compute_dtype="float32", consis_gate_step=0)
+        unet = SupervisedUNet(cfg)
+        state = unet.init_state(0)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in dp_batch(np).items()}
+        losses = []
+        for _ in range(DP_STEPS):
+            state, m = unet.train_step(state, batch)
+            losses.append(float(m["loss"]))
+        cksum = tree_checksum(state.params)
+        gan = UGANConsisAlgo(cfg)
+        zero(counters, routed)
+        gst, gm = gan.train_step(gan.init_state(0), dict(
+            gan_batch(torch, np),
+            msk=torch.from_numpy(dp_batch(np)["msk"]).cuda(),
+            **gan.make_extra_batch()), gan.epoch_scalars(1))
+        per_step = {k: c.launches for k, c in counters.items()}
+    finally:
+        cudnn.deterministic = det
+    saved = torch.load(DP_DIR / "gan_rank0.pt", weights_only=True)
+    got = types.SimpleNamespace(**{t: {k: v.cuda() for k, v in
+                                       saved[t].items()} for t in saved})
+    gan_d = gan_step_against(torch, (r0["gan"]["metrics"], got),
+                             ({k: float(v) for k, v in gm.items()}, gst),
+                             cfg.lr)
+    u0 = r0["unet"]
+    loss_err = abs(u0["losses"][-1] - losses[-1])
+    sum_err = abs(u0["checksum"] - cksum) / max(abs(cksum), 1.0)
+    out = {"ranks": [r0, r1], "one_process": {"losses": losses,
+                                              "checksum": cksum,
+                                              "gan_per_step": per_step},
+           "unet_loss_err": loss_err, "unet_sum_err": sum_err,
+           "gan": gan_d}
+    print(f"dp 11b: two ranks over {r0['backend']} on the one card, eager: "
+          f"U-Net losses {[round(x, 6) for x in u0['losses']]} vs one "
+          f"process {[round(x, 6) for x in losses]}: step {DP_STEPS} err "
+          f"{loss_err:.3g} (tol {DP_LOSS_TOL}), checksum rel err "
+          f"{sum_err:.3g} (tol {DP_SUM_TOL}), ranks equal to the bit "
+          f"{u0['sha'] == r1['unet']['sha']}; a rank's step launches "
+          f"{u0['launches']}, routed {u0['routed']}, block_pallas step "
+          f"{r0['unet_block']['launches']} routed "
+          f"{r0['unet_block']['routed']}; step ms {u0['step_ms']} (rank 0)"
+          f" {r1['unet']['step_ms']} (rank 1)", flush=True)
+    print(f"dp 11b: uganConsis one step, 4 + 4 a rank vs 8 + 8: {gan_d} "
+          f"(7b's rules: losses atol {GAN_LOSS_ATOL} over rtol, D max |dev| "
+          f"<= {GAN_FLIP_DEV} lr, flips < {GAN_FLIP_SHARE}, seg tower atol "
+          f"{GAN_SEG_ATOL}); ranks equal to the bit "
+          f"{(r0['gan']['g_sha'], r0['gan']['d_sha']) == (r1['gan']['g_sha'], r1['gan']['d_sha'])}"
+          f"; a rank's launches {r0['gan']['launches']} (one process "
+          f"{per_step}), routed {r0['gan']['routed']}; step ms "
+          f"{r0['gan']['step_ms']:.1f} (rank 0, second step) "
+          f"{r1['gan']['step_ms']:.1f} (rank 1)", flush=True)
+    want_unet = {k: PER_STEP[False].get(k, 0) for k in KERNELS}
+    want_block = {k: PER_STEP[True].get(k, 0) for k in KERNELS}
+    for r in (r0, r1):
+        if (r["backend"] != "gloo" or r["world"] != 2
+                or r["unet"]["launches"] != want_unet
+                or r["unet_block"]["launches"] != want_block
+                or any(r["unet"]["routed"].values())
+                or any(r["unet_block"]["routed"].values())
+                or r["gan"]["launches"] != per_step
+                or r["gan"]["routed"] != {"conv3x3": 3, "block": 0}):
+            raise AssertionError(f"11b rank {r['rank']}: {r}")
+    if not (loss_err <= DP_LOSS_TOL and sum_err <= DP_SUM_TOL
+            and u0["sha"] == r1["unet"]["sha"]
+            and u0["losses"] == r1["unet"]["losses"]
+            and r0["gan"]["g_sha"] == r1["gan"]["g_sha"]
+            and r0["gan"]["d_sha"] == r1["gan"]["d_sha"]
+            and gan_d["loss_over"] <= GAN_LOSS_ATOL
+            and gan_d["d_dev_max"] <= GAN_FLIP_DEV * cfg.lr
+            and gan_d["d_flip_share"] < GAN_FLIP_SHARE
+            and gan_d["seg_over"] <= GAN_SEG_ATOL):
+        raise AssertionError(f"11b two ranks vs one process: {out}")
+    return out
+
+
+def log_metrics(text: str) -> dict:
+    """{"train/loss": [per epoch], "test/dice_ct": [...], ...} of a
+    train.log's [TRN] and [TST] lines (their current values)."""
+    out = {}
+    for tag, prefix in (("[TRN]", "train"), ("[TST]", "test")):
+        for line in text.splitlines():
+            if tag not in line:
+                continue
+            for k, v in re.findall(r" (\w+): ([-0-9.e]+)/", line):
+                out.setdefault(f"{prefix}/{k}", []).append(float(v))
+    return out
+
+
+def fit_distance(k: dict, p: dict) -> dict:
+    """6b's distances between two fits' logged metrics: the [TRN] loss
+    relative, the [TST] Dice per modality and overall absolute, the
+    largest over the epochs."""
+    mods = ("ct", "t1in", "t1out", "t2")
+    return {"loss": max(abs(a - b) / abs(b) for a, b in
+                        zip(k["train/loss"], p["train/loss"])),
+            "dice": {m: max(abs(a - b) for a, b in
+                            zip(k[f"test/dice_{m}"], p[f"test/dice_{m}"]))
+                     for m in mods},
+            "dice_all": max(abs(a - b) for a, b in
+                            zip(k["test/dice"], p["test/dice"]))}
+
+
+def nudged_unet(cfg, device=None):
+    """``SupervisedUNet`` whose initial weights are scaled by 1 + 2^-23
+    (each moved by at most one float32 unit in the last place): a fit
+    from them shows how far rounding alone parts two fits."""
+    import torch
+
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    algo = SupervisedUNet(cfg, device)
+    init = algo.init_state
+
+    def nudged(seed):
+        state = init(seed)
+        with torch.no_grad():
+            torch._foreach_mul_(list(state.params.values()), 1 + 2.0 ** -23)
+        return state
+
+    algo.init_state = nudged
+    return algo
+
+
+# 11c's ranks: the trainer module under deterministic cuDNN (8c's rule)
+DETERMINISTIC_UNET = (
+    "import runpy, torch; torch.backends.cudnn.deterministic = True; "
+    "runpy.run_module('smsut_tpu_torch.trainer.unetTrainer', "
+    "run_name='__main__', alter_sys=True)")
+
+
+def dp_fit(torch, data: Path) -> dict:
+    """11c: ``unetTrainer -p train`` through ``torch.distributed.run``,
+    two ranks on the one card, against the one-process fit here under
+    6b's rules; then ``-p test`` here from the two-rank checkpoint.  All
+    fits run under deterministic cuDNN, as 8c's: with cuDNN's default
+    algorithms two one-process fits of this tree part by up to 1.6e-2 in
+    an iteration's loss (measured on one H100).  The augmented fit is
+    chaotic even so, so the bounds are 6b's or, where larger, twice the
+    distance from the one-process fit of a fit from weights one unit in
+    the last place away (:func:`nudged_unet`)."""
+    import numpy as np
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.train.cli import make_parser, run_main
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    expr = DP_DIR / "expr"
+    args = lambda name: fit_args(data, expr, name, "compute_dtype=float32",
+                                 "num_workers=2")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "--no-python", sys.executable, "-c",
+         DETERMINISTIC_UNET, "-p", "train"] + args("dp2"), cwd=ROOT,
+        capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    two_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"torch.distributed.run failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        run_main(SupervisedUNet, make_parser().parse_args(
+            ["-p", "train"] + args("dp1")))
+        one_s = time.perf_counter() - t0
+        run_main(nudged_unet, make_parser().parse_args(
+            ["-p", "train"] + args("dp1ulp")))
+    finally:
+        cudnn.deterministic = det
+    logs = sorted(p.relative_to(expr / "dp2")
+                  for p in (expr / "dp2").rglob("train.log"))
+    ckpts = sorted(p.name for p in (expr / "dp2").rglob("*.ckpt"))
+    text = {n: (expr / n / "000" / "train.log").read_text()
+            for n in ("dp2", "dp1", "dp1ulp")}
+    k, p, u = (log_metrics(text[n]) for n in ("dp2", "dp1", "dp1ulp"))
+    d, spread = fit_distance(k, p), fit_distance(u, p)
+    bound = {"loss": max(LOSS_TOL, 2 * spread["loss"]),
+             "dice": {m: max(PARITY_DICE_TOL, 2 * v)
+                      for m, v in spread["dice"].items()},
+             "dice_all": max(PARITY_DICE_ALL, 2 * spread["dice_all"])}
+    best = lambda m: max(range(FIT_EPOCHS),
+                         key=lambda e: (m["test/dice"][e], e))
+    elapsed = lambda t: [float(x) for x in re.findall(
+        r"\[TRN\] Epoch: .*elapsed: ([0-9.]+)s", t)]
+    eager = re.findall(r"(\d+) dispatches ran eagerly", text["dp2"])
+    t0 = time.perf_counter()
+    run_main(SupervisedUNet, make_parser().parse_args(
+        ["-p", "test", "-i", "000", "-wh", "best"] + args("dp2")))
+    test_s = time.perf_counter() - t0
+    csv = np.array([[float(v) for v in r.split(",")] for r in
+                    (expr / "dp2" / "000" / "all_trois_matrix.csv")
+                    .read_text().split("\n") if r])
+    out = {"diff": d, "ulp_spread": spread, "bound": bound,
+           "best": [best(k), best(p), best(u)],
+           "logs": [str(x) for x in logs], "ckpts": ckpts, "two": k,
+           "one": p, "one_ulp": u, "two_ranks_s": two_s,
+           "one_process_s": one_s, "test_s": test_s,
+           "epoch1_ms_per_iteration": {
+               "two_ranks": elapsed(text["dp2"])[1] * 1e3 / FIT_ITERS,
+               "one_process": elapsed(text["dp1"])[1] * 1e3 / FIT_ITERS},
+           "eager_dispatches": eager, "csv_shape": list(csv.shape)}
+    print(f"dp 11c: unetTrainer through torch.distributed.run, 2 ranks "
+          f"({two_s:.1f} s) vs one process ({one_s:.1f} s), float32: "
+          f"[TRN] losses {k['train/loss']} vs {p['train/loss']} (one ulp "
+          f"off: {u['train/loss']}); [TST] Dice {k['test/dice']} vs "
+          f"{p['test/dice']} ({u['test/dice']}); distance {d}; one-ulp "
+          f"spread {spread}; bounds {bound}; best epoch {best(k)} vs "
+          f"{best(p)}; logs {out['logs']}, checkpoints {ckpts}; eager "
+          f"dispatches logged by rank 0 {eager}; epoch-1 ms per iteration "
+          f"(the log's elapsed over {FIT_ITERS}) "
+          f"{out['epoch1_ms_per_iteration']}; -p test from the two-rank "
+          f"checkpoint in {test_s:.1f} s, CSV {csv.shape}", flush=True)
+    if not (logs == [Path("000") / "train.log"]
+            and ckpts == ["best.ckpt", "last.ckpt"]
+            and "[distributed] process 0/2, backend gloo" in proc.stdout
+            and "cannot be captured" in text["dp2"] and eager
+            and d["loss"] <= bound["loss"]
+            and all(v <= bound["dice"][m] for m, v in d["dice"].items())
+            and d["dice_all"] <= bound["dice_all"] and best(k) == best(p)
+            and csv.shape == (10, 5) and np.isfinite(csv).all()):
+        raise AssertionError(f"11c: {out}\n{proc.stdout[-2000:]}")
+    return out
+
+
+def dp_spawn() -> dict:
+    """Phase 11's children, started ahead of it: 11a's and 11b's two
+    ranks (their group's address chosen here)."""
+    port = free_port()
+    return {"world1": run_child("dp_world1"),
+            "ranks": [run_child("dp_rank", {
+                "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+                "SMSUT_NUM_PROCESSES": "2", "SMSUT_PROCESS_ID": str(r)})
+                for r in range(2)]}
+
+
+def dp_phase(torch, counters, routed, timing: dict, data: Path,
+             kids: dict) -> dict:
+    """Phase 11: 11a, 11b, 11c (11c on phase 6's tree), ``kids`` from
+    :func:`dp_spawn`."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    a = child_result(kids["world1"])
+    for name in ("unet", "gan"):
+        r, e = a[name], timing[name]["replayed"]
+        print(f"dp 11a {name}: world 1 over {a['backend']}, float32 replays "
+              f"equal to the no-group run to the bit: {a['bit_equal'][name]}"
+              f"; bfloat16 replay median {r['median_ms']:.3f} ms (quartiles "
+              f"{r['q1_ms']:.3f}-{r['q3_ms']:.3f}), device {r['device_ms']:.3f}"
+              f" ms in {r['kernels']} kernels, idle share "
+              f"{r['idle_share']:.3f}; NCCL kernels in the replay "
+              f"{r['nccl'] or 'none (one rank: the in-place all-reduce '}"
+              f"{'' if r['nccl'] else 'moves nothing)'}; the replay with no "
+              f"group {r['alone_device_ms']:.3f} ms in {r['alone_kernels']} "
+              f"kernels, the group's added operations {r['added']}; 8e (no "
+              f"group, another process): median {e['median_ms']:.3f} ms, "
+              f"device {e['device_ms']:.3f} ms in {e['kernels']:.0f} "
+              f"kernels, idle share {e['idle_share']:.3f}", flush=True)
+    if a["backend"] != "nccl" or not all(a["bit_equal"].values()):
+        raise AssertionError(f"11a: {a}")
+    t1 = time.perf_counter()
+    b = dp_two_ranks(torch, np, counters, routed, kids["ranks"])
+    t2 = time.perf_counter()
+    c = dp_fit(torch, data)
+    t3 = time.perf_counter()
+    print(f"phase 11: 11a {t1 - t0:.1f} s, 11b {t2 - t1:.1f} s, 11c "
+          f"{t3 - t2:.1f} s", flush=True)
+    return {"world1": a, "two_ranks": b, "fit": c,
+            "seconds": [t1 - t0, t2 - t1, t3 - t2]}
+
+
 def main() -> int:
     import torch
 
@@ -3516,14 +4118,7 @@ def main() -> int:
     rows += check_backward_kernels(torch, F, ops, instnorm, conv3x3, block)
     rows += check_mma_kernels(torch, F, ops, conv_mma)
     print(f"phases 2-2c: {time.perf_counter() - t0:.1f} s", flush=True)
-    counters = {"instnorm": instnorm.instance_norm_fwd,
-                "conv3x3": conv3x3.conv3x3_fwd, "block": block.basic_block_fwd,
-                "instnorm_bwd": instnorm.instance_norm_bwd,
-                "conv3x3_dw": conv3x3.conv3x3_dw,
-                "block_bwd": block.basic_block_bwd}
-    counters.update({f"conv3x3_{v}": getattr(conv_mma, f"conv3x3_{v}")
-                     for v in MMA_VARIANTS})
-    routed = {"conv3x3": conv3x3.conv3x3, "block": block.basic_block}
+    counters, routed = kernel_counters()
     t0 = time.perf_counter()
     serve = serve_modes(torch, ops, counters, routed)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3547,9 +4142,14 @@ def main() -> int:
     zoo = zoo_phase(torch, ops, counters, routed, card)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    kids = dp_spawn()   # phase 11's children start up during phase 10
     m3l_dtc = m3l_dtc_phase(torch, ops, counters, routed, card, instnorm,
                             conv3x3, block)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dp = dp_phase(torch, counters, routed, dispatch["timing"],
+                  FIT_DIR / "data", kids)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
@@ -3619,6 +4219,7 @@ def main() -> int:
                    "dispatch": json.loads(json.dumps(dispatch, default=str)),
                    "zoo": json.loads(json.dumps(zoo, default=str)),
                    "m3l_dtc": json.loads(json.dumps(m3l_dtc, default=str)),
+                   "data_parallel": json.loads(json.dumps(dp, default=str)),
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,14 @@ in the JAX package: T iterations staged per dispatch, and the eval sweep
 from a test set kept on the card; on the card each iteration and each
 eval batch is a CUDA graph replay (train/loop.py).
 
+``data_parallel`` and ``spatial_parallel`` are checked against the
+process group (``parallel/mesh.py`` ``check_config``, called by the fit
+loop): ``data_parallel`` 0 takes every rank of the group, and any other
+value must equal the group's size (a value above 1 in a single process
+raises: launch that many processes with ``torch.distributed.run``);
+``spatial_parallel`` above 1 raises ``NotImplementedError`` until ROADMAP
+A10b ports the spatial axis.
+
 The kernel knobs keep their names: ``block_pallas`` selects, on a CUDA
 device, the fused residual-block kernel (K3) instead of the conv (K2) +
 instance-norm (K1) chain.  ``use_pallas`` and ``conv_pallas`` are no-ops:
@@ -118,7 +126,9 @@ class Config:
     # activation dtype ("bfloat16" or "float32"); parameters, norm
     # statistics and logits are always float32.
     compute_dtype: str = "bfloat16"
+    # ranks of the process group: 0 = all of them, else the group's size
     data_parallel: int = 0
+    # H-sharding across ranks: only 1 (above 1 raises, ROADMAP A10b)
     spatial_parallel: int = 1
     prefetch_depth: int = 2
     # no-op in the port (every CUDA instance norm runs kernel K1)

@@ -32,7 +32,9 @@ from smsut_tpu_torch.data.samplers import (
     InTurnTestBatchSampler,
     InTurnTrainBatchSampler,
     ModalityBalanceBatchSampler,
+    ShardedBatchSampler,
 )
+from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.utils.io import imread_gray, read_yaml
 
 
@@ -208,10 +210,17 @@ def get_loader(data_root: str, phase: str, fold: int, batch_size: int,
                data_aug: Optional[Dict] = None, load_in_ram: bool = True,
                cfg: Optional[Config] = None, loader_type: str = "inTurn",
                rng: Optional[random.Random] = None,
-               raw: bool = False) -> BatchLoader:
+               raw: bool = False, num_shards: Optional[int] = None,
+               shard_id: Optional[int] = None) -> BatchLoader:
     """The in-turn loader (single-modality batches); ``loader_type=
     'balance'`` selects the modality-balanced sampler.  Test loaders walk
-    each modality in order, with a partial last batch."""
+    each modality in order, with a partial last batch.
+
+    Train and val samplers keep a rank's contiguous rows of every global
+    batch (:class:`ShardedBatchSampler`); ``num_shards``/``shard_id``
+    default to the process group's layout (``parallel.distributed``).
+    Test loaders stay global.  The host augmentation (``raw`` False)
+    draws for the rank's rows only (ROADMAP C5)."""
     cfg = cfg or Config()
     rng = rng or random.Random()
     dataset = SliceDataset(data_root, phase, fold, load_in_ram, cfg.split_yaml)
@@ -225,6 +234,11 @@ def get_loader(data_root: str, phase: str, fold: int, batch_size: int,
                                                   batch_size, rng=rng)
         else:
             raise NotImplementedError(loader_type)
+        if num_shards is None:
+            num_shards = distributed.process_count()
+            shard_id = distributed.process_index()
+        if num_shards > 1:
+            sampler = ShardedBatchSampler(sampler, num_shards, shard_id or 0)
     else:
         augment = None
         sampler = InTurnTestBatchSampler(dataset.modal_sample_ids, batch_size)

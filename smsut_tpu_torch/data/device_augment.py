@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.data.augment import resized_crop_params
 from smsut_tpu_torch.device import resolve_device
+from smsut_tpu_torch.parallel import distributed
 
 
 def cubic_resize_weights(n_in: int, n_out: int) -> np.ndarray:
@@ -144,6 +145,18 @@ class DeviceAugment:
 
     def sample_params_packed(self, batch: int, h: int, w: int) -> np.ndarray:
         return self.pack_params(self.sample_params(batch, h, w))
+
+    def sample_rows_packed(self, rows: int, h: int, w: int) -> np.ndarray:
+        """This rank's ``rows`` rows of the packed parameters of the global
+        batch (``rows`` times the group's size), drawn whole on every rank:
+        the parameters draw kind by kind across the batch, so a rank that
+        drew for its own rows alone would read another stream than one
+        process at the global batch.  In a single process,
+        :meth:`sample_params_packed`."""
+        n = distributed.process_count()
+        packed = self.sample_params_packed(rows * n, h, w)
+        return packed[distributed.local_batch_slice(rows * n)] if n > 1 \
+            else packed
 
     # ---------------------------------------------------------- device side
     def _cubic(self, n_in: int, n_out: int, device) -> torch.Tensor:

@@ -6,7 +6,9 @@ the same order, so one seed gives one index stream in both packages.
 The in-turn sampler round-robins modalities so each training batch is
 single-modality, reshuffling a modality's pool on wraparound; the balance
 sampler mixes every modality in each batch; the test sampler walks each
-modality sequentially including the final partial batch.
+modality sequentially including the final partial batch.  Under a
+process group :class:`ShardedBatchSampler` keeps a rank's contiguous rows
+of each global batch.
 """
 from __future__ import annotations
 
@@ -72,6 +74,33 @@ class InTurnTestBatchSampler:
 
     def __len__(self) -> int:
         return self.n
+
+
+class ShardedBatchSampler:
+    """Any batch sampler's global batches cut to one rank's contiguous
+    rows ``[shard_id*B/N, (shard_id+1)*B/N)`` (``parallel.distributed``
+    ``local_batch_slice``).  Every rank runs the same seeded base sampler,
+    so the ranks' rows together are the one-process batch stream."""
+
+    def __init__(self, base, num_shards: int, shard_id: int):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards}")
+        self.base = base
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+
+    def __iter__(self) -> Iterator[List[int]]:
+        for idxs in self.base:
+            if len(idxs) % self.num_shards:
+                raise ValueError(
+                    f"global batch of {len(idxs)} not divisible by "
+                    f"{self.num_shards} processes; pick batch_size % "
+                    f"process_count == 0")
+            per = len(idxs) // self.num_shards
+            yield idxs[self.shard_id * per: (self.shard_id + 1) * per]
+
+    def __len__(self) -> int:
+        return len(self.base)
 
 
 class ModalityBalanceBatchSampler:

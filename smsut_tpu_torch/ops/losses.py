@@ -19,6 +19,17 @@ the plain form); the packed variants (``dice_and_ce_loss_packed*``,
 ``pack_levels``/``packed_loss_tails``, which do nothing in the port
 (config.py), and are not ported.  No kernel: the JAX package leaves them
 to XLA too.
+
+Under a process group (``parallel/``) each rank holds its rows of the
+global batch and the gradients are averaged over the group, which makes
+every plain mean of per-sample terms exact.  The reductions over the batch
+axis that are not such a mean become sums over the global batch through
+``parallel.mesh.batch_sums``: the batch Dice's tp/fp/fn
+(:func:`get_tp_fp_fn`, :func:`dice_and_ce_loss`, and so
+:func:`argmax_consistency_loss` and CoraNet's head 0), the class-weighted
+CE's mean (:func:`cross_entropy_loss`), and CoraNet's masked means
+(:func:`masked_certain_loss`, :func:`masked_head_mse`).  Without a group
+they are the sums they were.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from smsut_tpu_torch.ops import acc
+from smsut_tpu_torch.parallel.mesh import batch_sums
 
 
 def one_hot_last(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -35,24 +47,31 @@ def one_hot_last(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 def get_tp_fp_fn(probs: torch.Tensor, labels: torch.Tensor,
-                 batch_dice: bool
+                 batch_dice: bool, over_group: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tp/fp/fn reduced over the spatial dims, and the batch dim with
-    ``batch_dice``: [C] or [B, C].  fp = sum(p) - tp, fn = sum(gt) - tp."""
-    gt = one_hot_last(labels, probs.shape[-1])
+    ``batch_dice`` (the group's global batch unless ``over_group`` is
+    False): [C] or [B, C].  fp = sum(p) - tp, fn = sum(gt) - tp."""
+    return _tp_fp_fn(probs, one_hot_last(labels, probs.shape[-1]),
+                     batch_dice, over_group)
+
+
+def _tp_fp_fn(probs: torch.Tensor, gt: torch.Tensor, batch_dice: bool,
+              over_group: bool):
     dims = (0, 1, 2) if batch_dice else (1, 2)
     tp = (probs * gt).sum(dim=dims)
-    fp = probs.sum(dim=dims) - tp
-    fn = gt.sum(dim=dims) - tp
-    return tp, fp, fn
+    ps, gs = probs.sum(dim=dims), gt.sum(dim=dims)
+    if batch_dice and over_group:
+        tp, ps, gs = batch_sums(tp, ps, gs)
+    return tp, ps - tp, gs - tp
 
 
 def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
-                   batch_dice: bool = True,
-                   smooth: float = 1e-5) -> torch.Tensor:
+                   batch_dice: bool = True, smooth: float = 1e-5,
+                   over_group: bool = True) -> torch.Tensor:
     """Softmax, tp/fp/fn, background channel excluded, 1 - mean dice."""
     probs = torch.softmax(acc(logits), dim=-1)
-    tp, fp, fn = get_tp_fp_fn(probs, labels, batch_dice)
+    tp, fp, fn = get_tp_fp_fn(probs, labels, batch_dice, over_group)
     dc = (2.0 * tp + smooth) / (2.0 * tp + fp + fn + smooth + 1e-8)
     dc = dc[1:] if batch_dice else dc[:, 1:]
     return 1.0 - dc.mean()
@@ -62,7 +81,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        class_weights: Optional[torch.Tensor] = None,
                        reduce: bool = True) -> torch.Tensor:
     """nn.CrossEntropyLoss over [B,H,W,C] logits and [B,H,W] labels; with
-    ``class_weights`` the mean is weighted by the per-pixel class weight."""
+    ``class_weights`` the mean over the global batch is weighted by the
+    per-pixel class weight."""
     logp = torch.log_softmax(acc(logits), dim=-1)
     gt = one_hot_last(labels, logits.shape[-1])
     nll = -(logp * gt).sum(dim=-1)
@@ -71,18 +91,24 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                                  device=gt.device)
         if not reduce:
             return nll * w
-        return (nll * w).sum() / torch.clamp(w.sum(), min=1e-8)
+        num, den = batch_sums((nll * w).sum(), w.sum())
+        return num / torch.clamp(den, min=1e-8)
     return nll.mean() if reduce else nll
 
 
 def dice_and_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
                      weight_dc: float = 0.5, weight_ce: float = 0.5,
-                     batch_dice: bool = True) -> torch.Tensor:
+                     batch_dice: bool = True,
+                     over_group: bool = True) -> torch.Tensor:
     """weight_dc * SoftDice + weight_ce * CE.  With both weights active the
     two share one stabilised softmax: probs = e/s and logp = (x - m) -
-    log(s) from the same (m = max, detached; e = exp(x - m); s = sum e)."""
+    log(s) from the same (m = max, detached; e = exp(x - m); s = sum e).
+    The batch Dice sums over the group's global batch unless
+    ``over_group`` is False (a loss of the rank's own rows: the eval
+    sweep's per-batch loss)."""
     if weight_dc == 0 or weight_ce == 0:
-        dc = soft_dice_loss(logits, labels, batch_dice) if weight_dc else 0.0
+        dc = (soft_dice_loss(logits, labels, batch_dice,
+                             over_group=over_group) if weight_dc else 0.0)
         ce = cross_entropy_loss(logits, labels) if weight_ce else 0.0
         return weight_dc * dc + weight_ce * ce
     x = acc(logits)
@@ -91,10 +117,7 @@ def dice_and_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     s = e.sum(dim=-1, keepdim=True)
     probs = e / s
     gt = one_hot_last(labels, x.shape[-1])
-    dims = (0, 1, 2) if batch_dice else (1, 2)
-    tp = (probs * gt).sum(dim=dims)
-    fp = probs.sum(dim=dims) - tp
-    fn = gt.sum(dim=dims) - tp
+    tp, fp, fn = _tp_fp_fn(probs, gt, batch_dice, over_group)
     dcv = (2.0 * tp + 1e-5) / (2.0 * tp + fp + fn + 1e-5 + 1e-8)
     dcv = dcv[1:] if batch_dice else dcv[:, 1:]
     dc = 1.0 - dcv.mean()
@@ -214,10 +237,12 @@ def three_head_losses(out: torch.Tensor, msk: torch.Tensor,
 def masked_certain_loss(h0: torch.Tensor, labels: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """CoraNet's certain term on pseudo-labels: (CE of head 0 over the
-    pixels where ``mask`` is 1, and its per-image soft Dice) / 2."""
+    global batch's pixels where ``mask`` is 1, and its per-image soft
+    Dice) / 2."""
     nll = cross_entropy_loss(h0, labels, reduce=False)
     mask = mask.to(nll.dtype)
-    ce = (nll * mask).sum() / (mask.sum() + 1e-16)
+    num, den = batch_sums((nll * mask).sum(), mask.sum())
+    ce = num / (den + 1e-16)
     return (ce + soft_dice_loss(h0, labels, batch_dice=False)) / 2.0
 
 
@@ -225,8 +250,8 @@ def masked_head_mse(student: torch.Tensor, teacher: torch.Tensor,
                     n_label: int, umask: torch.Tensor) -> torch.Tensor:
     """CoraNet's uncertain term before its weight: the squared difference
     of the student's and the teacher's softmaxes, summed over the three
-    heads' channels and the pixels where ``umask`` is 1, over the count of
-    those pixels, over 3."""
+    heads' channels and the global batch's pixels where ``umask`` is 1,
+    over the count of those pixels, over 3."""
     umask = umask.to(acc(student).dtype)
     dist = 0.0
     for s, t in zip(split_heads(student, n_label),
@@ -234,4 +259,5 @@ def masked_head_mse(student: torch.Tensor, teacher: torch.Tensor,
         d = (torch.softmax(acc(s), dim=-1)
              - torch.softmax(acc(t), dim=-1)).square().sum(dim=-1)
         dist = dist + (d * umask).sum()
-    return dist / (umask.sum() + 1e-16) / 3.0
+    dist, count = batch_sums(dist, umask.sum())
+    return dist / (count + 1e-16) / 3.0

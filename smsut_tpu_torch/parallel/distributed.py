@@ -1,0 +1,158 @@
+# -*- coding: utf-8 -*-
+"""The process group: port of ``smsut_tpu/parallel/distributed.py``.
+
+``train/cli.py`` ``run_main`` calls :func:`initialize` once per process
+before anything touches the card.  Every rank then runs the same program
+on its contiguous rows of each global batch (``data/samplers.py``
+``ShardedBatchSampler``), the gradients are averaged over the group
+(``parallel/mesh.py``), and rank 0 writes the logs and checkpoints.
+
+Launch N processes with ``python -m torch.distributed.run --nproc_per_node
+N -m smsut_tpu_torch.trainer.unetTrainer ...`` (its ``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``), or set the
+JAX package's contract on each: ``SMSUT_COORDINATOR=host:port``,
+``SMSUT_NUM_PROCESSES=N``, ``SMSUT_PROCESS_ID=i``.
+
+The backend follows one rule: NCCL where the ranks run on CUDA and each
+has a card of its own (no more ranks on the node than cards), gloo
+otherwise (the CPU, or two ranks sharing one card, which NCCL refuses).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+# a rank that does not arrive fails the others after this long
+TIMEOUT_S = 300.0
+
+
+def _env_int(*names: str) -> Optional[int]:
+    for name in names:
+        if os.environ.get(name):
+            return int(os.environ[name])
+    return None
+
+
+def _coordinator() -> Optional[str]:
+    addr = os.environ.get("SMSUT_COORDINATOR")
+    if addr:
+        return addr
+    if os.environ.get("MASTER_ADDR"):
+        return (f"{os.environ['MASTER_ADDR']}:"
+                f"{os.environ.get('MASTER_PORT', '29500')}")
+    return None
+
+
+def _on_cuda(device: Optional[Union[str, torch.device]]) -> bool:
+    """Whether the ranks run on CUDA: ``device`` None (the card, as the
+    entry points default) or a CUDA device, on a host with a card."""
+    return torch.cuda.is_available() and (
+        device is None or torch.device(device).type == "cuda")
+
+
+def backend_for(world: int, device: Optional[Union[str, torch.device]] = None
+                ) -> str:
+    """NCCL when the ranks run on CUDA and the node has a card for each of
+    its ranks, else gloo."""
+    local = _env_int("LOCAL_WORLD_SIZE") or world
+    if _on_cuda(device) and local <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None,
+               device: Optional[Union[str, torch.device]] = None,
+               timeout_s: float = TIMEOUT_S) -> bool:
+    """``torch.distributed.init_process_group`` from the arguments, else
+    the ``SMSUT_*`` contract, else ``torch.distributed.run``'s variables.
+    A no-op that returns False in a single process (no coordinator and at
+    most one process); True once the group exists.  On CUDA the rank's
+    default card becomes ``LOCAL_RANK % device_count``."""
+    if dist.is_initialized():
+        return True
+    coordinator_address = coordinator_address or _coordinator()
+    if num_processes is None:
+        num_processes = _env_int("SMSUT_NUM_PROCESSES", "WORLD_SIZE")
+    if process_id is None:
+        process_id = _env_int("SMSUT_PROCESS_ID", "RANK")
+    if num_processes in (None, 1) and coordinator_address is None:
+        return False
+    if coordinator_address is None or process_id is None:
+        raise ValueError(f"a group of {num_processes} processes needs a "
+                         "coordinator address and this process's rank "
+                         "(SMSUT_COORDINATOR and SMSUT_PROCESS_ID)")
+    world = num_processes or 1
+    backend = backend_for(world, device)
+    if _on_cuda(device):
+        local = _env_int("LOCAL_RANK")
+        torch.cuda.set_device((process_id if local is None else local)
+                              % torch.cuda.device_count())
+    addr = coordinator_address
+    dist.init_process_group(
+        backend, init_method=addr if "://" in addr else f"tcp://{addr}",
+        world_size=world, rank=process_id,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return True
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_primary() -> bool:
+    """Rank 0 owns the logs, checkpoints and TensorBoard."""
+    return process_index() == 0
+
+
+def backend() -> Optional[str]:
+    """The group's backend, None without a group."""
+    return dist.get_backend() if dist.is_initialized() else None
+
+
+def capturable() -> bool:
+    """Whether a CUDA graph can hold the group's collectives: NCCL's can,
+    gloo's cannot (they run on the host)."""
+    return backend() in (None, "nccl")
+
+
+def local_batch_slice(global_batch: int) -> slice:
+    """This rank's contiguous rows ``[r*B/N, (r+1)*B/N)`` of a global
+    batch of ``B`` rows."""
+    count = process_count()
+    if global_batch % count:
+        raise ValueError(
+            f"global batch {global_batch} is not divisible by the {count} "
+            f"processes: rows would be silently dropped.  Pick a batch_size "
+            f"that is a multiple of the process count.")
+    per = global_batch // count
+    start = process_index() * per
+    return slice(start, start + per)
+
+
+def barrier() -> None:
+    """Every rank waits here for the others; nothing in a single process."""
+    if not dist.is_initialized():
+        return
+    if backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def refuse_group(what: str) -> None:
+    """Raise where ``what`` does not run under a group of more than one
+    process yet (ROADMAP A10b)."""
+    n = process_count()
+    if n > 1:
+        raise ValueError(f"{what} does not run data-parallel yet (a group "
+                         f"of {n} processes): ROADMAP A10b")

@@ -14,16 +14,22 @@ supervision) where the state holds them, and
 "d_opt_nu", "d_opt_count"}`` for a ``GANTrainState`` (SGD traces of G,
 Adam moments and update count of D).  A restored state's device step
 counter is set from the saved ``step``.
+
+Under a process group every rank holds the same state: rank 0 writes the
+file and the other ranks wait for it at a barrier, writing nothing.  The
+file holds the whole state whatever the group's size, so a checkpoint
+written by N ranks loads into one process and the other way round.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 from os.path import join as pjoin
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
+from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.train.state import AdamState, GANTrainState, TrainState
 
 
@@ -55,15 +61,21 @@ def _trees(state) -> Dict[str, Dict[str, torch.Tensor]]:
 
 
 def save_state(state: Union[TrainState, GANTrainState], ckpt_root: str,
-               prefix: str) -> str:
-    path = _path(ckpt_root, prefix)
-    raw = {"step": int(state.step),
-           **{k: _host(v) for k, v in _trees(state).items()}}
-    if isinstance(state, GANTrainState):
-        raw["d_opt_count"] = int(state.d_opt_state.count)
-    elif isinstance(state.opt_state, AdamState):
-        raw["opt_count"] = int(state.opt_state.count)
-    torch.save(raw, path)
+               prefix: str) -> Optional[str]:
+    """``state`` to ``{ckpt_root}/{prefix}.ckpt`` by rank 0; every rank
+    returns when the file is written.  The path on rank 0, None on the
+    others."""
+    path = None
+    if distributed.is_primary():
+        path = _path(ckpt_root, prefix)
+        raw = {"step": int(state.step),
+               **{k: _host(v) for k, v in _trees(state).items()}}
+        if isinstance(state, GANTrainState):
+            raw["d_opt_count"] = int(state.d_opt_state.count)
+        elif isinstance(state.opt_state, AdamState):
+            raw["opt_count"] = int(state.opt_state.count)
+        torch.save(raw, path)
+    distributed.barrier()
     return path
 
 

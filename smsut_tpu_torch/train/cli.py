@@ -13,17 +13,29 @@ prediction, ground truth and image, and for the GAN algorithms the
 translation strip and the hand-picked volumes' grids, as PNG through the
 port's own codec (utils/io.py), where the JAX package writes JPEG through
 PIL.
+
+Data parallel on N cards: ``python -m torch.distributed.run
+--nproc_per_node N -m smsut_tpu_torch.trainer.unetTrainer -p train ...``
+(any trainer module of ``smsut_tpu_torch/trainer/``).  :func:`run_main`
+joins the process group first (``parallel/distributed.py``: NCCL with a
+card per rank, gloo otherwise) and each rank takes its own card;
+``batch_size`` stays the global batch.  ``-p test`` runs the sharded eval
+sweep on every rank and rank 0 writes the CSV; ``-p pseudo`` runs on rank
+0 alone.
 """
 from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import random
 from os.path import join as pjoin
 
 import numpy as np
+import torch.distributed
 
 from smsut_tpu_torch.config import Config, get_config
+from smsut_tpu_torch.parallel import distributed
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -94,8 +106,28 @@ def run_main(algo_factory, args=None, capture: bool = True) -> None:
 
     from smsut_tpu_torch.train.loop import Trainer
 
-    algo = algo_factory(cfg, getattr(args, "device", None))
-    drive(Trainer(algo, cfg, args.phase, args, capture=capture), args)
+    with process_group(args):
+        algo = algo_factory(cfg, getattr(args, "device", None))
+        drive(Trainer(algo, cfg, args.phase, args, capture=capture), args)
+
+
+@contextlib.contextmanager
+def process_group(args):
+    """The process group of a launch of N processes joined for the
+    block, before anything touches the card (each rank then takes its own
+    card), and left after it; nothing in a single process."""
+    joined = (not torch.distributed.is_initialized()
+              and distributed.initialize(device=getattr(args, "device",
+                                                        None)))
+    if joined:
+        print(f"[distributed] process {distributed.process_index()}/"
+              f"{distributed.process_count()}, backend "
+              f"{distributed.backend()}", flush=True)
+    try:
+        yield
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 def drive(trainer, args, start=None) -> None:
@@ -124,6 +156,8 @@ def drive(trainer, args, start=None) -> None:
 def evaluate(trainer, args) -> None:
     """``-p test`` (the trois CSV) or ``-p pseudo`` (:func:`saving_pseudo`)
     of the checkpoint ``-i``/``-wh``."""
+    if args.phase == "pseudo" and not trainer._primary:
+        return   # rank 0 writes the PNGs, once
     trainer.load_model(args.model_id, args.which_ckpt)
     expr_root = pjoin(trainer.exp.expr_root, args.model_id)
     if args.phase == "test":

@@ -5,7 +5,11 @@ Port of ``smsut_tpu/train/experiment.py``: numbered experiment dirs (000,
 001, ...) with ckpt/tb/result/sample subdirs, a snapshot of the source, a
 file+console logger writing ``train.log``, and the ``expriments.log``
 registry appender.  Scalars go to TensorBoard when
-``torch.utils.tensorboard`` can be imported, and nowhere otherwise."""
+``torch.utils.tensorboard`` can be imported, and nowhere otherwise.
+
+Under a process group the ranks other than 0 are spectators
+(``spectator=True``): they make no directory, write no log, no registry
+line and no TensorBoard events, and ``info`` prints."""
 from __future__ import annotations
 
 import logging
@@ -29,10 +33,12 @@ def _summary_writer(log_dir: str):
 
 class Experiment:
     def __init__(self, expr_root: str, expr_name: str, phase: str = "train",
-                 snapshot_src: Optional[str] = None):
-        """Outside the train phase there is no model dir and no logger, and
-        info() prints."""
-        maybe_mkdir(expr_root)
+                 snapshot_src: Optional[str] = None, spectator: bool = False):
+        """Outside the train phase, and for a spectator, there is no model
+        dir and no logger, and info() prints."""
+        self.spectator = spectator
+        if not spectator:
+            maybe_mkdir(expr_root)
         self.expr_root = pjoin(expr_root, expr_name)
         self.phase = phase
         self.model_idx: Optional[str] = None
@@ -40,7 +46,7 @@ class Experiment:
         self.logger: Optional[logging.Logger] = None
         self.model_root = None
         self.ckpt_root = self.result_root = self.sample_root = None
-        if phase == "train":
+        if phase == "train" and not spectator:
             self._init_train_env(snapshot_src)
 
     def _init_train_env(self, snapshot_src: Optional[str]) -> None:
@@ -83,6 +89,8 @@ class Experiment:
 
     def register_experiment_args(self, args, filename: str = "expriments.log") -> None:
         # (sic) the reference's filename
+        if self.spectator:
+            return
         with open(pjoin(os.path.dirname(self.expr_root), filename), "a") as f:
             f.write(f"{os.path.basename(self.expr_root)}, {self.model_root}\n")
             f.write(str(args) + "\n\n")

@@ -37,8 +37,23 @@ the JAX package's stream for a run that draws one loader), the unlabelled
 loader's ``unlabeled_loader_rng`` (seed + 303), and CoraNet's pseudo-label
 sweep ``pseudo_sweep_rng`` (seed + 404), each made when ``fit`` starts.
 
-Not ported: the mesh and multi-host runs, and ``profile_dir`` tracing;
-those knobs are accepted and do nothing (config.py).
+Under a process group (``parallel/``, one process per card) every rank
+runs this loop on its contiguous rows of each global batch: the train and
+val loaders shard their batches, the device augmentation's parameters are
+drawn for the global batch and cut to the rank's rows, the train state
+averages its gradients over the group, the epoch's metrics ring is
+averaged over the ranks once, at the epoch's end, and the eval sweep is
+cut into contiguous, padded runs of batches per rank whose losses and
+predictions are gathered, so that every rank scores the same volumes.
+Rank 0 writes the log, TensorBoard, checkpoints and the test CSV; the
+others are spectators (train/experiment.py).  gloo's collectives run on
+the host and cannot be captured: under gloo on the card the iterations
+and the sweep run eagerly, which the log says and
+``eager_dispatches`` counts.  ``data_parallel`` and ``spatial_parallel``
+are checked against the group (``parallel.mesh.check_config``).
+
+Not ported: ``profile_dir`` tracing, accepted and doing nothing
+(config.py).
 """
 from __future__ import annotations
 
@@ -59,6 +74,9 @@ from smsut_tpu_torch.ops.losses import dice_and_ce_loss
 from smsut_tpu_torch.ops.metrics import (get_all_matrix, get_mo_matrix,
                                          matrix_to_csv)
 from smsut_tpu_torch.ops.schedules import poly_lr_host
+from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel.mesh import (all_gather_rows, check_config,
+                                           mean_over_ranks)
 from smsut_tpu_torch.train import checkpoints
 from smsut_tpu_torch.train.experiment import Experiment
 from smsut_tpu_torch.train.graphs import Replay
@@ -110,12 +128,23 @@ class Trainer:
         if args is not None and getattr(args, "expr_name", None):
             expr_name = args.expr_name
         self.expr_name = expr_name or algo.__class__.__name__
+        # the process group: rank 0 owns the artifacts, the others run the
+        # same computation as spectators
+        self._world = check_config(cfg)
+        self._mp = self._world > 1
+        self._primary = distributed.is_primary()
         self.exp = experiment or Experiment(cfg.expr_root, self.expr_name,
-                                            phase)
+                                            phase, spectator=not self._primary)
         self.epoch = 0
         self.device_aug: Optional[DeviceAugment] = None
-        # on the card, iterations and eval batches replay CUDA graphs
+        # on the card, iterations and eval batches replay CUDA graphs,
+        # unless the group's collectives cannot be captured (gloo)
         self.capture = capture
+        self.eager_dispatches = 0   # dispatches made eagerly for gloo
+        self._gloo_eager = (capture and self.device.type == "cuda"
+                            and not distributed.capturable())
+        if self._gloo_eager:
+            self.capture = False
         # chunked dispatch: the JAX package's eligibility (device
         # augmentation, and no host draws per step, which pin T to 1)
         self._chunk_T = int(getattr(cfg, "steps_per_dispatch", 1) or 1)
@@ -132,6 +161,15 @@ class Trainer:
         self._eval_dev = None      # (loader, device stacks)
         self._eval_lut: Optional[torch.Tensor] = None
         self.state = algo.init_state(cfg.seed)
+        if self._mp:
+            self.info(f"[distributed] rank {distributed.process_index()}/"
+                      f"{self._world} ({distributed.backend()}), "
+                      f"{cfg.batch_size // self._world} of each batch's "
+                      f"{cfg.batch_size} rows")
+        if self._gloo_eager:
+            self.info("[distributed] gloo's collectives cannot be captured "
+                      "in a CUDA graph: the iterations and the eval sweep "
+                      "run eagerly")
         self._log_param_counts()
 
     def _log_param_counts(self) -> None:
@@ -165,10 +203,28 @@ class Trainer:
     @torch.inference_mode()
     def _eval_step(self, params, img: torch.Tensor, msk: torch.Tensor):
         logits = self.algo.eval_fn(params, img)
+        # the loss of this batch alone: no sum over the group's ranks
         loss = dice_and_ce_loss(logits, msk, self.cfg.weight_dc,
-                                self.cfg.weight_ce, batch_dice=True)
+                                self.cfg.weight_ce, batch_dice=True,
+                                over_group=False)
         # uint8 predictions: n_label <= 255 and the volumes are uint8
         return loss, torch.argmax(logits, dim=-1).to(torch.uint8)
+
+    def _share(self, n: int) -> list:
+        """The batches of an ``n``-batch eval sweep this rank runs:
+        ``ceil(n / world)`` contiguous ones, the last rank's run padded
+        with the last batch (all of them in a single process)."""
+        per = -(-n // self._world)
+        lo = distributed.process_index() * per
+        return [min(j, n - 1) for j in range(lo, lo + per)]
+
+    def _gathered(self, n: int, losses: torch.Tensor, preds: torch.Tensor):
+        """The ranks' sweep results (losses [per], uint8 predictions
+        [per, B, H, W]) gathered in batch order and cut to the ``n``
+        batches, on the host."""
+        self.eager_dispatches += len(losses) * self._gloo_eager
+        return (all_gather_rows(losses)[:n].cpu().tolist(),
+                all_gather_rows(preds)[:n].cpu().numpy())
 
     # ------------------------------------------------------------------- fit
     def fit(self, loader_type: str = "inTurn") -> None:
@@ -290,6 +346,9 @@ class Trainer:
 
         self._iterate = None   # its graphs hold this fit's state and pool
         self.save_model(last_prefix)
+        if self._gloo_eager:
+            self.info(f"[distributed] {self.eager_dispatches} dispatches "
+                      f"ran eagerly (gloo)")
 
     def _set_fixed_batch(self, lb_itr: _Cycler, ul_itr: _Cycler,
                          raw: bool) -> None:
@@ -315,7 +374,7 @@ class Trainer:
             if da is not None:
                 h, w = b.img.shape[1:3]
                 params = self._pinned(
-                    da.sample_params_packed(b.batch_size, h, w))
+                    da.sample_rows_packed(b.batch_size, h, w))
             return Batch(self._pinned(b.img), self._pinned(b.msk), b.mdl,
                          b.names), params
 
@@ -337,16 +396,17 @@ class Trainer:
     def _fetch(self, lb_itr: _Cycler, ul_itr: _Cycler
                ) -> Tuple[Dict[str, torch.Tensor], int, int]:
         """One iteration's inputs as host tensors (pinned on the card): the
-        labelled batch, with device augmentation its packed parameters,
-        the unlabelled batch for an algorithm that uses it, and the
-        algorithm's per-step host inputs; and its modality and size."""
+        labelled batch (the rank's rows), with device augmentation its
+        packed parameters, the unlabelled batch for an algorithm that uses
+        it, and the algorithm's per-step host inputs; and its modality and
+        global size."""
         lb, params = _split(lb_itr.next())
         inp = {"img": self._pinned(lb.img), "msk": self._pinned(lb.msk)}
         da = self.device_aug
         if da is not None:
             if params is None:
                 h, w = lb.img.shape[1:3]
-                params = da.sample_params_packed(lb.batch_size, h, w)
+                params = da.sample_rows_packed(lb.batch_size, h, w)
             inp["params"] = self._pinned(params)
         batch = {"mdl": lb.mdl}
         if getattr(self.algo, "uses_unlabeled", False):
@@ -355,7 +415,7 @@ class Trainer:
             if da is not None:
                 if ul_params is None:
                     h, w = ul.img.shape[1:3]
-                    ul_params = da.sample_params_packed(ul.batch_size, h, w)
+                    ul_params = da.sample_rows_packed(ul.batch_size, h, w)
                 inp["ul_msk"] = self._pinned(ul.msk)
                 inp["ul_params"] = self._pinned(ul_params)
             batch["ul_mdl"] = ul.mdl
@@ -363,7 +423,7 @@ class Trainer:
             batch.update(self.algo.make_extra_batch())
             inp.update({k: self._pinned(v) for k, v in
                         self.algo.host_inputs(batch).items()})
-        return inp, int(lb.mdl[0]), lb.batch_size
+        return inp, int(lb.mdl[0]), lb.batch_size * self._world
 
     def _stage(self, items) -> list:
         """T iterations' inputs on the device: each input's T host tensors
@@ -435,11 +495,12 @@ class Trainer:
             for inp in staged:
                 self._iterate(inp)
                 self.state.step += 1
+            self.eager_dispatches += t * self._gloo_eager
             rows += [(m, n) for _, m, n in items]
             done += t
             if log_step and done % log_step < t:
-                last = dict(zip(self._ring_keys, self._ring[
-                    (self.state.step - 1) % n_iters].tolist()))
+                last = dict(zip(self._ring_keys, mean_over_ranks(self._ring[
+                    (self.state.step - 1) % n_iters]).tolist()))
                 msg = "Iter: %d/%d(%d), elapsed: %.2fs," % (
                     done - 1, n_iters, self.state.step, time.time() - tic)
                 tic = time.time()
@@ -449,12 +510,13 @@ class Trainer:
         self._drain(rows, first, meter)
 
     def _drain(self, rows, first: int, meter: Meter) -> None:
-        """Meter the epoch's iterations from the ring (one read); row
-        ``(first + it) % rows`` holds iteration ``it``, ``first`` being the
-        step count when the epoch began."""
+        """Meter the epoch's iterations from the ring, averaged over the
+        group's ranks (one read); row ``(first + it) % rows`` holds
+        iteration ``it``, ``first`` being the step count when the epoch
+        began."""
         if not rows:
             return
-        ring = self._ring.cpu().tolist()
+        ring = mean_over_ranks(self._ring).cpu().tolist()
         keys = self._ring_keys
         for it, (m, n) in enumerate(rows):
             got = dict(zip(keys, ring[(first + it) % len(ring)]))
@@ -481,10 +543,13 @@ class Trainer:
             return self._validate_epoch_scan(loader, npys, meter)
         cfg = self.cfg
         prd_npys = {k: np.zeros(v.shape, dtype=v.dtype) for k, v in npys.items()}
-        n_prd_slic = 0
+        batches = list(loader)
+        if not batches:
+            return 0, prd_npys
         params = self.algo.eval_params(self.state)
-        losses, preds, batches = [], [], []
-        for batch in loader:
+        losses, preds = [], []
+        for j in self._share(len(batches)):
+            batch = batches[j]
             b = batch.batch_size
             img, msk = batch.img, batch.msk
             if b != cfg.batch_size:
@@ -497,14 +562,13 @@ class Trainer:
             loss, pred = self._eval_step(params, self._to_device(img),
                                          self._to_device(msk))
             losses.append(loss)
-            preds.append(pred[:b])
-            batches.append(batch)
-        if not batches:
-            return 0, prd_npys
-        losses = torch.stack(losses).cpu().tolist()
-        preds = torch.cat(preds).cpu().numpy()
+            preds.append(pred)
+        losses, preds = self._gathered(len(batches), torch.stack(losses),
+                                       torch.stack(preds))
         metas = [(b.batch_size, int(b.mdl[0]), b.names) for b in batches]
-        return self._scatter(losses, preds, metas, prd_npys, meter)
+        rows = np.concatenate([preds[j, :b] for j, (b, _, _) in
+                               enumerate(metas)])
+        return self._scatter(losses, rows, metas, prd_npys, meter)
 
     @staticmethod
     def _scatter(losses, preds, metas, prd_npys, meter):
@@ -581,10 +645,13 @@ class Trainer:
                     for k, v in npys.items()}
         if not metas:
             return 0, prd_npys
+        n = len(metas)
         dev = self._eval_dev
         if dev is None or dev[0] is not loader:
+            # the rank's run of batches only
+            share = self._share(n)
             dev = self._eval_dev = (loader, [
-                torch.from_numpy(a).to(self.device)
+                torch.from_numpy(a[share]).to(self.device)
                 for a in (imgs, msks, valid)])
         imgs, msks, valid = dev[1]
         fresh = self.algo.eval_params(self.state)
@@ -597,16 +664,15 @@ class Trainer:
         else:   # the graph reads these buffers
             torch._foreach_copy_(list(self._eval_params.values()),
                                  [fresh[k] for k in self._eval_params])
-        n = imgs.shape[0]
-        losses = torch.empty(n, dtype=torch.float32, device=self.device)
+        per = imgs.shape[0]
+        losses = torch.empty(per, dtype=torch.float32, device=self.device)
         preds = torch.empty(imgs.shape, dtype=torch.uint8, device=self.device)
-        for j in range(n):
+        for j in range(per):
             out = self._eval_replay({"img": imgs[j], "msk": msks[j],
                                      "valid": valid[j]})
             losses[j].copy_(out["loss"])
             preds[j].copy_(out["pred"])
-        losses = losses.cpu().tolist()
-        preds = preds.cpu().numpy()
+        losses, preds = self._gathered(n, losses, preds)
         rows = np.concatenate([preds[j, :b] for j, (b, _, _) in
                                enumerate(metas)])
         return self._scatter(losses, rows, metas, prd_npys, meter)
@@ -624,12 +690,14 @@ class Trainer:
         n_gt_slic, gt_npys = get_label_npys(cfg.base_root, "test", cfg.split_yaml)
         n_prd_slic, prd_npys = self.validate_epoch(test_loader, gt_npys, None)
         assert n_prd_slic == n_gt_slic
+        save_path = pjoin(expr_root, "all_trois_matrix.csv")
+        if not self._primary:   # rank 0 scores the gathered sweep once
+            return save_path
         tic = time.time()
         matrix = get_mo_matrix(prd_npys, gt_npys, cfg)
         dc_matrix, hd_matrix, assd_matrix = get_all_matrix(prd_npys, gt_npys, cfg)
         self.info("Test metrics cost %.4fs." % (time.time() - tic))
         log = matrix_to_csv(matrix, assd_matrix)
-        save_path = pjoin(expr_root, "all_trois_matrix.csv")
         with open(save_path, "w") as f:
             f.write(log)
         self.info(log)
@@ -638,7 +706,8 @@ class Trainer:
     # ------------------------------------------------------------ checkpoint
     def save_model(self, prefix: str) -> None:
         path = checkpoints.save_state(self.state, self.exp.ckpt_root, prefix)
-        self.info(f"Save model to {path}.")
+        if path is not None:
+            self.info(f"Save model to {path}.")
 
     def load_model(self, model_idx: Optional[str], which_ckpt: str = "last") -> None:
         ckpt_root = pjoin(self.exp.expr_root, model_idx or self.exp.model_idx, "ckpt")

@@ -36,6 +36,14 @@ device, indexed there by the count.  No value of an update is a host number
 that changes from step to step, so a CUDA graph of the step
 (``train/graphs.py``) replays it right.  The host's ``step`` is a mirror of
 ``count``: the caller advances it, and nothing reads the count back.
+
+Under a process group (``parallel/``) the three places where gradients
+reach an optimizer (:meth:`TrainState.update`,
+:meth:`GANTrainState.apply_d_gradients`,
+:meth:`GANTrainState.apply_g_gradients`) first average them over the
+group with one all-reduce, and a new state takes rank 0's parameters, so
+that every rank holds the same state after every step.  In a single
+process neither does anything.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 
 from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.ops.schedules import poly_lr_table
+from smsut_tpu_torch.parallel.mesh import reduce_gradients_, replicate_
 
 Params = Dict[str, torch.Tensor]
 
@@ -206,6 +215,9 @@ class TrainState:
     def create(cls, params: Params, tx: Union[SGD, Adam],
                ema_params: Optional[Params] = None,
                params2: Optional[Params] = None) -> "TrainState":
+        for tree in (params, ema_params, params2):
+            if tree is not None:
+                replicate_(tree)
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
                    count=zero_count(params), ema_params=ema_params,
                    params2=params2,
@@ -213,12 +225,14 @@ class TrainState:
 
     def update(self, grads: Params, grads2: Optional[Params] = None) -> None:
         """One optimizer update at the device count, in place (of both
-        networks with ``grads2``), and the device count advanced once; the
-        host ``step`` is left to the caller."""
-        self.tx.update_(self.params, self.opt_state, grads, self.count)
+        networks with ``grads2``), on the gradients averaged over the
+        group, and the device count advanced once; the host ``step`` is
+        left to the caller."""
+        self.tx.update_(self.params, self.opt_state,
+                        reduce_gradients_(grads), self.count)
         if grads2 is not None:
-            self.tx.update_(self.params2, self.opt_state2, grads2,
-                            self.count)
+            self.tx.update_(self.params2, self.opt_state2,
+                            reduce_gradients_(grads2), self.count)
         self.count.add_(1)
 
     @torch.no_grad()
@@ -258,16 +272,22 @@ class GANTrainState:
     def create(cls, g_params: Params, d_params: Params, cfg: Config,
                beta1: float = 0.9, beta2: float = 0.999) -> "GANTrainState":
         g_tx, d_tx = make_sgd(cfg), make_adam(cfg, beta1, beta2)
+        replicate_(g_params)
+        replicate_(d_params)
         return cls(step=0, g_params=g_params, g_opt_state=g_tx.init(g_params),
                    d_params=d_params, d_opt_state=d_tx.init(d_params),
                    g_tx=g_tx, d_tx=d_tx, count=zero_count(g_params))
 
     def apply_d_gradients(self, grads: Params) -> "GANTrainState":
-        """One Adam update of D, in place."""
-        self.d_tx.update_(self.d_params, self.d_opt_state, grads, self.count)
+        """One Adam update of D, in place, on the gradients averaged over
+        the group."""
+        self.d_tx.update_(self.d_params, self.d_opt_state,
+                          reduce_gradients_(grads), self.count)
         return self
 
     def apply_g_gradients(self, grads: Params) -> "GANTrainState":
-        """One SGD update of G, in place, at the device count's LR."""
-        self.g_tx.update_(self.g_params, self.g_opt_state, grads, self.count)
+        """One SGD update of G, in place, at the device count's LR, on the
+        gradients averaged over the group."""
+        self.g_tx.update_(self.g_params, self.g_opt_state,
+                          reduce_gradients_(grads), self.count)
         return self

@@ -33,8 +33,11 @@ is an input of the replayed iteration; that host draw pins
 ``steps_per_dispatch`` to 1, as in the JAX package.  The sweep reads the
 Trainer's ``pseudo_sweep_rng`` (its loader order and augmentation draws,
 both in the loader's producer thread) and runs its forwards as replays of
-one graph (train/graphs.py).  The JAX package slices the pseudo batch per
-process on a multi-host run; the port runs one process (ROADMAP A10).
+one graph (train/graphs.py).  Under a process group every rank sweeps the
+global unlabelled stream (its loader is not sharded) and makes the same
+pseudo set, draws the same global pseudo batch and keeps its contiguous
+rows, as the JAX package does on a multi-host run; the masked means and
+the class-weighted CE sum over the global batch (ops/losses.py).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from smsut_tpu_torch.ops.losses import (coranet_weights, masked_certain_loss,
 from smsut_tpu_torch.ops.metrics import dice_coefficient
 from smsut_tpu_torch.ops.schedules import (ema_alpha, gate, poly_lr_host,
                                            sigmoid_rampup)
+from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.train.graphs import Replay
 from smsut_tpu_torch.train.state import (TrainState, make_constant_sgd,
                                          make_sgd)
@@ -328,8 +332,10 @@ class CoraNet(SupervisedUNet):
         cfg = self.cfg
         rng = trainer.pseudo_sweep_rng
         raw = bool(cfg.device_augment)
+        # one pass over the global stream on every rank: not sharded
         loader = get_loader(cfg.base_root, "val", trainer.fold, 1,
-                            cfg.data_aug, cfg=cfg, rng=rng, raw=raw)
+                            cfg.data_aug, cfg=cfg, rng=rng, raw=raw,
+                            num_shards=1, shard_id=0)
         if not raw:
             return loader, None
         da = DeviceAugment(cfg, rng, self.device)
@@ -395,9 +401,11 @@ class CoraNet(SupervisedUNet):
                 "pse_mask": self._pseudo["mask"][idx]}
 
     def _pseudo_indices(self, n: int) -> List[int]:
-        """The next pseudo batch's indices into ``n`` pseudo samples."""
+        """The next pseudo batch's indices into ``n`` pseudo samples: the
+        rank's contiguous rows of the global batch's."""
         bs = self.cfg.batch_size
         if len(self._pseudo_order) < bs:
             self._pseudo_order = list(range(n))
             self._pseudo_rng.shuffle(self._pseudo_order)
-        return [self._pseudo_order.pop() for _ in range(bs)]
+        idx = [self._pseudo_order.pop() for _ in range(bs)]
+        return idx[distributed.local_batch_slice(bs)]

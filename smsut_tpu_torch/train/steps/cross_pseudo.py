@@ -32,6 +32,8 @@ class CrossPseudo(SupervisedUNet):
     names another."""
 
     name = "crossPse"
+    # not yet held to one process under a group (ROADMAP A10b)
+    data_parallel = False
     uses_unlabeled = True
     lambda_semi = 0.1
     log_step = 50

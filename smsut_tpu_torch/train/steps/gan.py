@@ -34,6 +34,17 @@ taken from the state's device step count, ``lambda_semi`` and
 and Adam's bias corrections are read on the device (train/state.py), and
 the step advances the device count; the host ``step`` is the caller's.
 
+Under a process group (``parallel/``) a rank holds its contiguous rows
+of the labelled and of the unlabelled batch.  Every rank draws the global
+``alpha`` (``total_batch`` rows over ``[labelled 0..B-1, unlabelled
+0..B-1]``) and keeps its rows of each part; ``mj`` and ``patch_ids`` are
+shared.  PatchNCE forms its negatives within groups of
+``total_batch / batch_size`` consecutive images (the group quirk): a rank
+forms ``batch_size / N`` groups, the global ones, and a group that would
+straddle two ranks raises.  The gradients of the D and the G step are
+averaged over the group (train/state.py), and the batch Dice terms sum
+over the global batch (ops/losses.py).
+
 ``d_concat_hat``, ``packed_loss_tails`` and ``remat`` are accepted and do
 nothing (config.py).
 """
@@ -54,6 +65,7 @@ from smsut_tpu_torch.ops.losses import (argmax_consistency_loss,
                                         nce_loss_over_layers,
                                         softmax_ce_with_logits)
 from smsut_tpu_torch.ops.schedules import sigmoid_rampup
+from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.train.state import GANTrainState
 from smsut_tpu_torch.train.steps import loss_weight, setup_compute
 from smsut_tpu_torch.utils.io import imwrite_gray
@@ -99,7 +111,21 @@ class UGANBase:
         self._draws = torch.Generator().manual_seed(cfg.seed)
         # the bottleneck's positions for patch sampling, (input / 2^4)^2
         self.bottleneck_hw = (cfg.input_size // 16) ** 2
+        self._check_nce_groups()
         self.net, self.D = self._build(seed=0)
+
+    def _check_nce_groups(self) -> None:
+        """Under a group: PatchNCE's groups of consecutive images must not
+        straddle two ranks' rows."""
+        world = distributed.process_count()
+        rows = self.cfg.batch_size // world
+        group = self.total_batch // self.cfg.batch_size
+        if self.with_nce and world > 1 and rows % group:
+            raise ValueError(
+                f"{self.variant}: PatchNCE takes its negatives within "
+                f"groups of {group} consecutive images; {rows} rows per "
+                f"rank ({self.cfg.batch_size} over {world} processes) "
+                f"would cut a group between two ranks")
 
     def _build(self, seed: int):
         cfg = self.cfg
@@ -217,15 +243,18 @@ class UGANBase:
             mdl = np.concatenate([mdl, np.asarray(batch["ul_mdl"])])
         n = mdl.shape[0]
         mj = int(batch["mj"])
+        alpha = np.array(batch["alpha"], np.float32).reshape(-1)
+        if distributed.process_count() > 1:
+            # the global draw: this rank's rows of each part
+            sl = distributed.local_batch_slice(cfg.batch_size)
+            alpha = alpha.reshape(-1, cfg.batch_size)[:, sl].reshape(-1)
         vec_org = label2onehot(mdl, cfg.n_modal)
         vec_trg = label2onehot(np.full(n, mj), cfg.n_modal)
         out = {"vec_ot": torch.from_numpy(vec_trg - vec_org),
                "vec_to": torch.from_numpy(vec_org - vec_trg),
                "mdl": torch.from_numpy(mdl.astype(np.int64)),
                "modal_trg": torch.full((n,), mj, dtype=torch.int64),
-               "alpha": torch.as_tensor(np.array(batch["alpha"],
-                                                 np.float32)).reshape(
-                                                     n, 1, 1, 1)}
+               "alpha": torch.from_numpy(alpha).reshape(n, 1, 1, 1)}
         if self.with_nce:
             out["patch_ids"] = torch.as_tensor(
                 np.array(batch["patch_ids"])).long()
@@ -277,9 +306,9 @@ class UGANBase:
         """The G losses against the (updated) D, their gradient in the G
         parameters only, and the SGD update."""
         cfg = self.cfg
-        bs = cfg.batch_size
         x_real, y_real, patch_ids = inp["x_real"], inp["y_real"], \
             inp["patch_ids"]
+        bs = y_real.shape[0]   # the labelled rows: batch_size / N
         # on the device, from the device count: a replayed graph of the
         # step opens the gate at its step
         gate = (state.count >= cfg.consis_gate_step).to(x_real.dtype)

@@ -72,6 +72,10 @@ class M3L(SupervisedUNet):
     its EMA teacher, on the card unless ``device`` names another."""
 
     name = "M3L"
+    # mask_grid hashes element indices of the rank's rows, and the
+    # SegFormer head's batch norm takes the rank's statistics (ROADMAP
+    # A10b)
+    data_parallel = False
     uses_unlabeled = True
     lambda_semi = 1.0
     ema_decay = 0.99

@@ -73,6 +73,9 @@ class MeanTeacher(SupervisedUNet):
 
     name = "meanTeacher"
     uses_unlabeled = True
+    # teacher_noise hashes element indices of the rank's rows, not of the
+    # global batch (ROADMAP A10b)
+    data_parallel = False
     lambda_semi = 1.0
     ema_decay = 0.99
     epoch_rampup = 30

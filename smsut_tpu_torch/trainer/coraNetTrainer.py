@@ -15,7 +15,8 @@
 (stage A's ``pre_last``, stage B's ``last`` by default).  On the CUDA card
 unless ``--device cpu``.
 """
-from smsut_tpu_torch.train.cli import config_of, drive, make_parser, seed_host
+from smsut_tpu_torch.train.cli import (config_of, drive, make_parser,
+                                       process_group, seed_host)
 
 
 def main(args=None, capture: bool = True) -> None:
@@ -32,12 +33,13 @@ def main(args=None, capture: bool = True) -> None:
     seed_host(cfg)
     # stage B trains from -i's pre_best; test and pseudo read head 0
     stage = "pre" if args.phase == "train" and not args.model_id else "cora"
-    algo = CoraNet(cfg, getattr(args, "device", None), stage=stage)
-    trainer = Trainer(algo, cfg, args.phase, args, capture=capture)
-    start = None
-    if stage == "cora" and args.phase == "train":
-        start = lambda: algo.load_pretrained(trainer, args.model_id)
-    drive(trainer, args, start)
+    with process_group(args):
+        algo = CoraNet(cfg, getattr(args, "device", None), stage=stage)
+        trainer = Trainer(algo, cfg, args.phase, args, capture=capture)
+        start = None
+        if stage == "cora" and args.phase == "train":
+            start = lambda: algo.load_pretrained(trainer, args.model_id)
+        drive(trainer, args, start)
 
 
 if __name__ == "__main__":

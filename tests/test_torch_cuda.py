@@ -1291,3 +1291,140 @@ def test_m3l_step_card_matches_cpu(cuda_device):
     dev = torch.cat([(pg[k] - pc[k]).abs().flatten() for k in pc])
     assert float(dev.max()) <= 2.1 * lr
     assert float((dev > lr).float().mean()) < 0.01
+
+
+# ------------------------------------------------------------ data parallel
+# each rank runs in a child process (``_dp_child``), so that no process
+# group outlives its test in this one
+
+def _dp_unet(dtn="float32", size=64, batch=8):
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(input_size=size, base_width=16, batch_size=batch,
+                 compute_dtype=dtn)
+    g = np.random.default_rng(7)
+    img = g.normal(size=(batch, size, size, 1)).astype(np.float32)
+    msk = g.integers(0, cfg.n_class, size=(batch, size, size))
+    # no label 1 or 2 in the second half: a rank's Dice alone differs
+    half = msk[batch // 2:]
+    half[(half == 1) | (half == 2)] = 0
+    return SupervisedUNet(cfg), img, msk
+
+
+def _dp_sha(tree):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(tree[k].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_child():
+    """One child of the data-parallel card tests; prints one JSON line.
+    ``SMSUT_DP_MODE=world1``: five replays of the float32 U-Net iteration
+    with no group, then in a group of one over NCCL, the parameters'
+    sha256 of each; ``ranks``: this rank's three eager steps on its rows
+    (gloo, the group from the SMSUT_* variables)."""
+    import json
+    import os
+    import socket
+
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.parallel import distributed
+    from smsut_tpu_torch.parallel.mesh import mean_over_ranks
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    algo, img, msk = _dp_unet()
+    out = {}
+    if os.environ["SMSUT_DP_MODE"] == "world1":
+        inp = algo.inputs({"img": img, "msk": msk})
+        for name in ("alone", "grouped"):
+            if name == "grouped":
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", 0))
+                    port = s.getsockname()[1]
+                distributed.initialize(f"localhost:{port}", 1, 0)
+                out["backend"] = distributed.backend()
+            state = algo.init_state(0)
+            run = iteration(algo, state, inp)
+            for _ in range(7):
+                run()
+            out[name] = _dp_sha(state.params)
+    else:
+        distributed.initialize()
+        sl = distributed.local_batch_slice(algo.cfg.batch_size)
+        state = algo.init_state(0)
+        batch = {"img": img[sl], "msk": msk[sl]}
+        losses = []
+        for _ in range(3):
+            state, m = algo.train_step(state, batch)
+            losses.append(float(mean_over_ranks(m["loss"])))
+        out = {"backend": distributed.backend(), "losses": losses,
+               "sha": _dp_sha(state.params),
+               "checksum": float(sum(float(v.double().abs().sum())
+                                     for v in state.params.values()))}
+    print("DP " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def _dp_run(envs):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import test_torch_cuda as t; t._dp_child()"],
+        cwd=here, env=dict(os.environ, PYTHONPATH=os.path.dirname(here),
+                           **env), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for env in envs]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+        outs.append(json.loads([x for x in out.splitlines()
+                                if x.startswith("DP ")][-1][3:]))
+    return outs
+
+
+def test_dp_world1_replays_equal_no_group(cuda_device):
+    """chip_smoke.py 11a at 64^2: five float32 replays of the U-Net
+    iteration in a group of one over NCCL (the gradient all-reduce and
+    the batch Dice's sums captured in the graph) leave the parameters of
+    the run with no group, to the bit."""
+    out, = _dp_run([{"SMSUT_DP_MODE": "world1"}])
+    assert out["backend"] == "nccl"
+    assert out["grouped"] == out["alone"]
+
+
+def test_dp_two_ranks_unet_matches_one_process(cuda_device):
+    """chip_smoke.py 11b's U-Net case at 64^2: two ranks of 4 rows sharing
+    the card over gloo, three eager float32 steps, against one process at
+    the global batch of 8: the loss within 1e-4, the parameter checksum
+    within 1e-5 relative, both ranks' parameters equal to the bit."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    r0, r1 = _dp_run([{"SMSUT_DP_MODE": "ranks",
+                       "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+                       "SMSUT_NUM_PROCESSES": "2",
+                       "SMSUT_PROCESS_ID": str(r)} for r in range(2)])
+    assert r0["backend"] == r1["backend"] == "gloo"
+    assert r0["sha"] == r1["sha"] and r0["losses"] == r1["losses"]
+    algo, img, msk = _dp_unet()
+    state = algo.init_state(0)
+    for _ in range(3):
+        state, m = algo.train_step(state, {"img": img, "msk": msk})
+    cksum = float(sum(float(v.double().abs().sum())
+                      for v in state.params.values()))
+    assert abs(r0["losses"][-1] - float(m["loss"])) < 1e-4
+    assert abs(r0["checksum"] - cksum) / max(abs(cksum), 1.0) < 1e-5
