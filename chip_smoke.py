@@ -67,14 +67,16 @@
    CUDA graphs) in this process at ``base_width=16``,
    batch 8, bfloat16, the default ``data_aug`` with ``device_augment``, 2
    epochs of 10 iterations, once per ``block_pallas`` mode, then ``-p test
-   -i 000 -wh best`` through ``python -m smsut_tpu_torch.trainer.unetTrainer``
-   in a subprocess.  Checks 20 steps, finite losses, the [TRN] and [TST]
-   lines, ``best.ckpt`` and ``last.ckpt``, a 2x5-row CSV, and the launch
+   -i 000 -wh best`` of both through ``python -m
+   smsut_tpu_torch.trainer.unetTrainer``, two subprocesses side by side.
+   Checks 20 steps, finite losses, the [TRN] and [TST] lines,
+   ``best.ckpt`` and ``last.ckpt``, a 2x5-row CSV, and the launch
    counts of the run (20 steps and 8 eval forwards of the mode's kernels;
    no route to plain PyTorch).
    6b. The Trainer twice on one batch stream (float32, no augmentation, 2
-   epochs of 4 iterations, eager: ``capture=False``), with the kernels and
-   under ``ops.plain()``: the
+   epochs of 4 iterations, eager: ``capture=False``, deterministic cuDNN:
+   the stem's default float32 weight gradient varies run to run), with
+   the kernels and under ``ops.plain()``: the
    per-epoch [TRN] losses within 1e-3 relative, the [TST] Dice per
    modality within 0.01 and overall within 3e-3, the same best epoch.
    6c. ``DeviceAugment`` on the card against the CPU on the same packed
@@ -125,9 +127,9 @@
    8a. The w16 U-Net's iteration in both block modes: 10 bfloat16 replays
    (launches counted as 10 eager steps, loss finite and falling), then
    10 float32 replays against 10 eager iterations from one init (phase
-   4's loss and parameter rules).  In a child process (a process that
-   held large profiler sessions loses records from later ones), one
-   replay of each 8a and 8b iteration runs the port's kernels of one
+   4's loss and parameter rules).  In a child process per block mode (a
+   process that held large profiler sessions loses records from later
+   ones), one replay of each 8b and 8a iteration runs the port's kernels of one
    eager iteration, by the profiler's names and counts, and as many
    device operations.
    8b. ``uganConsis`` (w16, 8 + 8) in both block modes, float32, 10
@@ -141,14 +143,17 @@
    under ``set_sync_debug_mode("error")``, against the eager fit
    (``steps_per_dispatch`` 1, no scan, ``capture=False``) on the same
    recorded batches: 6b's bounds on the [TRN] losses, [TST] Dice and best
-   epoch (uganConsis with its bilinear upsampling done by slices, whose
-   backward has no atomics; a second eager fit shows the spread left).
+   epoch; then two runs of 5
+   float32 ``uganConsis`` replays from one init under deterministic cuDNN
+   equal to the bit (its decoders' bilinear upsample is two fixed
+   interpolation products, whose backward has no atomics).
    8d. ``predict`` replayed against eager: the logits equal.
-   8e. Eager and replayed blocks in turns (6 rounds): the U-Net
+   8e. Eager and replayed blocks in turns (3 rounds): the U-Net
    iteration, the uganConsis iteration (bfloat16), the eval sweep per
    batch and the serving latency, each with its median and quartiles,
    device ms, kernels and idle share, printed with the card's name and
-   power limit.
+   power limit; then the U-Net's replayed iteration, float32 and
+   bfloat16, under cuDNN's default and deterministic algorithms.
 9. The semi-supervised zoo at w16, 256x256, 8 + 8: Mean Teacher,
    cross-pseudo supervision and CoraNet's stages A and B.
    9a. Per algorithm and block mode, step 1's gradients with every loss
@@ -197,13 +202,15 @@
 11. Data parallelism across processes (``torch.distributed``), each rank
    a child process (the kernels are built before the children start):
    11a. One rank over NCCL (a group of one), replayed: the U-Net
-   iteration (w16, 256x256, batch 8) and the ``uganConsis`` iteration
-   (w16, 8 + 8, the decoders' upsampling in fixed order as in 8c),
-   float32, 2 warm-up calls and 5 replays each under deterministic cuDNN:
-   the parameters equal those of the run with no group to the bit; then
-   in bfloat16 one replay's device operations in the group against no
-   group (the profiler; at one rank NCCL's in-place all-reduce launches
-   nothing), and the device ms, kernels and idle share beside 8e's.
+   iteration (w16, 256x256, batch 8), the ``uganConsis`` iteration (w16,
+   8 + 8) and Mean Teacher's, CPS's (w16) and M3L's (the Config
+   defaults; 8 + 8, from counts where every term is live), float32, 2
+   warm-up calls and 5 replays each under deterministic cuDNN: the
+   parameters equal those of the run with no group to the bit; then in
+   bfloat16 one replay's device operations in the group, against no group
+   for the U-Net and the GAN (the profiler; at one rank NCCL's in-place
+   all-reduce launches nothing; 9c and 10b profile the zoo's with no
+   group), and the device ms, kernels and idle share of each.
    11b. Two ranks on the one card over gloo, eager, against one process
    at the global batch: U-Net w16, 256x256, global batch 8 (4 a rank),
    float32, 3 steps (the loss within 1e-4, the parameter checksum within
@@ -212,7 +219,15 @@
    differs from the global one), one ``block_pallas`` step a rank;
    ``uganConsis`` w16, 8 + 8 (4 + 4 a rank), one float32 step under 7b's
    rules; the launches and routed calls of a rank's step (nothing routed
-   at w16 but the D's Cout-1 conv) and its time.
+   at w16 but the D's Cout-1 conv) and its time.  Then the zoo, float32:
+   Mean Teacher and CPS (w16) 3 steps on 8 + 8 (the U-Net's bounds), M3L
+   3 steps (10b's float32 rules on step 1: its mask drawn for the global
+   batch, its head's batch norm over the group), DTC w64 with batch norm
+   at its Config batch 8, 3 SGD steps of forward and backward (the
+   U-Net's bounds), and ``uganConsis`` at one labelled and one unlabelled
+   row a rank (global 2 + 2: PatchNCE's groups straddle the ranks, 7b's
+   rules); every rank's trees equal to the bit after every step, and a
+   rank's step launching what one process's does.
    11c. ``unetTrainer -p train`` through ``torch.distributed.run``, two
    ranks (gloo: eager, logged) on phase 6's tree, float32, 2 epochs of
    10 with augmentation, deterministic cuDNN, against the one-process fit
@@ -220,7 +235,16 @@
    weights one ulp away (the fit is chaotic); one ``train.log`` and one
    set of checkpoints; then ``-p test`` in one process from the two-rank
    checkpoint.
-12. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+12. From volumes to a trained model, under ``build/chip_smoke_prep/``
+   (removed at the end): synthetic BTCV (NIfTI) and CHAOS (DICOM series
+   and ground-truth PNGs) trees of 4 patients each, 10 slices of 288x288
+   at 1.4 mm; the port's ``atlasPreparation``, ``chaosPreparation`` and
+   ``toPngAndSplit`` as subprocesses (host code: numpy, scipy, the port's
+   codecs); then ``unetTrainer -p train`` through ``run_main`` on the PNG
+   tree they wrote (one epoch of 10 iterations, w16, batch 8, bfloat16,
+   on the card) and ``-p test``; each stage's seconds, the 256x256 slices, the split, the log,
+   the checkpoints and the Dice matrix.
+13. Prints the ``kernels`` JSON line (all nine kernels, launches summed
    over the runs of phases 3-10, replays included, not over the checks
    against the plain path), then the device line last.
 
@@ -1187,7 +1211,8 @@ def quartiles(xs) -> tuple:
 
 def fit_cli(torch, counters, routed, data: Path) -> dict:
     """Phase 6a: train through ``run_main`` in both block modes, then the
-    test phase through the module CLI in a subprocess."""
+    test phase of both through the module CLI, in two subprocesses side by
+    side."""
     import numpy as np
 
     from smsut_tpu_torch.train.cli import make_parser, run_main
@@ -1232,35 +1257,61 @@ def fit_cli(torch, counters, routed, data: Path) -> dict:
                 or "fit_block" not in (expr / "expriments.log").read_text()):
             raise AssertionError(f"fit artifacts of {model}: step "
                                  f"{ckpt['step']}, losses {losses}")
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "smsut_tpu_torch.trainer.unetTrainer",
-             "-p", "test", "-i", "000", "-wh", "best"] + args, cwd=ROOT,
-            capture_output=True, text=True, timeout=300)
-        test_s = time.perf_counter() - t0
-        if out.returncode:
-            raise AssertionError(f"-p test failed:\n{out.stderr[-3000:]}")
-        rows = [r for r in (model / "all_trois_matrix.csv").read_text()
-                .split("\n") if r]
-        vals = np.array([[float(v) for v in r.split(",")] for r in rows])
-        metrics_s = float(re.search(r"Test metrics cost ([0-9.]+)s",
-                                    out.stdout).group(1))
-        print(f"fit block_pallas={fused}: -p test in {test_s:.1f} s (host "
-              f"metrics {metrics_s:.3f} s); CSV {vals.shape}, mean Dice "
-              f"{vals[4, 4]:.4f}", flush=True)
-        if vals.shape != (10, 5) or not np.isfinite(vals).all():
-            raise AssertionError(f"trois CSV {vals.shape}: {rows}")
         results[fused] = {"launches": counts, "routed": rc,
                           "losses": losses, "step": ckpt["step"],
-                          "period_ms": period, "test_s": test_s,
-                          "test_metrics_s": metrics_s, "csv": vals.tolist()}
+                          "period_ms": period}
+    # the test phase of both runs side by side, each through the module
+    # CLI in a subprocess
+    t0 = time.perf_counter()
+    tests = {}
+    try:
+        for fused in (False, True):
+            logs = [open(FIT_DIR / f"test{int(fused)}.{x}", "w+")
+                    for x in ("out", "err")]
+            tests[fused] = (subprocess.Popen(
+                [sys.executable, "-m", "smsut_tpu_torch.trainer.unetTrainer",
+                 "-p", "test", "-i", "000", "-wh", "best"]
+                + fit_args(data, expr, f"fit_block{int(fused)}",
+                           f"block_pallas={fused}"), cwd=ROOT,
+                stdout=logs[0], stderr=logs[1], text=True), logs)
+        for fused, (proc, logs) in tests.items():
+            proc.wait(timeout=300)
+            test_s = time.perf_counter() - t0
+            stdout, stderr = (f.seek(0) or f.read() for f in logs)
+            if proc.returncode:
+                raise AssertionError(f"-p test failed:\n{stderr[-3000:]}")
+            model = expr / f"fit_block{int(fused)}" / "000"
+            rows = [r for r in (model / "all_trois_matrix.csv").read_text()
+                    .split("\n") if r]
+            vals = np.array([[float(v) for v in r.split(",")] for r in rows])
+            metrics_s = float(re.search(r"Test metrics cost ([0-9.]+)s",
+                                        stdout).group(1))
+            print(f"fit block_pallas={fused}: -p test (both modes side by "
+                  f"side) in {test_s:.1f} s (host metrics {metrics_s:.3f} "
+                  f"s); CSV {vals.shape}, mean Dice {vals[4, 4]:.4f}",
+                  flush=True)
+            if vals.shape != (10, 5) or not np.isfinite(vals).all():
+                raise AssertionError(f"trois CSV {vals.shape}: {rows}")
+            results[fused].update(test_s=test_s, test_metrics_s=metrics_s,
+                                  csv=vals.tolist())
+    finally:
+        for proc, logs in tests.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
     return results
 
 
 def fit_parity(torch, ops, data: Path) -> dict:
     """Phase 6b: one batch stream through the Trainer with the kernels and
-    under ``ops.plain()``, float32."""
+    under ``ops.plain()``, float32, under deterministic cuDNN: with its
+    default algorithm the U-Net stem's float32 weight gradient varies run
+    to run, and 8 iterations carry that to about 1e-3 of the epoch-2 loss
+    in either path alone (PERF.md §7)."""
     import numpy as np
+    import torch.backends.cudnn as cudnn
 
     from smsut_tpu_torch.config import Config
     from smsut_tpu_torch.train.experiment import Experiment
@@ -1288,8 +1339,12 @@ def fit_parity(torch, ops, data: Path) -> dict:
             cfg.expr_root, f"parity_plain{int(plain)}"), capture=False)
         trainer.exp.scalar = (lambda tag, v, e, scal=scal:
                               scal.setdefault(tag, {}).__setitem__(e, float(v)))
-        with ops.plain() if plain else contextlib.nullcontext():
-            trainer.fit()
+        det, cudnn.deterministic = cudnn.deterministic, True
+        try:
+            with ops.plain() if plain else contextlib.nullcontext():
+                trainer.fit()
+        finally:
+            cudnn.deterministic = det
         trainer.exp.close()
         runs[plain] = (scal, torch.stack(sums).cpu().tolist())
     (k, ksums), (p, psums) = runs[False], runs[True]
@@ -1478,8 +1533,8 @@ def fit_loop(torch, ops, counters, routed, train, card) -> dict:
               f"idle share {w['idle_share']:.3f}; eval sweep "
               f"{w['eval_ms_per_batch']:.3f} ms per batch", flush=True)
     print(f"fit loop on {card}: DeviceAugment {aug['device_ms']:.4f} device "
-          f"ms per batch; test phase host metrics {cli[False]['test_metrics_s']:.3f}"
-          f" / {cli[True]['test_metrics_s']:.3f} s", flush=True)
+          f"ms per batch; test phase host metrics "
+          f"{cli[False]['test_metrics_s']:.3f} s", flush=True)
     return {"cli": cli, "parity": parity, "augment": aug,
             "watched": {str(k): v for k, v in watched.items()}}
 
@@ -1857,8 +1912,9 @@ def gan_phase(torch, ops, counters, routed) -> dict:
 REPLAY_STEPS = 10
 GATE_STEP = 3               # 8b: the consistency gate opens in the window
 LAMBDA_EPOCHS = (0, 100)    # 8b: lambda_semi's epochs, steps 0-4 and 5-9
-TIMING_ROUNDS = 6           # 8e: rounds of eager and replayed blocks
-TIMING_UNITS = {"unet": 10, "gan": 5, "eval": 2, "serve": 10}
+TIMING_ROUNDS = 3           # 8e: rounds of eager and replayed blocks
+GAN_REPLAYS = 5             # 8c: float32 replays of each bitwise run
+TIMING_UNITS = {"unet": 10, "gan": 5, "eval": 2, "serve": 10, "cudnn": 10}
 
 
 def kernel_counts(rows) -> dict:
@@ -1906,13 +1962,14 @@ def replay_against_eager(torch, eager, replay, inputs: int) -> dict:
             "operations": rops, "ours": sum(ours(rk).values())}
 
 
-def replay_kernels() -> dict:
+def replay_kernels(fused: bool) -> dict:
     """One replay against one eager iteration by the profiler
-    (:func:`replay_against_eager`), the U-Net (bf16) and uganConsis
-    (float32) iterations of 8a and 8b in both block modes.  Run in a
-    process of its own (:func:`replay_kernels_clean`): once a process has
-    held large profiler sessions, later sessions lose records (ROADMAP
-    C3), and phases 6d and 7 hold tens of thousands of kernels."""
+    (:func:`replay_against_eager`), the uganConsis (float32) and U-Net
+    (bf16) iterations of 8b and 8a in block mode ``fused``.  Run in a
+    process of its own per mode (:func:`replay_kernels_clean`), the GAN's
+    first: once a process has held large profiler sessions, later
+    sessions lose records (ROADMAP C3), and phases 6d and 7 hold tens of
+    thousands of kernels, the GAN's sessions thousands."""
     import numpy as np
     import torch
 
@@ -1924,43 +1981,45 @@ def replay_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
-    for fused in (False, True):
-        cfg = Config(input_size=256, base_width=16, batch_size=8,
-                     compute_dtype="bfloat16", block_pallas=fused)
-        algo = SupervisedUNet(cfg)
-        inp = algo.inputs({k: torch.from_numpy(v).cuda()
-                           for k, v in ellipse_batch(np).items()})
-        runs = [iteration(algo, algo.init_state(0), inp, capture=c)
-                for c in (False, True)]
-        for run in runs:
-            run()
-            run()
-        out[f"unet {fused}"] = replay_against_eager(torch, *runs, len(inp))
-        gan = UGANConsisAlgo(cfg.replace(compute_dtype="float32"))
-        ginp = gan.inputs(dict(gan_batch(torch, np),
-                               **gan.make_extra_batch()))
-        scal = {"lambda_semi": torch.tensor(1.0, device="cuda")}
-        runs = [iteration(gan, gan.init_state(0), ginp, scal, capture=c)
-                for c in (False, True)]
-        for run in runs:
-            run()
-            run()
-        out[f"gan {fused}"] = replay_against_eager(torch, *runs, len(ginp))
-        del runs, gan, algo
-        torch.cuda.empty_cache()
+    cfg = Config(input_size=256, base_width=16, batch_size=8,
+                 compute_dtype="bfloat16", block_pallas=fused)
+    gan = UGANConsisAlgo(cfg.replace(compute_dtype="float32"))
+    ginp = gan.inputs(dict(gan_batch(torch, np), **gan.make_extra_batch()))
+    scal = {"lambda_semi": torch.tensor(1.0, device="cuda")}
+    runs = [iteration(gan, gan.init_state(0), ginp, scal, capture=c)
+            for c in (False, True)]
+    for run in runs:
+        run()
+        run()
+    out[f"gan {fused}"] = replay_against_eager(torch, *runs, len(ginp))
+    del runs, gan
+    torch.cuda.empty_cache()
+    algo = SupervisedUNet(cfg)
+    inp = algo.inputs({k: torch.from_numpy(v).cuda()
+                       for k, v in ellipse_batch(np).items()})
+    runs = [iteration(algo, algo.init_state(0), inp, capture=c)
+            for c in (False, True)]
+    for run in runs:
+        run()
+        run()
+    out[f"unet {fused}"] = replay_against_eager(torch, *runs, len(inp))
     return out
 
 
 def replay_kernels_clean() -> dict:
-    """:func:`replay_kernels` in a child process; its result."""
-    code = ("import json, chip_smoke; "
-            "print('KERNELS ' + json.dumps(chip_smoke.replay_kernels()))")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    line = [x for x in out.stdout.splitlines() if x.startswith("KERNELS ")]
-    if out.returncode or not line:
-        raise AssertionError(f"replay kernels:\n{out.stderr[-3000:]}")
-    res = json.loads(line[-1][len("KERNELS "):])
+    """:func:`replay_kernels` of each block mode in a child process; their
+    results."""
+    res = {}
+    for fused in (False, True):
+        code = ("import json, chip_smoke; print('KERNELS ' + json.dumps("
+                f"chip_smoke.replay_kernels({fused})))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        line = [x for x in out.stdout.splitlines()
+                if x.startswith("KERNELS ")]
+        if out.returncode or not line:
+            raise AssertionError(f"replay kernels:\n{out.stderr[-3000:]}")
+        res.update(json.loads(line[-1][len("KERNELS "):]))
     for k, v in res.items():
         print(f"replay 8a/8b {k.replace(' ', ' block_pallas=')}: one replay "
               f"runs {v['kernels']} kernels ({v['ours']} of the port's) and "
@@ -2242,37 +2301,14 @@ def within_6b(d: dict) -> bool:
             and d["best_equal"])
 
 
-def upsample_bilinear2_sliced(x):
-    """``models/layers.py`` ``upsample_bilinear2``'s math (2x, half-pixel
-    centres, edges clamped), NHWC, from slices and weighted sums: its
-    backward accumulates in a fixed order, where ``F.interpolate``'s CUDA
-    backward adds with atomics, so two fits through it can be held to each
-    other."""
-    import torch
-
-    def up(t, dim):
-        n = t.shape[dim]
-        prev = torch.cat([t.narrow(dim, 0, 1), t.narrow(dim, 0, n - 1)], dim)
-        nxt = torch.cat([t.narrow(dim, 1, n - 1), t.narrow(dim, n - 1, 1)],
-                        dim)
-        return torch.stack([0.25 * prev + 0.75 * t, 0.75 * t + 0.25 * nxt],
-                           dim + 1).flatten(dim, dim + 1)
-
-    return up(up(x, 1), 2)
-
-
 def replay_fits(torch, ops, counters, routed, data: Path) -> dict:
     """8c: the U-Net and uganConsis fits at the Config's dispatch
     (steps_per_dispatch 8, eval_scan), float32, epoch 2 under
     set_sync_debug_mode("error"), against the eager fit
     (steps_per_dispatch 1, eval_scan off, capture=False) on the same
-    recorded batches: 6b's bounds.  The uganConsis fits run the decoders'
-    bilinear upsampling as :func:`upsample_bilinear2_sliced` (its
-    ``F.interpolate`` backward adds with atomics, and two eager fits
-    through it part by about 6b's bounds; 8b holds the step with it), and
-    a second eager fit shows what is left to chance."""
+    recorded batches: 6b's bounds.  Then :func:`gan_replays_bitwise`,
+    which holds the GAN's replays to each other to the bit."""
     from smsut_tpu_torch.config import Config
-    from smsut_tpu_torch.models import blocks
     from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
@@ -2285,35 +2321,62 @@ def replay_fits(torch, ops, counters, routed, data: Path) -> dict:
     for name, cls in (("unet", SupervisedUNet), ("uganConsis",
                                                    UGANConsisAlgo)):
         tapes = {"train": [], "val": []}
-        up = blocks.upsample_bilinear2
-        if name == "uganConsis":
-            blocks.upsample_bilinear2 = upsample_bilinear2_sliced
-        try:
-            torch.cuda.synchronize()
-            zero(counters, routed)
-            got = taped_fit(torch, ops, cls(base), base, f"replay_{name}",
-                            tapes, replay=False, capture=True, watch=True)
-            torch.cuda.synchronize()
-            counts = {k: c.launches for k, c in counters.items()}
-            eager = [taped_fit(torch, ops, cls(eager_cfg), eager_cfg,
-                               f"eager{k}_{name}", tapes, replay=True,
-                               capture=False, watch=False) for k in range(2)]
-        finally:
-            blocks.upsample_bilinear2 = up
-        d, spread = fit_diff(got, eager[0]), fit_diff(eager[1], eager[0])
+        torch.cuda.synchronize()
+        zero(counters, routed)
+        got = taped_fit(torch, ops, cls(base), base, f"replay_{name}",
+                        tapes, replay=False, capture=True, watch=True)
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        eager = taped_fit(torch, ops, cls(eager_cfg), eager_cfg,
+                          f"eager_{name}", tapes, replay=True,
+                          capture=False, watch=False)
+        d = fit_diff(got, eager)
         print(f"replay 8c {name}: fit at steps_per_dispatch 8 + eval_scan "
               f"(replayed; epoch 2 under set_sync_debug_mode error) vs the "
               f"eager fit on the same batches: [TRN] losses "
               f"{[got['train/loss'][i] for i in range(FIT_EPOCHS)]} vs "
-              f"{[eager[0]['train/loss'][i] for i in range(FIT_EPOCHS)]}: "
+              f"{[eager['train/loss'][i] for i in range(FIT_EPOCHS)]}: "
               f"{d} (6b's bounds: loss {LOSS_TOL}, Dice {PARITY_DICE_TOL} "
-              f"per modality, {PARITY_DICE_ALL} overall); a second eager "
-              f"fit vs the first: {spread}; launches {counts}", flush=True)
+              f"per modality, {PARITY_DICE_ALL} overall); launches "
+              f"{counts}", flush=True)
         if not within_6b(d):
-            raise AssertionError(f"8c {name}: {d}, eager spread {spread}")
+            raise AssertionError(f"8c {name}: {d}")
         out[name] = {"replayed": got, "eager": eager, "diff": d,
-                     "eager_spread": spread, "launches": counts}
+                     "launches": counts}
+    out["gan_bitwise"] = gan_replays_bitwise(torch)
     return out
+
+
+def gan_replays_bitwise(torch) -> dict:
+    """8c, under deterministic cuDNN: two runs of GAN_REPLAYS float32
+    uganConsis iterations replayed from one init (w16, 8 + 8, the gate
+    open), each its own graph: their metrics, G and D equal to the bit
+    (the decoders' upsample is two fixed products, ``models/layers.py``
+    ``upsample_bilinear2``, so no backward adds with atomics)."""
+    import numpy as np
+
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    runs = []
+    for _ in range(2):
+        algo, inp, scal, make = dp_iterations(torch, np, "float32")["gan"]
+        state = make()
+        run = iteration(algo, state, inp, scal)
+        ms = [{k: float(v) for k, v in run().items()}
+              for _ in range(GAN_REPLAYS)]
+        runs.append((ms, state))
+        del algo, run
+    (m0, s0), (m1, s1) = runs
+    same = m0 == m1 and all(tree_equal(torch, getattr(s0, t), getattr(s1, t))
+                            for t in ("g_params", "d_params"))
+    print(f"replay 8c uganConsis float32: two runs of {GAN_REPLAYS} replayed "
+          f"iterations from one init, deterministic cuDNN, equal to the "
+          f"bit: {same}; G_seg {[round(m['G_seg'], 6) for m in m0]}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"8c GAN replays differ: {m0} vs {m1}")
+    torch.cuda.empty_cache()
+    return {"same": same, "metrics": m0}
 
 
 def replay_predict(torch, counters, routed) -> dict:
@@ -2372,8 +2435,12 @@ def replay_timing(torch, card: str, data: Path) -> dict:
     """8e: eager against replayed, in alternating blocks in one process:
     the U-Net iteration, the uganConsis iteration (bfloat16, w16; 8 + 8),
     the eval sweep per batch and the serving latency; each with the
-    profiler's device ms and kernels per unit and the idle share."""
+    profiler's device ms and kernels per unit and the idle share.  Then
+    what cuDNN's deterministic algorithms cost the U-Net's replayed
+    iteration, float32 and bfloat16: each graph keeps the algorithms of
+    its capture, so a deterministic mode sets the flag around its calls."""
     import numpy as np
+    import torch.backends.cudnn as cudnn
 
     from smsut_tpu_torch.config import Config
     from smsut_tpu_torch.data.dataset import get_label_npys, get_loader
@@ -2414,17 +2481,35 @@ def replay_timing(torch, card: str, data: Path) -> dict:
             np.float32)).cuda()
     preds = {c: load_serving(str(art), capture=c)[0] for c in (False, True)}
     paths["serve"] = {c: (lambda p=p: p(req)) for c, p in preds.items()}
+
+    def deterministic(fn):
+        def run():
+            det, cudnn.deterministic = cudnn.deterministic, True
+            try:
+                return fn()
+            finally:
+                cudnn.deterministic = det
+        return run
+
+    paths["cudnn"] = {}
+    for dtn in ("float32", "bfloat16"):
+        algo = SupervisedUNet(cfg.replace(compute_dtype=dtn))
+        ainp = algo.inputs({k: torch.from_numpy(v).cuda()
+                            for k, v in ellipse_batch(np).items()})
+        for det in (False, True):
+            run = iteration(algo, algo.init_state(0), ainp)
+            paths["cudnn"][dtn + " deterministic" * det] = (
+                deterministic(run) if det else run)
     out = {}
     for name, fns in paths.items():
+        fns = {{False: "eager", True: "replayed"}.get(c, c): f
+               for c, f in fns.items()}
         for fn in fns.values():   # warm-up; the replays capture here
             fn()
             fn()
         per = FIT_TEST_BATCHES if name == "eval" else 1
-        t = timed_blocks(torch, {("replayed" if c else "eager"): f
-                                 for c, f in fns.items()},
-                         TIMING_UNITS[name], TIMING_ROUNDS)
-        for c, f in fns.items():
-            mode = "replayed" if c else "eager"
+        t = timed_blocks(torch, fns, TIMING_UNITS[name], TIMING_ROUNDS)
+        for mode, f in fns.items():
             rows, _ = device_rows(torch, f, 3)
             r = t[mode]
             for k in ("median_ms", "q1_ms", "q3_ms"):
@@ -3582,70 +3667,94 @@ def tree_checksum(tree: dict) -> float:
                      for v in tree.values()))
 
 
-def dp_iterations(torch, np, dtn: str) -> dict:
-    """{name: (algo, device inputs, scalars)} of the U-Net iteration (w16,
-    256x256, batch 8) and the uganConsis iteration (w16, 8 + 8)."""
+# 11a: the iterations in a group of one; the zoo's from a count at which
+# every loss term is live (M3L's EMA from its gate).  The bf16 profile with
+# no group, in the same child, for DP_ALONE (9c and 10b profile the zoo's
+# with no group)
+DP_ITERATIONS = ("unet", "gan", "meanTeacher", "crossPse", "M3L")
+DP_ALONE = ("unet", "gan")
+
+
+def dp_iterations(torch, np, dtn: str, names=DP_ITERATIONS) -> dict:
+    """{name: (algo, device inputs, scalars, a fresh state)} of the U-Net
+    iteration (w16, 256x256, batch 8), the uganConsis iteration (w16, 8 +
+    8, the gate open) and the zoo's (Mean Teacher and CPS at w16, M3L at
+    the Config defaults; 8 + 8, phase 9's inputs and scalars)."""
     from smsut_tpu_torch.config import Config
     from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
     cfg = Config(input_size=256, base_width=16, batch_size=8,
                  compute_dtype=dtn, consis_gate_step=0)
-    unet = SupervisedUNet(cfg)
-    inp = unet.inputs({k: torch.from_numpy(v).cuda()
-                       for k, v in ellipse_batch(np).items()})
-    gan = UGANConsisAlgo(cfg)
-    ginp = gan.inputs(dict(gan_batch(torch, np), **gan.make_extra_batch()))
-    scal = {k: torch.tensor(float(v), device="cuda")
-            for k, v in gan.epoch_scalars(1).items()}
-    return {"unet": (unet, inp, {}), "gan": (gan, ginp, scal)}
+    out = {}
+    for name in names:
+        if name == "unet":
+            unet = SupervisedUNet(cfg)
+            out[name] = (unet, unet.inputs({
+                k: torch.from_numpy(v).cuda()
+                for k, v in ellipse_batch(np).items()}), {},
+                lambda a=unet: a.init_state(0))
+        elif name == "gan":
+            gan = UGANConsisAlgo(cfg)
+            out[name] = (gan, gan.inputs(dict(gan_batch(torch, np),
+                                              **gan.make_extra_batch())),
+                         {k: torch.tensor(float(v), device="cuda")
+                          for k, v in gan.epoch_scalars(1).items()},
+                         lambda a=gan: a.init_state(0))
+        else:
+            algo = m3l_algo(dtn) if name == "M3L" else zoo_algo(name, cfg)
+            count = M3L_GATE if name == "M3L" else ZOO_GATE[name]
+            out[name] = (algo, zoo_inputs(torch, np, algo, name),
+                         zoo_scalars(torch, algo),
+                         lambda a=algo, c=count: zoo_state(a, c))
+    return out
 
 
 def dp_world1() -> dict:
-    """11a, in a child process: each iteration replayed with no group,
-    then in a group of one over NCCL (the gradient all-reduce and the
-    batch Dice's sums captured in the graph): float32 under deterministic
-    cuDNN, the decoders' upsampling in fixed order (8c: F.interpolate's
-    backward adds with atomics), the parameters compared to the bit; and
-    bfloat16 at the defaults, one replay's device operations with no
-    group and in the group (profiler), and in the group its timing."""
+    """11a, in a child process: each iteration (:data:`DP_ITERATIONS`)
+    replayed with no group, then in a group of one over NCCL (the
+    gradient all-reduce, the batch Dice's and batch norm's sums captured
+    in the graph): float32 under deterministic cuDNN, the parameters
+    compared to the bit; and bfloat16 at the defaults, one replay's device
+    operations with no group and in the group (profiler), and in the group
+    its timing."""
     import numpy as np
     import torch
     import torch.backends.cudnn as cudnn
 
-    from smsut_tpu_torch.models import blocks
     from smsut_tpu_torch.parallel import distributed
     from smsut_tpu_torch.tools.profile_step import device_rows, iteration
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cudnn.allow_tf32 = False
-    up = blocks.upsample_bilinear2
 
     def replayed_f32():
         cudnn.deterministic = True
-        blocks.upsample_bilinear2 = upsample_bilinear2_sliced
         try:
             out = {}
-            for name, (algo, inp, scal) in dp_iterations(
-                    torch, np, "float32").items():
-                state = algo.init_state(0)
+            for name in DP_ITERATIONS:
+                algo, inp, scal, make = dp_iterations(
+                    torch, np, "float32", (name,))[name]
+                state = make()
                 run = iteration(algo, state, inp, scal)
                 for _ in range(2 + DP_REPLAYS):
                     run()
                 torch.cuda.synchronize()
-                trees = ("params",) if hasattr(state, "params") else (
-                    "g_params", "d_params")
+                trees = [t for t in ("params", "ema_params", "params2",
+                                     "g_params", "d_params")
+                         if getattr(state, t, None) is not None]
                 out[name] = {t: {k: v.clone() for k, v in
                                  getattr(state, t).items()} for t in trees}
+                del algo, inp, run, state
+                torch.cuda.empty_cache()
             return out
         finally:
             cudnn.deterministic = False
-            blocks.upsample_bilinear2 = up
 
-    def bf16_replays():
-        return {name: iteration(algo, algo.init_state(0), inp, scal)
-                for name, (algo, inp, scal) in dp_iterations(
-                    torch, np, "bfloat16").items()}
+    def bf16_replay(name):
+        algo, inp, scal, make = dp_iterations(torch, np, "bfloat16",
+                                              (name,))[name]
+        return iteration(algo, make(), inp, scal)
 
     def device_ops(run):
         run()
@@ -3654,8 +3763,10 @@ def dp_world1() -> dict:
         return {k: [ms, n] for k, ms, n in rows}
 
     alone = replayed_f32()
-    alone_ops = {n: device_ops(r) for n, r in bf16_replays().items()}
-    torch.cuda.empty_cache()
+    alone_ops = {}
+    for name in DP_ALONE:
+        alone_ops[name] = device_ops(bf16_replay(name))
+        torch.cuda.empty_cache()
     if not distributed.initialize(f"localhost:{free_port()}", 1, 0):
         raise AssertionError("no group")
     out = {"backend": distributed.backend()}
@@ -3664,24 +3775,30 @@ def dp_world1() -> dict:
                                for t in alone[n]) for n in alone}
     del alone, grouped
     torch.cuda.empty_cache()
-    for name, run in bf16_replays().items():
+    for name in DP_ITERATIONS:
+        run = bf16_replay(name)
         ops_ = device_ops(run)
-        t = timed_blocks(torch, {"replayed": run}, TIMING_UNITS[name],
+        t = timed_blocks(torch, {"replayed": run},
+                         TIMING_UNITS.get(name, TIMING_UNITS["gan"]),
                          TIMING_ROUNDS)["replayed"]
         device = sum(v[0] for v in ops_.values())
-        a = alone_ops[name]
         out[name] = {
             "median_ms": t["median_ms"], "q1_ms": t["q1_ms"],
             "q3_ms": t["q3_ms"], "device_ms": device,
             "kernels": sum(kernel_counts((k, v[1]) for k, v in
                                          ops_.items()).values()),
             "idle_share": 1 - device / t["median_ms"],
-            "nccl": {k: v for k, v in ops_.items() if "nccl" in k.lower()},
-            "alone_device_ms": sum(v[0] for v in a.values()),
-            "alone_kernels": sum(kernel_counts((k, v[1]) for k, v in
-                                               a.items()).values()),
-            "added": {k: v[1] - a.get(k, [0, 0])[1] for k, v in ops_.items()
-                      if v[1] != a.get(k, [0, 0])[1]}}
+            "nccl": {k: v for k, v in ops_.items() if "nccl" in k.lower()}}
+        a = alone_ops.get(name)
+        if a is not None:
+            out[name].update(
+                alone_device_ms=sum(v[0] for v in a.values()),
+                alone_kernels=sum(kernel_counts((k, v[1]) for k, v in
+                                                a.items()).values()),
+                added={k: v[1] - a.get(k, [0, 0])[1] for k, v in
+                       ops_.items() if v[1] != a.get(k, [0, 0])[1]})
+        del run
+        torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
     return out
 
@@ -3690,9 +3807,10 @@ def dp_rank() -> dict:
     """11b, one rank of two on the one card (gloo, eager; the group from
     the SMSUT_* variables): the U-Net's DP_STEPS float32 steps and one
     block_pallas step on the rank's 4 rows, one float32 uganConsis step on
-    its 4 + 4; metrics averaged over the ranks, launches and routed calls
-    per step, step times, and the trees after (the GAN's written to
-    DP_DIR for the parent)."""
+    its 4 + 4, then :func:`dp_zoo`; metrics averaged over the ranks,
+    launches and routed calls per step, step times, and the trees after
+    (the GAN's and the zoo's held flip-aware written to DP_DIR for the
+    parent)."""
     import numpy as np
     import torch
     import torch.backends.cudnn as cudnn
@@ -3765,13 +3883,203 @@ def dp_rank() -> dict:
                    DP_DIR / "gan_rank0.pt")
     _, _, out["gan"]["step_ms"] = timed_step(
         gan, gst, dict(gb, **gan.make_extra_batch()), scal)
+    del unet, fused, gan, state, gst
+    torch.cuda.empty_cache()
+    out["zoo"], tensors = dp_zoo(torch, np, counters, routed)
+    if rank == 0:
+        torch.save(tensors, DP_DIR / "zoo_rank0.pt")
     torch.distributed.destroy_process_group()
+    return out
+
+
+DP_ZOO = ("meanTeacher", "crossPse", "M3L", "dtc", "gan1")
+DP_DTC_LR = 0.01          # 11b: DTC's plain SGD steps
+
+
+def sign_map(msk, n: int):
+    """DTC's tanh-head target at its coarsest: +1 inside each class's
+    region, -1 outside, per class channel."""
+    import torch
+
+    return 2.0 * torch.nn.functional.one_hot(msk, n).to(torch.float32) - 1.0
+
+
+def dp_zoo(torch, np, counters, routed) -> dict:
+    """11b's zoo, float32, eager, on this process's rows of each global
+    batch (a rank's under the group, all of them in one process): Mean
+    Teacher and CPS (w16) and M3L (the Config defaults) DP_STEPS steps on
+    8 + 8 (4 + 4 a rank) from their live counts; DTC w64 with batch norm
+    and ReLU at its Config batch 8 (4 a rank), DP_STEPS SGD steps of its
+    forward and backward on a loss over both heads; uganConsis one step
+    at a global batch of 2 + 2 (one labelled and one unlabelled row a
+    rank, so its PatchNCE groups straddle the ranks).  Per run the
+    metrics averaged over the group, the launches and routed calls of a
+    step, and per step the parameter trees' checksum and sha; the tensors
+    the parent holds flip-aware (M3L's student after step 1, the GAN's
+    trees) under ``tensors``."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.models.dtc import DTCUNet
+    from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+    from smsut_tpu_torch.parallel import distributed, mesh
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+
+    mean = lambda v: float(mesh.mean_over_ranks(v.detach().reshape(())))
+    counts = lambda: {k: c.launches for k, c in counters.items()}
+    sl = distributed.local_batch_slice(DP_GLOBAL)
+    lb, ul = dp_batch(np), ellipse_batch(np, seed=1)
+    host = {"img": lb["img"][sl], "msk": lb["msk"][sl],
+            "ul_img": ul["img"][sl]}
+    cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                 compute_dtype="float32", consis_gate_step=0)
+    out, tensors = {}, {}
+    for name in ("meanTeacher", "crossPse", "M3L"):
+        algo = m3l_algo("float32") if name == "M3L" else zoo_algo(name, cfg)
+        state = zoo_state(algo, M3L_GATE if name == "M3L"
+                          else ZOO_GATE[name])
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        r = {"metrics": [], "checksums": [], "shas": []}
+        for k in range(DP_STEPS):
+            zero(counters, routed)
+            t0 = time.perf_counter()
+            state, m = algo.train_step(state, batch, algo.epoch_scalars(3))
+            r["metrics"].append({n: mean(v) for n, v in m.items()})
+            torch.cuda.synchronize()
+            r.setdefault("step_ms", []).append(
+                (time.perf_counter() - t0) * 1e3)
+            r["launches"], r["routed"] = counts(), routed_counts(routed)
+            trees = [t for t in ("params", "ema_params", "params2")
+                     if getattr(state, t) is not None]
+            r["checksums"].append(sum(tree_checksum(getattr(state, t))
+                                      for t in trees))
+            r["shas"].append([tree_sha(getattr(state, t)) for t in trees])
+            if name == "M3L" and k == 0:
+                tensors["m3l_step1"] = {n: v.cpu() for n, v in
+                                        state.params.items()}
+        out[name] = r
+        del algo, state
+        torch.cuda.empty_cache()
+    net = DTCUNet(5, 64, compute_dtype=torch.float32)
+    params = {k: v.detach().clone() for k, v in net.named_parameters()}
+    x = torch.from_numpy(host["img"]).cuda()
+    msk = torch.from_numpy(host["msk"]).cuda().long()
+    r = {"losses": [], "checksums": [], "shas": []}
+    for _ in range(DP_STEPS):
+        zero(counters, routed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = {k: v.requires_grad_() for k, v in params.items()}
+        tanh, logits = torch.func.functional_call(net, leaves, (x,))
+        loss = (dice_and_ce_loss(logits, msk)
+                + (tanh - sign_map(msk, tanh.shape[-1])).square().mean())
+        grads = mesh.reduce_gradients_(dict(zip(
+            leaves, torch.autograd.grad(loss, list(leaves.values())))))
+        params = {k: (v - DP_DTC_LR * grads[k]).detach()
+                  for k, v in leaves.items()}
+        r["losses"].append(mean(loss))
+        torch.cuda.synchronize()
+        r.setdefault("step_ms", []).append((time.perf_counter() - t0) * 1e3)
+        r["checksums"].append(tree_checksum(params))
+        r["shas"].append(tree_sha(params))
+        r["launches"], r["routed"] = counts(), routed_counts(routed)
+    out["dtc"] = r
+    del net, params, leaves, grads, tanh, logits
+    torch.cuda.empty_cache()
+    gcfg = cfg.replace(batch_size=2)
+    gan = UGANConsisAlgo(gcfg)
+    gsl = distributed.local_batch_slice(2)
+    full = dict(gan_batch(torch, np),
+                msk=torch.from_numpy(dp_batch(np)["msk"]).cuda())
+    gb = {k: v[:2][gsl] for k, v in full.items()}
+    zero(counters, routed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gst, gm = gan.train_step(gan.init_state(0), dict(
+        gb, **gan.make_extra_batch()), gan.epoch_scalars(1))
+    out["gan1"] = {"step_ms": [(time.perf_counter() - t0) * 1e3],
+                   "metrics": {k: mean(v) for k, v in gm.items()},
+                   "launches": counts(), "routed": routed_counts(routed),
+                   "shas": [tree_sha(gst.g_params), tree_sha(gst.d_params)]}
+    tensors["gan1"] = {t: {k: v.cpu() for k, v in getattr(gst, t).items()}
+                       for t in ("g_params", "d_params")}
+    return out, tensors
+
+
+def dp_zoo_against(torch, r0: dict, r1: dict, one: dict, saved: dict,
+                   mine: dict, lr: float) -> dict:
+    """11b's zoo, the two ranks against one process: Mean Teacher, CPS and
+    DTC the loss within DP_LOSS_TOL after each step (DTC's relative to
+    max(1, |loss|)) and the checksum within DP_SUM_TOL relative after
+    DP_STEPS; M3L 10b's float32 rules
+    on step 1 (the losses within M3L_LOSS_TOL relative, the student
+    flip-aware); uganConsis 7b's rules; the ranks equal to the bit after
+    every step.  Raises where one fails."""
+    import types
+
+    out = {}
+    for name in ("meanTeacher", "crossPse", "dtc"):
+        a, b, w = r0[name], r1[name], one[name]
+        la = [m["loss"] for m in a["metrics"]] if "metrics" in a \
+            else a["losses"]
+        lw = [m["loss"] for m in w["metrics"]] if "metrics" in w \
+            else w["losses"]
+        # DTC's loss (about 7 at init: its tanh head saturates) is held
+        # relative to max(1, |loss|), the U-Net's bound at a loss near 1
+        scale = (lambda y: max(1.0, abs(y))) if name == "dtc" else \
+            (lambda y: 1.0)
+        out[name] = {"loss_err": max(abs(x - y) / scale(y)
+                                     for x, y in zip(la, lw)),
+                     "sum_err": abs(a["checksums"][-1] - w["checksums"][-1])
+                     / max(abs(w["checksums"][-1]), 1.0),
+                     "ranks_equal": a["shas"] == b["shas"],
+                     "losses": la, "one_process": lw}
+    a, w = r0["M3L"], one["M3L"]
+    dev = torch.cat([(saved["m3l_step1"][k] - v).abs().flatten()
+                     for k, v in mine["m3l_step1"].items()])
+    out["M3L"] = {"loss_err": max(abs(a["metrics"][0][n] - w["metrics"][0][n])
+                                  / abs(w["metrics"][0][n])
+                                  for n in ("loss", "semi_loss")),
+                  "dev_max": float(dev.max()),
+                  "flip_share": float((dev > lr).float().mean()),
+                  "ranks_equal": a["shas"] == r1["M3L"]["shas"]}
+    ns = lambda t: types.SimpleNamespace(**{k: {n: v.cuda() for n, v in
+                                                d.items()}
+                                            for k, d in t.items()})
+    out["gan1"] = dict(gan_step_against(
+        torch, (r0["gan1"]["metrics"], ns(saved["gan1"])),
+        (one["gan1"]["metrics"], ns(mine["gan1"])), lr),
+        ranks_equal=r0["gan1"]["shas"] == r1["gan1"]["shas"])
+    for name, d in out.items():
+        print(f"dp 11b {name}: two ranks vs one process: "
+              f"{ {k: v for k, v in d.items() if k != 'one_process'} }; "
+              f"a rank's step launches {r0[name]['launches']}, routed "
+              f"{r0[name]['routed']}; one process "
+              f"{one[name]['launches']}; step ms (rank 0, rank 1, one "
+              f"process) {[round(x, 1) for x in r0[name]['step_ms']]} "
+              f"{[round(x, 1) for x in r1[name]['step_ms']]} "
+              f"{[round(x, 1) for x in one[name]['step_ms']]}", flush=True)
+    ok = all(out[n]["loss_err"] <= DP_LOSS_TOL
+             and out[n]["sum_err"] <= DP_SUM_TOL and out[n]["ranks_equal"]
+             for n in ("meanTeacher", "crossPse", "dtc"))
+    m, g = out["M3L"], out["gan1"]
+    ok = ok and (m["loss_err"] <= M3L_LOSS_TOL and m["ranks_equal"]
+                 and m["dev_max"] <= GAN_FLIP_DEV * lr
+                 and m["flip_share"] < GAN_FLIP_SHARE)
+    ok = ok and (g["ranks_equal"] and g["loss_over"] <= GAN_LOSS_ATOL
+                 and g["d_dev_max"] <= GAN_FLIP_DEV * lr
+                 and g["d_flip_share"] < GAN_FLIP_SHARE
+                 and g["seg_over"] <= GAN_SEG_ATOL)
+    for name in DP_ZOO:   # a rank's step launches the one process's
+        if r0[name]["launches"] != one[name]["launches"] or \
+                r0[name]["routed"] != one[name]["routed"]:
+            ok = False
+    if not ok:
+        raise AssertionError(f"11b zoo, two ranks vs one process: {out}")
     return out
 
 
 def dp_two_ranks(torch, np, counters, routed, kids) -> dict:
     """11b: the two ranks (``kids``, :func:`dp_spawn`'s) against one
-    process at the global batch, here."""
+    process at the global batch, here (the zoo: :func:`dp_zoo_against`)."""
     import types
 
     from smsut_tpu_torch.config import Config
@@ -3807,6 +4115,9 @@ def dp_two_ranks(torch, np, counters, routed, kids) -> dict:
             msk=torch.from_numpy(dp_batch(np)["msk"]).cuda(),
             **gan.make_extra_batch()), gan.epoch_scalars(1))
         per_step = {k: c.launches for k, c in counters.items()}
+        del unet, state, gan
+        torch.cuda.empty_cache()
+        zoo_one, zoo_mine = dp_zoo(torch, np, counters, routed)
     finally:
         cudnn.deterministic = det
     saved = torch.load(DP_DIR / "gan_rank0.pt", weights_only=True)
@@ -3818,11 +4129,14 @@ def dp_two_ranks(torch, np, counters, routed, kids) -> dict:
     u0 = r0["unet"]
     loss_err = abs(u0["losses"][-1] - losses[-1])
     sum_err = abs(u0["checksum"] - cksum) / max(abs(cksum), 1.0)
+    zoo = dp_zoo_against(torch, r0["zoo"], r1["zoo"], zoo_one, torch.load(
+        DP_DIR / "zoo_rank0.pt", weights_only=True), zoo_mine, cfg.lr)
     out = {"ranks": [r0, r1], "one_process": {"losses": losses,
                                               "checksum": cksum,
-                                              "gan_per_step": per_step},
+                                              "gan_per_step": per_step,
+                                              "zoo": zoo_one},
            "unet_loss_err": loss_err, "unet_sum_err": sum_err,
-           "gan": gan_d}
+           "gan": gan_d, "zoo": zoo}
     print(f"dp 11b: two ranks over {r0['backend']} on the one card, eager: "
           f"U-Net losses {[round(x, 6) for x in u0['losses']]} vs one "
           f"process {[round(x, 6) for x in losses]}: step {DP_STEPS} err "
@@ -4028,28 +4342,31 @@ def dp_spawn() -> dict:
 
 
 def dp_phase(torch, counters, routed, timing: dict, data: Path,
-             kids: dict) -> dict:
+             kids: dict, card: str) -> dict:
     """Phase 11: 11a, 11b, 11c (11c on phase 6's tree), ``kids`` from
     :func:`dp_spawn`."""
     import numpy as np
 
     t0 = time.perf_counter()
     a = child_result(kids["world1"])
-    for name in ("unet", "gan"):
-        r, e = a[name], timing[name]["replayed"]
-        print(f"dp 11a {name}: world 1 over {a['backend']}, float32 replays "
-              f"equal to the no-group run to the bit: {a['bit_equal'][name]}"
-              f"; bfloat16 replay median {r['median_ms']:.3f} ms (quartiles "
-              f"{r['q1_ms']:.3f}-{r['q3_ms']:.3f}), device {r['device_ms']:.3f}"
-              f" ms in {r['kernels']} kernels, idle share "
-              f"{r['idle_share']:.3f}; NCCL kernels in the replay "
-              f"{r['nccl'] or 'none (one rank: the in-place all-reduce '}"
-              f"{'' if r['nccl'] else 'moves nothing)'}; the replay with no "
-              f"group {r['alone_device_ms']:.3f} ms in {r['alone_kernels']} "
-              f"kernels, the group's added operations {r['added']}; 8e (no "
-              f"group, another process): median {e['median_ms']:.3f} ms, "
-              f"device {e['device_ms']:.3f} ms in {e['kernels']:.0f} "
-              f"kernels, idle share {e['idle_share']:.3f}", flush=True)
+    for name in DP_ITERATIONS:
+        r, e = a[name], timing.get(name, {}).get("replayed")
+        seen = ("" if "added" not in r else
+                f"; with no group {r['alone_device_ms']:.3f} ms in "
+                f"{r['alone_kernels']} kernels, the group's kernels "
+                f"{sum(r['added'].values()):+d} over "
+                f"{len(r['added'])} kinds")
+        seen += ("" if e is None else
+                 f"; 8e (no group, another process): median "
+                 f"{e['median_ms']:.3f} ms, device {e['device_ms']:.3f} ms "
+                 f"in {e['kernels']:.0f} kernels")
+        print(f"dp 11a {name} on {card}: world 1 over {a['backend']}, "
+              f"float32 replays equal to the no-group run to the bit: "
+              f"{a['bit_equal'][name]}; bfloat16 replay median "
+              f"{r['median_ms']:.3f} ms (quartiles {r['q1_ms']:.3f}-"
+              f"{r['q3_ms']:.3f}), device {r['device_ms']:.3f} ms in "
+              f"{r['kernels']} kernels, idle share {r['idle_share']:.3f}; "
+              f"NCCL kernels {len(r['nccl'])}{seen}", flush=True)
     if a["backend"] != "nccl" or not all(a["bit_equal"].values()):
         raise AssertionError(f"11a: {a}")
     t1 = time.perf_counter()
@@ -4061,6 +4378,184 @@ def dp_phase(torch, counters, routed, timing: dict, data: Path,
           f"{t3 - t2:.1f} s", flush=True)
     return {"world1": a, "two_ranks": b, "fit": c,
             "seconds": [t1 - t0, t2 - t1, t3 - t2]}
+
+
+# phase 12: from volumes to a trained model: the port's preparation CLIs
+# on synthetic BTCV and CHAOS trees, then unetTrainer on the PNG tree they
+# write.  4 patients per modality (the split: 2 test, 1 labelled, 1
+# unlabelled), PREP_SLICES slices of PREP_SIDE^2 at PREP_PIXEL mm: int(288
+# * 1.4 / 1.5) = 268 pixels after the resample, cropped to 256
+PREP_DIR = ROOT / "build" / "chip_smoke_prep"
+PREP_PATIENTS, PREP_SLICES, PREP_SIDE, PREP_PIXEL = 4, 10, 288, 1.4
+PREP_GAP = {"btcv": 5.0, "chaos": 6.0}   # mm between slices
+PREP_ITERS = 10                           # the trainer's one short epoch
+
+
+def organ_slices(np, rng, values) -> "np.ndarray":
+    """[PREP_SLICES, side, side] uint8: four discs of ``values`` in every
+    slice but the first and the last."""
+    side = PREP_SIDE
+    yy, xx = np.mgrid[0:side, 0:side]
+    out = np.zeros((PREP_SLICES, side, side), np.uint8)
+    for z in range(1, PREP_SLICES - 1):
+        for v in values:
+            cy, cx = rng.uniform(0.3, 0.7, 2) * side
+            r = rng.uniform(0.05, 0.12) * side
+            out[z][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = v
+    return out
+
+
+def write_dicom(path: Path, pixels, z_mm: float, instance: int) -> None:
+    """One uncompressed slice as a part-10 DICOM file, Explicit VR Little
+    Endian: signed 16-bit pixels, PREP_PIXEL mm spacing, position z_mm."""
+    import struct
+
+    def el(group, elem, vr, value):
+        tag = struct.pack("<HH", group, elem)
+        if vr in (b"OB", b"OW"):
+            return tag + vr + b"\x00\x00" + struct.pack("<I", len(value)) \
+                + value
+        return tag + vr + struct.pack("<H", len(value)) + value
+
+    def text(v):
+        b = str(v).encode()
+        return b + b" " if len(b) % 2 else b
+
+    rows, cols = pixels.shape
+    body = b"".join([
+        el(0x0002, 0x0010, b"UI", b"1.2.840.10008.1.2.1\x00"),
+        el(0x0018, 0x0050, b"DS", text(PREP_GAP["chaos"])),
+        el(0x0020, 0x0013, b"IS", text(instance)),
+        el(0x0020, 0x0032, b"DS", text(f"0\\0\\{z_mm}")),
+        el(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+        el(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+        el(0x0028, 0x0030, b"DS", text(f"{PREP_PIXEL}\\{PREP_PIXEL}")),
+        el(0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+        el(0x0028, 0x0103, b"US", struct.pack("<H", 1)),
+        el(0x7FE0, 0x0010, b"OW", pixels.astype("<i2").tobytes())])
+    path.write_bytes(b"\x00" * 128 + b"DICM" + body)
+
+
+def prep_volumes(np) -> None:
+    """The synthetic inputs under PREP_DIR: BTCV's layout
+    (Training/{img,label}/..., int16 CT in NIfTI, BTCV's label ids) and
+    CHAOS's (MR/{pid}/T1DUAL/DICOM_anon/{InPhase,OutPhase},
+    MR/{pid}/T2SPIR/DICOM_anon, each study's Ground PNGs with the organs'
+    grey levels), PREP_PATIENTS patients each."""
+    from smsut_tpu_torch.preprocess.niftio import Volume, write_nifti
+    from smsut_tpu_torch.utils.io import imwrite_gray
+
+    rng = np.random.default_rng(12)
+    btcv = PREP_DIR / "btcv" / "Training"
+    for sub in ("img", "label"):
+        (btcv / sub).mkdir(parents=True)
+    spacing = (PREP_PIXEL, PREP_PIXEL, PREP_GAP["btcv"])
+    for p in range(1, PREP_PATIENTS + 1):
+        lab = organ_slices(np, rng, (6, 2, 3, 1))
+        img = (lab * 40.0 - 900 + rng.normal(0, 60, lab.shape)).astype(
+            np.int16)
+        write_nifti(Volume(img, spacing), str(btcv / "img" /
+                                              f"img{p:04d}.nii.gz"))
+        write_nifti(Volume(lab, spacing), str(btcv / "label" /
+                                              f"label{p:04d}.nii.gz"))
+    for p in range(1, PREP_PATIENTS + 1):
+        pid = PREP_DIR / "chaos" / "MR" / str(p)
+        for study, series in (("T1DUAL", ("InPhase", "OutPhase")),
+                              ("T2SPIR", ("",))):
+            lab = organ_slices(np, rng, (63, 126, 189, 252))
+            (pid / study / "Ground").mkdir(parents=True)
+            for z in range(PREP_SLICES):
+                imwrite_gray(str(pid / study / "Ground" /
+                                 f"IMG-0001-{z + 1:05d}.png"), lab[z])
+            for s in series:
+                d = pid / study / "DICOM_anon" / s
+                d.mkdir(parents=True)
+                for z in range(PREP_SLICES):
+                    write_dicom(d / f"IMG-{PREP_SLICES - z:05d}.dcm",
+                                (lab[z] * 3.0 + rng.normal(
+                                    200, 30, lab[z].shape)).astype(np.int16),
+                                z * PREP_GAP["chaos"], z + 1)
+
+
+def prep_phase(torch, card: str) -> dict:
+    """Phase 12: the synthetic volumes, the three preparation CLIs (each a
+    subprocess) and ``unetTrainer -p train`` (one epoch of PREP_ITERS,
+    w16, batch 8, bfloat16) then ``-p test`` on the card (``run_main``);
+    each stage's seconds; the PNG tree (256x256 slices, the split YAML), the
+    run's log, checkpoints and Dice matrix checked."""
+    import numpy as np
+
+    from smsut_tpu_torch.train.cli import make_parser, run_main
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+    from smsut_tpu_torch.utils.io import imread_gray, read_yaml
+
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    nii, png, expr = PREP_DIR / "nii", PREP_DIR / "png", PREP_DIR / "expr"
+    t0 = time.perf_counter()
+    prep_volumes(np)
+    secs = {"volumes": time.perf_counter() - t0}
+    sets = ("input_size=256", "base_width=16", "batch_size=8",
+            "compute_dtype=bfloat16", f"num_iter_per_epoch={PREP_ITERS}",
+            "max_epoch=1", "num_workers=2")
+    train = ["--data_root", str(png), "--expr_root", str(expr), "-nm",
+             "prep"]
+    for kv in sets:
+        train += ["--set", kv]
+    stages = (
+        ("atlasPreparation", ["--atlas_root", str(PREP_DIR / "btcv"),
+                              "--out", str(nii)]),
+        ("chaosPreparation", ["--chaos_root", str(PREP_DIR / "chaos"),
+                              "--out", str(nii)]),
+        ("toPngAndSplit", ["--src", str(nii), "--dst", str(png)]))
+    for name, args in stages:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", f"smsut_tpu_torch.data_pprocess.{name}"]
+            + args, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        secs[name] = time.perf_counter() - t0
+        if out.returncode:
+            raise AssertionError(f"12 {name} failed:\n{out.stdout[-2000:]}"
+                                 f"\n{out.stderr[-4000:]}")
+    # the trainer in this process, as a user's run_main call (6a)
+    for name, args in (("train", ["-p", "train"]),
+                       ("test", ["-p", "test", "-i", "000", "-wh", "best"])):
+        t0 = time.perf_counter()
+        run_main(SupervisedUNet, make_parser().parse_args(args + train))
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    split = read_yaml(str(png / "semi-1910.yaml"))
+    pngs = sorted(png.rglob("*.png"))
+    shapes = {imread_gray(str(p)).shape for p in pngs[::25]}
+    model = expr / "prep" / "000"
+    log = (model / "train.log").read_text()
+    losses = [float(x) for x in re.findall(r"\[TRN\].* loss: ([^/]+)/", log)]
+    rows = [r for r in (model / "all_trois_matrix.csv").read_text()
+            .split("\n") if r]
+    vals = np.array([[float(v) for v in r.split(",")] for r in rows])
+    res = {"seconds": secs, "pngs": len(pngs), "shapes": sorted(shapes),
+           "split": {m: {"test": len(v["test"]), "train": len(v["train"][0]),
+                         "val": len(v["val"][0])} for m, v in split.items()},
+           "losses": losses, "csv": vals.tolist()}
+    print(f"prep 12 on {card}: seconds per stage "
+          f"{ {k: round(v, 1) for k, v in secs.items()} }; {len(pngs)} PNGs "
+          f"of {sorted(shapes)}; split {res['split']}; [TRN] losses "
+          f"{losses}; test CSV {vals.shape}, mean Dice {vals[4, 4]:.4f}",
+          flush=True)
+    if (shapes != {(256, 256)} or sorted(split) != ["ct", "t1in", "t1out",
+                                                    "t2"]
+            or len(losses) != 1 or not np.isfinite(losses).all()
+            or log.count("[TST]") != 1
+            or not (model / "ckpt" / "best.ckpt").is_file()
+            or vals.shape != (10, 5) or not np.isfinite(vals).all()):
+        raise AssertionError(f"12: {res}")
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    return res
+
+
+def lap(seconds: dict, name: str, t0: float) -> None:
+    """A phase's seconds since ``t0``, recorded and printed."""
+    seconds[name] = time.perf_counter() - t0
+    print(f"{name}: {seconds[name]:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -4113,44 +4608,48 @@ def main() -> int:
                 for v in tc.values()):
             raise AssertionError(f"{lib}: tensor-core kernels {tc}")
 
+    seconds = {"build": build_s}
     t0 = time.perf_counter()
     rows = check_kernels(torch, F, ops, instnorm, conv3x3, block)
     rows += check_backward_kernels(torch, F, ops, instnorm, conv3x3, block)
     rows += check_mma_kernels(torch, F, ops, conv_mma)
-    print(f"phases 2-2c: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phases 2-2c", t0)
     counters, routed = kernel_counters()
     t0 = time.perf_counter()
     serve = serve_modes(torch, ops, counters, routed)
-    print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 3", t0)
     t0 = time.perf_counter()
     train = train_modes(torch, ops, counters, routed)
     w8 = train_w8(torch, ops, counters, routed)
-    print(f"phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 4", t0)
     t0 = time.perf_counter()
     bench = microbench(torch, counters)
-    print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 5", t0)
     t0 = time.perf_counter()
     fit = fit_loop(torch, ops, counters, routed, train, card)
-    print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 6", t0)
     t0 = time.perf_counter()
     gan = gan_phase(torch, ops, counters, routed)
-    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 7", t0)
     t0 = time.perf_counter()
     dispatch = dispatch_phase(torch, ops, counters, routed, card)
-    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 8", t0)
     t0 = time.perf_counter()
     zoo = zoo_phase(torch, ops, counters, routed, card)
-    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 9", t0)
     t0 = time.perf_counter()
     kids = dp_spawn()   # phase 11's children start up during phase 10
     m3l_dtc = m3l_dtc_phase(torch, ops, counters, routed, card, instnorm,
                             conv3x3, block)
-    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap(seconds, "phase 10", t0)
     t0 = time.perf_counter()
     dp = dp_phase(torch, counters, routed, dispatch["timing"],
-                  FIT_DIR / "data", kids)
-    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+                  FIT_DIR / "data", kids, card)
+    lap(seconds, "phase 11", t0)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    prep = prep_phase(torch, card)
+    lap(seconds, "phase 12", t0)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -4189,7 +4688,8 @@ def main() -> int:
                 *fit["cli"].values(), *fit["watched"].values(),
                 *gan["steps"].values(), gan["cli"],
                 *dispatch["unet"].values(), *dispatch["gan"].values(),
-                *dispatch["fits"].values(), dispatch["predict"],
+                dispatch["fits"]["unet"], dispatch["fits"]["uganConsis"],
+                dispatch["predict"],
                 *zoo["steps"].values(), *zoo["cli"].values(),
                 *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
                 m3l_dtc["m3l_cli"])
@@ -4220,8 +4720,11 @@ def main() -> int:
                    "zoo": json.loads(json.dumps(zoo, default=str)),
                    "m3l_dtc": json.loads(json.dumps(m3l_dtc, default=str)),
                    "data_parallel": json.loads(json.dumps(dp, default=str)),
+                   "preparation": prep, "seconds": seconds,
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
+    print(f"seconds by phase: "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

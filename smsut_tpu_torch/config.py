@@ -25,7 +25,7 @@ loop): ``data_parallel`` 0 takes every rank of the group, and any other
 value must equal the group's size (a value above 1 in a single process
 raises: launch that many processes with ``torch.distributed.run``);
 ``spatial_parallel`` above 1 raises ``NotImplementedError`` until ROADMAP
-A10b ports the spatial axis.
+A10c ports the spatial axis.
 
 The kernel knobs keep their names: ``block_pallas`` selects, on a CUDA
 device, the fused residual-block kernel (K3) instead of the conv (K2) +
@@ -128,7 +128,7 @@ class Config:
     compute_dtype: str = "bfloat16"
     # ranks of the process group: 0 = all of them, else the group's size
     data_parallel: int = 0
-    # H-sharding across ranks: only 1 (above 1 raises, ROADMAP A10b)
+    # H-sharding across ranks: only 1 (above 1 raises, ROADMAP A10c)
     spatial_parallel: int = 1
     prefetch_depth: int = 2
     # no-op in the port (every CUDA instance norm runs kernel K1)

@@ -24,7 +24,6 @@ from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models.blocks import Decoder, Encoder
 from smsut_tpu_torch.models.layers import Conv
 from smsut_tpu_torch.ops import acc
-from smsut_tpu_torch.parallel import distributed
 
 
 class DualTaskDecoder(Decoder):
@@ -57,8 +56,6 @@ class DTCUNet(nn.Module):
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         super().__init__()
-        if norm_type == "batch":   # its statistics are the rank's rows'
-            distributed.refuse_group("DTC's batch norm")
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         g = torch.Generator().manual_seed(seed)

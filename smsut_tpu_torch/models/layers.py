@@ -4,8 +4,10 @@
 Port of the parts of ``smsut_tpu/models/layers.py`` that the U-Net, the
 UGAN towers, the discriminator and the dual-task U-Net (``models/dtc.py``)
 use: the convs, ``NormAct`` with instance norm or training-mode batch norm
-(``BatchNorm``) and leaky ReLU or ReLU, the pools and the 2x upsample.
-Activations flow in the compute dtype (bfloat16 by default); parameters
+(``BatchNorm``) and leaky ReLU or ReLU, the pools, and the bilinear
+resize (the UGAN decoders' 2x upsample, the SegFormer head's) as two
+products with fixed interpolation matrices, whose backward adds in a
+fixed order.  Activations flow in the compute dtype (bfloat16 by default); parameters
 and normalisation statistics stay float32.  Conv weights are stored HWIO
 [k, k, Cin, Cout], the layout the kernels read and the flax layout.
 
@@ -24,8 +26,12 @@ differentiable, for the discriminator's gradient penalty.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +41,7 @@ from smsut_tpu_torch.ops import acc
 from smsut_tpu_torch.ops import conv3x3 as k2
 from smsut_tpu_torch.ops.conv3x3 import conv3x3
 from smsut_tpu_torch.ops.instnorm import instance_norm, lrelu
+from smsut_tpu_torch.parallel import distributed, mesh
 
 # torch.nn.init.calculate_gain('leaky_relu') uses negative_slope=0.01.
 _LRELU_GAIN2 = 2.0 / (1.0 + 0.01 ** 2)
@@ -64,14 +71,43 @@ def activation(act_type: Optional[str]) -> Callable[[torch.Tensor],
     raise NotImplementedError(act_type)
 
 
+_LOCAL_STATS = [False]
+
+
+@contextlib.contextmanager
+def local_batch_stats():
+    """Within it, :func:`batch_norm` takes its statistics over this rank's
+    rows alone, also under a process group: for forwards whose ranks hold
+    different batches (the sharded eval sweep), not rows of one."""
+    prev, _LOCAL_STATS[0] = _LOCAL_STATS[0], True
+    try:
+        yield
+    finally:
+        _LOCAL_STATS[0] = prev
+
+
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = BN_EPS) -> torch.Tensor:
     """Training-mode BatchNorm2d over NHWC ``x``: statistics over (B, H, W)
     in float32 (float64 for float64 ``x``), var = E[x^2] - E[x]^2, no
-    running averages; the result in ``x``'s dtype."""
+    running averages; the result in ``x``'s dtype.
+
+    Under a group of more than one process ``x`` is the rank's rows of the
+    global batch, and the statistics are the global batch's, as the JAX
+    package takes them under GSPMD: the sums of x and x^2 and the count
+    over the group (``parallel.mesh.batch_sums``, whose backward sums the
+    cotangent over the group), outside :func:`local_batch_stats`."""
     xf = acc(x)
-    mean = xf.mean(dim=(0, 1, 2))
-    var = (xf * xf).mean(dim=(0, 1, 2)) - mean * mean
+    if distributed.process_count() > 1 and not _LOCAL_STATS[0]:
+        s1 = xf.sum(dim=(0, 1, 2))
+        s2 = (xf * xf).sum(dim=(0, 1, 2))
+        s1, s2, n = mesh.batch_sums(s1, s2, torch.full_like(
+            s1, x.shape[0] * x.shape[1] * x.shape[2]))
+        mean = s1 / n
+        var = s2 / n - mean * mean
+    else:
+        mean = xf.mean(dim=(0, 1, 2))
+        var = (xf * xf).mean(dim=(0, 1, 2)) - mean * mean
     y = (xf - mean) * torch.rsqrt(var + eps) * scale + bias
     return y.to(x.dtype)
 
@@ -153,10 +189,47 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_host(n_in: int, n_out: int) -> np.ndarray:
+    """float64 [n_out, n_in]: ``jax.image.resize``'s bilinear weights for
+    one axis (a triangle kernel at half-pixel centres, each row
+    renormalised over the taps inside the input)."""
+    s = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    a = np.maximum(0.0, 1.0 - np.abs(s[:, None] - np.arange(n_in)[None]))
+    return a / a.sum(axis=1, keepdims=True)
+
+
+_INTERP: Dict[tuple, torch.Tensor] = {}
+
+
+def interp_matrix(n_in: int, n_out: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_interp_host` on ``device`` in ``dtype``, made once per key
+    (so that a CUDA graph's capture finds it made by the warm-up), and
+    outside inference mode, so that a training step may save it."""
+    key = (n_in, n_out, device, dtype)
+    t = _INTERP.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _INTERP[key] = torch.from_numpy(
+                _interp_host(n_in, n_out)).to(device, dtype)
+    return t
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NHWC ``x`` resized to h x w as ``jax.image.resize(..., "bilinear")``
+    resizes up: two products with fixed interpolation matrices, whose
+    backward is two products too, so it adds in a fixed order on the card
+    (``F.interpolate``'s CUDA backward adds with atomics)."""
+    ah = interp_matrix(x.shape[1], h, x.device, x.dtype)
+    aw = interp_matrix(x.shape[2], w, x.device, x.dtype)
+    y = torch.einsum("Hh,bhwc->bHwc", ah, x)
+    return torch.einsum("Ww,bHwc->bHWc", aw, y)
+
+
 def upsample_bilinear2(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample with half-pixel centres, NHWC: the JAX
-    package's ``jax.image.resize(..., "bilinear")`` at x2, whose edge
-    weights renormalise to the edge pixel as the clamp here does."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
-                      mode="bilinear", align_corners=False)
-    return y.permute(0, 2, 3, 1)
+    package's ``jax.image.resize(..., "bilinear")`` at x2, the edge rows
+    and columns copies of the input's (their weights renormalised), as
+    :func:`resize_bilinear`."""
+    return resize_bilinear(x, 2 * x.shape[1], 2 * x.shape[2])

@@ -24,7 +24,8 @@ The math is the JAX package's, op for op:
   ``SAME`` padding (none where the map divides by the ratio), computed as
   a product of the patches with the kernel;
 - ``jax.image.resize(..., "bilinear")`` as products with fixed [out, in]
-  interpolation matrices along H and W (:func:`resize_bilinear`: half-pixel
+  interpolation matrices along H and W (``models/layers.py``
+  :func:`resize_bilinear`: half-pixel
   centres, edge weights renormalised), whose backward is a product too and
   so adds in a fixed order on the card, where ``F.interpolate``'s backward
   adds with atomics;
@@ -42,9 +43,8 @@ reaches no Pallas kernel either.
 """
 from __future__ import annotations
 
-import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,7 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from smsut_tpu_torch.device import resolve_device
-from smsut_tpu_torch.models.layers import batch_norm
+from smsut_tpu_torch.models.layers import batch_norm, resize_bilinear
 from smsut_tpu_torch.ops import acc
 
 LN_EPS = 1e-6   # flax.linen.LayerNorm's default
@@ -309,42 +309,6 @@ class MixVisionTransformer(nn.Module):
             x = x.reshape(x.shape[0], h, w, self.dims[s])
             feats.append(x)
         return feats
-
-
-@functools.lru_cache(maxsize=None)
-def _interp_host(n_in: int, n_out: int) -> np.ndarray:
-    """float64 [n_out, n_in]: ``jax.image.resize``'s bilinear weights for
-    one axis (a triangle kernel at half-pixel centres, each row
-    renormalised over the taps inside the input)."""
-    s = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    a = np.maximum(0.0, 1.0 - np.abs(s[:, None] - np.arange(n_in)[None]))
-    return a / a.sum(axis=1, keepdims=True)
-
-
-_INTERP: Dict[tuple, torch.Tensor] = {}
-
-
-def interp_matrix(n_in: int, n_out: int, device: torch.device,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """:func:`_interp_host` on ``device`` in ``dtype``, made once per key
-    (so that a CUDA graph's capture finds it made by the warm-up), and
-    outside inference mode, so that a training step may save it."""
-    key = (n_in, n_out, device, dtype)
-    t = _INTERP.get(key)
-    if t is None:
-        with torch.inference_mode(False):
-            t = _INTERP[key] = torch.from_numpy(
-                _interp_host(n_in, n_out)).to(device, dtype)
-    return t
-
-
-def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """NHWC ``x`` resized to h x w as ``jax.image.resize(..., "bilinear")``
-    upsamples: two products with fixed interpolation matrices."""
-    ah = interp_matrix(x.shape[1], h, x.device, x.dtype)
-    aw = interp_matrix(x.shape[2], w, x.device, x.dtype)
-    y = torch.einsum("Hh,bhwc->bHwc", ah, x)
-    return torch.einsum("Ww,bHwc->bHWc", aw, y)
 
 
 class LinearFusionMaskedConsistencyMixBatch(nn.Module):

@@ -6,8 +6,10 @@ Port of the unpacked losses of ``smsut_tpu/ops/losses.py``:
 ``one_hot_last``, ``get_tp_fp_fn``, ``soft_dice_loss``,
 ``cross_entropy_loss`` and ``dice_and_ce_loss`` (the reference's
 ``DiceAndCrossEntropyLoss`` with ``batch_dice=True``, the loss of every
-trainer), and the GAN's ``argmax_consistency_loss``, ``patch_nce_loss``,
-``nce_loss_over_layers``, ``l1_loss`` and ``softmax_ce_with_logits``; Mean
+trainer), and the GAN's ``argmax_consistency_loss``, ``patch_nce_loss``
+(as :func:`patch_nce_in_groups`, the form a process group needs; the
+mean over the one NCE layer is the step's), ``l1_loss`` and
+``softmax_ce_with_logits``; Mean
 Teacher's ``softmax_mse_consistency``; M3L's ``soft_cross_entropy``
 (``smsut_tpu/train/steps/m3l.py``); and CoraNet's three-head losses
 (``split_heads``, ``coranet_weights``, ``three_head_losses`` and the stage-B
@@ -33,7 +35,7 @@ they are the sums they were.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -136,35 +138,27 @@ def argmax_consistency_loss(source_logits: torch.Tensor,
                             batch_dice=True)
 
 
-def patch_nce_loss(feat_q: torch.Tensor, feat_k: torch.Tensor, n_bmm: int,
-                   temperature: float = 0.07) -> torch.Tensor:
-    """PatchNCE over L2-normalised pools [B*P, C], ``feat_k`` detached;
-    the negatives are taken within groups of ``n_bmm`` rows' pools, as
-    the reference builds the loss with ``batch_size`` even for a pool from
-    a 2x batch (the group quirk, kept).  The per-patch loss [B*P]."""
+def patch_nce_in_groups(feat_q: torch.Tensor, feat_k: torch.Tensor,
+                        keys: torch.Tensor, own: torch.Tensor,
+                        temperature: float = 0.07) -> torch.Tensor:
+    """PatchNCE's per-patch loss of M images' L2-normalised query pools
+    (``feat_q`` [M*P, C], image-major): each patch's positive is its own
+    image's key at the same patch (``feat_k`` [M*P, C]), its negatives the
+    keys of its image's group (``keys`` [M, G*P, C], in the group's
+    order), its own masked (``own`` bool [M, P, G*P]).  The reference
+    takes the negatives within groups of ``batch_size`` images' pools even
+    for a pool from a 2x batch (the group quirk, kept); a rank's images
+    whose groups span ranks (the keys gathered) take the loss one process
+    takes at the global batch.  The keys are detached.  [M*P]."""
     feat_q = acc(feat_q)
     feat_k = acc(feat_k.detach())
-    n, dim = feat_q.shape
+    keys = acc(keys.detach())
+    m, gp, dim = keys.shape
     l_pos = (feat_q * feat_k).sum(dim=1, keepdim=True)
-    q = feat_q.reshape(n_bmm, -1, dim)
-    k = feat_k.reshape(n_bmm, -1, dim)
-    npatches = q.shape[1]
-    l_neg = torch.bmm(q, k.transpose(1, 2))
-    eye = torch.eye(npatches, dtype=torch.bool, device=q.device)[None]
-    l_neg = l_neg.masked_fill(eye, -10.0).reshape(-1, npatches)
+    l_neg = torch.bmm(feat_q.reshape(m, -1, dim), keys.transpose(1, 2))
+    l_neg = l_neg.masked_fill(own, -10.0).reshape(-1, gp)
     logits = torch.cat([l_pos, l_neg], dim=1) / temperature
     return -torch.log_softmax(logits, dim=1)[:, 0]
-
-
-def nce_loss_over_layers(feat_x_pools: Sequence[torch.Tensor],
-                         feat_f_pools: Sequence[torch.Tensor], n_bmm: int,
-                         temperature: float = 0.07) -> torch.Tensor:
-    """The mean over the NCE layers of the mean PatchNCE; the queries are
-    the reconstruction pass's pools, the keys the translation pass's."""
-    total = 0.0
-    for f_x, f_f in zip(feat_x_pools, feat_f_pools):
-        total = total + patch_nce_loss(f_f, f_x, n_bmm, temperature).mean()
-    return total / len(feat_x_pools)
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -148,11 +148,3 @@ def barrier() -> None:
     else:
         dist.barrier()
 
-
-def refuse_group(what: str) -> None:
-    """Raise where ``what`` does not run under a group of more than one
-    process yet (ROADMAP A10b)."""
-    n = process_count()
-    if n > 1:
-        raise ValueError(f"{what} does not run data-parallel yet (a group "
-                         f"of {n} processes): ROADMAP A10b")

@@ -21,7 +21,7 @@ and the program says where the ranks meet:
 
 Without a group each of these is the identity.  Only the data axis is
 ported: ``spatial_parallel > 1`` and the channel-wise tensor parallelism
-of ``make_mesh_2d``/``shard_params_channelwise`` raise (ROADMAP A10b).
+of ``make_mesh_2d``/``shard_params_channelwise`` raise (ROADMAP A10c).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def check_config(cfg) -> int:
     if cfg.spatial_parallel > 1:
         raise NotImplementedError(
             f"spatial_parallel={cfg.spatial_parallel}: the port shards the "
-            f"batch only; the spatial axis is ROADMAP A10b")
+            f"batch only; the spatial axis is ROADMAP A10c")
     dp = cfg.data_parallel
     if dp not in (0, world):
         if world == 1:
@@ -61,12 +61,12 @@ def check_config(cfg) -> int:
 
 def make_mesh_2d(dp: int, tp: int):
     raise NotImplementedError("channel-wise tensor parallelism is not "
-                              "ported: ROADMAP A10b")
+                              "ported: ROADMAP A10c")
 
 
 def shard_params_channelwise(mesh, params):
     raise NotImplementedError("channel-wise tensor parallelism is not "
-                              "ported: ROADMAP A10b")
+                              "ported: ROADMAP A10c")
 
 
 def _flatten(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -147,8 +147,8 @@ def batch_sums(*sums: torch.Tensor) -> List[torch.Tensor]:
 @torch.no_grad()
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``x`` (one shape on every rank) concatenated along
-    dim 0 in rank order; ``x`` without a group."""
-    if not dist.is_initialized():
+    dim 0 in rank order; ``x`` without a group or in a group of one."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]

@@ -10,6 +10,10 @@ detached argmax on the unlabelled half (Dice+CE), weighted by
 run at the one shared device count, which advances once per iteration.
 The eval forward serves net 1.
 
+Under a process group (``parallel/``) a rank holds its contiguous rows of
+both batches; every Dice+CE's batch Dice sums over the global batch
+(``ops/losses.py``) and the gradients are averaged (``train/state.py``).
+
 ``pair_towers`` (the JAX package's tower pairing of the two nets) is a TPU
 layout knob and does nothing here (config.py).
 """
@@ -32,8 +36,6 @@ class CrossPseudo(SupervisedUNet):
     names another."""
 
     name = "crossPse"
-    # not yet held to one process under a group (ROADMAP A10b)
-    data_parallel = False
     uses_unlabeled = True
     lambda_semi = 0.1
     log_step = 50
@@ -69,7 +71,7 @@ class CrossPseudo(SupervisedUNet):
         device count, the count advanced once.  ``scalars["lambda_semi"]``:
         a number or a 0-d device tensor."""
         cfg = self.cfg
-        bs = cfg.batch_size
+        bs = inp["img"].shape[0]   # the rank's rows: batch_size / N
         img = torch.cat([inp["img"], inp["ul_img"]])
         lam = loss_weight(scalars["lambda_semi"])
         leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}

@@ -39,9 +39,12 @@ of the labelled and of the unlabelled batch.  Every rank draws the global
 ``alpha`` (``total_batch`` rows over ``[labelled 0..B-1, unlabelled
 0..B-1]``) and keeps its rows of each part; ``mj`` and ``patch_ids`` are
 shared.  PatchNCE forms its negatives within groups of
-``total_batch / batch_size`` consecutive images (the group quirk): a rank
-forms ``batch_size / N`` groups, the global ones, and a group that would
-straddle two ranks raises.  The gradients of the D and the G step are
+``total_batch / batch_size`` consecutive images of that order (the group
+quirk), and a group may straddle ranks (the paper's batch 8 on 8 ranks
+holds one labelled and one unlabelled row a rank): each rank gathers the
+translation pass's pools (the keys, detached) from every rank, takes its
+images' queries against their groups' keys, and the mean runs over the
+global batch's patches.  The gradients of the D and the G step are
 averaged over the group (train/state.py), and the batch Dice terms sum
 over the global batch (ops/losses.py).
 
@@ -62,10 +65,10 @@ from smsut_tpu_torch.models.ugan import (UGAN, Discriminator, UGANnce,
                                          sample_patch_ids)
 from smsut_tpu_torch.ops.losses import (argmax_consistency_loss,
                                         dice_and_ce_loss, l1_loss,
-                                        nce_loss_over_layers,
+                                        patch_nce_in_groups,
                                         softmax_ce_with_logits)
 from smsut_tpu_torch.ops.schedules import sigmoid_rampup
-from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.state import GANTrainState
 from smsut_tpu_torch.train.steps import loss_weight, setup_compute
 from smsut_tpu_torch.utils.io import imwrite_gray
@@ -111,21 +114,11 @@ class UGANBase:
         self._draws = torch.Generator().manual_seed(cfg.seed)
         # the bottleneck's positions for patch sampling, (input / 2^4)^2
         self.bottleneck_hw = (cfg.input_size // 16) ** 2
-        self._check_nce_groups()
+        # the gathered key rows of each local image's PatchNCE group and
+        # its own keys' mask, by (patches, device), made at the first call
+        # (before a capture)
+        self._nce_rows: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.net, self.D = self._build(seed=0)
-
-    def _check_nce_groups(self) -> None:
-        """Under a group: PatchNCE's groups of consecutive images must not
-        straddle two ranks' rows."""
-        world = distributed.process_count()
-        rows = self.cfg.batch_size // world
-        group = self.total_batch // self.cfg.batch_size
-        if self.with_nce and world > 1 and rows % group:
-            raise ValueError(
-                f"{self.variant}: PatchNCE takes its negatives within "
-                f"groups of {group} consecutive images; {rows} rows per "
-                f"rank ({self.cfg.batch_size} over {world} processes) "
-                f"would cut a group between two ranks")
 
     def _build(self, seed: int):
         cfg = self.cfg
@@ -339,11 +332,65 @@ class UGANBase:
             total = total + loss_weight(scalars["lambda_semi"]) * g_semi
             metrics["G_semi"] = g_semi
         if self.with_nce:
-            g_nce = nce_loss_over_layers([feat_x], [feat_f], bs,
-                                         cfg.nce_temperature)
+            g_nce = self._patch_nce(feat_x, feat_f)
             total = total + 1.0 * g_nce
             metrics["G_nce"] = g_nce
         return state.apply_g_gradients(_grads(total, g_leaves)), metrics
+
+    def _nce_groups(self, patches: int, device) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+        """For each of the rank's M images (its labelled rows, then its
+        unlabelled rows): int64 [M, G * patches], the rows of its PatchNCE
+        group's pools in the gathered pool (every rank's pools, rank
+        order) in the group's order; and bool [M, patches, G * patches],
+        true where a query patch meets its own key (its image's place in
+        the group, the same patch).
+
+        One process at the global batch B takes the groups of G =
+        ``total_batch / batch_size`` consecutive images of [labelled
+        0..B-1, unlabelled 0..B-1]; a rank holds rows [r b, (r + 1) b) of
+        each part (b = B / N)."""
+        key = (patches, device)
+        if key not in self._nce_rows:
+            big = self.cfg.batch_size
+            b = big // distributed.process_count()
+            parts = self.total_batch // big
+            r0 = distributed.local_batch_slice(big).start
+
+            def block(gi):   # a global image's place among the gathered
+                part, row = divmod(gi, big)
+                return (row // b) * parts * b + part * b + row % b
+
+            rows, pos = [], []
+            for i in range(parts * b):
+                gi = (i // b) * big + r0 + i % b
+                first = gi - gi % parts
+                rows.append([block(first + k) * patches + p
+                             for k in range(parts) for p in range(patches)])
+                pos.append(gi % parts)
+            own = (torch.tensor(pos)[:, None, None] * patches
+                   + torch.arange(patches)[None, :, None])
+            mask = torch.arange(parts * patches)[None, None] == own
+            self._nce_rows[key] = (torch.tensor(rows, device=device),
+                                   mask.to(device))
+        return self._nce_rows[key]
+
+    def _patch_nce(self, feat_k: torch.Tensor, feat_q: torch.Tensor
+                   ) -> torch.Tensor:
+        """PatchNCE as one process takes it at the global batch: the
+        rank's queries (``feat_q``, the reconstruction pass's pools)
+        against the keys of their groups, gathered from the ranks that
+        hold them (``feat_k``, the translation pass's pools, detached: no
+        backward), and the mean over the global batch's patches.  Without
+        a group the gather and the sum are the rank's own."""
+        world = distributed.process_count()
+        patches = feat_q.shape[0] * world // self.total_batch
+        keys = mesh.all_gather_rows(feat_k.detach())
+        rows, own = self._nce_groups(patches, keys.device)
+        per = patch_nce_in_groups(feat_q, feat_k, keys[rows], own,
+                                  self.cfg.nce_temperature)
+        total, = mesh.batch_sums(per.sum())
+        return total / (per.numel() * world)
 
     def step(self, state: GANTrainState, inp: Mapping[str, torch.Tensor],
              scalars: Mapping) -> Dict[str, torch.Tensor]:

@@ -27,22 +27,31 @@ resumed run the mask the uninterrupted run drew.  The JAX package draws it
 with ``jax.random`` from a key per step, a stream the port does not
 reproduce.  No kernel of the port runs here: the JAX step reaches no
 Pallas kernel either.
+
+Under a process group (``parallel/``) a rank holds its contiguous rows of
+both batches, draws its rows of the global batch's mask grid (the hash
+runs over element indices of the global grid, labelled rows then
+unlabelled), and the head's batch norm takes its statistics over the
+group's global batch (``models/layers.py`` ``batch_norm``), in the
+teacher's forward and the student's; the gradients are averaged
+(``train/state.py``).
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from smsut_tpu_torch.models.layers import local_batch_stats
 from smsut_tpu_torch.models.segformer import (
     LinearFusionMaskedConsistencyMixBatch)
 from smsut_tpu_torch.ops.losses import cross_entropy_loss, soft_cross_entropy
 from smsut_tpu_torch.ops.schedules import ema_alpha, sigmoid_rampup
+from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.train.state import TrainState, make_adam
 from smsut_tpu_torch.train.steps import loss_weight
-from smsut_tpu_torch.train.steps.mean_teacher import mix32
+from smsut_tpu_torch.train.steps.mean_teacher import element_ids, mix32
 from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
 Params = Dict[str, torch.Tensor]
@@ -50,16 +59,18 @@ Params = Dict[str, torch.Tensor]
 _M32 = 0xFFFFFFFF
 
 
-def mask_grid(count: torch.Tensor, shape, seed: int) -> torch.Tensor:
+def mask_grid(count: torch.Tensor, shape, seed: int,
+              rows: Optional[Sequence[slice]] = None) -> torch.Tensor:
     """float32 Bernoulli(0.5) grid (the JAX model's ``mask_ratio``) of
     ``shape`` on the count's device, from a hash of (``seed``, ``count``,
-    element): a function of the device count, no host value."""
-    n = math.prod(shape)
+    element): a function of the device count, no host value.  With
+    ``rows`` (slices of the first axis) only those rows of that grid, to
+    the bit, in turn."""
     key = mix32((count.to(torch.int64) * 0x2545F491
                  + seed * 0x9E3779B1 + 0x3C6EF372) & _M32)
-    h = mix32(mix32(torch.arange(n, device=count.device)) ^ key)
+    h = mix32(mix32(element_ids(shape, rows, count.device)) ^ key)
     u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return (u < 0.5).to(torch.float32).view(shape)
+    return (u < 0.5).to(torch.float32).view(-1, *shape[1:])
 
 
 def rgb(img: torch.Tensor) -> torch.Tensor:
@@ -72,10 +83,6 @@ class M3L(SupervisedUNet):
     its EMA teacher, on the card unless ``device`` names another."""
 
     name = "M3L"
-    # mask_grid hashes element indices of the rank's rows, and the
-    # SegFormer head's batch norm takes the rank's statistics (ROADMAP
-    # A10b)
-    data_parallel = False
     uses_unlabeled = True
     lambda_semi = 1.0
     ema_decay = 0.99
@@ -121,12 +128,17 @@ class M3L(SupervisedUNet):
         count advanced, the EMA update.  ``scalars["lambda_semi"]``: a
         number or a 0-d device tensor."""
         cfg = self.cfg
-        bs = cfg.batch_size
+        bs = inp["img"].shape[0]   # the rank's rows: batch_size / N
         img = rgb(torch.cat([inp["img"], inp["ul_img"]]))
         grid = inp.get("mask")
         if grid is None:
-            grid = mask_grid(state.count, self.grid_shape(*img.shape[:3]),
-                             cfg.seed)
+            # the rank's labelled and unlabelled rows of the global grid
+            n = bs * distributed.process_count()
+            sl = distributed.local_batch_slice(n)
+            grid = mask_grid(state.count,
+                             self.grid_shape(2 * n, *img.shape[1:3]),
+                             cfg.seed,
+                             [sl, slice(n + sl.start, n + sl.stop)])
         with torch.no_grad():
             teacher = torch.func.functional_call(self.net, state.ema_params,
                                                  (img,))
@@ -150,9 +162,11 @@ class M3L(SupervisedUNet):
     def eval_fn(self, params: Params,
                 img: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
         """float32 seg logits [B, H, W, n_class] of greyscale NHWC ``img``,
-        unmasked (the head's batch norm over this batch)."""
+        unmasked (the head's batch norm over this batch alone, also under
+        a group, whose ranks sweep different batches)."""
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
-        return torch.func.functional_call(self.net, params, (rgb(img),))
+        with local_batch_stats():
+            return torch.func.functional_call(self.net, params, (rgb(img),))
 
     def epoch_scalars(self, epoch: int) -> Dict[str, np.float32]:
         lam = self.lambda_semi * sigmoid_rampup(epoch, self.epoch_rampup)

@@ -23,11 +23,17 @@ the count's noise, T staged iterations each their own, and a resumed run
 the noise the uninterrupted run drew.  The JAX package draws it with
 ``jax.random`` from a per-epoch host key, a stream the port does not
 reproduce.
+
+Under a process group (``parallel/``) a rank holds its contiguous rows of
+both batches and draws its rows of the global batch's noise (the hash
+runs over element indices of the global batch), so two ranks see the
+noise of one process; the batch Dice sums over the global batch
+(``ops/losses.py``) and the gradients are averaged (``train/state.py``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ import torch
 from smsut_tpu_torch.ops.losses import (dice_and_ce_loss,
                                         softmax_mse_consistency)
 from smsut_tpu_torch.ops.schedules import ema_alpha, gate, sigmoid_rampup
+from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.train.state import TrainState, make_sgd
 from smsut_tpu_torch.train.steps import loss_weight
 from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
@@ -54,17 +61,42 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def teacher_noise(count: torch.Tensor, shape, seed: int) -> torch.Tensor:
+def element_ids(shape, rows: Optional[Sequence[slice]],
+                device) -> torch.Tensor:
+    """int64 flat indices, in a tensor of ``shape``, of the elements of
+    ``rows`` (slices of its first axis, in turn); of every element with
+    ``rows`` None."""
+    n = math.prod(shape)
+    if rows is None:
+        return torch.arange(n, device=device)
+    per = n // shape[0]
+    ids = [torch.arange(s.start * per, s.stop * per, device=device)
+           for s in rows]
+    return ids[0] if len(ids) == 1 else torch.cat(ids)
+
+
+def teacher_noise(count: torch.Tensor, shape, seed: int,
+                  rows: Optional[Sequence[slice]] = None) -> torch.Tensor:
     """float32 ``clip(0.01 * z, -0.02, 0.02)`` of ``shape`` on the count's
     device, z standard normal by Box-Muller from a hash of (``seed``,
-    ``count``, element): a function of the device count, no host value."""
+    ``count``, element): a function of the device count, no host value.
+    Box-Muller pairs element i with element n + i of the n in ``shape``.
+    With ``rows`` (slices of the first axis) only those rows of that
+    draw, to the bit: a rank's rows of the global batch's noise."""
     n = math.prod(shape)
     key = mix32((count.to(torch.int64) * 0x2545F491
                   + seed * 0x9E3779B1 + 0x632BE5AB) & _M32)
-    h = mix32(mix32(torch.arange(2 * n, device=count.device)) ^ key)
-    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    z = torch.sqrt(-2.0 * torch.log(u[:n])) * torch.cos(2.0 * math.pi * u[n:])
-    return torch.clamp(0.01 * z, -0.02, 0.02).view(shape)
+    ids = element_ids(shape, rows, count.device)
+    u = [((mix32(mix32(i) ^ key) >> 8).to(torch.float32) + 0.5)
+         * (1.0 / (1 << 24)) for i in (ids, ids + n)]
+    z = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos(2.0 * math.pi * u[1])
+    return torch.clamp(0.01 * z, -0.02, 0.02).view(-1, *shape[1:])
+
+
+def global_shape(x: torch.Tensor) -> tuple:
+    """The shape of the global batch of which ``x`` holds the rank's
+    rows."""
+    return (x.shape[0] * distributed.process_count(), *x.shape[1:])
 
 
 class MeanTeacher(SupervisedUNet):
@@ -73,9 +105,6 @@ class MeanTeacher(SupervisedUNet):
 
     name = "meanTeacher"
     uses_unlabeled = True
-    # teacher_noise hashes element indices of the rank's rows, not of the
-    # global batch (ROADMAP A10b)
-    data_parallel = False
     lambda_semi = 1.0
     ema_decay = 0.99
     epoch_rampup = 30
@@ -112,11 +141,13 @@ class MeanTeacher(SupervisedUNet):
         the EMA update.  ``scalars["lambda_semi"]``: a number or a 0-d
         device tensor."""
         cfg = self.cfg
-        bs = cfg.batch_size
         ul = inp["ul_img"]
+        bs = inp["img"].shape[0]   # the rank's rows: batch_size / N
         noise = inp.get("noise")
         if noise is None:
-            noise = teacher_noise(state.count, tuple(ul.shape), cfg.seed)
+            noise = teacher_noise(state.count, global_shape(ul), cfg.seed,
+                                  [distributed.local_batch_slice(
+                                      global_shape(ul)[0])])
         on = gate(state.count, self.gate_step)
         with torch.no_grad():
             teacher = torch.func.functional_call(self.net, state.ema_params,

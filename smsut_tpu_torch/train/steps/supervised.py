@@ -25,7 +25,6 @@ from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models import UNet
 from smsut_tpu_torch.ops.losses import dice_and_ce_loss
-from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.train.state import TrainState, make_sgd
 from smsut_tpu_torch.train.steps import setup_compute
 
@@ -38,13 +37,9 @@ class SupervisedUNet:
 
     name = "unet"
     uses_unlabeled = False
-    # whether the step runs under a process group of several ranks
-    data_parallel = True
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None):
-        if not self.data_parallel:
-            distributed.refuse_group(self.name)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)

@@ -976,6 +976,48 @@ def test_gan_iteration_replays_as_eager(cuda_device):
     assert gate[:2] == [0.0, 0.0] and all(g > 0 for g in gate[2:])
 
 
+def test_gan_replays_are_bitwise_under_deterministic_cudnn(cuda_device):
+    """Two runs of four float32 uganConsis iterations (w8, 64^2, 2 + 2),
+    each replayed from its own graph from one init under
+    ``cudnn.deterministic``: the metrics, G and D equal to the bit.  The
+    decoders' bilinear upsample is two fixed interpolation products
+    (models/layers.py ``upsample_bilinear2``), whose backward adds in a
+    fixed order where ``F.interpolate``'s adds with atomics."""
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.graphs import Replay
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+
+    cfg = Config(input_size=64, base_width=8, batch_size=2, nce_patches=4,
+                 compute_dtype="float32", consis_gate_step=0)
+    r = np.random.default_rng(4)
+    batch = {"img": r.normal(size=(2, 64, 64, 1)).astype(np.float32),
+             "msk": r.integers(0, 5, (2, 64, 64)), "mdl": np.ones(2, int),
+             "ul_img": r.normal(size=(2, 64, 64, 1)).astype(np.float32),
+             "ul_mdl": np.full(2, 2)}
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            algo = UGANConsisAlgo(cfg, cuda_device)
+            inp = algo.inputs(dict(batch, **algo.make_extra_batch()))
+            st = algo.init_state(0)
+            scal = {"lambda_semi": torch.ones((), device=cuda_device)}
+            step = Replay(lambda x: algo.step(st, x, scal), cuda_device)
+            ms = [{k: float(v) for k, v in step(inp).items()}
+                  for _ in range(4)]
+            runs.append((ms, st))
+    finally:
+        cudnn.deterministic = det
+    (m0, s0), (m1, s1) = runs
+    assert m0 == m1
+    for t in ("g_params", "d_params"):
+        a, b = getattr(s0, t), getattr(s1, t)
+        assert all(torch.equal(a[k], b[k]) for k in a), t
+
+
 def test_eval_sweep_and_predict_replay_as_eager(cuda_device, tmp_path):
     """The eval sweep from the test set kept on the card, replayed, against
     the eager per-batch sweep (predictions equal, losses within 1e-5), and

@@ -22,7 +22,8 @@ global batch:
 - ``pseudo``, ``eval``: CoraNet's pseudo set and batches, and the eval
   sweep's gathered predictions, against one process of the port, as
   tests/test_distributed.py holds the JAX package against itself;
-- the refusals under a group of 2.
+- the refusals under a group of 2 (the zoo, which no longer refuses, is
+  held to one process in tests/test_torch_distributed_zoo.py).
 
 In every training mode the two ranks' parameters are equal to the bit
 after every step.
@@ -240,7 +241,7 @@ def test_get_loader_explicit_shards(tmp_path):
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(spatial_parallel=2), NotImplementedError, "A10b"),
+    (dict(spatial_parallel=2), NotImplementedError, "A10c"),
     (dict(data_parallel=2), ValueError, "launch 2 processes"),
     (dict(batch_size=8, data_parallel=1), None, None)])
 def test_single_process_knobs(kw, exc, match):
@@ -255,9 +256,9 @@ def test_single_process_knobs(kw, exc, match):
 
 
 def test_tensor_parallel_refused():
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         mesh.make_mesh_2d(2, 2)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         mesh.shard_params_channelwise(None, {})
 
 
@@ -472,13 +473,17 @@ def test_eval_sweep_shares(monkeypatch, n, world, want):
 @pytest.mark.parametrize("what, error", [
     ("spatial_parallel=2", "NotImplementedError"),
     ("data_parallel=3", "ValueError"),
-    ("meanTeacher", "ValueError"),
-    ("uganConsis B/N odd", "ValueError")])
+    ("meanTeacher", None),
+    ("uganConsis B/N odd", None)])
 def test_group_refusals(run, what, error):
-    """Under a group of 2: the spatial axis, a data_parallel that is not
-    the group's size, an algorithm outside the slice and a PatchNCE group
-    cut between two ranks raise."""
+    """Under a group of 2: the spatial axis and a data_parallel that is
+    not the group's size raise; Mean Teacher and a uganConsis whose
+    PatchNCE groups straddle the ranks (3 rows a rank) construct
+    (tests/test_torch_distributed_zoo.py holds them to one process)."""
     for r in ranks(run, "refuse"):
-        assert r[what].startswith(error + ":"), r[what]
+        if error is None:
+            assert r[what] == "", r[what]
+        else:
+            assert r[what].startswith(error + ":"), r[what]
         assert r["data_parallel=2"] == ""
         assert r["uganConsis B/N even"] == ""

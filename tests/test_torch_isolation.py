@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """The port stands alone: no module of ``smsut_tpu_torch`` (nor
 ``chip_smoke.py``, which drives it on the card, nor the data-parallel
-tests' rank ``tests/torch_distributed_worker.py``) imports JAX, flax, optax,
+tests' ranks, ``tests/torch_distributed_worker.py`` and
+``tests/torch_distributed_zoo_worker.py``) imports JAX, flax, optax,
 orbax, anything of the JAX package ``smsut_tpu`` or of the JAX tools in
 ``tools/`` -- checked in the source, and in a fresh interpreter that
 imports every module.  And each imports only what the card's machine has:
@@ -38,7 +39,8 @@ def _modules():
 
 ALLOWED = ("numpy", "scipy", "torch", "smsut_tpu_torch")
 # the data-parallel tests' ranks run the port alone
-WORKER = ROOT / "tests" / "torch_distributed_worker.py"
+WORKER = [ROOT / "tests" / "torch_distributed_worker.py",
+          ROOT / "tests" / "torch_distributed_zoo_worker.py"]
 LAZY_ONLY = ("triton",)
 
 
@@ -77,7 +79,7 @@ def test_allow_list_flags_strays():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", WORKER],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", *WORKER],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_only_the_cards_packages(path):
     bad = _strays(ast.parse(path.read_text()))
@@ -102,7 +104,7 @@ def test_forbidden_matches_exact_names_and_prefixes():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", WORKER],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", *WORKER],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax(path):
     bad = [n for n in _imported_names(path) if _forbidden(n)]

@@ -68,6 +68,33 @@ def test_weighted_cross_entropy_matches_jax(rng):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("group", [1, 2])
+def test_patch_nce_in_groups_matches_jax(rng, group):
+    """The port's PatchNCE of M images in groups of ``group`` consecutive
+    images (2: the quirk of a 2x pool against a loss built with the
+    batch size) against the JAX ``patch_nce_loss`` at ``n_bmm = M /
+    group``: the per-patch loss and the mean's gradient in the queries."""
+    m, p, c = 4, 8, 16
+    q, k = (rng.normal(size=(m * p, c)).astype(np.float32) for _ in "qk")
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    k /= np.linalg.norm(k, axis=1, keepdims=True)
+    jf = lambda v: jl.patch_nce_loss(v, jnp.asarray(k), m // group)
+    want = np.asarray(jf(jnp.asarray(q)))
+    want_g = np.asarray(jax.grad(lambda v: jf(v).mean())(jnp.asarray(q)))
+    keys = t(k).reshape(m // group, 1, group * p, c).expand(
+        -1, group, -1, -1).reshape(m, group * p, c)
+    own = (torch.arange(group * p)[None, None]
+           == (torch.arange(m) % group)[:, None, None] * p
+           + torch.arange(p)[None, :, None])
+    qt = t(q).requires_grad_()
+    got = tl.patch_nce_in_groups(qt, t(k), keys, own)
+    got.mean().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(qt.grad.numpy(), want_g, rtol=1e-5,
+                               atol=1e-7)
+
+
 def test_poly_lr_matches_jax():
     """The one-step lag and the clamp at 0 past total_iters."""
     sched = js.poly_lr_schedule(0.01, 20)

@@ -15,7 +15,8 @@ Modes (the parent holds each against one process):
   augmentation on the synthetic tree, through the sharded loaders;
 - ``pseudo``: CoraNet's pseudo set and three pseudo batches;
 - ``eval``: the eval sweep, scanned and per batch;
-- ``refuse``: the knobs and algorithms a group of 2 refuses.
+- ``refuse``: the knobs a group of 2 refuses, and algorithms it once
+  refused.
 """
 import hashlib
 import json
