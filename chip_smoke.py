@@ -244,9 +244,28 @@
    tree they wrote (one epoch of 10 iterations, w16, batch 8, bfloat16,
    on the card) and ``-p test``; each stage's seconds, the 256x256 slices, the split, the log,
    the checkpoints and the Dice matrix.
-13. Prints the ``kernels`` JSON line (all nine kernels, launches summed
-   over the runs of phases 3-10, replays included, not over the checks
-   against the plain path), then the device line last.
+13. The space axis (``spatial_parallel``, dp x sp = 1 x 2): each rank
+   holds half the rows of every image.  13a. K1's and K4's split forms
+   (the rank's sums pass, the sums added over the group, the apply pass
+   with the image's pixel count) against their plain versions at the
+   U-Net's six norm shapes with H halved, float32 and bfloat16, under
+   phase 2's rules, each two runs bit for bit, timed beside the unsplit
+   K1 and K4 on the same half map.  13b. Two ranks on the one card over
+   gloo (eager): the U-Net w16, 256x256, global batch 8, float32, 3
+   steps against one process at the global batch under 11b's bounds
+   (labels 1 and 2 cleared in the lower half of each image, so that one
+   rank's Dice alone differs from the whole image's), both ranks'
+   parameters equal to the bit, a rank's launches per step (K1 and K4 as
+   split pairs, K2 and K5 as one process's, nothing routed) and its step
+   time; ``uganConsis`` w16, 8 + 8, one float32 step under 7b's rules
+   against one process.  13c. ``unetTrainer -p train --set
+   spatial_parallel=2`` through ``torch.distributed.run`` on phase 6's
+   tree, one epoch of 10, then ``-p test`` in one process from its
+   checkpoint.
+14. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-13, replays included, not over the checks
+   against the plain path; K1's and K4's split forms' launches beside
+   theirs), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -289,6 +308,10 @@ TOL = {("instnorm", "float32"): 1e-4, ("instnorm", "bfloat16"): 0.05,
        ("conv3x3_dots", "bfloat16"): 8e-3,
        ("conv3x3_im2col", "bfloat16"): 8e-3,
        ("conv3x3_im2col2", "bfloat16"): 8e-3}
+# K1's and K4's split forms (phase 13a): the unsplit kernels' bounds
+TOL.update({(f"{k}_split", d): TOL[(k, d)] for k in ("instnorm",
+                                                     "instnorm_bwd")
+            for d in ("float32", "bfloat16")})
 REL_TO_MAX = {"conv3x3_dots", "conv3x3_im2col", "conv3x3_im2col2"}
 # serving logits, kernel path vs plain path on the card: the error bound,
 # the least argmax agreement over all pixels, and over the pixels whose
@@ -551,12 +574,15 @@ def record(torch, ops, rows, name, label, dt_name, fn, args, library, flops,
            **(extra or {})}
     with ops.plain():
         row["plain_ms"] = time_ms(lambda: fn(*args), max(2, iters // 5))
-    row["library_ms"] = time_ms(library, iters)
+    if library is not None:
+        row["library_ms"] = time_ms(library, iters)
     rows.append(row)
+    lib_ms = ("none" if library is None else
+              f"{row['library_ms']:.4f}")
     print(f"kernel {name} {label} {dt_name}: max abs err "
           f"{row['max_abs_err']:.3g}, rel err {err:.3g} (tol {tol}) "
           f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
-          f"library {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+          f"library {lib_ms} bound {row['bound_ms']:.4f} "
           f"({row['bound_by']})"
           + "".join(f" {k} {v}" for k, v in (extra or {}).items()),
           flush=True)
@@ -4380,6 +4406,373 @@ def dp_phase(torch, counters, routed, timing: dict, data: Path,
             "seconds": [t1 - t0, t2 - t1, t3 - t2]}
 
 
+# phase 13: the space axis (spatial_parallel, dp x sp = 1 x 2): two ranks
+# on the one card over gloo, each holding half the rows of every image
+SP = 2
+SP_DIR = FIT_DIR / "sp"
+SP_STEPS = 3              # 13b: the U-Net's eager steps
+SP_NORM_SHAPES = tuple((b, h // SP, w, c, act)
+                       for b, h, w, c, act in NORM_SHAPES[:6])
+SPLIT = ("instance_norm_fwd_sums", "instance_norm_fwd_apply",
+         "instance_norm_bwd_sums", "instance_norm_bwd_apply")
+
+
+def split_counters() -> dict:
+    """{name: the split form's wrapper, whose ``launches`` count}."""
+    from smsut_tpu_torch.ops import instnorm
+
+    return {k: getattr(instnorm, k) for k in SPLIT}
+
+
+def halo_share(sp: int = SP) -> float:
+    """The extra 3x3-conv work of the space axis at ``sp`` in the U-Net's
+    step (w16, 256^2): each of its 18 convs (the nine blocks' two) runs
+    K2, K2 as dx and K5 on a rank's h/sp rows plus a halo row on each
+    side, against h/sp rows; work counted as rows x W x Cin x Cout."""
+    convs = [c for h, ci, co in UNET_BLOCKS for c in ((h, ci, co),
+                                                       (h, co, co))]
+    rows = sum((h // sp + 2) * h * ci * co for h, ci, co in convs)
+    return rows / sum(h // sp * h * ci * co for h, ci, co in convs) - 1
+
+
+def sp_batch(np) -> dict:
+    """Phase 4's ellipse batch with labels 1 and 2 cleared in the lower
+    half of each image, so that either rank's Dice alone differs from the
+    whole image's."""
+    b = ellipse_batch(np)
+    low = b["msk"][:, b["msk"].shape[1] // 2:]
+    low[(low == 1) | (low == 2)] = 0
+    return b
+
+
+def split_norm_kernels(torch, ops, instnorm) -> list:
+    """13a: K1's and K4's split forms at the U-Net's norm shapes with H
+    halved, against their plain versions (``record``: phase 2's bounds),
+    both dtypes; the timed call is one rank's work (its sums pass, the
+    other rank's sums added, its apply pass), beside the unsplit K1 and
+    K4 on the same half map.  Returns the rows."""
+    rows = []
+    cases = Cases(torch, seed=3)
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[-1]
+        isz = torch.tensor([], dtype=dt).element_size()
+        for (b, h, w, c, act) in SP_NORM_SHAPES:
+            shape, n = (b, h, w, c), SP * h * w
+            x0, x1 = (cases.randn(*shape, mean=0.3, dtype=dt)
+                      for _ in range(2))
+            g0, g1 = (cases.randn(*shape, dtype=dt) for _ in range(2))
+            s, bb = cases.norm_params(c)
+            other = instnorm.instance_norm_fwd_sums(x1)
+
+            def k1(x, other, s, bb, act, n=n):
+                tot = instnorm.instance_norm_fwd_sums(x) + other
+                return instnorm.instance_norm_fwd_apply(x, tot, n, s, bb,
+                                                        act)
+            _, mean, rstd = k1(x0, other, s, bb, act)
+            _, m1, r1 = k1(x1, instnorm.instance_norm_fwd_sums(x0), s, bb,
+                           act)
+            other_b = instnorm.instance_norm_bwd_sums(x1, g1, m1, r1, s, bb,
+                                                      act)[0]
+
+            def k4(x, g, mean, rstd, s, bb, other, act, n=n):
+                sums, dsb = instnorm.instance_norm_bwd_sums(
+                    x, g, mean, rstd, s, bb, act)
+                return (instnorm.instance_norm_bwd_apply(
+                    x, g, mean, rstd, s, bb, sums + other, n, act),
+                    dsb[1], dsb[0])
+            plan = norm_plan(instnorm, "split", shape, dt)
+            a1, a4 = (x0, other, s, bb, act), (x0, g0, mean, rstd, s, bb,
+                                               other_b, act)
+            same_twice(torch, "instnorm_split", shape, k1, a1)
+            same_twice(torch, "instnorm_bwd_split", shape, k4, a4)
+            unsplit = {
+                "unsplit_ms": time_ms(lambda: instnorm.instance_norm_fwd(
+                    x0, s, bb, act), 20),
+                "unsplit_bwd_ms": time_ms(lambda: instnorm.instance_norm_bwd(
+                    x0, g0, mean, rstd, s, bb, act), 20)}
+            record(torch, ops, rows, "instnorm_split",
+                   f"{list(shape)} act={act}", dn, k1, a1, None,
+                   flops=8 * x0.numel(),
+                   nbytes=2 * x0.numel() * isz + 4 * 4 * c + 6 * 4 * b * c,
+                   iters=20, extra={"plan": plan,
+                                    "unsplit_ms": unsplit["unsplit_ms"]})
+            record(torch, ops, rows, "instnorm_bwd_split",
+                   f"{list(shape)} act={act}", dn, k4, a4, None,
+                   flops=12 * x0.numel(),
+                   nbytes=3 * x0.numel() * isz + 6 * 4 * c + 6 * 4 * b * c,
+                   iters=20, peak=PEAK_F32_CORES,
+                   extra={"plan": norm_plan(instnorm, "bwd", shape, dt),
+                          "unsplit_ms": unsplit["unsplit_bwd_ms"]})
+    return rows
+
+
+def sp_rank() -> dict:
+    """13b, one rank of two on the one card (gloo, eager; the group from
+    the SMSUT_* variables), dp x sp = 1 x 2: the U-Net's SP_STEPS float32
+    steps and one float32 uganConsis step on the rank's rows of every
+    image; metrics averaged over the ranks, launches and routed calls per
+    step, step times, and the trees after (the GAN's written to SP_DIR
+    for the parent)."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.parallel import distributed, mesh
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    if not distributed.initialize():
+        raise AssertionError("no group")
+    cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                 compute_dtype="float32", consis_gate_step=0,
+                 spatial_parallel=SP)
+    mesh.check_config(cfg, gan=True)
+    rank = distributed.process_index()
+    counters, routed = kernel_counters()
+    counters.update(split_counters())
+    counts = lambda: {k: c.launches for k, c in counters.items()}
+    rows = lambda t: mesh.space_rows(t).contiguous()
+    out = {"rank": rank, "world": distributed.process_count(),
+           "space": distributed.space_count(),
+           "backend": distributed.backend()}
+
+    def timed_step(algo, state, batch, scal=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = algo.train_step(state, batch, scal)
+        m = {k: float(mesh.mean_over_ranks(v)) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return state, m, (time.perf_counter() - t0) * 1e3
+
+    unet = SupervisedUNet(cfg)
+    state = unet.init_state(0)
+    batch = {k: rows(torch.from_numpy(v).cuda())
+             for k, v in sp_batch(np).items()}
+    zero(counters, routed)
+    losses, ms = [], []
+    for _ in range(SP_STEPS):
+        state, m, t = timed_step(unet, state, batch)
+        losses.append(m["loss"])
+        ms.append(t)
+    out["unet"] = {"losses": losses, "step_ms": ms,
+                   "launches": {k: v // SP_STEPS for k, v in counts().items()},
+                   "routed": routed_counts(routed),
+                   "checksum": tree_checksum(state.params),
+                   "sha": tree_sha(state.params)}
+    gan = UGANConsisAlgo(cfg)
+    gst = gan.init_state(0)
+    gb = {k: rows(v) if torch.is_tensor(v) else v
+          for k, v in gan_batch(torch, np).items()}
+    zero(counters, routed)
+    gst, gm, t = timed_step(gan, gst, dict(gb, **gan.make_extra_batch()),
+                            gan.epoch_scalars(1))
+    out["gan"] = {"metrics": gm, "launches": counts(),
+                  "routed": routed_counts(routed),
+                  "g_sha": tree_sha(gst.g_params),
+                  "d_sha": tree_sha(gst.d_params), "first_ms": t}
+    if rank == 0:
+        torch.save({"g_params": {k: v.cpu() for k, v in gst.g_params.items()},
+                    "d_params": {k: v.cpu() for k, v in gst.d_params.items()}},
+                   SP_DIR / "gan_rank0.pt")
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def sp_spawn() -> list:
+    """13b's two ranks, started ahead of the phase (their group's address
+    chosen here)."""
+    SP_DIR.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    return [run_child("sp_rank", {
+        "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+        "SMSUT_NUM_PROCESSES": str(SP), "SMSUT_PROCESS_ID": str(r)})
+        for r in range(SP)]
+
+
+def sp_two_ranks(torch, np, counters, routed, kids) -> dict:
+    """13b: the two ranks against one process at the global batch, here:
+    the U-Net under 11b's bounds, the GAN under 7b's rules."""
+    import types
+
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    for proc, _ in kids:
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+    r0, r1 = [child_result(k, go=False) for k in kids]
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                     compute_dtype="float32", consis_gate_step=0)
+        unet = SupervisedUNet(cfg)
+        state = unet.init_state(0)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in sp_batch(np).items()}
+        losses, ms = [], []
+        for _ in range(SP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = unet.train_step(state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        cksum = tree_checksum(state.params)
+        gan = UGANConsisAlgo(cfg)
+        zero(counters, routed)
+        gst, gm = gan.train_step(gan.init_state(0), dict(
+            gan_batch(torch, np), **gan.make_extra_batch()),
+            gan.epoch_scalars(1))
+        per_step = {k: c.launches for k, c in counters.items()}
+        del unet, state, gan
+        torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic = det
+    saved = torch.load(SP_DIR / "gan_rank0.pt", weights_only=True)
+    got = types.SimpleNamespace(**{t: {k: v.cuda() for k, v in
+                                       saved[t].items()} for t in saved})
+    gan_d = gan_step_against(torch, (r0["gan"]["metrics"], got),
+                             ({k: float(v) for k, v in gm.items()}, gst),
+                             cfg.lr)
+    u0 = r0["unet"]
+    loss_err = abs(u0["losses"][-1] - losses[-1])
+    sum_err = abs(u0["checksum"] - cksum) / max(abs(cksum), 1.0)
+    out = {"ranks": [r0, r1], "one_process": {
+        "losses": losses, "checksum": cksum, "step_ms": ms,
+        "gan_per_step": per_step},
+        "unet_loss_err": loss_err, "unet_sum_err": sum_err, "gan": gan_d,
+        "halo_share": halo_share()}
+    print(f"sp 13b: two ranks (dp x sp = 1 x {SP}) over {r0['backend']} on "
+          f"the one card, eager, 128 rows a rank: U-Net losses "
+          f"{[round(x, 6) for x in u0['losses']]} vs one process "
+          f"{[round(x, 6) for x in losses]} (3x3 conv work of the halo "
+          f"rows: {halo_share():.4f} of a rank's rows'): step {SP_STEPS} err "
+          f"{loss_err:.3g} (tol {DP_LOSS_TOL}), checksum rel err "
+          f"{sum_err:.3g} (tol {DP_SUM_TOL}), ranks equal to the bit "
+          f"{u0['sha'] == r1['unet']['sha']}; a rank's step launches "
+          f"{u0['launches']}, routed {u0['routed']}; step ms "
+          f"{[round(x, 1) for x in u0['step_ms']]} (rank 0) "
+          f"{[round(x, 1) for x in r1['unet']['step_ms']]} (rank 1), one "
+          f"process {[round(x, 1) for x in ms]}", flush=True)
+    print(f"sp 13b: uganConsis one step, 8 + 8 at 128 rows a rank vs one "
+          f"process: {gan_d} (7b's rules); ranks equal to the bit "
+          f"{(r0['gan']['g_sha'], r0['gan']['d_sha']) == (r1['gan']['g_sha'], r1['gan']['d_sha'])}"
+          f"; a rank's launches {r0['gan']['launches']} (one process "
+          f"{per_step}), routed {r0['gan']['routed']}; step ms "
+          f"{r0['gan']['first_ms']:.1f} (rank 0, first step)", flush=True)
+    want_unet = {k: PER_STEP[False].get(k, 0) for k in KERNELS}
+    want_unet.update(instnorm=0, instnorm_bwd=0)
+    want_unet.update({k: PER_STEP[False]["instnorm"] for k in SPLIT})
+    for r in (r0, r1):
+        gl = r["gan"]["launches"]
+        if (r["backend"] != "gloo" or r["world"] != SP or r["space"] != SP
+                or r["unet"]["launches"] != want_unet
+                or any(r["unet"]["routed"].values())
+                or gl["instnorm"] or gl["instnorm_bwd"]
+                or gl["instance_norm_fwd_sums"] != per_step["instnorm"]
+                or gl["instance_norm_fwd_apply"] != per_step["instnorm"]
+                or gl["instance_norm_bwd_sums"] != per_step["instnorm_bwd"]
+                or gl["instance_norm_bwd_apply"] != per_step["instnorm_bwd"]
+                or any(gl[k] != per_step[k] for k in
+                       ("conv3x3", "conv3x3_dw"))
+                or r["gan"]["routed"] != {"conv3x3": 3, "block": 0}):
+            raise AssertionError(f"13b rank {r['rank']}: {r}")
+    if not (loss_err <= DP_LOSS_TOL and sum_err <= DP_SUM_TOL
+            and u0["sha"] == r1["unet"]["sha"]
+            and u0["losses"] == r1["unet"]["losses"]
+            and r0["gan"]["g_sha"] == r1["gan"]["g_sha"]
+            and r0["gan"]["d_sha"] == r1["gan"]["d_sha"]
+            and gan_d["loss_over"] <= GAN_LOSS_ATOL
+            and gan_d["d_dev_max"] <= GAN_FLIP_DEV * cfg.lr
+            and gan_d["d_flip_share"] < GAN_FLIP_SHARE
+            and gan_d["seg_over"] <= GAN_SEG_ATOL):
+        raise AssertionError(f"13b two ranks vs one process: {out}")
+    return out
+
+
+def sp_fit(torch, data: Path) -> dict:
+    """13c: ``unetTrainer -p train --set spatial_parallel=2`` through
+    ``torch.distributed.run``, two ranks on the one card (gloo, eager),
+    one epoch of FIT_ITERS on phase 6's tree, float32; then ``-p test``
+    here, in one process, from its checkpoint."""
+    import numpy as np
+
+    from smsut_tpu_torch.train.cli import make_parser, run_main
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    expr = SP_DIR / "expr"
+    args = fit_args(data, expr, "sp2", "compute_dtype=float32",
+                    "num_workers=2", "max_epoch=1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(SP), "-m",
+         "smsut_tpu_torch.trainer.unetTrainer", "-p", "train"] + args
+        + ["--set", f"spatial_parallel={SP}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    train_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"torch.distributed.run failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    run = expr / "sp2"
+    logs = sorted(str(p.relative_to(run)) for p in run.rglob("train.log"))
+    ckpts = sorted(p.name for p in run.rglob("*.ckpt"))
+    text = (run / "000" / "train.log").read_text()
+    k = log_metrics(text)
+    t0 = time.perf_counter()
+    run_main(SupervisedUNet, make_parser().parse_args(
+        ["-p", "test", "-i", "000", "-wh", "best"] + args))
+    test_s = time.perf_counter() - t0
+    csv = np.array([[float(v) for v in r.split(",")] for r in
+                    (run / "000" / "all_trois_matrix.csv")
+                    .read_text().split("\n") if r])
+    out = {"metrics": k, "logs": logs, "ckpts": ckpts, "train_s": train_s,
+           "test_s": test_s, "csv_shape": list(csv.shape),
+           "ms_per_iteration": [float(x) * 1e3 / FIT_ITERS for x in
+                                re.findall(r"\[TRN\] Epoch: .*elapsed: "
+                                           r"([0-9.]+)s", text)]}
+    print(f"sp 13c: unetTrainer -p train --set spatial_parallel={SP} "
+          f"through torch.distributed.run ({train_s:.1f} s), float32, one "
+          f"epoch of {FIT_ITERS}: [TRN] loss {k['train/loss']}, [TST] Dice "
+          f"{k['test/dice']}; logs {logs}, checkpoints {ckpts}; ms per "
+          f"iteration (the log's elapsed over {FIT_ITERS}) "
+          f"{out['ms_per_iteration']}; -p test in one process from its "
+          f"checkpoint in {test_s:.1f} s, CSV {csv.shape}", flush=True)
+    if not (logs == ["000/train.log"] and ckpts == ["best.ckpt", "last.ckpt"]
+            and f"of each image 1/{SP} of its rows" in text
+            and "cannot be captured" in text
+            and all(np.isfinite(k["train/loss"]))
+            and csv.shape == (10, 5) and np.isfinite(csv).all()):
+        raise AssertionError(f"13c: {out}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return out
+
+
+def sp_phase(torch, ops, instnorm, counters, routed, data: Path,
+             kids: list, card: str) -> dict:
+    """Phase 13: 13a, 13b (``kids`` from :func:`sp_spawn`), 13c."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rows = split_norm_kernels(torch, ops, instnorm)
+    t1 = time.perf_counter()
+    b = sp_two_ranks(torch, np, counters, routed, kids)
+    t2 = time.perf_counter()
+    c = sp_fit(torch, data)
+    t3 = time.perf_counter()
+    print(f"phase 13 on {card}: 13a {t1 - t0:.1f} s, 13b {t2 - t1:.1f} s, "
+          f"13c {t3 - t2:.1f} s", flush=True)
+    return {"rows": rows, "two_ranks": b, "fit": c,
+            "seconds": [t1 - t0, t2 - t1, t3 - t2]}
+
+
 # phase 12: from volumes to a trained model: the port's preparation CLIs
 # on synthetic BTCV and CHAOS trees, then unetTrainer on the PNG tree they
 # write.  4 patients per modality (the split: 2 test, 1 labelled, 1
@@ -4646,10 +5039,20 @@ def main() -> int:
     dp = dp_phase(torch, counters, routed, dispatch["timing"],
                   FIT_DIR / "data", kids, card)
     lap(seconds, "phase 11", t0)
-    shutil.rmtree(FIT_DIR, ignore_errors=True)
     t0 = time.perf_counter()
+    sp_kids = sp_spawn()   # phase 13's ranks start up during phase 12
     prep = prep_phase(torch, card)
     lap(seconds, "phase 12", t0)
+    t0 = time.perf_counter()
+    sp = sp_phase(torch, ops, instnorm, counters, routed, FIT_DIR / "data",
+                  sp_kids, card)
+    lap(seconds, "phase 13", t0)
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    rows += sp["rows"]
+    sp_r0 = sp["two_ranks"]["ranks"][0]
+    sp_runs = ({"launches": {k: v * SP_STEPS for k, v in
+                             sp_r0["unet"]["launches"].items()}},
+               sp_r0["gan"])
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -4692,7 +5095,7 @@ def main() -> int:
                 dispatch["predict"],
                 *zoo["steps"].values(), *zoo["cli"].values(),
                 *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
-                m3l_dtc["m3l_cli"])
+                m3l_dtc["m3l_cli"], *sp_runs)
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -4702,6 +5105,16 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name in ("instnorm", "instnorm_bwd"):
+            # the split form's passes on phase 13b's rank 0: its sums and
+            # apply launches, each pass's own count
+            kind = "fwd" if name == "instnorm" else "bwd"
+            split = {p: sum(v["launches"][f"instance_norm_{kind}_{p}"]
+                            for v in sp_runs) for p in ("sums", "apply")}
+            if min(split.values()) < 1:
+                raise AssertionError(f"{name}'s split form was not "
+                                     f"launched on the main path")
+            kernels[-1]["split_launches"] = split
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "sass_ops": sass,
                    "ptxas_conv_dots_sm90_kernel": ptxas_dots,
@@ -4720,7 +5133,11 @@ def main() -> int:
                    "zoo": json.loads(json.dumps(zoo, default=str)),
                    "m3l_dtc": json.loads(json.dumps(m3l_dtc, default=str)),
                    "data_parallel": json.loads(json.dumps(dp, default=str)),
-                   "preparation": prep, "seconds": seconds,
+                   "preparation": prep,
+                   "spatial": json.loads(json.dumps(
+                       {k: v for k, v in sp.items() if k != "rows"},
+                       default=str)),
+                   "seconds": seconds,
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)
     print(f"seconds by phase: "

@@ -21,11 +21,16 @@ eval batch is a CUDA graph replay (train/loop.py).
 
 ``data_parallel`` and ``spatial_parallel`` are checked against the
 process group (``parallel/mesh.py`` ``check_config``, called by the fit
-loop): ``data_parallel`` 0 takes every rank of the group, and any other
-value must equal the group's size (a value above 1 in a single process
-raises: launch that many processes with ``torch.distributed.run``);
-``spatial_parallel`` above 1 raises ``NotImplementedError`` until ROADMAP
-A10c ports the spatial axis.
+loop): the group of ``dp x sp`` ranks is laid out as the JAX package's
+``('data', 'space')`` mesh; ``spatial_parallel`` ``sp`` must divide the
+group's size, and each rank then holds ``1/sp`` of the rows of every map
+of its data coordinate's images; ``data_parallel`` 0 takes the group's
+size over ``sp``, and any other value must equal it (a value above 1 in a
+single process raises: launch that many processes with
+``torch.distributed.run``).  Under ``sp > 1`` the JAX Trainer's guard
+(``input_size // 16 >= max(4, sp)``) holds, every map must split into
+whole rows of at least its halo, and ``block_pallas`` and the zoo's
+algorithms other than the U-Net and the UGAN family raise (ROADMAP A10e).
 
 The kernel knobs keep their names: ``block_pallas`` selects, on a CUDA
 device, the fused residual-block kernel (K3) instead of the conv (K2) +

@@ -59,3 +59,61 @@ extern "C" int smsut_instnorm_fwd(const void* x, const void* scale,
 #undef SMSUT_IN_FWD
   return (int)cudaErrorInvalidValue;
 }
+
+// ---- K1 split over a space group ----
+//
+// Where each rank of a space group holds rows of every image, the
+// statistics run over the whole image: the rank's sums (a sums pass over
+// its HW pixels), added over the group by the caller, then the apply pass
+// with the image's N pixels.  Both passes take the two-pass plan.
+
+// The split form's plan for a rank's map, into out[kNormPlanWords]; returns
+// the float32 elements of the partials the sums pass needs, -1 for a shape
+// or dtype it does not take.
+extern "C" long long smsut_instnorm_split_plan(int B, int HW, int C,
+                                               int dtype, int* out) {
+  if (B < 1 || HW < 1 || C < 1 || (dtype != 0 && dtype != 1)) return -1;
+  const NormPlan p = dtype == 0 ? in_split_plan<float>(B, HW, C)
+                                : in_split_plan<__nv_bfloat16>(B, HW, C);
+  norm_plan_words(p, out);
+  return (long long)B * p.nsplit * 2 * C;
+}
+
+// sums [B][2][C] f32: the sums of x and x^2 over the rank's HW pixels;
+// part: the floats smsut_instnorm_split_plan asked for; tickets as for
+// smsut_instnorm_fwd.
+extern "C" int smsut_instnorm_fwd_sums(const void* x, const int* plan,
+                                       void* sums, void* part, void* tickets,
+                                       int B, int HW, int C, int dtype,
+                                       void* stream) {
+  if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const NormPlan p = norm_plan_of(plan);
+  if (dtype == 0)
+    return (int)in_fwd_sums(p, (const float*)x, (float*)sums, (float*)part,
+                            (unsigned int*)tickets, B, HW, C, s);
+  if (dtype == 1)
+    return (int)in_fwd_sums(p, (const __nv_bfloat16*)x, (float*)sums,
+                            (float*)part, (unsigned int*)tickets, B, HW, C, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// y, mean, rstd as smsut_instnorm_fwd gives them, from sums [B][2][C] over
+// N pixels (the image's, across the group).
+extern "C" int smsut_instnorm_fwd_apply(const void* x, const void* scale,
+                                        const void* bias, void* y, void* mean,
+                                        void* rstd, const int* plan,
+                                        const void* sums, int B, int HW,
+                                        int N, int C, int dtype, int act,
+                                        void* stream) {
+  if (B < 1 || HW < 1 || C < 1 || N < HW) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SMSUT_IN_APPLY(T)                                                    \
+  in_apply<T>(norm_plan_of(plan), (const T*)x, (const float*)scale,          \
+              (const float*)bias, (T*)y, (float*)mean, (float*)rstd,         \
+              (const float*)sums, B, HW, C, act, (float)N, s)
+  if (dtype == 0) return (int)SMSUT_IN_APPLY(float);
+  if (dtype == 1) return (int)SMSUT_IN_APPLY(__nv_bfloat16);
+#undef SMSUT_IN_APPLY
+  return (int)cudaErrorInvalidValue;
+}

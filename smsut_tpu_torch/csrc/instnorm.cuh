@@ -503,21 +503,29 @@ inline long long norm_scratch_elems(const NormPlan& p, int B, int C, int NS) {
   return (long long)B * (p.nsplit + 1) * NS * C;
 }
 
-// The sums pass of a two-pass plan over Src; scratch holds sums [B][NS][C]
-// then part; tickets as in norm_sums_kernel.
+// The sums pass of a two-pass plan over Src into sums [B][NS][C], with
+// part [B][nsplit][NS][C] for the blocks' partials; out and tickets as in
+// norm_sums_kernel.
 template <class Src>
-cudaError_t launch_norm_sums(const Src& src, const NormPlan& p, int B,
-                             float* scratch, float* out,
-                             unsigned int* tickets, cudaStream_t s) {
-  constexpr int NS = Src::NS;
-  float* sums = scratch;
-  float* part = scratch + (size_t)B * NS * src.C;
+cudaError_t launch_norm_sums_to(const Src& src, const NormPlan& p, int B,
+                                float* sums, float* part, float* out,
+                                unsigned int* tickets, cudaStream_t s) {
   const dim3 grid(p.nsplit * p.ng, B);
   if (p.vec)
     return launch_norm(norm_sums_kernel<Src, true>, grid, 1, p.smem, s, src,
                        src.HW, src.C, p, part, sums, out, tickets);
   return launch_norm(norm_sums_kernel<Src, false>, grid, 1, p.smem, s, src,
                      src.HW, src.C, p, part, sums, out, tickets);
+}
+
+// The sums pass with scratch holding sums [B][NS][C], then part.
+template <class Src>
+cudaError_t launch_norm_sums(const Src& src, const NormPlan& p, int B,
+                             float* scratch, float* out,
+                             unsigned int* tickets, cudaStream_t s) {
+  return launch_norm_sums_to(src, p, B, scratch,
+                             scratch + (size_t)B * Src::NS * src.C, out,
+                             tickets, s);
 }
 
 // ---- K1 ----
@@ -637,14 +645,16 @@ in_resident_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 }
 
 // Two-pass, pass 2: grid (nsplit * ng, B); the statistics of the group from
-// the sums pass, then the block's slice.  Split 0 writes mean and rstd.
+// the sums [B][2][C] over N pixels (HW, or the whole image's pixels where
+// the map is a space rank's rows of it), then the block's slice.  Split 0
+// writes mean and rstd.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kNormThreads)
 in_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                 const float* __restrict__ bias, T* __restrict__ y,
                 float* __restrict__ mean, float* __restrict__ rstd,
                 const float* __restrict__ sums, int HW, int C, NormPlan p,
-                int act) {
+                int act, float N) {
   using Un = NormUnit<T, VEC>;
   constexpr int V = Un::V;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -655,7 +665,7 @@ in_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const int p0 = s * p.rows, n = max(0, min(HW - p0, p.rows));
   for (int c = t; c < G; c += kNormThreads) {
     const float* S = sums + (size_t)b * 2 * C + g0 + c;
-    norm_stats(S[0], S[C], (float)HW, st[c], st[G + c]);
+    norm_stats(S[0], S[C], N, st[c], st[G + c]);
     if (s == 0) {
       mean[(size_t)b * C + g0 + c] = st[c];
       rstd[(size_t)b * C + g0 + c] = st[G + c];
@@ -697,6 +707,23 @@ inline NormPlan in_fwd_plan(int B, int HW, int C) {
   return norm_two_pass_plan(B, HW, C, esz, 1, 2);
 }
 
+// pass 2 of a two-pass plan: the statistics from sums [B][2][C] over N
+// pixels, then y over the rank's HW pixels.
+template <typename T>
+cudaError_t in_apply(const NormPlan& p, const T* x, const float* scale,
+                     const float* bias, T* y, float* mean, float* rstd,
+                     const float* sums, int B, int HW, int C, int act,
+                     float N, cudaStream_t s) {
+  const dim3 grid(p.nsplit * p.ng, B);
+  const int smem = 2 * p.G * 4;
+  return p.vec ? launch_norm(in_apply_kernel<T, true>, grid, 1, smem, s, x,
+                             scale, bias, y, mean, rstd, sums, HW, C, p, act,
+                             N)
+               : launch_norm(in_apply_kernel<T, false>, grid, 1, smem, s, x,
+                             scale, bias, y, mean, rstd, sums, HW, C, p, act,
+                             N);
+}
+
 // K1 under plan p: one launch (resident) or two; scratch: norm_scratch_elems
 // floats and tickets (two-pass only).
 template <typename T>
@@ -715,12 +742,28 @@ cudaError_t in_fwd(const NormPlan& p, const T* x, const float* scale,
   cudaError_t e =
       launch_norm_sums(XSrc<T>{x, HW, C}, p, B, scratch, nullptr, tickets, s);
   if (e != cudaSuccess) return e;
-  const int smem = 2 * p.G * 4;
-  return p.vec ? launch_norm(in_apply_kernel<T, true>, grid, 1, smem, s, x,
-                             scale, bias, y, mean, rstd, scratch, HW, C, p, act)
-               : launch_norm(in_apply_kernel<T, false>, grid, 1, smem, s, x,
-                             scale, bias, y, mean, rstd, scratch, HW, C, p,
-                             act);
+  return in_apply(p, x, scale, bias, y, mean, rstd, scratch, B, HW, C, act,
+                  (float)HW, s);
+}
+
+// ---- K1 split over a space group: the rank's sums, then the apply ----
+
+// K1's plan for a map that is a space rank's rows of an image: always two
+// passes, whose sums the caller adds over the group between them.
+template <typename T>
+inline NormPlan in_split_plan(int B, int HW, int C) {
+  return norm_two_pass_plan(B, HW, C, sizeof(T), 1, 2);
+}
+
+// pass 1 of a two-pass plan: sums [B][2][C] of x and x^2 over the rank's
+// HW pixels; part: B * nsplit * 2 * C floats; tickets as in
+// norm_sums_kernel.
+template <typename T>
+cudaError_t in_fwd_sums(const NormPlan& p, const T* x, float* sums,
+                        float* part, unsigned int* tickets, int B, int HW,
+                        int C, cudaStream_t s) {
+  return launch_norm_sums_to(XSrc<T>{x, HW, C}, p, B, sums, part, nullptr,
+                             tickets, s);
 }
 
 }  // namespace smsut

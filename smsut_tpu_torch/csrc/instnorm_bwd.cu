@@ -59,3 +59,59 @@ extern "C" int smsut_instnorm_bwd(const void* x, const void* g,
 #undef SMSUT_IN_BWD
   return (int)cudaErrorInvalidValue;
 }
+
+// ---- K4 split over a space group ----
+//
+// Where each rank of a space group holds rows of every image, dx needs the
+// sums of d and d*xhat over the whole image: the rank's sums over its HW
+// pixels (and their batch sums, the rank's share of dbias and dscale),
+// added over the group by the caller, then the dx pass with the image's N
+// pixels.  Both take smsut_instnorm_bwd_plan's plan.
+
+// sums [B][2][C] f32 = (S_d, S_dxhat) over the rank's pixels; dsb [2][C] =
+// their sums over the batch (dbias, dscale); scratch: at least the floats
+// smsut_instnorm_bwd_plan asked for; the rest as for smsut_instnorm_bwd.
+extern "C" int smsut_instnorm_bwd_sums(const void* x, const void* g,
+                                       const void* mean, const void* rstd,
+                                       const void* scale, const void* bias,
+                                       void* sums, void* dsb, const int* plan,
+                                       void* scratch, void* tickets, int B,
+                                       int HW, int C, int dtype, int act,
+                                       void* stream) {
+  if (B < 1 || HW < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SMSUT_IN_BWD_SUMS(T)                                                 \
+  launch_norm_sums_to(                                                       \
+      NormBwdSrc<T>{(const T*)x, (const T*)g, (const float*)mean,            \
+                    (const float*)rstd, (const float*)scale,                 \
+                    (const float*)bias, HW, C, act},                         \
+      norm_plan_of(plan), B, (float*)sums, (float*)scratch, (float*)dsb,     \
+      (unsigned int*)tickets, s)
+  if (dtype == 0) return (int)SMSUT_IN_BWD_SUMS(float);
+  if (dtype == 1) return (int)SMSUT_IN_BWD_SUMS(__nv_bfloat16);
+#undef SMSUT_IN_BWD_SUMS
+  return (int)cudaErrorInvalidValue;
+}
+
+// dx as smsut_instnorm_bwd gives it, from sums [B][2][C] over N pixels (the
+// image's, across the group).
+extern "C" int smsut_instnorm_bwd_apply(const void* x, const void* g,
+                                        const void* mean, const void* rstd,
+                                        const void* scale, const void* bias,
+                                        void* dx, const int* plan,
+                                        const void* sums, int B, int HW,
+                                        int N, int C, int dtype, int act,
+                                        void* stream) {
+  if (B < 1 || HW < 1 || C < 1 || N < HW) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SMSUT_IN_BWD_APPLY(T)                                                \
+  launch_norm_bwd_apply(                                                     \
+      NormBwdSrc<T>{(const T*)x, (const T*)g, (const float*)mean,            \
+                    (const float*)rstd, (const float*)scale,                 \
+                    (const float*)bias, HW, C, act},                         \
+      norm_plan_of(plan), (const float*)sums, (T*)dx, B, s, (float)N)
+  if (dtype == 0) return (int)SMSUT_IN_BWD_APPLY(float);
+  if (dtype == 1) return (int)SMSUT_IN_BWD_APPLY(__nv_bfloat16);
+#undef SMSUT_IN_BWD_APPLY
+  return (int)cudaErrorInvalidValue;
+}

@@ -81,13 +81,12 @@ template <typename T_> struct NormBwdSrc {
     sums<V>(xv, gv, ch, v);
   }
   // dx of V channels from their x, g and the sums S [NS][sstride] of their
-  // sample, from their first channel
+  // sample over n pixels, from their first channel
   template <int V>
   __device__ __forceinline__ void dx(const float (&xv)[V],
                                      const float (&gv)[V], const Chan<V>& ch,
-                                     const float* S, int sstride,
+                                     const float* S, int sstride, float n,
                                      float (&out)[V]) const {
-    const float n = (float)HW;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       float d, xh;
@@ -99,11 +98,13 @@ template <typename T_> struct NormBwdSrc {
 };
 
 // Two-pass, the dx pass: grid (nsplit * ng, B), block (s, gi, b) writes dx
-// over its slice from x, g and the sums; thread t keeps unit t % U.
+// over its slice from x, g and the sums over N pixels (HW, or the whole
+// image's where the map is a space rank's rows of it); thread t keeps unit
+// t % U.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kNormThreads)
 norm_bwd_apply_kernel(NormBwdSrc<T> src, const float* __restrict__ sums,
-                      T* __restrict__ dx, NormPlan p) {
+                      T* __restrict__ dx, NormPlan p, float N) {
   using Un = NormUnit<T, VEC>;
   constexpr int V = Un::V;
   const int t = threadIdx.x, C = src.C, U = p.U, TY = kNormThreads / U;
@@ -126,21 +127,23 @@ norm_bwd_apply_kernel(NormBwdSrc<T> src, const float* __restrict__ sums,
     float xv[V], gv[V], out[V];
     Un::load(src.x + o, xv);
     Un::load(src.g + o, gv);
-    src.template dx<V>(xv, gv, ch, &Sv[0][0], V, out);
+    src.template dx<V>(xv, gv, ch, &Sv[0][0], V, N, out);
     Un::store(dx + o, out);
   }
 }
 
+// the dx pass over N pixels (0: the map's own HW)
 template <typename T>
 cudaError_t launch_norm_bwd_apply(const NormBwdSrc<T>& src, const NormPlan& p,
                                   const float* sums, T* dx, int B,
-                                  cudaStream_t s) {
+                                  cudaStream_t s, float N = 0.f) {
   const dim3 grid(p.nsplit * p.ng, B);
+  if (N <= 0.f) N = (float)src.HW;
   if (p.vec)
     return launch_norm(norm_bwd_apply_kernel<T, true>, grid, 1, 0, s, src,
-                       sums, dx, p);
+                       sums, dx, p, N);
   return launch_norm(norm_bwd_apply_kernel<T, false>, grid, 1, 0, s, src, sums,
-                     dx, p);
+                     dx, p, N);
 }
 
 // K4's plan for a shape: two passes over x and g

@@ -218,7 +218,8 @@ def get_loader(data_root: str, phase: str, fold: int, batch_size: int,
 
     Train and val samplers keep a rank's contiguous rows of every global
     batch (:class:`ShardedBatchSampler`); ``num_shards``/``shard_id``
-    default to the process group's layout (``parallel.distributed``).
+    default to the process group's data axis (``parallel.distributed``:
+    the ranks of a space group take the same rows).
     Test loaders stay global.  The host augmentation (``raw`` False)
     draws for the rank's rows only (ROADMAP C5)."""
     cfg = cfg or Config()
@@ -235,8 +236,8 @@ def get_loader(data_root: str, phase: str, fold: int, batch_size: int,
         else:
             raise NotImplementedError(loader_type)
         if num_shards is None:
-            num_shards = distributed.process_count()
-            shard_id = distributed.process_index()
+            num_shards = distributed.data_count()
+            shard_id = distributed.data_index()
         if num_shards > 1:
             sampler = ShardedBatchSampler(sampler, num_shards, shard_id or 0)
     else:

@@ -151,9 +151,11 @@ class DeviceAugment:
         batch (``rows`` times the group's size), drawn whole on every rank:
         the parameters draw kind by kind across the batch, so a rank that
         drew for its own rows alone would read another stream than one
-        process at the global batch.  In a single process,
-        :meth:`sample_params_packed`."""
-        n = distributed.process_count()
+        process at the global batch.  Under a space axis the rows of the
+        rank's data coordinate: the ranks of a space group warp the same
+        images whole (each then keeps its rows of them, train/loop.py).
+        In a single process, :meth:`sample_params_packed`."""
+        n = distributed.data_count()
         packed = self.sample_params_packed(rows * n, h, w)
         return packed[distributed.local_batch_slice(rows * n)] if n > 1 \
             else packed

@@ -32,6 +32,7 @@ from smsut_tpu_torch.models.layers import (
 from smsut_tpu_torch.ops import block as k3
 from smsut_tpu_torch.ops.block import basic_block
 from smsut_tpu_torch.ops.instnorm import lrelu
+from smsut_tpu_torch.parallel import distributed
 
 
 class BasicBlock(nn.Module):
@@ -65,6 +66,10 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
+            if distributed.space_count() > 1:
+                raise NotImplementedError(
+                    "block_pallas under spatial_parallel > 1: K3/K6 would "
+                    "need the space group's norm statistics in mid-kernel")
             dt = x.dtype
             if not k3.takes(x.shape, self.conv1.weight.shape[-1],
                             self.has_shortcut, dt):

@@ -24,6 +24,7 @@ from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models.blocks import Decoder, Encoder
 from smsut_tpu_torch.models.layers import Conv
 from smsut_tpu_torch.ops import acc
+from smsut_tpu_torch.parallel import mesh
 
 
 class DualTaskDecoder(Decoder):
@@ -66,5 +67,6 @@ class DTCUNet(nn.Module):
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        mesh.refuse_space("DTC")
         h, skips = self.encoder(x.to(self.compute_dtype))
         return self.decoder(h, skips)

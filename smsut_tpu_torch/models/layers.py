@@ -23,6 +23,15 @@ that cast to the float32 parameter.  The other convs (5x5 stem, 1x1 head
 and shortcut) and the pooling stay plain PyTorch with autograd, as XLA
 computed them in the JAX package.  Every op here is twice
 differentiable, for the discriminator's gradient penalty.
+
+Under a space axis (``parallel/mesh.py``: each rank holds rows of every
+map) a k x k conv takes ``k // 2`` rows from each neighbour
+(``mesh.halo_rows``): K2 runs SAME on the haloed rows and the middle rows
+are kept, so its backward is K2 (dx) and K5 (dw) on the cotangent padded
+with zero rows, whose halo rows go back to the neighbours; ``conv_plain``
+runs VALID in H on them.  The 1x1 convs and the pools are local (a rank's
+rows are even, ``mesh.check_spatial``), and the 2x bilinear upsample
+takes a one-row halo (:func:`upsample_bilinear2`).
 """
 from __future__ import annotations
 
@@ -112,17 +121,31 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-def conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv_plain(x: torch.Tensor, w: torch.Tensor,
+               valid_h: bool = False) -> torch.Tensor:
     """SAME conv with odd-k HWIO ``w`` where no kernel of the port applies:
-    a matmul for 1x1, ``F.conv2d`` on the channels-last view otherwise."""
+    a matmul for 1x1, ``F.conv2d`` on the channels-last view otherwise;
+    with ``valid_h`` unpadded in H (``x`` holds its halo rows)."""
     k = w.shape[0]
     if k == 1:
         return x @ w[0, 0]
     # a contiguous weight: the CPU's float64 conv (slow_conv2d) refuses a
     # strided one in its double backward
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(),
-                 padding=k // 2)
+                 padding=(0 if valid_h else k // 2, k // 2))
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def space_conv(x: torch.Tensor, w: torch.Tensor, kernel: bool
+               ) -> torch.Tensor:
+    """A k x k SAME conv (k > 1) of a space rank's rows: the rows with
+    their ``k // 2``-row halos, then K2 (``kernel``) SAME on them with the
+    middle rows kept, or :func:`conv_plain` VALID in H."""
+    r = w.shape[0] // 2
+    xp = mesh.halo_rows(x, r)
+    if kernel:
+        return conv3x3(xp, w)[:, r:r + x.shape[1]].contiguous()
+    return conv_plain(xp, w, valid_h=True)
 
 
 class Conv(nn.Module):
@@ -141,12 +164,14 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
-        if w.shape[0] == 3 and k2.takes(x.shape, w.shape[-1], x.dtype):
-            y = conv3x3(x, w)
+        k = w.shape[0]
+        kernel = k == 3 and k2.takes(x.shape, w.shape[-1], x.dtype)
+        if k == 3 and not kernel:
+            conv3x3.routed += 1
+        if k > 1 and distributed.space_count() > 1:
+            y = space_conv(x, w, kernel)
         else:
-            if w.shape[0] == 3:
-                conv3x3.routed += 1
-            y = conv_plain(x, w)
+            y = conv3x3(x, w) if kernel else conv_plain(x, w)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
@@ -175,8 +200,17 @@ class NormAct(nn.Module):
         return self.act(instance_norm(x, self.weight, self.bias, False))
 
 
+def _local_rows(x: torch.Tensor) -> None:
+    """A 2x2 pool of a space rank's rows is local where they are even
+    (``mesh.check_spatial`` refuses the rest)."""
+    if distributed.space_count() > 1 and x.shape[1] % 2:
+        raise ValueError(f"a 2x2 pool of {x.shape[1]} rows a rank: "
+                         f"spatial_parallel needs an even count")
+
+
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max pool, NHWC (odd edges dropped, as VALID pooling)."""
+    _local_rows(x)
     b, h, w, c = x.shape
     x = x[:, : h - h % 2, : w - w % 2]
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
@@ -184,6 +218,7 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 average pool, NHWC, VALID (odd edges dropped)."""
+    _local_rows(x)
     b, h, w, c = x.shape
     x = x[:, : h - h % 2, : w - w % 2]
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
@@ -231,5 +266,36 @@ def upsample_bilinear2(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample with half-pixel centres, NHWC: the JAX
     package's ``jax.image.resize(..., "bilinear")`` at x2, the edge rows
     and columns copies of the input's (their weights renormalised), as
-    :func:`resize_bilinear`."""
-    return resize_bilinear(x, 2 * x.shape[1], 2 * x.shape[2])
+    :func:`resize_bilinear`.
+
+    Under a space axis ``x`` holds rows ``[s*h, (s+1)*h)`` of an image of
+    ``H = sp*h`` rows; output rows ``[2*s*h, 2*(s+1)*h)`` read input rows
+    ``s*h - 1`` to ``(s+1)*h``: the rows with a one-row halo (zeros beyond
+    the image, where the whole-image matrix has no weight), times the
+    rank's rows of the whole image's H matrix over those columns."""
+    sp = distributed.space_count()
+    if sp == 1:
+        return resize_bilinear(x, 2 * x.shape[1], 2 * x.shape[2])
+    h = x.shape[1]
+    xh = mesh.halo_rows(x, 1)
+    ah = _space_interp(sp * h, distributed.space_index(), h, x.device,
+                       x.dtype)
+    aw = interp_matrix(x.shape[2], 2 * x.shape[2], x.device, x.dtype)
+    y = torch.einsum("Hh,bhwc->bHwc", ah, xh)
+    return torch.einsum("Ww,bHwc->bHWc", aw, y)
+
+
+def _space_interp(n: int, s: int, h: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """[2h, h + 2]: rows ``[2sh, 2(s+1)h)`` of the ``n -> 2n`` matrix over
+    input rows ``sh - 1 .. (s+1)h`` (a zero column beyond the image),
+    made once per key, as :func:`interp_matrix`."""
+    key = ("space", n, s, h, device, dtype)
+    t = _INTERP.get(key)
+    if t is None:
+        a = np.pad(_interp_host(n, 2 * n), ((0, 0), (1, 1)))
+        with torch.inference_mode(False):
+            t = _INTERP[key] = torch.from_numpy(np.ascontiguousarray(
+                a[2 * s * h:2 * (s + 1) * h, s * h:s * h + h + 2])).to(
+                    device, dtype)
+    return t

@@ -10,6 +10,13 @@ lowerings are TPU layouts, no-ops in the port): ``tile_modality_vec``,
 ``Discriminator``.  Module and parameter names mirror the flax tree
 (models/transplant.py maps one onto the other).
 
+Under a space axis (``parallel/mesh.py``) each rank holds rows of every
+map: the towers' convs, pools and upsamples meet their neighbours in
+``models/layers.py``; here the discriminator's stem takes a one-row halo,
+its class head contracts the rank's rows against its rows of the kernel
+and sums over the space group, and ``PatchSampleF`` takes the features at
+the patch positions in the rank's rows and sums the pool over the group.
+
 Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``,
 then moved to ``device``: the card unless ``device`` names another (no
 CUDA and no device raises).  Outputs are float32 (float64 in a float64
@@ -31,6 +38,7 @@ from smsut_tpu_torch.models.layers import (Conv, NormAct,
                                            kaiming_normal_fan_out, max_pool2)
 from smsut_tpu_torch.ops import acc
 from smsut_tpu_torch.ops.instnorm import lrelu
+from smsut_tpu_torch.parallel import distributed, mesh
 
 Device = Optional[Union[str, torch.device]]
 _MULTS = (1, 2, 4, 8)
@@ -151,7 +159,19 @@ class PatchSampleF(nn.Module):
     def forward(self, feat: torch.Tensor,
                 patch_ids: torch.Tensor) -> torch.Tensor:
         b, h, w, c = feat.shape
-        sample = feat.reshape(b, h * w, c).index_select(1, patch_ids)
+        flat = feat.reshape(b, h * w, c)
+        if distributed.space_count() == 1:
+            sample = flat.index_select(1, patch_ids)
+        else:
+            # the ids index the whole map: this rank's rows hold positions
+            # [s*h*w, (s+1)*h*w); the others' come in through the sum
+            # (each position is in one rank's rows), whose backward hands
+            # each rank the cotangent of its own
+            local = patch_ids - distributed.space_index() * h * w
+            mine = (local >= 0) & (local < h * w)
+            sample = flat.index_select(1, local.clamp(0, h * w - 1))
+            sample = mesh.space_sum(acc(sample) * mine[None, :, None]
+                                    ).to(feat.dtype)
         y = F.relu(self.mlp_0_fc1(sample.reshape(-1, c)))
         y = acc(self.mlp_0_fc2(y))
         return y / (y.square().sum(dim=1, keepdim=True).sqrt() + 1e-7)
@@ -245,10 +265,16 @@ class _StemConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # under a space axis, output rows [s h/2, (s+1) h/2) read input rows
+        # s h - 1 .. (s+1) h: the rank's rows with a one-row halo, unpadded
+        # in H
+        pad = 1
+        if distributed.space_count() > 1:
+            x, pad = mesh.halo_rows(x, 1), (0, 1)
         # a contiguous weight, as in layers.conv_plain
         y = F.conv2d(x.permute(0, 3, 1, 2),
                      self.weight.to(x.dtype).permute(3, 2, 0, 1).contiguous(),
-                     self.bias.to(x.dtype), stride=2, padding=1)
+                     self.bias.to(x.dtype), stride=2, padding=pad)
         return y.permute(0, 2, 3, 1)
 
 
@@ -294,6 +320,9 @@ class Discriminator(_Net):
         for i in range(1, self.n_blocks + 1):
             x = getattr(self, f"block{i}")(x)
         src = self.conv_src(x)
-        ck = self.conv_cls.weight.to(x.dtype)
+        # the class head contracts the whole final map: under a space axis
+        # the rank's rows against its rows of the kernel, summed over the
+        # group
+        ck = mesh.space_rows(self.conv_cls.weight, 0).to(x.dtype)
         cls = x.reshape(x.shape[0], -1) @ ck.reshape(-1, ck.shape[-1])
-        return acc(src), acc(cls)
+        return acc(src), mesh.space_sum(acc(cls))

@@ -24,7 +24,10 @@ to XLA too.
 
 Under a process group (``parallel/``) each rank holds its rows of the
 global batch and the gradients are averaged over the group, which makes
-every plain mean of per-sample terms exact.  The reductions over the batch
+every plain mean of per-sample terms exact; under a space axis a rank
+holds rows of each image, every plain mean over equal shards stays exact,
+and the per-image sums over H*W (the Dice with ``batch_dice=False``) are
+the space group's (``parallel.mesh.space_sum``).  The reductions over the batch
 axis that are not such a mean become sums over the global batch through
 ``parallel.mesh.batch_sums``: the batch Dice's tp/fp/fn
 (:func:`get_tp_fp_fn`, :func:`dice_and_ce_loss`, and so
@@ -41,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from smsut_tpu_torch.ops import acc
-from smsut_tpu_torch.parallel.mesh import batch_sums
+from smsut_tpu_torch.parallel.mesh import batch_sums, space_sum
 
 
 def one_hot_last(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -65,6 +68,9 @@ def _tp_fp_fn(probs: torch.Tensor, gt: torch.Tensor, batch_dice: bool,
     ps, gs = probs.sum(dim=dims), gt.sum(dim=dims)
     if batch_dice and over_group:
         tp, ps, gs = batch_sums(tp, ps, gs)
+    elif not batch_dice:
+        # per-image sums over H*W: the space group's under a space axis
+        tp, ps, gs = space_sum(torch.stack([tp, ps, gs])).unbind(0)
     return tp, ps - tp, gs - tp
 
 

@@ -7,6 +7,13 @@ on its contiguous rows of each global batch (``data/samplers.py``
 ``ShardedBatchSampler``), the gradients are averaged over the group
 (``parallel/mesh.py``), and rank 0 writes the logs and checkpoints.
 
+With ``spatial_parallel = sp > 1`` the group of ``dp x sp`` ranks is laid
+out as the JAX package's ``('data', 'space')`` mesh, row-major: rank ``r``
+has data coordinate ``r // sp`` and space coordinate ``r % sp``.  The
+batch rows follow the data coordinate (:func:`local_batch_slice`), so the
+``sp`` ranks of a space group hold the same images, each its own rows of
+every map (``parallel/mesh.py`` :func:`~smsut_tpu_torch.parallel.mesh.set_spatial`).
+
 Launch N processes with ``python -m torch.distributed.run --nproc_per_node
 N -m smsut_tpu_torch.trainer.unetTrainer ...`` (its ``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``), or set the
@@ -19,6 +26,7 @@ otherwise (the CPU, or two ranks sharing one card, which NCCL refuses).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Optional, Union
@@ -101,12 +109,68 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
+# the space axis: its size and this rank's space group (None at size 1),
+# set by parallel/mesh.py ``set_spatial``; ``_SPACE_OFF`` turns it off
+# for a forward that one rank runs alone on whole images
+_SPACE = {"size": 1, "group": None}
+_SPACE_OFF = [False]
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def set_space(size: int, group) -> None:
+    """This rank's space axis: its size and its space group (None at size
+    1); parallel/mesh.py ``set_spatial`` makes the groups."""
+    _SPACE.update(size=size, group=group)
+
+
+@contextlib.contextmanager
+def no_space():
+    """Within it, the layers run whole images in this rank alone (a
+    forward that only one rank makes, such as the GAN's sample grid)."""
+    prev, _SPACE_OFF[0] = _SPACE_OFF[0], True
+    try:
+        yield
+    finally:
+        _SPACE_OFF[0] = prev
+
+
+def space_size() -> int:
+    """The size of the space axis as the group is laid out (also where a
+    forward turned it off)."""
+    return _SPACE["size"]
+
+
+def space_count() -> int:
+    """The size of the space axis the layers see: 1 without one, or where
+    it is off."""
+    return 1 if _SPACE_OFF[0] else _SPACE["size"]
+
+
+def space_index() -> int:
+    """This rank's space coordinate (its rows of every map)."""
+    return process_index() % _SPACE["size"] if space_count() > 1 else 0
+
+
+def space_group():
+    """This rank's space group, None where the space axis is 1 or off."""
+    return _SPACE["group"] if space_count() > 1 else None
+
+
+def data_count() -> int:
+    """The size of the data axis: the ranks over the space axis's size."""
+    return process_count() // _SPACE["size"]
+
+
+def data_index() -> int:
+    """This rank's data coordinate (its rows of every global batch)."""
+    return process_index() // _SPACE["size"]
 
 
 def is_primary() -> bool:
@@ -126,16 +190,17 @@ def capturable() -> bool:
 
 
 def local_batch_slice(global_batch: int) -> slice:
-    """This rank's contiguous rows ``[r*B/N, (r+1)*B/N)`` of a global
-    batch of ``B`` rows."""
-    count = process_count()
+    """This rank's contiguous rows ``[d*B/D, (d+1)*B/D)`` of a global
+    batch of ``B`` rows, ``d`` its data coordinate of ``D`` (the rank and
+    the group's size without a space axis)."""
+    count = data_count()
     if global_batch % count:
         raise ValueError(
             f"global batch {global_batch} is not divisible by the {count} "
-            f"processes: rows would be silently dropped.  Pick a batch_size "
-            f"that is a multiple of the process count.")
+            f"data-parallel processes: rows would be silently dropped.  "
+            f"Pick a batch_size that is a multiple of the process count.")
     per = global_batch // count
-    start = process_index() * per
+    start = data_index() * per
     return slice(start, start + per)
 
 

@@ -19,54 +19,287 @@ and the program says where the ranks meet:
   global batch is exact;
 - :func:`all_gather_rows`: the eval sweep's per-rank results, gathered.
 
-Without a group each of these is the identity.  Only the data axis is
-ported: ``spatial_parallel > 1`` and the channel-wise tensor parallelism
-of ``make_mesh_2d``/``shard_params_channelwise`` raise (ROADMAP A10c).
+The space axis (``spatial_parallel = sp > 1``, the JAX package's
+``('data', 'space')`` mesh, where GSPMD splits every activation's H over
+``'space'``): :func:`check_config` lays the group out as ``dp x sp``
+(:func:`set_spatial`: rank ``r`` has data coordinate ``r // sp`` and
+space coordinate ``r % sp``; the ranks of one data coordinate form a space
+group), and each rank then holds rows ``[s*H/sp, (s+1)*H/sp)`` of every
+map of its data coordinate's images.  The layers meet their neighbours
+through:
+
+- :func:`halo_rows`: ``k // 2`` rows from each neighbour (zeros at the
+  image's top and bottom), differentiable twice (the gradient penalty);
+  the convs run SAME on the haloed rows and keep the middle ones;
+- :func:`space_sum`: a differentiable sum over the space group, for the
+  per-sample sums over H*W (the instance norm's statistics, the per-image
+  Dice, the GP's gradient norm, the discriminator's class head) and
+  :func:`space_all_reduce_`, its in-place form for the kernels' sums;
+- :func:`space_gather_rows`: the eval sweep's logits, whole again.
+
+Every collective's backward is its adjoint (the all-reduce's an
+all-reduce, the halo's the halo's rows sent back and added), so each
+rank's gradient is the gradient of the sum of every rank's loss, and the
+gradient all-reduce's average over the ``dp x sp`` ranks is the one
+process's gradient where the loss terms are means of equal shards or
+sums over the group (:func:`batch_sums`).
+
+Without a group each of these is the identity.  The channel-wise tensor
+parallelism of ``make_mesh_2d``/``shard_params_channelwise`` raises
+(ROADMAP A10d).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List
 
 import torch
 import torch.distributed as dist
 
+from smsut_tpu_torch.parallel import distributed
 from smsut_tpu_torch.parallel.distributed import process_count
 
 Tensors = Dict[str, torch.Tensor]
 
+# the widest halo of each of the U-Net's levels (0: the input's size; the
+# 5x5 stems there), 1 below; and of the discriminator's (its 4x4 stride-2
+# stem and its 3x3 convs)
+_STEM_HALO = 2
 
-def check_config(cfg) -> int:
+
+def check_config(cfg, gan: bool = False) -> int:
     """The group's world size, after checking ``cfg``'s parallel knobs
-    against it: ``data_parallel`` 0 (every rank) or the world size,
-    ``spatial_parallel`` 1, and a ``batch_size`` the world divides."""
+    against it: ``spatial_parallel`` ``sp`` dividing the world,
+    ``data_parallel`` 0 (every data coordinate) or the world over ``sp``,
+    and a ``batch_size`` the data axis divides; under ``sp > 1`` also the
+    maps' rows (:func:`check_spatial`, with the discriminator's pyramid
+    where ``gan``).  Then lays the group out (:func:`set_spatial`)."""
     world = process_count()
-    if cfg.spatial_parallel > 1:
-        raise NotImplementedError(
-            f"spatial_parallel={cfg.spatial_parallel}: the port shards the "
-            f"batch only; the spatial axis is ROADMAP A10c")
+    sp = cfg.spatial_parallel
+    if sp < 1:
+        raise ValueError(f"spatial_parallel={sp} is not a positive count")
+    if world % sp:
+        if world == 1:
+            raise ValueError(
+                f"spatial_parallel={sp} in a single process: launch a "
+                f"multiple of {sp} processes (python -m torch.distributed"
+                f".run --nproc_per_node {sp} -m smsut_tpu_torch.trainer...)")
+        raise ValueError(f"spatial_parallel={sp} does not divide the group "
+                         f"of {world} processes")
+    dpw = world // sp
     dp = cfg.data_parallel
-    if dp not in (0, world):
+    if dp not in (0, dpw):
         if world == 1:
             raise ValueError(
                 f"data_parallel={dp} in a single process: launch {dp} "
                 f"processes (python -m torch.distributed.run "
                 f"--nproc_per_node {dp} -m smsut_tpu_torch.trainer...)")
         raise ValueError(f"data_parallel={dp} does not match the group of "
-                         f"{world} processes (0 or {world})")
-    if cfg.batch_size % world:
+                         f"{world} processes over spatial_parallel={sp} "
+                         f"(0 or {dpw})")
+    if cfg.batch_size % dpw:
         raise ValueError(f"batch_size {cfg.batch_size} is not divisible by "
-                         f"the {world} processes")
+                         f"the {dpw} data-parallel processes")
+    if sp > 1:
+        check_spatial(cfg, sp, gan)
+    set_spatial(sp)
     return world
+
+
+def check_spatial(cfg, sp: int, gan: bool = False) -> None:
+    """Refuse a configuration the space axis of ``sp`` cannot take, naming
+    ``spatial_parallel``: the JAX Trainer's guard (``input_size // 16 >=
+    max(4, sp)``), the fused block kernel, and any map of the model that
+    does not split into whole rows per rank, an odd count of rows before a
+    2x2 pool or a stride-2 conv, or fewer rows than the widest halo at its
+    level: the U-Net's five levels and, with ``gan``, the discriminator's
+    pyramid from its stem down to its ``input_size / 2^(log2(input_size)
+    - 2)`` map."""
+    size = cfg.input_size
+    if size // 16 < max(4, sp):
+        raise ValueError(f"spatial_parallel={sp} needs input_size >= "
+                         f"{16 * max(4, sp)} (got {size})")
+    if cfg.block_pallas:
+        raise NotImplementedError(
+            f"block_pallas under spatial_parallel={sp}: the fused block "
+            f"kernels (K3/K6) would need the space group's statistics in "
+            f"mid-kernel (ROADMAP: K3/K6 under a space group)")
+    # (map size, widest halo, whether a 2x2 pool or stride-2 conv follows)
+    levels = [(size >> k, _STEM_HALO if k == 0 else 1, k < 4)
+              for k in range(5)]
+    if gan:
+        n = int(math.log2(size)) - 2
+        levels.append((size, 1, True))                  # the 4x4 stem
+        levels += [(size >> k, 1, k < n) for k in range(1, n + 1)]
+    for m, halo, halves in levels:
+        rows, left = divmod(m, sp)
+        if left or rows < halo or (halves and rows % 2):
+            raise ValueError(
+                f"spatial_parallel={sp}: the {m}x{m} map of input_size "
+                f"{size} does not split into whole rows of at least {halo}"
+                f"{', an even count,' if halves else ''} per rank")
+
+
+# the space groups made for (default group, world, sp): dist.new_group is
+# a collective that every rank calls for every group, in one order
+_GROUPS: Dict[tuple, list] = {}
+
+
+def set_spatial(sp: int) -> None:
+    """Lay the group out as ``world / sp`` data coordinates by ``sp``
+    space coordinates (row-major, as the JAX ``('data', 'space')`` mesh)
+    and make this rank's space group; ``sp`` 1 takes the axis away.
+    Every rank calls it with the same ``sp``."""
+    if sp == 1 or not dist.is_initialized():
+        distributed.set_space(1, None)
+        return
+    world = dist.get_world_size()
+    key = (id(dist.group.WORLD), world, sp)
+    groups = _GROUPS.get(key)
+    if groups is None:
+        groups = _GROUPS[key] = [
+            dist.new_group(list(range(d * sp, (d + 1) * sp)))
+            for d in range(world // sp)]
+    distributed.set_space(sp, groups[dist.get_rank() // sp])
+
+
+def refuse_space(what: str, cfg=None) -> None:
+    """Raise for ``what``, which the space axis does not take yet, under
+    ``cfg.spatial_parallel > 1`` or a space axis laid out."""
+    sp = max(distributed.space_size(),
+             getattr(cfg, "spatial_parallel", 1))
+    if sp > 1:
+        raise NotImplementedError(
+            f"{what} under spatial_parallel={sp}: not ported to the space "
+            f"axis (ROADMAP A10e)")
+
+
+def space_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's rows ``[s*H/sp, (s+1)*H/sp)`` of dim ``dim`` of a
+    whole-image tensor; ``x`` without a space axis."""
+    sp = distributed.space_count()
+    if sp == 1:
+        return x
+    h = x.shape[dim] // sp
+    return x.narrow(dim, distributed.space_index() * h, h)
+
+
+def space_all_reduce_(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the space group in place (not differentiable);
+    ``x`` without one."""
+    group = distributed.space_group()
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+class _SpaceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return space_all_reduce_(
+            x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SpaceSum.apply(g)
+
+
+def space_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the space group, differentiably (its backward is
+    the same sum of the cotangent, itself differentiable); ``x`` without
+    a space axis."""
+    if distributed.space_group() is None:
+        return x
+    return _SpaceSum.apply(x)
+
+
+def _space_parts(x: torch.Tensor) -> List[torch.Tensor]:
+    """Every space rank's ``x`` (one shape on every rank), in space
+    order."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(distributed.space_count())]
+    dist.all_gather(parts, x, group=distributed.space_group())
+    return parts
+
+
+@torch.no_grad()
+def space_gather_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The space group's rows of dim ``dim`` concatenated in space order:
+    the whole image on every rank of the group; ``x`` without one."""
+    if distributed.space_group() is None:
+        return x
+    return torch.cat(_space_parts(x), dim=dim)
+
+
+def _exchange(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """(the ``hi`` part of the rank above, the ``lo`` part of the rank
+    below), zeros at the image's top and bottom edges: one all-gather
+    over the space group of the rank's two parts."""
+    parts = _space_parts(torch.stack([lo, hi]))
+    s, sp = distributed.space_index(), distributed.space_count()
+    above = parts[s - 1][1] if s > 0 else torch.zeros_like(hi)
+    below = parts[s + 1][0] if s < sp - 1 else torch.zeros_like(lo)
+    return above, below
+
+
+class _Halo(torch.autograd.Function):
+    """[B, h, ...] -> [B, h + 2r, ...]: the rank's rows between the ``r``
+    last rows of the rank above and the ``r`` first of the rank below."""
+
+    @staticmethod
+    def forward(ctx, x, r):
+        ctx.r = r
+        above, below = _exchange(x, x[:, :r], x[:, -r:])
+        return torch.cat([above, x, below], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _HaloT.apply(g, ctx.r), None
+
+
+class _HaloT(torch.autograd.Function):
+    """The adjoint of :class:`_Halo`: the middle rows of [B, h + 2r, ...],
+    plus the rows the neighbours hold as their halos of this rank's rows
+    (sent back and added)."""
+
+    @staticmethod
+    def forward(ctx, g, r):
+        ctx.r = r
+        h = g.shape[1] - 2 * r
+        out = g[:, r:r + h].clone(memory_format=torch.contiguous_format)
+        above, below = _exchange(g, g[:, :r], g[:, r + h:])
+        out[:, :r] += above
+        out[:, h - r:] += below
+        return out
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Halo.apply(gg, ctx.r), None
+
+
+def halo_rows(x: torch.Tensor, r: int) -> torch.Tensor:
+    """NHWC ``x``, a rank's rows of each image, with ``r`` rows of its
+    neighbours' above and below (zeros beyond the image), twice
+    differentiable; ``x`` padded with ``r`` zero rows without a space
+    axis."""
+    if distributed.space_group() is None:
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, r, r))
+    if x.shape[1] < r:
+        raise ValueError(f"a halo of {r} rows needs at least {r} rows a "
+                         f"rank (got {x.shape[1]}): check spatial_parallel")
+    return _Halo.apply(x, r)
 
 
 def make_mesh_2d(dp: int, tp: int):
     raise NotImplementedError("channel-wise tensor parallelism is not "
-                              "ported: ROADMAP A10c")
+                              "ported: ROADMAP A10d (the tensor-parallel "
+                              "half of A10c)")
 
 
 def shard_params_channelwise(mesh, params):
     raise NotImplementedError("channel-wise tensor parallelism is not "
-                              "ported: ROADMAP A10c")
+                              "ported: ROADMAP A10d (the tensor-parallel "
+                              "half of A10c)")
 
 
 def _flatten(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -146,14 +379,17 @@ def batch_sums(*sums: torch.Tensor) -> List[torch.Tensor]:
 
 @torch.no_grad()
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (one shape on every rank) concatenated along
-    dim 0 in rank order; ``x`` without a group or in a group of one."""
+    """Every data coordinate's ``x`` (one shape on every rank)
+    concatenated along dim 0 in order: every rank's in rank order without
+    a space axis; under one, the ranks of space coordinate 0 (a space
+    group's ranks hold the same rows of the batch).  ``x`` without a group
+    or in a group of one."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, x)
-    return torch.cat(parts)
+    return torch.cat(parts[::distributed.space_size()])
 
 
 @torch.no_grad()

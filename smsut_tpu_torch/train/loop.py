@@ -52,6 +52,14 @@ and the sweep run eagerly, which the log says and
 ``eager_dispatches`` counts.  ``data_parallel`` and ``spatial_parallel``
 are checked against the group (``parallel.mesh.check_config``).
 
+Under a space axis (``spatial_parallel = sp > 1``) the loaders, the
+augmentation's draws and the eval sweep's share follow the rank's data
+coordinate, so the ``sp`` ranks of a space group take the same images:
+each warps them whole (``DeviceAugment``, or the host augmentation) and
+keeps its rows of every image before the step; the eval forward runs on
+the rank's rows and gathers its logits over the space group, whole, so
+that the loss and the predictions of a batch are one process's.
+
 Not ported: ``profile_dir`` tracing, accepted and doing nothing
 (config.py).
 """
@@ -75,6 +83,7 @@ from smsut_tpu_torch.ops.metrics import (get_all_matrix, get_mo_matrix,
                                          matrix_to_csv)
 from smsut_tpu_torch.ops.schedules import poly_lr_host
 from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel import mesh
 from smsut_tpu_torch.parallel.mesh import (all_gather_rows, check_config,
                                            mean_over_ranks)
 from smsut_tpu_torch.train import checkpoints
@@ -112,6 +121,8 @@ def _split(item) -> Tuple[Batch, Optional[torch.Tensor]]:
 
 # the inputs of an iteration that the device augmentation consumes
 _AUG_KEYS = ("params", "ul_msk", "ul_params")
+# the whole-image inputs of the step, of which a space rank keeps its rows
+_IMAGE_KEYS = ("img", "msk", "ul_img")
 
 
 class Trainer:
@@ -130,7 +141,8 @@ class Trainer:
         self.expr_name = expr_name or algo.__class__.__name__
         # the process group: rank 0 owns the artifacts, the others run the
         # same computation as spectators
-        self._world = check_config(cfg)
+        self._world = check_config(cfg, gan=hasattr(algo, "D"))
+        self._dp = self._world // cfg.spatial_parallel  # data coordinates
         self._mp = self._world > 1
         self._primary = distributed.is_primary()
         self.exp = experiment or Experiment(cfg.expr_root, self.expr_name,
@@ -162,10 +174,14 @@ class Trainer:
         self._eval_lut: Optional[torch.Tensor] = None
         self.state = algo.init_state(cfg.seed)
         if self._mp:
+            sp = cfg.spatial_parallel
             self.info(f"[distributed] rank {distributed.process_index()}/"
                       f"{self._world} ({distributed.backend()}), "
-                      f"{cfg.batch_size // self._world} of each batch's "
-                      f"{cfg.batch_size} rows")
+                      f"{cfg.batch_size // self._dp} of each batch's "
+                      f"{cfg.batch_size} rows"
+                      + (f", of each image 1/{sp} of its rows (space "
+                         f"coordinate {distributed.space_index()})"
+                         if sp > 1 else ""))
         if self._gloo_eager:
             self.info("[distributed] gloo's collectives cannot be captured "
                       "in a CUDA graph: the iterations and the eval sweep "
@@ -202,7 +218,9 @@ class Trainer:
 
     @torch.inference_mode()
     def _eval_step(self, params, img: torch.Tensor, msk: torch.Tensor):
-        logits = self.algo.eval_fn(params, img)
+        # under a space axis the forward of the rank's rows, whole again
+        logits = mesh.space_gather_rows(self.algo.eval_fn(
+            params, mesh.space_rows(img).contiguous()))
         # the loss of this batch alone: no sum over the group's ranks
         loss = dice_and_ce_loss(logits, msk, self.cfg.weight_dc,
                                 self.cfg.weight_ce, batch_dice=True,
@@ -212,10 +230,12 @@ class Trainer:
 
     def _share(self, n: int) -> list:
         """The batches of an ``n``-batch eval sweep this rank runs:
-        ``ceil(n / world)`` contiguous ones, the last rank's run padded
-        with the last batch (all of them in a single process)."""
-        per = -(-n // self._world)
-        lo = distributed.process_index() * per
+        ``ceil(n / D)`` contiguous ones by its data coordinate of ``D``,
+        the last one's run padded with the last batch (all of them in a
+        single process)."""
+        dp = self._world // distributed.space_size()
+        per = -(-n // dp)
+        lo = distributed.data_index() * per
         return [min(j, n - 1) for j in range(lo, lo + per)]
 
     def _gathered(self, n: int, losses: torch.Tensor, preds: torch.Tensor):
@@ -423,7 +443,7 @@ class Trainer:
             batch.update(self.algo.make_extra_batch())
             inp.update({k: self._pinned(v) for k, v in
                         self.algo.host_inputs(batch).items()})
-        return inp, int(lb.mdl[0]), lb.batch_size * self._world
+        return inp, int(lb.mdl[0]), lb.batch_size * self._dp
 
     def _stage(self, items) -> list:
         """T iterations' inputs on the device: each input's T host tensors
@@ -455,6 +475,9 @@ class Trainer:
                                            inp["ul_params"])[0]
         else:
             batch["msk"] = inp["msk"].long()
+        for k in _IMAGE_KEYS:   # a space rank's rows of each image
+            if k in batch:
+                batch[k] = mesh.space_rows(batch[k]).contiguous()
         metrics = self.algo.step(self.state, batch, self._scalars)
         if self._ring is None:
             self._ring_keys = list(metrics)

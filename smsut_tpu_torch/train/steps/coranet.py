@@ -71,6 +71,8 @@ class CoraNet(SupervisedUNet):
     ``device`` names another; ``stage`` is ``"pre"`` (A) or ``"cora"``
     (B)."""
 
+    space_axis = False
+
     name = "coraNet"
     # the step reads no unlabelled batch (the sweep has its own loader)
     uses_unlabeled = False

@@ -35,6 +35,8 @@ class CrossPseudo(SupervisedUNet):
     """Two ``UNet(n_class, base_width)``s, on the card unless ``device``
     names another."""
 
+    space_axis = False
+
     name = "crossPse"
     uses_unlabeled = True
     lambda_semi = 0.1

@@ -48,6 +48,17 @@ global batch's patches.  The gradients of the D and the G step are
 averaged over the group (train/state.py), and the batch Dice terms sum
 over the global batch (ops/losses.py).
 
+Under a space axis (``spatial_parallel``, ``parallel/mesh.py``) a rank
+holds its data coordinate's rows of both batches and, of each image, its
+rows: the towers and the discriminator meet their neighbours in their
+layers (models/layers.py, models/ugan.py), the GP's per-image squared
+gradient norm sums over the space group before its square root, the
+class head's contraction too, and the PatchNCE pool is assembled from the
+ranks' rows of the bottleneck (``PatchSampleF``), whole on every rank of
+the group.  The patch outputs' means, the L1 terms and the CE means run
+over equal shards, which the group's gradient average makes exact.  The
+draws are the algorithm's own, the same on every rank.
+
 ``d_concat_hat``, ``packed_loss_tails`` and ``remat`` are accepted and do
 nothing (config.py).
 """
@@ -217,7 +228,9 @@ class UGANBase:
         d_real = -src_cat[:n].mean()
         d_fake = src_cat[n:].mean()
         d_cls = softmax_ce_with_logits(cls_cat[:n], mdl)
-        norms = dydx.reshape(n, -1).square().sum(dim=1).sqrt()
+        # per image over all of its rows: the space group's sum
+        norms = mesh.space_sum(dydx.reshape(n, -1).square().sum(dim=1)
+                               ).sqrt()
         d_gp = (norms - 1.0).square().mean()
         total = (d_real + d_fake + self.lambda_cls * d_cls
                  + self.lambda_gp * d_gp)
@@ -353,7 +366,7 @@ class UGANBase:
         key = (patches, device)
         if key not in self._nce_rows:
             big = self.cfg.batch_size
-            b = big // distributed.process_count()
+            b = big // distributed.data_count()
             parts = self.total_batch // big
             r0 = distributed.local_batch_slice(big).start
 
@@ -382,9 +395,14 @@ class UGANBase:
         against the keys of their groups, gathered from the ranks that
         hold them (``feat_k``, the translation pass's pools, detached: no
         backward), and the mean over the global batch's patches.  Without
-        a group the gather and the sum are the rank's own."""
+        a group the gather and the sum are the rank's own.  Under a space
+        axis every rank of a space group holds its images' whole pools:
+        the keys come from one rank of each data coordinate, and the sum
+        over the group counts each image ``sp`` times, which the division
+        by the whole group's size takes out."""
         world = distributed.process_count()
-        patches = feat_q.shape[0] * world // self.total_batch
+        patches = (feat_q.shape[0] * distributed.data_count()
+                   // self.total_batch)
         keys = mesh.all_gather_rows(feat_k.detach())
         rows, own = self._nce_groups(patches, keys.device)
         per = patch_nce_in_groups(feat_q, feat_k, keys[rows], own,
@@ -466,7 +484,10 @@ class UGANBase:
         cols = [x_fixed]
         eye = np.eye(self.cfg.n_modal, dtype=np.float32)
         for target in range(self.cfg.n_modal):
-            _, tsl = self._translate(params, x_fixed, eye[target] - vec_org)
+            # rank 0 alone, on whole images, under a space axis too
+            with distributed.no_space():
+                _, tsl = self._translate(params, x_fixed,
+                                         eye[target] - vec_org)
             cols.append(tsl.cpu().numpy())
         grid = np.clip((np.concatenate(cols, axis=2) + 1.0) / 2.0, 0, 1)
         rows = np.concatenate(list(grid[..., 0]), axis=0)

@@ -82,6 +82,8 @@ class M3L(SupervisedUNet):
     """The student ``LinearFusionMaskedConsistencyMixBatch(n_class)`` and
     its EMA teacher, on the card unless ``device`` names another."""
 
+    space_axis = False
+
     name = "M3L"
     uses_unlabeled = True
     lambda_semi = 1.0

@@ -103,6 +103,8 @@ class MeanTeacher(SupervisedUNet):
     """The student ``UNet(n_class, base_width)`` and its EMA teacher, on
     the card unless ``device`` names another."""
 
+    space_axis = False
+
     name = "meanTeacher"
     uses_unlabeled = True
     lambda_semi = 1.0

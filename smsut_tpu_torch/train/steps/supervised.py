@@ -11,7 +11,14 @@ every residual block with ``block_pallas``.  The eval forward serves
 :meth:`SupervisedUNet.step` is the iteration's device part alone: it reads
 its tensors and the state's, and updates the state in place, with the LR
 read on the device at the state's device count, so the fit loop replays
-it as a CUDA graph (``train/graphs.py``).  :meth:`train_step` is
+it as a CUDA graph (``train/graphs.py``).
+
+Under a space axis (``Config.spatial_parallel``, ``parallel/mesh.py``) the
+step takes the rank's rows of its data coordinate's images: the model's
+layers meet their neighbours, the batch Dice sums over the whole group
+and the CE's mean over equal shards is exact once the group averages the
+gradients.  The zoo built on this class (``space_axis`` False) raises
+there (ROADMAP A10e).  :meth:`train_step` is
 :meth:`inputs`, :meth:`step` and the host step mirror advanced.
 """
 from __future__ import annotations
@@ -25,6 +32,7 @@ from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models import UNet
 from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+from smsut_tpu_torch.parallel import mesh
 from smsut_tpu_torch.train.state import TrainState, make_sgd
 from smsut_tpu_torch.train.steps import setup_compute
 
@@ -37,9 +45,13 @@ class SupervisedUNet:
 
     name = "unet"
     uses_unlabeled = False
+    # whether the step runs under a space axis (the zoo's do not yet)
+    space_axis = True
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None):
+        if not self.space_axis:
+            mesh.refuse_space(self.name, cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)

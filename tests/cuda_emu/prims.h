@@ -131,8 +131,20 @@ inline float __shfl_xor_sync(unsigned mask, float v, int m) {
 }
 
 struct EmuCopy { uint32_t dst; const void* src; bool valid; };
-inline thread_local std::vector<EmuCopy> emu_open;
-inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+inline std::vector<EmuCopy> emu_open;
+inline std::vector<std::vector<EmuCopy>> emu_groups;
+
+// the copies in flight, per fiber
+inline std::vector<std::pair<std::vector<EmuCopy>,
+                             std::vector<std::vector<EmuCopy>>>>
+    emu_copy_states;
+inline void emu_copy_hook(int f, bool) {
+  if ((int)emu_copy_states.size() <= f) emu_copy_states.resize(f + 1);
+  std::swap(emu_open, emu_copy_states[f].first);
+  std::swap(emu_groups, emu_copy_states[f].second);
+}
+inline const bool emu_copy_hooked =
+    (emu_fiber_hooks.push_back(emu_copy_hook), true);
 
 inline void emu_copy(const EmuCopy& c) {
   if (c.valid)

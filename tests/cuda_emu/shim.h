@@ -1,7 +1,7 @@
 // Host emulation of the CUDA runtime and device pieces that the port's
 // kernels use, so that their source compiles with g++ and runs on the CPU:
-// one std::thread per CUDA thread, a std::barrier for __syncthreads and one
-// per warp for the warp collectives of prims.h.  Blocks run one at a time,
+// one fiber per CUDA thread, a barrier for __syncthreads and one per warp
+// for the warp collectives of prims.h.  Blocks run one at a time,
 // except the blocks of one thread-block cluster (cudaLaunchKernelEx with a
 // cluster dimension), which run at once, meet at cluster.sync() and read
 // each other's shared memory (cooperative_groups.h).  Each block's shared
@@ -11,16 +11,25 @@
 // sm90_prims.h), the count of each block's threads still running (the
 // mbarrier emulation's deadlock check) and a key per block run
 // (setmaxnreg's register pool).
+//
+// The fibers (ucontext) of a launch take turns on the launching thread,
+// each running until it waits (a barrier, an mbarrier, setmaxnreg) or
+// ends, and the per-thread state of the headers is saved and restored at
+// each switch (emu_fiber_hooks).  (With an operating-system thread per
+// CUDA thread, every barrier woke several hundred threads, which cost most
+// of the emulation's time, and more on a loaded host.)
 #pragma once
 #include <algorithm>
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <atomic>
-#include <barrier>
+#include <functional>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <thread>
 #include <utility>
 #include <vector>
 using std::max;
@@ -39,8 +48,8 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct emu_uint3 { unsigned x, y, z; };
-inline thread_local emu_uint3 threadIdx, blockIdx;
-inline thread_local dim3 gridDim, blockDim;
+inline emu_uint3 threadIdx, blockIdx;
+inline dim3 gridDim, blockDim;
 
 struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
@@ -110,6 +119,95 @@ template <typename K> cudaError_t cudaFuncSetAttribute(K, int attr, int v) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+// ---- fibers: a launch's CUDA threads take turns on the launching thread
+
+// state a header keeps per CUDA thread, handed between the
+// globals and fiber f's own copy: hook(f, true) before f runs, hook(f,
+// false) after it yields
+inline std::vector<void (*)(int, bool)> emu_fiber_hooks;
+inline int emu_fiber = -1;   // the running fiber, -1 for the launcher
+inline ucontext_t emu_sched_ctx;
+struct EmuFiber {
+  ucontext_t ctx;
+  bool done;
+};
+inline std::vector<EmuFiber> emu_fibers;
+inline std::vector<void*> emu_stacks;   // kept for the next launches
+constexpr size_t kEmuStack = 256 * 1024;
+inline std::function<void(int)>* emu_fiber_fn;
+
+inline void emu_yield() {
+  swapcontext(&emu_fibers[emu_fiber].ctx, &emu_sched_ctx);
+}
+
+inline void emu_fiber_entry() {
+  (*emu_fiber_fn)(emu_fiber);
+  emu_fibers[emu_fiber].done = true;
+}
+
+// fn(0) .. fn(count - 1), each a fiber, in turns: fiber f runs from where
+// it yielded until it yields again or ends
+inline void emu_run_fibers(int count, std::function<void(int)> fn) {
+  while ((int)emu_stacks.size() < count) {
+    void* st = mmap(nullptr, kEmuStack, PROT_READ | PROT_WRITE,
+                    MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (st == MAP_FAILED) {
+      fprintf(stderr, "fibers: no memory for a stack\n");
+      exit(3);
+    }
+    emu_stacks.push_back(st);
+  }
+  emu_fiber_fn = &fn;
+  emu_fibers.assign(count, EmuFiber{});
+  for (int f = 0; f < count; ++f) {
+    EmuFiber& fb = emu_fibers[f];
+    getcontext(&fb.ctx);
+    fb.ctx.uc_stack.ss_sp = emu_stacks[f];
+    fb.ctx.uc_stack.ss_size = kEmuStack;
+    fb.ctx.uc_link = &emu_sched_ctx;
+    makecontext(&fb.ctx, emu_fiber_entry, 0);
+  }
+  for (int live = count; live;)
+    for (int f = 0; f < count; ++f) {
+      if (emu_fibers[f].done) continue;
+      for (auto h : emu_fiber_hooks) h(f, true);
+      emu_fiber = f;
+      swapcontext(&emu_sched_ctx, &emu_fibers[f].ctx);
+      emu_fiber = -1;
+      for (auto h : emu_fiber_hooks) h(f, false);
+      live -= emu_fibers[f].done;
+    }
+}
+
+// The threads of a block, a warp, a warpgroup or a cluster meet in
+// arrive_and_wait(): a fiber that is not the last to arrive yields until
+// the last one advances the phase.  A wait that outlasts every other
+// fiber's many turns cannot complete.
+class EmuBarrier {
+ public:
+  explicit EmuBarrier(int n) : n_(n) {}
+  void arrive_and_wait() {
+    const unsigned ph = phase_;
+    if (++count_ == n_) {
+      count_ = 0;
+      ++phase_;
+      return;
+    }
+    for (long turns = 0; phase_ == ph; ++turns) {
+      if (turns > (1L << 24)) {
+        fprintf(stderr, "barrier: a wait that cannot complete\n");
+        exit(5);
+      }
+      emu_yield();
+    }
+  }
+
+ private:
+  unsigned phase_ = 0;
+  int count_ = 0;
+  const int n_;
+};
+
 // the per-block state of a running block: its shared memory, its
 // barriers, and the exchange slots of its warps' collectives (prims.h)
 struct EmuLane { uint32_t addr; uint32_t a[4]; uint32_t b[2]; float f; };
@@ -117,19 +215,51 @@ constexpr int kEmuMaxCluster = 16;
 constexpr size_t kEmuSmem = 240 * 1024;
 alignas(1024) inline unsigned char emu_smem_pool[kEmuMaxCluster][kEmuSmem];
 inline EmuLane emu_xch_pool[kEmuMaxCluster][32][32];
-inline thread_local unsigned char* emu_smem;
-inline thread_local EmuLane (*emu_xch)[32];
-inline thread_local std::barrier<>* emu_block_bar;
-inline thread_local std::barrier<>** emu_warp_bar;
-inline thread_local std::barrier<>** emu_wg_bar;
+inline unsigned char* emu_smem;
+inline EmuLane (*emu_xch)[32];
+inline EmuBarrier* emu_block_bar;
+inline EmuBarrier** emu_warp_bar;
+inline EmuBarrier** emu_wg_bar;
 inline std::atomic<int> emu_live_pool[kEmuMaxCluster];
-inline thread_local std::atomic<int>* emu_live;
-inline thread_local int emu_cluster_rank = 0, emu_cluster_size = 1;
+inline std::atomic<int>* emu_live;
+inline int emu_cluster_rank = 0, emu_cluster_size = 1;
 // the running block's key, new for every block of every launch: (launch,
 // block index within it)
-inline thread_local std::pair<long, long> emu_block_key;
+inline std::pair<long, long> emu_block_key;
 inline std::atomic<long> emu_launch_count{0};
-inline thread_local std::barrier<>* emu_cluster_bar;
+inline EmuBarrier* emu_cluster_bar;
+
+// this header's per-thread state, per fiber
+struct EmuShimState {
+  emu_uint3 tid, bid;
+  dim3 gdim, bdim;
+  unsigned char* smem;
+  EmuLane (*xch)[32];
+  EmuBarrier *block_bar, **warp_bar, **wg_bar, *cluster_bar;
+  std::atomic<int>* live;
+  int crank, csize;
+  std::pair<long, long> key;
+};
+inline std::vector<EmuShimState> emu_shim_states;
+inline void emu_shim_hook(int f, bool in) {
+  if ((int)emu_shim_states.size() <= f) emu_shim_states.resize(f + 1);
+  EmuShimState& s = emu_shim_states[f];
+  if (in) {
+    threadIdx = s.tid, blockIdx = s.bid, gridDim = s.gdim, blockDim = s.bdim;
+    emu_smem = s.smem, emu_xch = s.xch, emu_block_bar = s.block_bar;
+    emu_warp_bar = s.warp_bar, emu_wg_bar = s.wg_bar;
+    emu_cluster_bar = s.cluster_bar, emu_live = s.live;
+    emu_cluster_rank = s.crank, emu_cluster_size = s.csize;
+    emu_block_key = s.key;
+  } else {
+    s = EmuShimState{threadIdx, blockIdx, gridDim, blockDim, emu_smem,
+                     emu_xch, emu_block_bar, emu_warp_bar, emu_wg_bar,
+                     emu_cluster_bar, emu_live, emu_cluster_rank,
+                     emu_cluster_size, emu_block_key};
+  }
+}
+inline const bool emu_shim_hooked =
+    (emu_fiber_hooks.push_back(emu_shim_hook), true);
 inline uint64_t __cvta_generic_to_shared(const void* p) {
   return (const unsigned char*)p - emu_smem;
 }
@@ -139,7 +269,7 @@ inline void emu_warp_sync() {
 }
 
 // kernel<<<grid, threads, smem_bytes, stream>>>(args...), in clusters of
-// `cluster` blocks along x.  One std::thread per thread of one cluster
+// `cluster` blocks along x.  One thread of execution per thread of one cluster
 // runs the clusters one after another, in grid order; thread 0 of each
 // block fills the block's shared memory with the garbage pattern before the
 // block starts.
@@ -162,20 +292,18 @@ void emu_launch_clusters(Kernel k, dim3 grid, int threads, size_t smem_bytes,
   const unsigned per_row = grid.x / n;
   const unsigned clusters = per_row * grid.y * grid.z;
   const size_t fill = std::min(kEmuSmem, (smem_bytes + 15) / 16 * 16);
-  std::barrier<> cluster_bar(n * threads);
-  std::vector<std::barrier<>*> bars;
-  std::vector<std::vector<std::barrier<>*>> warps(n), wgs(n);
+  EmuBarrier cluster_bar(n * threads);
+  std::vector<EmuBarrier*> bars;
+  std::vector<std::vector<EmuBarrier*>> warps(n), wgs(n);
   for (int r = 0; r < n; ++r) {
-    bars.push_back(new std::barrier<>(threads));
+    bars.push_back(new EmuBarrier(threads));
     for (int w = 0; w < threads / 32; ++w)
-      warps[r].push_back(new std::barrier<>(32));
+      warps[r].push_back(new EmuBarrier(32));
     for (int w = 0; w < threads / 128; ++w)
-      wgs[r].push_back(new std::barrier<>(128));
+      wgs[r].push_back(new EmuBarrier(128));
   }
-  std::vector<std::thread> ts;
-  for (int r = 0; r < n; ++r)
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([=, &cluster_bar, &bars, &warps, &wgs]() {
+  // thread t of block r of every cluster, in turn
+  auto body = [=, &cluster_bar, &bars, &warps, &wgs](int r, int t) {
         threadIdx = {(unsigned)t, 0, 0};
         gridDim = grid;
         blockDim = dim3(threads);
@@ -202,8 +330,9 @@ void emu_launch_clusters(Kernel k, dim3 grid, int threads, size_t smem_bytes,
           emu_live->fetch_sub(1);
           cluster_bar.arrive_and_wait();
         }
-      });
-  for (auto& t : ts) t.join();
+  };
+  emu_run_fibers(n * threads,
+                 [&](int f) { body(f / threads, f % threads); });
   for (int r = 0; r < n; ++r) {
     delete bars[r];
     for (auto* w : warps[r]) delete w;

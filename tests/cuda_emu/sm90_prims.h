@@ -7,8 +7,9 @@
 //     try_wait.parity.  A phase completes when its arrivals are all in and
 //     its transaction bytes are all landed.  A wait on a phase that can no
 //     longer complete (every running thread of the block waits on a
-//     barrier, for a second), and an arrival beyond a phase's count, are
-//     reported and fail the program.
+//     barrier, for a thousand turns of the waiting fiber with no wait
+//     ending), and an arrival beyond a phase's count, are reported and
+//     fail the program.
 //   - TMA tiled loads (cp.async.bulk.tensor, 3 and 4 dimensions) from a
 //     tensor map that the emulated cuTensorMapEncodeTiled checks as the
 //     CUDA driver does: zeros outside the tensor, at negative and past-the-end
@@ -34,8 +35,6 @@
 //     waiting, and that fails as a wait that cannot complete.
 //   - stmatrix.x4.trans and __syncwarp (every lane).
 #pragma once
-#include <chrono>
-#include <condition_variable>
 #include <map>
 #include <mutex>
 #include <vector>
@@ -139,10 +138,11 @@ struct EmuMbar {
 };
 
 inline std::mutex emu_mbar_mu;
-inline std::condition_variable emu_mbar_cv;
 inline std::map<std::pair<unsigned char*, uint32_t>, EmuMbar> emu_mbars;
 inline std::atomic<int> emu_mbar_blocked_pool[kEmuMaxCluster];
 inline std::atomic<long> emu_tma_loads{0}, emu_mbar_waits{0};
+// waits that have ended (the fibers' deadlock check)
+inline long emu_waits_ended = 0;
 
 [[noreturn]] inline void emu_fail(const char* what) {
   fprintf(stderr, "%s (block %u, thread %u)\n", what, blockIdx.x,
@@ -211,8 +211,7 @@ inline void emu_mbar_progress(EmuMbar& m, bool land) {
   if (m.tx == 0) {
     ++m.phase;
     m.pending = m.count;
-    emu_mbar_cv.notify_all();
-  }
+    }
 }
 
 // An arrival on a phase whose arrivals are all in (its bytes still on the
@@ -226,7 +225,6 @@ inline void emu_mbar_arrive(uint32_t bar, long tx) {
   m.tx += tx;
   --m.pending;
   emu_mbar_progress(m, false);
-  emu_mbar_cv.notify_all();
 }
 
 inline void mbar_arrive(uint32_t bar) { emu_mbar_arrive(bar, 0); }
@@ -235,32 +233,36 @@ inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
   emu_mbar_arrive(bar, bytes);
 }
 
-// Under emu_mbar_mu (`lock`): blocks until ready().  Fails, naming
-// `what`, if every running thread of the block has waited here (on a
-// barrier or setmaxnreg) for a second, or this wait lasts two minutes
+// Under emu_mbar_mu (`lock`): yields until ready().  Fails, naming
+// `what`, if every running thread of the block has waited here (on an
+// mbarrier or setmaxnreg) for a thousand of this fiber's turns with no
+// wait of any fiber ending meanwhile, or this wait lasts 2^26 turns
 // (threads stuck elsewhere).
 template <typename Ready>
 inline void emu_block_until(std::unique_lock<std::mutex>& lock, Ready ready,
                             const char* what) {
   std::atomic<int>& blocked = emu_mbar_blocked_pool[emu_cluster_rank];
   ++blocked;
-  const auto started = std::chrono::steady_clock::now();
-  auto stuck_since = started;
   char msg[160];
+  long seen = emu_waits_ended, stuck = 0, turns = 0;
   while (!ready()) {
-    emu_mbar_cv.wait_for(lock, std::chrono::milliseconds(20));
-    const auto now = std::chrono::steady_clock::now();
-    if (blocked.load() < emu_live->load()) stuck_since = now;
-    else if (now - stuck_since > std::chrono::seconds(1)) {
+    lock.unlock();
+    emu_yield();
+    lock.lock();
+    if (blocked.load() < emu_live->load() || emu_waits_ended != seen) {
+      stuck = 0;
+      seen = emu_waits_ended;
+    } else if (++stuck > 1000) {
       snprintf(msg, sizeof msg, "%s: every thread waits on a phase that "
                "cannot complete", what);
       emu_fail(msg);
     }
-    if (now - started > std::chrono::seconds(120)) {
-      snprintf(msg, sizeof msg, "%s: a wait of over two minutes", what);
+    if (++turns > (1L << 26)) {
+      snprintf(msg, sizeof msg, "%s: a wait of over 2^26 turns", what);
       emu_fail(msg);
     }
   }
+  ++emu_waits_ended;
   --blocked;
 }
 
@@ -327,7 +329,6 @@ inline void emu_setmaxnreg(int n, bool inc) {
   r.count[wg] = n;
   r.arrived[wg] = 0;
   ++r.done[wg];
-  emu_mbar_cv.notify_all();
 }
 
 template <int N> inline void setmaxnreg_dec() { emu_setmaxnreg(N, false); }
@@ -351,7 +352,6 @@ inline void emu_tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
   memset(emu_smem + dst, 0xFF, n);
   emu_mbar(bar).copies.push_back(c);
   ++emu_tma_loads;
-  emu_mbar_cv.notify_all();
 }
 
 inline void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -373,10 +373,29 @@ struct EmuAcc {
   std::vector<float> v;
   int groups = 0;
 };
-inline thread_local std::map<float*, EmuAcc> emu_acc;
-inline thread_local std::vector<float*> emu_wg_open;
-inline thread_local std::vector<std::vector<float*>> emu_wg_groups;
-inline thread_local bool emu_fenced = false;
+inline std::map<float*, EmuAcc> emu_acc;
+inline std::vector<float*> emu_wg_open;
+inline std::vector<std::vector<float*>> emu_wg_groups;
+inline bool emu_fenced = false;
+
+// the wgmma state in flight, per fiber
+struct EmuWgState {
+  std::map<float*, EmuAcc> acc;
+  std::vector<float*> open;
+  std::vector<std::vector<float*>> groups;
+  bool fenced = false;
+};
+inline std::vector<EmuWgState> emu_wg_states;
+inline void emu_wg_hook(int f, bool) {
+  if ((int)emu_wg_states.size() <= f) emu_wg_states.resize(f + 1);
+  EmuWgState& w = emu_wg_states[f];
+  std::swap(emu_acc, w.acc);
+  std::swap(emu_wg_open, w.open);
+  std::swap(emu_wg_groups, w.groups);
+  std::swap(emu_fenced, w.fenced);
+}
+inline const bool emu_wg_hooked =
+    (emu_fiber_hooks.push_back(emu_wg_hook), true);
 inline std::atomic<long> emu_wgmma{0};
 
 inline void wgmma_fence() { emu_fenced = true; }

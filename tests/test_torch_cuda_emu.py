@@ -4,7 +4,7 @@ the host C++ compiler against an emulation of the CUDA runtime and of the
 PTX primitives they use (tests/cuda_emu: ldmatrix .x4/.x2/.trans, mma.sync
 m16n8k16 bf16, cp.async; and Hopper's mbarriers, TMA tiled loads from a
 tensor map, wgmma with A in registers or shared memory, and setmaxnreg,
-sm90_prims.h; one thread per
+sm90_prims.h; one fiber per
 CUDA thread), is run and held against a float64 reference by one check
 program per source:
 
@@ -148,7 +148,7 @@ def _build(tmp_path_factory, name):
     out = tmp_path_factory.mktemp(name)
     _generate(out, SOURCES[name])
     exe = out / f"{name}_check"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", f"-I{out}",
+    subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", f"-I{out}",
                     f"-I{EMU}", "-o", str(exe),
                     str(EMU / f"{name}_check.cpp")],
                    check=True, capture_output=True, text=True, timeout=600)

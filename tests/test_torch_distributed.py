@@ -241,12 +241,13 @@ def test_get_loader_explicit_shards(tmp_path):
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(spatial_parallel=2), NotImplementedError, "A10c"),
+    (dict(spatial_parallel=2), ValueError, "launch a multiple of 2"),
     (dict(data_parallel=2), ValueError, "launch 2 processes"),
     (dict(batch_size=8, data_parallel=1), None, None)])
 def test_single_process_knobs(kw, exc, match):
     """In one process ``data_parallel`` above 1 and ``spatial_parallel``
-    above 1 raise; they are no longer ignored."""
+    above 1 raise, asking for the processes they need; they are not
+    ignored."""
     cfg = Config(**kw)
     if exc is None:
         assert mesh.check_config(cfg) == 1
@@ -476,8 +477,10 @@ def test_eval_sweep_shares(monkeypatch, n, world, want):
     ("meanTeacher", None),
     ("uganConsis B/N odd", None)])
 def test_group_refusals(run, what, error):
-    """Under a group of 2: the spatial axis and a data_parallel that is
-    not the group's size raise; Mean Teacher and a uganConsis whose
+    """Under a group of 2: the spatial axis with the fused block kernel
+    (tests/test_torch_spatial.py runs the axis itself) and a
+    data_parallel that is not the group's size raise; Mean Teacher and a
+    uganConsis whose
     PatchNCE groups straddle the ranks (3 rows a rank) construct
     (tests/test_torch_distributed_zoo.py holds them to one process)."""
     for r in ranks(run, "refuse"):

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """The port stands alone: no module of ``smsut_tpu_torch`` (nor
 ``chip_smoke.py``, which drives it on the card, nor the data-parallel
-tests' ranks, ``tests/torch_distributed_worker.py`` and
-``tests/torch_distributed_zoo_worker.py``) imports JAX, flax, optax,
+tests' ranks, ``tests/torch_distributed_worker.py``,
+``tests/torch_distributed_zoo_worker.py`` and
+``tests/torch_spatial_worker.py``) imports JAX, flax, optax,
 orbax, anything of the JAX package ``smsut_tpu`` or of the JAX tools in
 ``tools/`` -- checked in the source, and in a fresh interpreter that
 imports every module.  And each imports only what the card's machine has:
@@ -40,7 +41,8 @@ def _modules():
 ALLOWED = ("numpy", "scipy", "torch", "smsut_tpu_torch")
 # the data-parallel tests' ranks run the port alone
 WORKER = [ROOT / "tests" / "torch_distributed_worker.py",
-          ROOT / "tests" / "torch_distributed_zoo_worker.py"]
+          ROOT / "tests" / "torch_distributed_zoo_worker.py",
+          ROOT / "tests" / "torch_spatial_worker.py"]
 LAZY_ONLY = ("triton",)
 
 

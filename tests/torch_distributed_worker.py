@@ -15,8 +15,8 @@ Modes (the parent holds each against one process):
   augmentation on the synthetic tree, through the sharded loaders;
 - ``pseudo``: CoraNet's pseudo set and three pseudo batches;
 - ``eval``: the eval sweep, scanned and per batch;
-- ``refuse``: the knobs a group of 2 refuses, and algorithms it once
-  refused.
+- ``refuse``: the knobs a group of 2 refuses (the space axis with the
+  fused block kernel), and algorithms it once refused.
 """
 import hashlib
 import json
@@ -232,7 +232,8 @@ def run_refuse() -> dict:
                                    step_cfg(expr_root=expr, **kw), "test")
     gan = dict(input_size=32, base_width=8, nce_patches=4)
     return {
-        "spatial_parallel=2": refused(lambda: trainer(spatial_parallel=2)),
+        "spatial_parallel=2": refused(lambda: trainer(spatial_parallel=2,
+                                                      block_pallas=True)),
         "data_parallel=3": refused(lambda: trainer(data_parallel=3)),
         "data_parallel=2": refused(lambda: trainer(data_parallel=2)),
         "meanTeacher": refused(lambda: MeanTeacher(step_cfg(),
