@@ -262,10 +262,39 @@
    spatial_parallel=2`` through ``torch.distributed.run`` on phase 6's
    tree, one epoch of 10, then ``-p test`` in one process from its
    checkpoint.
-14. Prints the ``kernels`` JSON line (all nine kernels, launches summed
-   over the runs of phases 3-13, replays included, not over the checks
+14. The model axis (channel-wise tensor parallelism, dp x tp = 1 x 2:
+   ``parallel/mesh.py`` ``make_mesh_2d``, ``shard_params_channelwise``):
+   each rank holds the output-channel shards of every eligible weight and
+   of its optimizer state, and gathers each sharded layer's output
+   channels.  Two ranks on the one card over gloo (eager; NCCL refuses two
+   ranks on one card), started during phase 13.  14a. The U-Net w16,
+   256x256, global batch 8, float32, 3 steps, against one process at the
+   global batch under 11b's bounds; a rank's launches and routed calls per
+   step asserted (K1 and K4 as one process's, on whole maps; K2 and K5 on
+   the weight shards, the 256^2 level's shards of Cout 8 routed: width
+   8's counts), its step ms, and its bytes of parameters and momentum
+   (the sharded tensors' halved); ``uganConsis`` at the Config defaults
+   (w16, 8 + 8), 2 float32 steps fed one process's draws, step 1 under
+   7b's rules against one process, the launches of both steps equal, K1
+   and K4 as one process's.  Both ranks' trees equal to the bit, the
+   replicated parameters too.  14b. The same U-Net with ``block_pallas``:
+   every block runs K3 and K6 on its gathered weights (9 a step,
+   ``block.basic_block.tp_gathered``), under 11b's bounds.  14c.
+   ``dryrun_multichip(4)`` (``smsut_tpu_torch/parallel/dryrun.py``)
+   through ``torch.distributed.run``: four gloo ranks on the card, the
+   2 x 2 model and space layouts against one process within the JAX dry
+   run's bounds.  14d. The checkpoint rank 0 wrote at 1 x 2 after 14a's
+   steps, loaded in one process: its trees equal the ranks' gathered ones
+   to the bit, its next step meets 11b's bounds against the ranks' next,
+   and two loads' next steps are equal to the bit.
+   Phases 2 and 2b also hold K2, K2 as dx and K5, in both dtypes, at a
+   model rank's shards of the step's convs (``TP_CONVS``, labelled
+   ``tp=2``).
+15. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-14, replays included, not over the checks
    against the plain path; K1's and K4's split forms' launches beside
-   theirs), then the device line last.
+   theirs, and each kernel's launches by phase 14's rank 0,
+   ``tp_rank_launches``), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -342,6 +371,13 @@ STEP_CONVS = ((256, 8, 16), (256, 16, 16), (256, 32, 16), (128, 16, 32),
 F32_K2 = ((256, 32, 16), (256, 8, 16), (32, 256, 128), (16, 128, 256))
 F32_K5 = ((256, 32, 16), (256, 8, 16), (16, 128, 256))
 F32_DX = ((256, 8, 16),)
+# a model rank's shards of those convs at tp = 2 (phase 14: Cout halved,
+# Cin whole) that the kernels take, Cout/2 a multiple of 16 (the 256^2
+# level's shards of Cout 8 are routed): K2, K2 as dx and K5 at each in
+# both dtypes, labelled "tp=2"
+TP = 2
+TP_CONVS = tuple((h, ci, co // TP) for h, ci, co in STEP_CONVS
+                 if (co // TP) % 16 == 0)
 # the CUDA-core conv kernels, by function name (smsut_tpu_torch/tools/
 # profile_step.py, which also groups a step's kernels into K1-K6): a
 # bfloat16 step runs none of them
@@ -640,14 +676,18 @@ def check_kernels(torch, F, ops, instnorm, conv3x3, block):
         # K2: float32 at decoder level 0 (32 -> 16), the stem block
         # (8 -> 16), decoder level 3 (256 -> 128 at 32^2) and the
         # bottleneck (128 -> 256); bfloat16 at every conv of the step
-        for (h, ci, co) in F32_K2 if dt == torch.float32 else STEP_CONVS:
+        f32 = dt == torch.float32
+        for (h, ci, co), tag in [(c, "") for c in (
+                F32_K2 if f32 else STEP_CONVS)] + [
+                (c, f" tp={TP}") for c in TP_CONVS]:
             b, w = 8, h
             x = cases.randn(b, h, w, ci, dtype=dt)
             wt = cases.conv_w(3, ci, co, dt)
             lib = lambda x=x, wt=wt: F.conv2d(x.permute(0, 3, 1, 2),
                                               wt.permute(3, 2, 0, 1),
                                               padding=1)
-            record(torch, ops, rows, "conv3x3", f"{[b, h, w, ci]}->{co}", dn,
+            record(torch, ops, rows, "conv3x3",
+                   f"{[b, h, w, ci]}->{co}{tag}", dn,
                    conv3x3.conv3x3_fwd, (x, wt), lib,
                    flops=2 * b * h * w * 9 * ci * co,
                    nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz,
@@ -707,20 +747,26 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
         # K5: float32 at the dw of decoder level 0 (32 -> 16), the first
         # block (8 -> 16) and the bottleneck (128 -> 256 at 16^2);
         # bfloat16 at every conv of the step
-        for (h, ci, co) in F32_K5 if dt == torch.float32 else STEP_CONVS:
+        f32 = dt == torch.float32
+        for (h, ci, co), tag in [(c, "") for c in (
+                F32_K5 if f32 else STEP_CONVS)] + [
+                (c, f" tp={TP}") for c in TP_CONVS]:
             b, w = 8, h
             x = cases.randn(b, h, w, ci, dtype=dt)
             g = cases.randn(b, h, w, co, dtype=dt)
             lib = lambda x=x, g=g, ci=ci, co=co: torch.nn.grad.conv2d_weight(
                 nchw(x), (co, ci, 3, 3), nchw(g), padding=1)
-            record(torch, ops, rows, "conv3x3_dw", f"{[b, h, w, ci]}->{co}",
+            record(torch, ops, rows, "conv3x3_dw",
+                   f"{[b, h, w, ci]}->{co}{tag}",
                    dn, conv3x3.conv3x3_dw, (x, g), lib,
                    flops=2 * b * h * w * 9 * ci * co,
                    nbytes=b * h * w * (ci + co) * isz + 9 * ci * co * 4,
                    iters=10)
         # K2 as dx: float32 at the first block's conv1 (8 -> 16)
         # transposed, 16 -> 8; bfloat16 at every conv of the step
-        for (h, ci, co) in F32_DX if dt == torch.float32 else STEP_CONVS:
+        for (h, ci, co), tag in [(c, "") for c in (
+                F32_DX if f32 else STEP_CONVS)] + [
+                (c, f" tp={TP}") for c in TP_CONVS]:
             b, w = 8, h
             g = cases.randn(b, h, w, co, dtype=dt)
             wf = cases.conv_w(3, ci, co, dt)
@@ -729,7 +775,8 @@ def check_backward_kernels(torch, F, ops, instnorm, conv3x3, block):
                 torch.nn.grad.conv2d_input((b, ci, h, h),
                                            wf.permute(3, 2, 0, 1), nchw(g),
                                            padding=1)
-            record(torch, ops, rows, "conv3x3_dx", f"{[b, h, w, co]}->{ci}",
+            record(torch, ops, rows, "conv3x3_dx",
+                   f"{[b, h, w, co]}->{ci}{tag}",
                    dn, conv3x3.conv3x3_fwd, (g, wt), lib,
                    flops=2 * b * h * w * 9 * ci * co,
                    nbytes=(b * h * w * (ci + co) + 9 * ci * co) * isz,
@@ -4773,6 +4820,358 @@ def sp_phase(torch, ops, instnorm, counters, routed, data: Path,
             "seconds": [t1 - t0, t2 - t1, t3 - t2]}
 
 
+# phase 14: the model axis (channel-wise tensor parallelism, dp x tp =
+# 1 x 2): two ranks on the one card over gloo, each holding the output-
+# channel shards of every eligible weight and of its optimizer state
+TP_DIR = FIT_DIR / "tp"
+TP_STEPS = 3              # 14a/14b: the U-Net's eager steps
+TP_GAN_STEPS = 2          # 14a: uganConsis's eager steps
+# a rank's launches and routed calls per U-Net step at w16: the 3x3 convs
+# of the 256^2 level run shards of Cout 8, which K5 does not take (routed,
+# as width 8's first and last blocks are in one process: phase 4's
+# counts); fused, K3/K6 on every block's gathered weights
+PER_STEP_TP = {False: dict(PER_STEP_W8[False]),
+               True: dict(PER_STEP[True])}
+ROUTED_TP = {False: {"conv3x3": 4, "block": 0},
+             True: {"conv3x3": 0, "block": 0}}
+
+
+def tp_bytes(whole, state) -> dict:
+    """Bytes of the parameters and the optimizer state on a rank against
+    the whole state's, in all and over the sharded tensors alone."""
+    size = lambda t, keys: sum(t[k].numel() * t[k].element_size()
+                               for k in keys)
+    keys, shards = list(whole.params), state.shards
+    return {"rank": size(state.params, keys) + size(state.opt_state, keys),
+            "whole": size(whole.params, keys) + size(whole.opt_state, keys),
+            "rank_sharded": size(state.params, shards)
+            + size(state.opt_state, shards),
+            "whole_sharded": size(whole.params, shards)
+            + size(whole.opt_state, shards)}
+
+
+def tp_rank() -> dict:
+    """14a, 14b and 14d's ranks, one of two on the one card (gloo, eager;
+    the group from the SMSUT_* variables) laid out as dp x tp = 1 x 2: the
+    w16 U-Net's TP_STEPS float32 steps unfused, a checkpoint and one more
+    step (14d), the same fused (14b), and TP_GAN_STEPS float32 uganConsis
+    steps; metrics averaged over the ranks, launches and routed calls per
+    step, step times, bytes, the trees whole (gathered) and the replicated
+    ones' digest, rank 0's GAN after step 1 written to TP_DIR."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.ops import block
+    from smsut_tpu_torch.parallel import distributed, mesh
+    from smsut_tpu_torch.train import checkpoints
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    if not distributed.initialize():
+        raise AssertionError("no group")
+    layout = mesh.make_mesh_2d(1, TP)
+    rank = distributed.process_index()
+    counters, routed = kernel_counters()
+    counts = lambda: {k: c.launches for k, c in counters.items()}
+    out = {"rank": rank, "world": distributed.process_count(),
+           "model": distributed.model_count(),
+           "backend": distributed.backend()}
+
+    def timed_step(algo, state, batch, scal=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = algo.train_step(state, batch, scal)
+        m = {k: float(mesh.mean_over_ranks(v)) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return state, m, (time.perf_counter() - t0) * 1e3
+
+    def replicated(tree, shards):
+        return tree_sha({k: v for k, v in tree.items() if k not in shards})
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in dp_batch(np).items()}
+    for fused in (False, True):
+        cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                     compute_dtype="float32", block_pallas=fused)
+        unet = SupervisedUNet(cfg)
+        whole = unet.init_state(0)
+        state = mesh.shard_params_channelwise(layout, whole)
+        bytes_ = tp_bytes(whole, state)
+        del whole
+        zero(counters, routed)
+        block.basic_block.tp_gathered = 0
+        losses, ms = [], []
+        for _ in range(TP_STEPS):
+            state, m, t = timed_step(unet, state, batch)
+            losses.append(m["loss"])
+            ms.append(t)
+        params = mesh.gather_tree(state.params, state.shards)
+        res = {"losses": losses, "step_ms": ms, "bytes": bytes_,
+               "launches": {k: v // TP_STEPS for k, v in counts().items()},
+               "routed": {k: v // TP_STEPS
+                          for k, v in routed_counts(routed).items()},
+               "tp_gathered": block.basic_block.tp_gathered // TP_STEPS,
+               "checksum": tree_checksum(params), "sha": tree_sha(params),
+               "replicated_sha": replicated(state.params, state.shards),
+               "shards": len(state.shards)}
+        if not fused:
+            # 14d: the whole tree written by rank 0, then one more step
+            checkpoints.save_state(state, str(TP_DIR), "tp")
+            state, m, _ = timed_step(unet, state, batch)
+            res["next"] = {"loss": m["loss"], "checksum": tree_checksum(
+                mesh.gather_tree(state.params, state.shards))}
+        out[f"unet_{'on' if fused else 'off'}"] = res
+        del unet, state, params
+        torch.cuda.empty_cache()
+    gan = UGANConsisAlgo(Config(input_size=256, base_width=16,
+                                batch_size=DP_GLOBAL, compute_dtype="float32",
+                                consis_gate_step=0))
+    whole = gan.init_state(0)
+    gst = mesh.shard_params_channelwise(layout, whole)
+    del whole
+    gb = gan_batch(torch, np)
+    steps = []
+    for i in range(TP_GAN_STEPS):
+        zero(counters, routed)
+        gst, gm, t = timed_step(gan, gst, dict(gb, **gan.make_extra_batch()),
+                                gan.epoch_scalars(1))
+        g = mesh.gather_tree(gst.g_params, gst.g_shards)
+        d = mesh.gather_tree(gst.d_params, gst.d_shards)
+        steps.append({"metrics": gm, "ms": t, "launches": counts(),
+                      "routed": routed_counts(routed), "g_sha": tree_sha(g),
+                      "d_sha": tree_sha(d),
+                      "replicated_sha": replicated(gst.g_params, gst.g_shards)
+                      + replicated(gst.d_params, gst.d_shards)})
+        if i == 0 and rank == 0:
+            torch.save({"g_params": {k: v.cpu() for k, v in g.items()},
+                        "d_params": {k: v.cpu() for k, v in d.items()}},
+                       TP_DIR / "gan_rank0.pt")
+    out["gan"] = {"steps": steps, "shards": [len(gst.g_shards),
+                                             len(gst.d_shards)]}
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def tp_spawn() -> list:
+    """14a's two ranks, started ahead of the phase (their group's address
+    chosen here)."""
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    return [run_child("tp_rank", {
+        "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+        "SMSUT_NUM_PROCESSES": str(TP), "SMSUT_PROCESS_ID": str(r)})
+        for r in range(TP)]
+
+
+def tp_one_process(torch, np, counters, routed) -> dict:
+    """One process at the global batch, float32, deterministic cuDNN: the
+    U-Net's TP_STEPS steps in both block modes, the GAN's first step and
+    its launches per step; 14d: the ranks' checkpoint loaded twice, each
+    copy stepped once."""
+    import types
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train import checkpoints
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in dp_batch(np).items()}
+    out = {}
+    for fused in (False, True):
+        unet = SupervisedUNet(Config(input_size=256, base_width=16,
+                                     batch_size=DP_GLOBAL,
+                                     compute_dtype="float32",
+                                     block_pallas=fused))
+        state, losses, ms = unet.init_state(0), [], []
+        for _ in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = unet.train_step(state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"unet_{'on' if fused else 'off'}"] = {
+            "losses": losses, "step_ms": ms,
+            "checksum": tree_checksum(state.params)}
+        if not fused:
+            loaded = []
+            for _ in range(2):
+                st = checkpoints.load_state(unet.init_state(1), str(TP_DIR),
+                                            "tp")
+                sha = tree_sha(st.params)
+                st, m = unet.train_step(st, batch)
+                loaded.append({"sha": sha, "step": st.step,
+                               "loss": float(m["loss"]),
+                               "checksum": tree_checksum(st.params),
+                               "next_sha": tree_sha(st.params)})
+            out["loaded"] = loaded
+        del unet, state
+    gan = UGANConsisAlgo(Config(input_size=256, base_width=16,
+                                batch_size=DP_GLOBAL, compute_dtype="float32",
+                                consis_gate_step=0))
+    zero(counters, routed)
+    gst, gm = gan.train_step(gan.init_state(0), dict(
+        gan_batch(torch, np), **gan.make_extra_batch()), gan.epoch_scalars(1))
+    out["gan"] = ({k: float(v) for k, v in gm.items()}, gst)
+    out["gan_per_step"] = {k: c.launches for k, c in counters.items()}
+    saved = torch.load(TP_DIR / "gan_rank0.pt", weights_only=True)
+    out["gan_ranks"] = types.SimpleNamespace(**{
+        t: {k: v.cuda() for k, v in saved[t].items()} for t in saved})
+    del gan
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_two_ranks(torch, np, counters, routed, kids, card: str) -> dict:
+    """14a, 14b, 14d: the two ranks against one process at the global
+    batch: the U-Net under 11b's bounds in both block modes, the GAN's
+    step 1 under 7b's rules, the checkpoint."""
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+
+    for proc, _ in kids:
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+    r0, r1 = [child_result(k, go=False) for k in kids]
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        one = tp_one_process(torch, np, counters, routed)
+    finally:
+        cudnn.deterministic = det
+    out = {"ranks": [r0, r1], "checks": {}}
+    for mode in ("off", "on"):
+        u0, u1, o = r0[f"unet_{mode}"], r1[f"unet_{mode}"], one[f"unet_{mode}"]
+        fused = mode == "on"
+        loss_err = abs(u0["losses"][-1] - o["losses"][-1])
+        sum_err = abs(u0["checksum"] - o["checksum"]) / max(
+            abs(o["checksum"]), 1.0)
+        want = {k: PER_STEP_TP[fused].get(k, 0) for k in KERNELS}
+        out["checks"][mode] = {"loss_err": loss_err, "sum_err": sum_err}
+        b = u0["bytes"]
+        print(f"tp 14{'b' if fused else 'a'} on {card}: U-Net w16 256^2, "
+              f"global batch {DP_GLOBAL}, float32, eager, block_pallas "
+              f"{mode}, two ranks (dp x tp = 1 x {TP}) over "
+              f"{r0['backend']} on the one card, {u0['shards']} tensors "
+              f"sharded: losses {[round(x, 6) for x in u0['losses']]} vs one "
+              f"process {[round(x, 6) for x in o['losses']]}: step "
+              f"{TP_STEPS} err {loss_err:.3g} (tol {DP_LOSS_TOL}), checksum "
+              f"rel err {sum_err:.3g} (tol {DP_SUM_TOL}); ranks' whole "
+              f"trees equal {u0['sha'] == u1['sha']}, replicated parameters "
+              f"equal to the bit {u0['replicated_sha'] == u1['replicated_sha']}"
+              f"; a rank's launches per step {u0['launches']}, routed "
+              f"{u0['routed']}, fused blocks on gathered weights "
+              f"{u0['tp_gathered']}; step ms "
+              f"{[round(x, 1) for x in u0['step_ms']]} (rank 0) "
+              f"{[round(x, 1) for x in u1['step_ms']]} (rank 1), one "
+              f"process {[round(x, 1) for x in o['step_ms']]}; bytes of "
+              f"parameters + momentum a rank {b['rank']} of {b['whole']} "
+              f"(sharded tensors {b['rank_sharded']} of "
+              f"{b['whole_sharded']})", flush=True)
+        for r in (r0, r1):
+            u = r[f"unet_{mode}"]
+            if (r["backend"] != "gloo" or r["world"] != TP
+                    or r["model"] != TP or u["launches"] != want
+                    or u["routed"] != ROUTED_TP[fused]
+                    or u["tp_gathered"] != (9 if fused else 0)
+                    or 2 * u["bytes"]["rank_sharded"]
+                    != u["bytes"]["whole_sharded"]):
+                raise AssertionError(f"14 rank {r['rank']} {mode}: {u}")
+        if not (loss_err <= DP_LOSS_TOL and sum_err <= DP_SUM_TOL
+                and u0["sha"] == u1["sha"] and u0["losses"] == u1["losses"]
+                and u0["replicated_sha"] == u1["replicated_sha"]):
+            raise AssertionError(f"14 U-Net {mode} vs one process: "
+                                 f"{out['checks'][mode]}")
+    # 14d: the file rank 0 wrote at 1 x 2, in one process
+    nxt, (a, b) = r0["unet_off"]["next"], one["loaded"]
+    d = {"sha_equal": a["sha"] == r0["unet_off"]["sha"],
+         "loss_err": abs(a["loss"] - nxt["loss"]),
+         "sum_err": abs(a["checksum"] - nxt["checksum"]) / max(
+             abs(nxt["checksum"]), 1.0),
+         "resume_equal": a["next_sha"] == b["next_sha"], "step": a["step"]}
+    out["checks"]["checkpoint"] = d
+    print(f"tp 14d: the checkpoint saved at 1 x {TP} after {TP_STEPS} steps, "
+          f"loaded in one process: trees equal to the ranks' gathered ones "
+          f"{d['sha_equal']}; its next step against the ranks' next: loss "
+          f"err {d['loss_err']:.3g}, checksum rel err {d['sum_err']:.3g}; "
+          f"two loads' next steps equal to the bit {d['resume_equal']}",
+          flush=True)
+    if not (d["sha_equal"] and d["resume_equal"] and d["step"] == TP_STEPS + 1
+            and d["loss_err"] <= DP_LOSS_TOL and d["sum_err"] <= DP_SUM_TOL):
+        raise AssertionError(f"14d: {d}")
+    # the GAN's step 1 against one process's, 7b's rules
+    g0, g1 = r0["gan"]["steps"], r1["gan"]["steps"]
+    gm, gst = one["gan"]
+    lr = Config().lr
+    gan_d = gan_step_against(torch, (g0[0]["metrics"], one["gan_ranks"]),
+                             (gm, gst), lr)
+    out["checks"]["gan"] = gan_d
+    per_step = one["gan_per_step"]
+    print(f"tp 14a on {card}: uganConsis w16, 8 + 8, float32, eager, "
+          f"{TP_GAN_STEPS} steps, sharded G/D tensors {r0['gan']['shards']}: "
+          f"step 1 vs one process {gan_d} (7b's rules); ranks equal to the "
+          f"bit {[s['g_sha'] + s['d_sha'] for s in g0] == [s['g_sha'] + s['d_sha'] for s in g1]}"
+          f"; a rank's launches per step {g0[0]['launches']} (one process "
+          f"{per_step}), routed {g0[0]['routed']}; step ms "
+          f"{[round(s['ms'], 1) for s in g0]} (rank 0) "
+          f"{[round(s['ms'], 1) for s in g1]} (rank 1)", flush=True)
+    for s0, s1 in zip(g0, g1):
+        if (s0["launches"] != g0[0]["launches"]
+                or s1["launches"] != s0["launches"]
+                or s0["routed"] != s1["routed"]
+                or s0["g_sha"] != s1["g_sha"] or s0["d_sha"] != s1["d_sha"]
+                or s0["replicated_sha"] != s1["replicated_sha"]
+                or any(s0["launches"][k] != per_step[k]
+                       for k in ("instnorm", "instnorm_bwd"))
+                or not all(np.isfinite(v) for v in s0["metrics"].values())):
+            raise AssertionError(f"14a GAN ranks: {s0} {s1}")
+    if not (gan_d["loss_over"] <= GAN_LOSS_ATOL
+            and gan_d["d_dev_max"] <= GAN_FLIP_DEV * lr
+            and gan_d["d_flip_share"] < GAN_FLIP_SHARE
+            and gan_d["seg_over"] <= GAN_SEG_ATOL):
+        raise AssertionError(f"14a GAN vs one process: {gan_d}")
+    return out
+
+
+def tp_dryrun(card: str) -> dict:
+    """14c: ``smsut_tpu_torch.parallel.dryrun`` (``dryrun_multichip(4)``)
+    through ``torch.distributed.run``, four gloo ranks on the one card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "4", "-m", "smsut_tpu_torch.parallel.dryrun"],
+        cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("dryrun_multichip(4): ok")]
+    print(f"tp 14c on {card}: {line[-1] if line else 'no report'} "
+          f"({secs:.1f} s, four ranks over gloo on the one card)", flush=True)
+    if proc.returncode or len(line) != 1:
+        raise AssertionError(f"14c dryrun_multichip(4) failed "
+                             f"({proc.returncode}):\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return {"line": line[0], "seconds": secs}
+
+
+def tp_phase(torch, counters, routed, kids: list, card: str) -> dict:
+    """Phase 14: 14a, 14b and 14d (``kids`` from :func:`tp_spawn`), then
+    14c."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ranks = tp_two_ranks(torch, np, counters, routed, kids, card)
+    t1 = time.perf_counter()
+    dry = tp_dryrun(card)
+    t2 = time.perf_counter()
+    print(f"phase 14 on {card}: 14a/b/d {t1 - t0:.1f} s, 14c {t2 - t1:.1f} "
+          f"s", flush=True)
+    return {"two_ranks": ranks, "dryrun": dry, "seconds": [t1 - t0, t2 - t1]}
+
+
 # phase 12: from volumes to a trained model: the port's preparation CLIs
 # on synthetic BTCV and CHAOS trees, then unetTrainer on the PNG tree they
 # write.  4 patients per modality (the split: 2 test, 1 labelled, 1
@@ -5044,15 +5443,25 @@ def main() -> int:
     prep = prep_phase(torch, card)
     lap(seconds, "phase 12", t0)
     t0 = time.perf_counter()
+    tp_kids = tp_spawn()   # phase 14's ranks start up during phase 13
     sp = sp_phase(torch, ops, instnorm, counters, routed, FIT_DIR / "data",
                   sp_kids, card)
     lap(seconds, "phase 13", t0)
+    t0 = time.perf_counter()
+    tp = tp_phase(torch, counters, routed, tp_kids, card)
+    lap(seconds, "phase 14", t0)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     rows += sp["rows"]
     sp_r0 = sp["two_ranks"]["ranks"][0]
     sp_runs = ({"launches": {k: v * SP_STEPS for k, v in
                              sp_r0["unet"]["launches"].items()}},
                sp_r0["gan"])
+    # a model rank's runs of phase 14 (rank 0): the U-Net in both block
+    # modes, the GAN's steps
+    tp_r0 = tp["two_ranks"]["ranks"][0]
+    tp_runs = (*({"launches": {k: v * TP_STEPS for k, v in
+                               tp_r0[f"unet_{m}"]["launches"].items()}}
+                 for m in ("off", "on")), *tp_r0["gan"]["steps"])
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -5095,7 +5504,7 @@ def main() -> int:
                 dispatch["predict"],
                 *zoo["steps"].values(), *zoo["cli"].values(),
                 *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
-                m3l_dtc["m3l_cli"], *sp_runs)
+                m3l_dtc["m3l_cli"], *sp_runs, *tp_runs)
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -5115,6 +5524,9 @@ def main() -> int:
                 raise AssertionError(f"{name}'s split form was not "
                                      f"launched on the main path")
             kernels[-1]["split_launches"] = split
+        # a model rank's share of the launches (phase 14, rank 0)
+        kernels[-1]["tp_rank_launches"] = sum(v["launches"][name]
+                                              for v in tp_runs)
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "sass_ops": sass,
                    "ptxas_conv_dots_sm90_kernel": ptxas_dots,
@@ -5137,6 +5549,8 @@ def main() -> int:
                    "spatial": json.loads(json.dumps(
                        {k: v for k, v in sp.items() if k != "rows"},
                        default=str)),
+                   "tensor_parallel": json.loads(json.dumps(tp,
+                                                            default=str)),
                    "seconds": seconds,
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)

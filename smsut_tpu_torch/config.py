@@ -32,6 +32,15 @@ single process raises: launch that many processes with
 whole rows of at least its halo, and ``block_pallas`` and the zoo's
 algorithms other than the U-Net and the UGAN family raise (ROADMAP A10e).
 
+Channel-wise tensor parallelism has no knob, as in the JAX package, whose
+Trainer does not reach it either: a program lays the group out with
+``parallel/mesh.py`` ``make_mesh_2d(dp, tp)`` and shards a train state
+with ``shard_params_channelwise(mesh, state)``, then calls the
+algorithm's ``train_step`` and ``eval_fn`` (the U-Net and the UGAN
+family; the zoo raises, ROADMAP A10f), as ``parallel/dryrun.py``
+``dryrun_multichip`` does.  It does not combine with ``spatial_parallel >
+1`` (the JAX package's guard).
+
 The kernel knobs keep their names: ``block_pallas`` selects, on a CUDA
 device, the fused residual-block kernel (K3) instead of the conv (K2) +
 instance-norm (K1) chain.  ``use_pallas`` and ``conv_pallas`` are no-ops:

@@ -12,6 +12,15 @@ the U-Net and the UGAN towers keep instance norm and leaky ReLU, the
 dual-task U-Net (``models/dtc.py``) defaults to batch norm and ReLU.
 Module and parameter names mirror the flax tree (models/transplant.py
 maps one onto the other).
+
+Under a model axis (``parallel/mesh.py``) the transposed conv computes
+the output channels of its weight shard and gathers them, as the convs
+do (``models/layers.py``), so the skip concat joins whole tensors in the
+whole tensor's channel order; a fused block gathers its weight shards and
+runs K3 and K6 on the whole weights on every model rank, each rank
+keeping its slice of K6's weight gradients (the JAX package gathers the
+operands of its ``pallas_call``, which GSPMD does not partition), counted
+in ``block.basic_block.tp_gathered``.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ from smsut_tpu_torch.models.layers import (
 from smsut_tpu_torch.ops import block as k3
 from smsut_tpu_torch.ops.block import basic_block
 from smsut_tpu_torch.ops.instnorm import lrelu
-from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel import distributed, mesh
 
 
 class BasicBlock(nn.Module):
@@ -71,16 +80,19 @@ class BasicBlock(nn.Module):
                     "block_pallas under spatial_parallel > 1: K3/K6 would "
                     "need the space group's norm statistics in mid-kernel")
             dt = x.dtype
-            if not k3.takes(x.shape, self.conv1.weight.shape[-1],
-                            self.has_shortcut, dt):
+            cout = self.conv1.features
+            if not k3.takes(x.shape, cout, self.has_shortcut, dt):
                 basic_block.routed += 1
             else:
-                short = ((self.shortcut1.weight.to(dt), self.shortcut2.weight,
+                w = lambda conv: mesh.gather_channels(conv.weight.to(dt),
+                                                      cout)
+                if self.conv1.weight.shape[-1] != cout:
+                    basic_block.tp_gathered += 1
+                short = ((w(self.shortcut1), self.shortcut2.weight,
                           self.shortcut2.bias) if self.has_shortcut else ())
-                return basic_block(x, self.conv1.weight.to(dt),
-                                   self.bn1.weight, self.bn1.bias,
-                                   self.conv2.weight.to(dt), self.bn2.weight,
-                                   self.bn2.bias, *short)
+                return basic_block(x, w(self.conv1), self.bn1.weight,
+                                   self.bn1.bias, w(self.conv2),
+                                   self.bn2.weight, self.bn2.bias, *short)
         y = self.bn2(self.conv2(self.bn1(self.conv1(x))))
         idn = self.shortcut2(self.shortcut1(x)) if self.has_shortcut else x
         return self.act(y + idn)
@@ -96,6 +108,7 @@ class ConvTranspose2x2(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  act_type: str = "lrelu"):
         super().__init__()
+        self.features = features
         # fan_out of the flax kernel [2, 2, Cin, Cout] is 4*Cout
         self.weight = nn.Parameter(kaiming_normal_fan_out(
             (cin, 2, 2, features), 4 * features, generator, act_type))
@@ -105,7 +118,8 @@ class ConvTranspose2x2(nn.Module):
         cout = self.weight.shape[-1]
         y = x @ self.weight.to(x.dtype).reshape(cin, 4 * cout)
         y = y.reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
-        return y.reshape(b, 2 * h, 2 * w, cout)
+        return mesh.gather_channels(y.reshape(b, 2 * h, 2 * w, cout),
+                                    self.features)
 
 
 class UpSampleAndConcat(nn.Module):

@@ -68,5 +68,6 @@ class DTCUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         mesh.refuse_space("DTC")
+        mesh.refuse_model("DTC")
         h, skips = self.encoder(x.to(self.compute_dtype))
         return self.decoder(h, skips)

@@ -32,6 +32,16 @@ with zero rows, whose halo rows go back to the neighbours; ``conv_plain``
 runs VALID in H on them.  The 1x1 convs and the pools are local (a rank's
 rows are even, ``mesh.check_spatial``), and the 2x bilinear upsample
 takes a one-row halo (:func:`upsample_bilinear2`).
+
+Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) a conv whose
+weight is this rank's output-channel shard (``shard_params_channelwise``)
+computes those channels from the whole input, K2 and K5 on the shard
+``[3, 3, Cin, Cout/tp]`` (a shard they do not take, Cout 8 and the like,
+routed as any such shape), and gathers the model group's shards right
+after (``mesh.gather_channels``, whose backward sums the cotangent over
+the group and keeps the rank's channels), before the bias: activations
+stay whole, and every norm runs on whole maps with its replicated
+parameters.
 """
 from __future__ import annotations
 
@@ -157,6 +167,7 @@ class Conv(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  use_bias: bool = False, act_type: Optional[str] = "lrelu"):
         super().__init__()
+        self.features = features
         self.weight = nn.Parameter(kaiming_normal_fan_out(
             (kernel, kernel, cin, features), kernel * kernel * features,
             generator, act_type))
@@ -172,6 +183,7 @@ class Conv(nn.Module):
             y = space_conv(x, w, kernel)
         else:
             y = conv3x3(x, w) if kernel else conv_plain(x, w)
+        y = mesh.gather_channels(y, self.features)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 

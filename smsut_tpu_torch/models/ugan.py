@@ -17,6 +17,13 @@ its class head contracts the rank's rows against its rows of the kernel
 and sums over the space group, and ``PatchSampleF`` takes the features at
 the patch positions in the rank's rows and sums the pool over the group.
 
+Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) the sharded
+weights' layers gather their output channels (``models/layers.py``): here
+the discriminator's stem and the projector's Dense layers, each before its
+bias, so the towers' concats, the projector's L2 norm and the heads see
+whole tensors; the D's ``conv_src`` (one channel) and ``conv_cls``
+(``n_modal``) stay whole under the JAX rule.
+
 Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``,
 then moved to ``device``: the card unless ``device`` names another (no
 CUDA and no device raises).  Outputs are float32 (float64 in a float64
@@ -181,12 +188,14 @@ class _Dense(nn.Module):
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator]):
         super().__init__()
+        self.features = cout
         self.weight = nn.Parameter(
             torch.randn((cin, cout), generator=generator) * 0.02)
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        y = mesh.gather_channels(x @ self.weight.to(x.dtype), self.features)
+        return y + self.bias.to(x.dtype)
 
 
 class _Net(nn.Module):
@@ -260,6 +269,7 @@ class _StemConv(nn.Module):
     def __init__(self, cin: int, features: int,
                  generator: Optional[torch.Generator]):
         super().__init__()
+        self.features = features
         self.weight = nn.Parameter(kaiming_normal_fan_out(
             (4, 4, cin, features), 16 * features, generator))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -272,10 +282,16 @@ class _StemConv(nn.Module):
         if distributed.space_count() > 1:
             x, pad = mesh.halo_rows(x, 1), (0, 1)
         # a contiguous weight, as in layers.conv_plain
-        y = F.conv2d(x.permute(0, 3, 1, 2),
-                     self.weight.to(x.dtype).permute(3, 2, 0, 1).contiguous(),
-                     self.bias.to(x.dtype), stride=2, padding=pad)
-        return y.permute(0, 2, 3, 1)
+        w = self.weight.to(x.dtype).permute(3, 2, 0, 1).contiguous()
+        whole = w.shape[0] == self.features
+        y = F.conv2d(x.permute(0, 3, 1, 2), w,
+                     self.bias.to(x.dtype) if whole else None, stride=2,
+                     padding=pad).permute(0, 2, 3, 1)
+        if whole:
+            return y
+        # a model rank's output channels, gathered, then the bias
+        return (mesh.gather_channels(y, self.features)
+                + self.bias.to(x.dtype))
 
 
 class _Kernel(nn.Module):
@@ -310,6 +326,7 @@ class Discriminator(_Net):
             setattr(self, f"block{i}", BottleBlock(cur, nxt, 2, g))
             cur = nxt
         self.conv_src = Conv(cur, 1, 3, g)
+        self.n_modal = n_modal
         k = input_size // 2 ** repeat_num
         self.conv_cls = _Kernel((k, k, cur, n_modal), k * k * n_modal, g)
         self._place(compute_dtype, device)
@@ -324,5 +341,7 @@ class Discriminator(_Net):
         # the rank's rows against its rows of the kernel, summed over the
         # group
         ck = mesh.space_rows(self.conv_cls.weight, 0).to(x.dtype)
-        cls = x.reshape(x.shape[0], -1) @ ck.reshape(-1, ck.shape[-1])
+        cls = mesh.gather_channels(
+            x.reshape(x.shape[0], -1) @ ck.reshape(-1, ck.shape[-1]),
+            self.n_modal)
         return acc(src), mesh.space_sum(acc(cls))

@@ -355,5 +355,8 @@ def basic_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
     return basic_block_fwd(*ins)
 
 
-# blocks the model layer ran as the unfused chain (not :func:`takes`)
+# blocks the model layer ran as the unfused chain (not :func:`takes`), and
+# fused blocks that ran K3/K6 on weights gathered from their model group's
+# shards (``models/blocks.py``)
 counter(basic_block, "routed")
+counter(basic_block, "tp_gathered")

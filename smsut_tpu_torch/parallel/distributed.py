@@ -14,6 +14,15 @@ batch rows follow the data coordinate (:func:`local_batch_slice`), so the
 ``sp`` ranks of a space group hold the same images, each its own rows of
 every map (``parallel/mesh.py`` :func:`~smsut_tpu_torch.parallel.mesh.set_spatial`).
 
+With a model axis of ``tp > 1`` (``parallel/mesh.py`` ``make_mesh_2d``)
+the group of ``dp x tp`` ranks is laid out as the JAX package's ``('data',
+'model')`` mesh, the ``reshape(dp, tp)`` of the rank order: rank ``r`` has
+data coordinate ``r // tp`` and model coordinate ``r % tp``.  The ``tp``
+ranks of one data coordinate (a model group) hold the same batch rows and
+each its output-channel shard of the sharded parameters; the ``dp`` ranks
+of one model coordinate (a data group) hold the same shards.  The two
+axes are never both above 1 (the JAX package's guard).
+
 Launch N processes with ``python -m torch.distributed.run --nproc_per_node
 N -m smsut_tpu_torch.trainer.unetTrainer ...`` (its ``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``), or set the
@@ -116,6 +125,12 @@ _SPACE = {"size": 1, "group": None}
 _SPACE_OFF = [False]
 
 
+# the model axis: its size, this rank's model group (the ranks of its data
+# coordinate) and data group (the ranks of its model coordinate), set by
+# parallel/mesh.py ``make_mesh_2d``; size 1 and no groups without one
+_MODEL = {"size": 1, "group": None, "data_group": None}
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
@@ -163,14 +178,45 @@ def space_group():
     return _SPACE["group"] if space_count() > 1 else None
 
 
+def set_model(size: int, group, data_group) -> None:
+    """This rank's model axis: its size, its model group and its data
+    group (both None at size 1); parallel/mesh.py ``make_mesh_2d`` makes
+    the groups."""
+    _MODEL.update(size=size, group=group, data_group=data_group)
+
+
+def model_count() -> int:
+    """The size of the model axis: 1 without one."""
+    return _MODEL["size"]
+
+
+def model_index() -> int:
+    """This rank's model coordinate (its shard of every sharded
+    parameter)."""
+    return process_index() % _MODEL["size"]
+
+
+def model_group():
+    """The ranks of this rank's data coordinate, None without a model
+    axis."""
+    return _MODEL["group"]
+
+
+def data_group():
+    """The ranks of this rank's model coordinate (the same shards), None
+    without a model axis."""
+    return _MODEL["data_group"]
+
+
 def data_count() -> int:
-    """The size of the data axis: the ranks over the space axis's size."""
-    return process_count() // _SPACE["size"]
+    """The size of the data axis: the ranks over the space and model
+    axes' sizes."""
+    return process_count() // (_SPACE["size"] * _MODEL["size"])
 
 
 def data_index() -> int:
     """This rank's data coordinate (its rows of every global batch)."""
-    return process_index() // _SPACE["size"]
+    return process_index() // (_SPACE["size"] * _MODEL["size"])
 
 
 def is_primary() -> bool:
@@ -192,7 +238,7 @@ def capturable() -> bool:
 def local_batch_slice(global_batch: int) -> slice:
     """This rank's contiguous rows ``[d*B/D, (d+1)*B/D)`` of a global
     batch of ``B`` rows, ``d`` its data coordinate of ``D`` (the rank and
-    the group's size without a space axis)."""
+    the group's size without a space or model axis)."""
     count = data_count()
     if global_batch % count:
         raise ValueError(

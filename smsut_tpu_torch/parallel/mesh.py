@@ -44,14 +44,42 @@ gradient all-reduce's average over the ``dp x sp`` ranks is the one
 process's gradient where the loss terms are means of equal shards or
 sums over the group (:func:`batch_sums`).
 
-Without a group each of these is the identity.  The channel-wise tensor
-parallelism of ``make_mesh_2d``/``shard_params_channelwise`` raises
-(ROADMAP A10d).
+The model axis (the JAX package's ``('data', 'model')`` mesh of
+``make_mesh_2d``/``shard_params_channelwise``, where GSPMD shards every
+eligible kernel on its output channels): :func:`make_mesh_2d` lays the
+group out as ``dp x tp`` (rank ``r`` has data coordinate ``r // tp`` and
+model coordinate ``r % tp``; the ranks of one data coordinate form a
+model group, those of one model coordinate a data group), and
+:func:`shard_params_channelwise` keeps each rank's shard
+``[..., m*C/tp:(m+1)*C/tp]`` of every tensor the JAX rule shards
+(:func:`channel_sharded`: two dims or more, the last ``C`` a multiple of
+``tp`` and ``C/tp >= 4``), in the parameter and the optimizer trees
+alike; the rest is replicated.  The layers compute a sharded weight's
+output channels on their rank and gather them right after
+(:func:`gather_channels`), so activations stay whole on every rank of a
+model group, which holds the same batch rows, and every norm runs on
+whole maps with its replicated scale.  The gather's backward is its
+adjoint, a reduce-scatter (the cotangent summed over the model group,
+then the rank's slice: gloo has no reduce-scatter, so an all-reduce and a
+slice), and the reduce-scatter's the gather, so both are twice
+differentiable (the gradient penalty); :func:`model_mean` averages a
+gradient taken in a replicated input (the GP's) over the model group.  A
+rank's gradient is then that of the sum of every rank's loss, as on the
+space axis: a sharded parameter's is summed over its data group and a
+replicated one's, partial where its cotangent came through a sharded
+layer, over the whole group (:func:`reduce_gradients_`, one flat buffer
+each), both divided by the group's size.  The batch sums run over the
+data group (:func:`batch_sums`).  ``tp > 1`` with a space axis raises, as
+the JAX package's guard does (GSPMD mis-compiles feature- and
+space-sharded convolutions there; the guard stays for parity).
+
+Without a group each of these is the identity.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List
+from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -153,14 +181,21 @@ def set_spatial(sp: int) -> None:
     if sp == 1 or not dist.is_initialized():
         distributed.set_space(1, None)
         return
+    refuse_tp_sp(distributed.model_count(), sp)
     world = dist.get_world_size()
-    key = (id(dist.group.WORLD), world, sp)
+    groups = _new_groups(("space", sp), [
+        list(range(d * sp, (d + 1) * sp)) for d in range(world // sp)])
+    distributed.set_space(sp, groups[dist.get_rank() // sp])
+
+
+def _new_groups(what: tuple, ranks: List[List[int]]) -> list:
+    """One ``dist.new_group`` per list of ``ranks``, made once per (default
+    group, world, ``what``)."""
+    key = (id(dist.group.WORLD), dist.get_world_size()) + what
     groups = _GROUPS.get(key)
     if groups is None:
-        groups = _GROUPS[key] = [
-            dist.new_group(list(range(d * sp, (d + 1) * sp)))
-            for d in range(world // sp)]
-    distributed.set_space(sp, groups[dist.get_rank() // sp])
+        groups = _GROUPS[key] = [dist.new_group(r) for r in ranks]
+    return groups
 
 
 def refuse_space(what: str, cfg=None) -> None:
@@ -290,16 +325,231 @@ def halo_rows(x: torch.Tensor, r: int) -> torch.Tensor:
     return _Halo.apply(x, r)
 
 
-def make_mesh_2d(dp: int, tp: int):
-    raise NotImplementedError("channel-wise tensor parallelism is not "
-                              "ported: ROADMAP A10d (the tensor-parallel "
-                              "half of A10c)")
+# ------------------------------------------------------------ model axis
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The group laid out as ``dp`` data by ``tp`` model coordinates (the
+    JAX ``Mesh(devices.reshape(dp, tp), ('data', 'model'))``)."""
+    dp: int
+    tp: int
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.dp, "model": self.tp}
 
 
-def shard_params_channelwise(mesh, params):
-    raise NotImplementedError("channel-wise tensor parallelism is not "
-                              "ported: ROADMAP A10d (the tensor-parallel "
-                              "half of A10c)")
+def refuse_tp_sp(tp: int, sp: int) -> None:
+    """The JAX package's guard: no model axis with a space axis."""
+    if tp > 1 and sp > 1:
+        raise ValueError(
+            "channel-wise tensor parallelism cannot be combined with "
+            "spatial parallelism ('model' and 'space' mesh axes both > 1): "
+            "the JAX package's guard against XLA GSPMD's mis-compiled "
+            "feature+space-sharded convolutions, kept for parity.  Use "
+            "dp x tp or dp x sp.")
+
+
+def make_mesh_2d(dp: int, tp: int) -> Mesh:
+    """Lay the group out as ``dp x tp`` (``make_mesh_2d`` of the JAX
+    package, whose devices are taken in order and reshaped ``(dp, tp)``):
+    rank ``r`` gets data coordinate ``r // tp`` and model coordinate ``r %
+    tp``, with its model group and data group.  ``dp * tp`` must be the
+    group's size (a process group has no spare ranks); ``tp`` 1 takes the
+    model axis away.  Every rank calls it with the same sizes."""
+    world = process_count()
+    if dp < 1 or tp < 1 or dp * tp != world:
+        raise ValueError(f"make_mesh_2d(dp={dp}, tp={tp}): dp x tp must be "
+                         f"the group's {world} processes (a process group "
+                         f"has no spare ranks)")
+    refuse_tp_sp(tp, distributed.space_size())
+    if tp == 1:
+        distributed.set_model(1, None, None)
+        return Mesh(dp, tp)
+    model = _new_groups(("model", tp), [
+        list(range(d * tp, (d + 1) * tp)) for d in range(dp)])
+    data = (_new_groups(("data", tp), [list(range(m, world, tp))
+                                       for m in range(tp)])
+            if dp > 1 else [None] * tp)
+    rank = dist.get_rank()
+    distributed.set_model(tp, model[rank // tp], data[rank % tp])
+    return Mesh(dp, tp)
+
+
+def refuse_model(what: str) -> None:
+    """Raise for ``what``, which the model axis does not take yet, under a
+    model axis laid out."""
+    tp = distributed.model_count()
+    if tp > 1:
+        raise NotImplementedError(
+            f"{what} under a model axis of {tp} (make_mesh_2d): channel-"
+            f"wise tensor parallelism is not ported to it (ROADMAP A10f)")
+
+
+def channel_sharded(shape: Sequence[int], tp: int) -> bool:
+    """The JAX rule (``smsut_tpu/parallel/mesh.py``
+    ``shard_params_channelwise``) on a tensor of the whole ``shape``: at
+    least two dims, the last (the output channels of a conv's HWIO kernel,
+    a Dense kernel ``[in, out]``, a transposed conv's ``[Cin, 2, 2, Cout]``)
+    a multiple of ``tp`` with at least 4 channels a shard."""
+    return (tp > 1 and len(shape) >= 2 and shape[-1] % tp == 0
+            and shape[-1] // tp >= 4)
+
+
+def sharded_keys(shapes: Mapping[str, Sequence[int]], tp: int
+                 ) -> FrozenSet[str]:
+    """The keys of a tree of whole ``shapes`` that :func:`channel_sharded`
+    shards over ``tp`` ranks."""
+    return frozenset(k for k, s in shapes.items() if channel_sharded(s, tp))
+
+
+def shard_tensor(x: torch.Tensor, tp: int, index: int) -> torch.Tensor:
+    """Model coordinate ``index``'s shard of a whole tensor (a contiguous
+    copy), or a copy of ``x`` where :func:`channel_sharded` keeps it
+    whole."""
+    if not channel_sharded(x.shape, tp):
+        return x.clone()
+    c = x.shape[-1] // tp
+    return x.narrow(-1, index * c, c).contiguous()
+
+
+def shard_params_channelwise(mesh: Mesh, tree):
+    """This rank's output-channel shard of every tensor of ``tree`` that
+    :func:`channel_sharded` shards over ``mesh``'s model axis, copies of
+    the rest.  ``tree``: a tensor, a mapping of them (parameters, SGD's
+    traces), a dataclass of them (``AdamState``: its count stays whole),
+    or a train state, whose trees are sharded and whose shard keys are
+    recorded.  The mesh must be the layout's (:func:`make_mesh_2d`); a
+    model axis with a space axis raises, as the JAX package's does."""
+    tp = mesh.shape["model"]
+    refuse_tp_sp(tp, distributed.space_size())
+    if tp != distributed.model_count():
+        raise ValueError(f"a mesh of tp={tp} on a group laid out with a "
+                         f"model axis of {distributed.model_count()}: call "
+                         f"make_mesh_2d first")
+    index = distributed.model_index()
+
+    def put(t):
+        if hasattr(t, "shard_channelwise"):
+            return t.shard_channelwise(mesh)
+        if isinstance(t, torch.Tensor):
+            return shard_tensor(t, tp, index)
+        if isinstance(t, Mapping):
+            return {k: put(v) for k, v in t.items()}
+        if dataclasses.is_dataclass(t):
+            return dataclasses.replace(t, **{
+                f.name: put(getattr(t, f.name))
+                for f in dataclasses.fields(t)})
+        return t
+
+    return put(tree)
+
+
+def shard_shape(shape: Sequence[int], tp: int) -> tuple:
+    """The shape of a rank's shard of a tensor of the whole ``shape``."""
+    if not channel_sharded(shape, tp):
+        return tuple(shape)
+    return (*shape[:-1], shape[-1] // tp)
+
+
+def check_shards(what: str, shapes: Mapping[str, Sequence[int]],
+                 tree: Mapping[str, torch.Tensor],
+                 shards: Optional[FrozenSet[str]] = None) -> None:
+    """Refuse a tree that does not match the model axis: ``tree`` must
+    hold each tensor of the whole ``shapes`` as its shard
+    (:func:`shard_shape`), and ``shards``, a state's record, name exactly
+    the sharded keys.  Nothing to check without a model axis and shards."""
+    tp = distributed.model_count()
+    if tp == 1 and not shards:
+        return
+    bad = sorted(k for k, s in shapes.items()
+                 if tuple(tree[k].shape) != shard_shape(s, tp))
+    if bad or (shards is not None and shards != sharded_keys(shapes, tp)):
+        raise ValueError(
+            f"{what}: the tree's shards do not match the model axis of {tp} "
+            f"({bad[:3] or 'the recorded shard keys'}): shard the whole "
+            f"train state with shard_params_channelwise(make_mesh_2d(dp, "
+            f"tp), state)")
+
+
+def _model_parts(x: torch.Tensor) -> List[torch.Tensor]:
+    """Every model rank's ``x`` (one shape on every rank), in model
+    order."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(distributed.model_count())]
+    dist.all_gather(parts, x, group=distributed.model_group())
+    return parts
+
+
+class _ChannelGather(torch.autograd.Function):
+    """[..., c] -> [..., tp*c]: the model ranks' shards in model order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.cat(_model_parts(x), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ChannelScatter.apply(g)
+
+
+class _ChannelScatter(torch.autograd.Function):
+    """The adjoint of :class:`_ChannelGather`: [..., tp*c] summed over the
+    model group, then the rank's [..., c]."""
+
+    @staticmethod
+    def forward(ctx, g):
+        s = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(s, group=distributed.model_group())
+        c = s.shape[-1] // distributed.model_count()
+        return s.narrow(-1, distributed.model_index() * c, c).contiguous()
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _ChannelGather.apply(gg)
+
+
+def gather_channels(y: torch.Tensor, full: int) -> torch.Tensor:
+    """``y``, a rank's output-channel shard of a tensor of ``full``
+    channels (the output of its shard of a sharded weight), whole on every
+    model rank, twice differentiable; ``y`` where it is whole already."""
+    if y.shape[-1] == full:
+        return y
+    return _ChannelGather.apply(y)
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=distributed.model_group())
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ModelSum.apply(g)
+
+
+def model_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x`` averaged over the model group, twice differentiable: a
+    gradient taken in a replicated input (each model rank holds its part
+    of the gradient of the sum of the ranks' outputs, ``tp`` times the
+    output's), made the whole gradient on every rank; ``x`` without a
+    model axis."""
+    tp = distributed.model_count()
+    if tp == 1:
+        return x
+    return _ModelSum.apply(x) / tp
+
+
+@torch.no_grad()
+def gather_tree(tree: Mapping[str, torch.Tensor],
+                shards: FrozenSet[str]) -> Dict[str, torch.Tensor]:
+    """``tree`` with each of its ``shards`` whole again (gathered over the
+    model group, every rank of which must call it), the rest as it is."""
+    parts = set(_split(tree, shards)[1])
+    return {k: torch.cat(_model_parts(v), dim=-1) if k in parts else v
+            for k, v in tree.items()}
 
 
 def _flatten(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -312,52 +562,80 @@ def _views(flat: torch.Tensor, like: List[torch.Tensor]
     return [v.view(t.shape) for v, t in zip(flat.split(sizes), like)]
 
 
+def _split(tree: Tensors, shards: FrozenSet[str]):
+    """(the keys of ``tree`` held whole, those held as a rank's shards):
+    ``shards`` under a model axis, none without one."""
+    if distributed.model_count() == 1 or not shards:
+        return list(tree), []
+    return ([k for k in tree if k not in shards],
+            [k for k in tree if k in shards])
+
+
 @torch.no_grad()
-def replicate_(tree: Tensors) -> Tensors:
+def replicate_(tree: Tensors, shards: FrozenSet[str] = frozenset()
+               ) -> Tensors:
     """``tree``'s tensors overwritten with rank 0's (one broadcast per
-    dtype); returns ``tree``."""
+    dtype), and its ``shards`` (under a model axis) with those of the
+    first rank of this rank's data group, which holds the same shard;
+    returns ``tree``."""
     if not dist.is_initialized():
         return tree
-    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
-    for v in tree.values():
-        by_dtype.setdefault(v.dtype, []).append(v)
-    for vals in by_dtype.values():
-        flat = _flatten(vals)
-        dist.broadcast(flat, 0)
-        torch._foreach_copy_(vals, _views(flat, vals))
+    whole, parts = _split(tree, shards)
+    data = distributed.data_group()
+    for group, src, keys in ((None, 0, whole),
+                             (data, distributed.model_index(),
+                              parts if data is not None else [])):
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for k in keys:
+            by_dtype.setdefault(tree[k].dtype, []).append(tree[k])
+        for vals in by_dtype.values():
+            flat = _flatten(vals)
+            dist.broadcast(flat, src, group=group)
+            torch._foreach_copy_(vals, _views(flat, vals))
     return tree
 
 
 @torch.no_grad()
-def reduce_gradients_(grads: Tensors) -> Tensors:
+def reduce_gradients_(grads: Tensors, shards: FrozenSet[str] = frozenset()
+                      ) -> Tensors:
     """``grads`` averaged over the group: flattened in the tree's key
     order into one buffer, one all-reduce, divided by the world size; the
-    tree's values become views of the buffer.  Returns ``grads``."""
+    tree's values become views of the buffer.  Under a model axis the
+    gradients of ``shards``, a rank's shards, go into a second buffer
+    summed over the data group alone (each model coordinate holds its own
+    shard), divided by the world size too.  Returns ``grads``."""
     if not dist.is_initialized():
         return grads
-    keys = list(grads)
-    vals = [grads[k] for k in keys]
-    flat = _flatten(vals)
-    dist.all_reduce(flat)
     n = dist.get_world_size()
-    if n > 1:
-        flat.div_(n)
-    grads.update(zip(keys, _views(flat, vals)))
+    whole, parts = _split(grads, shards)
+    data = distributed.data_group()
+    for reduce, group, keys in ((True, None, whole),
+                                (data is not None, data, parts)):
+        if not keys:
+            continue
+        vals = [grads[k] for k in keys]
+        flat = _flatten(vals)
+        if reduce:
+            dist.all_reduce(flat, group=group)
+        if n > 1:
+            flat.div_(n)
+        grads.update(zip(keys, _views(flat, vals)))
     return grads
 
 
 class _GlobalSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -365,15 +643,21 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     cotangent over the group too.  ``x`` itself without a group."""
     if not dist.is_initialized():
         return x
-    return _GlobalSum.apply(x)
+    return _GlobalSum.apply(x, None)
 
 
 def batch_sums(*sums: torch.Tensor) -> List[torch.Tensor]:
     """Sums over a rank's rows of the batch, of one shape, made sums over
-    the global batch with one :func:`global_sum`; as they are without a
-    group."""
+    the global batch with one :func:`global_sum` (over the data group
+    under a model axis, whose model ranks hold the same rows: nothing to
+    sum with one data coordinate); as they are without a group."""
     if not dist.is_initialized():
         return list(sums)
+    if distributed.model_count() > 1:
+        group = distributed.data_group()
+        if group is None:
+            return list(sums)
+        return list(_GlobalSum.apply(torch.stack(sums), group).unbind(0))
     return list(global_sum(torch.stack(sums)).unbind(0))
 
 
@@ -381,15 +665,16 @@ def batch_sums(*sums: torch.Tensor) -> List[torch.Tensor]:
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Every data coordinate's ``x`` (one shape on every rank)
     concatenated along dim 0 in order: every rank's in rank order without
-    a space axis; under one, the ranks of space coordinate 0 (a space
-    group's ranks hold the same rows of the batch).  ``x`` without a group
-    or in a group of one."""
+    a space or model axis; under one, the ranks of space (model)
+    coordinate 0 (a space group's or a model group's ranks hold the same
+    rows of the batch).  ``x`` without a group or in a group of one."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, x)
-    return torch.cat(parts[::distributed.space_size()])
+    return torch.cat(parts[::distributed.space_size()
+                           * distributed.model_count()])
 
 
 @torch.no_grad()

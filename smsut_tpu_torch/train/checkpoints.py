@@ -18,18 +18,23 @@ counter is set from the saved ``step``.
 Under a process group every rank holds the same state: rank 0 writes the
 file and the other ranks wait for it at a barrier, writing nothing.  The
 file holds the whole state whatever the group's size, so a checkpoint
-written by N ranks loads into one process and the other way round.
+written by N ranks loads into one process and the other way round.  Under
+a model axis (``parallel/mesh.py`` ``make_mesh_2d``) each sharded tensor
+of the state (its ``shards``, ``g_shards``, ``d_shards``) is gathered
+whole over the model group before rank 0 writes, so the file is the one
+a process without a mesh writes; :func:`load_state` keeps the rank's
+shard of each tensor the template holds sharded, at any ``dp x tp``.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 from os.path import join as pjoin
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, FrozenSet, Optional, Union
 
 import torch
 
-from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.state import AdamState, GANTrainState, TrainState
 
 
@@ -40,6 +45,14 @@ def _path(ckpt_root: str, prefix: str) -> str:
 def _host(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", torch.float32, copy=True)
             for k, v in tree.items()}
+
+
+def _shards(state, name: str) -> FrozenSet[str]:
+    """The keys of the checkpoint tree ``name`` that ``state`` holds as
+    this rank's shards."""
+    if isinstance(state, GANTrainState):
+        return state.g_shards if name.startswith("g_") else state.d_shards
+    return state.shards
 
 
 def _trees(state) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -66,10 +79,13 @@ def save_state(state: Union[TrainState, GANTrainState], ckpt_root: str,
     returns when the file is written.  The path on rank 0, None on the
     others."""
     path = None
+    # every rank takes part in the gathers of the sharded tensors
+    trees = {k: mesh.gather_tree(v, _shards(state, k))
+             for k, v in _trees(state).items()}
     if distributed.is_primary():
         path = _path(ckpt_root, prefix)
         raw = {"step": int(state.step),
-               **{k: _host(v) for k, v in _trees(state).items()}}
+               **{k: _host(v) for k, v in trees.items()}}
         if isinstance(state, GANTrainState):
             raw["d_opt_count"] = int(state.d_opt_state.count)
         elif isinstance(state.opt_state, AdamState):
@@ -88,8 +104,11 @@ def load_raw(ckpt_root: str, prefix: str) -> Dict[str, Any]:
 def load_state(template: Union[TrainState, GANTrainState], ckpt_root: str,
                prefix: str) -> Union[TrainState, GANTrainState]:
     """Restore into ``template``'s structure: each tensor takes the
-    template's device and dtype; a missing or extra key raises."""
+    template's device and dtype, and the rank's shard where the template
+    holds a shard (a template sharded over a model axis); a missing or
+    extra key raises."""
     raw = load_raw(ckpt_root, prefix)
+    tp, index = distributed.model_count(), distributed.model_index()
 
     def like(tree: Dict[str, torch.Tensor], what: str
              ) -> Dict[str, torch.Tensor]:
@@ -97,12 +116,15 @@ def load_state(template: Union[TrainState, GANTrainState], ckpt_root: str,
         if saved.keys() != tree.keys():
             raise KeyError(f"{what}: checkpoint keys differ from the state's "
                            f"({sorted(set(saved) ^ set(tree))})")
+        shards = _shards(template, what)
         out = {}
         for k, t in tree.items():
-            if tuple(saved[k].shape) != tuple(t.shape):
-                raise ValueError(f"{what}/{k}: shape {tuple(saved[k].shape)} "
+            v = mesh.shard_tensor(saved[k], tp, index) if k in shards \
+                else saved[k]
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{what}/{k}: shape {tuple(v.shape)} "
                                  f"!= {tuple(t.shape)}")
-            out[k] = saved[k].to(t.device, t.dtype).contiguous()
+            out[k] = v.to(t.device, t.dtype).contiguous()
         return out
 
     trees = {k: like(v, k) for k, v in _trees(template).items()}

@@ -44,18 +44,29 @@ reach an optimizer (:meth:`TrainState.update`,
 group with one all-reduce, and a new state takes rank 0's parameters, so
 that every rank holds the same state after every step.  In a single
 process neither does anything.
+
+Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) a state made
+whole is sharded with ``shard_params_channelwise(mesh, state)``
+(:meth:`TrainState.shard_channelwise`): each of its trees keeps the rank's
+output-channel shards, and the state records their keys (``shards``;
+``g_shards`` and ``d_shards``), with which its gradients are reduced (a
+shard's over its data group) and its checkpoint is gathered whole.  The
+updates are elementwise, so SGD and Adam, weight decay and the poly LR
+run on shards unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, FrozenSet, Optional, Union
 
 import numpy as np
 import torch
 
 from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.ops.schedules import poly_lr_table
-from smsut_tpu_torch.parallel.mesh import reduce_gradients_, replicate_
+from smsut_tpu_torch.parallel.mesh import (reduce_gradients_, replicate_,
+                                           shard_params_channelwise,
+                                           sharded_keys)
 
 Params = Dict[str, torch.Tensor]
 
@@ -201,7 +212,9 @@ class TrainState:
     (SGD's momentum traces, or Adam's ``AdamState``) and the device step
     count; Mean Teacher, CoraNet and M3L add the teacher's EMA parameters
     (``ema_params``), cross-pseudo supervision a second network
-    (``params2``, ``opt_state2``) under the same optimizer and count."""
+    (``params2``, ``opt_state2``) under the same optimizer and count.
+    ``shards``: the keys held as this rank's output-channel shards (none
+    without a model axis)."""
     step: int
     params: Params
     opt_state: Union[Params, AdamState]
@@ -210,6 +223,7 @@ class TrainState:
     ema_params: Optional[Params] = None
     params2: Optional[Params] = None
     opt_state2: Optional[Union[Params, AdamState]] = None
+    shards: FrozenSet[str] = frozenset()
 
     @classmethod
     def create(cls, params: Params, tx: Union[SGD, Adam],
@@ -229,11 +243,31 @@ class TrainState:
         group, and the device count advanced once; the host ``step`` is
         left to the caller."""
         self.tx.update_(self.params, self.opt_state,
-                        reduce_gradients_(grads), self.count)
+                        reduce_gradients_(grads, self.shards), self.count)
         if grads2 is not None:
             self.tx.update_(self.params2, self.opt_state2,
-                            reduce_gradients_(grads2), self.count)
+                            reduce_gradients_(grads2, self.shards),
+                            self.count)
         self.count.add_(1)
+
+    def shard_channelwise(self, mesh) -> "TrainState":
+        """A copy whose trees hold this rank's shards over ``mesh``'s
+        model axis (``shard_params_channelwise``), their keys recorded and
+        each shard made its data group's first rank's."""
+        if self.shards:
+            raise ValueError("the train state is sharded already")
+        shards = _shard_keys(self.params, mesh)
+        put = lambda t: shard_params_channelwise(mesh, t)
+        out = dataclasses.replace(
+            self, params=put(self.params), opt_state=put(self.opt_state),
+            count=self.count.clone(), shards=shards, **{
+                k: put(getattr(self, k)) for k in ("ema_params", "params2",
+                                                   "opt_state2")
+                if getattr(self, k) is not None})
+        for tree in (out.params, out.ema_params, out.params2):
+            if tree is not None:
+                replicate_(tree, shards)
+        return out
 
     @torch.no_grad()
     def ema_update_(self, alpha: torch.Tensor) -> None:
@@ -267,6 +301,8 @@ class GANTrainState:
     g_tx: SGD
     d_tx: Adam
     count: torch.Tensor
+    g_shards: FrozenSet[str] = frozenset()
+    d_shards: FrozenSet[str] = frozenset()
 
     @classmethod
     def create(cls, g_params: Params, d_params: Params, cfg: Config,
@@ -282,12 +318,33 @@ class GANTrainState:
         """One Adam update of D, in place, on the gradients averaged over
         the group."""
         self.d_tx.update_(self.d_params, self.d_opt_state,
-                          reduce_gradients_(grads), self.count)
+                          reduce_gradients_(grads, self.d_shards), self.count)
         return self
 
     def apply_g_gradients(self, grads: Params) -> "GANTrainState":
         """One SGD update of G, in place, at the device count's LR, on the
         gradients averaged over the group."""
         self.g_tx.update_(self.g_params, self.g_opt_state,
-                          reduce_gradients_(grads), self.count)
+                          reduce_gradients_(grads, self.g_shards), self.count)
         return self
+
+    def shard_channelwise(self, mesh) -> "GANTrainState":
+        """As :meth:`TrainState.shard_channelwise`, for G and D."""
+        if self.g_shards or self.d_shards:
+            raise ValueError("the train state is sharded already")
+        g_shards = _shard_keys(self.g_params, mesh)
+        d_shards = _shard_keys(self.d_params, mesh)
+        put = lambda t: shard_params_channelwise(mesh, t)
+        out = dataclasses.replace(
+            self, g_params=put(self.g_params),
+            g_opt_state=put(self.g_opt_state), d_params=put(self.d_params),
+            d_opt_state=put(self.d_opt_state), count=self.count.clone(),
+            g_shards=g_shards, d_shards=d_shards)
+        replicate_(out.g_params, g_shards)
+        replicate_(out.d_params, d_shards)
+        return out
+
+
+def _shard_keys(params: Params, mesh) -> FrozenSet[str]:
+    return sharded_keys({k: v.shape for k, v in params.items()},
+                        mesh.shape["model"])

@@ -59,6 +59,15 @@ the group.  The patch outputs' means, the L1 terms and the CE means run
 over equal shards, which the group's gradient average makes exact.  The
 draws are the algorithm's own, the same on every rank.
 
+Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``, the state
+sharded with ``shard_params_channelwise(mesh, state)``) G and D run on the
+rank's output-channel shards, their layers gathering each sharded
+weight's channels, so every model rank computes the same losses; the GP's
+gradient in ``x_hat``, of which each model rank holds its part, is
+averaged over the model group (``mesh.model_mean``) before its norm, and
+the batch sums run over the data group.  The draws are the algorithm's
+own, the same on every rank.
+
 ``d_concat_hat``, ``packed_loss_tails`` and ``remat`` are accepted and do
 nothing (config.py).
 """
@@ -130,6 +139,10 @@ class UGANBase:
         # (before a capture)
         self._nce_rows: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.net, self.D = self._build(seed=0)
+        # the parameters' whole shapes, which sharded trees must match
+        self.g_shapes, self.d_shapes = (
+            {k: tuple(v.shape) for k, v in m.state_dict().items()}
+            for m in (self.net, self.D))
 
     def _build(self, seed: int):
         cfg = self.cfg
@@ -225,6 +238,7 @@ class UGANBase:
         src_cat, cls_cat = self._d(d_params, torch.cat([x_real, x_fake]))
         src_h, _ = self._d(d_params, x_hat)
         dydx, = torch.autograd.grad(src_h.sum(), x_hat, create_graph=True)
+        dydx = mesh.model_mean(dydx)
         d_real = -src_cat[:n].mean()
         d_fake = src_cat[n:].mean()
         d_cls = softmax_ce_with_logits(cls_cat[:n], mdl)
@@ -399,8 +413,9 @@ class UGANBase:
         axis every rank of a space group holds its images' whole pools:
         the keys come from one rank of each data coordinate, and the sum
         over the group counts each image ``sp`` times, which the division
-        by the whole group's size takes out."""
-        world = distributed.process_count()
+        by the whole group's size takes out; under a model axis the sum
+        runs over the data group (``mesh.batch_sums``)."""
+        world = distributed.process_count() // distributed.model_count()
         patches = (feat_q.shape[0] * distributed.data_count()
                    // self.total_batch)
         keys = mesh.all_gather_rows(feat_k.detach())
@@ -416,6 +431,8 @@ class UGANBase:
         the device count advanced; not the host ``step``) on
         :meth:`inputs`' tensors; ``scalars``: :meth:`epoch_scalars`, as
         numbers or 0-d device tensors."""
+        mesh.check_shards("G", self.g_shapes, state.g_params, state.g_shards)
+        mesh.check_shards("D", self.d_shapes, state.d_params, state.d_shards)
         inp = self.step_inputs(inp)
         state, d_metrics = self.d_step(state, inp)
         state, g_metrics = self.g_step(state, inp, scalars)
@@ -448,6 +465,7 @@ class UGANBase:
     def eval_fn(self, params: Params, img) -> torch.Tensor:
         """float32 seg logits [B, H, W, n_class] of NHWC ``img`` (no
         modality vector)."""
+        mesh.check_shards("G", self.g_shapes, params)
         img = self._to_device(img, torch.float32)
         return self._g_forward(params, img, None, None)[0]
 

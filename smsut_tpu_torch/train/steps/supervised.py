@@ -18,8 +18,15 @@ step takes the rank's rows of its data coordinate's images: the model's
 layers meet their neighbours, the batch Dice sums over the whole group
 and the CE's mean over equal shards is exact once the group averages the
 gradients.  The zoo built on this class (``space_axis`` False) raises
-there (ROADMAP A10e).  :meth:`train_step` is
-:meth:`inputs`, :meth:`step` and the host step mirror advanced.
+there (ROADMAP A10e), and under a model axis (ROADMAP A10f).
+
+Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) the state is
+sharded with ``shard_params_channelwise(mesh, state)``: ``functional_call``
+runs the net on the rank's shards, whose layers gather their output
+channels (``models/layers.py``), so the logits and the loss are whole and
+the same on every model rank; a tree whose shards do not match the mesh
+raises (``mesh.check_shards``).  :meth:`train_step` is :meth:`inputs`,
+:meth:`step` and the host step mirror advanced.
 """
 from __future__ import annotations
 
@@ -52,10 +59,14 @@ class SupervisedUNet:
                  device: Optional[Union[str, torch.device]] = None):
         if not self.space_axis:
             mesh.refuse_space(self.name, cfg)
+            mesh.refuse_model(self.name)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)
         self.net = self._build(seed=0)
+        # the parameters' whole shapes, which a sharded tree must match
+        self.shapes = {k: tuple(v.shape)
+                       for k, v in self.net.state_dict().items()}
 
     def _build(self, seed: int) -> UNet:
         cfg = self.cfg
@@ -106,6 +117,7 @@ class SupervisedUNet:
         """The iteration on the device: Dice+CE loss, gradients, SGD at the
         state's device count, the count advanced (not the host ``step``).
         ``scalars`` is unused here, as in the JAX step."""
+        mesh.check_shards(self.name, self.shapes, state.params, state.shards)
         loss, grads = self.value_and_grad(state.params, inp)
         state.update(grads)
         return {"loss": loss}
@@ -132,6 +144,7 @@ class SupervisedUNet:
     def eval_fn(self, params: Params,
                 img: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
         """float32 seg logits [B, H, W, n_class] of NHWC ``img``."""
+        mesh.check_shards(self.name, self.shapes, params)
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         return torch.func.functional_call(self.net, params, (img,))
 

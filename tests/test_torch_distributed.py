@@ -257,10 +257,18 @@ def test_single_process_knobs(kw, exc, match):
 
 
 def test_tensor_parallel_refused():
-    with pytest.raises(NotImplementedError, match="A10c"):
-        mesh.make_mesh_2d(2, 2)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        mesh.shard_params_channelwise(None, {})
+    """``make_mesh_2d`` lays one process out as dp x tp = 1 x 1 (nothing
+    sharded, every tensor copied), and refuses sizes whose product is not
+    the group's, naming both."""
+    m = mesh.make_mesh_2d(1, 1)
+    assert m.shape == {"data": 1, "model": 1}
+    tree = {"k": torch.arange(24.0).reshape(1, 1, 3, 8), "b": torch.ones(8)}
+    got = mesh.shard_params_channelwise(m, tree)
+    assert all(torch.equal(got[k], v) and got[k] is not v
+               for k, v in tree.items())
+    for dp, tp in ((2, 2), (1, 2), (2, 1)):
+        with pytest.raises(ValueError, match=f"dp={dp}, tp={tp}"):
+            mesh.make_mesh_2d(dp, tp)
 
 
 def test_collectives_are_identities_without_a_group():

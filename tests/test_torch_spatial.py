@@ -348,15 +348,15 @@ def test_cli_fit_matches_one_process(run, tmp_path):
     ("block_pallas", "NotImplementedError"),
     ("fused block", "NotImplementedError"),
     ("meanTeacher", "NotImplementedError"),
-    ("make_mesh_2d", "NotImplementedError")])
+    ("make_mesh_2d", "ValueError")])
 def test_space_axis_refusals(run, what, error):
     """Under a group of 1 x 2: the JAX guard's size, the fused block
     kernel (by the Trainer's check and in the block itself), the zoo's
-    algorithms (ROADMAP A10e) and the tensor-parallel mesh (A10d) raise,
-    naming what."""
+    algorithms (ROADMAP A10e) and a model axis beside the space axis (the
+    JAX package's tp x sp guard) raise, naming what."""
     names = {"input_size=32": "spatial_parallel",
              "block_pallas": "block_pallas", "fused block": "block_pallas",
-             "meanTeacher": "A10e", "make_mesh_2d": "A10d"}
+             "meanTeacher": "A10e", "make_mesh_2d": "spatial parallelism"}
     for r in ranks(run, "1x2", "refuse"):
         assert r[what].startswith(error + ":"), r[what]
         assert names[what] in r[what], r[what]
