@@ -290,11 +290,27 @@
    Phases 2 and 2b also hold K2, K2 as dx and K5, in both dtypes, at a
    model rank's shards of the step's convs (``TP_CONVS``, labelled
    ``tp=2``).
-15. Prints the ``kernels`` JSON line (all nine kernels, launches summed
-   over the runs of phases 3-14, replays included, not over the checks
+15. The rest of the zoo on the space axis (dp x sp = 1 x 2): each rank
+   holds half the rows of every image.  15a. Two ranks on the one card
+   over gloo (eager, deterministic cuDNN), started during phase 13,
+   against one process at the global batch: Mean Teacher, CPS, CoraNet A
+   and B (w16, 256x256, 8 + 8, from the counts at which every term is
+   live; B's pseudo batch whole on every rank, which keeps its rows) and
+   DTC w64 with batch norm (batch 8, SGD) 2 float32 steps each under
+   11b's bounds, M3L at its defaults under 10b's float32 rules on step 1;
+   both ranks' trees equal to the bit after every step; a rank's launches
+   per step asserted (K1 and K4 as split pairs, each pass one process's
+   count; K2 and K5 as one process's, on halo rows; nothing routed; M3L
+   none) and its step ms.  15b. ``coraNetTrainer -p train --set
+   spatial_parallel=2`` through ``torch.distributed.run`` on phase 6's
+   tree, float32: stage A (one epoch of 5), then stage B from its
+   ``pre_best`` (the pseudo-label sweep on rows, gathered; one epoch),
+   then ``-p test`` in one process from stage B's checkpoint.
+16. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-15, replays included, not over the checks
    against the plain path; K1's and K4's split forms' launches beside
-   theirs, and each kernel's launches by phase 14's rank 0,
-   ``tp_rank_launches``), then the device line last.
+   theirs, over phases 13b and 15a, and each kernel's launches by phase
+   14's rank 0, ``tp_rank_launches``), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -5172,6 +5188,344 @@ def tp_phase(torch, counters, routed, kids: list, card: str) -> dict:
     return {"two_ranks": ranks, "dryrun": dry, "seconds": [t1 - t0, t2 - t1]}
 
 
+# phase 15: the rest of the zoo on the space axis (dp x sp = 1 x 2): two
+# ranks on the one card over gloo, each holding half the rows of every
+# image of Mean Teacher's, CPS's, CoraNet's, DTC's and M3L's batches
+SPZ_DIR = FIT_DIR / "spz"
+SPZ_STEPS = 2             # 15a: each algorithm's eager steps
+SPZ_FIT_ITERS = 5         # 15b: each stage's one epoch
+SPZ_ZOO = ("meanTeacher", "crossPse", "coraPre", "coraNet", "M3L", "dtc")
+
+
+def spz_zoo(torch, np, counters, routed) -> tuple:
+    """15a's runs, float32, eager, on this process's part of each global
+    batch (under the group a rank's rows of every image; in one process
+    the whole): Mean Teacher, CPS, CoraNet A and B (w16, 8 + 8, from the
+    counts at which every term is live; B's pseudo batch whole, as
+    ``make_extra_batch`` draws it) and M3L (the Config defaults) SPZ_STEPS
+    steps; DTC w64 with batch norm and ReLU at batch 8, SPZ_STEPS SGD
+    steps of its forward and backward.  Per run the metrics averaged over
+    the group, and per step the launches (K1's and K4's split forms too)
+    and routed calls, the ms, the trees' checksum and sha, with the
+    launches and routed calls summed over the steps; M3L's student after
+    step 1 and that step's gradient (from Adam's first moment) under
+    ``tensors``."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.models.dtc import DTCUNet
+    from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+    from smsut_tpu_torch.parallel import mesh
+
+    counters = dict(counters, **split_counters())
+    mean = lambda v: float(mesh.mean_over_ranks(v.detach().reshape(())))
+    counts = lambda: {k: c.launches for k, c in counters.items()}
+    rows = lambda v: mesh.space_rows(torch.from_numpy(v).cuda()).contiguous()
+    lb, ul, ps = sp_batch(np), ellipse_batch(np, seed=1), \
+        ellipse_batch(np, seed=2)
+    batch = {"img": rows(lb["img"]), "msk": rows(lb["msk"]),
+             "ul_img": rows(ul["img"])}
+    pseudo = {"pse_img": torch.from_numpy(ps["img"]).cuda(),
+              "pse_lab": torch.from_numpy(ps["msk"]).cuda(),
+              "pse_mask": torch.from_numpy((np.random.default_rng(3).random(
+                  ps["msk"].shape) < 0.7).astype(np.float32)).cuda()}
+    cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                 compute_dtype="float32")
+    out, tensors = {}, {}
+
+    def record(r, t0, metrics, trees):
+        torch.cuda.synchronize()
+        r.setdefault("step_ms", []).append((time.perf_counter() - t0) * 1e3)
+        r.setdefault("metrics", []).append(metrics)
+        for key, now in (("launches", counts()),
+                         ("routed", routed_counts(routed))):
+            steps = r.setdefault(f"step_{key}", [])
+            steps.append(now)
+            r[key] = {k: sum(d[k] for d in steps) for k in now}
+        r.setdefault("checksums", []).append(
+            sum(tree_checksum(t) for t in trees))
+        r.setdefault("shas", []).append([tree_sha(t) for t in trees])
+
+    for name in SPZ_ZOO[:-1]:
+        algo = m3l_algo("float32") if name == "M3L" else zoo_algo(name, cfg)
+        state = zoo_state(algo, M3L_GATE if name == "M3L"
+                          else ZOO_GATE[name])
+        inp = dict(batch, **pseudo) if name == "coraNet" else batch
+        r = out[name] = {}
+        p0 = {n: v.detach().clone() for n, v in state.params.items()}
+        for k in range(SPZ_STEPS):
+            zero(counters, routed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = algo.train_step(state, inp, algo.epoch_scalars(3))
+            record(r, t0, {n: mean(v) for n, v in m.items()},
+                   [getattr(state, t) for t in ("params", "ema_params",
+                                                "params2")
+                    if getattr(state, t) is not None])
+            if name == "M3L" and k == 0:
+                tensors["m3l_step1"] = {n: v.cpu() for n, v in
+                                        state.params.items()}
+                tx = state.tx   # m = (1 - b1) (g + wd p0)
+                tensors["m3l_grad1"] = {
+                    n: (m / (1.0 - tx.b1) - tx.weight_decay * p0[n]).cpu()
+                    for n, m in state.opt_state.mu.items()}
+        del algo, state, p0
+        torch.cuda.empty_cache()
+    net = DTCUNet(5, DTC_WIDTH, compute_dtype=torch.float32)
+    params = {k: v.detach().clone() for k, v in net.named_parameters()}
+    msk = batch["msk"].long()
+    r = out["dtc"] = {}
+    for _ in range(SPZ_STEPS):
+        zero(counters, routed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = {k: v.requires_grad_() for k, v in params.items()}
+        tanh, logits = torch.func.functional_call(net, leaves,
+                                                  (batch["img"],))
+        loss = (dice_and_ce_loss(logits, msk)
+                + (tanh - sign_map(msk, tanh.shape[-1])).square().mean())
+        grads = mesh.reduce_gradients_(dict(zip(
+            leaves, torch.autograd.grad(loss, list(leaves.values())))))
+        params = {k: (v - DP_DTC_LR * grads[k]).detach()
+                  for k, v in leaves.items()}
+        record(r, t0, {"loss": mean(loss)}, [params])
+    del net, params, leaves, grads, tanh, logits
+    torch.cuda.empty_cache()
+    return out, tensors
+
+
+def spz_rank() -> dict:
+    """15a, one rank of two on the one card (gloo, eager, deterministic
+    cuDNN; the group from the SMSUT_* variables), dp x sp = 1 x 2:
+    :func:`spz_zoo` on the rank's rows (M3L's student after step 1
+    written to SPZ_DIR for the parent)."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.models.segformer import check_rows
+    from smsut_tpu_torch.parallel import distributed, mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    if not distributed.initialize():
+        raise AssertionError("no group")
+    cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                 compute_dtype="float32", spatial_parallel=SP)
+    mesh.check_config(cfg, maps=check_rows)
+    mesh.check_config(cfg)
+    counters, routed = kernel_counters()
+    out, tensors = spz_zoo(torch, np, counters, routed)
+    out.update(rank=distributed.process_index(),
+               world=distributed.process_count(),
+               space=distributed.space_count(), backend=distributed.backend())
+    if distributed.is_primary():
+        torch.save(tensors, SPZ_DIR / "zoo_rank0.pt")
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def spz_spawn() -> list:
+    """15a's two ranks, started ahead of the phase (their group's address
+    chosen here)."""
+    SPZ_DIR.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    return [run_child("spz_rank", {
+        "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+        "SMSUT_NUM_PROCESSES": str(SP), "SMSUT_PROCESS_ID": str(r)})
+        for r in range(SP)]
+
+
+def spz_two_ranks(torch, np, counters, routed, kids, lr: float) -> dict:
+    """15a: the two ranks against one process at the global batch, here,
+    under deterministic cuDNN: Mean Teacher, CPS, CoraNet A and B and DTC
+    every metric within DP_LOSS_TOL after each step (DTC's relative to
+    max(1, |loss|)) and the checksum within DP_SUM_TOL relative after the
+    last; M3L 10b's float32 rules on step 1, and its step-1 gradient
+    (which Adam's update does not scale with) within DP_SUM_TOL of one
+    process's in the tree's checksum and in each leaf's, relative to the
+    tree's; the ranks equal to the bit after every step; a rank's
+    launches in each step: K1 and K4 as split pairs (each pass one
+    process's count in that step), K2 and K5 as one process's, nothing
+    routed (M3L launches none).  Raises where one fails."""
+    import torch.backends.cudnn as cudnn
+
+    for proc, _ in kids:
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+    r0, r1 = [child_result(k, go=False) for k in kids]
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        one, mine = spz_zoo(torch, np, counters, routed)
+    finally:
+        cudnn.deterministic = det
+    saved = torch.load(SPZ_DIR / "zoo_rank0.pt", weights_only=True)
+    out, ok = {}, True
+    for name in SPZ_ZOO:
+        a, b, w = r0[name], r1[name], one[name]
+        scale = (lambda y: max(1.0, abs(y))) if name == "dtc" else \
+            (lambda y: 1.0)
+        d = out[name] = {
+            "loss_err": max(abs(x[n] - y[n]) / scale(y[n])
+                            for x, y in zip(a["metrics"], w["metrics"])
+                            for n in y),
+            "sum_err": abs(a["checksums"][-1] - w["checksums"][-1])
+            / max(abs(w["checksums"][-1]), 1.0),
+            "ranks_equal": a["shas"] == b["shas"]
+            and a["metrics"] == b["metrics"],
+            "losses": [x["loss"] for x in a["metrics"]],
+            "one_process": [y["loss"] for y in w["metrics"]]}
+        d["launches_ok"] = (
+            len(a["step_launches"]) == len(w["step_launches"]) == SPZ_STEPS
+            and b["step_launches"] == a["step_launches"]
+            and not any(v for r in (a, b, w) for v in r["routed"].values()))
+        for one_step, rank_step in zip(w["step_launches"],
+                                       a["step_launches"]):
+            want = {k: one_step.get(k, 0) for k in KERNELS}
+            want.update(instnorm=0, instnorm_bwd=0)
+            for kind, k in (("fwd", "instnorm"), ("bwd", "instnorm_bwd")):
+                for p in ("sums", "apply"):
+                    want[f"instance_norm_{kind}_{p}"] = one_step[k]
+            got = {k: rank_step[k] for k in want}
+            d["launches_ok"] = d["launches_ok"] and got == want and (
+                name != "M3L" or not any(got.values()))
+        if name == "M3L":
+            dev = torch.cat([(saved["m3l_step1"][k] - v).abs().flatten()
+                             for k, v in mine["m3l_step1"].items()])
+            d["loss_err"] = max(abs(a["metrics"][0][n] - w["metrics"][0][n])
+                                / abs(w["metrics"][0][n])
+                                for n in ("loss", "semi_loss"))
+            d.update(dev_max=float(dev.max()),
+                     flip_share=float((dev > lr).float().mean()))
+            asum = lambda t: float(t.double().abs().sum())
+            sums = {k: (asum(saved["m3l_grad1"][k]), asum(v))
+                    for k, v in mine["m3l_grad1"].items()}
+            total = sum(x for _, x in sums.values())
+            d.update(grad_sum_err=abs(sum(x for x, _ in sums.values())
+                                      - total) / total,
+                     grad_leaf_err=max(abs(x - y) for x, y in sums.values())
+                     / total)
+            ok = ok and (d["loss_err"] <= M3L_LOSS_TOL
+                         and d["dev_max"] <= GAN_FLIP_DEV * lr
+                         and d["flip_share"] < GAN_FLIP_SHARE
+                         and total > 0
+                         and sorted(saved["m3l_grad1"]) == sorted(sums)
+                         and d["grad_sum_err"] <= DP_SUM_TOL
+                         and d["grad_leaf_err"] <= DP_SUM_TOL)
+        else:
+            ok = ok and (d["loss_err"] <= DP_LOSS_TOL
+                         and d["sum_err"] <= DP_SUM_TOL)
+        ok = ok and d["ranks_equal"] and d["launches_ok"]
+        print(f"spz 15a {name}: two ranks (dp x sp = 1 x {SP}, 128 rows a "
+              f"rank) vs one process: "
+              f"{ {k: v for k, v in d.items() if k != 'one_process'} }; "
+              f"one process {[round(x, 6) for x in d['one_process']]}; a "
+              f"rank's launches in each step {a['step_launches']}, routed "
+              f"{a['routed']}; one process {w['step_launches']}; step ms "
+              f"(rank 0, rank 1, "
+              f"one process) {[round(x, 1) for x in a['step_ms']]} "
+              f"{[round(x, 1) for x in b['step_ms']]} "
+              f"{[round(x, 1) for x in w['step_ms']]}", flush=True)
+    if not (ok and all(r["backend"] == "gloo" and r["world"] == SP
+                       and r["space"] == SP for r in (r0, r1))):
+        raise AssertionError(f"15a zoo on the space axis vs one process: "
+                             f"{out}")
+    return {"ranks": [r0, r1], "one_process": one, "diff": out}
+
+
+def spz_fit(torch, data: Path) -> dict:
+    """15b: ``coraNetTrainer -p train --set spatial_parallel=2`` through
+    ``torch.distributed.run``, two ranks on the one card (gloo, eager), on
+    phase 6's tree, float32: stage A (one epoch of SPZ_FIT_ITERS, run 000),
+    then stage B from its pre_best (its pseudo-label sweep, one epoch,
+    run 001); then ``-p test`` of run 001 here, in one process, from its
+    checkpoint."""
+    import numpy as np
+
+    from smsut_tpu_torch.train.cli import make_parser
+    from smsut_tpu_torch.trainer import coraNetTrainer
+
+    expr = SPZ_DIR / "expr"
+    args = fit_args(data, expr, "spz2", "compute_dtype=float32",
+                    "num_workers=2", "pre_epoch=1", "cora_epoch=1",
+                    "pred_step=1", f"num_iter_per_epoch={SPZ_FIT_ITERS}")
+    seconds, procs = [], []
+    for extra in ([], ["-i", "000"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(SP), "-m",
+             "smsut_tpu_torch.trainer.coraNetTrainer", "-p", "train"]
+            + extra + args + ["--set", f"spatial_parallel={SP}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        seconds.append(time.perf_counter() - t0)
+        procs.append(proc)
+        if proc.returncode:
+            raise AssertionError(f"torch.distributed.run failed:\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+    run = expr / "spz2"
+    logs = sorted(str(p.relative_to(run)) for p in run.rglob("train.log"))
+    ckpts = sorted(str(p.relative_to(run)) for p in run.rglob("*.ckpt"))
+    text = [(run / i / "train.log").read_text() for i in ("000", "001")]
+    k = [log_metrics(t) for t in text]
+    plab = [float(x) for x in re.findall(r"Pseudo label dice : ([0-9.eE+-]+)",
+                                         text[1])]
+    t0 = time.perf_counter()
+    coraNetTrainer.main(make_parser().parse_args(
+        ["-p", "test", "-i", "001", "-wh", "best"] + args))
+    test_s = time.perf_counter() - t0
+    csv = np.array([[float(v) for v in r.split(",")] for r in
+                    (run / "001" / "all_trois_matrix.csv")
+                    .read_text().split("\n") if r])
+    out = {"stage_a": k[0], "stage_b": k[1], "plab_dice": plab,
+           "logs": logs, "ckpts": ckpts, "train_s": seconds,
+           "test_s": test_s, "csv_shape": list(csv.shape),
+           "ms_per_iteration": [float(x) * 1e3 / SPZ_FIT_ITERS for t in text
+                                for x in re.findall(
+                                    r"\[TRN\] Epoch: .*elapsed: "
+                                    r"([0-9.]+)s", t)]}
+    print(f"spz 15b: coraNetTrainer -p train --set spatial_parallel={SP} "
+          f"through torch.distributed.run, float32, stage A then B "
+          f"({[round(x, 1) for x in seconds]} s): [TRN] loss "
+          f"{k[0]['train/loss']} / {k[1]['train/loss']}, [TST] Dice "
+          f"{k[0]['test/dice']} / {k[1]['test/dice']}, pseudo-label Dice "
+          f"{plab}; logs {logs}, checkpoints {ckpts}; ms per iteration "
+          f"(the log's elapsed over {SPZ_FIT_ITERS}, B's with its sweep) "
+          f"{out['ms_per_iteration']}"
+          f"; -p test in one process from run 001's checkpoint in "
+          f"{test_s:.1f} s, CSV {csv.shape}", flush=True)
+    if not (logs == ["000/train.log", "001/train.log"]
+            and ckpts == ["000/ckpt/pre_best.ckpt", "000/ckpt/pre_last.ckpt",
+                          "001/ckpt/best.ckpt", "001/ckpt/last.ckpt"]
+            and all(f"of each image 1/{SP} of its rows" in t
+                    and "cannot be captured" in t for t in text)
+            and len(plab) == 1 and np.isfinite(plab).all()
+            and all(np.isfinite(m["train/loss"]).all() for m in k)
+            and csv.shape == (10, 5) and np.isfinite(csv).all()):
+        raise AssertionError(f"15b: {out}\n{procs[-1].stdout[-2000:]}\n"
+                             f"{procs[-1].stderr[-3000:]}")
+    return out
+
+
+def spz_phase(torch, counters, routed, data: Path, kids: list,
+              card: str) -> dict:
+    """Phase 15: 15a (``kids`` from :func:`spz_spawn`), 15b."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    a = spz_two_ranks(torch, np, counters, routed, kids, Config().lr)
+    t1 = time.perf_counter()
+    b = spz_fit(torch, data)
+    t2 = time.perf_counter()
+    print(f"phase 15 on {card}: 15a {t1 - t0:.1f} s, 15b {t2 - t1:.1f} s",
+          flush=True)
+    return {"two_ranks": a, "fit": b, "seconds": [t1 - t0, t2 - t1]}
+
+
 # phase 12: from volumes to a trained model: the port's preparation CLIs
 # on synthetic BTCV and CHAOS trees, then unetTrainer on the PNG tree they
 # write.  4 patients per modality (the split: 2 test, 1 labelled, 1
@@ -5444,12 +5798,17 @@ def main() -> int:
     lap(seconds, "phase 12", t0)
     t0 = time.perf_counter()
     tp_kids = tp_spawn()   # phase 14's ranks start up during phase 13
+    spz_kids = spz_spawn()   # and phase 15's
     sp = sp_phase(torch, ops, instnorm, counters, routed, FIT_DIR / "data",
                   sp_kids, card)
     lap(seconds, "phase 13", t0)
     t0 = time.perf_counter()
     tp = tp_phase(torch, counters, routed, tp_kids, card)
     lap(seconds, "phase 14", t0)
+    t0 = time.perf_counter()
+    spz = spz_phase(torch, counters, routed, FIT_DIR / "data", spz_kids,
+                    card)
+    lap(seconds, "phase 15", t0)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     rows += sp["rows"]
     sp_r0 = sp["two_ranks"]["ranks"][0]
@@ -5462,6 +5821,9 @@ def main() -> int:
     tp_runs = (*({"launches": {k: v * TP_STEPS for k, v in
                                tp_r0[f"unet_{m}"]["launches"].items()}}
                  for m in ("off", "on")), *tp_r0["gan"]["steps"])
+    # a space rank's runs of the zoo (phase 15, rank 0): its launches
+    # summed over the steps
+    spz_runs = tuple(spz["two_ranks"]["ranks"][0][n] for n in SPZ_ZOO)
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -5504,7 +5866,7 @@ def main() -> int:
                 dispatch["predict"],
                 *zoo["steps"].values(), *zoo["cli"].values(),
                 *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
-                m3l_dtc["m3l_cli"], *sp_runs, *tp_runs)
+                m3l_dtc["m3l_cli"], *sp_runs, *tp_runs, *spz_runs)
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -5515,11 +5877,12 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if name in ("instnorm", "instnorm_bwd"):
-            # the split form's passes on phase 13b's rank 0: its sums and
-            # apply launches, each pass's own count
+            # the split form's passes on phase 13b's and 15a's rank 0:
+            # its sums and apply launches, each pass's own count
             kind = "fwd" if name == "instnorm" else "bwd"
             split = {p: sum(v["launches"][f"instance_norm_{kind}_{p}"]
-                            for v in sp_runs) for p in ("sums", "apply")}
+                            for v in (*sp_runs, *spz_runs))
+                     for p in ("sums", "apply")}
             if min(split.values()) < 1:
                 raise AssertionError(f"{name}'s split form was not "
                                      f"launched on the main path")
@@ -5551,6 +5914,7 @@ def main() -> int:
                        default=str)),
                    "tensor_parallel": json.loads(json.dumps(tp,
                                                             default=str)),
+                   "spatial_zoo": json.loads(json.dumps(spz, default=str)),
                    "seconds": seconds,
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)

@@ -29,8 +29,11 @@ size over ``sp``, and any other value must equal it (a value above 1 in a
 single process raises: launch that many processes with
 ``torch.distributed.run``).  Under ``sp > 1`` the JAX Trainer's guard
 (``input_size // 16 >= max(4, sp)``) holds, every map must split into
-whole rows of at least its halo, and ``block_pallas`` and the zoo's
-algorithms other than the U-Net and the UGAN family raise (ROADMAP A10e).
+whole rows of at least its halo (M3L's SegFormer: each stage's rows a
+multiple of its attention's reduction ratio), and ``block_pallas``
+raises.  Every algorithm takes the space axis: the U-Net, the UGAN
+family, Mean Teacher, CPS, CoraNet's two stages and M3L (and DTC's
+model).
 
 Channel-wise tensor parallelism has no knob, as in the JAX package, whose
 Trainer does not reach it either: a program lays the group out with

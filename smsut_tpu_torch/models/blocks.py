@@ -41,7 +41,7 @@ from smsut_tpu_torch.models.layers import (
 from smsut_tpu_torch.ops import block as k3
 from smsut_tpu_torch.ops.block import basic_block
 from smsut_tpu_torch.ops.instnorm import lrelu
-from smsut_tpu_torch.parallel import distributed, mesh
+from smsut_tpu_torch.parallel import mesh
 
 
 class BasicBlock(nn.Module):
@@ -75,10 +75,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            if distributed.space_count() > 1:
-                raise NotImplementedError(
-                    "block_pallas under spatial_parallel > 1: K3/K6 would "
-                    "need the space group's norm statistics in mid-kernel")
+            mesh.refuse_space(mesh.FUSED_BLOCK, "K3/K6 under a space group")
             dt = x.dtype
             cout = self.conv1.features
             if not k3.takes(x.shape, cout, self.has_shortcut, dt):

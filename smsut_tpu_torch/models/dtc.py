@@ -12,6 +12,11 @@ runs K1 forward and K4 backward, and with instance norm and leaky ReLU
 3x3 conv the kernels take runs K2 forward, K2 (dx) and K5 (dw) backward,
 whatever the norm.  No trainer of the JAX package uses the network, so
 the port has the model and no training CLI.
+
+Under a space axis (``parallel/mesh.py``) each rank holds rows of every
+map, as the U-Net's layers take them (``mesh.check_maps`` refuses maps
+that do not split): the convs read halo rows, the batch norm sums over
+the group with each pixel counted once, and the heads are local.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models.blocks import Decoder, Encoder
 from smsut_tpu_torch.models.layers import Conv
 from smsut_tpu_torch.ops import acc
-from smsut_tpu_torch.parallel import mesh
+from smsut_tpu_torch.parallel import distributed, mesh
 
 
 class DualTaskDecoder(Decoder):
@@ -67,7 +72,8 @@ class DTCUNet(nn.Module):
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        mesh.refuse_space("DTC")
+        sp = distributed.space_count()
+        mesh.check_maps(x.shape[1] * sp, sp)
         mesh.refuse_model("DTC")
         h, skips = self.encoder(x.to(self.compute_dtype))
         return self.decoder(h, skips)

@@ -30,8 +30,9 @@ map) a k x k conv takes ``k // 2`` rows from each neighbour
 are kept, so its backward is K2 (dx) and K5 (dw) on the cotangent padded
 with zero rows, whose halo rows go back to the neighbours; ``conv_plain``
 runs VALID in H on them.  The 1x1 convs and the pools are local (a rank's
-rows are even, ``mesh.check_spatial``), and the 2x bilinear upsample
-takes a one-row halo (:func:`upsample_bilinear2`).
+rows are even, ``mesh.check_spatial``), and the bilinear upsample
+takes a one-row halo (:func:`resize_bilinear`).  :func:`batch_norm` sums
+its statistics over the group, each pixel once.
 
 Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) a conv whose
 weight is this rank's output-channel shard (``shard_params_channelwise``)
@@ -96,8 +97,10 @@ _LOCAL_STATS = [False]
 @contextlib.contextmanager
 def local_batch_stats():
     """Within it, :func:`batch_norm` takes its statistics over this rank's
-    rows alone, also under a process group: for forwards whose ranks hold
-    different batches (the sharded eval sweep), not rows of one."""
+    batch alone, also under a process group: for forwards whose data
+    ranks hold different batches (the sharded eval sweep), not rows of
+    one.  Under a space axis the batch's images are split over the space
+    group, whose sums it still takes."""
     prev, _LOCAL_STATS[0] = _LOCAL_STATS[0], True
     try:
         yield
@@ -112,16 +115,24 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     running averages; the result in ``x``'s dtype.
 
     Under a group of more than one process ``x`` is the rank's rows of the
-    global batch, and the statistics are the global batch's, as the JAX
-    package takes them under GSPMD: the sums of x and x^2 and the count
-    over the group (``parallel.mesh.batch_sums``, whose backward sums the
-    cotangent over the group), outside :func:`local_batch_stats`."""
+    global batch (and under a space axis its rows of their images), and
+    the statistics are the global batch's, as the JAX package takes them
+    under GSPMD: the sums of x and x^2 and the count over the group
+    (``parallel.mesh.batch_sums``, whose backward sums the cotangent over
+    the group), each pixel counted once.  Within :func:`local_batch_stats`
+    the sums are the space group's (``parallel.mesh.space_sum``): the
+    rank's batch, whole."""
     xf = acc(x)
-    if distributed.process_count() > 1 and not _LOCAL_STATS[0]:
+    local = _LOCAL_STATS[0]
+    if distributed.process_count() > 1 and (
+            not local or distributed.space_count() > 1):
         s1 = xf.sum(dim=(0, 1, 2))
         s2 = (xf * xf).sum(dim=(0, 1, 2))
-        s1, s2, n = mesh.batch_sums(s1, s2, torch.full_like(
-            s1, x.shape[0] * x.shape[1] * x.shape[2]))
+        n = torch.full_like(s1, x.shape[0] * x.shape[1] * x.shape[2])
+        if local:
+            s1, s2, n = mesh.space_sum(torch.stack([s1, s2, n])).unbind(0)
+        else:
+            s1, s2, n = mesh.batch_sums(s1, s2, n)
         mean = s1 / n
         var = s2 / n - mean * mean
     else:
@@ -267,8 +278,22 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """NHWC ``x`` resized to h x w as ``jax.image.resize(..., "bilinear")``
     resizes up: two products with fixed interpolation matrices, whose
     backward is two products too, so it adds in a fixed order on the card
-    (``F.interpolate``'s CUDA backward adds with atomics)."""
-    ah = interp_matrix(x.shape[1], h, x.device, x.dtype)
+    (``F.interpolate``'s CUDA backward adds with atomics).
+
+    Under a space axis ``x`` holds rows ``[s*hi, (s+1)*hi)`` of an image
+    of ``sp*hi`` rows and ``h`` is the rank's share of the ``sp*h`` rows
+    out, ``h >= hi``: output rows ``[s*h, (s+1)*h)`` read input rows
+    ``s*hi - 1`` to ``(s+1)*hi`` (a half-pixel upsample's taps lie within
+    one row of its rank's), so the rows with a one-row halo (zeros beyond
+    the image, where the whole-image matrix has no weight) times the
+    rank's rows of the whole image's H matrix over those columns."""
+    sp = distributed.space_count()
+    if sp == 1:
+        ah = interp_matrix(x.shape[1], h, x.device, x.dtype)
+    else:
+        ah = _space_interp(sp * x.shape[1], sp * h,
+                           distributed.space_index(), x.device, x.dtype)
+        x = mesh.halo_rows(x, 1)
     aw = interp_matrix(x.shape[2], w, x.device, x.dtype)
     y = torch.einsum("Hh,bhwc->bHwc", ah, x)
     return torch.einsum("Ww,bHwc->bHWc", aw, y)
@@ -278,36 +303,31 @@ def upsample_bilinear2(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample with half-pixel centres, NHWC: the JAX
     package's ``jax.image.resize(..., "bilinear")`` at x2, the edge rows
     and columns copies of the input's (their weights renormalised), as
-    :func:`resize_bilinear`.
-
-    Under a space axis ``x`` holds rows ``[s*h, (s+1)*h)`` of an image of
-    ``H = sp*h`` rows; output rows ``[2*s*h, 2*(s+1)*h)`` read input rows
-    ``s*h - 1`` to ``(s+1)*h``: the rows with a one-row halo (zeros beyond
-    the image, where the whole-image matrix has no weight), times the
-    rank's rows of the whole image's H matrix over those columns."""
-    sp = distributed.space_count()
-    if sp == 1:
-        return resize_bilinear(x, 2 * x.shape[1], 2 * x.shape[2])
-    h = x.shape[1]
-    xh = mesh.halo_rows(x, 1)
-    ah = _space_interp(sp * h, distributed.space_index(), h, x.device,
-                       x.dtype)
-    aw = interp_matrix(x.shape[2], 2 * x.shape[2], x.device, x.dtype)
-    y = torch.einsum("Hh,bhwc->bHwc", ah, xh)
-    return torch.einsum("Ww,bHwc->bHWc", aw, y)
+    :func:`resize_bilinear` (under a space axis the rank's rows, through a
+    one-row halo)."""
+    return resize_bilinear(x, 2 * x.shape[1], 2 * x.shape[2])
 
 
-def _space_interp(n: int, s: int, h: int, device: torch.device,
+def _space_interp(n_in: int, n_out: int, s: int, device: torch.device,
                   dtype: torch.dtype) -> torch.Tensor:
-    """[2h, h + 2]: rows ``[2sh, 2(s+1)h)`` of the ``n -> 2n`` matrix over
-    input rows ``sh - 1 .. (s+1)h`` (a zero column beyond the image),
-    made once per key, as :func:`interp_matrix`."""
-    key = ("space", n, s, h, device, dtype)
+    """[n_out/sp, n_in/sp + 2]: space rank ``s``'s rows of the ``n_in ->
+    n_out`` matrix over input rows ``s*hi - 1 .. (s+1)*hi`` (``hi =
+    n_in/sp``, a zero column beyond the image), made once per key, as
+    :func:`interp_matrix`.  Raises where a weight falls outside those
+    columns (a downsample)."""
+    sp = distributed.space_count()
+    key = ("space", n_in, n_out, sp, s, device, dtype)
     t = _INTERP.get(key)
     if t is None:
-        a = np.pad(_interp_host(n, 2 * n), ((0, 0), (1, 1)))
+        hi, ho = n_in // sp, n_out // sp
+        a = np.pad(_interp_host(n_in, n_out), ((0, 0), (1, 1)))
+        rows = a[s * ho:(s + 1) * ho]
+        mine = rows[:, s * hi:s * hi + hi + 2]
+        if np.count_nonzero(mine) != np.count_nonzero(rows):
+            raise ValueError(f"a resize of {n_in} rows to {n_out} reads "
+                             f"beyond a one-row halo of each rank's "
+                             f"{hi}: spatial_parallel takes upsamples")
         with torch.inference_mode(False):
-            t = _INTERP[key] = torch.from_numpy(np.ascontiguousarray(
-                a[2 * s * h:2 * (s + 1) * h, s * h:s * h + h + 2])).to(
-                    device, dtype)
+            t = _INTERP[key] = torch.from_numpy(
+                np.ascontiguousarray(mine)).to(device, dtype)
     return t

@@ -40,6 +40,15 @@ tokens are replaced by the learned ``mask_token``.  The JAX model draws
 the grid itself from a key; the port's step passes it in
 (``train/steps/m3l.py``).  No kernel of the port runs here: the JAX model
 reaches no Pallas kernel either.
+
+Under a space axis (``parallel/mesh.py``) each rank holds rows of every
+map, the stages' rows multiples of their strides and reduction ratios
+(:func:`check_rows`): the patch convs and the depthwise conv read their
+neighbours' rows through a halo, the spatial reduction, the LayerNorms
+and the Dense layers are local, the attention's keys and values are the
+whole image's (:class:`EfficientAttention`), the head's resizes produce
+the rank's rows (``models/layers.py`` :func:`resize_bilinear`), and its
+batch norm sums over the group.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from torch import nn
 from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models.layers import batch_norm, resize_bilinear
 from smsut_tpu_torch.ops import acc
+from smsut_tpu_torch.parallel import distributed, mesh
 
 LN_EPS = 1e-6   # flax.linen.LayerNorm's default
 # flax's lecun_normal: a normal truncated at 2 sigma, rescaled to unit
@@ -120,9 +130,29 @@ class LayerNorm(nn.Module):
         return (y + self.bias).to(x.dtype)
 
 
+def conv_rows(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` of NHWC ``x`` with the OIHW kernel ``w`` (k odd),
+    padding k // 2 and ``stride``; NCHW out.  Under a space axis ``x`` is
+    a rank's rows, a multiple of ``stride``: the rows with k // 2 of each
+    neighbour's (``mesh.halo_rows``), then the conv unpadded in H, whose
+    output rows are the rank's, starting on the stride."""
+    r = w.shape[-1] // 2
+    if distributed.space_count() == 1:
+        return F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=r,
+                        groups=groups)
+    if x.shape[1] % stride:
+        raise ValueError(f"a stride-{stride} conv of {x.shape[1]} rows a "
+                         f"rank: spatial_parallel needs a multiple of "
+                         f"{stride}")
+    return F.conv2d(mesh.halo_rows(x, r).permute(0, 3, 1, 2), w,
+                    stride=stride, padding=(0, r), groups=groups)
+
+
 class PatchConv(nn.Module):
     """flax ``nn.Conv(k, stride, padding=k // 2)`` with a bias, NHWC in
-    and out; ``weight`` HWIO."""
+    and out; ``weight`` HWIO.  Under a space axis on a rank's rows
+    (:func:`conv_rows`)."""
 
     def __init__(self, cin: int, features: int, kernel: int, stride: int,
                  generator: Optional[torch.Generator] = None):
@@ -134,17 +164,17 @@ class PatchConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight.shape[0]
         w = self.weight.to(x.dtype).permute(3, 2, 0, 1).contiguous()
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
-                     padding=k // 2)
+        y = conv_rows(x, w, self.stride)
         return y.permute(0, 2, 3, 1) + self.bias.to(y.dtype)
 
 
 class SpatialReduction(nn.Module):
     """flax ``nn.Conv(C, (sr, sr), strides=sr)`` (``SAME``, with a bias)
     on the tokens [B, h*w, C] of an h x w map: the patches of the padded
-    map times the kernel reshaped to [sr*sr*C, C]; returns [B, h'*w', C]."""
+    map times the kernel reshaped to [sr*sr*C, C]; returns [B, h'*w', C].
+    Local on a space rank's rows, a multiple of ``sr`` (no padding in
+    H)."""
 
     def __init__(self, dim: int, ratio: int,
                  generator: Optional[torch.Generator] = None):
@@ -159,6 +189,10 @@ class SpatialReduction(nn.Module):
         s = self.ratio
         xr = x.reshape(b, h, w, c)
         ph, pw = (-h) % s, (-w) % s   # SAME with kernel == stride
+        if ph and distributed.space_count() > 1:
+            raise ValueError(f"a {s}x{s} spatial reduction of {h} rows a "
+                             f"rank: spatial_parallel needs a multiple of "
+                             f"{s}")
         if ph or pw:
             xr = F.pad(xr, (0, 0, pw // 2, pw - pw // 2, ph // 2,
                             ph - ph // 2))
@@ -171,7 +205,8 @@ class SpatialReduction(nn.Module):
 
 class DepthwiseConv3x3(nn.Module):
     """flax ``nn.Conv(C, (3, 3), padding="SAME", feature_group_count=C)``
-    with a bias, NHWC; ``weight`` (3, 3, 1, C)."""
+    with a bias, NHWC; ``weight`` (3, 3, 1, C).  Under a space axis on a
+    rank's rows (:func:`conv_rows`)."""
 
     def __init__(self, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -181,15 +216,18 @@ class DepthwiseConv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[-1]
         w = self.weight.to(x.dtype).permute(3, 2, 0, 1).contiguous()
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1, groups=c)
+        y = conv_rows(x, w, groups=x.shape[-1])
         return y.permute(0, 2, 3, 1) + self.bias.to(y.dtype)
 
 
 class EfficientAttention(nn.Module):
     """Self-attention with the keys and values from the map reduced by
-    ``sr_ratio`` (a strided conv and a LayerNorm) when it exceeds 1."""
+    ``sr_ratio`` (a strided conv and a LayerNorm) when it exceeds 1.
+    Under a space axis the queries are a rank's tokens and the keys and
+    values the whole image's: the space group's reduced tokens gathered
+    (``mesh.space_gather``, whose backward sums the cotangent over the
+    group), so the softmax runs over every key."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int,
                  generator: Optional[torch.Generator] = None):
@@ -207,7 +245,8 @@ class EfficientAttention(nn.Module):
         b, n, c = x.shape
         d = c // self.heads
         q = self.q(x)
-        kv = self.sr_norm(self.sr(x, h, w)) if self.sr_ratio > 1 else x
+        kv = mesh.space_gather(self.sr_norm(self.sr(x, h, w))
+                               if self.sr_ratio > 1 else x)
         split = lambda t: t.reshape(b, -1, self.heads, d).transpose(1, 2)
         att = split(q) @ split(self.k(kv)).transpose(-1, -2) / math.sqrt(d)
         att = torch.softmax(att.to(torch.promote_types(att.dtype,
@@ -267,21 +306,47 @@ class OverlapPatchEmbed(nn.Module):
         return self.norm(x.reshape(b, h * w, c)), h, w
 
 
+# the stages' patch embeddings (kernel, stride) and attention reduction
+# ratios
+PATCHES = ((7, 4), (3, 2), (3, 2), (3, 2))
+SR_RATIOS = (8, 4, 2, 1)
+
+
+def check_rows(size: int, sp: int) -> None:
+    """Raise a ValueError naming ``spatial_parallel`` where a stage's map
+    of input ``size`` does not split into whole rows a rank over ``sp``
+    ranks, a multiple of that stage's reduction ratio (the reduction is
+    then local, and each patch conv's output rows start on its stride).
+    Every map is read with a one-row halo (the depthwise 3x3, the next
+    stage's patch conv, the head's resize) and the input with 3 (the
+    stem), which whole rows at each stage imply, as they imply whole rows
+    of M3L's mask grid (16-pixel cells)."""
+    h, left = divmod(size, sp)
+    stride = 1
+    for (_, s), sr in zip(PATCHES, SR_RATIOS):
+        stride *= s
+        if left or h % (stride * sr):
+            raise ValueError(
+                f"spatial_parallel={sp}: the SegFormer's {size // stride}x"
+                f"{size // stride} map of input_size {size} does not split "
+                f"into whole rows, a multiple of {sr}, per rank")
+
+
 class MixVisionTransformer(nn.Module):
     """MiT-b0-style encoder: widths (32, 64, 160, 256), depths (2, 2, 2, 2),
-    heads (1, 2, 5, 8), reduction ratios (8, 4, 2, 1); returns the four
-    stages' maps, NHWC."""
+    heads (1, 2, 5, 8), reduction ratios :data:`SR_RATIOS`, patch
+    embeddings :data:`PATCHES`; returns the four stages' maps, NHWC."""
 
     def __init__(self, cin: int = 3, dims: Sequence[int] = (32, 64, 160, 256),
                  depths: Sequence[int] = (2, 2, 2, 2),
                  heads: Sequence[int] = (1, 2, 5, 8),
-                 sr_ratios: Sequence[int] = (8, 4, 2, 1),
+                 sr_ratios: Sequence[int] = SR_RATIOS,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dims, self.depths = tuple(dims), tuple(depths)
         prev = cin
         for s in range(4):
-            patch, stride = (7, 4) if s == 0 else (3, 2)
+            patch, stride = PATCHES[s]
             setattr(self, f"embed{s + 1}", OverlapPatchEmbed(
                 prev, dims[s], patch, stride, generator))
             for blk in range(depths[s]):

@@ -35,7 +35,13 @@ through:
   per-sample sums over H*W (the instance norm's statistics, the per-image
   Dice, the GP's gradient norm, the discriminator's class head) and
   :func:`space_all_reduce_`, its in-place form for the kernels' sums;
-- :func:`space_gather_rows`: the eval sweep's logits, whole again.
+- :func:`space_gather`: the group's rows of a tensor concatenated in
+  space order (the SegFormer's keys and values, which every rank's
+  queries attend to over the whole image; the eval sweep's logits and
+  CoraNet's pseudo-labels, whole again); its backward is its adjoint, a
+  reduce-scatter (the cotangent summed over the space group, then the
+  rank's rows), and the reduce-scatter's the gather, so both are twice
+  differentiable.
 
 Every collective's backward is its adjoint (the all-reduce's an
 all-reduce, the halo's the halo's rows sent back and added), so each
@@ -79,7 +85,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence
+from typing import (Callable, Dict, FrozenSet, List, Mapping, Optional,
+                    Sequence)
 
 import torch
 import torch.distributed as dist
@@ -95,13 +102,15 @@ Tensors = Dict[str, torch.Tensor]
 _STEM_HALO = 2
 
 
-def check_config(cfg, gan: bool = False) -> int:
+def check_config(cfg, gan: bool = False,
+                 maps: Optional[Callable[[int, int], None]] = None) -> int:
     """The group's world size, after checking ``cfg``'s parallel knobs
     against it: ``spatial_parallel`` ``sp`` dividing the world,
     ``data_parallel`` 0 (every data coordinate) or the world over ``sp``,
     and a ``batch_size`` the data axis divides; under ``sp > 1`` also the
-    maps' rows (:func:`check_spatial`, with the discriminator's pyramid
-    where ``gan``).  Then lays the group out (:func:`set_spatial`)."""
+    maps' rows (:func:`check_spatial`: the model's ``maps`` rule, or the
+    U-Net's with the discriminator's pyramid where ``gan``).  Then lays
+    the group out (:func:`set_spatial`)."""
     world = process_count()
     sp = cfg.spatial_parallel
     if sp < 1:
@@ -129,29 +138,49 @@ def check_config(cfg, gan: bool = False) -> int:
         raise ValueError(f"batch_size {cfg.batch_size} is not divisible by "
                          f"the {dpw} data-parallel processes")
     if sp > 1:
-        check_spatial(cfg, sp, gan)
+        check_spatial(cfg, sp, gan, maps)
     set_spatial(sp)
     return world
 
 
-def check_spatial(cfg, sp: int, gan: bool = False) -> None:
+# what the space axis does not take yet: the fused block kernels
+FUSED_BLOCK = ("block_pallas (the fused block kernels K3/K6 take their "
+                "norms' statistics in mid-kernel)")
+
+
+def check_spatial(cfg, sp: int, gan: bool = False,
+                  maps: Optional[Callable[[int, int], None]] = None
+                  ) -> None:
     """Refuse a configuration the space axis of ``sp`` cannot take, naming
     ``spatial_parallel``: the JAX Trainer's guard (``input_size // 16 >=
-    max(4, sp)``), the fused block kernel, and any map of the model that
-    does not split into whole rows per rank, an odd count of rows before a
-    2x2 pool or a stride-2 conv, or fewer rows than the widest halo at its
-    level: the U-Net's five levels and, with ``gan``, the discriminator's
-    pyramid from its stem down to its ``input_size / 2^(log2(input_size)
-    - 2)`` map."""
+    max(4, sp)``), then the model's rule, ``maps(input_size, sp)``, which
+    raises a ValueError naming ``spatial_parallel`` where a map does not
+    split into the rows its layers need (the SegFormer's:
+    ``models/segformer.py`` ``check_rows``); without one the U-Net's:
+    its fused block kernels and :func:`check_maps`."""
     size = cfg.input_size
     if size // 16 < max(4, sp):
         raise ValueError(f"spatial_parallel={sp} needs input_size >= "
                          f"{16 * max(4, sp)} (got {size})")
+    if maps is not None:
+        maps(size, sp)
+        return
     if cfg.block_pallas:
-        raise NotImplementedError(
-            f"block_pallas under spatial_parallel={sp}: the fused block "
-            f"kernels (K3/K6) would need the space group's statistics in "
-            f"mid-kernel (ROADMAP: K3/K6 under a space group)")
+        refuse_space(FUSED_BLOCK, "K3/K6 under a space group", cfg)
+    check_maps(size, sp, gan)
+
+
+def check_maps(size: int, sp: int, gan: bool = False) -> None:
+    """Raise a ValueError naming ``spatial_parallel`` where a map of the
+    U-Net (the UGAN towers, CoraNet's and DTC's U-Nets too) at input
+    ``size`` does not split into whole rows of at least its halo per rank
+    over ``sp`` ranks: its five levels, an even count of rows before a
+    2x2 pool, at least the widest halo at each (the 5x5 stem's 2 at the
+    input's size, 1 below); with ``gan`` also the discriminator's pyramid
+    from its stem down to its ``input_size / 2^(log2(input_size) - 2)``
+    map."""
+    if sp == 1:
+        return
     # (map size, widest halo, whether a 2x2 pool or stride-2 conv follows)
     levels = [(size >> k, _STEM_HALO if k == 0 else 1, k < 4)
               for k in range(5)]
@@ -198,25 +227,32 @@ def _new_groups(what: tuple, ranks: List[List[int]]) -> list:
     return groups
 
 
-def refuse_space(what: str, cfg=None) -> None:
-    """Raise for ``what``, which the space axis does not take yet, under
-    ``cfg.spatial_parallel > 1`` or a space axis laid out."""
-    sp = max(distributed.space_size(),
-             getattr(cfg, "spatial_parallel", 1))
+def refuse_space(what: str, item: str, cfg=None) -> None:
+    """Raise for ``what``, which the space axis does not take yet (ROADMAP
+    ``item``), under ``cfg.spatial_parallel > 1`` or a space axis the
+    layers see."""
+    sp = max(distributed.space_count(), getattr(cfg, "spatial_parallel", 1))
     if sp > 1:
         raise NotImplementedError(
             f"{what} under spatial_parallel={sp}: not ported to the space "
-            f"axis (ROADMAP A10e)")
+            f"axis (ROADMAP: {item})")
+
+
+def space_slice(n: int) -> slice:
+    """This rank's rows ``[s*n/sp, (s+1)*n/sp)`` of ``n`` rows; all of
+    them without a space axis."""
+    h = n // distributed.space_count()
+    return slice(distributed.space_index() * h,
+                 (distributed.space_index() + 1) * h)
 
 
 def space_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """This rank's rows ``[s*H/sp, (s+1)*H/sp)`` of dim ``dim`` of a
     whole-image tensor; ``x`` without a space axis."""
-    sp = distributed.space_count()
-    if sp == 1:
+    if distributed.space_count() == 1:
         return x
-    h = x.shape[dim] // sp
-    return x.narrow(dim, distributed.space_index() * h, h)
+    sl = space_slice(x.shape[dim])
+    return x.narrow(dim, sl.start, sl.stop - sl.start)
 
 
 def space_all_reduce_(x: torch.Tensor) -> torch.Tensor:
@@ -257,13 +293,43 @@ def _space_parts(x: torch.Tensor) -> List[torch.Tensor]:
     return parts
 
 
-@torch.no_grad()
-def space_gather_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    """The space group's rows of dim ``dim`` concatenated in space order:
-    the whole image on every rank of the group; ``x`` without one."""
+class _RowGather(torch.autograd.Function):
+    """[B, h, ...] -> [B, sp*h, ...]: the space group's rows (or tokens)
+    of dim 1 in space order."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.cat(_space_parts(x), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _RowScatter.apply(g)
+
+
+class _RowScatter(torch.autograd.Function):
+    """The adjoint of :class:`_RowGather`: [B, sp*h, ...] summed over the
+    space group, then the rank's [B, h, ...]."""
+
+    @staticmethod
+    def forward(ctx, g):
+        s = space_all_reduce_(g.clone(memory_format=torch.contiguous_format))
+        h = s.shape[1] // distributed.space_count()
+        return s.narrow(1, distributed.space_index() * h, h).contiguous()
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _RowGather.apply(gg)
+
+
+def space_gather(x: torch.Tensor) -> torch.Tensor:
+    """The space group's parts of dim 1 of ``x`` (a rank's rows of a map,
+    or the tokens of its rows), concatenated in space order on every rank
+    of the group, twice differentiable (its backward is the cotangent
+    summed over the group, then the rank's part); ``x`` without a space
+    axis."""
     if distributed.space_group() is None:
         return x
-    return torch.cat(_space_parts(x), dim=dim)
+    return _RowGather.apply(x)
 
 
 def _exchange(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):

@@ -141,7 +141,8 @@ class Trainer:
         self.expr_name = expr_name or algo.__class__.__name__
         # the process group: rank 0 owns the artifacts, the others run the
         # same computation as spectators
-        self._world = check_config(cfg, gan=hasattr(algo, "D"))
+        self._world = check_config(cfg, gan=hasattr(algo, "D"),
+                                   maps=getattr(algo, "space_maps", None))
         self._dp = self._world // cfg.spatial_parallel  # data coordinates
         self._mp = self._world > 1
         self._primary = distributed.is_primary()
@@ -219,7 +220,7 @@ class Trainer:
     @torch.inference_mode()
     def _eval_step(self, params, img: torch.Tensor, msk: torch.Tensor):
         # under a space axis the forward of the rank's rows, whole again
-        logits = mesh.space_gather_rows(self.algo.eval_fn(
+        logits = mesh.space_gather(self.algo.eval_fn(
             params, mesh.space_rows(img).contiguous()))
         # the loss of this batch alone: no sum over the group's ranks
         loss = dice_and_ce_loss(logits, msk, self.cfg.weight_dc,

@@ -37,7 +37,12 @@ one graph (train/graphs.py).  Under a process group every rank sweeps the
 global unlabelled stream (its loader is not sharded) and makes the same
 pseudo set, draws the same global pseudo batch and keeps its contiguous
 rows, as the JAX package does on a multi-host run; the masked means and
-the class-weighted CE sum over the global batch (ops/losses.py).
+the class-weighted CE sum over the global batch (ops/losses.py), each
+pixel once.  Under a space axis the sweep's forwards run on the rank's
+rows of each chunk and gather the pseudo-labels and agreement masks
+whole (``mesh.space_gather``), so that every rank holds the one
+process's pseudo set, and each rank keeps its rows of the pseudo batch's
+images (:meth:`CoraNet.host_inputs`).
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ from smsut_tpu_torch.ops.losses import (coranet_weights, masked_certain_loss,
 from smsut_tpu_torch.ops.metrics import dice_coefficient
 from smsut_tpu_torch.ops.schedules import (ema_alpha, gate, poly_lr_host,
                                            sigmoid_rampup)
-from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.graphs import Replay
 from smsut_tpu_torch.train.state import (TrainState, make_constant_sgd,
                                          make_sgd)
@@ -71,7 +76,7 @@ class CoraNet(SupervisedUNet):
     ``device`` names another; ``stage`` is ``"pre"`` (A) or ``"cora"``
     (B)."""
 
-    space_axis = False
+    model_axis = False
 
     name = "coraNet"
     # the step reads no unlabelled batch (the sweep has its own loader)
@@ -174,16 +179,19 @@ class CoraNet(SupervisedUNet):
         return inp
 
     def host_inputs(self, batch: Mapping) -> Dict[str, torch.Tensor]:
-        """The pseudo batch of ``batch`` as CPU tensors (none in stage
-        A): ``pse_img`` float32 [B,H,W,1], ``pse_lab`` int64 [B,H,W] and
-        ``pse_mask`` float32 [B,H,W]."""
+        """The pseudo batch of ``batch`` (whole images, as
+        :meth:`make_extra_batch` draws them) as CPU tensors, under a
+        space axis the rank's rows of each (none in stage A): ``pse_img``
+        float32 [B,H,W,1], ``pse_lab`` int64 [B,H,W] and ``pse_mask``
+        float32 [B,H,W]."""
         if "pse_img" not in batch:
             return {}
-        return {"pse_img": torch.as_tensor(batch["pse_img"],
-                                           dtype=torch.float32),
-                "pse_lab": torch.as_tensor(batch["pse_lab"]).long(),
-                "pse_mask": torch.as_tensor(batch["pse_mask"],
-                                            dtype=torch.float32)}
+        rows = lambda t: mesh.space_rows(t).contiguous()
+        return {"pse_img": rows(torch.as_tensor(batch["pse_img"],
+                                                dtype=torch.float32)),
+                "pse_lab": rows(torch.as_tensor(batch["pse_lab"]).long()),
+                "pse_mask": rows(torch.as_tensor(batch["pse_mask"],
+                                                 dtype=torch.float32))}
 
     # --------------------------------------------------------------- step
     def _apply(self, params: Params, img: torch.Tensor) -> torch.Tensor:
@@ -296,10 +304,12 @@ class CoraNet(SupervisedUNet):
         def flush():
             n = len(buf)
             x = torch.stack(buf + buf[-1:] * (bs - n)).float()
-            out = self._infer_replay({"img": x})
+            # under a space axis the forward of the rank's rows, whole
+            # again: every rank of the group holds the one pseudo set
+            out = self._infer_replay({"img": mesh.space_rows(x).contiguous()})
             imgs.append(x[:n])
-            plabs.append(out["plab"][:n].clone())
-            masks.append(out["agree"][:n].clone())
+            plabs.append(mesh.space_gather(out["plab"])[:n].clone())
+            masks.append(mesh.space_gather(out["agree"])[:n].clone())
             buf.clear()
 
         for img, lab, mdl in samples:

@@ -35,7 +35,7 @@ class CrossPseudo(SupervisedUNet):
     """Two ``UNet(n_class, base_width)``s, on the card unless ``device``
     names another."""
 
-    space_axis = False
+    model_axis = False
 
     name = "crossPse"
     uses_unlabeled = True

@@ -34,7 +34,10 @@ runs over element indices of the global grid, labelled rows then
 unlabelled), and the head's batch norm takes its statistics over the
 group's global batch (``models/layers.py`` ``batch_norm``), in the
 teacher's forward and the student's; the gradients are averaged
-(``train/state.py``).
+(``train/state.py``).  Under a space axis a rank holds its rows of every
+image, draws its rows of each image's mask grid too, and the SegFormer's
+layers meet over the space group (``models/segformer.py``): its
+attention reads the whole image's keys and values.
 """
 from __future__ import annotations
 
@@ -45,13 +48,14 @@ import torch
 
 from smsut_tpu_torch.models.layers import local_batch_stats
 from smsut_tpu_torch.models.segformer import (
-    LinearFusionMaskedConsistencyMixBatch)
+    LinearFusionMaskedConsistencyMixBatch, check_rows)
 from smsut_tpu_torch.ops.losses import cross_entropy_loss, soft_cross_entropy
 from smsut_tpu_torch.ops.schedules import ema_alpha, sigmoid_rampup
-from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.state import TrainState, make_adam
 from smsut_tpu_torch.train.steps import loss_weight
-from smsut_tpu_torch.train.steps.mean_teacher import element_ids, mix32
+from smsut_tpu_torch.train.steps.mean_teacher import (element_ids, mix32,
+                                                      selected_shape)
 from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
 Params = Dict[str, torch.Tensor]
@@ -60,17 +64,20 @@ _M32 = 0xFFFFFFFF
 
 
 def mask_grid(count: torch.Tensor, shape, seed: int,
-              rows: Optional[Sequence[slice]] = None) -> torch.Tensor:
+              rows: Optional[Sequence[slice]] = None,
+              hrows: Optional[slice] = None) -> torch.Tensor:
     """float32 Bernoulli(0.5) grid (the JAX model's ``mask_ratio``) of
     ``shape`` on the count's device, from a hash of (``seed``, ``count``,
     element): a function of the device count, no host value.  With
     ``rows`` (slices of the first axis) only those rows of that grid, to
-    the bit, in turn."""
+    the bit, in turn, and with ``hrows`` (a slice of the second) only
+    those rows of each image's grid: a space rank's."""
     key = mix32((count.to(torch.int64) * 0x2545F491
                  + seed * 0x9E3779B1 + 0x3C6EF372) & _M32)
-    h = mix32(mix32(element_ids(shape, rows, count.device)) ^ key)
+    h = mix32(mix32(element_ids(shape, rows, count.device, hrows)) ^ key)
     u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return (u < 0.5).to(torch.float32).view(-1, *shape[1:])
+    return (u < 0.5).to(torch.float32).view(
+        selected_shape(shape, rows, hrows))
 
 
 def rgb(img: torch.Tensor) -> torch.Tensor:
@@ -82,7 +89,8 @@ class M3L(SupervisedUNet):
     """The student ``LinearFusionMaskedConsistencyMixBatch(n_class)`` and
     its EMA teacher, on the card unless ``device`` names another."""
 
-    space_axis = False
+    model_axis = False
+    space_maps = staticmethod(check_rows)
 
     name = "M3L"
     uses_unlabeled = True
@@ -134,13 +142,16 @@ class M3L(SupervisedUNet):
         img = rgb(torch.cat([inp["img"], inp["ul_img"]]))
         grid = inp.get("mask")
         if grid is None:
-            # the rank's labelled and unlabelled rows of the global grid
-            n = bs * distributed.process_count()
+            # the rank's labelled and unlabelled rows of the global grid,
+            # and under a space axis its rows of each image's grid
+            n = bs * distributed.data_count()
             sl = distributed.local_batch_slice(n)
-            grid = mask_grid(state.count,
-                             self.grid_shape(2 * n, *img.shape[1:3]),
-                             cfg.seed,
-                             [sl, slice(n + sl.start, n + sl.stop)])
+            shape = self.grid_shape(2 * n, img.shape[1]
+                                    * distributed.space_count(),
+                                    img.shape[2])
+            grid = mask_grid(state.count, shape, cfg.seed,
+                             [sl, slice(n + sl.start, n + sl.stop)],
+                             mesh.space_slice(shape[1]))
         with torch.no_grad():
             teacher = torch.func.functional_call(self.net, state.ema_params,
                                                  (img,))
@@ -165,7 +176,9 @@ class M3L(SupervisedUNet):
                 img: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
         """float32 seg logits [B, H, W, n_class] of greyscale NHWC ``img``,
         unmasked (the head's batch norm over this batch alone, also under
-        a group, whose ranks sweep different batches)."""
+        a group, whose data ranks sweep different batches; under a space
+        axis ``img`` is the rank's rows, and the statistics the space
+        group's)."""
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         with local_batch_stats():
             return torch.func.functional_call(self.net, params, (rgb(img),))

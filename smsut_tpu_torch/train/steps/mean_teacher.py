@@ -29,6 +29,9 @@ both batches and draws its rows of the global batch's noise (the hash
 runs over element indices of the global batch), so two ranks see the
 noise of one process; the batch Dice sums over the global batch
 (``ops/losses.py``) and the gradients are averaged (``train/state.py``).
+Under a space axis a rank holds its rows of every image of its data
+coordinate's batch rows and draws those elements of the global noise;
+the consistency's mean over equal shards stays exact.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ import torch
 from smsut_tpu_torch.ops.losses import (dice_and_ce_loss,
                                         softmax_mse_consistency)
 from smsut_tpu_torch.ops.schedules import ema_alpha, gate, sigmoid_rampup
-from smsut_tpu_torch.parallel import distributed
+from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.state import TrainState, make_sgd
 from smsut_tpu_torch.train.steps import loss_weight
 from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
@@ -61,49 +64,75 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def element_ids(shape, rows: Optional[Sequence[slice]],
-                device) -> torch.Tensor:
+def element_ids(shape, rows: Optional[Sequence[slice]], device,
+                hrows: Optional[slice] = None) -> torch.Tensor:
     """int64 flat indices, in a tensor of ``shape``, of the elements of
-    ``rows`` (slices of its first axis, in turn); of every element with
-    ``rows`` None."""
+    ``rows`` (slices of its first axis, in turn) and of ``hrows`` (a
+    slice of its second axis: a space rank's rows of each image), in
+    that order; every index of an axis where its selection is None."""
     n = math.prod(shape)
-    if rows is None:
-        return torch.arange(n, device=device)
-    per = n // shape[0]
-    ids = [torch.arange(s.start * per, s.stop * per, device=device)
-           for s in rows]
-    return ids[0] if len(ids) == 1 else torch.cat(ids)
+    if hrows is None or (hrows.start, hrows.stop) == (0, shape[1]):
+        # every row of each image: contiguous runs of whole images
+        if rows is None:
+            return torch.arange(n, device=device)
+        per = n // shape[0]
+        ids = [torch.arange(s.start * per, s.stop * per, device=device)
+               for s in rows]
+        return ids[0] if len(ids) == 1 else torch.cat(ids)
+    b = (torch.arange(shape[0], device=device) if rows is None else
+         torch.cat([torch.arange(s.start, s.stop, device=device)
+                    for s in rows]))
+    h = torch.arange(hrows.start, hrows.stop, device=device)
+    per = math.prod(shape[2:])
+    first = (b[:, None] * shape[1] + h[None, :]) * per
+    return (first[..., None]
+            + torch.arange(per, device=device)).reshape(-1)
+
+
+def selected_shape(shape, rows: Optional[Sequence[slice]],
+                   hrows: Optional[slice] = None) -> tuple:
+    """The shape of :func:`element_ids`' selection of a tensor of
+    ``shape``."""
+    b = shape[0] if rows is None else sum(s.stop - s.start for s in rows)
+    h = shape[1] if hrows is None else hrows.stop - hrows.start
+    return (b, h, *shape[2:])
 
 
 def teacher_noise(count: torch.Tensor, shape, seed: int,
-                  rows: Optional[Sequence[slice]] = None) -> torch.Tensor:
+                  rows: Optional[Sequence[slice]] = None,
+                  hrows: Optional[slice] = None) -> torch.Tensor:
     """float32 ``clip(0.01 * z, -0.02, 0.02)`` of ``shape`` on the count's
     device, z standard normal by Box-Muller from a hash of (``seed``,
     ``count``, element): a function of the device count, no host value.
     Box-Muller pairs element i with element n + i of the n in ``shape``.
-    With ``rows`` (slices of the first axis) only those rows of that
-    draw, to the bit: a rank's rows of the global batch's noise."""
+    With ``rows`` (slices of the first axis) and ``hrows`` (a slice of
+    the second) only those elements of that draw, to the bit: a rank's
+    rows of the global batch's noise, and a space rank's rows of each
+    image."""
     n = math.prod(shape)
     key = mix32((count.to(torch.int64) * 0x2545F491
                   + seed * 0x9E3779B1 + 0x632BE5AB) & _M32)
-    ids = element_ids(shape, rows, count.device)
+    ids = element_ids(shape, rows, count.device, hrows)
     u = [((mix32(mix32(i) ^ key) >> 8).to(torch.float32) + 0.5)
          * (1.0 / (1 << 24)) for i in (ids, ids + n)]
     z = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos(2.0 * math.pi * u[1])
-    return torch.clamp(0.01 * z, -0.02, 0.02).view(-1, *shape[1:])
+    return torch.clamp(0.01 * z, -0.02, 0.02).view(
+        selected_shape(shape, rows, hrows))
 
 
 def global_shape(x: torch.Tensor) -> tuple:
-    """The shape of the global batch of which ``x`` holds the rank's
-    rows."""
-    return (x.shape[0] * distributed.process_count(), *x.shape[1:])
+    """The shape of the global batch of which ``x`` holds the rank's rows
+    of the batch (its data coordinate's) and, under a space axis, of
+    every image."""
+    return (x.shape[0] * distributed.data_count(),
+            x.shape[1] * distributed.space_count(), *x.shape[2:])
 
 
 class MeanTeacher(SupervisedUNet):
     """The student ``UNet(n_class, base_width)`` and its EMA teacher, on
     the card unless ``device`` names another."""
 
-    space_axis = False
+    model_axis = False
 
     name = "meanTeacher"
     uses_unlabeled = True
@@ -147,9 +176,11 @@ class MeanTeacher(SupervisedUNet):
         bs = inp["img"].shape[0]   # the rank's rows: batch_size / N
         noise = inp.get("noise")
         if noise is None:
-            noise = teacher_noise(state.count, global_shape(ul), cfg.seed,
-                                  [distributed.local_batch_slice(
-                                      global_shape(ul)[0])])
+            # the rank's batch rows and image rows of the global draw
+            g = global_shape(ul)
+            noise = teacher_noise(state.count, g, cfg.seed,
+                                  [distributed.local_batch_slice(g[0])],
+                                  mesh.space_slice(g[1]))
         on = gate(state.count, self.gate_step)
         with torch.no_grad():
             teacher = torch.func.functional_call(self.net, state.ema_params,

@@ -17,8 +17,9 @@ Under a space axis (``Config.spatial_parallel``, ``parallel/mesh.py``) the
 step takes the rank's rows of its data coordinate's images: the model's
 layers meet their neighbours, the batch Dice sums over the whole group
 and the CE's mean over equal shards is exact once the group averages the
-gradients.  The zoo built on this class (``space_axis`` False) raises
-there (ROADMAP A10e), and under a model axis (ROADMAP A10f).
+gradients.  The zoo built on this class runs there too (Mean Teacher,
+CPS, CoraNet, M3L), and raises under a model axis (``model_axis``
+False, ROADMAP A10f).
 
 Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) the state is
 sharded with ``shard_params_channelwise(mesh, state)``: ``functional_call``
@@ -52,13 +53,15 @@ class SupervisedUNet:
 
     name = "unet"
     uses_unlabeled = False
-    # whether the step runs under a space axis (the zoo's do not yet)
-    space_axis = True
+    # whether the step runs under a model axis (the zoo's do not yet)
+    model_axis = True
+    # the model's rule for its maps' rows under a space axis (mesh.
+    # check_config); None: the U-Net's
+    space_maps = None
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None):
-        if not self.space_axis:
-            mesh.refuse_space(self.name, cfg)
+        if not self.model_axis:
             mesh.refuse_model(self.name)
         self.cfg = cfg
         self.device = resolve_device(device)

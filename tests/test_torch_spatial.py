@@ -351,12 +351,13 @@ def test_cli_fit_matches_one_process(run, tmp_path):
     ("make_mesh_2d", "ValueError")])
 def test_space_axis_refusals(run, what, error):
     """Under a group of 1 x 2: the JAX guard's size, the fused block
-    kernel (by the Trainer's check and in the block itself), the zoo's
-    algorithms (ROADMAP A10e) and a model axis beside the space axis (the
-    JAX package's tp x sp guard) raise, naming what."""
+    kernel (by the Trainer's check, for the U-Net and for the zoo's Mean
+    Teacher, and in the block itself) and a model axis beside the space
+    axis (the JAX package's tp x sp guard) raise, naming what."""
     names = {"input_size=32": "spatial_parallel",
              "block_pallas": "block_pallas", "fused block": "block_pallas",
-             "meanTeacher": "A10e", "make_mesh_2d": "spatial parallelism"}
+             "meanTeacher": "block_pallas",
+             "make_mesh_2d": "spatial parallelism"}
     for r in ranks(run, "1x2", "refuse"):
         assert r[what].startswith(error + ":"), r[what]
         assert names[what] in r[what], r[what]

@@ -291,8 +291,10 @@ def run_refuse() -> dict:
         "block_pallas": refused(lambda: trainer(step_cfg(
             spatial_parallel=SP, block_pallas=True))),
         "fused block": refused(fused_block),
-        "meanTeacher": refused(lambda: MeanTeacher(step_cfg(
-            spatial_parallel=SP), device="cpu")),
+        "meanTeacher": refused(lambda: Trainer(MeanTeacher(step_cfg(
+            spatial_parallel=SP, block_pallas=True), device="cpu"),
+            step_cfg(spatial_parallel=SP, block_pallas=True,
+                     expr_root=expr), "test")),
         "make_mesh_2d": refused(lambda: mesh.make_mesh_2d(1, 2)),
     }
 
