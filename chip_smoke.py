@@ -306,10 +306,32 @@
    tree, float32: stage A (one epoch of 5), then stage B from its
    ``pre_best`` (the pseudo-label sweep on rows, gathered; one epoch),
    then ``-p test`` in one process from stage B's checkpoint.
-16. Prints the ``kernels`` JSON line (all nine kernels, launches summed
-   over the runs of phases 3-15, replays included, not over the checks
+16. The fused block kernels on the space axis, K3 and K6 split at their
+   statistics (``ops/block.py`` ``split_block_fwd``/``split_block_bwd``,
+   ``csrc/block_split.cu``, ``block_bwd_split.cu``), and
+   rematerialisation.  16a. Two ranks on the one card over gloo (eager,
+   float32, deterministic cuDNN), started during phase 13, against one
+   process at the global batch, ``block_pallas`` on: the U-Net (w16,
+   batch 8) and ``uganConsis`` (8 + 8) 3 steps each; the U-Net under
+   13b's bounds, the GAN's step 1 under 7b's rules and steps 2-3 under
+   the step-1 bounds of tests/test_gan_training_parity.py; the ranks
+   equal to the bit; each step's launches of every split phase asserted
+   (``SPB_UNET``; the GAN's from one process's K3 and K6 counts).  16b.
+   Each split phase against its plain twin (phase 2's bounds for K3 and
+   K6), bfloat16, at [8, 256, 256, 32] -> 16 and [8, 256, 256, 16] -> 16
+   on the top rank's 128 rows with its one-sided halos, timed beside its
+   bound.  16c. In a child process started during phase 13: the U-Net's
+   (``remat_unet``, both block modes) and ``uganConsis``'s (``remat``)
+   replayed iterations
+   with remat off and on, float32 and bfloat16, under deterministic
+   cuDNN: 3 iterations' metrics equal to the bit in float32, the peak
+   memory allocated, host ms in interleaved blocks, device ms and kernels
+   by the profiler, the port's launches per replay.
+17. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-16, replays included, not over the checks
    against the plain path; K1's and K4's split forms' launches beside
-   theirs, over phases 13b and 15a, and each kernel's launches by phase
+   theirs, over phases 13b, 15a and 16a, K3's and K6's split phases'
+   beside theirs, over phase 16a, and each kernel's launches by phase
    14's rank 0, ``tp_rank_launches``), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
@@ -411,6 +433,9 @@ TC_KERNELS = (("conv3x3", "conv3x3_tc_kernel", 12, *HMMA),
               ("block", "conv3x3_tc_kernel", 36, *HMMA),
               ("block_bwd", "conv3x3_tc_kernel", 36, *HMMA),
               ("block_bwd", "conv3x3_dw_tc_kernel", 18, *HMMA),
+              ("block_split", "conv3x3_tc_kernel", 36, *HMMA),
+              ("block_bwd_split", "conv3x3_tc_kernel", 36, *HMMA),
+              ("block_bwd_split", "conv3x3_dw_tc_kernel", 18, *HMMA),
               ("conv3x3_mma", "conv_dots_kernel", 3, *HMMA),
               ("conv3x3_mma", "conv_dots_sm90_kernel", 1,
                ("HGMMA", "UTMALDG"), ("HMMA",)),
@@ -5526,6 +5551,530 @@ def spz_phase(torch, counters, routed, data: Path, kids: list,
     return {"two_ranks": a, "fit": b, "seconds": [t1 - t0, t2 - t1]}
 
 
+# phase 16: the fused block kernels K3/K6 on the space axis (dp x sp =
+# 1 x 2), split at their statistics (ops/block.py split_block_fwd,
+# split_block_bwd; csrc/block_split.cu, block_bwd_split.cu), and
+# rematerialisation (Config.remat, remat_unet)
+SPB_DIR = FIT_DIR / "spb"
+SPB_STEPS = 3             # 16a: each model's eager steps
+# the split phases' wrappers, forward then backward
+SPLIT_BLOCK = ("block_fwd_conv", "block_fwd_finalize", "block_fwd_out",
+               "block_bwd_out_sums", "block_bwd_dy2", "block_bwd_conv",
+               "block_bwd_dw", "block_bwd_norm1_sums", "block_bwd_dy1")
+# 16a: a space rank's launches per U-Net step (w16, block_pallas): its nine
+# blocks, all of the shortcut form, each forward 3 convs (conv1, the 1x1,
+# conv2), 3 finalize steps and the out pass; each backward the sums, dy2,
+# norm 1's sums and dy1 once, 3 convs (dn1, the 1x1 term, dx) and 3 weight
+# gradients; the stem's norm as K1's and K4's split pairs; nothing else of
+# the port's kernels (the unsplit K3 and K6 not at all)
+SPB_UNET = dict({k: 0 for k in KERNELS}, block_fwd_conv=27,
+                block_fwd_finalize=27, block_fwd_out=9, block_bwd_out_sums=9,
+                block_bwd_dy2=9, block_bwd_conv=27, block_bwd_dw=27,
+                block_bwd_norm1_sums=9, block_bwd_dy1=9,
+                instance_norm_fwd_sums=1, instance_norm_fwd_apply=1,
+                instance_norm_bwd_sums=1, instance_norm_bwd_apply=1)
+# 16c: rounds of interleaved timing blocks and the iterations in each
+SPB_ROUNDS = 3
+SPB_UNITS = {"unet": 10, "gan": 3}
+TOL.update({("block_split", d): TOL[("block", d)]
+            for d in ("float32", "bfloat16")})
+TOL.update({("block_bwd_split", d): TOL[("block_bwd", d)]
+            for d in ("float32", "bfloat16")})
+
+
+def spb_counters() -> dict:
+    """{name: the split wrapper whose ``launches`` count}: K3's and K6's
+    split phases, K1's and K4's."""
+    from smsut_tpu_torch.ops import block
+
+    return dict(split_counters(),
+                **{k: getattr(block, k) for k in SPLIT_BLOCK})
+
+
+def gan_state_tensors(st) -> dict:
+    """A GANTrainState's tensors and step, on the host."""
+    cpu = lambda t: {k: v.cpu() for k, v in t.items()}
+    return {"g_params": cpu(st.g_params), "g_opt_state": cpu(st.g_opt_state),
+            "d_params": cpu(st.d_params), "d_mu": cpu(st.d_opt_state.mu),
+            "d_nu": cpu(st.d_opt_state.nu),
+            "d_count": st.d_opt_state.count.cpu(), "count": st.count.cpu(),
+            "step": st.step}
+
+
+def load_gan_state(st, saved: dict) -> None:
+    """Copy :func:`gan_state_tensors`'s ``saved`` into the state ``st``."""
+    for tree, into in (("g_params", st.g_params),
+                       ("g_opt_state", st.g_opt_state),
+                       ("d_params", st.d_params),
+                       ("d_mu", st.d_opt_state.mu),
+                       ("d_nu", st.d_opt_state.nu)):
+        for k, v in saved[tree].items():
+            into[k].copy_(v)
+    st.d_opt_state.count.copy_(saved["d_count"])
+    st.count.copy_(saved["count"])
+    st.step = saved["step"]
+
+
+def spb_models(torch, np, counters, routed, gan_from=None) -> tuple:
+    """16a's runs, float32, eager, on this process's part of each global
+    batch (under the group a rank's rows of every image; in one process
+    the whole), ``block_pallas`` on: the U-Net (w16, global batch 8) and
+    ``uganConsis`` (8 + 8, the gate open, the draws made once for every
+    step, alike on every rank), SPB_STEPS steps each; with ``gan_from``
+    (a rank's GAN states after each step) each GAN step after the first
+    starts from the rank's state after the step before.  Per step the
+    metrics averaged over the group, the launches (the split phases' too)
+    and routed calls, the ms, the trees' checksum and sha; the GAN's
+    states after each step under ``tensors``."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.parallel import mesh
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    counters = dict(counters, **spb_counters())
+    mean = lambda v: float(mesh.mean_over_ranks(v.detach().reshape(())))
+    rows = lambda t: mesh.space_rows(t).contiguous()
+    cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                 compute_dtype="float32", consis_gate_step=0,
+                 block_pallas=True)
+    out, tensors = {}, {}
+
+    def steps(name, algo, state, batch, extras, scal):
+        r = out[name] = {}
+        for k in range(SPB_STEPS):
+            if name == "gan" and gan_from is not None and k > 0:
+                load_gan_state(state, gan_from[k - 1])
+            zero(counters, routed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = algo.train_step(state, dict(batch, **extras[k]),
+                                       scal)
+            torch.cuda.synchronize()
+            r.setdefault("step_ms", []).append(
+                (time.perf_counter() - t0) * 1e3)
+            r.setdefault("metrics", []).append({n: mean(v)
+                                                for n, v in m.items()})
+            r.setdefault("step_launches", []).append(
+                {n: c.launches for n, c in counters.items()})
+            r.setdefault("step_routed", []).append(routed_counts(routed))
+            trees = [getattr(state, t) for t in ("params", "g_params",
+                                                 "d_params")
+                     if getattr(state, t, None) is not None]
+            r.setdefault("checksums", []).append(
+                sum(tree_checksum(t) for t in trees))
+            r.setdefault("shas", []).append([tree_sha(t) for t in trees])
+            if name == "gan":
+                tensors.setdefault("gan", []).append(
+                    gan_state_tensors(state))
+        for key in ("launches", "routed"):
+            steps_ = r[f"step_{key}"]
+            r[key] = {n: sum(s[n] for s in steps_) for n in steps_[0]}
+        return state
+
+    unet = SupervisedUNet(cfg)
+    batch = {k: rows(torch.from_numpy(v).cuda())
+             for k, v in sp_batch(np).items()}
+    steps("unet", unet, unet.init_state(0), batch, [{}] * SPB_STEPS, None)
+    del unet
+    gan = UGANConsisAlgo(cfg)
+    gb = {k: rows(v) if torch.is_tensor(v) else v
+          for k, v in gan_batch(torch, np).items()}
+    extras = [gan.make_extra_batch() for _ in range(SPB_STEPS)]
+    steps("gan", gan, gan.init_state(0), gb, extras, gan.epoch_scalars(1))
+    del gan
+    torch.cuda.empty_cache()
+    return out, tensors
+
+
+def spb_rank() -> dict:
+    """16a, one rank of two on the one card (gloo, eager, deterministic
+    cuDNN; the group from the SMSUT_* variables), dp x sp = 1 x 2:
+    :func:`spb_models` on the rank's rows (the GAN's states after each step
+    written to SPB_DIR for the parent)."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.parallel import distributed, mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    if not distributed.initialize():
+        raise AssertionError("no group")
+    mesh.check_config(Config(input_size=256, base_width=16,
+                             batch_size=DP_GLOBAL, block_pallas=True,
+                             spatial_parallel=SP), gan=True)
+    counters, routed = kernel_counters()
+    out, tensors = spb_models(torch, np, counters, routed)
+    out.update(rank=distributed.process_index(),
+               world=distributed.process_count(),
+               space=distributed.space_count(), backend=distributed.backend())
+    if distributed.is_primary():
+        torch.save(tensors["gan"], SPB_DIR / "gan_rank0.pt")
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def spb_spawn() -> list:
+    """16a's two ranks, started ahead of the phase (their group's address
+    chosen here), and 16c's child (:func:`spb_remat`)."""
+    SPB_DIR.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    return [run_child("spb_rank", {
+        "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+        "SMSUT_NUM_PROCESSES": str(SP), "SMSUT_PROCESS_ID": str(r)})
+        for r in range(SP)] + [run_child("spb_remat")]
+
+
+def spb_launches_ok(name: str, got: dict, one: dict) -> bool:
+    """A space rank's launches in one step of ``name`` against the
+    prediction: the U-Net's SPB_UNET; uganConsis's from one process's
+    step (``one``): K3's out pass once per unsplit K3 launch and K6's
+    sums, dy2, norm 1's sums and dy1 once per unsplit K6 launch, two or
+    three convs and as many finalize steps (weight gradients) a block,
+    K1 and K4 as split pairs of one process's counts, K2 and K5 as one
+    process's, the unsplit K1-K6 none."""
+    if name == "unet":
+        return {k: got.get(k, 0) for k in SPB_UNET} == SPB_UNET
+    fwd, bwd = one["block"], one["block_bwd"]
+    return (fwd > 0 and bwd > 0
+            and got["block_fwd_out"] == fwd
+            and got["block_fwd_conv"] == got["block_fwd_finalize"]
+            and 2 * fwd <= got["block_fwd_conv"] <= 3 * fwd
+            and all(got[k] == bwd for k in (
+                "block_bwd_out_sums", "block_bwd_dy2",
+                "block_bwd_norm1_sums", "block_bwd_dy1"))
+            and got["block_bwd_conv"] == got["block_bwd_dw"]
+            and 2 * bwd <= got["block_bwd_dw"] <= 3 * bwd
+            and all(got[f"instance_norm_{kind}_{p}"] == one[k]
+                    for kind, k in (("fwd", "instnorm"),
+                                    ("bwd", "instnorm_bwd"))
+                    for p in ("sums", "apply"))
+            and got["conv3x3"] == one["conv3x3"]
+            and got["conv3x3_dw"] == one["conv3x3_dw"]
+            and not any(got[k] for k in ("instnorm", "instnorm_bwd",
+                                         "block", "block_bwd")))
+
+
+def spb_two_ranks(torch, np, counters, routed, kids, lr: float) -> dict:
+    """16a: the two ranks against one process at the global batch, here,
+    under deterministic cuDNN.  The U-Net: every step's loss within
+    DP_LOSS_TOL, the checksum within DP_SUM_TOL relative after the last
+    (13b's bounds); uganConsis: every step under 7b's rules (D
+    flip-aware), each from one state, as 8b holds its steps: the first
+    from the init, each later one from rank 0's state after the step
+    before (Adam's first sign steps part two float32 runs of D, and the
+    parts grow through D's scores, whatever the split); the ranks equal to
+    the bit after every step; each step's launches as
+    :func:`spb_launches_ok` predicts, the routed calls one process's (the
+    U-Net none, the GAN its ``conv_src``).  Raises where one fails."""
+    import types
+
+    import torch.backends.cudnn as cudnn
+
+    for proc, _ in kids:
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+    r0, r1 = [child_result(k, go=False) for k in kids]
+    saved = torch.load(SPB_DIR / "gan_rank0.pt", weights_only=True)
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        one, mine = spb_models(torch, np, counters, routed, saved)
+    finally:
+        cudnn.deterministic = det
+    ns = lambda t: types.SimpleNamespace(**{k: {n: v.cuda() for n, v in
+                                                  t[k].items()}
+                                            for k in ("g_params",
+                                                      "d_params")})
+    out, ok = {}, True
+    for name in ("unet", "gan"):
+        a, b, w = r0[name], r1[name], one[name]
+        d = out[name] = {
+            "ranks_equal": a["shas"] == b["shas"]
+            and a["metrics"] == b["metrics"],
+            "sum_err": abs(a["checksums"][-1] - w["checksums"][-1])
+            / max(abs(w["checksums"][-1]), 1.0)}
+        d["launches_ok"] = (
+            b["step_launches"] == a["step_launches"]
+            and all(spb_launches_ok(name, g, o) for g, o in zip(
+                a["step_launches"], w["step_launches"]))
+            and a["step_routed"] == w["step_routed"]
+            and (name == "gan" or not any(a["routed"].values())))
+        if name == "unet":
+            d["loss_err"] = max(abs(x["loss"] - y["loss"]) for x, y in
+                                zip(a["metrics"], w["metrics"]))
+            ok = ok and (d["loss_err"] <= DP_LOSS_TOL
+                         and d["sum_err"] <= DP_SUM_TOL)
+        else:
+            d["steps"] = [gan_step_against(torch, (x, ns(sa)), (y, ns(sm)),
+                                           lr)
+                          for x, y, sa, sm in zip(a["metrics"],
+                                                  w["metrics"], saved,
+                                                  mine["gan"])]
+            ok = ok and len(d["steps"]) == SPB_STEPS and all(
+                s1["loss_over"] <= GAN_LOSS_ATOL
+                and s1["d_dev_max"] <= GAN_FLIP_DEV * lr
+                and s1["d_flip_share"] < GAN_FLIP_SHARE
+                and s1["seg_over"] <= GAN_SEG_ATOL for s1 in d["steps"])
+        ok = ok and d["ranks_equal"] and d["launches_ok"]
+        print(f"spb 16a {name} block_pallas=True: two ranks (dp x sp = 1 x "
+              f"{SP}, 128 rows a rank, K3/K6 split at their statistics) vs "
+              f"one process: {d}; losses "
+              f"{[round(x.get('loss', x.get('G_seg', 0.0)), 6) for x in a['metrics']]}"
+              f" vs {[round(y.get('loss', y.get('G_seg', 0.0)), 6) for y in w['metrics']]}"
+              f"; a rank's launches per step "
+              f"{ {k: v for k, v in a['step_launches'][0].items() if v} }; "
+              f"one process per step "
+              f"{ {k: v for k, v in w['step_launches'][0].items() if v} }; "
+              f"step ms (rank 0, rank 1, one process) "
+              f"{[round(x, 1) for x in a['step_ms']]} "
+              f"{[round(x, 1) for x in b['step_ms']]} "
+              f"{[round(x, 1) for x in w['step_ms']]}", flush=True)
+    if not (ok and all(r["backend"] == "gloo" and r["world"] == SP
+                       and r["space"] == SP for r in (r0, r1))):
+        raise AssertionError(f"16a fused blocks on the space axis vs one "
+                             f"process: {out}")
+    return {"ranks": [r0, r1], "one_process": one, "diff": out}
+
+
+def split_block_phases(torch, ops, block) -> list:
+    """16b: each split phase of K3 and K6 against its plain twin
+    (``record``: phase 2's bounds for K3 and K6), bfloat16, at the
+    heaviest shape, [8, 256, 256, 32] -> 16 (shortcut form) and
+    [8, 256, 256, 16] -> 16 (identity form), on the top rank's 128 rows of
+    two: x with a zero row above (the image's edge) and the next rank's
+    first row below, y1 with that rank's row below only (the one-sided
+    halo), the cotangents with theirs; the group's sums are the rank's
+    twice.  Returns the rows."""
+    from smsut_tpu_torch.ops.conv3x3 import flip_io
+
+    rows = []
+    cases = Cases(torch, seed=16)
+    dt, dn, isz = torch.bfloat16, "bfloat16", 2
+    b, h, w = 8, 128, 256
+    n = SP * h * w
+    for ci, co in ((32, 16), (16, 16)):
+        short = ci != co
+        form = "shortcut" if short else "identity"
+        label = f"{form} {[b, h, w, ci]}->{co}"
+        x, w1, s1, b1, w2, s2, b2, ws, ss, bs = cases.block_args(
+            b, h, w, ci, co, dt)
+        row = lambda c: cases.randn(b, 1, w, c, dtype=dt)
+        xh = torch.cat([torch.zeros_like(x[:, :1]), x, row(ci)], 1)
+        _, res = block.split_block_fwd(x, w1, s1, b1, w2, s2, b2, ws, ss,
+                                       bs, save=True, kernel=True)
+        y1h = torch.cat([res.y1, row(co)], 1)
+        g = cases.randn(b, h, w, co, dtype=dt)
+        idn = res.u if short else x
+        sc = block.bwd_split_scratch(x, co, short)
+        sums1 = block.block_fwd_conv(0, xh, w1, None, h, 1)[1] * 2
+        gh1 = block.block_fwd_finalize(sums1, n, s1, b1)[0]
+        sums_o = block.block_bwd_out_sums(g, res.y2, idn, res.gh, res.st,
+                                          short, sc)[0] * 2
+        dy2, dq = block.block_bwd_dy2(g, res.y2, idn, res.gh, res.st, s2,
+                                      ss, sums_o, n)
+        halo = lambda t: torch.cat([torch.zeros_like(t[:, :1]), t,
+                                    cases.randn(b, 1, w, t.shape[-1],
+                                                dtype=dt)], 1)
+        dy2h = halo(dy2)
+        dn1 = block.block_bwd_conv(0, dy2h, flip_io(w2), h, 1, res.y1,
+                                   res.gh[0])
+        sums_n1 = block.block_bwd_norm1_sums(res.y1, dn1, res.st, s1,
+                                             sc)[0] * 2
+        dy1 = block.block_bwd_dy1(res.y1, dn1, res.st, s1, sums_n1, n)
+        side = block.block_bwd_conv(1, dq, flip_io(ws), h, 0) if short \
+            else dq
+        m = b * h * w
+        conv = lambda c_in, c_out, k: 2 * m * k * k * c_in * c_out
+        maps = lambda *cs: m * sum(cs) * isz
+        cores = {"finalize", "out", "out_sums", "dy2", "norm1_sums", "dy1"}
+        cases_ = [
+            ("block_split", "conv1", block.block_fwd_conv,
+             (0, xh, w1, None, h, 1), conv(ci, co, 3), maps(ci, co)),
+            ("block_split", "finalize", block.block_fwd_finalize,
+             (sums1, n, s1, b1), 4 * b * co, 4 * 8 * b * co),
+            ("block_split", "conv2", block.block_fwd_conv,
+             (1, y1h, w2, gh1, h, 0), conv(co, co, 3), maps(co, co)),
+            ("block_split", "out", block.block_fwd_out,
+             (res.y2, res.gh[1], idn, res.gh[2] if short else None),
+             6 * m * co, maps(co, co, co)),
+            ("block_bwd_split", "out_sums", block.block_bwd_out_sums,
+             (g, res.y2, idn, res.gh, res.st, short, sc), 12 * m * co,
+             maps(co, co, co)),
+            ("block_bwd_split", "dy2", block.block_bwd_dy2,
+             (g, res.y2, idn, res.gh, res.st, s2, ss, sums_o, n),
+             16 * m * co, maps(co, co, co, co) + (m * co * (isz if short
+                                                             else 4))),
+            ("block_bwd_split", "dn1", block.block_bwd_conv,
+             (0, dy2h, flip_io(w2), h, 1, res.y1, res.gh[0]),
+             conv(co, co, 3), maps(co, co, co)),
+            ("block_bwd_split", "dw2", block.block_bwd_dw,
+             (0, y1h, dy2, res.gh[0], 0, sc), conv(co, co, 3),
+             maps(co, co)),
+            ("block_bwd_split", "norm1_sums", block.block_bwd_norm1_sums,
+             (res.y1, dn1, res.st, s1, sc), 8 * m * co, maps(co, co)),
+            ("block_bwd_split", "dy1", block.block_bwd_dy1,
+             (res.y1, dn1, res.st, s1, sums_n1, n), 10 * m * co,
+             maps(co, co, co)),
+            ("block_bwd_split", "dw1", block.block_bwd_dw,
+             (1, xh, dy1, None, 1, sc), conv(ci, co, 3), maps(ci, co)),
+            ("block_bwd_split", "dx", block.block_bwd_conv,
+             (2, halo(dy1), flip_io(w1), h, 1, side), conv(co, ci, 3),
+             maps(co, ci) + m * ci * 4)]
+        if short:
+            cases_ += [
+                ("block_split", "shortcut", block.block_fwd_conv,
+                 (2, x, ws, None, h, 0), conv(ci, co, 1), maps(ci, co)),
+                ("block_bwd_split", "dws", block.block_bwd_dw,
+                 (2, x, dq, None, 0, sc), conv(ci, co, 1), maps(ci, co)),
+                ("block_bwd_split", "side", block.block_bwd_conv,
+                 (1, dq, flip_io(ws), h, 0), conv(co, ci, 1),
+                 maps(co) + m * ci * 4)]
+        for name, phase, fn, args, flops, nbytes in cases_:
+            record(torch, ops, rows, name, f"{phase} {label}", dn, fn, args,
+                   None, flops=flops, nbytes=nbytes, iters=10,
+                   peak=PEAK_F32_CORES if phase in cores else None,
+                   extra={"phase": phase})
+    return rows
+
+
+def spb_remat() -> dict:
+    """16c, in a child process of its own (its profiler sessions, and its
+    peak memory, its own): the U-Net's (both block modes: fused, K3 runs
+    again in the backward) and uganConsis's replayed iterations (w16,
+    256^2, batch 8, uganConsis 8 + 8 with the gate open) with remat off
+    and on (``remat_unet`` for the U-Net, ``remat`` for the GAN), in
+    float32 and bfloat16 under deterministic cuDNN: the metrics
+    of 3 iterations from one init, equal to the bit in float32; the peak
+    memory allocated over those 3 beyond the state's; host ms per
+    iteration, off and on in interleaved blocks (SPB_ROUNDS rounds of
+    SPB_UNITS); the profiler's device ms and kernels per iteration; the
+    port's launches per replay."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools.profile_step import iteration
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    counters, routed = kernel_counters()
+    out = {}
+    for name in ("unet", "unet_fused", "gan"):
+        for dtn in ("float32", "bfloat16"):
+            runs, res = {}, {}
+            for remat in (False, True):
+                cfg = Config(input_size=256, base_width=16, batch_size=8,
+                             compute_dtype=dtn, consis_gate_step=0,
+                             remat=remat, remat_unet=remat,
+                             block_pallas=name == "unet_fused")
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                if name != "gan":
+                    algo = SupervisedUNet(cfg)
+                    inp = algo.inputs({k: torch.from_numpy(v).cuda() for k, v
+                                       in ellipse_batch(np).items()})
+                    scal = None
+                else:
+                    algo = UGANConsisAlgo(cfg)
+                    inp = algo.inputs(dict(gan_batch(torch, np),
+                                           **algo.make_extra_batch()))
+                    scal = {"lambda_semi": torch.tensor(1.0, device="cuda")}
+                state = algo.init_state(0)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                run = iteration(algo, state, inp, scal, capture=True)
+                metrics = []
+                for _ in range(3):
+                    zero(counters, routed)
+                    m = run()
+                    metrics.append({k: float(v) for k, v in m.items()})
+                launched = {k: c.launches for k, c in counters.items()}
+                torch.cuda.synchronize()
+                runs[remat] = run
+                res[remat] = {"metrics": metrics, "launches": launched,
+                              "peak_mib": (torch.cuda.max_memory_allocated()
+                                           - base) / 2 ** 20}
+            units = SPB_UNITS[name.split("_")[0]]
+            t = timed_blocks(torch, runs, units, SPB_ROUNDS)
+            for remat in (False, True):
+                prof = profile_device(torch, runs[remat],
+                                      n=1 if name == "gan" else 2)
+                res[remat].update(host=t[remat], device_ms=prof["device_ms"],
+                                  kernels=prof["kernels_per_call"])
+            res["bitwise"] = res[False]["metrics"] == res[True]["metrics"]
+            out[f"{name} {dtn}"] = {str(k): v for k, v in res.items()}
+            del runs, algo, state, run
+            torch.cuda.empty_cache()
+    return out
+
+
+def spb_remat_check(kid, card: str) -> dict:
+    """16c's results from its child, printed and checked: float32 off and
+    on equal to the bit, every metric finite, remat lowering the peak
+    memory, its replay launching more of the port's kernels (the towers'
+    second forward)."""
+    import numpy as np
+
+    res = child_result(kid)
+    ok = True
+    for key, r in res.items():
+        off, on = r["False"], r["True"]
+        f32 = key.endswith("float32")
+        finite = all(np.isfinite(list(m.values())).all()
+                     for m in off["metrics"] + on["metrics"])
+        more = {k: on["launches"][k] - off["launches"][k]
+                for k in off["launches"]
+                if on["launches"][k] != off["launches"][k]}
+        ok = ok and finite and (r["bitwise"] or not f32) and (
+            on["peak_mib"] < off["peak_mib"]) and bool(more) and all(
+            v > 0 for v in more.values())
+        print(f"spb 16c {key} on {card}: remat off / on, 3 replayed "
+              f"iterations from one init: metrics equal to the bit "
+              f"{r['bitwise']}; peak memory beyond the state "
+              f"{off['peak_mib']:.1f} / {on['peak_mib']:.1f} MiB; host ms "
+              f"per iteration (median, quartiles) "
+              f"{off['host']['median_ms']:.3f} "
+              f"({off['host']['q1_ms']:.3f}-{off['host']['q3_ms']:.3f}) / "
+              f"{on['host']['median_ms']:.3f} "
+              f"({on['host']['q1_ms']:.3f}-{on['host']['q3_ms']:.3f}); "
+              f"device ms {off['device_ms']:.3f} / {on['device_ms']:.3f}; "
+              f"kernels {off['kernels']} / {on['kernels']}; the port's "
+              f"launches remat adds per iteration {more}", flush=True)
+    if not ok:
+        raise AssertionError(f"16c remat off vs on: {res}")
+    return res
+
+
+def spb_phase(torch, ops, block, counters, routed, kids: list,
+              card: str) -> dict:
+    """Phase 16: 16a (``kids[:2]`` from :func:`spb_spawn`), 16b, 16c
+    (``kids[2]``)."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    a = spb_two_ranks(torch, np, counters, routed, kids[:2], Config().lr)
+    t1 = time.perf_counter()
+    rows = split_block_phases(torch, ops, block)
+    t2 = time.perf_counter()
+    c = spb_remat_check(kids[2], card)
+    t3 = time.perf_counter()
+    print(f"phase 16 on {card}: 16a {t1 - t0:.1f} s, 16b {t2 - t1:.1f} s, "
+          f"16c {t3 - t2:.1f} s", flush=True)
+    return {"two_ranks": a, "rows": rows, "remat": c,
+            "seconds": [t1 - t0, t2 - t1, t3 - t2]}
+
+
 # phase 12: from volumes to a trained model: the port's preparation CLIs
 # on synthetic BTCV and CHAOS trees, then unetTrainer on the PNG tree they
 # write.  4 patients per modality (the split: 2 test, 1 labelled, 1
@@ -5799,6 +6348,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_kids = tp_spawn()   # phase 14's ranks start up during phase 13
     spz_kids = spz_spawn()   # and phase 15's
+    spb_kids = spb_spawn()   # and phase 16's
     sp = sp_phase(torch, ops, instnorm, counters, routed, FIT_DIR / "data",
                   sp_kids, card)
     lap(seconds, "phase 13", t0)
@@ -5809,8 +6359,11 @@ def main() -> int:
     spz = spz_phase(torch, counters, routed, FIT_DIR / "data", spz_kids,
                     card)
     lap(seconds, "phase 15", t0)
+    t0 = time.perf_counter()
+    spb = spb_phase(torch, ops, block, counters, routed, spb_kids, card)
+    lap(seconds, "phase 16", t0)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
-    rows += sp["rows"]
+    rows += sp["rows"] + spb["rows"]
     sp_r0 = sp["two_ranks"]["ranks"][0]
     sp_runs = ({"launches": {k: v * SP_STEPS for k, v in
                              sp_r0["unet"]["launches"].items()}},
@@ -5824,6 +6377,8 @@ def main() -> int:
     # a space rank's runs of the zoo (phase 15, rank 0): its launches
     # summed over the steps
     spz_runs = tuple(spz["two_ranks"]["ranks"][0][n] for n in SPZ_ZOO)
+    # a space rank's runs of the fused blocks (phase 16a, rank 0)
+    spb_runs = tuple(spb["two_ranks"]["ranks"][0][n] for n in ("unet", "gan"))
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -5866,7 +6421,8 @@ def main() -> int:
                 dispatch["predict"],
                 *zoo["steps"].values(), *zoo["cli"].values(),
                 *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
-                m3l_dtc["m3l_cli"], *sp_runs, *tp_runs, *spz_runs)
+                m3l_dtc["m3l_cli"], *sp_runs, *tp_runs, *spz_runs,
+                *spb_runs)
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -5881,10 +6437,19 @@ def main() -> int:
             # its sums and apply launches, each pass's own count
             kind = "fwd" if name == "instnorm" else "bwd"
             split = {p: sum(v["launches"][f"instance_norm_{kind}_{p}"]
-                            for v in (*sp_runs, *spz_runs))
+                            for v in (*sp_runs, *spz_runs, *spb_runs))
                      for p in ("sums", "apply")}
             if min(split.values()) < 1:
                 raise AssertionError(f"{name}'s split form was not "
+                                     f"launched on the main path")
+            kernels[-1]["split_launches"] = split
+        if name in ("block", "block_bwd"):
+            # K3's and K6's split phases on phase 16a's rank 0
+            phases = SPLIT_BLOCK[:3] if name == "block" else SPLIT_BLOCK[3:]
+            split = {p: sum(v["launches"][p] for v in spb_runs)
+                     for p in phases}
+            if min(split.values()) < 1:
+                raise AssertionError(f"{name}'s split phases were not "
                                      f"launched on the main path")
             kernels[-1]["split_launches"] = split
         # a model rank's share of the launches (phase 14, rank 0)
@@ -5915,6 +6480,9 @@ def main() -> int:
                    "tensor_parallel": json.loads(json.dumps(tp,
                                                             default=str)),
                    "spatial_zoo": json.loads(json.dumps(spz, default=str)),
+                   "spatial_block": json.loads(json.dumps(
+                       {k: v for k, v in spb.items() if k != "rows"},
+                       default=str)),
                    "seconds": seconds,
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)

@@ -10,9 +10,16 @@ Knobs that shape the TPU lowering only are accepted and are no-ops in the
 port for now: ``pack_levels``, ``pack_mode``, ``pack_w0``, ``d_pack_deep``,
 ``d_pack_mode``, ``pair_towers``, ``layout_pin``, ``pool_pack_fused``,
 ``norm_stats`` (the port always takes f32 ``reduce`` statistics), and
-the GAN step's ``d_concat_hat``, ``packed_loss_tails`` and ``remat``.  The
-port runs the unpacked NHWC graph, with real and fake through one D apply
-and x_hat through another.
+the GAN step's ``d_concat_hat`` and ``packed_loss_tails``.  The port runs
+the unpacked NHWC graph, with real and fake through one D apply and x_hat
+through another.
+
+``remat`` and ``remat_unet`` rematerialise in the backward, as in the JAX
+package: ``remat`` the UGAN family's generator forward
+(``train/steps/gan.py``), ``remat_unet`` the supervised U-Net's encoder
+and decoder, each on its own (``models/unet.py``; the zoo's U-Nets are
+built without it, as there).  Only under grad: the same function for one
+more forward of what is wrapped, and less activation memory.
 
 ``steps_per_dispatch`` and ``eval_scan`` govern the fit loop's dispatch as
 in the JAX package: T iterations staged per dispatch, and the eval sweep
@@ -30,8 +37,8 @@ single process raises: launch that many processes with
 ``torch.distributed.run``).  Under ``sp > 1`` the JAX Trainer's guard
 (``input_size // 16 >= max(4, sp)``) holds, every map must split into
 whole rows of at least its halo (M3L's SegFormer: each stage's rows a
-multiple of its attention's reduction ratio), and ``block_pallas``
-raises.  Every algorithm takes the space axis: the U-Net, the UGAN
+multiple of its attention's reduction ratio); ``block_pallas`` runs K3
+and K6 split at their statistics (``ops/block.py``).  Every algorithm takes the space axis: the U-Net, the UGAN
 family, Mean Teacher, CPS, CoraNet's two stages and M3L (and DTC's
 model).
 

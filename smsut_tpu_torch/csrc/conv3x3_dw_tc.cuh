@@ -36,7 +36,11 @@
 // the halo is the tile, one tap); PRO, x is a stored conv output and each
 // staged halo is normalised and activated in shared memory once its copies
 // have landed (pro_halo_bf16: z1 = norm_act<bf16>(y1, g1, h1) for dw2),
-// the padding staying 0.
+// the padding staying 0; WIN, a row window (K6's chain split over a space
+// group, block_bwd_split.cu): x holds hin rows and g's row i meets x's row
+// i + u - KS/2 + off at tap u, rows outside [0, hin) being padding (zero,
+// left zero by PRO); H is g's rows.  Off, the window is SAME (hin = H, off
+// = 0) and folds away at compile time.
 // Not yet: wgmma, TMA or a reduction that overlaps the products.
 #pragma once
 
@@ -105,12 +109,13 @@ inline long long dw_tc_part_elems(int B, int H, int W, int C, int Cout,
 // out[split][KS*KS][C][Cout] at its channels.  Stage buffer s holds the
 // halo x_s [(8+KS-1)*XW][XS] (halo pixel (r, c) at row r*XW + c, XW =
 // 16+KS-1) and g_s [8*16][GS].
-template <int MC, int NC, int KS = 3, bool PRO = false>
+template <int MC, int NC, int KS = 3, bool PRO = false, bool WIN = false>
 __global__ void __launch_bounds__(kDwTcThreads, 2)
 conv3x3_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                      float* __restrict__ out, int B, int H, int W, int C,
                      int Cout, int tps, int vec,
-                     const float* __restrict__ pro_gh) {
+                     const float* __restrict__ pro_gh, int win_hin,
+                     int win_off) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int XS = padded_row(MC), GS = padded_row(NC), GCH = NC / 8;
   constexpr int NU = NC / 16, U = MC / 16 * NU, SUBS = kDwTcWarps / U;
@@ -124,14 +129,17 @@ conv3x3_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int unit = warp % U, sub = warp / U;
   const int mi = unit / NU, ni = unit % NU;
+  // x's rows, and the offset of its row that meets g's row 0 at tap R
+  const int hin = WIN ? win_hin : H, roff = WIN ? win_off : 0;
   bf16* base = reinterpret_cast<bf16*>(smem);
 
   auto stage = [&](int t, int buf) {
     const int b = t / tiles_img, tile = t % tiles_img;
     const int r0 = (tile / tiles_w) * kDwTcTH, cc0 = (tile % tiles_w) * kDwTcTW;
     bf16* xs = base + buf * STAGE;
-    stage_halo_bf16<XW, R>(xs, x + (size_t)b * H * W * C, r0, cc0,
-                           kDwTcTH + KS - 1, c0, MC, XS, H, W, C, vec != 0);
+    stage_halo_bf16<XW, R>(xs, x + (size_t)b * hin * W * C, r0 + roff, cc0,
+                           kDwTcTH + KS - 1, c0, MC, XS, hin, W, C,
+                           vec != 0);
     bf16* gs = xs + XE;
     for (int i = threadIdx.x; i < kDwTcTH * kDwTcTW * GCH; i += kDwTcThreads) {
       const int q = i % GCH, p = i / GCH;
@@ -167,9 +175,9 @@ conv3x3_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     if constexpr (PRO) {
       const int b = t / tiles_img, tile = t % tiles_img;
       pro_halo_bf16<XW, R>(base + buf * STAGE, pro_gh + (size_t)b * 2 * C,
-                           (tile / tiles_w) * kDwTcTH,
+                           (tile / tiles_w) * kDwTcTH + roff,
                            (tile % tiles_w) * kDwTcTW, kDwTcTH + KS - 1, c0,
-                           MC, XS, H, W, C);
+                           MC, XS, hin, W, C);
     }
     __syncthreads();
     const bf16* xs = base + buf * STAGE;
@@ -245,30 +253,33 @@ dw_tc_reduce_kernel(const float* __restrict__ part, int nsplit, int n,
   }
 }
 
-template <int MC, int NC, int KS, bool PRO>
+template <int MC, int NC, int KS, bool PRO, bool WIN>
 cudaError_t dw_tc_launch(const bf16* x, const bf16* g, float* out, int B,
                          int H, int W, int C, int Cout, int nsplit, int tps,
-                         cudaStream_t s, const float* pro_gh) {
+                         cudaStream_t s, const float* pro_gh, int hin,
+                         int off) {
   const dim3 grid(nsplit, (C + MC - 1) / MC, Cout / NC);
   const int vec = C % 8 == 0 && (uintptr_t)x % 16 == 0;
-  return launch_opted(conv3x3_dw_tc_kernel<MC, NC, KS, PRO>, grid,
+  return launch_opted(conv3x3_dw_tc_kernel<MC, NC, KS, PRO, WIN>, grid,
                       kDwTcThreads, dw_tc_smem(MC, NC, KS), s, x, g, out, B,
-                      H, W, C, Cout, tps, vec, pro_gh);
+                      H, W, C, Cout, tps, vec, pro_gh, hin, off);
 }
 
 // dw [KS][KS][C][Cout] float32 of x [B][H][W][C] and g [B][H][W][Cout]
 // (bfloat16) on the tensor cores; part holds dw_tc_part_elems floats
 // (`target` blocks in the grid, about: the CPU emulation also tries few).
-// With PRO, pro_gh [B][2][C] is the (g, h) of x's norm.
+// With PRO, pro_gh [B][2][C] is the (g, h) of x's norm; with WIN, x holds
+// hin rows at the row offset off (H is g's rows).
 // cudaErrorInvalidValue, launching nothing, for what the kernel does not
-// take: Cout % 16 != 0, C < 1, g not 16-byte aligned, or a block's shared
-// memory over the device's limit.
-template <int KS = 3, bool PRO = false>
+// take: Cout % 16 != 0, C < 1, g not 16-byte aligned, a block's shared
+// memory over the device's limit, or (WIN) an x of no rows.
+template <int KS = 3, bool PRO = false, bool WIN = false>
 cudaError_t conv3x3_dw_tc(const bf16* x, const bf16* g, float* part,
                           float* dw, int B, int H, int W, int C, int Cout,
                           cudaStream_t s, int target = kDwTcTarget,
-                          const float* pro_gh = nullptr) {
-  if (B < 1 || H < 1 || W < 1 || (uintptr_t)g % 16 ||
+                          const float* pro_gh = nullptr, int hin = 0,
+                          int off = 0) {
+  if (B < 1 || H < 1 || W < 1 || (uintptr_t)g % 16 || (WIN && hin < 1) ||
       !dw_tc_takes(C, Cout, KS))
     return cudaErrorInvalidValue;
   const int mc = dw_tc_mc(C), nc = dw_tc_nc(Cout);
@@ -276,8 +287,8 @@ cudaError_t conv3x3_dw_tc(const bf16* x, const bf16* g, float* part,
   dw_tc_plan(B, H, W, C, Cout, &nsplit, &tps, target);
   float* out = nsplit > 1 ? part : dw;
 #define SMSUT_DW_TC(MC, NC)                                                 \
-  dw_tc_launch<MC, NC, KS, PRO>(x, g, out, B, H, W, C, Cout, nsplit, tps, s, \
-                                pro_gh)
+  dw_tc_launch<MC, NC, KS, PRO, WIN>(x, g, out, B, H, W, C, Cout, nsplit,   \
+                                     tps, s, pro_gh, hin, off)
   cudaError_t e;
   if (mc == 32)
     e = nc == 64 ? SMSUT_DW_TC(32, 64) : nc == 32 ? SMSUT_DW_TC(32, 32)

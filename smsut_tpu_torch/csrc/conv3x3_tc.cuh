@@ -55,7 +55,14 @@
 //   EPI:   kEpiAdd adds a float32 map [B][H][W][Cout] before the one
 //          rounding (K6's dx); kEpiMask multiplies by lrelu'(z), z =
 //          norm_act<bf16>(y, g, h) of a stored bf16 conv output y
-//          [B][H][W][Cout] and its norm's (g, h) (K6's dz1 masked by z1).
+//          [B][H][W][Cout] and its norm's (g, h) (K6's dz1 masked by z1);
+//   WIN:   a row window (K3's and K6's chains split over a space group,
+//          block_split.cu, block_bwd_split.cu): x holds o.hin rows, and
+//          output row i takes its tap u from input row i + u - KS/2 +
+//          o.off, rows outside [0, o.hin) being padding (zero, and left
+//          zero by PRO).  The H of the launch is the output's rows, over
+//          which STATS sums.  Off, the window is SAME (hin = H, off = 0)
+//          and folds away at compile time.
 // Not yet: wgmma, TMA, a persistent grid or a staged epilogue.
 #pragma once
 
@@ -156,6 +163,7 @@ struct TcOpts {
   const float* pro_gh;   // PRO: [B][2][C], (g, h) of x's norm
   const void* epi;       // kEpiAdd: float [B][H][W][Cout]; kEpiMask: bf16 y
   const float* epi_gh;   // kEpiMask: [B][2][Cout], (g, h) of y's norm
+  int hin = 0, off = 0;  // WIN: x's rows, and the row offset of tap 0
 };
 
 // Stage the weight rows of input channels k0 .. k0+KC-1 (zero at >= C) and
@@ -191,7 +199,8 @@ __device__ __forceinline__ void tc_store2(float* p, float a, float b) {
 // of the halo at row r*XW + c, XW = 16+KS-1) and the weights
 // w_s [KS*KS*KC][NS].
 template <int NCO, int WN, int MT, int KS = 3, typename OutT = bf16,
-          bool STATS = false, bool PRO = false, int EPI = kEpiNone>
+          bool STATS = false, bool PRO = false, int EPI = kEpiNone,
+          bool WIN = false>
 __global__ void __launch_bounds__(kTcThreads, 2)
 conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                   OutT* __restrict__ y, int H, int W, int C, int Cout, int KC,
@@ -210,13 +219,15 @@ conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int co0 = blockIdx.y * NCO;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / WN, wn = warp % WN;
-  const bf16* xb = x + (size_t)b * H * W * C;
+  // the input's rows, and the first input row of the tile's halo + R
+  const int hin = WIN ? o.hin : H, ri0 = WIN ? r0 + o.off : r0;
+  const bf16* xb = x + (size_t)b * hin * W * C;
   bf16* base = reinterpret_cast<bf16*>(smem);
 
   auto stage = [&](int k) {
     bf16* xs = base + (k & 1) * stage_elems;
-    stage_halo_bf16<XW, R>(xs, xb, r0, c0, TH + KS - 1, k * KC, KC, PS, H, W,
-                           C, vec != 0);
+    stage_halo_bf16<XW, R>(xs, xb, ri0, c0, TH + KS - 1, k * KC, KC, PS, hin,
+                           W, C, vec != 0);
     tc_stage_weights<NCO, TAPS>(xs + xs_elems, w, k * KC, KC, C, Cout, co0);
   };
 
@@ -234,8 +245,8 @@ conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* xs = base + (k & 1) * stage_elems;
     if constexpr (PRO)
       pro_halo_bf16<XW, R>(base + (k & 1) * stage_elems,
-                           o.pro_gh + (size_t)b * 2 * C, r0, c0, TH + KS - 1,
-                           k * KC, KC, PS, H, W, C);
+                           o.pro_gh + (size_t)b * 2 * C, ri0, c0,
+                           TH + KS - 1, k * KC, KC, PS, hin, W, C);
     __syncthreads();
     const bf16* ws = xs + xs_elems;
     // lane's A row: pixel lane % 16 of tile row wm*MT (+ i), k half lane/16
@@ -356,7 +367,7 @@ conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 template <int NCO, int WN, int MT, int KS, typename OutT, bool STATS,
-          bool PRO, int EPI>
+          bool PRO, int EPI, bool WIN>
 cudaError_t tc_fwd_launch(const TcFwdPlan& p, const bf16* x, const bf16* w,
                           OutT* y, int B, int H, int W, int C, int Cout,
                           cudaStream_t s, const TcOpts& o) {
@@ -365,28 +376,29 @@ cudaError_t tc_fwd_launch(const TcFwdPlan& p, const bf16* x, const bf16* w,
                   Cout / NCO);
   const int vec = C % 8 == 0 && (uintptr_t)x % 16 == 0;
   return launch_opted(
-      conv3x3_tc_kernel<NCO, WN, MT, KS, OutT, STATS, PRO, EPI>, grid,
+      conv3x3_tc_kernel<NCO, WN, MT, KS, OutT, STATS, PRO, EPI, WIN>, grid,
       kTcThreads, p.smem, s, x, w, y, H, W, C, Cout, p.KC, p.nchunks, vec, o);
 }
 
 // y = conv(x, w) on the tensor cores, with the options of the template
-// and their operands in o.  cfg < 0 picks the block shape (tc_fwd_plan);
-// cfg >= 0 forces one (the CPU emulation tries each).
+// and their operands in o; H is y's rows (x's too unless WIN).  cfg < 0
+// picks the block shape (tc_fwd_plan); cfg >= 0 forces one (the CPU
+// emulation tries each).
 // cudaErrorInvalidValue, launching nothing, for what the kernel does not
-// take: Cout % 8 != 0, C < 1, w not 16-byte aligned, or no chunk that fits
-// the device's shared memory.
+// take: Cout % 8 != 0, C < 1, w not 16-byte aligned, no chunk that fits
+// the device's shared memory, or (WIN) an input of no rows.
 template <int KS = 3, typename OutT = bf16, bool STATS = false,
-          bool PRO = false, int EPI = kEpiNone>
+          bool PRO = false, int EPI = kEpiNone, bool WIN = false>
 cudaError_t conv3x3_tc(const bf16* x, const bf16* w, OutT* y, int B, int H,
                        int W, int C, int Cout, cudaStream_t s, int cfg = -1,
                        const TcOpts& o = TcOpts{}) {
   TcFwdPlan p;
   if ((uintptr_t)w % 16 || (uintptr_t)y % (2 * sizeof(OutT)) ||
-      !tc_fwd_takes(B, H, W, C, Cout, cfg, KS, &p))
+      (WIN && o.hin < 1) || !tc_fwd_takes(B, H, W, C, Cout, cfg, KS, &p))
     return cudaErrorInvalidValue;
 #define SMSUT_TC_FWD(I, NCO, WN, MT)                                        \
   case I:                                                                   \
-    return tc_fwd_launch<NCO, WN, MT, KS, OutT, STATS, PRO, EPI>(           \
+    return tc_fwd_launch<NCO, WN, MT, KS, OutT, STATS, PRO, EPI, WIN>(      \
         p, x, w, y, B, H, W, C, Cout, s, o);
   switch (p.cfg) {
     SMSUT_TC_FWD(0, 64, 2, 4)

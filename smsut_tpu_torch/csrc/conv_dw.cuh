@@ -19,6 +19,9 @@
 // the subsets are added in a fixed order in shared memory and the block
 // writes one float32 partial per split.  A second kernel adds the splits in
 // a fixed order.  No atomics anywhere, so runs agree bit for bit.
+// WIN, a row window (K6's chain split over a space group): x holds hin rows
+// and g's row i meets x's row i + u - KS/2 + off at tap u, rows outside
+// [0, hin) being padding; H is g's rows.  Off, SAME, folded at compile time.
 #pragma once
 
 #include "conv_tile.cuh"
@@ -27,12 +30,12 @@ namespace smsut {
 
 constexpr int kDwTargetBlocks = 4 * 132;  // about 4 blocks on each SM
 
-template <typename T, int KS, int TCO, bool PRO>
+template <typename T, int KS, int TCO, bool PRO, bool WIN = false>
 __global__ void __launch_bounds__(256)
 dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   const float* __restrict__ pro_gh, float* __restrict__ part,
                   int B, int H, int W, int Cin, int Cout,
-                  int tiles_per_split) {
+                  int tiles_per_split, int win_hin, int win_off) {
   constexpr int KC = kConvKC, KCP = kConvKCP;
   constexpr int TH = ConvTile<TCO>::TH, TW = ConvTile<TCO>::TW;
   constexpr int R = KS / 2;
@@ -58,6 +61,7 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int tiles_img = tiles_w * ((H + TH - 1) / TH);
   const int t0 = split * tiles_per_split;
   const int t1 = min(B * tiles_img, t0 + tiles_per_split);
+  const int hin = WIN ? win_hin : H, roff = WIN ? win_off : 0;
 
   float acc[NT][4];
 #pragma unroll
@@ -69,9 +73,9 @@ dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int b = t / tiles_img, tile = t % tiles_img;
     const int th0 = (tile / tiles_w) * TH, tw0 = (tile % tiles_w) * TW;
     stage_halo<T, KS, TH, TW, PRO>(
-        in_s, x + (size_t)b * H * W * Cin,
-        PRO ? pro_gh + (size_t)b * 2 * Cin : nullptr, th0, tw0, c0, H, W,
-        Cin);
+        in_s, x + (size_t)b * hin * W * Cin,
+        PRO ? pro_gh + (size_t)b * 2 * Cin : nullptr, th0 + roff, tw0, c0,
+        hin, W, Cin);
     for (int i = tid; i < TH * TW * CG; i += 256) {
       const int q = i % CG, p = i / CG;
       const int gh_ = th0 + p / TW, gw = tw0 + p % TW;
@@ -149,17 +153,18 @@ inline long long dw_part_elems(int B, int H, int W, int Cin, int Cout,
   return (long long)nsplit * KS * KS * Cin * Cout;
 }
 
-template <typename T, int KS, bool PRO>
+template <typename T, int KS, bool PRO, bool WIN = false>
 cudaError_t launch_dw(const T* x, const T* g, const float* pro_gh,
                       float* part, float* dw, int B, int H, int W, int Cin,
-                      int Cout, cudaStream_t s) {
+                      int Cout, cudaStream_t s, int hin = 0, int off = 0) {
+  if (WIN && hin < 1) return cudaErrorInvalidValue;
   int nsplit, tps;
   dw_plan(B, H, W, Cin, Cout, &nsplit, &tps);
   const int tco = conv_tco(Cout);
   dim3 grid(nsplit, (Cin + kConvKC - 1) / kConvKC, Cout / tco);
 #define SMSUT_DW_LAUNCH(TCO)                                                  \
-  dw_partial_kernel<T, KS, TCO, PRO><<<grid, 256, 0, s>>>(                   \
-      x, g, pro_gh, part, B, H, W, Cin, Cout, tps)
+  dw_partial_kernel<T, KS, TCO, PRO, WIN><<<grid, 256, 0, s>>>(              \
+      x, g, pro_gh, part, B, H, W, Cin, Cout, tps, hin, off)
   if (tco == 64)
     SMSUT_DW_LAUNCH(64);
   else if (tco == 32)

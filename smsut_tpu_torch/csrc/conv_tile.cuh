@@ -36,7 +36,13 @@
 //          identity or shortcut term); kEpiMask multiplies them by
 //          lrelu'(z), z = norm_act(y, g, h) rebuilt from a stored conv
 //          output y [B][H][W][Cout] of type T and its norm's (g, h) (K6's
-//          dz1 masked by z1).
+//          dz1 masked by z1);
+//   WIN:   a row window (K3's and K6's chains split over a space group):
+//          x holds hin rows and output row i takes its tap u from input
+//          row i + u - KS/2 + off, rows outside [0, hin) being padding
+//          (zero, left zero by PRO); H is the output's rows.  Off, the
+//          window is SAME (hin = H, off = 0) and folds away at compile
+//          time.
 #pragma once
 
 #include "common.cuh"
@@ -89,13 +95,13 @@ __device__ __forceinline__ void stage_halo(float* __restrict__ in_s,
 }
 
 template <typename T, typename OutT, int KS, int TCO, bool STATS, bool PRO,
-          int EPI>
+          int EPI, bool WIN = false>
 __global__ void __launch_bounds__(256)
 conv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  OutT* __restrict__ y, const float* __restrict__ pro_gh,
                  float* __restrict__ part, const void* __restrict__ epi,
                  const float* __restrict__ epi_gh, int H, int W, int Cin,
-                 int Cout) {
+                 int Cout, int win_hin, int win_off) {
   constexpr int KC = kConvKC, KCP = kConvKCP;
   constexpr int TH = ConvTile<TCO>::TH, TW = ConvTile<TCO>::TW;
   constexpr int R = KS / 2;
@@ -126,11 +132,15 @@ conv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
 
-  const T* xb = x + (size_t)b * H * W * Cin;
+  // x's rows, and the offset of the input row that output row 0 meets at
+  // tap R
+  const int hin = WIN ? win_hin : H, roff = WIN ? win_off : 0;
+  const T* xb = x + (size_t)b * hin * W * Cin;
   const float* gh = PRO ? pro_gh + (size_t)b * 2 * Cin : nullptr;
 
   for (int c0 = 0; c0 < Cin; c0 += KC) {
-    stage_halo<T, KS, TH, TW, PRO>(in_s, xb, gh, th0, tw0, c0, H, W, Cin);
+    stage_halo<T, KS, TH, TW, PRO>(in_s, xb, gh, th0 + roff, tw0, c0, hin, W,
+                                   Cin);
     for (int i = tid; i < KS * KS * KC * TCO; i += 256) {
       const int co = i % TCO, r = i / TCO;
       const int ci = r % KC, tap = r / KC;
@@ -215,17 +225,22 @@ conv_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// Launch with the widest channel tile that divides Cout (Cout % 8 == 0).
-template <typename T, typename OutT, int KS, bool STATS, bool PRO, int EPI>
+// Launch with the widest channel tile that divides Cout (Cout % 8 == 0);
+// H is y's rows, and with WIN x holds hin rows at the row offset off.
+template <typename T, typename OutT, int KS, bool STATS, bool PRO, int EPI,
+          bool WIN = false>
 cudaError_t launch_conv_ex(const T* x, const T* w, OutT* y,
                            const float* pro_gh, float* part, const void* epi,
                            const float* epi_gh, int B, int H, int W, int Cin,
-                           int Cout, cudaStream_t s) {
+                           int Cout, cudaStream_t s, int hin = 0,
+                           int off = 0) {
+  if (WIN && hin < 1) return cudaErrorInvalidValue;
   const int tco = conv_tco(Cout);
   dim3 grid(conv_ntiles(H, W, Cout), Cout / tco, B);
 #define SMSUT_CONV_LAUNCH(TCO)                                                \
-  conv_tile_kernel<T, OutT, KS, TCO, STATS, PRO, EPI><<<grid, 256, 0, s>>>(  \
-      x, w, y, pro_gh, part, epi, epi_gh, H, W, Cin, Cout)
+  conv_tile_kernel<T, OutT, KS, TCO, STATS, PRO, EPI, WIN>                   \
+      <<<grid, 256, 0, s>>>(x, w, y, pro_gh, part, epi, epi_gh, H, W, Cin,   \
+                            Cout, hin, off)
   if (tco == 64)
     SMSUT_CONV_LAUNCH(64);
   else if (tco == 32)

@@ -54,7 +54,9 @@ class BasicBlock(nn.Module):
     JAX package sends such shapes to XLA (``block_pallas.enabled_for``).
     K3 and K6 compute instance norm and leaky ReLU, so another
     ``norm_type`` or ``act_type`` runs the unfused chain by its
-    configuration, uncounted."""
+    configuration, uncounted.  Under a space group K3 and K6 run split at
+    their statistics on the rank's rows (``ops/block.py``
+    ``split_block_fwd``)."""
 
     def __init__(self, cin: int, features: int, fused: bool = False,
                  generator: Optional[torch.Generator] = None,
@@ -75,7 +77,6 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            mesh.refuse_space(mesh.FUSED_BLOCK, "K3/K6 under a space group")
             dt = x.dtype
             cout = self.conv1.features
             if not k3.takes(x.shape, cout, self.has_shortcut, dt):

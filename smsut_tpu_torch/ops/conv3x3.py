@@ -20,6 +20,7 @@ second order is K2 and K5 again (:class:`_Conv3x3Dw`).
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,30 +30,49 @@ from smsut_tpu_torch.ops import (DTYPES, acc, counter, on_card, require,
 from smsut_tpu_torch.ops._build import I, L, P, bind, check, stream_of
 
 
-def conv_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def window_rows(x: torch.Tensor, hout: int, off: int, r: int
+                ) -> torch.Tensor:
+    """The rows a VALID-in-H conv of ``hout`` output rows reads through a
+    row window: [B, hout + 2r, W, C], row q being ``x``'s row
+    q - r + off, zero where that lies outside ``x`` (the padding)."""
+    lo, hin = off - r, x.shape[1]
+    hi = lo + hout + 2 * r
+    a, b = max(lo, 0), min(hi, hin)
+    return F.pad(x[:, a:b], (0, 0, 0, 0, a - lo, hi - b))
+
+
+def conv_f32(x: torch.Tensor, w: torch.Tensor, hout: Optional[int] = None,
+             off: int = 0) -> torch.Tensor:
     """SAME conv of NHWC ``x`` with odd-k HWIO ``w`` [k,k,Cin,Cout],
-    accumulated tap by tap in float32 (float32 result)."""
+    accumulated tap by tap in float32 (float32 result).  With ``hout``
+    through a row window (K3's and K6's chains split over a space group):
+    output row i of ``hout`` takes its tap u from ``x``'s row
+    i + u - k//2 + ``off``, rows outside ``x`` being zero; SAME in W."""
     k = w.shape[0]
-    b, h, wd, _ = x.shape
-    xf, wf = acc(x), acc(w)
+    wd = x.shape[2]
+    hout = x.shape[1] if hout is None else hout
     r = k // 2
-    xp = F.pad(xf, (0, 0, r, r, r, r)) if r else xf
+    xp = F.pad(window_rows(acc(x), hout, off, r), (0, 0, r, r))
+    wf = acc(w)
     y = None
     for u in range(k):
         for v in range(k):
-            t = xp[:, u:u + h, v:v + wd, :] @ wf[u, v]
+            t = xp[:, u:u + hout, v:v + wd, :] @ wf[u, v]
             y = t if y is None else y + t
     return y
 
 
-def dw_f32(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+def dw_f32(x: torch.Tensor, g: torch.Tensor, k: int,
+           off: int = 0) -> torch.Tensor:
     """Weight gradient of the SAME conv with an odd k x k kernel, float32
     [k,k,Cin,Cout]: dw[u,v] = sum over b,i,j of the (u,v)-shifted x (zero
-    padded) times g, the batch-accumulated correlation."""
-    b, h, wd, cin = x.shape
+    padded) times g, the batch-accumulated correlation; through the row
+    window of :func:`conv_f32` (``x``'s own rows, g's ``off``) where x
+    and g differ in rows."""
+    b, h, wd, _ = g.shape
+    cin = x.shape[-1]
     r = k // 2
-    xf = acc(x)
-    xp = F.pad(xf, (0, 0, r, r, r, r)) if r else xf
+    xp = F.pad(window_rows(acc(x), h, off, r), (0, 0, r, r))
     gf = acc(g).reshape(-1, g.shape[-1])
     taps = [xp[:, u:u + h, v:v + wd, :].reshape(-1, cin).T @ gf
             for u in range(k) for v in range(k)]

@@ -31,6 +31,8 @@ through:
 - :func:`halo_rows`: ``k // 2`` rows from each neighbour (zeros at the
   image's top and bottom), differentiable twice (the gradient penalty);
   the convs run SAME on the haloed rows and keep the middle ones;
+  :func:`inner_halo_rows` takes only the neighbours' rows that exist
+  (the fused blocks' conv2 and dw2, which normalise what they read);
 - :func:`space_sum`: a differentiable sum over the space group, for the
   per-sample sums over H*W (the instance norm's statistics, the per-image
   Dice, the GP's gradient norm, the discriminator's class head) and
@@ -143,11 +145,6 @@ def check_config(cfg, gan: bool = False,
     return world
 
 
-# what the space axis does not take yet: the fused block kernels
-FUSED_BLOCK = ("block_pallas (the fused block kernels K3/K6 take their "
-                "norms' statistics in mid-kernel)")
-
-
 def check_spatial(cfg, sp: int, gan: bool = False,
                   maps: Optional[Callable[[int, int], None]] = None
                   ) -> None:
@@ -156,8 +153,9 @@ def check_spatial(cfg, sp: int, gan: bool = False,
     max(4, sp)``), then the model's rule, ``maps(input_size, sp)``, which
     raises a ValueError naming ``spatial_parallel`` where a map does not
     split into the rows its layers need (the SegFormer's:
-    ``models/segformer.py`` ``check_rows``); without one the U-Net's:
-    its fused block kernels and :func:`check_maps`."""
+    ``models/segformer.py`` ``check_rows``); without one the U-Net's,
+    :func:`check_maps` (the fused block kernels, ``block_pallas``, run
+    split at their statistics there)."""
     size = cfg.input_size
     if size // 16 < max(4, sp):
         raise ValueError(f"spatial_parallel={sp} needs input_size >= "
@@ -165,8 +163,6 @@ def check_spatial(cfg, sp: int, gan: bool = False,
     if maps is not None:
         maps(size, sp)
         return
-    if cfg.block_pallas:
-        refuse_space(FUSED_BLOCK, "K3/K6 under a space group", cfg)
     check_maps(size, sp, gan)
 
 
@@ -225,17 +221,6 @@ def _new_groups(what: tuple, ranks: List[List[int]]) -> list:
     if groups is None:
         groups = _GROUPS[key] = [dist.new_group(r) for r in ranks]
     return groups
-
-
-def refuse_space(what: str, item: str, cfg=None) -> None:
-    """Raise for ``what``, which the space axis does not take yet (ROADMAP
-    ``item``), under ``cfg.spatial_parallel > 1`` or a space axis the
-    layers see."""
-    sp = max(distributed.space_count(), getattr(cfg, "spatial_parallel", 1))
-    if sp > 1:
-        raise NotImplementedError(
-            f"{what} under spatial_parallel={sp}: not ported to the space "
-            f"axis (ROADMAP: {item})")
 
 
 def space_slice(n: int) -> slice:
@@ -376,6 +361,28 @@ class _HaloT(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gg):
         return _Halo.apply(gg, ctx.r), None
+
+
+def inner_halo_offset(r: int) -> int:
+    """The rows :func:`inner_halo_rows` puts before the rank's own: ``r``
+    where a rank above exists, else 0."""
+    return r if distributed.space_index() > 0 else 0
+
+
+def inner_halo_rows(x: torch.Tensor, r: int):
+    """(``x`` with ``r`` rows of the neighbours that exist and no rows
+    beyond the image, the rows before ``x``'s first): the input of a conv
+    that normalises and activates what it reads (the fused block's conv2
+    and dw2), where a zero row beyond the image would become ``lrelu(h)``
+    instead of the padding's 0; ``(x, 0)`` without a space axis.  Not
+    differentiable."""
+    if distributed.space_group() is None:
+        return x, 0
+    above, below = _exchange(x, x[:, :r], x[:, -r:])
+    s, sp = distributed.space_index(), distributed.space_count()
+    parts = ([above] if s > 0 else []) + [x] + ([below] if s < sp - 1
+                                               else [])
+    return torch.cat(parts, dim=1), inner_halo_offset(r)
 
 
 def halo_rows(x: torch.Tensor, r: int) -> torch.Tensor:

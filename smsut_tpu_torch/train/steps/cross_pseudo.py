@@ -36,6 +36,7 @@ class CrossPseudo(SupervisedUNet):
     names another."""
 
     model_axis = False
+    rematerialises = False
 
     name = "crossPse"
     uses_unlabeled = True

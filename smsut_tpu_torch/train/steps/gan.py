@@ -68,8 +68,9 @@ averaged over the model group (``mesh.model_mean``) before its norm, and
 the batch sums run over the data group.  The draws are the algorithm's
 own, the same on every rank.
 
-``d_concat_hat``, ``packed_loss_tails`` and ``remat`` are accepted and do
-nothing (config.py).
+``remat`` rematerialises the generator's forward in the backward
+(:meth:`UGANBase._g_forward`); ``d_concat_hat`` and ``packed_loss_tails``
+are accepted and do nothing (config.py).
 """
 from __future__ import annotations
 
@@ -83,6 +84,7 @@ from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models.ugan import (UGAN, Discriminator, UGANnce,
                                          sample_patch_ids)
+from smsut_tpu_torch.models.unet import rematerialised
 from smsut_tpu_torch.ops.losses import (argmax_consistency_loss,
                                         dice_and_ce_loss, l1_loss,
                                         patch_nce_in_groups,
@@ -212,13 +214,18 @@ class UGANBase:
     def _g_forward(self, params: Params, x: torch.Tensor, m: torch.Tensor,
                    patch_ids: Optional[torch.Tensor]):
         """(seg, tsl, feature pool or None); no pool with ``patch_ids``
-        None."""
+        None.  With ``Config.remat`` and under grad the generator's forward
+        is rematerialised in the backward (``models/unet.py``
+        ``rematerialised``), as the JAX step's ``jax.checkpoint(fwd)``."""
         if self.with_nce and patch_ids is not None:
-            return torch.func.functional_call(self.net, params,
-                                              (x, m, patch_ids))
-        args = (x, m, None, True) if self.with_nce else (x, m)
-        seg, tsl = torch.func.functional_call(self.net, params, args)
-        return seg, tsl, None
+            args = (x, m, patch_ids)
+        else:
+            args = (x, m, None, True) if self.with_nce else (x, m)
+        if self.cfg.remat and torch.is_grad_enabled():
+            out = rematerialised(self.net, *args, params=params)
+        else:
+            out = torch.func.functional_call(self.net, params, args)
+        return out if len(args) == 3 else (*out, None)
 
     def _d(self, params: Params, x: torch.Tensor):
         return torch.func.functional_call(self.D, params, (x,))

@@ -133,6 +133,7 @@ class MeanTeacher(SupervisedUNet):
     the card unless ``device`` names another."""
 
     model_axis = False
+    rematerialises = False
 
     name = "meanTeacher"
     uses_unlabeled = True

@@ -58,6 +58,10 @@ class SupervisedUNet:
     # the model's rule for its maps' rows under a space axis (mesh.
     # check_config); None: the U-Net's
     space_maps = None
+    # whether Config.remat_unet rematerialises the U-Net's towers: this
+    # algorithm's alone, as in the JAX package (the zoo's build theirs
+    # without it)
+    rematerialises = True
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None):
@@ -75,7 +79,7 @@ class SupervisedUNet:
         cfg = self.cfg
         return UNet(cfg.n_class, cfg.base_width, cfg.img_channels, self.dtype,
                     block_fused=cfg.block_pallas, device=self.device,
-                    seed=seed)
+                    seed=seed, remat=cfg.remat_unet and self.rematerialises)
 
     def init_params(self, seed: int) -> Params:
         """Freshly initialised parameters, drawn from ``seed``."""

@@ -18,7 +18,9 @@
 // dy2), x normalised and activated while staging: v*g + h rounded per
 // operation, leaky ReLU, one rounding to bf16, at pixels inside the image
 // only, so that the halo stays 0; h is chosen so that lrelu(h) is far from
-// it), each with element loads at C 12.
+// it), each with element loads at C 12; and the row window of K6's chain
+// split over a space group (x of hin rows, g's row i meeting x's row
+// i + u - 1 + off, rows outside x padding), plain and with PRO.
 //
 // Environment: EMU_DEFER=1 lands cp.async copies at their wait; EMU_OPTS=1
 // runs the options.  Built and run by tests/test_torch_cuda_emu.py, which
@@ -31,7 +33,8 @@ using namespace smsut;
 
 namespace {
 
-struct Shape { int B, H, W, C, Co; };
+// H is g's rows; with a window x holds hin rows at offset off
+struct Shape { int B, H, W, C, Co, hin = 0, off = 0; };
 std::mt19937 rng(2);
 std::normal_distribution<float> nd(0.f, 1.f);
 
@@ -40,10 +43,11 @@ float act_ref(float v, float g, float h) {
   return __bfloat162float(__float2bfloat16(a >= 0.f ? a : 0.01f * a));
 }
 
-template <int KS, bool PRO>
+template <int KS, bool PRO, bool WIN = false>
 int run_case(const char* what, const Shape& s) {
   constexpr int R = KS / 2;
-  const size_t nx = (size_t)s.B * s.H * s.W * s.C,
+  const int HI = WIN ? s.hin : s.H, OFF = WIN ? s.off : 0;
+  const size_t nx = (size_t)s.B * HI * s.W * s.C,
                ng = (size_t)s.B * s.H * s.W * s.Co,
                nw = (size_t)KS * KS * s.C * s.Co;
   std::vector<bf16> xbuf(nx + 8), g(ng);
@@ -63,11 +67,11 @@ int run_case(const char* what, const Shape& s) {
       for (int j = 0; j < s.W; ++j)
         for (int u = 0; u < KS; ++u)
           for (int v = 0; v < KS; ++v) {
-            const int ih = i + u - R, iw = j + v - R;
-            if (ih < 0 || ih >= s.H || iw < 0 || iw >= s.W) continue;
+            const int ih = i + u - R + OFF, iw = j + v - R;
+            if (ih < 0 || ih >= HI || iw < 0 || iw >= s.W) continue;
             for (int ci = 0; ci < s.C; ++ci) {
               double xv = __bfloat162float(
-                  x[((size_t)(b * s.H + ih) * s.W + iw) * s.C + ci]);
+                  x[((size_t)(b * HI + ih) * s.W + iw) * s.C + ci]);
               if (PRO)
                 xv = act_ref((float)xv, gh[(size_t)b * 2 * s.C + ci],
                              gh[(size_t)b * 2 * s.C + s.C + ci]);
@@ -92,9 +96,9 @@ int run_case(const char* what, const Shape& s) {
     int rc[2];
     for (int run = 0; run < 2; ++run) {
       dw[run].assign(nw, NAN);
-      rc[run] = conv3x3_dw_tc<KS, PRO>(x, g.data(), part.data(),
-                                       dw[run].data(), s.B, s.H, s.W, s.C,
-                                       s.Co, nullptr, target, gh.data());
+      rc[run] = conv3x3_dw_tc<KS, PRO, WIN>(
+          x, g.data(), part.data(), dw[run].data(), s.B, s.H, s.W, s.C, s.Co,
+          nullptr, target, gh.data(), s.hin, s.off);
     }
     double worst = 0;
     size_t bad = 0;
@@ -122,6 +126,15 @@ int run_options() {
   for (Shape s : {Shape{2, 16, 20, 16, 16}, Shape{1, 9, 16, 32, 64},
                   Shape{1, 4, 16, 12, 32}})
     failed += run_case<3, true>("pro", s);
+  // the row window: x with both neighbours' rows (dw1), and y1 with the
+  // row below only or above only, normalised while staging (dw2)
+  for (Shape s : {Shape{2, 16, 20, 16, 16, 18, 1},
+                  Shape{1, 9, 16, 32, 64, 11, 1}})
+    failed += run_case<3, false, true>("win", s);
+  for (Shape s : {Shape{2, 16, 20, 16, 16, 17, 0},
+                  Shape{1, 9, 16, 32, 32, 10, 1},
+                  Shape{1, 4, 16, 12, 32, 5, 0}})
+    failed += run_case<3, true, true>("win+pro", s);
   return failed;
 }
 

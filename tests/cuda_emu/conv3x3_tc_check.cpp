@@ -27,7 +27,13 @@
 // - kEpiMask (y * lrelu'(norm_act(y1))) and kEpiAdd (+ a float32 map),
 //   within one bf16 unit of the float64 value rounded once;
 // - a float32 output at KS 1 (K6's shortcut term), within 1e-5 of the sum
-//   of the terms' magnitudes.
+//   of the terms' magnitudes;
+// - the row window (K3's and K6's chains split over a space group): x of
+//   hin rows, output row i reading input row i + u - 1 + off, rows outside
+//   the input padding (zero, and left zero by PRO, with h far from 0): the
+//   rows of both neighbours, the row below only and the row above only,
+//   with STATS over the output rows alone, PRO, and the mask and add
+//   epilogues.
 //
 // Environment: EMU_DEFER=1 lands cp.async copies at their wait; EMU_OPTIN
 // sets the block's shared-memory limit in bytes; EMU_OPTS=1 runs the
@@ -73,13 +79,16 @@ std::vector<float> gh_ref(int B, int C, float hmean) {
   return v;
 }
 
-struct Shape { int B, H, W, C, Co; };
+// H is the output's rows; with a window x holds hin rows at offset off
+struct Shape { int B, H, W, C, Co, hin = 0, off = 0; };
 
 // One option set at every block shape of the NCO of s.Co.
-template <int KS, typename OutT, bool STATS, bool PRO, int EPI>
+template <int KS, typename OutT, bool STATS, bool PRO, int EPI,
+          bool WIN = false>
 int run_case(const char* what, const Shape& s) {
   constexpr int R = KS / 2;
-  const size_t nx = (size_t)s.B * s.H * s.W * s.C,
+  const int HI = WIN ? s.hin : s.H, OFF = WIN ? s.off : 0;
+  const size_t nx = (size_t)s.B * HI * s.W * s.C,
                ny = (size_t)s.B * s.H * s.W * s.Co;
   std::vector<bf16> x = randbf(nx, 1.f);
   std::vector<bf16> w = randbf((size_t)KS * KS * s.C * s.Co, 0.1f);
@@ -95,7 +104,7 @@ int run_case(const char* what, const Shape& s) {
   // the conv's input as the kernel must see it
   std::vector<float> xin(nx);
   for (size_t i = 0; i < nx; ++i) {
-    const int c = (int)(i % s.C), b = (int)(i / ((size_t)s.H * s.W * s.C));
+    const int c = (int)(i % s.C), b = (int)(i / ((size_t)HI * s.W * s.C));
     const float* g = pgh.data() + (size_t)b * 2 * s.C;
     xin[i] = PRO ? act_ref(bf(x[i]), g[c], g[s.C + c]) : bf(x[i]);
   }
@@ -107,11 +116,11 @@ int run_case(const char* what, const Shape& s) {
           double a = 0, m = 0;
           for (int u = 0; u < KS; ++u)
             for (int v = 0; v < KS; ++v) {
-              const int ih = i + u - R, iw = j + v - R;
-              if (ih < 0 || ih >= s.H || iw < 0 || iw >= s.W) continue;
+              const int ih = i + u - R + OFF, iw = j + v - R;
+              if (ih < 0 || ih >= HI || iw < 0 || iw >= s.W) continue;
               for (int ci = 0; ci < s.C; ++ci) {
                 const double t =
-                    (double)xin[((size_t)(b * s.H + ih) * s.W + iw) * s.C + ci] *
+                    (double)xin[((size_t)(b * HI + ih) * s.W + iw) * s.C + ci] *
                     bf(w[((u * KS + v) * s.C + ci) * s.Co + co]);
                 a += t;
                 m += std::fabs(t);
@@ -135,8 +144,8 @@ int run_case(const char* what, const Shape& s) {
     std::vector<float> part((size_t)s.B * (nt ? nt : 1) * 2 * s.Co, NAN);
     const TcOpts o{part.data(), pgh.data(),
                    EPI == kEpiAdd ? (const void*)ea.data() : ey.data(),
-                   egh.data()};
-    const int rc = conv3x3_tc<KS, OutT, STATS, PRO, EPI>(
+                   egh.data(), s.hin, s.off};
+    const int rc = conv3x3_tc<KS, OutT, STATS, PRO, EPI, WIN>(
         x.data(), w.data(), y.data(), s.B, s.H, s.W, s.C, s.Co, nullptr, cfg,
         o);
     size_t bad = 0, bad_stats = 0;
@@ -209,6 +218,17 @@ int run_options() {
     failed += run_case<3, bf16, false, false, kEpiAdd>("add", s);
   for (Shape s : {Shape{2, 9, 20, 16, 8}, Shape{1, 4, 16, 32, 24}})
     failed += run_case<1, float, false, false, kEpiNone>("ks1+f32", s);
+  // the row window: both neighbours' rows (conv1, dn1, dx), the row below
+  // only and the row above only (conv2 at the image's top and bottom)
+  for (Shape s : {Shape{2, 9, 20, 16, 16, 11, 1}, Shape{1, 5, 20, 48, 48, 7, 1}})
+    failed += run_case<3, bf16, true, false, kEpiNone, true>("win+stats", s);
+  for (Shape s : {Shape{2, 9, 20, 16, 16, 10, 0}, Shape{1, 6, 16, 32, 32, 7, 1},
+                  Shape{1, 4, 16, 12, 16, 5, 0}})
+    failed += run_case<3, bf16, true, true, kEpiNone, true>("win+stats+pro", s);
+  for (Shape s : {Shape{2, 9, 20, 16, 16, 11, 1}})
+    failed += run_case<3, bf16, false, false, kEpiMask, true>("win+mask", s);
+  for (Shape s : {Shape{1, 5, 20, 48, 24, 7, 1}})
+    failed += run_case<3, bf16, false, false, kEpiAdd, true>("win+add", s);
   return failed;
 }
 

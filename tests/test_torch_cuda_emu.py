@@ -30,7 +30,8 @@ program per source:
 - ``csrc/conv3x3_dw_tc.cuh``, K5's bfloat16 path, within 1e-5 of the sum
   of |x * g| of each element, two runs bit for bit
   (tests/cuda_emu/conv3x3_dw_tc_check.cpp), and K6's options: the 1x1
-  weight gradient and the norm applied while staging.
+  weight gradient and the norm applied while staging; both also with the
+  row window of K3's and K6's chains split over a space group.
 
 This checks the kernels' own index logic (fragment addressing, halos,
 channel chunks, tiles and masks, splits, the host-side refusal of a shape)
@@ -258,10 +259,12 @@ def test_conv3x3_tc_kernel_in_emulation(tc_binary, env):
 ], ids=["copies_at_once", "copies_at_wait", "channel_chunks"])
 def test_conv3x3_tc_block_options_in_emulation(tc_binary, env):
     """K3's and K6's convs on the tensor cores: STATS, PRO, KS 1, the mask
-    and add epilogues and a float32 output, each at every block shape."""
+    and add epilogues and a float32 output, each at every block shape; and
+    the row window of their chains split over a space group."""
     lines = _run(tc_binary, {"EMU_OPTS": "1", **env})
     for what in ("stats", "stats+pro", "ks1+stats", "mask", "add",
-                 "ks1+f32"):
+                 "ks1+f32", "win+stats", "win+stats+pro", "win+mask",
+                 "win+add"):
         assert any(l.startswith(what + " ") for l in lines), what
     if "EMU_OPTIN" in env:
         assert any(l.startswith("stats+pro ") and " chunks 1 " not in l
@@ -271,9 +274,10 @@ def test_conv3x3_tc_block_options_in_emulation(tc_binary, env):
 @pytest.mark.parametrize("env", list(ENVS.values()), ids=list(ENVS))
 def test_conv3x3_dw_tc_block_options_in_emulation(dw_tc_binary, env):
     """K6's weight gradients on the tensor cores: the 1x1 conv's (dws) and
-    dw2's, with z1 rebuilt from y1 while staging."""
+    dw2's, with z1 rebuilt from y1 while staging; and both through the row
+    window of K6's chain split over a space group."""
     lines = _run(dw_tc_binary, {"EMU_OPTS": "1", **env})
-    for what in ("ks1", "pro"):
+    for what in ("ks1", "pro", "win", "win+pro"):
         assert any(l.startswith(what + " ") for l in lines), what
     assert any(l.startswith("pro ") and " of 1 tiles" not in l
                for l in lines)

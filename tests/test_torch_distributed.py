@@ -480,17 +480,17 @@ def test_eval_sweep_shares(monkeypatch, n, world, want):
 
 
 @pytest.mark.parametrize("what, error", [
-    ("spatial_parallel=2", "NotImplementedError"),
+    ("spatial_parallel=2", None),
     ("data_parallel=3", "ValueError"),
     ("meanTeacher", None),
     ("uganConsis B/N odd", None)])
 def test_group_refusals(run, what, error):
-    """Under a group of 2: the spatial axis with the fused block kernel
-    (tests/test_torch_spatial.py runs the axis itself) and a
-    data_parallel that is not the group's size raise; Mean Teacher and a
-    uganConsis whose
-    PatchNCE groups straddle the ranks (3 rows a rank) construct
-    (tests/test_torch_distributed_zoo.py holds them to one process)."""
+    """Under a group of 2: a data_parallel that is not the group's size
+    raises; the spatial axis with the fused block kernels (K3/K6 split at
+    their statistics; tests/test_torch_spatial_block.py runs them), Mean
+    Teacher and a uganConsis whose PatchNCE groups straddle the ranks (3
+    rows a rank) construct (tests/test_torch_distributed_zoo.py holds the
+    last two to one process)."""
     for r in ranks(run, "refuse"):
         if error is None:
             assert r[what] == "", r[what]

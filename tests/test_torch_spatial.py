@@ -22,7 +22,7 @@ run.  While they run, this process computes the references:
   U-Net's bounds;
 - ``fit``: ``unetTrainer -p train`` through ``run_main`` in one process,
   held with tests/test_torch_distributed.py's fit rules;
-- the refusals.
+- the refusals, and the fused block kernels taken (``block_pallas``).
 """
 import json
 import os
@@ -192,20 +192,26 @@ def _few_torch_threads():
 @pytest.mark.parametrize("kw, match", [
     (dict(input_size=32, spatial_parallel=4), "input_size >= 64"),
     (dict(input_size=64, spatial_parallel=3), "whole rows"),
-    (dict(input_size=128, spatial_parallel=8), "whole rows"),
-    (dict(input_size=64, spatial_parallel=2, block_pallas=True),
-     "block_pallas")])
+    (dict(input_size=128, spatial_parallel=8), "whole rows")])
 def test_check_spatial_refuses(kw, match):
-    """The JAX Trainer's guard (input_size // 16 >= max(4, sp)), maps
+    """The JAX Trainer's guard (input_size // 16 >= max(4, sp)) and maps
     that do not split into whole rows (3 ranks of a 64 image; the
-    discriminator's 8x8 map over 8 ranks, one odd row before its pool),
-    and the fused block kernel: each message names spatial_parallel."""
+    discriminator's 8x8 map over 8 ranks, one odd row before its pool):
+    each message names spatial_parallel."""
     cfg = Config(**kw)
     with pytest.raises((ValueError, NotImplementedError),
                        match="spatial_parallel"):
         mesh.check_spatial(cfg, cfg.spatial_parallel, gan=True)
     with pytest.raises((ValueError, NotImplementedError), match=match):
         mesh.check_spatial(cfg, cfg.spatial_parallel, gan=True)
+
+
+def test_check_spatial_takes_block_pallas():
+    """The fused block kernels run split at their statistics on the space
+    axis (ops/block.py): the check takes ``block_pallas`` with the U-Net's
+    and the GAN's maps."""
+    cfg = Config(input_size=64, spatial_parallel=2, block_pallas=True)
+    mesh.check_spatial(cfg, cfg.spatial_parallel, gan=True)
 
 
 def test_single_process_refuses_space_axis():
@@ -345,19 +351,25 @@ def test_cli_fit_matches_one_process(run, tmp_path):
 
 @pytest.mark.parametrize("what, error", [
     ("input_size=32", "ValueError"),
-    ("block_pallas", "NotImplementedError"),
-    ("fused block", "NotImplementedError"),
-    ("meanTeacher", "NotImplementedError"),
     ("make_mesh_2d", "ValueError")])
 def test_space_axis_refusals(run, what, error):
-    """Under a group of 1 x 2: the JAX guard's size, the fused block
-    kernel (by the Trainer's check, for the U-Net and for the zoo's Mean
-    Teacher, and in the block itself) and a model axis beside the space
-    axis (the JAX package's tp x sp guard) raise, naming what."""
+    """Under a group of 1 x 2: the JAX guard's size and a model axis
+    beside the space axis (the JAX package's tp x sp guard) raise, naming
+    what."""
     names = {"input_size=32": "spatial_parallel",
-             "block_pallas": "block_pallas", "fused block": "block_pallas",
-             "meanTeacher": "block_pallas",
              "make_mesh_2d": "spatial parallelism"}
     for r in ranks(run, "1x2", "refuse"):
         assert r[what].startswith(error + ":"), r[what]
         assert names[what] in r[what], r[what]
+
+
+@pytest.mark.parametrize("what, want", [
+    ("block_pallas", "ok: True"), ("fused block", "ok: [[1, 32, 64, 5], 0]"),
+    ("meanTeacher", "ok: True")])
+def test_space_axis_takes_block_pallas(run, what, want):
+    """Under a group of 1 x 2 the fused block kernels run split at their
+    statistics: the Trainer takes ``block_pallas`` for the U-Net and for
+    the zoo's Mean Teacher, and a fused w16 U-Net runs on a rank's 32 rows
+    with all nine blocks fused (none routed to the unfused chain)."""
+    for r in ranks(run, "1x2", "refuse"):
+        assert r[what] == want, r[what]

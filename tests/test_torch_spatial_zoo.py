@@ -248,16 +248,14 @@ def test_draw_parts_are_the_global_draw(what, dp, sp):
     (dict(input_size=96, spatial_parallel=2), "segformer", "24x24"),
     (dict(input_size=64, spatial_parallel=4), "segformer", "16x16"),
     (dict(input_size=32, spatial_parallel=2), "segformer",
-     "input_size >= 64"),
-    (dict(input_size=64, spatial_parallel=2, block_pallas=True), "unet",
-     "block_pallas")])
+     "input_size >= 64")])
 def test_check_spatial_refuses_the_zoos_maps(kw, net, match):
     """The SegFormer's maps that do not split into whole rows, a multiple
     of their attention's reduction ratio (96 on 2 ranks: 12 stage-1 rows
     a rank, not a multiple of 8; 64 on 4; the model's rule, which M3L
-    hands the check), the JAX guard, and the fused block kernels under a
-    U-Net's algorithm: each message names spatial_parallel.  The U-Net's
-    maps take 96 on 2 and 64 on 4, the SegFormer's 64 on 2."""
+    hands the check) and the JAX guard: each message names
+    spatial_parallel.  The U-Net's maps take 96 on 2 and 64 on 4, the
+    SegFormer's 64 on 2."""
     cfg = Config(**kw)
     maps = M3L.space_maps if net == "segformer" else None
     with pytest.raises((ValueError, NotImplementedError),
@@ -268,6 +266,14 @@ def test_check_spatial_refuses_the_zoos_maps(kw, net, match):
             4, cfg.spatial_parallel):
         mesh.check_spatial(cfg, cfg.spatial_parallel)
     check_rows(64, 2)
+
+
+def test_check_spatial_takes_block_pallas_for_the_zoos_unets():
+    """The fused block kernels run split at their statistics on the space
+    axis: the check takes ``block_pallas`` with a U-Net algorithm's maps
+    (the zoo's Mean Teacher, CPS, CoraNet) at 64 on 2 ranks."""
+    cfg = Config(input_size=64, spatial_parallel=2, block_pallas=True)
+    mesh.check_spatial(cfg, cfg.spatial_parallel)
 
 
 # ----------------------------------------------------------- two ranks
@@ -526,17 +532,24 @@ def test_coranet_cli_fit_matches_one_process(run, tmp_path):
 
 @pytest.mark.parametrize("what, error, names", [
     ("segformer", "ValueError", "24x24"),
-    ("block_pallas", "NotImplementedError", "K3/K6"),
     ("dtc_rows", "ValueError", "10x10"),
     ("make_mesh_2d", "ValueError", "spatial parallelism")])
 def test_space_axis_refusals_in_a_group(run, what, error, names):
     """Under a group of 1 x 2 the Trainer refuses M3L at input 96 (the
-    SegFormer's stage-1 rows), Mean Teacher with block_pallas (K3/K6 under
-    a space group); DTC refuses rows whose maps do not split; a model
-    axis beside the space axis raises (the JAX package's tp x sp guard):
-    each names what, and the first three spatial_parallel."""
+    SegFormer's stage-1 rows); DTC refuses rows whose maps do not split;
+    a model axis beside the space axis raises (the JAX package's tp x sp
+    guard): each names what, and the first two spatial_parallel."""
     for r in ranks(run, "refuse"):
         assert r[what].startswith(error + ":"), r[what]
         assert names in r[what], r[what]
         if what != "make_mesh_2d":
             assert "spatial_parallel=2" in r[what], r[what]
+
+
+def test_space_axis_takes_block_pallas_in_a_group(run):
+    """Under a group of 1 x 2 the Trainer takes Mean Teacher with
+    ``block_pallas``: K3 and K6 run split at their statistics on the
+    rank's rows (tests/test_torch_spatial_block.py holds its steps
+    against one process)."""
+    for r in ranks(run, "refuse"):
+        assert r["block_pallas"] == "ok: True", r["block_pallas"]

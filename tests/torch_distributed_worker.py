@@ -15,8 +15,8 @@ Modes (the parent holds each against one process):
   augmentation on the synthetic tree, through the sharded loaders;
 - ``pseudo``: CoraNet's pseudo set and three pseudo batches;
 - ``eval``: the eval sweep, scanned and per batch;
-- ``refuse``: the knobs a group of 2 refuses (the space axis with the
-  fused block kernel), and algorithms it once refused.
+- ``refuse``: the knobs a group of 2 refuses, and what it once refused
+  (the space axis with the fused block kernels, algorithms).
 """
 import hashlib
 import json

@@ -23,7 +23,8 @@ Modes (the parent holds each against one process):
   float32 (its metrics) and in float64 (its parameters);
 - ``fit``: ``unetTrainer -p train --set spatial_parallel=S`` through
   ``run_main``, one epoch of two iterations;
-- ``refuse``: what the space axis refuses.
+- ``refuse``: what the space axis refuses, and that it takes the fused
+  block kernels (``block_pallas``: K3/K6 split at their statistics).
 """
 import hashlib
 import json
@@ -269,6 +270,16 @@ def refused(fn) -> str:
     return ""
 
 
+def ran(fn) -> str:
+    """'ok: ' and what ``fn`` returns, or the class and message of what it
+    raises."""
+    try:
+        out = fn()
+    except Exception as e:
+        return f"{type(e).__name__}: {e}"
+    return f"ok: {out}"
+
+
 def run_refuse() -> dict:
     from smsut_tpu_torch.models.unet import UNet
     from smsut_tpu_torch.train.loop import Trainer
@@ -280,21 +291,25 @@ def run_refuse() -> dict:
                                   cfg.replace(expr_root=expr), "test")
 
     def fused_block():
-        net = UNet(5, 8, compute_dtype=torch.float32, block_fused=True,
+        from smsut_tpu_torch.ops import block
+
+        net = UNet(5, 16, compute_dtype=torch.float32, block_fused=True,
                    device="cpu")
-        net(torch.zeros(1, 64 // SP, 64, 1))
+        routed = block.basic_block.routed
+        y = net(torch.zeros(1, 64 // SP, 64, 1))
+        return [list(y.shape), block.basic_block.routed - routed]
 
     return {
         "input_size=32": refused(lambda: trainer(Config(
             input_size=32, base_width=4, batch_size=4,
             spatial_parallel=SP))),
-        "block_pallas": refused(lambda: trainer(step_cfg(
-            spatial_parallel=SP, block_pallas=True))),
-        "fused block": refused(fused_block),
-        "meanTeacher": refused(lambda: Trainer(MeanTeacher(step_cfg(
+        "block_pallas": ran(lambda: trainer(step_cfg(
+            spatial_parallel=SP, block_pallas=True)).cfg.block_pallas),
+        "fused block": ran(fused_block),
+        "meanTeacher": ran(lambda: Trainer(MeanTeacher(step_cfg(
             spatial_parallel=SP, block_pallas=True), device="cpu"),
             step_cfg(spatial_parallel=SP, block_pallas=True,
-                     expr_root=expr), "test")),
+                     expr_root=expr), "test").cfg.block_pallas),
         "make_mesh_2d": refused(lambda: mesh.make_mesh_2d(1, 2)),
     }
 

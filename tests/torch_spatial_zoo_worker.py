@@ -29,7 +29,8 @@ function in one process, where that part is the whole:
   :data:`STEPS` steps drawing the mask grid in the step (the first
   step's gradient recovered from Adam's first moment);
 - ``fit``: ``coraNetTrainer -p train`` through both stages;
-- ``refuse``: what the space axis still refuses.
+- ``refuse``: what the space axis still refuses, and the fused block
+  kernels it now takes.
 """
 import hashlib
 import json
@@ -481,6 +482,16 @@ def refused(fn) -> str:
     return ""
 
 
+def taken(fn) -> str:
+    """'ok: ' and what ``fn`` returns, or the class and message of what it
+    raises."""
+    try:
+        out = fn()
+    except Exception as e:
+        return f"{type(e).__name__}: {e}"
+    return f"ok: {out}"
+
+
 def run_refuse() -> dict:
     from smsut_tpu_torch.models.dtc import DTCUNet
     from smsut_tpu_torch.train.loop import Trainer
@@ -493,8 +504,8 @@ def run_refuse() -> dict:
     dtc = DTCUNet(5, 8, compute_dtype=torch.float32, device="cpu")
     return {
         "segformer": refused(lambda: trainer(M3L, cfg(input_size=96))),
-        "block_pallas": refused(lambda: trainer(MeanTeacher, cfg(
-            block_pallas=True))),
+        "block_pallas": taken(lambda: trainer(MeanTeacher, cfg(
+            block_pallas=True)).cfg.block_pallas),
         "dtc_rows": refused(lambda: dtc(torch.zeros(1, 40 // SP, 40, 1))),
         "make_mesh_2d": refused(lambda: mesh.make_mesh_2d(1, 2)),
     }
