@@ -281,9 +281,9 @@
    every block runs K3 and K6 on its gathered weights (9 a step,
    ``block.basic_block.tp_gathered``), under 11b's bounds.  14c.
    ``dryrun_multichip(4)`` (``smsut_tpu_torch/parallel/dryrun.py``)
-   through ``torch.distributed.run``: four gloo ranks on the card, the
-   2 x 2 model and space layouts against one process within the JAX dry
-   run's bounds.  14d. The checkpoint rank 0 wrote at 1 x 2 after 14a's
+   through ``torch.distributed.run``: four gloo ranks on the card,
+   running beside 14a/b/d, the 2 x 2 model and space layouts against one
+   process within the JAX dry run's bounds.  14d. The checkpoint rank 0 wrote at 1 x 2 after 14a's
    steps, loaded in one process: its trees equal the ranks' gathered ones
    to the bit, its next step meets 11b's bounds against the ranks' next,
    and two loads' next steps are equal to the bit.
@@ -303,7 +303,7 @@
    count; K2 and K5 as one process's, on halo rows; nothing routed; M3L
    none) and its step ms.  15b. ``coraNetTrainer -p train --set
    spatial_parallel=2`` through ``torch.distributed.run`` on phase 6's
-   tree, float32: stage A (one epoch of 5), then stage B from its
+   tree, float32: stage A (one epoch of 2), then stage B from its
    ``pre_best`` (the pseudo-label sweep on rows, gathered; one epoch),
    then ``-p test`` in one process from stage B's checkpoint.
 16. The fused block kernels on the space axis, K3 and K6 split at their
@@ -327,12 +327,35 @@
    cuDNN: 3 iterations' metrics equal to the bit in float32, the peak
    memory allocated, host ms in interleaved blocks, device ms and kernels
    by the profiler, the port's launches per replay.
-17. Prints the ``kernels`` JSON line (all nine kernels, launches summed
-   over the runs of phases 3-16, replays included, not over the checks
+17. The zoo on the model axis (dp x tp = 1 x 2): each rank holds the
+   output-channel shards of every eligible weight of the student, the EMA
+   teacher, CPS's second net and the optimizer state (SGD's traces,
+   Adam's moments).  Two ranks on the one card over gloo (eager, float32,
+   deterministic cuDNN), started during phase 13, set to work with phase
+   15 and waited for before phase 16 (their time is gloo's, on the host,
+   beside phase 15's), against one process at the global batch.  17a. Mean Teacher, CPS, CoraNet A and B (w16,
+   256x256, 8 + 8, from the counts at which every term is live), Mean
+   Teacher again with ``block_pallas``, M3L at its defaults (MiT-b0, its
+   Dense, patch, reduction and depthwise kernels on shards) and DTC w64
+   with batch norm (batch 8, SGD), 2 steps each under 11b's bounds (M3L
+   under 10b's float32 rules on step 1 and its step-1 gradient); both
+   ranks' trees equal to the bit; a rank's launches and routed calls in
+   every step asserted (each student step phase 14's U-Net step, each
+   teacher forward its forward: K1/K4 on whole maps, K2/K5 on the Cout/2
+   shards with the 256^2 level's Cout-8 shards routed, K3/K6 on gathered
+   weights; DTC one process's, nothing routed; M3L none); each
+   algorithm's ``eval_fn`` on the shards against one process.  17b.
+   CoraNet B's pseudo sweep (12 images in chunks of 8) on the shards
+   against one process, and M3L's state saved at 1 x 2 after 17a's steps,
+   loaded in one process: its trees the ranks' to the bit, its next step
+   against the ranks' next.
+18. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-17, replays included, not over the checks
    against the plain path; K1's and K4's split forms' launches beside
    theirs, over phases 13b, 15a and 16a, K3's and K6's split phases'
    beside theirs, over phase 16a, and each kernel's launches by phase
-   14's rank 0, ``tp_rank_launches``), then the device line last.
+   14's rank 0, ``tp_rank_launches``, and by phase 17a's,
+   ``tp_zoo_rank_launches``), then the device line last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -2697,14 +2720,19 @@ def zoo_algo(name: str, cfg):
     return factories()[name][1](cfg, None)
 
 
+# an iteration's student steps (forward and backward) and teacher
+# forwards: Mean Teacher adds the teacher's forward, cross-pseudo
+# supervision runs two students, CoraNet B two student applies of 8 and
+# the teacher's forward
+ZOO_APPLIES = {"meanTeacher": (1, 1), "crossPse": (2, 0), "coraPre": (1, 0),
+               "coraNet": (2, 1)}
+
+
 def zoo_per_step(name: str, fused: bool) -> dict:
     """Launches per iteration: a student forward and backward at 16
-    images counts as one U-Net step; Mean Teacher adds the teacher's
-    forward, cross-pseudo supervision runs two students, CoraNet B two
-    student applies of 8 and the teacher's forward."""
+    images counts as one U-Net step (:data:`ZOO_APPLIES`)."""
     s, f = PER_STEP[fused], PER_FORWARD[fused]
-    n_step, n_fwd = {"meanTeacher": (1, 1), "crossPse": (2, 0),
-                     "coraPre": (1, 0), "coraNet": (2, 1)}[name]
+    n_step, n_fwd = ZOO_APPLIES[name]
     return {k: n_step * s.get(k, 0) + n_fwd * f.get(k, 0) for k in KERNELS}
 
 
@@ -5178,38 +5206,58 @@ def tp_two_ranks(torch, np, counters, routed, kids, card: str) -> dict:
     return out
 
 
-def tp_dryrun(card: str) -> dict:
+def tp_dryrun_start():
     """14c: ``smsut_tpu_torch.parallel.dryrun`` (``dryrun_multichip(4)``)
-    through ``torch.distributed.run``, four gloo ranks on the one card."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    through ``torch.distributed.run``, four gloo ranks on the one card,
+    started: (the process, its start)."""
+    return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "4", "-m", "smsut_tpu_torch.parallel.dryrun"],
-        cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def tp_dryrun(started, card: str) -> dict:
+    """14c's report, once the dry run :func:`tp_dryrun_start` started
+    ends."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"14c did not end within {DP_TIMEOUT_S} s")
     secs = time.perf_counter() - t0
-    line = [x for x in proc.stdout.splitlines()
+    line = [x for x in out.splitlines()
             if x.startswith("dryrun_multichip(4): ok")]
     print(f"tp 14c on {card}: {line[-1] if line else 'no report'} "
-          f"({secs:.1f} s, four ranks over gloo on the one card)", flush=True)
+          f"({secs:.1f} s, four ranks over gloo on the one card, beside "
+          f"14a/b/d)", flush=True)
     if proc.returncode or len(line) != 1:
         raise AssertionError(f"14c dryrun_multichip(4) failed "
-                             f"({proc.returncode}):\n{proc.stdout[-2000:]}\n"
-                             f"{proc.stderr[-4000:]}")
+                             f"({proc.returncode}):\n{out[-2000:]}\n"
+                             f"{err[-4000:]}")
     return {"line": line[0], "seconds": secs}
 
 
 def tp_phase(torch, counters, routed, kids: list, card: str) -> dict:
-    """Phase 14: 14a, 14b and 14d (``kids`` from :func:`tp_spawn`), then
-    14c."""
+    """Phase 14: 14a, 14b and 14d (``kids`` from :func:`tp_spawn`), with
+    14c's four ranks running beside them."""
     import numpy as np
 
     t0 = time.perf_counter()
-    ranks = tp_two_ranks(torch, np, counters, routed, kids, card)
+    started = tp_dryrun_start()
+    try:
+        ranks = tp_two_ranks(torch, np, counters, routed, kids, card)
+    except BaseException:
+        started[0].kill()
+        started[0].communicate()
+        raise
     t1 = time.perf_counter()
-    dry = tp_dryrun(card)
+    dry = tp_dryrun(started, card)
     t2 = time.perf_counter()
-    print(f"phase 14 on {card}: 14a/b/d {t1 - t0:.1f} s, 14c {t2 - t1:.1f} "
-          f"s", flush=True)
+    print(f"phase 14 on {card}: 14a/b/d {t1 - t0:.1f} s, 14c {t2 - t0:.1f} "
+          f"s from the phase's start", flush=True)
     return {"two_ranks": ranks, "dryrun": dry, "seconds": [t1 - t0, t2 - t1]}
 
 
@@ -5218,7 +5266,7 @@ def tp_phase(torch, counters, routed, kids: list, card: str) -> dict:
 # image of Mean Teacher's, CPS's, CoraNet's, DTC's and M3L's batches
 SPZ_DIR = FIT_DIR / "spz"
 SPZ_STEPS = 2             # 15a: each algorithm's eager steps
-SPZ_FIT_ITERS = 5         # 15b: each stage's one epoch
+SPZ_FIT_ITERS = 2         # 15b: each stage's one epoch
 SPZ_ZOO = ("meanTeacher", "crossPse", "coraPre", "coraNet", "M3L", "dtc")
 
 
@@ -5574,7 +5622,7 @@ SPB_UNET = dict({k: 0 for k in KERNELS}, block_fwd_conv=27,
                 instance_norm_fwd_sums=1, instance_norm_fwd_apply=1,
                 instance_norm_bwd_sums=1, instance_norm_bwd_apply=1)
 # 16c: rounds of interleaved timing blocks and the iterations in each
-SPB_ROUNDS = 3
+SPB_ROUNDS = 2
 SPB_UNITS = {"unet": 10, "gan": 3}
 TOL.update({("block_split", d): TOL[("block", d)]
             for d in ("float32", "bfloat16")})
@@ -6075,6 +6123,445 @@ def spb_phase(torch, ops, block, counters, routed, kids: list,
             "seconds": [t1 - t0, t2 - t1, t3 - t2]}
 
 
+# phase 17: the semi-supervised zoo on the model axis (dp x tp = 1 x 2):
+# two ranks on the one card over gloo, each holding the output-channel
+# shards of every eligible weight of Mean Teacher's, CPS's, CoraNet's,
+# M3L's and DTC's states (the EMA teacher, the second net, the optimizer
+# state alike)
+TPZ_DIR = FIT_DIR / "tpz"
+TPZ_STEPS = 2             # 17a: each algorithm's eager steps
+# 17a's runs: the zoo at w16 unfused, Mean Teacher again with
+# block_pallas (K3/K6 on every block's gathered weights), M3L at its
+# defaults, DTC w64 with batch norm
+TPZ_ZOO = ("meanTeacher", "crossPse", "coraPre", "coraNet", "M3L", "dtc",
+           "meanTeacherFused")
+TPZ_EVAL = ("meanTeacher", "crossPse", "coraNet", "M3L")
+# 17a: eval logits, a model rank's against one process's, relative to
+# max(1, max |logit|)
+TPZ_EVAL_TOL = 1e-4
+# 17b: the pseudo sweep's images (two chunks of 8, the second padded), and
+# the top-two margin of one process's logits beyond which the ranks'
+# labels must equal its own
+TPZ_SWEEP, TPZ_MARGIN = 12, 1e-3
+# a model rank's forward of the w16 U-Net (phase 14's shards): unfused,
+# the 256^2 level's 4 convs of Cout 8 shards routed; fused, K3 on every
+# block's gathered weights
+PER_FORWARD_TP = {False: {"instnorm": 28, "conv3x3": 14, "block": 0},
+                  True: dict(PER_FORWARD[True])}
+
+
+def tpz_per_step(name: str) -> tuple:
+    """A model rank's (launches, routed calls) per iteration of zoo run
+    ``name``: each student step one U-Net step of phase 14's, each teacher
+    forward a forward (:data:`ZOO_APPLIES`); M3L none (DTC: one process's
+    count, checked apart)."""
+    fused = name.endswith("Fused")
+    base = name[:-len("Fused")] if fused else name
+    if base not in ZOO_APPLIES:
+        return ({k: 0 for k in KERNELS},
+                {k: 0 for k in ROUTED_TP[False]})
+    n_step, n_fwd = ZOO_APPLIES[base]
+    s, f = PER_STEP_TP[fused], PER_FORWARD_TP[fused]
+    return ({k: n_step * s.get(k, 0) + n_fwd * f.get(k, 0) for k in KERNELS},
+            {k: (n_step + n_fwd) * v for k, v in ROUTED_TP[fused].items()})
+
+
+def tpz_zoo(torch, np, counters, routed, layout=None) -> tuple:
+    """17a's runs, float32, eager, at the global batch, on the states
+    sharded over ``layout`` (whole in one process): each of
+    :data:`TPZ_ZOO` TPZ_STEPS steps (Mean Teacher, CPS, CoraNet A and B
+    at w16, 8 + 8, from the counts at which every term is live, B's pseudo
+    batch on every rank; M3L at the Config defaults; DTC w64 with batch
+    norm and ReLU at batch 8, SGD on its forward and backward), then each
+    of :data:`TPZ_EVAL`'s ``eval_fn`` on its initial weights.  Per run
+    the metrics averaged over the group and per step the launches, routed
+    calls, ms, the whole trees' checksum and sha; under ``layout`` M3L's
+    state saved after its steps (``save_state``, TPZ_DIR) and one more
+    step (``next``).  ``tensors``: M3L's student after step 1 and that
+    step's gradient (from Adam's first moment), the eval logits."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.models.dtc import DTCUNet
+    from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+    from smsut_tpu_torch.parallel import mesh
+    from smsut_tpu_torch.train import checkpoints
+
+    shard = ((lambda t: t) if layout is None
+             else (lambda t: mesh.shard_params_channelwise(layout, t)))
+    mean = lambda v: float(mesh.mean_over_ranks(v.detach().reshape(())))
+    counts = lambda: {k: c.launches for k, c in counters.items()}
+    cuda = lambda v: torch.from_numpy(v).cuda()
+    lb, ul, ps = dp_batch(np), ellipse_batch(np, seed=1), \
+        ellipse_batch(np, seed=2)
+    batch = {"img": cuda(lb["img"]), "msk": cuda(lb["msk"]),
+             "ul_img": cuda(ul["img"])}
+    pseudo = {"pse_img": cuda(ps["img"]), "pse_lab": cuda(ps["msk"]),
+              "pse_mask": cuda((np.random.default_rng(3).random(
+                  ps["msk"].shape) < 0.7).astype(np.float32))}
+    out, tensors = {}, {}
+
+    def whole(state) -> list:
+        return [mesh.gather_tree(getattr(state, t), state.shards)
+                for t in ("params", "ema_params", "params2")
+                if getattr(state, t) is not None]
+
+    def record(r, t0, metrics, trees):
+        torch.cuda.synchronize()
+        r.setdefault("step_ms", []).append((time.perf_counter() - t0) * 1e3)
+        r.setdefault("metrics", []).append(metrics)
+        r.setdefault("step_launches", []).append(counts())
+        r.setdefault("step_routed", []).append(routed_counts(routed))
+        r.setdefault("checksums", []).append(
+            sum(tree_checksum(t) for t in trees))
+        r.setdefault("shas", []).append([tree_sha(t) for t in trees])
+
+    for name in TPZ_ZOO:
+        if name == "dtc":
+            continue
+        fused = name.endswith("Fused")
+        base = name[:-len("Fused")] if fused else name
+        cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                     compute_dtype="float32", block_pallas=fused)
+        algo = m3l_algo("float32") if base == "M3L" else zoo_algo(base, cfg)
+        state = shard(zoo_state(algo, M3L_GATE if base == "M3L"
+                                else ZOO_GATE[base]))
+        inp = dict(batch, **pseudo) if base == "coraNet" else batch
+        scal = algo.epoch_scalars(3)
+        r = out[name] = {"shards": len(state.shards)}
+        p0 = mesh.gather_tree(state.params, state.shards)
+        p0 = {n: v.detach().clone() for n, v in p0.items()}
+        for k in range(TPZ_STEPS):
+            zero(counters, routed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = algo.train_step(state, inp, scal)
+            record(r, t0, {n: mean(v) for n, v in m.items()}, whole(state))
+            if base == "M3L" and k == 0:
+                tensors["m3l_step1"] = {n: v.cpu() for n, v in
+                                        whole(state)[0].items()}
+                tx = state.tx   # m = (1 - b1) (g + wd p0)
+                mu = mesh.gather_tree(state.opt_state.mu, state.shards)
+                tensors["m3l_grad1"] = {
+                    n: (v / (1.0 - tx.b1) - tx.weight_decay * p0[n]).cpu()
+                    for n, v in mu.items()}
+        if base == "M3L" and layout is not None:
+            # 17b: the state written whole by rank 0, then one more step
+            checkpoints.save_state(state, str(TPZ_DIR), "m3l")
+            state, m = algo.train_step(state, inp, scal)
+            r["next"] = {n: mean(v) for n, v in m.items()}
+        del algo, state, p0
+        torch.cuda.empty_cache()
+    net = DTCUNet(5, DTC_WIDTH, compute_dtype=torch.float32)
+    params = {k: v.detach().clone() for k, v in net.named_parameters()}
+    shards = (frozenset() if layout is None else mesh.sharded_keys(
+        {k: v.shape for k, v in params.items()}, TP))
+    params = shard(params)
+    msk = batch["msk"].long()
+    r = out["dtc"] = {"shards": len(shards)}
+    for _ in range(TPZ_STEPS):
+        zero(counters, routed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = {k: v.requires_grad_() for k, v in params.items()}
+        tanh, logits = torch.func.functional_call(net, leaves,
+                                                  (batch["img"],))
+        loss = (dice_and_ce_loss(logits, msk)
+                + (tanh - sign_map(msk, tanh.shape[-1])).square().mean())
+        grads = mesh.reduce_gradients_(dict(zip(
+            leaves, torch.autograd.grad(loss, list(leaves.values())))),
+            shards)
+        params = {k: (v - DP_DTC_LR * grads[k]).detach()
+                  for k, v in leaves.items()}
+        record(r, t0, {"loss": mean(loss)}, [mesh.gather_tree(params,
+                                                              shards)])
+    del net, params, leaves, grads, tanh, logits
+    torch.cuda.empty_cache()
+    cfg = Config(input_size=256, base_width=16, batch_size=DP_GLOBAL,
+                 compute_dtype="float32")
+    for name in TPZ_EVAL:
+        algo = m3l_algo("float32") if name == "M3L" else zoo_algo(name, cfg)
+        logits = algo.eval_fn(shard(algo.init_params(0)), batch["img"])
+        tensors[f"eval_{name}"] = logits.cpu()
+        out.setdefault("eval_sha", {})[name] = tree_sha({"l": logits})
+        del algo, logits
+    torch.cuda.empty_cache()
+    return out, tensors
+
+
+def tpz_sweep_samples(np) -> list:
+    """17b's unlabelled stream: TPZ_SWEEP whole ellipse images with their
+    labels, ``(img [H,W,1], lab [H,W], mdl)``."""
+    b = [ellipse_batch(np, seed=s) for s in (4, 5)]
+    img = np.concatenate([x["img"] for x in b])[:TPZ_SWEEP]
+    lab = np.concatenate([x["msk"] for x in b])[:TPZ_SWEEP]
+    return [(img[i], lab[i].astype(np.int64), 1) for i in range(TPZ_SWEEP)]
+
+
+def tpz_sweep(torch, np, layout=None) -> tuple:
+    """17b: CoraNet B's pseudo-label sweep (``pred_unlabel``, eager, in
+    chunks of 8) of :func:`tpz_sweep_samples` with the initial weights
+    sharded over ``layout``: (its Dice, the labels and agreement mask)."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.parallel import mesh
+
+    algo = zoo_algo("coraNet", Config(input_size=256, base_width=16,
+                                      batch_size=DP_GLOBAL,
+                                      compute_dtype="float32"))
+    state = algo.init_state(0)
+    if layout is not None:
+        state = mesh.shard_params_channelwise(layout, state)
+    data, dice = algo.pred_unlabel(state, iter(tpz_sweep_samples(np)),
+                                   capture=False)
+    return dice, {k: torch.from_numpy(data[k]) for k in ("plab", "mask")}
+
+
+def tpz_rank() -> dict:
+    """17a and 17b's ranks, one of two on the one card (gloo, eager,
+    deterministic cuDNN; the group from the SMSUT_* variables) laid out as
+    dp x tp = 1 x 2: :func:`tpz_zoo` and :func:`tpz_sweep` on the sharded
+    states (rank 0's tensors written to TPZ_DIR for the parent)."""
+    import numpy as np
+    import torch
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.parallel import distributed, mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    if not distributed.initialize():
+        raise AssertionError("no group")
+    layout = mesh.make_mesh_2d(1, TP)
+    counters, routed = kernel_counters()
+    out, tensors = tpz_zoo(torch, np, counters, routed, layout)
+    t0 = time.perf_counter()
+    dice, labels = tpz_sweep(torch, np, layout)
+    out["sweep"] = {"dice": dice, "sha": tree_sha(labels),
+                    "s": time.perf_counter() - t0}
+    out.update(rank=distributed.process_index(),
+               world=distributed.process_count(),
+               model=distributed.model_count(), backend=distributed.backend())
+    if distributed.is_primary():
+        torch.save(dict(tensors, sweep=labels), TPZ_DIR / "zoo_rank0.pt")
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def tpz_spawn() -> list:
+    """17a's two ranks, started ahead of the phase (their group's address
+    chosen here)."""
+    TPZ_DIR.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    return [run_child("tpz_rank", {
+        "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+        "SMSUT_NUM_PROCESSES": str(TP), "SMSUT_PROCESS_ID": str(r)})
+        for r in range(TP)]
+
+
+def tpz_go(kids: list) -> None:
+    """17a's ranks told to run: with phase 15, whose ranks' and CLI's
+    time is gloo's and process start-up's, on the host, so that the two
+    phases' host work overlaps; :func:`tpz_collect` takes their results
+    before phase 16, which times the card."""
+    for proc, _ in kids:
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+
+
+def tpz_collect(kids: list) -> list:
+    """The results of 17a's ranks, told to run by :func:`tpz_go`."""
+    return [child_result(k, go=False) for k in kids]
+
+
+def tpz_check_run(name: str, a: dict, b: dict, w: dict, mine: dict,
+                  saved: dict, lr: float) -> tuple:
+    """One of 17a's runs, rank 0 ``a`` and rank 1 ``b`` against one
+    process ``w``: (its figures, whether it passes).  11b's bounds (each
+    metric within DP_LOSS_TOL, DTC's relative to max(1, |loss|), the
+    checksum within DP_SUM_TOL relative after the last step); M3L 10b's
+    float32 rules on step 1 and its step-1 gradient within DP_SUM_TOL of
+    one process's in the tree's checksum and in each leaf's; the ranks
+    equal to the bit after every step; a rank's launches and routed calls
+    in each step :func:`tpz_per_step`'s (DTC's one process's, nothing
+    routed)."""
+    import torch
+
+    scale = (lambda y: max(1.0, abs(y))) if name == "dtc" else \
+        (lambda y: 1.0)
+    d = {"loss_err": max(abs(x[n] - y[n]) / scale(y[n])
+                         for x, y in zip(a["metrics"], w["metrics"])
+                         for n in y),
+         "sum_err": abs(a["checksums"][-1] - w["checksums"][-1])
+         / max(abs(w["checksums"][-1]), 1.0),
+         "ranks_equal": a["shas"] == b["shas"]
+         and a["metrics"] == b["metrics"],
+         "shards": a["shards"],
+         "losses": [x["loss"] for x in a["metrics"]],
+         "one_process": [y["loss"] for y in w["metrics"]]}
+    if name == "dtc":
+        want = ({k: w["step_launches"][0].get(k, 0) for k in KERNELS},
+                {k: 0 for k in ROUTED_TP[False]})
+    else:
+        want = tpz_per_step(name)
+    d["launches_ok"] = (
+        len(a["step_launches"]) == TPZ_STEPS
+        and all(s == want[0] for s in a["step_launches"])
+        and all(s == want[1] for s in a["step_routed"])
+        and b["step_launches"] == a["step_launches"]
+        and b["step_routed"] == a["step_routed"] and a["shards"] > 0)
+    ok = d["ranks_equal"] and d["launches_ok"]
+    if name == "M3L":
+        dev = torch.cat([(saved["m3l_step1"][k] - v).abs().flatten()
+                         for k, v in mine["m3l_step1"].items()])
+        d["loss_err"] = max(abs(a["metrics"][0][n] - w["metrics"][0][n])
+                            / abs(w["metrics"][0][n])
+                            for n in ("loss", "semi_loss"))
+        d.update(dev_max=float(dev.max()),
+                 flip_share=float((dev > lr).float().mean()))
+        asum = lambda t: float(t.double().abs().sum())
+        sums = {k: (asum(saved["m3l_grad1"][k]), asum(v))
+                for k, v in mine["m3l_grad1"].items()}
+        total = sum(x for _, x in sums.values())
+        d.update(grad_sum_err=abs(sum(x for x, _ in sums.values())
+                                  - total) / total,
+                 grad_leaf_err=max(abs(x - y) for x, y in sums.values())
+                 / total)
+        ok = ok and (d["loss_err"] <= M3L_LOSS_TOL
+                     and d["dev_max"] <= GAN_FLIP_DEV * lr
+                     and d["flip_share"] < GAN_FLIP_SHARE and total > 0
+                     and sorted(saved["m3l_grad1"]) == sorted(sums)
+                     and d["grad_sum_err"] <= DP_SUM_TOL
+                     and d["grad_leaf_err"] <= DP_SUM_TOL)
+    else:
+        ok = ok and (d["loss_err"] <= DP_LOSS_TOL
+                     and d["sum_err"] <= DP_SUM_TOL)
+    return d, ok
+
+
+def tpz_two_ranks(torch, np, counters, routed, ranks: list,
+                  lr: float) -> dict:
+    """17a and 17b: the two ranks against one process at the global batch,
+    here, under deterministic cuDNN (:func:`tpz_check_run` per run; each
+    eval forward within TPZ_EVAL_TOL; the sweep's labels equal wherever
+    one process's top-two margin exceeds TPZ_MARGIN, its Dice within
+    1e-3; the M3L checkpoint the ranks wrote loaded here, its trees the
+    ranks' to the bit and its next step's losses within M3L_LOSS_TOL of
+    the ranks').  Raises where one fails."""
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.ops.losses import split_heads
+    from smsut_tpu_torch.train import checkpoints
+
+    r0, r1 = ranks
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        one, mine = tpz_zoo(torch, np, counters, routed)
+        dice, labels = tpz_sweep(torch, np)
+        # 17b: the ranks' M3L file in one process, and its next step
+        algo = m3l_algo("float32")
+        st = checkpoints.load_state(algo.init_state(1), str(TPZ_DIR), "m3l")
+        loaded_sha = tree_sha(st.params)
+        lb, ul = dp_batch(np), ellipse_batch(np, seed=1)
+        st, m = algo.train_step(st, {"img": lb["img"], "msk": lb["msk"],
+                                     "ul_img": ul["img"]},
+                                algo.epoch_scalars(3))
+        nxt = {k: float(v) for k, v in m.items()}
+        del algo, st
+        cora = zoo_algo("coraNet", Config(input_size=256, base_width=16,
+                                          batch_size=DP_GLOBAL,
+                                          compute_dtype="float32"))
+        x = torch.from_numpy(np.stack([s[0] for s in
+                                       tpz_sweep_samples(np)])).cuda()
+        with torch.no_grad():
+            heads = split_heads(cora._apply(cora.eval_params(
+                cora.init_state(0)), x), cora.cfg.n_label)
+        clear = []
+        for h in heads:
+            top2 = torch.topk(h, 2, dim=-1).values
+            clear.append((top2[..., 0] - top2[..., 1]
+                          > TPZ_MARGIN).cpu())
+        del cora, heads, x
+        torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic = det
+    saved = torch.load(TPZ_DIR / "zoo_rank0.pt", weights_only=True)
+    out, ok = {}, True
+    for name in TPZ_ZOO:
+        a, b, w = r0[name], r1[name], one[name]
+        d, good = tpz_check_run(name, a, b, w, mine, saved, lr)
+        out[name] = d
+        ok = ok and good
+        shown = {k: v for k, v in d.items() if k != "one_process"}
+        print(f"tpz 17a {name}: two ranks (dp x tp = 1 x {TP}) vs one "
+              f"process: {shown}"
+              f"; one process {[round(x, 6) for x in d['one_process']]}; a "
+              f"rank's launches in each step {a['step_launches']}, routed "
+              f"{a['step_routed']} (expected per step "
+              f"{tpz_per_step(name) if name != 'dtc' else 'one process'}); "
+              f"one process {w['step_launches']}; step ms (rank 0, rank 1, "
+              f"one process) {[round(x, 1) for x in a['step_ms']]} "
+              f"{[round(x, 1) for x in b['step_ms']]} "
+              f"{[round(x, 1) for x in w['step_ms']]}", flush=True)
+    ev = {}
+    for name in TPZ_EVAL:
+        got, want = saved[f"eval_{name}"], mine[f"eval_{name}"]
+        ev[name] = float((got - want).abs().max()
+                         / max(1.0, float(want.abs().max())))
+    eval_ok = (all(v <= TPZ_EVAL_TOL for v in ev.values())
+               and r0["eval_sha"] == r1["eval_sha"])
+    out["eval"] = ev
+    print(f"tpz 17a eval_fn on the shards of the initial weights, 8 images "
+          f"256^2, vs one process (rel err, tol {TPZ_EVAL_TOL}): {ev}; "
+          f"ranks equal {r0['eval_sha'] == r1['eval_sha']}", flush=True)
+    sw = {"dice_ranks": r0["sweep"]["dice"], "dice_one": dice,
+          "ranks_equal": r0["sweep"]["sha"] == r1["sweep"]["sha"],
+          "rank_s": r0["sweep"]["s"]}
+    for key, where in (("plab", clear[0]), ("mask", clear[1] & clear[2])):
+        g, w = saved["sweep"][key], labels[key].cpu()
+        sw[f"{key}_clear"] = float(where.float().mean())
+        sw[f"{key}_agree"] = float((g == w).float().mean())
+        sw[f"{key}_clear_equal"] = bool(torch.equal(g[where], w[where]))
+    sweep_ok = (sw["ranks_equal"] and sw["plab_clear_equal"]
+                and sw["mask_clear_equal"]
+                and abs(sw["dice_ranks"] - dice) <= 1e-3
+                and min(sw["plab_clear"], sw["mask_clear"]) > 0.9)
+    out["sweep"] = sw
+    print(f"tpz 17b CoraNet B's pseudo sweep ({TPZ_SWEEP} images 256^2, "
+          f"chunks of {DP_GLOBAL}) on the ranks' shards vs one process: {sw}",
+          flush=True)
+    m3 = r0["M3L"]
+    ck = {"sha_equal": loaded_sha == m3["shas"][-1][0],
+          "next_err": max(abs(nxt[n] - m3["next"][n]) / abs(nxt[n])
+                          for n in ("loss", "semi_loss")),
+          "next": nxt, "ranks_next": m3["next"]}
+    ck_ok = ck["sha_equal"] and ck["next_err"] <= M3L_LOSS_TOL
+    out["checkpoint"] = ck
+    print(f"tpz 17b: M3L's state (Adam's moments and count, the EMA) saved "
+          f"at 1 x {TP} after {TPZ_STEPS} steps, loaded in one process: "
+          f"{ck}", flush=True)
+    if not (ok and eval_ok and sweep_ok and ck_ok
+            and all(r["backend"] == "gloo" and r["world"] == TP
+                    and r["model"] == TP for r in (r0, r1))):
+        raise AssertionError(f"17 the zoo on the model axis vs one "
+                             f"process: {out}")
+    return {"ranks": [r0, r1], "one_process": one, "diff": out}
+
+
+def tpz_phase(torch, counters, routed, ranks: list, card: str) -> dict:
+    """Phase 17: 17a and 17b against the ranks' results (``ranks`` from
+    :func:`tpz_collect`)."""
+    import numpy as np
+
+    from smsut_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    res = tpz_two_ranks(torch, np, counters, routed, ranks, Config().lr)
+    secs = time.perf_counter() - t0
+    print(f"phase 17 on {card}: 17a/b {secs:.1f} s", flush=True)
+    return dict(res, seconds=secs)
+
+
 # phase 12: from volumes to a trained model: the port's preparation CLIs
 # on synthetic BTCV and CHAOS trees, then unetTrainer on the PNG tree they
 # write.  4 patients per modality (the split: 2 test, 1 labelled, 1
@@ -6349,6 +6836,7 @@ def main() -> int:
     tp_kids = tp_spawn()   # phase 14's ranks start up during phase 13
     spz_kids = spz_spawn()   # and phase 15's
     spb_kids = spb_spawn()   # and phase 16's
+    tpz_kids = tpz_spawn()   # and phase 17's
     sp = sp_phase(torch, ops, instnorm, counters, routed, FIT_DIR / "data",
                   sp_kids, card)
     lap(seconds, "phase 13", t0)
@@ -6356,12 +6844,17 @@ def main() -> int:
     tp = tp_phase(torch, counters, routed, tp_kids, card)
     lap(seconds, "phase 14", t0)
     t0 = time.perf_counter()
+    tpz_go(tpz_kids)   # phase 17's ranks work beside phase 15
     spz = spz_phase(torch, counters, routed, FIT_DIR / "data", spz_kids,
                     card)
+    tpz_ranks = tpz_collect(tpz_kids)
     lap(seconds, "phase 15", t0)
     t0 = time.perf_counter()
     spb = spb_phase(torch, ops, block, counters, routed, spb_kids, card)
     lap(seconds, "phase 16", t0)
+    t0 = time.perf_counter()
+    tpz = tpz_phase(torch, counters, routed, tpz_ranks, card)
+    lap(seconds, "phase 17", t0)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     rows += sp["rows"] + spb["rows"]
     sp_r0 = sp["two_ranks"]["ranks"][0]
@@ -6379,6 +6872,11 @@ def main() -> int:
     spz_runs = tuple(spz["two_ranks"]["ranks"][0][n] for n in SPZ_ZOO)
     # a space rank's runs of the fused blocks (phase 16a, rank 0)
     spb_runs = tuple(spb["two_ranks"]["ranks"][0][n] for n in ("unet", "gan"))
+    # a model rank's runs of the zoo (phase 17a, rank 0): its launches
+    # summed over the steps
+    tpz_runs = tuple({"launches": {k: sum(s[k] for s in r["step_launches"])
+                                   for k in KERNELS}}
+                     for r in (tpz["ranks"][0][n] for n in TPZ_ZOO))
 
     # (row name, case, source, TPU kernel); K2's row is its forward case,
     # the tensor-core convs' the microbench's shape at strip 16
@@ -6422,7 +6920,7 @@ def main() -> int:
                 *zoo["steps"].values(), *zoo["cli"].values(),
                 *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
                 m3l_dtc["m3l_cli"], *sp_runs, *tp_runs, *spz_runs,
-                *spb_runs)
+                *spb_runs, *tpz_runs)
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -6452,9 +6950,12 @@ def main() -> int:
                 raise AssertionError(f"{name}'s split phases were not "
                                      f"launched on the main path")
             kernels[-1]["split_launches"] = split
-        # a model rank's share of the launches (phase 14, rank 0)
+        # a model rank's share of the launches (phase 14, rank 0), and
+        # of the zoo's (phase 17a, rank 0)
         kernels[-1]["tp_rank_launches"] = sum(v["launches"][name]
                                               for v in tp_runs)
+        kernels[-1]["tp_zoo_rank_launches"] = sum(v["launches"][name]
+                                                  for v in tpz_runs)
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "sass_ops": sass,
                    "ptxas_conv_dots_sm90_kernel": ptxas_dots,
@@ -6483,6 +6984,8 @@ def main() -> int:
                    "spatial_block": json.loads(json.dumps(
                        {k: v for k, v in spb.items() if k != "rows"},
                        default=str)),
+                   "tensor_parallel_zoo": json.loads(json.dumps(
+                       tpz, default=str)),
                    "seconds": seconds,
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)

@@ -46,8 +46,9 @@ Channel-wise tensor parallelism has no knob, as in the JAX package, whose
 Trainer does not reach it either: a program lays the group out with
 ``parallel/mesh.py`` ``make_mesh_2d(dp, tp)`` and shards a train state
 with ``shard_params_channelwise(mesh, state)``, then calls the
-algorithm's ``train_step`` and ``eval_fn`` (the U-Net and the UGAN
-family; the zoo raises, ROADMAP A10f), as ``parallel/dryrun.py``
+algorithm's ``train_step`` and ``eval_fn`` (every algorithm: the U-Net,
+the UGAN family, Mean Teacher, CPS, CoraNet's two stages and its pseudo
+sweep, M3L, and DTC's model), as ``parallel/dryrun.py``
 ``dryrun_multichip`` does.  It does not combine with ``spatial_parallel >
 1`` (the JAX package's guard).
 
@@ -152,7 +153,8 @@ class Config:
     compute_dtype: str = "bfloat16"
     # ranks of the process group: 0 = all of them, else the group's size
     data_parallel: int = 0
-    # H-sharding across ranks: only 1 (above 1 raises, ROADMAP A10c)
+    # H-sharding across ranks: each rank 1/spatial_parallel of every map's
+    # rows (parallel/mesh.py check_config)
     spatial_parallel: int = 1
     prefetch_depth: int = 2
     # no-op in the port (every CUDA instance norm runs kernel K1)

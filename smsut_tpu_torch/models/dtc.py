@@ -16,7 +16,11 @@ the port has the model and no training CLI.
 Under a space axis (``parallel/mesh.py``) each rank holds rows of every
 map, as the U-Net's layers take them (``mesh.check_maps`` refuses maps
 that do not split): the convs read halo rows, the batch norm sums over
-the group with each pixel counted once, and the heads are local.
+the group with each pixel counted once, and the heads are local.  Under
+a model axis (``parallel/mesh.py`` ``make_mesh_2d``) its convs and heads
+run on their weights' output-channel shards and gather them
+(``models/layers.py``), and the batch norm sums over the data group, whose
+model ranks hold the same rows.
 """
 from __future__ import annotations
 
@@ -74,6 +78,5 @@ class DTCUNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         sp = distributed.space_count()
         mesh.check_maps(x.shape[1] * sp, sp)
-        mesh.refuse_model("DTC")
         h, skips = self.encoder(x.to(self.compute_dtype))
         return self.decoder(h, skips)

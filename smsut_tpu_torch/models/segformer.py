@@ -49,6 +49,18 @@ and the Dense layers are local, the attention's keys and values are the
 whole image's (:class:`EfficientAttention`), the head's resizes produce
 the rank's rows (``models/layers.py`` :func:`resize_bilinear`), and its
 batch norm sums over the group.
+
+Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``, the state
+sharded by ``shard_params_channelwise``) every kernel the JAX rule shards
+(each Dense [in, out], the 1x1 convs, the patch convs, the spatial
+reduction's conv, the depthwise kernel (3, 3, 1, C); the classifier's 5
+outputs do not divide) is the rank's output-channel shard: the layer
+computes those channels from the whole input, the depthwise conv from the
+same channels of its input alone (its groups), and gathers the model
+group's shards before its bias (``mesh.gather_channels``, whose backward
+sums the cotangent over the group and keeps the rank's channels).
+Activations stay whole: the LayerNorms, the attention over whole heads,
+the mask token and the head's batch norm run as in one process.
 """
 from __future__ import annotations
 
@@ -82,17 +94,20 @@ def lecun_normal(shape, fan_in: int,
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``x @ weight + bias`` in the activation dtype,
-    ``weight`` [in, out] float32."""
+    ``weight`` [in, out] float32 (under a model axis its output shard,
+    gathered before the bias)."""
 
     def __init__(self, cin: int, features: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.features = features
         self.weight = nn.Parameter(lecun_normal((cin, features), cin,
                                                 generator))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        y = mesh.gather_channels(x @ self.weight.to(x.dtype), self.features)
+        return y + self.bias.to(x.dtype)
 
 
 class Conv1x1(nn.Module):
@@ -102,12 +117,14 @@ class Conv1x1(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  use_bias: bool = True):
         super().__init__()
+        self.features = features
         self.weight = nn.Parameter(lecun_normal((1, 1, cin, features), cin,
                                                 generator))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight[0, 0].to(x.dtype)
+        y = mesh.gather_channels(x @ self.weight[0, 0].to(x.dtype),
+                                 self.features)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
@@ -157,7 +174,7 @@ class PatchConv(nn.Module):
     def __init__(self, cin: int, features: int, kernel: int, stride: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.stride = stride
+        self.stride, self.features = stride, features
         self.weight = nn.Parameter(lecun_normal(
             (kernel, kernel, cin, features), kernel * kernel * cin,
             generator))
@@ -165,8 +182,9 @@ class PatchConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype).permute(3, 2, 0, 1).contiguous()
-        y = conv_rows(x, w, self.stride)
-        return y.permute(0, 2, 3, 1) + self.bias.to(y.dtype)
+        y = mesh.gather_channels(conv_rows(x, w, self.stride).permute(
+            0, 2, 3, 1), self.features)
+        return y + self.bias.to(y.dtype)
 
 
 class SpatialReduction(nn.Module):
@@ -200,13 +218,15 @@ class SpatialReduction(nn.Module):
         p = xr.reshape(b, hs, s, ws, s, c).permute(0, 1, 3, 2, 4, 5)
         p = p.reshape(b, hs * ws, s * s * c)
         wt = self.weight.to(x.dtype).reshape(s * s * c, -1)
-        return p @ wt + self.bias.to(x.dtype)
+        return mesh.gather_channels(p @ wt, c) + self.bias.to(x.dtype)
 
 
 class DepthwiseConv3x3(nn.Module):
     """flax ``nn.Conv(C, (3, 3), padding="SAME", feature_group_count=C)``
     with a bias, NHWC; ``weight`` (3, 3, 1, C).  Under a space axis on a
-    rank's rows (:func:`conv_rows`)."""
+    rank's rows (:func:`conv_rows`); under a model axis ``weight`` is the
+    rank's (3, 3, 1, C/tp), which convolves the rank's C/tp channels of
+    the input, then gathered."""
 
     def __init__(self, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -217,8 +237,11 @@ class DepthwiseConv3x3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype).permute(3, 2, 0, 1).contiguous()
-        y = conv_rows(x, w, groups=x.shape[-1])
-        return y.permute(0, 2, 3, 1) + self.bias.to(y.dtype)
+        c, full = w.shape[0], x.shape[-1]
+        if c != full:   # a model rank's channels
+            x = x.narrow(-1, distributed.model_index() * c, c)
+        y = conv_rows(x, w, groups=c).permute(0, 2, 3, 1)
+        return mesh.gather_channels(y, full) + self.bias.to(y.dtype)
 
 
 class EfficientAttention(nn.Module):

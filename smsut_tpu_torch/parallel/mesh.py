@@ -62,7 +62,8 @@ model group, those of one model coordinate a data group), and
 ``[..., m*C/tp:(m+1)*C/tp]`` of every tensor the JAX rule shards
 (:func:`channel_sharded`: two dims or more, the last ``C`` a multiple of
 ``tp`` and ``C/tp >= 4``), in the parameter and the optimizer trees
-alike; the rest is replicated.  The layers compute a sharded weight's
+alike (the zoo's EMA teacher and second net too); the rest is
+replicated.  The layers compute a sharded weight's
 output channels on their rank and gather them right after
 (:func:`gather_channels`), so activations stay whole on every rank of a
 model group, which holds the same batch rows, and every norm runs on
@@ -447,16 +448,6 @@ def make_mesh_2d(dp: int, tp: int) -> Mesh:
     rank = dist.get_rank()
     distributed.set_model(tp, model[rank // tp], data[rank % tp])
     return Mesh(dp, tp)
-
-
-def refuse_model(what: str) -> None:
-    """Raise for ``what``, which the model axis does not take yet, under a
-    model axis laid out."""
-    tp = distributed.model_count()
-    if tp > 1:
-        raise NotImplementedError(
-            f"{what} under a model axis of {tp} (make_mesh_2d): channel-"
-            f"wise tensor parallelism is not ported to it (ROADMAP A10f)")
 
 
 def channel_sharded(shape: Sequence[int], tp: int) -> bool:

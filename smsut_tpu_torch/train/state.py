@@ -57,7 +57,7 @@ run on shards unchanged.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, Optional, Union
+from typing import Dict, FrozenSet, List, Optional, Union
 
 import numpy as np
 import torch
@@ -250,10 +250,25 @@ class TrainState:
                             self.count)
         self.count.add_(1)
 
+    def trees(self) -> List[Params]:
+        """Every tree of the state keyed as ``params``: the student, the
+        EMA teacher, the second net and the optimizers' (SGD's traces,
+        Adam's moments), those it holds."""
+        out = []
+        for t in (self.params, self.ema_params, self.params2,
+                  self.opt_state, self.opt_state2):
+            if isinstance(t, AdamState):
+                out += [t.mu, t.nu]
+            elif t is not None:
+                out.append(t)
+        return out
+
     def shard_channelwise(self, mesh) -> "TrainState":
         """A copy whose trees hold this rank's shards over ``mesh``'s
-        model axis (``shard_params_channelwise``), their keys recorded and
-        each shard made its data group's first rank's."""
+        model axis (``shard_params_channelwise``: the student, the EMA
+        teacher, the second net, SGD's traces and Adam's moments alike,
+        Adam's count whole), their keys recorded and each shard made its
+        data group's first rank's."""
         if self.shards:
             raise ValueError("the train state is sharded already")
         shards = _shard_keys(self.params, mesh)
@@ -272,7 +287,8 @@ class TrainState:
     @torch.no_grad()
     def ema_update_(self, alpha: torch.Tensor) -> None:
         """``ema = ema * alpha + params * (1 - alpha)`` in place, ``alpha``
-        a 0-d device tensor."""
+        a 0-d device tensor; elementwise, so on a model rank's shards as on
+        whole tensors."""
         keys = list(self.ema_params)
         ema = [self.ema_params[k] for k in keys]
         torch._foreach_mul_(ema, alpha)

@@ -42,7 +42,12 @@ pixel once.  Under a space axis the sweep's forwards run on the rank's
 rows of each chunk and gather the pseudo-labels and agreement masks
 whole (``mesh.space_gather``), so that every rank holds the one
 process's pseudo set, and each rank keeps its rows of the pseudo batch's
-images (:meth:`CoraNet.host_inputs`).
+images (:meth:`CoraNet.host_inputs`).  Under a model axis
+(``parallel/mesh.py`` ``make_mesh_2d``) the student and the EMA run on
+the rank's output-channel shards; every model rank of a data coordinate
+sweeps the same stream with its shards, whose layers gather whole
+logits, so it makes the same pseudo set and keeps the same rows of each
+pseudo batch.
 """
 from __future__ import annotations
 
@@ -75,8 +80,6 @@ class CoraNet(SupervisedUNet):
     """``UNet(3 n_label + 1, base_width)`` and its EMA, on the card unless
     ``device`` names another; ``stage`` is ``"pre"`` (A) or ``"cora"``
     (B)."""
-
-    model_axis = False
 
     name = "coraNet"
     # the step reads no unlabelled batch (the sweep has its own loader)
@@ -249,6 +252,7 @@ class CoraNet(SupervisedUNet):
         """The stage's iteration on the device (the count advanced, not
         the host ``step``); stage B reads ``scalars["lambda_semi"]``, a
         number or a 0-d device tensor."""
+        self.check_state(state)
         if self.stage == "pre":
             out = self._pre_step(state, inp)
         else:
@@ -263,6 +267,7 @@ class CoraNet(SupervisedUNet):
     @torch.inference_mode()
     def eval_fn(self, params: Params, img) -> torch.Tensor:
         """float32 head-0 logits [B, H, W, n_class] of NHWC ``img``."""
+        mesh.check_shards(self.name, self.shapes, params)
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         return split_heads(self._apply(params, img), self.cfg.n_label)[0]
 

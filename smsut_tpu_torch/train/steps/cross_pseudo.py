@@ -13,6 +13,9 @@ The eval forward serves net 1.
 Under a process group (``parallel/``) a rank holds its contiguous rows of
 both batches; every Dice+CE's batch Dice sums over the global batch
 (``ops/losses.py``) and the gradients are averaged (``train/state.py``).
+Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) both nets and
+their momentum hold the rank's output-channel shards, each net's
+gradients reduced with the state's shard keys.
 
 ``pair_towers`` (the JAX package's tower pairing of the two nets) is a TPU
 layout knob and does nothing here (config.py).
@@ -35,7 +38,6 @@ class CrossPseudo(SupervisedUNet):
     """Two ``UNet(n_class, base_width)``s, on the card unless ``device``
     names another."""
 
-    model_axis = False
     rematerialises = False
 
     name = "crossPse"
@@ -73,6 +75,7 @@ class CrossPseudo(SupervisedUNet):
         images, the four losses, one backward, both SGD updates at the
         device count, the count advanced once.  ``scalars["lambda_semi"]``:
         a number or a 0-d device tensor."""
+        self.check_state(state)
         cfg = self.cfg
         bs = inp["img"].shape[0]   # the rank's rows: batch_size / N
         img = torch.cat([inp["img"], inp["ul_img"]])

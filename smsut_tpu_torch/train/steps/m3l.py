@@ -37,7 +37,12 @@ teacher's forward and the student's; the gradients are averaged
 (``train/state.py``).  Under a space axis a rank holds its rows of every
 image, draws its rows of each image's mask grid too, and the SegFormer's
 layers meet over the space group (``models/segformer.py``): its
-attention reads the whole image's keys and values.
+attention reads the whole image's keys and values.  Under a model axis
+(``parallel/mesh.py`` ``make_mesh_2d``) the SegFormer's layers run on
+their weights' output-channel shards and gather them
+(``models/segformer.py``), Adam's moments are sharded with the
+parameters, and the mask grid's rows follow the data coordinate, so the
+model ranks of one data coordinate draw the same grid.
 """
 from __future__ import annotations
 
@@ -89,7 +94,6 @@ class M3L(SupervisedUNet):
     """The student ``LinearFusionMaskedConsistencyMixBatch(n_class)`` and
     its EMA teacher, on the card unless ``device`` names another."""
 
-    model_axis = False
     space_maps = staticmethod(check_rows)
 
     name = "M3L"
@@ -137,6 +141,7 @@ class M3L(SupervisedUNet):
         student's losses and gradients, Adam at its device count, the
         count advanced, the EMA update.  ``scalars["lambda_semi"]``: a
         number or a 0-d device tensor."""
+        self.check_state(state)
         cfg = self.cfg
         bs = inp["img"].shape[0]   # the rank's rows: batch_size / N
         img = rgb(torch.cat([inp["img"], inp["ul_img"]]))
@@ -179,6 +184,7 @@ class M3L(SupervisedUNet):
         a group, whose data ranks sweep different batches; under a space
         axis ``img`` is the rank's rows, and the statistics the space
         group's)."""
+        mesh.check_shards(self.name, self.shapes, params)
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         with local_batch_stats():
             return torch.func.functional_call(self.net, params, (rgb(img),))

@@ -31,7 +31,11 @@ noise of one process; the batch Dice sums over the global batch
 (``ops/losses.py``) and the gradients are averaged (``train/state.py``).
 Under a space axis a rank holds its rows of every image of its data
 coordinate's batch rows and draws those elements of the global noise;
-the consistency's mean over equal shards stays exact.
+the consistency's mean over equal shards stays exact.  Under a model axis
+(``parallel/mesh.py`` ``make_mesh_2d``) the student and the EMA teacher
+run on the rank's output-channel shards, the EMA updates shard by shard,
+and the noise's rows follow the data coordinate, so the model ranks of
+one data coordinate draw the same noise.
 """
 from __future__ import annotations
 
@@ -132,7 +136,6 @@ class MeanTeacher(SupervisedUNet):
     """The student ``UNet(n_class, base_width)`` and its EMA teacher, on
     the card unless ``device`` names another."""
 
-    model_axis = False
     rematerialises = False
 
     name = "meanTeacher"
@@ -172,6 +175,7 @@ class MeanTeacher(SupervisedUNet):
         losses and gradients, SGD at the device count, the count advanced,
         the EMA update.  ``scalars["lambda_semi"]``: a number or a 0-d
         device tensor."""
+        self.check_state(state)
         cfg = self.cfg
         ul = inp["ul_img"]
         bs = inp["img"].shape[0]   # the rank's rows: batch_size / N

@@ -18,16 +18,18 @@ step takes the rank's rows of its data coordinate's images: the model's
 layers meet their neighbours, the batch Dice sums over the whole group
 and the CE's mean over equal shards is exact once the group averages the
 gradients.  The zoo built on this class runs there too (Mean Teacher,
-CPS, CoraNet, M3L), and raises under a model axis (``model_axis``
-False, ROADMAP A10f).
+CPS, CoraNet, M3L), and under a model axis.
 
 Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) the state is
 sharded with ``shard_params_channelwise(mesh, state)``: ``functional_call``
 runs the net on the rank's shards, whose layers gather their output
 channels (``models/layers.py``), so the logits and the loss are whole and
-the same on every model rank; a tree whose shards do not match the mesh
-raises (``mesh.check_shards``).  :meth:`train_step` is :meth:`inputs`,
-:meth:`step` and the host step mirror advanced.
+the same on every model rank; a state any of whose trees (the student,
+the EMA teacher, CPS's second net, the optimizer's) does not hold the
+mesh's shards raises (:meth:`SupervisedUNet.check_state`).  The zoo's
+steps run the same way: every tree of the state holds the same keys as
+shards.  :meth:`train_step` is :meth:`inputs`, :meth:`step` and the host
+step mirror advanced.
 """
 from __future__ import annotations
 
@@ -53,8 +55,6 @@ class SupervisedUNet:
 
     name = "unet"
     uses_unlabeled = False
-    # whether the step runs under a model axis (the zoo's do not yet)
-    model_axis = True
     # the model's rule for its maps' rows under a space axis (mesh.
     # check_config); None: the U-Net's
     space_maps = None
@@ -65,8 +65,6 @@ class SupervisedUNet:
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None):
-        if not self.model_axis:
-            mesh.refuse_model(self.name)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)
@@ -124,10 +122,17 @@ class SupervisedUNet:
         """The iteration on the device: Dice+CE loss, gradients, SGD at the
         state's device count, the count advanced (not the host ``step``).
         ``scalars`` is unused here, as in the JAX step."""
-        mesh.check_shards(self.name, self.shapes, state.params, state.shards)
+        self.check_state(state)
         loss, grads = self.value_and_grad(state.params, inp)
         state.update(grads)
         return {"loss": loss}
+
+    def check_state(self, state: TrainState) -> None:
+        """Raise where a tree of ``state`` does not hold the model axis's
+        shards of the parameters' whole shapes, its recorded keys
+        (``mesh.check_shards``)."""
+        for tree in state.trees():
+            mesh.check_shards(self.name, self.shapes, tree, state.shards)
 
     def train_step(self, state: TrainState, batch: Mapping,
                    scalars: Optional[Mapping] = None

@@ -1415,7 +1415,7 @@ def _dp_child():
     torch.distributed.destroy_process_group()
 
 
-def _dp_run(envs):
+def _dp_run(envs, child="_dp_child"):
     import json
     import os
     import subprocess
@@ -1423,7 +1423,7 @@ def _dp_run(envs):
 
     here = os.path.dirname(os.path.abspath(__file__))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", "import test_torch_cuda as t; t._dp_child()"],
+        [sys.executable, "-c", f"import test_torch_cuda as t; t.{child}()"],
         cwd=here, env=dict(os.environ, PYTHONPATH=os.path.dirname(here),
                            **env), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for env in envs]
@@ -1470,3 +1470,172 @@ def test_dp_two_ranks_unet_matches_one_process(cuda_device):
                       for v in state.params.values()))
     assert abs(r0["losses"][-1] - float(m["loss"])) < 1e-4
     assert abs(r0["checksum"] - cksum) / max(abs(cksum), 1.0) < 1e-5
+
+
+# ------------------------------------------------- the zoo on the model axis
+# chip_smoke.py 17a at 64^2: each rank of a 1 x 2 group runs in a child
+# process (``_tp_zoo_child``), so that no process group outlives its test
+
+TP_ZOO = ("meanTeacher", "crossPse", "coraPre", "coraCora", "M3L", "dtc")
+
+
+def _tp_zoo_run(name, device, shard=lambda t: t, shards=frozenset()):
+    """Two float32 eager steps of zoo run ``name`` at 64^2 (U-Nets w16 at
+    4 + 4 from ZOO_START's counts, M3L at its defaults at 2 + 2, one
+    step; DTC w16 with batch norm at batch 4, SGD) on the state made by
+    ``shard``: the losses, the whole trees' checksum and sha, M3L's step-1
+    gradient's checksum (from Adam's first moment), and this process's
+    launches of the port's kernels."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.parallel import mesh
+    from smsut_tpu_torch.parallel.mesh import mean_over_ranks
+
+    counters = (instnorm.instance_norm_fwd, instnorm.instance_norm_bwd,
+                conv3x3.conv3x3_fwd, conv3x3.conv3x3_dw,
+                block.basic_block_fwd, block.basic_block_bwd)
+    for c in counters:
+        c.launches = 0
+    rng = np.random.default_rng(4)
+    losses, trees = [], []
+    out = {}
+    if name == "dtc":
+        from smsut_tpu_torch.models.dtc import DTCUNet
+        from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+
+        net = DTCUNet(5, 16, compute_dtype=F32, device=device)
+        params = shard({k: v.detach().clone()
+                        for k, v in net.named_parameters()})
+        b = _ellipses(rng, 4, 64)
+        x = torch.from_numpy(b["img"]).to(device)
+        msk = torch.from_numpy(b["msk"]).to(device)
+        for _ in range(2):
+            leaves = {k: v.requires_grad_() for k, v in params.items()}
+            tanh, logits = torch.func.functional_call(net, leaves, (x,))
+            target = 2.0 * torch.nn.functional.one_hot(msk, 5).float() - 1.0
+            loss = dice_and_ce_loss(logits, msk) + (tanh - target).square(
+            ).mean()
+            grads = mesh.reduce_gradients_(dict(zip(
+                leaves, torch.autograd.grad(loss, list(leaves.values())))),
+                shards)
+            params = {k: (v - 0.01 * grads[k]).detach()
+                      for k, v in leaves.items()}
+            losses.append(float(mean_over_ranks(loss.detach())))
+        trees = [mesh.gather_tree(params, shards)]
+    else:
+        if name == "M3L":
+            from smsut_tpu_torch.train.steps.m3l import M3L
+
+            algo = M3L(Config(input_size=64, batch_size=2,
+                              compute_dtype="float32"), device)
+            batch = dict(_ellipses(rng, 2, 64),
+                         ul_img=_ellipses(rng, 2, 64)["img"])
+            inp, scal, start, steps = algo.inputs(batch), \
+                algo.epoch_scalars(3), 98, 1
+        else:
+            algo, inp, scal = _zoo(name, device, bs=4)
+            start, steps = ZOO_START[name], 2
+        state = shard(_at(algo.init_state(0), start))
+        for _ in range(steps):
+            state, m = algo.train_step(state, inp, scal)
+            losses.append({k: float(mean_over_ranks(v.detach()))
+                           for k, v in m.items()})
+        trees = [mesh.gather_tree(getattr(state, t), state.shards)
+                 for t in _TREES if getattr(state, t) is not None]
+        if name == "M3L":
+            mu = mesh.gather_tree(state.opt_state.mu, state.shards)
+            out["grad_sum"] = float(sum(float(v.double().abs().sum())
+                                        for v in mu.values())) / (
+                1.0 - state.tx.b1)
+    out.update(losses=losses, sha=[_dp_sha(t) for t in trees],
+               checksum=float(sum(float(v.double().abs().sum())
+                                  for t in trees for v in t.values())),
+               launches=[c.launches for c in counters])
+    return out
+
+
+def _tp_zoo_child():
+    """One rank of the zoo's model-axis card tests (the group from the
+    SMSUT_* variables, laid out as 1 x 2): :func:`_tp_zoo_run` of
+    ``SMSUT_TP_ZOO`` on the sharded state; prints one JSON line."""
+    import json
+    import os
+
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.parallel import distributed, mesh
+
+    cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    distributed.initialize()
+    layout = mesh.make_mesh_2d(1, 2)
+    name = os.environ["SMSUT_TP_ZOO"]
+    shards = frozenset()
+    if name == "dtc":
+        from smsut_tpu_torch.models.dtc import DTCUNet
+
+        shards = mesh.sharded_keys({k: v.shape for k, v in DTCUNet(
+            5, 16, device="cpu").named_parameters()}, 2)
+    out = _tp_zoo_run(name, "cuda",
+                      lambda t: mesh.shard_params_channelwise(layout, t),
+                      shards)
+    out.update(backend=distributed.backend(),
+               model=distributed.model_count(), shards=len(shards))
+    print("DP " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", TP_ZOO)
+def test_tp_zoo_two_ranks_match_one_process(cuda_device, name):
+    """chip_smoke.py 17a at 64^2: two ranks sharing the card over gloo at
+    dp x tp = 1 x 2, each holding the output-channel shards of every
+    eligible weight and of its EMA, second net and optimizer state, two
+    eager float32 steps (M3L one) against one process at the global batch
+    under deterministic cuDNN: every metric within 1e-4 (M3L's losses
+    relative) and the checksum of the whole trees within 1e-5 relative
+    (M3L: its step-1 gradient's, Adam's sign step flipping near-zero
+    gradients); both ranks' trees equal to the bit; a rank launched the
+    port's norm and conv kernels (DTC with batch norm the convs alone, M3L
+    none)."""
+    import socket
+
+    import torch.backends.cudnn as cudnn
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    r0, r1 = _dp_run([{"SMSUT_TP_ZOO": name,
+                       "SMSUT_COORDINATOR": f"127.0.0.1:{port}",
+                       "SMSUT_NUM_PROCESSES": "2",
+                       "SMSUT_PROCESS_ID": str(r)} for r in range(2)],
+                     "_tp_zoo_child")
+    assert r0["backend"] == r1["backend"] == "gloo" and r0["model"] == 2
+    assert r0["sha"] == r1["sha"] and r0["losses"] == r1["losses"]
+    assert r0["launches"] == r1["launches"]
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        want = _tp_zoo_run(name, cuda_device)
+    finally:
+        cudnn.deterministic = det
+    if name == "M3L":
+        for k in ("loss", "semi_loss"):
+            g, w = r0["losses"][0][k], want["losses"][0][k]
+            assert abs(g - w) <= 1e-4 * abs(w), (k, g, w)
+        assert abs(r0["grad_sum"] - want["grad_sum"]) <= 1e-5 * abs(
+            want["grad_sum"])
+        assert not any(r0["launches"])
+        return
+    got_l, want_l = r0["losses"], want["losses"]
+    if name == "dtc":
+        got_l, want_l = [{"loss": x} for x in got_l], \
+            [{"loss": x} for x in want_l]
+        assert r0["shards"] > 0
+        assert r0["launches"][2] > 0 and r0["launches"][3] > 0
+    else:
+        assert min(r0["launches"][:4]) > 0
+    for g, w in zip(got_l, want_l):
+        for k, v in w.items():
+            assert abs(g[k] - v) <= 1e-4, (k, g, w)
+    assert abs(r0["checksum"] - want["checksum"]) <= 1e-5 * max(
+        abs(want["checksum"]), 1.0)

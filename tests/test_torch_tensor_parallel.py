@@ -440,17 +440,16 @@ def test_checkpoint_round_trip_and_mesh_change(run, tmp_path):
 
 
 @pytest.mark.parametrize("what, error, name", [
-    ("meanTeacher", "NotImplementedError", "A10f"),
-    ("DTC", "NotImplementedError", "A10f"),
     ("whole state", "ValueError", "shards do not match"),
     ("make_mesh_2d", "ValueError", "dp=2, tp=2"),
     ("spatial_parallel", "ValueError", "spatial parallelism"),
     ("tp x sp", "ValueError", "spatial parallelism"),
     ("shard under sp", "ValueError", "spatial parallelism")])
 def test_model_axis_refusals(run, what, error, name):
-    """At 1 x 2: the zoo (ROADMAP A10f), a state whose trees are not the
-    mesh's shards, a layout whose size is not the group's, and the JAX
-    package's tp x sp guard, whichever axis comes second, raise."""
+    """At 1 x 2: a state whose trees are not the mesh's shards, a layout
+    whose size is not the group's, and the JAX package's tp x sp guard,
+    whichever axis comes second, raise (the zoo runs on the model axis:
+    tests/test_torch_tensor_parallel_zoo.py)."""
     for r in ranks(run, "1x2", "refuse"):
         assert r[what].startswith(error + ":"), r[what]
         assert name in r[what], r[what]

@@ -254,17 +254,11 @@ def refused(fn) -> str:
 
 
 def run_refuse(layout) -> dict:
-    from smsut_tpu_torch.models.dtc import DTCUNet
-    from smsut_tpu_torch.train.steps.mean_teacher import MeanTeacher
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
     world = distributed.process_count()
     algo = SupervisedUNet(step_cfg(), device="cpu")
     out = {
-        "meanTeacher": refused(lambda: MeanTeacher(step_cfg(),
-                                                   device="cpu")),
-        "DTC": refused(lambda: DTCUNet(5, 8, device="cpu")(
-            torch.zeros(1, 32, 32, 1))),
         "whole state": refused(lambda: algo.train_step(
             algo.init_state(0), local_batch())),
         "make_mesh_2d": refused(lambda: mesh.make_mesh_2d(world, world)),
