@@ -124,31 +124,33 @@
    eval batch and serving forward replayed as a CUDA graph
    (``smsut_tpu_torch/train/graphs.py`` ``Replay``), held against the
    eager path in the same process:
-   8a. The w16 U-Net's iteration in both block modes: 10 bfloat16 replays
-   (launches counted as 10 eager steps, loss finite and falling), then
-   10 float32 replays against 10 eager iterations from one init (phase
-   4's loss and parameter rules).  In a child process per block mode (a
+   8a. The w16 U-Net's iteration in both block modes: 6 bfloat16 replays
+   (launches counted as 6 eager steps, loss finite and falling), then
+   6 float32 replays against 6 eager iterations from one init (phase
+   4's loss and parameter rules).  In a child process per block mode,
+   the two side by side (a
    process that held large profiler sessions loses records from later
    ones), one replay of each 8b and 8a iteration runs the port's kernels of one
    eager iteration, by the profiler's names and counts, and as many
    device operations.
-   8b. ``uganConsis`` (w16, 8 + 8) in both block modes, float32, 10
+   8b. ``uganConsis`` (w16, 8 + 8) in both block modes, float32, 6
    replays, each against an eager step from a copy of the state before it
    and the same draws, the consistency gate opening at step 3 and
-   ``lambda_semi`` changing at step 5 (7b's float32 rules at every step;
-   G_semi 0 before the gate and positive after; at step 5 the replay 10x
+   ``lambda_semi`` changing there (7b's float32 rules at every step;
+   G_semi 0 before the gate and positive after; at step 3 the replay 10x
    nearer the eager step with the new weight than one with the old).
    8c. The U-Net and uganConsis fits on phase 6's tree at the Config's
-   dispatch (``steps_per_dispatch`` 8, ``eval_scan``), float32, epoch 2
+   dispatch (``steps_per_dispatch`` 8, ``eval_scan``; 2 epochs of 5
+   iterations), float32, epoch 2
    under ``set_sync_debug_mode("error")``, against the eager fit
    (``steps_per_dispatch`` 1, no scan, ``capture=False``) on the same
    recorded batches: 6b's bounds on the [TRN] losses, [TST] Dice and best
-   epoch; then two runs of 5
+   epoch; then two runs of 3
    float32 ``uganConsis`` replays from one init under deterministic cuDNN
    equal to the bit (its decoders' bilinear upsample is two fixed
    interpolation products, whose backward has no atomics).
    8d. ``predict`` replayed against eager: the logits equal.
-   8e. Eager and replayed blocks in turns (3 rounds): the U-Net
+   8e. Eager and replayed blocks in turns (2 rounds): the U-Net
    iteration, the uganConsis iteration (bfloat16), the eval sweep per
    batch and the serving latency, each with its median and quartiles,
    device ms, kernels and idle share, printed with the card's name and
@@ -349,13 +351,44 @@
    against one process, and M3L's state saved at 1 x 2 after 17a's steps,
    loaded in one process: its trees the ranks' to the bit, its next step
    against the ranks' next.
-18. Prints the ``kernels`` JSON line (all nine kernels, launches summed
-   over the runs of phases 3-17, replays included, not over the checks
+18. The space-to-depth packed levels (``pack_levels=2``, the JAX
+   package's hw mode: ``models/packed.py``, ``models/paired.py``).  18a.
+   K3 and K6 with groups 4 (the norms' statistics pooled over each
+   original channel's 4 subpixel groups) at the TPU kernels' own shapes,
+   w16 batch 8: the level-0 encoder block [8,128,128,32] -> 64, the
+   level-0 decoder block on its two segments [8,128,128,128] -> 64, the
+   level-1 encoder block [8,64,64,64] -> 128 (all with the shortcut) and
+   the identity form [8,128,128,64] -> 64; K1 and K4 on the packed free
+   views [8,128,512,16] and [8,64,256,32]; K2, K2 as dx and K5 with a
+   packed [3,3,64,64] kernel at [8,128,128,64]; float32 and bfloat16,
+   each against its plain version (phase 2's bounds), timed beside its
+   bound and the library call (for the blocks the eager cuDNN chain on
+   the same packed input).  18b. The U-Net and ``uganConsis`` (both
+   ``block_pallas`` modes; towers paired, the D stem packed under
+   ``d_pack_mode=hw``), Mean Teacher (packed loss tails, count 100) and
+   CPS (the two nets paired): step 1's gradients with every term live
+   (the updates captured) and the eval logits packed against
+   ``pack_levels=0`` from the same weights, float32 under phase 4's rules
+   (the GAN's on the L2 over all tensors: a tower stem's sums nearly
+   cancel) and its losses within phase 4's, 7b's or 9b's bounds, bfloat16
+   no less accurate than the unpacked path against the float32 unpacked
+   gradient; K3 and K6 launched with groups 4 in the fused runs; two
+   float32 packed runs of 3 iterations (warm-up, capture, replay) under
+   deterministic cuDNN equal to the bit (U-Net and uganConsis, fused).
+   18c. Per configuration, bfloat16, packed and unpacked in one process:
+   a replayed iteration's launches and routed convs, the peak memory
+   beyond the state, host ms in interleaved blocks, the profiler's
+   device ms and kernels; for ``uganConsis`` the D step's conv double
+   backward (eager), packed beside unpacked.
+19. Prints the ``kernels`` JSON line (all nine kernels, launches summed
+   over the runs of phases 3-18, replays included, not over the checks
    against the plain path; K1's and K4's split forms' launches beside
    theirs, over phases 13b, 15a and 16a, K3's and K6's split phases'
-   beside theirs, over phase 16a, and each kernel's launches by phase
+   beside theirs, over phase 16a, each kernel's launches by phase
    14's rank 0, ``tp_rank_launches``, and by phase 17a's,
-   ``tp_zoo_rank_launches``), then the device line last.
+   ``tp_zoo_rank_launches``, and per replayed iteration of each packed
+   configuration of 18c, ``packed_launches``), then the device line
+   last.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -2037,20 +2070,30 @@ def gan_cli(torch, counters, routed, data: Path, per_step: dict,
 
 
 def gan_phase(torch, ops, counters, routed) -> dict:
-    """Phase 7: 7a, 7b and 7c (on phase 6's tree)."""
+    """Phase 7: 7a, 7b and 7c (on phase 6's tree), each one's seconds
+    printed."""
+    seconds = {}
+    t0 = time.perf_counter()
     dd = gan_double_backward(torch, ops, counters, routed)
+    lap(seconds, "7a", t0)
+    t0 = time.perf_counter()
     steps = gan_step_modes(torch, ops, counters, routed)
+    lap(seconds, "7b", t0)
+    t0 = time.perf_counter()
     cli = gan_cli(torch, counters, routed, FIT_DIR / "data",
                   steps[False]["per_step"], steps[False]["per_eval_forward"])
-    return {"double_backward": dd, "steps": steps, "cli": cli}
+    lap(seconds, "7c", t0)
+    return {"double_backward": dd, "steps": steps, "cli": cli,
+            "seconds": seconds}
 
 
 # phase 8: the JAX package's dispatch on the card, as CUDA graphs
-REPLAY_STEPS = 10
+REPLAY_STEPS = 6
 GATE_STEP = 3               # 8b: the consistency gate opens in the window
-LAMBDA_EPOCHS = (0, 100)    # 8b: lambda_semi's epochs, steps 0-4 and 5-9
-TIMING_ROUNDS = 3           # 8e: rounds of eager and replayed blocks
-GAN_REPLAYS = 5             # 8c: float32 replays of each bitwise run
+LAMBDA_EPOCHS = (0, 100)    # 8b: lambda_semi's epochs, steps 0-2 and 3-5
+TIMING_ROUNDS = 2           # 8e: rounds of eager and replayed blocks
+GAN_REPLAYS = 3             # 8c: float32 replays of each bitwise run
+REPLAY_FIT_ITERS = 5        # 8c: iterations of each fit's 2 epochs
 TIMING_UNITS = {"unet": 10, "gan": 5, "eval": 2, "serve": 10, "cudnn": 10}
 
 
@@ -2144,18 +2187,27 @@ def replay_kernels(fused: bool) -> dict:
 
 
 def replay_kernels_clean() -> dict:
-    """:func:`replay_kernels` of each block mode in a child process; their
-    results."""
+    """:func:`replay_kernels` of each block mode in a child process, the
+    two side by side (each profiler counts its own process's kernels);
+    their results."""
     res = {}
-    for fused in (False, True):
-        code = ("import json, chip_smoke; print('KERNELS ' + json.dumps("
-                f"chip_smoke.replay_kernels({fused})))")
-        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                             capture_output=True, text=True, timeout=600)
-        line = [x for x in out.stdout.splitlines()
-                if x.startswith("KERNELS ")]
-        if out.returncode or not line:
-            raise AssertionError(f"replay kernels:\n{out.stderr[-3000:]}")
+    kids = [subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; print('KERNELS ' "
+         f"+ json.dumps(chip_smoke.replay_kernels({fused})))"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for fused in (False, True)]
+    for kid in kids:
+        try:
+            stdout, stderr = kid.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for k in kids:
+                k.kill()
+            raise
+        line = [x for x in stdout.splitlines() if x.startswith("KERNELS ")]
+        if kid.returncode or not line:
+            for k in kids:
+                k.kill()
+            raise AssertionError(f"replay kernels:\n{stderr[-3000:]}")
         res.update(json.loads(line[-1][len("KERNELS "):]))
     for k, v in res.items():
         print(f"replay 8a/8b {k.replace(' ', ' block_pallas=')}: one replay "
@@ -2265,13 +2317,14 @@ def gan_step_against(torch, got, want, lr) -> dict:
 
 def replay_gan(torch, counters, routed) -> dict:
     """8b: the uganConsis iteration (w16, 8 + 8) replayed against eager,
-    float32, both block modes, 10 steps in lock step: before each replay
+    float32, both block modes, 6 steps in lock step: before each replay
     the state is copied and the eager step runs on the copy with the same
     inputs, so each step is held to 7b's float32 rules from one state
     (float32 chaos, Adam's sign steps and the bilinear upsampling's
-    atomic backward, would otherwise part two runs of 10 steps whatever
+    atomic backward, would otherwise part two runs of 6 steps whatever
     the dispatch).  The gate opens at step GATE_STEP (G_semi 0 before,
-    positive after, in the replay); ``lambda_semi`` changes at step 5, in
+    positive after, in the replay); ``lambda_semi`` changes at step
+    REPLAY_STEPS // 2 (3, with the gate), in
     the device scalar the replay reads: there an eager step that keeps
     the old weight must land at least 10x further from the replay than
     the eager step with the new one."""
@@ -2338,7 +2391,8 @@ def replay_gan(torch, counters, routed) -> dict:
               f"(bound {GAN_FLIP_DEV} lr), flip share "
               f"{worst['d_flip_share']:.3g}, seg tower over rtol by "
               f"{worst['seg_over']:.3g} (atol {GAN_SEG_ATOL}), G rel err "
-              f"{worst['g_rel']:.3g}; step 5's G rel err {g5:.3g} against "
+              f"{worst['g_rel']:.3g}; step {REPLAY_STEPS // 2}'s G rel err "
+              f"{g5:.3g} against "
               f"{frozen:.3g} for an eager step with the old weight",
               flush=True)
         if (any(r["launches"] != per_step for r in rows)
@@ -2451,8 +2505,9 @@ def replay_fits(torch, ops, counters, routed, data: Path) -> dict:
 
     base = Config(base_root=str(data), expr_root=str(FIT_DIR / "expr8"),
                   input_size=256, base_width=16, batch_size=8,
-                  compute_dtype="float32", num_iter_per_epoch=FIT_ITERS,
-                  max_epoch=FIT_EPOCHS, num_workers=4)
+                  compute_dtype="float32",
+                  num_iter_per_epoch=REPLAY_FIT_ITERS, max_epoch=FIT_EPOCHS,
+                  num_workers=4)
     eager_cfg = base.replace(steps_per_dispatch=1, eval_scan=False)
     out = {}
     for name, cls in (("unet", SupervisedUNet), ("uganConsis",
@@ -2678,17 +2733,28 @@ def dispatch_phase(torch, ops, counters, routed, card: str) -> dict:
     # here, so that eager and replayed runs can be held to each other
     det = cudnn.deterministic
     cudnn.deterministic = True
+    seconds = {}
     try:
+        t0 = time.perf_counter()
         a = replay_unet(torch, counters, routed)
+        lap(seconds, "8a", t0)
+        t0 = time.perf_counter()
         b = replay_gan(torch, counters, routed)
+        lap(seconds, "8b", t0)
+        t0 = time.perf_counter()
         c = replay_fits(torch, ops, counters, routed, FIT_DIR / "data")
+        lap(seconds, "8c", t0)
     finally:
         cudnn.deterministic = det
+    t0 = time.perf_counter()
     d = replay_predict(torch, counters, routed)
     e = replay_timing(torch, card, FIT_DIR / "data")
+    lap(seconds, "8d-8e", t0)
+    t0 = time.perf_counter()
     k = replay_kernels_clean()
+    lap(seconds, "8a/8b kernels in child processes", t0)
     return {"unet": a, "gan": b, "fits": c, "predict": d, "timing": e,
-            "kernels": k}
+            "kernels": k, "seconds": seconds}
 
 
 # phase 9: the semi-supervised zoo (Mean Teacher, cross-pseudo
@@ -6734,6 +6800,423 @@ def prep_phase(torch, card: str) -> dict:
     return res
 
 
+# phase 18: the space-to-depth packed levels (pack_levels=2, the JAX
+# package's hw mode).  18a: K3 and K6 with groups 4 at the TPU kernels' own
+# shapes, w16 batch 8: (label, packed side, original input segments,
+# original Cout): the level-0 encoder block, the level-0 decoder block on
+# its two segments, the level-1 encoder block, the identity form
+PK_BLOCKS = (("level-0 encoder", 128, (8,), 16),
+             ("level-0 decoder", 128, (16, 16), 16),
+             ("level-1 encoder", 64, (16,), 32),
+             ("identity", 128, (16,), 16))
+# K1 and K4 on the packed levels' free views [B, H', 4W', C]: the level-0
+# blocks' norms and the level-1 block's
+PK_NORMS = ((8, 128, 512, 16, True), (8, 64, 256, 32, False))
+# 18b/18c: the configurations (algorithm, block_pallas) driven packed and
+# unpacked; replayed units per timed block and rounds
+PK_CONFIGS = (("unet", False), ("unet", True), ("uganConsis", False),
+              ("uganConsis", True), ("meanTeacher", False),
+              ("crossPse", False))
+PK_UNITS = {"unet": 10, "uganConsis": 3, "meanTeacher": 5, "crossPse": 5}
+PK_ROUNDS = 2
+# the D stem's double backward per replayed bf16 uganConsis iteration,
+# unpacked, as PERF.md records it (§5)
+UNPACKED_STEM_MS = 4.88
+
+
+def pk_kernels(torch, F, ops, instnorm, conv3x3, block) -> list:
+    """18a: K3 and K6 with groups 4 at :data:`PK_BLOCKS`, K1 and K4 on the
+    packed views :data:`PK_NORMS`, K2, K2 as dx and K5 with a packed
+    [3,3,64,64] kernel at [8,128,128,64], in float32 and bfloat16, each
+    held against its plain version (phase 2's bounds) and timed beside
+    its bound and the library call (for the blocks the eager cuDNN chain
+    on the same packed input, its norms per packed channel); rows as
+    phase 2's."""
+    from smsut_tpu_torch.models.packed import pack_kernel
+
+    rows = []
+    cases = Cases(torch, seed=18)
+    nchw = lambda t: t.permute(0, 3, 1, 2)
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[-1]
+        isz = torch.tensor([], dtype=dt).element_size()
+        pw = lambda k, segs, co: pack_kernel(
+            cases.conv_w(k, sum(segs), co, torch.float32), segs).to(dt)
+        for label, h, segs, co0 in PK_BLOCKS:
+            ci, co = 4 * sum(segs), 4 * co0
+            short = sum(segs) != co0
+            x = cases.randn(8, h, h, ci, dtype=dt)
+            w1, w2 = pw(3, segs, co0), pw(3, (co0,), co0)
+            (s1, b1), (s2, b2) = cases.norm_params(co0), \
+                cases.norm_params(co0)
+            ws, ss, bs = ((pw(1, segs, co0), *cases.norm_params(co0))
+                          if short else (None, None, None))
+            args = (x, w1, s1, b1, w2, s2, b2, ws, ss, bs)
+            tile = lambda t: None if t is None else t.repeat(4)
+            lib = (x, w1, tile(s1), tile(b1), w2, tile(s2), tile(b2), ws,
+                   tile(ss), tile(bs))
+            form = "shortcut" if short else "identity"
+            case = f"groups=4 {form} {[8, h, h, ci]}->{co}"
+            macs = 9 * ci * co + 9 * co * co + (ci * co if short else 0)
+            record(torch, ops, rows, "block", case, dn,
+                   lambda *a: block.basic_block_fwd(*a, groups=4), args,
+                   lambda lib=lib: library_block(F, *lib),
+                   flops=2 * 8 * h * h * macs,
+                   nbytes=(8 * h * h * (ci + co) + macs) * isz + 6 * 4 * co0,
+                   iters=5, extra={"packed": label})
+            _, res = block.basic_block_fwd(*args, save=True, groups=4)
+            g = cases.randn(8, h, h, co, dtype=dt)
+            maps = (4 if short else 3) * co + 2 * ci
+            record(torch, ops, rows, "block_bwd", case, dn,
+                   lambda *a: block.basic_block_bwd(*a, groups=4),
+                   (g, x, w1, s1, w2, s2, ws, ss, res),
+                   grad_call(torch, lambda *a: library_block(F, *a), lib,
+                             nchw(g)),
+                   flops=4 * 8 * h * h * macs,
+                   nbytes=8 * h * h * maps * isz + macs * (isz + 4)
+                   + 4 * (6 * co + 12 * 8 * co), iters=5,
+                   extra={"packed": label})
+        for (b, h, w, c, act) in PK_NORMS:
+            x = cases.randn(b, h, w, c, mean=0.3, dtype=dt)
+            gr = cases.randn(b, h, w, c, dtype=dt)
+            s, bb = cases.norm_params(c)
+
+            def lib_fwd(xn, s_, b_, act=act):
+                y = F.instance_norm(xn, weight=s_.to(xn.dtype),
+                                    bias=b_.to(xn.dtype), eps=1e-5)
+                return F.leaky_relu(y, 0.01) if act else y
+            case = f"packed view {[b, h, w, c]} act={act}"
+            record(torch, ops, rows, "instnorm", case, dn,
+                   lambda *a: instnorm.instance_norm_fwd(*a)[0],
+                   (x, s, bb, act), lambda x=x, s=s, bb=bb: lib_fwd(
+                       nchw(x), s, bb), flops=8 * x.numel(),
+                   nbytes=2 * x.numel() * isz + 4 * 4 * c + 2 * 4 * b * c,
+                   iters=20)
+            _, mean, rstd = instnorm.instance_norm_fwd(x, s, bb, act)
+            record(torch, ops, rows, "instnorm_bwd", case, dn,
+                   instnorm.instance_norm_bwd,
+                   (x, gr, mean, rstd, s, bb, act),
+                   grad_call(torch, lib_fwd, (nchw(x), s, bb), nchw(gr)),
+                   flops=12 * x.numel(),
+                   nbytes=3 * x.numel() * isz + 6 * 4 * c + 2 * 4 * b * c,
+                   iters=20, peak=PEAK_F32_CORES)
+        # K2, K2 as dx and K5 with the packed kernel of a level-0 3x3 conv
+        # (16 -> 16 channels packed to 64 -> 64)
+        x = cases.randn(8, 128, 128, 64, dtype=dt)
+        g = cases.randn(8, 128, 128, 64, dtype=dt)
+        wp = pw(3, (16,), 16)
+        case = "packed [8, 128, 128, 64]->64"
+        flops = 2 * 8 * 128 * 128 * 9 * 64 * 64
+        nbytes = (8 * 128 * 128 * 128 + 9 * 64 * 64) * isz
+        record(torch, ops, rows, "conv3x3", case, dn, conv3x3.conv3x3_fwd,
+               (x, wp), lambda x=x, wp=wp: F.conv2d(
+                   nchw(x), wp.permute(3, 2, 0, 1), padding=1),
+               flops=flops, nbytes=nbytes, iters=10)
+        record(torch, ops, rows, "conv3x3_dx", case, dn, conv3x3.conv3x3_fwd,
+               (g, conv3x3.flip_io(wp)),
+               lambda g=g, wp=wp: torch.nn.grad.conv2d_input(
+                   (8, 64, 128, 128), wp.permute(3, 2, 0, 1), nchw(g),
+                   padding=1), flops=flops, nbytes=nbytes, iters=10)
+        record(torch, ops, rows, "conv3x3_dw", case, dn, conv3x3.conv3x3_dw,
+               (x, g), lambda x=x, g=g: torch.nn.grad.conv2d_weight(
+                   nchw(x), (64, 64, 3, 3), nchw(g), padding=1),
+               flops=flops, nbytes=8 * 128 * 128 * 128 * isz
+               + 9 * 64 * 64 * 4, iters=10)
+    return rows
+
+
+def pk_algo(name: str, dtn: str, fused: bool, pack: int):
+    """The algorithm ``name`` at full width (w16, 256^2, batch 8, uganConsis
+    8 + 8 with the gate open) in ``dtn``, ``pack_levels`` ``pack`` (the
+    JAX rules for pairing and the loss tails; ``d_pack_mode="hw"``)."""
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    cfg = Config(input_size=256, base_width=16, batch_size=8,
+                 compute_dtype=dtn, block_pallas=fused, pack_levels=pack,
+                 d_pack_mode="hw", consis_gate_step=0)
+    if name == "unet":
+        return SupervisedUNet(cfg)
+    if name == "uganConsis":
+        return UGANConsisAlgo(cfg)
+    return zoo_algo(name, cfg)
+
+
+def pk_setup(torch, np, algo, name: str):
+    """(state from seed 0, the step's device inputs, its scalars): the
+    ellipse batches; Mean Teacher at count 100 (every term live)."""
+    if name == "uganConsis":
+        inp = algo.inputs(dict(gan_batch(torch, np),
+                               **algo.make_extra_batch()))
+        return (algo.init_state(0), inp,
+                {"lambda_semi": torch.tensor(1.0, device="cuda")})
+    if name == "unet":
+        inp = algo.inputs({k: torch.from_numpy(v).cuda()
+                           for k, v in ellipse_batch(np).items()})
+        return algo.init_state(0), inp, None
+    return (zoo_state(algo, ZOO_GATE[name]), zoo_inputs(torch, np, algo, name),
+            zoo_scalars(torch, algo))
+
+
+def pk_grads(ops, algo, name: str, state, inp, scal):
+    """One step's metrics and the gradients it would apply, the updates
+    captured and skipped.  uganConsis: the D step's and the G step's
+    metrics (the G step against the same D), the G step's gradients, and
+    the D loss's gradients (its GP's second order through the stem) on
+    fixed inputs, real against the real batch reversed, so that the D is
+    held apart from the generator that makes its fakes."""
+    if name != "uganConsis":
+        return zoo_grads(ops, algo, state, inp, scal, plain=False)
+    import torch
+
+    grads = {}
+
+    def capture(prefix):
+        def apply(g):
+            if prefix:
+                grads.update({f"{prefix}.{k}": v for k, v in g.items()})
+            return state
+        return apply
+
+    state.apply_d_gradients = capture(None)
+    state.apply_g_gradients = capture("G")
+    si = algo.step_inputs(inp)
+    _, dm = algo.d_step(state, si)
+    _, gm = algo.g_step(state, si, scal)
+    d = {k: v.detach().requires_grad_() for k, v in state.d_params.items()}
+    total, _, _ = algo.d_loss(d, si["x_real"], si["x_real"].flip(0),
+                              si["alpha"], si["mdl"])
+    grads.update({f"D.{k}": g for k, g in zip(
+        d, torch.autograd.grad(total, list(d.values())))})
+    return {k: float(v.detach()) for k, v in {**dm, **gm}.items()}, grads
+
+
+def pk_parity(torch, np, ops, name: str, fused: bool) -> dict:
+    """18b for one configuration: step 1's gradients (every loss term
+    live) and the eval logits packed against unpacked from the same
+    weights, float32 (phase 4's rules, losses within LOSS_TOL or, for
+    uganConsis, phase 7's bounds) and bfloat16 (the packed path no less
+    accurate than the unpacked, against the float32 unpacked gradient);
+    with ``block_pallas`` K3 and K6 launched with groups 4."""
+    from smsut_tpu_torch.ops import block
+
+    res, logits = {}, {}
+    for dtn in ("float32", "bfloat16"):
+        for pack in (2, 0):
+            algo = pk_algo(name, dtn, fused, pack)
+            state, inp, scal = pk_setup(torch, np, algo, name)
+            g0 = (block.basic_block_fwd.grouped, block.basic_block_bwd.grouped)
+            m, g = pk_grads(ops, algo, name, state, inp, scal)
+            grouped = (block.basic_block_fwd.grouped - g0[0],
+                       block.basic_block_bwd.grouped - g0[1])
+            if fused and pack and min(grouped) < 1:
+                raise AssertionError(f"18b {name} fused {dtn}: K3/K6 with "
+                                     f"groups 4 not launched: {grouped}")
+            res[(dtn, pack)] = (m, g, grouped)
+            if name in ("unet", "uganConsis"):
+                params = (algo.eval_params(state) if name == "unet"
+                          else state.g_params)
+                img = inp["img"]
+                logits[(dtn, pack)] = algo.eval_fn(params, img)
+            del algo, state
+    (m32, k32, _), (u32, p32, _) = res[("float32", 2)], res[("float32", 0)]
+    (m16, k16, grouped), (_, p16, _) = res[("bfloat16", 2)], \
+        res[("bfloat16", 0)]
+    lg = {dtn: rel_err(logits[(dtn, 2)], logits[(dtn, 0)])
+          for dtn in ("float32", "bfloat16") if (dtn, 2) in logits}
+    out = {"losses": m32, "unpacked_losses": u32, "logits_rel": lg,
+           "grouped_bf16": grouped}
+    if name == "uganConsis":
+        # phase 7's rules: the losses within 7b's bounds, D's gradients on
+        # fixed inputs (its GP's second order through the packed stem)
+        # under 7a's (L2 of all and the cosine of each), the seg tower's
+        # within 7b's rtol in L2; the generator's other gradients printed,
+        # not held:
+        # a tower stem's sums nearly cancel (the JAX package's own packed
+        # and unpacked towers differ there by 1.5%), and phase 7 holds no
+        # bfloat16 gradient (its bf16 steps: finite, 18c)
+        over = {n: abs(m32[n] - u32[n]) - GAN_LOSS_RTOL * abs(u32[n])
+                - GAN_LOSS_ATOL for n in m32}
+        part = lambda g, pre: {k: v for k, v in g.items()
+                               if k.startswith(pre)}
+        out["d"] = grad_parity(part(k32, "D."), part(p32, "D."))
+        out["g"] = grad_parity(part(k32, "G."), part(p32, "G."))
+        seg = {k: float((k32[f"G.{k}"] - p32[f"G.{k}"]).double().norm()
+                        / p32[f"G.{k}"].double().norm())
+               for k in GAN_SEG_TOWER}
+        out["seg_l2"] = seg
+        ok = (max(over.values()) <= 0 and out["d"]["l2_all"] <= GRAD_REL
+              and out["d"]["cos_min"] >= GRAD_COS
+              and max(seg.values()) <= GAN_SEG_RTOL
+              and all(np.isfinite(list(m16.values()))))
+        grads = (f"D's {out['d']['n']} gradients: L2 of all "
+                 f"{out['d']['l2_all']:.3g}, cosine min "
+                 f"{out['d']['cos_min']:.6f} ({out['d']['worst_cos']}); the "
+                 f"seg tower's L2 {seg}; G's {out['g']['n']} (printed): L2 "
+                 f"of all {out['g']['l2_all']:.3g}, cosine min "
+                 f"{out['g']['cos_min']:.6f} ({out['g']['worst_cos']}); "
+                 f"bfloat16 losses finite {m16}")
+    else:
+        term = ZOO_TERMS.get(name)
+        over = {n: abs(m32[n] - u32[n]) - (
+            ZOO_TERM_TOL * abs(u32[n]) + ZOO_TERM_ATOL if n == term
+            else LOSS_TOL * max(abs(u32[n]), 1e-30)) for n in m32}
+        f32 = out["float32"] = grad_parity(k32, p32)
+        acc16 = out["bfloat16_vs_float32"] = bf16_accuracy(k16, p16, p32)
+        ok = (max(over.values()) <= 0 and f32["rel_max"] <= GRAD_REL
+              and f32["l2_all"] <= GRAD_REL and f32["cos_min"] >= GRAD_COS
+              and acc16["worst_over"] <= 0)
+        grads = (f"step-1 gradients of {f32['n']} tensors: rel err max "
+                 f"{f32['rel_max']:.3g} ({f32['worst_rel']}), L2 of all "
+                 f"{f32['l2_all']:.3g}, cosine min {f32['cos_min']:.6f} "
+                 f"({f32['worst_cos']}); bfloat16 packed err max "
+                 f"{acc16['kernel_err_max']:.3g} vs unpacked "
+                 f"{acc16['plain_err_max']:.3g} against the float32 "
+                 f"unpacked gradient")
+    out["loss_over_max"] = max(over.values())
+    out["worst_loss"] = max(over, key=over.get)
+    ok = ok and all(v <= LOGIT_TOL[d] for d, v in lg.items())
+    print(f"pk 18b {name} block_pallas={fused}: float32 packed vs "
+          f"unpacked from one init: losses {m32} vs {u32} (worst "
+          f"{out['worst_loss']} over its bound by {out['loss_over_max']:.3g}"
+          f"); {grads}; eval logits rel err {lg}; K3/K6 with groups 4 in "
+          f"the bf16 packed step {grouped}", flush=True)
+    if not ok:
+        raise AssertionError(f"18b {name} fused={fused}: {out}")
+    return out
+
+
+def pk_bitwise(torch, np, name: str) -> bool:
+    """Two float32 packed runs of 3 iterations (eager warm-up, capture,
+    replay) from one init under deterministic cuDNN: the same bits."""
+    import torch.backends.cudnn as cudnn
+
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    prev, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        runs = []
+        for _ in range(2):
+            algo = pk_algo(name, "float32", True, 2)
+            state, inp, scal = pk_setup(torch, np, algo, name)
+            run = iteration(algo, state, inp, scal, capture=True)
+            for _ in range(3):
+                m = {k: v.clone() for k, v in run().items()}
+            tree = (state.params if name != "uganConsis"
+                    else {**state.g_params, **state.d_params})
+            runs.append((m, {k: v.clone() for k, v in tree.items()}))
+            del algo, state, run
+    finally:
+        cudnn.deterministic = prev
+    (ma, ta), (mb, tb) = runs
+    return (all(torch.equal(ma[k], mb[k]) for k in ma)
+            and all(torch.equal(ta[k], tb[k]) for k in ta))
+
+
+def pk_numbers(torch, np, counters, routed, name: str, fused: bool,
+               card: str) -> dict:
+    """18c for one configuration, bfloat16, packed (pack_levels 2) and
+    unpacked in one process: the launches and routed convs of one replayed
+    iteration, the peak memory beyond the state over 3 iterations, host ms
+    per iteration in interleaved blocks, the profiler's device ms and
+    kernels per iteration; every metric finite."""
+    from smsut_tpu_torch.ops import block
+    from smsut_tpu_torch.tools.profile_step import iteration
+
+    runs, res = {}, {}
+    for pack in (2, 0):
+        algo = pk_algo(name, "bfloat16", fused, pack)
+        state, inp, scal = pk_setup(torch, np, algo, name)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = iteration(algo, state, inp, scal, capture=True)
+        for _ in range(3):
+            m = run()
+        zero(counters, routed)
+        g0 = (block.basic_block_fwd.grouped, block.basic_block_bwd.grouped)
+        m = {k: float(v) for k, v in run().items()}
+        torch.cuda.synchronize()
+        if not all(np.isfinite(list(m.values()))):
+            raise AssertionError(f"18c {name} pack={pack}: {m}")
+        res[pack] = {"metrics": m,
+                     "launches": {k: c.launches for k, c in counters.items()},
+                     "routed": routed_counts(routed),
+                     "grouped": (block.basic_block_fwd.grouped - g0[0],
+                                 block.basic_block_bwd.grouped - g0[1]),
+                     "peak_mib": (torch.cuda.max_memory_allocated() - base)
+                     / 2 ** 20}
+        runs[pack] = run
+        if name == "uganConsis":
+            # the D step's double backward, eager, its stem's share
+            si = algo.step_inputs(inp)
+            st = algo.init_state(0)
+            st.apply_d_gradients = lambda g, st=st: st
+            ops_ = d_step_ops(torch, lambda: algo.d_step(st, si))
+            res[pack]["d_double_backward_ms"] = ops_[-1][1]
+            res[pack]["d_top_ops"] = ops_[:-1]
+    t = timed_blocks(torch, runs, PK_UNITS[name], PK_ROUNDS)
+    for pack in (2, 0):
+        prof = profile_device(torch, runs[pack], n=2)
+        res[pack].update(host=t[pack], device_ms=prof["device_ms"],
+                         kernels=prof["kernels_per_call"])
+    p, u = res[2], res[0]
+    stem = ("" if name != "uganConsis" else
+            f"; the D step's conv double backward (eager) "
+            f"{p['d_double_backward_ms']:.3f} / "
+            f"{u['d_double_backward_ms']:.3f} ms (PERF.md's unpacked "
+            f"record: {UNPACKED_STEM_MS} ms a replayed iteration)")
+    print(f"pk 18c {name} block_pallas={fused} on {card}: packed / "
+          f"unpacked, bf16, replayed: device ms {p['device_ms']:.3f} / "
+          f"{u['device_ms']:.3f}; kernels per iteration {p['kernels']} / "
+          f"{u['kernels']}; host ms (median, quartiles) "
+          f"{p['host']['median_ms']:.3f} ({p['host']['q1_ms']:.3f}-"
+          f"{p['host']['q3_ms']:.3f}) / {u['host']['median_ms']:.3f} "
+          f"({u['host']['q1_ms']:.3f}-{u['host']['q3_ms']:.3f}); peak MiB "
+          f"beyond the state {p['peak_mib']:.1f} / {u['peak_mib']:.1f}; "
+          f"the port's launches per iteration {p['launches']} / "
+          f"{u['launches']}; routed {p['routed']} / {u['routed']}; "
+          f"K3/K6 grouped {p['grouped']}{stem}", flush=True)
+    if fused and name in ("unet", "uganConsis") and min(p["grouped"]) < 1:
+        raise AssertionError(f"18c {name}: no grouped K3/K6 launch")
+    del runs
+    torch.cuda.empty_cache()
+    return {str(k): v for k, v in res.items()}
+
+
+def pk_phase(torch, F, ops, instnorm, conv3x3, counters, routed,
+             card: str) -> dict:
+    """Phase 18, the packed levels: 18a :func:`pk_kernels`, 18b
+    :func:`pk_parity` for each of :data:`PK_CONFIGS` and the float32
+    packed replays bit for bit (the U-Net and uganConsis, fused), 18c
+    :func:`pk_numbers` for each."""
+    import numpy as np
+
+    from smsut_tpu_torch.ops import block
+
+    seconds = {}
+    t0 = time.perf_counter()
+    rows = pk_kernels(torch, F, ops, instnorm, conv3x3, block)
+    lap(seconds, "18a", t0)
+    t0 = time.perf_counter()
+    parity = {f"{n} {f}": pk_parity(torch, np, ops, n, f)
+              for n, f in PK_CONFIGS}
+    bitwise = {n: pk_bitwise(torch, np, n) for n in ("unet", "uganConsis")}
+    print(f"pk 18b float32 packed replays bit for bit (block_pallas, "
+          f"deterministic cuDNN): {bitwise}", flush=True)
+    if not all(bitwise.values()):
+        raise AssertionError(f"18b packed replays differ: {bitwise}")
+    lap(seconds, "18b", t0)
+    t0 = time.perf_counter()
+    numbers = {f"{n} {f}": pk_numbers(torch, np, counters, routed, n, f,
+                                      card) for n, f in PK_CONFIGS}
+    lap(seconds, "18c", t0)
+    return {"rows": rows, "parity": parity, "bitwise": bitwise,
+            "numbers": numbers, "seconds": seconds}
+
+
+
 def lap(seconds: dict, name: str, t0: float) -> None:
     """A phase's seconds since ``t0``, recorded and printed."""
     seconds[name] = time.perf_counter() - t0
@@ -6855,8 +7338,13 @@ def main() -> int:
     t0 = time.perf_counter()
     tpz = tpz_phase(torch, counters, routed, tpz_ranks, card)
     lap(seconds, "phase 17", t0)
+    t0 = time.perf_counter()
+    pk = pk_phase(torch, F, ops, instnorm, conv3x3, counters, routed, card)
+    lap(seconds, "phase 18", t0)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
-    rows += sp["rows"] + spb["rows"]
+    rows += sp["rows"] + spb["rows"] + pk["rows"]
+    # phase 18c's replayed iterations, packed and unpacked
+    pk_runs = tuple(v[p] for v in pk["numbers"].values() for p in ("2", "0"))
     sp_r0 = sp["two_ranks"]["ranks"][0]
     sp_runs = ({"launches": {k: v * SP_STEPS for k, v in
                              sp_r0["unet"]["launches"].items()}},
@@ -6920,7 +7408,7 @@ def main() -> int:
                 *zoo["steps"].values(), *zoo["cli"].values(),
                 *m3l_dtc["dtc"].values(), m3l_dtc["m3l"],
                 m3l_dtc["m3l_cli"], *sp_runs, *tp_runs, *spz_runs,
-                *spb_runs, *tpz_runs)
+                *spb_runs, *tpz_runs, *pk_runs)
         launches = sum(v["launches"][name] for v in runs)
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -6956,6 +7444,9 @@ def main() -> int:
                                               for v in tp_runs)
         kernels[-1]["tp_zoo_rank_launches"] = sum(v["launches"][name]
                                                   for v in tpz_runs)
+        # per replayed iteration of each packed configuration (18c)
+        kernels[-1]["packed_launches"] = {
+            c: v["2"]["launches"][name] for c, v in pk["numbers"].items()}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "sass_ops": sass,
                    "ptxas_conv_dots_sm90_kernel": ptxas_dots,
@@ -6986,6 +7477,9 @@ def main() -> int:
                        default=str)),
                    "tensor_parallel_zoo": json.loads(json.dumps(
                        tpz, default=str)),
+                   "packed": json.loads(json.dumps(
+                       {k: v for k, v in pk.items() if k != "rows"},
+                       default=str)),
                    "seconds": seconds,
                    "kernels": kernels}, f, indent=1)
     shutil.rmtree(ROOT / "build" / "chip_smoke_serving", ignore_errors=True)

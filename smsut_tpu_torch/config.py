@@ -6,13 +6,27 @@ names and defaults, so ``--set k=v`` lines carry over between the two
 packages.  The port imports nothing of the JAX package, not even its
 jax-free modules.
 
-Knobs that shape the TPU lowering only are accepted and are no-ops in the
-port for now: ``pack_levels``, ``pack_mode``, ``pack_w0``, ``d_pack_deep``,
-``d_pack_mode``, ``pair_towers``, ``layout_pin``, ``pool_pack_fused``,
-``norm_stats`` (the port always takes f32 ``reduce`` statistics), and
-the GAN step's ``d_concat_hat`` and ``packed_loss_tails``.  The port runs
-the unpacked NHWC graph, with real and fake through one D apply and x_hat
-through another.
+The packing knobs are live, as in the JAX package's hw mode:
+``pack_levels`` N runs the first N levels of the U-Net and the UGAN towers
+and the last N of their decoders on the 2x2 space-to-depth grid
+(``models/packed.py``; no packing under batch norm: DTC), and the
+discriminator's stem there; ``pair_towers`` (None: on where the JAX
+package's rule turns it on) runs two towers' level 0 as one program
+(``models/paired.py``: the UGAN family but ``uganShp0``, CPS's two nets);
+``packed_loss_tails`` (None: each step's JAX rule) feeds the packed
+logits to the packed losses; ``pool_pack_fused`` (None: on from batch 32)
+pools and repacks in one; the GAN step's ``d_concat_hat`` runs real, fake
+and x_hat through one D apply.  ``pack_mode`` and ``d_pack_mode`` take
+"hw": with ``pack_levels > 0`` a "w" raises (the W packing is ROADMAP
+A13b; the GAN family needs ``--set d_pack_mode=hw``), and packing on the
+space or model axis raises (ROADMAP A13c).  The port's default
+``pack_levels`` is 0, not the JAX package's 2: no H100 measurement has
+chosen the packed layout yet (ROADMAP C).
+
+Knobs that shape the TPU lowering only are accepted and do nothing in the
+port: ``layout_pin``, ``pack_w0`` and ``d_pack_deep`` (the W packing's,
+ROADMAP A13b), and ``norm_stats`` (the port always takes f32 ``reduce``
+statistics; its other modes are ROADMAP A13b).
 
 ``remat`` and ``remat_unet`` rematerialise in the backward, as in the JAX
 package: ``remat`` the UGAN family's generator forward
@@ -159,8 +173,8 @@ class Config:
     prefetch_depth: int = 2
     # no-op in the port (every CUDA instance norm runs kernel K1)
     use_pallas: bool = False
-    # TPU layout knobs: accepted, no-ops in the port (module docstring)
-    pack_levels: int = 2
+    # the space-to-depth packed levels (module docstring); 0 in the port
+    pack_levels: int = 0
     pack_mode: str = "hw"
     pack_w0: int = 8
     d_pack_deep: bool = True

@@ -9,10 +9,14 @@
 // Replaces the TPU kernel smsut_tpu/ops/block_pallas.py `_fwd_call`
 // (kernel `_fwd_kernel`; public `fused_block`, `fused_block_short`,
 // `fused_block_fwd`, `apply_fused_block`).  That kernel runs on the packed
-// space-to-depth layout and pools its statistics over the 4 subpixel lane
-// groups (`_group_affine`); on the unpacked NHWC map those are simply the
-// full-H*W statistics computed here.  As there, the statistics come from
-// the float32 conv accumulators, while the normalise steps read the stored
+// space-to-depth layout [B, H/2, W/2, 4C] (channel s*C + c) and pools its
+// statistics over the 4 subpixel lane groups (`_group_affine`).  Here
+// `groups` says which: 4 is that packed layout (Co = 4C; the finalize
+// steps add each channel's tile partials, then its 4 groups in the order
+// s = 0..3, over 4*H*W pixels, and write the group's (g, h), mean and rstd
+// to every member; the norm parameters are [C]), 1 the unpacked NHWC map
+// (the full-H*W statistics).  As there, the statistics come from the
+// float32 conv accumulators, while the normalise steps read the stored
 // (T-rounded) conv outputs.
 //
 // Bound on the H100: operations (the two 3x3 convs; see conv3x3.cu) at
@@ -55,7 +59,7 @@ static int run(const T* x, const T* w1, const float* s1, const float* b1,
                const T* w2, const float* s2, const float* b2, const T* ws,
                const float* ss, const float* bs, T* out, T* y1, T* y2, T* u,
                float* part, float* gh, float* st, int B, int H, int W,
-               int Ci, int Co, cudaStream_t s) {
+               int Ci, int Co, int G, cudaStream_t s) {
   // the tensor-core convs stage weights in 16-byte pieces
   constexpr bool tc = std::is_same<T, bf16>::value;
   int nt[3];
@@ -74,18 +78,18 @@ static int run(const T* x, const T* w1, const float* s1, const float* b1,
   e = block_conv<0>(x, w1, y1, nullptr, part, B, H, W, Ci, Co, s);
   if (e != cudaSuccess) return (int)e;
   e = launch_finalize(part, nt[0], B, Co, HW, s1, b1, mean(0), rstd(0), gh1,
-                      s);
+                      s, G);
   if (e != cudaSuccess) return (int)e;
   e = block_conv<1>(y1, w2, y2, gh1, part, B, H, W, Co, Co, s);
   if (e != cudaSuccess) return (int)e;
   e = launch_finalize(part, nt[1], B, Co, HW, s2, b2, mean(1), rstd(1), gh2,
-                      s);
+                      s, G);
   if (e != cudaSuccess) return (int)e;
   if (ws) {
     e = block_conv<2>(x, ws, u, nullptr, part, B, H, W, Ci, Co, s);
     if (e != cudaSuccess) return (int)e;
     e = launch_finalize(part, nt[2], B, Co, HW, ss, bs, mean(2), rstd(2),
-                        ghs, s);
+                        ghs, s, G);
     if (e != cudaSuccess) return (int)e;
   }
   const long long n4 = (long long)B * HW * Co / 4;
@@ -100,7 +104,9 @@ static int run(const T* x, const T* w1, const float* s1, const float* b1,
 // part [B][ntiles][2][Co] f32 with ntiles = smsut_block_ntiles(B, H, W,
 // Ci, Co, dtype); gh [3][B][2][Co] f32.  stats [3][2][B][Co] f32 (the
 // (mean, rstd) of norms 1, 2 and s, the residuals K6 needs) or null
-// (serving).  dtype 0 float32, 1 bfloat16.
+// (serving).  dtype 0 float32, 1 bfloat16.  groups 1 (the unpacked map) or
+// 4 (the packed map: s*, b* are then [Co/4], and gh and stats hold each
+// original channel's values at its 4 packed channels).
 extern "C" int smsut_block_ntiles(int B, int H, int W, int Ci, int Co,
                                   int dtype) {
   int nt[3];
@@ -115,14 +121,15 @@ extern "C" int smsut_block_fwd(const void* x, const void* w1, const void* s1,
                                const void* bs, void* out, void* y1, void* y2,
                                void* u, void* part, void* gh, void* stats,
                                int B, int H, int W, int Ci, int Co,
-                               int dtype, void* stream) {
-  if (Co % 16 != 0 || (!ws && Ci != Co)) return (int)cudaErrorInvalidValue;
+                               int groups, int dtype, void* stream) {
+  if (Co % 16 != 0 || (!ws && Ci != Co) || (groups != 1 && groups != 4))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define SMSUT_BLOCK_ARGS(T)                                                   \
   (const T*)x, (const T*)w1, (const float*)s1, (const float*)b1,            \
       (const T*)w2, (const float*)s2, (const float*)b2, (const T*)ws,       \
       (const float*)ss, (const float*)bs, (T*)out, (T*)y1, (T*)y2, (T*)u,   \
-      (float*)part, (float*)gh, (float*)stats, B, H, W, Ci, Co, s
+      (float*)part, (float*)gh, (float*)stats, B, H, W, Ci, Co, groups, s
   if (dtype == 0) return run<float>(SMSUT_BLOCK_ARGS(float));
   if (dtype == 1) return run<__nv_bfloat16>(SMSUT_BLOCK_ARGS(__nv_bfloat16));
 #undef SMSUT_BLOCK_ARGS

@@ -1,7 +1,14 @@
 // K6: fused residual BasicBlock backward, NHWC, float32 or bfloat16.
 //
 // Replaces the TPU kernel smsut_tpu/ops/block_pallas.py `_bwd_call`
-// (kernel `_bwd_kernel`), on the unpacked map.  For the block of K3
+// (kernel `_bwd_kernel`), on the unpacked map (groups 1) or on the TPU
+// kernel's own packed space-to-depth map (groups 4: channel s*C + c,
+// Co = 4C), where each norm's sums pool the 4 subpixel groups of an
+// original channel, in the order s = 0..3, over N = 4*H*W pixels, as the
+// TPU kernel's group-norm backward does (`_bwd_kernel`, group_sum): after
+// each sums pass (steps 1 and 5) one small pass adds the groups' per-sample
+// sums and writes the total to every member (pool_group_sums_kernel).  The
+// per-packed-channel dsb rows are added over the groups by the wrapper.  For the block of K3
 //   y1 = conv3(x, w1); z1 = lrelu(n1(y1));  y2 = conv3(z1, w2);
 //   pre = n2(y2) + (x | ns(conv1(x, ws)));  out = lrelu(pre)
 // and the cotangent g of out, it returns dx (x's dtype), dw1, dw2, dws and
@@ -114,7 +121,7 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
                const T* wst, const float* s1, const float* s2,
                const float* ss, T* dx, float* dw1, float* dw2, float* dws,
                float* dsb, char* scratch, unsigned int* tickets,
-               const Arena& A, int B, int H, int W, int Ci, int Co,
+               const Arena& A, int B, int H, int W, int Ci, int Co, int G,
                cudaStream_t s) {
   const int HW = H * W;
   const size_t BC = (size_t)B * Co;
@@ -142,9 +149,11 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
                                   m2, r2, ms, rs, HW, Co};
   e = launch_norm_sums(src, A.po, B, sums, dsb + 2 * Co, tickets, s);
   if (e != cudaSuccess) return (int)e;
+  e = pool_group_sums(sums, B * BlockOutSrc<T, SHORT>::NS, Co, G, s);
+  if (e != cudaSuccess) return (int)e;
   const long long n4 = (long long)B * HW * Co / 4;
   block_dy2_kernel<T, SHORT><<<elementwise_blocks(n4), 256, 0, s>>>(
-      src, sums, s2, ss, dy2, du, side, n4, (float)HW);
+      src, sums, s2, ss, dy2, du, side, n4, (float)HW * (float)G);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // 3. dw2 = corr(z1, dy2), z1 rebuilt from y1 while staging
@@ -157,7 +166,9 @@ static int run(const T* g, const T* x, const T* y1, const T* y2, const T* u,
   const NormBwdSrc<T> n1{y1, dn1, m1, r1, s1, nullptr, HW, Co, 0};
   e = launch_norm_sums(n1, A.p1, B, sums, dsb, tickets, s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_norm_bwd_apply(n1, A.p1, sums, dy1, B, s);
+  e = pool_group_sums(sums, B * 2, Co, G, s);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_norm_bwd_apply(n1, A.p1, sums, dy1, B, s, (float)HW * (float)G);
   if (e != cudaSuccess) return (int)e;
   // 7. dw1 = corr(x, dy1)
   e = bwd_dw<3, false>(x, dy1, nullptr, dwpart, dw1, B, H, W, Ci, Co, s);
@@ -192,7 +203,9 @@ extern "C" long long smsut_block_bwd_scratch(int B, int H, int W, int Ci,
 // [3][3][Co][Co], dws [Ci][Co] float32; dsb [5][Co] float32 = (dbias1,
 // dscale1, dbias2, dscale2, dscale_s), dbias_s == dbias2; tickets: the
 // norm sums' kNormTicketWords words, zero, kept for the stream
-// (instnorm.cuh).  Ci % 8 == 0, Co % 16 == 0.
+// (instnorm.cuh).  Ci % 8 == 0, Co % 16 == 0.  groups 1 (the unpacked
+// map) or 4 (the packed map; s1, s2, ss then hold each original channel's
+// scale at its 4 packed channels, and dsb's rows are per packed channel).
 extern "C" int smsut_block_bwd(const void* g, const void* x, const void* y1,
                                const void* y2, const void* u, const void* gh,
                                const void* stats, const void* w1t,
@@ -201,10 +214,11 @@ extern "C" int smsut_block_bwd(const void* g, const void* x, const void* y1,
                                const void* ss, void* dx, void* dw1,
                                void* dw2, void* dws, void* dsb,
                                void* scratch, void* tickets, int B, int H,
-                               int W, int Ci, int Co, int dtype,
-                               void* stream) {
+                               int W, int Ci, int Co, int groups,
+                               int dtype, void* stream) {
   const int shortcut = wst != nullptr;
   if (Co % 16 != 0 || Ci % 8 != 0 || (!shortcut && Ci != Co) ||
+      (groups != 1 && groups != 4) ||
       (shortcut && !u) || (dtype != 0 && dtype != 1) ||
       (dtype == 1 && !tc_takes(B, H, W, Ci, Co, shortcut, w1t, w2t, wst)))
     return (int)cudaErrorInvalidValue;
@@ -215,7 +229,7 @@ extern "C" int smsut_block_bwd(const void* g, const void* x, const void* y1,
       (const float*)gh, (const float*)stats, (const T*)w1t, (const T*)w2t,  \
       (const T*)wst, (const float*)s1, (const float*)s2, (const float*)ss,  \
       (T*)dx, (float*)dw1, (float*)dw2, (float*)dws, (float*)dsb,           \
-      (char*)scratch, (unsigned int*)tickets, A, B, H, W, Ci, Co, s
+      (char*)scratch, (unsigned int*)tickets, A, B, H, W, Ci, Co, groups, s
   if (dtype == 0)
     return shortcut ? run<float, true>(SMSUT_BWD_ARGS(float))
                     : run<float, false>(SMSUT_BWD_ARGS(float));

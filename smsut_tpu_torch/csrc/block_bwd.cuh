@@ -140,6 +140,30 @@ block_dy2_kernel(BlockOutSrc<T, SHORT> src, const float* __restrict__ sums,
   }
 }
 
+// The packed map's norm sums (groups G > 1, channel s*(C/G) + c): rows
+// [R][C] of per-sample sums become, at every member of each original
+// channel, the sum of its G groups in the order s = 0 .. G-1.  In place:
+// each thread reads and writes the G entries of one (row, channel).
+__global__ void pool_group_sums_kernel(float* __restrict__ sums, int R,
+                                       int C, int G) {
+  const int Cg = C / G;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= (long long)R * Cg) return;
+  float* p = sums + (size_t)(i / Cg) * C + i % Cg;
+  float t = p[0];
+  for (int q = 1; q < G; ++q) t += p[(size_t)q * Cg];
+  for (int q = 0; q < G; ++q) p[(size_t)q * Cg] = t;
+}
+
+inline cudaError_t pool_group_sums(float* sums, int R, int C, int G,
+                                   cudaStream_t s) {
+  if (G == 1) return cudaSuccess;
+  const long long n = (long long)R * (C / G);
+  pool_group_sums_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      sums, R, C, G);
+  return cudaGetLastError();
+}
+
 // The convolutions of the chain, by dtype: float32 on the CUDA cores,
 // bfloat16 on the tensor cores.  The weight gradient corr(x, g) (with PRO,
 // x = norm_act(x) while staging, gh the (g, h) of x's norm):

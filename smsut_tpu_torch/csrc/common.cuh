@@ -115,14 +115,69 @@ __global__ void finalize_kernel(const float* __restrict__ part, int nt, int C,
   }
 }
 
+// finalize_kernel on the space-to-depth packed layout (G subpixel groups,
+// channel s*(C/G) + c): the statistics of original channel c pool its G
+// groups.  Each group's slices are added as above, then the groups in the
+// order s = 0 .. G-1 (the TPU kernel's `_group_affine`), over n*G pixels;
+// every member gets the group's mean, rstd and (g, h); scale and bias are
+// [C/G].
+__global__ void finalize_groups_kernel(const float* __restrict__ part,
+                                       int nt, int C, float n, int G,
+                                       const float* __restrict__ scale,
+                                       const float* __restrict__ bias,
+                                       float* __restrict__ mean_out,
+                                       float* __restrict__ rstd_out,
+                                       float* __restrict__ gh_out) {
+  const int b = blockIdx.y;
+  const int Cg = C / G;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= Cg) return;
+  const float* p = part + (size_t)b * nt * 2 * C;
+  float s1 = 0.f, s2 = 0.f;
+  for (int q = 0; q < G; ++q) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      t1 += p[(size_t)(2 * t) * C + q * Cg + c];
+      t2 += p[(size_t)(2 * t + 1) * C + q * Cg + c];
+    }
+    s1 = q ? s1 + t1 : t1;
+    s2 = q ? s2 + t2 : t2;
+  }
+  const float N = n * (float)G;
+  const float mean = s1 / N;
+  const float var = s2 / N - mean * mean;
+  const float rstd = 1.f / sqrtf(var + kEps);
+  const float g = gh_out ? scale[c] * rstd : 0.f;
+  for (int q = 0; q < G; ++q) {
+    const size_t cq = (size_t)q * Cg + c;
+    if (mean_out) {
+      mean_out[(size_t)b * C + cq] = mean;
+      rstd_out[(size_t)b * C + cq] = rstd;
+    }
+    if (gh_out) {
+      gh_out[(size_t)(2 * b) * C + cq] = g;
+      gh_out[(size_t)(2 * b + 1) * C + cq] = bias[c] - mean * g;
+    }
+  }
+}
+
+// G 1: the unpacked map (finalize_kernel); G 4: the packed map
+// (finalize_groups_kernel)
 inline cudaError_t launch_finalize(const float* part, int nt, int B, int C,
                                    int n, const float* scale,
                                    const float* bias, float* mean_out,
                                    float* rstd_out, float* gh_out,
-                                   cudaStream_t s) {
-  dim3 grid((C + 127) / 128, B);
-  finalize_kernel<<<grid, 128, 0, s>>>(part, nt, C, (float)n, scale, bias,
-                                       mean_out, rstd_out, gh_out);
+                                   cudaStream_t s, int G = 1) {
+  if (G == 1) {
+    dim3 grid((C + 127) / 128, B);
+    finalize_kernel<<<grid, 128, 0, s>>>(part, nt, C, (float)n, scale, bias,
+                                         mean_out, rstd_out, gh_out);
+  } else {
+    dim3 grid((C / G + 127) / 128, B);
+    finalize_groups_kernel<<<grid, 128, 0, s>>>(part, nt, C, (float)n, G,
+                                                scale, bias, mean_out,
+                                                rstd_out, gh_out);
+  }
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Residual blocks and the 5-level encoder/decoder pair, NHWC.
 
-Port of the unpacked path of ``smsut_tpu/models/blocks.py``: 5x5 stem,
+Port of ``smsut_tpu/models/blocks.py``: 5x5 stem,
 residual BasicBlocks with a 1x1+norm shortcut on channel change, max-pool
 downsampling, 2x2 stride-2 transposed-conv (or bilinear + 1x1)
 upsampling with skip concat, widths w/2, w .. 16w; and the
@@ -12,6 +12,16 @@ the U-Net and the UGAN towers keep instance norm and leaky ReLU, the
 dual-task U-Net (``models/dtc.py``) defaults to batch norm and ReLU.
 Module and parameter names mirror the flax tree (models/transplant.py
 maps one onto the other).
+
+``pack_levels`` N (1 or 2, the JAX package's hw mode) runs the encoder's
+first N levels and the decoder's last N on the 2x2 space-to-depth grid
+(``models/packed.py``), on the same parameters: the skips of those levels
+are packed maps, the encoder's level transitions pool and repack, and the
+decoder's head emits packed logits, unpacked unless ``packed_out``.  The
+JAX package's ``EncoderSplit``/``DecoderSplit`` (level 0 staged out for
+tower pairing, ``models/paired.py``) are routes of these modules:
+:meth:`Encoder.levels` from a level on and :meth:`Decoder.head`, with the
+level-0 parameters read from the modules themselves.
 
 Under a model axis (``parallel/mesh.py``) the transposed conv computes
 the output channels of its weight shard and gathers them, as the convs
@@ -29,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from smsut_tpu_torch.models import packed
 from smsut_tpu_torch.models.layers import (
     Conv,
     NormAct,
@@ -180,14 +191,51 @@ class BottleBlock(nn.Module):
 _MULTS = (1, 2, 4, 8)
 
 
+def check_pack_levels(pack_levels: int) -> int:
+    """The packed levels the towers take: 0, 1 or 2."""
+    if pack_levels not in (0, 1, 2):
+        raise ValueError(f"pack_levels {pack_levels} is not 0, 1 or 2")
+    return pack_levels
+
+
+def encoder_levels(enc, x: torch.Tensor, start: int, prefix: str
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Levels ``start`` .. 3 of an encoder's four (blocks ``<prefix>1`` ..
+    ``<prefix>4``), each followed by its pool; the first ``pack_levels``
+    run packed and pool to the next level's layout.  Returns the pooled
+    output and the levels' skips in forward order."""
+    p = enc.pack_levels
+    skips = []
+    for i in range(start, len(_MULTS)):
+        blk = getattr(enc, f"{prefix}{i + 1}")
+        if i < p:
+            cin = blk.conv1.weight.shape[2]
+            x = packed.packed_block(blk, x, (cin,))
+            skips.append(x)
+            x = packed.pool_to_next_level(x, blk.conv1.features,
+                                          last=i + 1 >= p,
+                                          fused=enc.pool_fused)
+        else:
+            x = blk(x)
+            skips.append(x)
+            x = max_pool2(x)
+    return x, skips
+
+
 class Encoder(nn.Module):
     """5x5 stem to w/2, then 4x(BasicBlock + maxpool) and a bottleneck
-    block; widths w .. 16w.  Returns (bottleneck, skips)."""
+    block; widths w .. 16w.  Returns (bottleneck, skips).  With
+    ``pack_levels`` the stem and the first levels run packed (module
+    docstring); ``pool_fused`` pools and repacks in one between two packed
+    levels (``Config.pool_pack_fused``)."""
 
     def __init__(self, width: int, cin: int = 1, fused: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 norm_type: str = "instance", act_type: str = "lrelu"):
+                 norm_type: str = "instance", act_type: str = "lrelu",
+                 pack_levels: int = 0, pool_fused: bool = False):
         super().__init__()
+        self.pack_levels = check_pack_levels(pack_levels)
+        self.pool_fused = pool_fused
         w = width
         block = lambda ci, co: BasicBlock(ci, co, fused, generator,
                                           norm_type, act_type)
@@ -201,23 +249,56 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        x = self.pre_bn(self.pre_conv(x))
-        skips = []
-        for i in range(len(_MULTS)):
-            x = getattr(self, f"layer{i + 1}")(x)
-            skips.append(x)
-            x = max_pool2(x)
+        if self.pack_levels:
+            x = packed.pack_stem(self.pre_conv, self.pre_bn, x)
+        else:
+            x = self.pre_bn(self.pre_conv(x))
+        return self.levels(x, 0)
+
+    def levels(self, x: torch.Tensor, start: int
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Levels ``start`` .. 3 and the bottleneck block, from the stem's
+        output (``start`` 0) or from a level's pooled output: (bottleneck,
+        those levels' skips)."""
+        x, skips = encoder_levels(self, x, start, "layer")
         return self.layer5(x), skips
+
+
+def decoder_head(dec, x: torch.Tensor, skip, prefix: str) -> torch.Tensor:
+    """A decoder's levels 4 .. 2 (``up<i>`` and ``<prefix><i>``, the skip
+    of level i ``skip(i)``), the packed ones (i <= ``pack_levels``) each
+    unpacked after its block: the input of level 1 on the level-1 grid."""
+    p = dec.pack_levels
+    for i in (4, 3, 2):
+        up, blk = getattr(dec, f"up{i}"), getattr(dec, f"{prefix}{i}")
+        if i > p:
+            x = blk(up(x, skip(i)))
+        else:
+            x = packed_level(up, blk, x, skip(i))
+            x = packed.depth_to_space(x, blk.conv1.features)
+    return x
+
+
+def packed_level(up, blk, x: torch.Tensor, skip: torch.Tensor
+                 ) -> torch.Tensor:
+    """A packed decoder level: up + concat into packed space, the block
+    on the two packed segments."""
+    f = blk.conv1.features
+    return packed.packed_block(blk, packed.packed_up_concat(up, x, skip),
+                               (f, f))
 
 
 class Decoder(nn.Module):
     """4-level decoder: transposed-conv up + concat, BasicBlock, then a
-    1x1 head."""
+    1x1 head.  With ``pack_levels`` its last levels and the head run packed
+    against the encoder's packed skips (module docstring)."""
 
     def __init__(self, out_ch: int, width: int, fused: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 norm_type: str = "instance", act_type: str = "lrelu"):
+                 norm_type: str = "instance", act_type: str = "lrelu",
+                 pack_levels: int = 0):
         super().__init__()
+        self.pack_levels = check_pack_levels(pack_levels)
         w = width
         for i in (4, 3, 2, 1):
             mult = _MULTS[i - 1]
@@ -233,14 +314,30 @@ class Decoder(nn.Module):
         """The 1x1 head ``fc``."""
         self.fc = Conv(width, out_ch, 1, generator, act_type=act_type)
 
+    def head(self, x: torch.Tensor,
+             skips: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Levels 4 .. 2: the input of level 1, unpacked."""
+        return decoder_head(self, x, lambda i: skips[i - 1], "layer")
+
     def levels(self, x: torch.Tensor,
                skips: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The four up + concat + block levels, without the head."""
-        for i in (4, 3, 2, 1):
-            x = getattr(self, f"up{i}")(x, skips[i - 1])
-            x = getattr(self, f"layer{i}")(x)
-        return x
+        """The four up + concat + block levels, without the head (level
+        1's output packed with ``pack_levels``)."""
+        x = self.head(x, skips)
+        if self.pack_levels:
+            return packed_level(self.up1, self.layer1, x, skips[0])
+        return self.layer1(self.up1(x, skips[0]))
 
-    def forward(self, x: torch.Tensor,
-                skips: Sequence[torch.Tensor]) -> torch.Tensor:
-        return self.fc(self.levels(x, skips))
+    def fc_apply(self, y: torch.Tensor, packed_out: bool = False
+                 ) -> torch.Tensor:
+        """The 1x1 head on level 1's output; packed logits unpacked
+        unless ``packed_out``."""
+        if not self.pack_levels:
+            return self.fc(y)
+        y = packed.packed_conv(y, self.fc.weight, (y.shape[-1] // 4,))
+        return y if packed_out else packed.depth_to_space(
+            y, self.fc.features)
+
+    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor],
+                packed_out: bool = False) -> torch.Tensor:
+        return self.fc_apply(self.levels(x, skips), packed_out)

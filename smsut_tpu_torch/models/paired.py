@@ -1,0 +1,83 @@
+# -*- coding: utf-8 -*-
+"""Tower-paired level-0 execution: two towers of the same shapes and
+different parameters (the UGAN's translation and segmentation towers, CPS's
+two U-Nets) run their packed level-0 stages as one program over the
+channel-concatenated activations ``[tower_A, tower_B]``, each tower block
+in the packed ``s*C + c`` layout of ``models/packed.py``.
+
+Port of ``smsut_tpu/models/paired.py`` with its default dense weight
+gradient (``SMSUT_PAIRED_DW=dense``): each twin conv pair is one conv with
+the block-diagonal kernel :func:`blockdiag2` of the two packed kernels,
+which doubles the executed multiply-adds of dx and dw (the off-diagonal
+products are against structural zeros, so the values are the two towers'
+own); the dense dw's off-diagonal half is dropped by :func:`blockdiag2`'s
+backward, a slice.  A paired 3x3 goes to K2 where ``conv3x3.takes``
+accepts its ``2 * 4 * Cin`` channels, as any packed conv
+(``packed.conv_packed_kernel``).  The norms stay per tower and per
+original channel (K1 on each tower's packed view); the blocks run the
+unfused chain, as the JAX package's ``paired_block`` does.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from smsut_tpu_torch.models import packed
+from smsut_tpu_torch.ops.instnorm import lrelu
+
+
+def blockdiag2(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """[k,k,ia,oa] + [k,k,ib,ob] -> [k,k,ia+ib,oa+ob] block-diagonal."""
+    k = wa.shape[0]
+    if wb.shape[:2] != wa.shape[:2]:
+        raise ValueError(f"blockdiag2: {tuple(wa.shape)} and "
+                         f"{tuple(wb.shape)}")
+    ia, oa = wa.shape[2], wa.shape[3]
+    ib, ob = wb.shape[2], wb.shape[3]
+    top = torch.cat([wa, wa.new_zeros((k, k, ia, ob))], 3)
+    bot = torch.cat([wb.new_zeros((k, k, ib, oa)), wb], 3)
+    return torch.cat([top, bot], 2)
+
+
+def paired_conv(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
+                segs_a: Sequence[int], segs_b: Sequence[int]) -> torch.Tensor:
+    """One conv == tower A's packed conv with original kernel ``wa`` on
+    x[..., :4 sum(segs_a)] stacked with tower B's with ``wb`` on the rest;
+    the kernels packed in float32, then cast to x's dtype."""
+    dt = x.dtype
+    wp = blockdiag2(packed.pack_kernel(wa, tuple(segs_a)).to(dt),
+                    packed.pack_kernel(wb, tuple(segs_b)).to(dt))
+    return packed.conv_packed_kernel(x, wp)
+
+
+def split2(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Undo the tower concat: [..., 8C] -> two [..., 4C] halves."""
+    h = x.shape[-1] // 2
+    return x[..., :h], x[..., h:]
+
+
+def paired_norm_act(x: torch.Tensor, na, nb) -> torch.Tensor:
+    """Each tower's ``NormAct`` (``na``, ``nb``: instance norm, their
+    activation) on its half of the paired map: statistics per tower and
+    per original channel over (H', W', s)."""
+    a, b = split2(x)
+    return torch.cat([packed.norm_act(na, a), packed.norm_act(nb, b)], -1)
+
+
+def paired_block(x: torch.Tensor, blk_a, blk_b,
+                 in_segments: Sequence[int]) -> torch.Tensor:
+    """Two ``models/blocks.py`` ``BasicBlock``s of the same shapes on a
+    paired packed map (each tower's input of ``in_segments`` packed
+    channels): the unfused packed chain, every conv paired."""
+    f = blk_a.conv1.features
+    segs = tuple(in_segments)
+    conv = lambda y, name, s: paired_conv(
+        y, getattr(blk_a, name).weight, getattr(blk_b, name).weight, s, s)
+    y = paired_norm_act(conv(x, "conv1", segs), blk_a.bn1, blk_b.bn1)
+    y = paired_norm_act(conv(y, "conv2", (f,)), blk_a.bn2, blk_b.bn2)
+    idn = x
+    if blk_a.has_shortcut:
+        idn = paired_norm_act(conv(x, "shortcut1", segs), blk_a.shortcut2,
+                              blk_b.shortcut2)
+    return lrelu(y + idn)

@@ -2,13 +2,19 @@
 """The UGAN family, NHWC: a StarGAN-style translator + segmenter and its
 PatchGAN discriminator.
 
-Port of the unpacked path of ``smsut_tpu/models/ugan.py``
-(``pack_levels=0``, ``pair_towers=False``; the packed and paired
-lowerings are TPU layouts, no-ops in the port): ``tile_modality_vec``,
+Port of ``smsut_tpu/models/ugan.py``: ``tile_modality_vec``,
 ``UGANEncoder``, ``UGANDecoder``, ``_UGANCore``, ``UGAN``,
 ``PatchSampleF``, ``UGANnce``, ``sample_patch_ids`` and
 ``Discriminator``.  Module and parameter names mirror the flax tree
 (models/transplant.py maps one onto the other).
+
+``pack_levels`` runs the towers' outer levels on the space-to-depth grid
+and the discriminator's stem there (the JAX package's hw mode,
+``models/packed.py``); ``pair_towers`` runs both towers' level 0 (stems,
+first encoder blocks, last decoder blocks) as one tower-paired program
+(``models/paired.py``), the JAX ``UGANEncoderSplit``/``UGANDecoderSplit``
+being routes of the same modules; ``packed_seg`` returns the packed
+segmentation logits.  The parameter tree is the same either way.
 
 Under a space axis (``parallel/mesh.py``) each rank holds rows of every
 map: the towers' convs, pools and upsamples meet their neighbours in
@@ -39,10 +45,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from smsut_tpu_torch.device import resolve_device
+from smsut_tpu_torch.models import packed, paired
 from smsut_tpu_torch.models.blocks import (BasicBlock, BottleBlock,
-                                           UpSampleAndConcat)
+                                           UpSampleAndConcat,
+                                           check_pack_levels, decoder_head,
+                                           encoder_levels, packed_level)
 from smsut_tpu_torch.models.layers import (Conv, NormAct,
-                                           kaiming_normal_fan_out, max_pool2)
+                                           kaiming_normal_fan_out)
 from smsut_tpu_torch.ops import acc
 from smsut_tpu_torch.ops.instnorm import lrelu
 from smsut_tpu_torch.parallel import distributed, mesh
@@ -64,11 +73,15 @@ def tile_modality_vec(x: torch.Tensor, m: Optional[torch.Tensor],
 
 class UGANEncoder(nn.Module):
     """5x5 stem to w/2, then 4x(BasicBlock + max pool), widths w .. 8w.
-    Returns the pooled bottleneck input and the skips [e4, e3, e2, e1]."""
+    Returns the pooled bottleneck input and the skips [e4, e3, e2, e1];
+    the first ``pack_levels`` levels packed."""
 
     def __init__(self, width: int, cin: int, fused: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pack_levels: int = 0, pool_fused: bool = False):
         super().__init__()
+        self.pack_levels = check_pack_levels(pack_levels)
+        self.pool_fused = pool_fused
         w = width
         self.pre_conv = Conv(cin, w // 2, 5, generator)
         self.pre_bn = NormAct(w // 2, "lrelu")
@@ -80,14 +93,19 @@ class UGANEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        x = self.pre_bn(self.pre_conv(x))
-        skips = []
-        for i in range(len(_MULTS)):
-            x = getattr(self, f"enc{i + 1}")(x)
-            skips.append(x)
-            x = max_pool2(x)
+        if self.pack_levels:
+            x = packed.pack_stem(self.pre_conv, self.pre_bn, x)
+        else:
+            x = self.pre_bn(self.pre_conv(x))
+        x, skips = self.levels(x, 0)
         skips.reverse()
         return x, skips
+
+    def levels(self, x: torch.Tensor, start: int
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Levels ``start`` .. 3 with their pools: (the pooled output,
+        those levels' skips in forward order)."""
+        return encoder_levels(self, x, start, "enc")
 
 
 class UGANDecoder(nn.Module):
@@ -98,8 +116,10 @@ class UGANDecoder(nn.Module):
 
     def __init__(self, out_ch: int, width: int, transposed: bool = True,
                  use_tanh: bool = False, fused: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pack_levels: int = 0):
         super().__init__()
+        self.pack_levels = check_pack_levels(pack_levels)
         w = width
         self.use_tanh = use_tanh
         for i in (4, 3, 2, 1):
@@ -110,13 +130,34 @@ class UGANDecoder(nn.Module):
                     BasicBlock(2 * mult * w, mult * w, fused, generator))
         self.fc = Conv(w, out_ch, 1, generator, use_bias=True)
 
-    def forward(self, x: torch.Tensor,
-                skips: Sequence[torch.Tensor]) -> torch.Tensor:
-        for i in (4, 3, 2, 1):
-            x = getattr(self, f"up{i}")(x, skips[4 - i])
-            x = getattr(self, f"dec{i}")(x)
-        x = self.fc(x)
-        return torch.tanh(x) if self.use_tanh else x
+    def head(self, x: torch.Tensor,
+             skips: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Levels 4 .. 2 (skips [e4, e3, e2, e1]): level 1's input."""
+        return decoder_head(self, x, lambda i: skips[4 - i], "dec")
+
+    def fc_apply(self, y: torch.Tensor, packed_out: bool = False
+                 ) -> torch.Tensor:
+        """The 1x1 head with its bias (tanh'd with ``use_tanh``) on level
+        1's output; packed outputs unpacked unless ``packed_out``."""
+        if self.pack_levels:
+            y = packed.packed_conv(y, self.fc.weight, (y.shape[-1] // 4,),
+                                   self.fc.bias)
+        else:
+            y = self.fc(y)
+        if self.use_tanh:
+            y = torch.tanh(y)
+        if self.pack_levels and not packed_out:
+            y = packed.depth_to_space(y, self.fc.features)
+        return y
+
+    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor],
+                packed_out: bool = False) -> torch.Tensor:
+        x = self.head(x, skips)
+        if self.pack_levels:
+            x = packed_level(self.up1, self.dec1, x, skips[3])
+        else:
+            x = self.dec1(self.up1(x, skips[3]))
+        return self.fc_apply(x, packed_out)
 
 
 class _UGANCore(nn.Module):
@@ -124,30 +165,78 @@ class _UGANCore(nn.Module):
     modality vector, a segmentation encoder on the image, one shared
     bottleneck block ``enc5`` applied once to both towers' concat
     (instance norm is per sample, so this is two applies), and the two
-    decoders.  Returns (seg, tsl, the translation bottleneck)."""
+    decoders.  Returns (seg, tsl, the translation bottleneck).  With
+    ``pack_levels`` the towers' outer levels run packed, and with
+    ``pair_towers`` their level 0 as one paired program."""
 
     def __init__(self, out_ch: int, n_modal: int, width: int, cin: int = 1,
                  fused: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pack_levels: int = 0, pair_towers: bool = False,
+                 pool_fused: bool = False):
         super().__init__()
         w = width
         self.n_modal = n_modal
-        self.tsl_encoder = UGANEncoder(w, cin + n_modal, fused, generator)
-        self.seg_encoder = UGANEncoder(w, cin, fused, generator)
+        self.pack_levels = pack_levels
+        self.pair = bool(pair_towers) and pack_levels >= 1
+        enc = dict(pack_levels=pack_levels, pool_fused=pool_fused)
+        self.tsl_encoder = UGANEncoder(w, cin + n_modal, fused, generator,
+                                       **enc)
+        self.seg_encoder = UGANEncoder(w, cin, fused, generator, **enc)
         self.enc5 = BasicBlock(8 * w, 16 * w, fused, generator)
-        self.tsl_decoder = UGANDecoder(1, w, False, True, fused, generator)
+        self.tsl_decoder = UGANDecoder(1, w, False, True, fused, generator,
+                                       pack_levels)
         self.seg_decoder = UGANDecoder(out_ch, w, True, False, fused,
-                                       generator)
+                                       generator, pack_levels)
 
-    def forward(self, x: torch.Tensor, m: Optional[torch.Tensor]):
-        tsl_h, tsl_skips = self.tsl_encoder(
-            tile_modality_vec(x, m, self.n_modal))
-        seg_h, seg_skips = self.seg_encoder(x)
+    def _paired_encoders(self, tsl_in: torch.Tensor, x: torch.Tensor):
+        """Both encoders, level 0 paired: (tsl_h, tsl_skips, seg_h,
+        seg_skips), the skips reversed as the encoders return them."""
+        te, se = self.tsl_encoder, self.seg_encoder
+        y = paired.paired_conv(
+            torch.cat([packed.space_to_depth(tsl_in),
+                       packed.space_to_depth(x)], -1),
+            te.pre_conv.weight, se.pre_conv.weight, (tsl_in.shape[-1],),
+            (x.shape[-1],))
+        y = paired.paired_norm_act(y, te.pre_bn, se.pre_bn)
+        y = paired.paired_block(y, te.enc1, se.enc1,
+                                (te.pre_conv.features,))
+        out = []
+        w = te.enc1.conv1.features
+        for enc, skip in zip((te, se), paired.split2(y)):
+            h, rest = enc.levels(packed.pool_to_next_level(
+                skip, w, self.pack_levels == 1, enc.pool_fused), 1)
+            out += [h, list(reversed([skip] + rest))]
+        return out
+
+    def forward(self, x: torch.Tensor, m: Optional[torch.Tensor],
+                packed_seg: bool = False):
+        tsl_in = tile_modality_vec(x, m, self.n_modal)
+        if self.pair:
+            packed.check_unsharded("the paired towers")
+            tsl_h, tsl_skips, seg_h, seg_skips = self._paired_encoders(
+                tsl_in, x)
+        else:
+            tsl_h, tsl_skips = self.tsl_encoder(tsl_in)
+            seg_h, seg_skips = self.seg_encoder(x)
         b = x.shape[0]
         both = self.enc5(torch.cat([tsl_h, seg_h], dim=0))
         tsl_bottleneck, seg_bottleneck = both[:b], both[b:]
-        tsl = self.tsl_decoder(tsl_bottleneck, tsl_skips)
-        seg = self.seg_decoder(seg_bottleneck, seg_skips)
+        packed_seg = packed_seg and self.pack_levels > 0
+        if self.pair:
+            td, sd = self.tsl_decoder, self.seg_decoder
+            ua = packed.packed_up_concat(
+                td.up1, td.head(tsl_bottleneck, tsl_skips), tsl_skips[3])
+            ub = packed.packed_up_concat(
+                sd.up1, sd.head(seg_bottleneck, seg_skips), seg_skips[3])
+            w = td.dec1.conv1.features
+            ya, yb = paired.split2(paired.paired_block(
+                torch.cat([ua, ub], -1), td.dec1, sd.dec1, (w, w)))
+            tsl = td.fc_apply(ya)
+            seg = sd.fc_apply(yb, packed_seg)
+        else:
+            tsl = self.tsl_decoder(tsl_bottleneck, tsl_skips)
+            seg = self.seg_decoder(seg_bottleneck, seg_skips, packed_seg)
         return acc(seg), acc(tsl), tsl_bottleneck
 
 
@@ -209,20 +298,25 @@ class _Net(nn.Module):
 
 class UGAN(_Net):
     """``UGAN(out_ch, n_modal, width)``: forward(x, m) -> (seg logits,
-    translation), both float32.  ``block_fused`` runs each BasicBlock
-    through K3 on the card."""
+    translation), both float32 (the seg logits packed with
+    ``packed_seg``).  ``block_fused`` runs each BasicBlock through K3 on
+    the card; ``pack_levels``, ``pair_towers`` and ``pool_fused`` as
+    :class:`_UGANCore`."""
 
     def __init__(self, out_ch: int, n_modal: int, width: int = 16,
                  in_ch: int = 1, compute_dtype: torch.dtype = torch.bfloat16,
                  block_fused: bool = False, device: Device = None,
-                 seed: int = 0):
+                 seed: int = 0, pack_levels: int = 0,
+                 pair_towers: bool = False, pool_fused: bool = False):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
-        self.core = _UGANCore(out_ch, n_modal, width, in_ch, block_fused, g)
+        self.core = _UGANCore(out_ch, n_modal, width, in_ch, block_fused, g,
+                              pack_levels, pair_towers, pool_fused)
         self._place(compute_dtype, device)
 
-    def forward(self, x: torch.Tensor, m: Optional[torch.Tensor] = None):
-        seg, tsl, _ = self.core(x.to(self.compute_dtype), m)
+    def forward(self, x: torch.Tensor, m: Optional[torch.Tensor] = None,
+                packed_seg: bool = False):
+        seg, tsl, _ = self.core(x.to(self.compute_dtype), m, packed_seg)
         return seg, tsl
 
 
@@ -236,17 +330,20 @@ class UGANnce(_Net):
                  netF_nc: int = 256, in_ch: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  block_fused: bool = False, device: Device = None,
-                 seed: int = 0):
+                 seed: int = 0, pack_levels: int = 0,
+                 pair_towers: bool = False, pool_fused: bool = False):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
-        self.core = _UGANCore(out_ch, n_modal, width, in_ch, block_fused, g)
+        self.core = _UGANCore(out_ch, n_modal, width, in_ch, block_fused, g,
+                              pack_levels, pair_towers, pool_fused)
         self.netF = PatchSampleF(16 * width, netF_nc, g)
         self._place(compute_dtype, device)
 
     def forward(self, x: torch.Tensor, m: Optional[torch.Tensor] = None,
                 patch_ids: Optional[torch.Tensor] = None,
-                val_phase: bool = False):
-        seg, tsl, tsl_bottleneck = self.core(x.to(self.compute_dtype), m)
+                val_phase: bool = False, packed_seg: bool = False):
+        seg, tsl, tsl_bottleneck = self.core(x.to(self.compute_dtype), m,
+                                             packed_seg)
         if val_phase:
             return seg, tsl
         if patch_ids is None:
@@ -309,13 +406,16 @@ class Discriminator(_Net):
     channel, which the conv kernels do not take: plain PyTorch, counted in
     ``conv3x3.conv3x3.routed``) and ``conv_cls``, the full-kernel class
     head as one contraction.  forward(x) -> (src [B, s, s, 1], cls [B,
-    n_modal]), float32."""
+    n_modal]), float32.  With ``pack_levels`` > 0 the stem runs on the
+    space-to-depth grid (``models/packed.py`` ``packed_stride2_conv``, the
+    JAX ``d_pack_mode="hw"``), the same parameters."""
 
     def __init__(self, input_size: int, n_modal: int, width: int = 16,
                  max_width: int = 512, in_ch: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device: Device = None, seed: int = 0):
+                 device: Device = None, seed: int = 0, pack_levels: int = 0):
         super().__init__()
+        self.pack_levels = pack_levels
         g = torch.Generator().manual_seed(seed)
         repeat_num = int(math.log2(input_size)) - 2
         self.stem = _StemConv(in_ch, width, g)
@@ -333,7 +433,13 @@ class Discriminator(_Net):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = lrelu(self.stem(x.to(self.compute_dtype)))
+        x = x.to(self.compute_dtype)
+        if self.pack_levels:
+            x = packed.packed_stride2_conv(self.stem,
+                                           packed.space_to_depth(x))
+        else:
+            x = self.stem(x)
+        x = lrelu(x)
         for i in range(1, self.n_blocks + 1):
             x = getattr(self, f"block{i}")(x)
         src = self.conv_src(x)

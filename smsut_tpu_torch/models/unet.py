@@ -1,6 +1,13 @@
 # -*- coding: utf-8 -*-
 """Segmentation U-Net, NHWC (port of ``smsut_tpu/models/unet.py`` ``UNet``
-with ``pack_levels=0``, instance norm, leaky ReLU).
+and ``UNetPair``, instance norm, leaky ReLU).
+
+``pack_levels`` N runs the first N levels of the encoder and the last N of
+the decoder on the space-to-depth grid (``models/blocks.py``,
+``models/packed.py``), on the same parameters; ``packed_out`` returns the
+packed logits [B, H/2, W/2, 4 out_ch] for the packed losses
+(``ops/losses.py``).  :class:`UNetPair` runs two U-Nets on one input with
+their level-0 stages tower-paired (``models/paired.py``).
 
 Logits are returned in float32 so that losses and argmax stay
 full-precision under bfloat16 compute.
@@ -23,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from smsut_tpu_torch.device import resolve_device
+from smsut_tpu_torch.models import packed, paired
 from smsut_tpu_torch.models.blocks import Decoder, Encoder
 
 
@@ -50,26 +58,81 @@ class UNet(nn.Module):
     ``device``: the card unless ``device`` names another (no CUDA and no
     device raises).  ``block_fused`` runs each BasicBlock through kernel
     K3 on the card; ``remat`` rematerialises the encoder and the decoder
-    under grad (module docstring)."""
+    under grad (module docstring); ``pack_levels`` and ``pool_fused`` as
+    ``models/blocks.py`` ``Encoder``."""
 
     def __init__(self, out_ch: int, width: int = 16, in_ch: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  block_fused: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0, remat: bool = False):
+                 seed: int = 0, remat: bool = False, pack_levels: int = 0,
+                 pool_fused: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.remat = remat
+        self.pack_levels = pack_levels
         g = torch.Generator().manual_seed(seed)
-        self.encoder = Encoder(width, in_ch, block_fused, g)
-        self.decoder = Decoder(out_ch, width, block_fused, g)
+        self.encoder = Encoder(width, in_ch, block_fused, g,
+                               pack_levels=pack_levels, pool_fused=pool_fused)
+        self.decoder = Decoder(out_ch, width, block_fused, g,
+                               pack_levels=pack_levels)
         self.to(device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                packed_out: bool = False) -> torch.Tensor:
         x = x.to(self.compute_dtype)
+        packed_out = packed_out and self.pack_levels > 0
         if self.remat and torch.is_grad_enabled():
             h, skips = rematerialised(self.encoder, x)
-            return rematerialised(self.decoder, h, skips).float()
+            return rematerialised(self.decoder, h, skips,
+                                  packed_out).float()
         h, skips = self.encoder(x)
-        return self.decoder(h, skips).float()
+        return self.decoder(h, skips, packed_out).float()
+
+
+class UNetPair(nn.Module):
+    """Two U-Nets ``n1`` and ``n2`` (each a :class:`UNet` of its own
+    parameters, ``pack_levels`` >= 1) on the same input as one
+    tower-paired program: both nets' level-0 stages (the stem, the first
+    encoder block, the last decoder block) run as block-diagonal convs over
+    the channel-concatenated activations (``models/paired.py``), the rest
+    net by net.  The same function as the two U-Nets.  Built from two
+    U-Nets (or, with ``torch.func.functional_call``, over the parameters
+    ``n1.<key>``, ``n2.<key>``)."""
+
+    def __init__(self, n1: UNet, n2: UNet):
+        super().__init__()
+        if not n1.pack_levels or n1.pack_levels != n2.pack_levels:
+            raise ValueError("UNetPair: both nets packed alike, "
+                             "pack_levels >= 1")
+        self.n1, self.n2 = n1, n2
+
+    def forward(self, x: torch.Tensor, packed_out: bool = False):
+        packed.check_unsharded("UNetPair")
+        n1, n2 = self.n1, self.n2
+        x = x.to(n1.compute_dtype)
+        e1, e2 = n1.encoder, n2.encoder
+        xp = packed.space_to_depth(x)
+        cin = (x.shape[-1],)
+        y = paired.paired_conv(torch.cat([xp, xp], -1), e1.pre_conv.weight,
+                               e2.pre_conv.weight, cin, cin)
+        y = paired.paired_norm_act(y, e1.pre_bn, e2.pre_bn)
+        w2 = e1.pre_conv.features
+        y = paired.paired_block(y, e1.layer1, e2.layer1, (w2,))
+        skip_a, skip_b = paired.split2(y)
+        w = e1.layer1.conv1.features
+        last = n1.pack_levels == 1
+        h1, rest1 = e1.levels(packed.pool_to_next_level(
+            skip_a, w, last, e1.pool_fused), 1)
+        h2, rest2 = e2.levels(packed.pool_to_next_level(
+            skip_b, w, last, e2.pool_fused), 1)
+        sk1, sk2 = [skip_a] + rest1, [skip_b] + rest2
+        d1, d2 = n1.decoder, n2.decoder
+        u1 = packed.packed_up_concat(d1.up1, d1.head(h1, sk1), sk1[0])
+        u2 = packed.packed_up_concat(d2.up1, d2.head(h2, sk2), sk2[0])
+        yd = paired.paired_block(torch.cat([u1, u2], -1), d1.layer1,
+                                 d2.layer1, (w, w))
+        ya, yb = paired.split2(yd)
+        return (d1.fc_apply(ya, packed_out).float(),
+                d2.fc_apply(yb, packed_out).float())

@@ -3,8 +3,15 @@
 forms, forward and backward.
 
 Port of ``smsut_tpu/ops/block_pallas.py`` (public ``fused_block``,
-``fused_block_short``, ``fused_block_fwd``, ``apply_fused_block``), on the
-unpacked NHWC map: K3 replaces ``_fwd_call``, K6 ``_bwd_call``.  On a CUDA
+``fused_block_short``, ``fused_block_fwd``, ``apply_fused_block``): K3
+replaces ``_fwd_call``, K6 ``_bwd_call``.  ``groups`` 1 runs them on the
+unpacked NHWC map; ``groups`` 4 on the TPU kernels' own space-to-depth
+packed map ``[B, H/2, W/2, 4C]`` (channel ``s*C + c``, ``models/packed.py``),
+where each norm's statistics pool an original channel's 4 subpixel groups
+in the order s = 0..3 over ``4*H*W`` pixels (``_group_affine``, and the
+group-norm backward of ``_bwd_kernel``), the norm parameters and their
+gradients are ``[C]``, and the residuals' (g, h), mean and rstd stand at
+every packed channel of their group.  On a CUDA
 tensor :func:`basic_block_fwd` and :func:`basic_block_bwd` launch the
 chains of ``csrc/block.cu`` and ``csrc/block_bwd.cu``; on a CPU tensor they
 run :func:`basic_block_plain` and :func:`basic_block_bwd_plain`.
@@ -130,15 +137,42 @@ def block_fwd_conv_plain(k: int, x: torch.Tensor, w: torch.Tensor,
     return yf.to(x.dtype), map_sums(yf)
 
 
+def fold_groups(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """[..., G*C] per packed channel -> [..., C]: each original channel's
+    G subpixel groups added in the order s = 0 .. G-1."""
+    if groups == 1:
+        return t
+    parts = t.unflatten(-1, (groups, -1)).unbind(-2)
+    tot = parts[0]
+    for q in parts[1:]:
+        tot = tot + q
+    return tot
+
+
+def tile_groups(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """[..., C] -> [..., G*C]: a value per original channel at each of its
+    packed channels ``s*C + c``."""
+    return t if groups == 1 else torch.cat([t] * groups, -1)
+
+
+def pool_groups(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-packed-channel sums -> their group's sum at every member."""
+    return tile_groups(fold_groups(t, groups), groups)
+
+
 def block_fwd_finalize_plain(sums: torch.Tensor, n: int, scale: torch.Tensor,
-                             bias: torch.Tensor, keep: bool = True
+                             bias: torch.Tensor, keep: bool = True,
+                             groups: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Plain twin of :func:`block_fwd_finalize`: (gh [B, 2, C] with
-    norm(y)*scale + bias == y*g + h, mean, rstd [B, C])."""
-    mean, rstd = stats_of(sums, n)
+    norm(y)*scale + bias == y*g + h, mean, rstd [B, C]).  With ``groups``
+    4 the statistics pool each original channel's subpixel groups over
+    ``4n`` pixels (``scale``, ``bias`` [C/4]) and stand at every member."""
+    mean, rstd = stats_of(fold_groups(sums, groups), n * groups)
     g = scale * rstd
-    return torch.stack([g, bias - mean * g], 1), mean, rstd
+    return (tile_groups(torch.stack([g, bias - mean * g], 1), groups),
+            tile_groups(mean, groups), tile_groups(rstd, groups))
 
 
 def block_fwd_out_plain(y2: torch.Tensor, gh2: torch.Tensor,
@@ -171,25 +205,30 @@ def _out_terms(g, y2, idn, gh, st, short):
     return gp, (y2f - M(1, 0)) * M(1, 1), xhs
 
 
-def block_bwd_out_sums_plain(g, y2, idn, gh, st, short: bool, scratch=None
+def block_bwd_out_sums_plain(g, y2, idn, gh, st, short: bool, scratch=None,
+                             groups: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of :func:`block_bwd_out_sums`: ([B, NS, C] = the sums of
-    gp, gp*xh2 (, gp*xhs) over the rank's rows, [NS, C] their batch
-    sums)."""
+    gp, gp*xh2 (, gp*xhs) over the rank's rows, pooled over the subpixel
+    groups with ``groups`` 4, [NS, C] their batch sums per packed
+    channel)."""
     gp, xh2, xhs = _out_terms(g, y2, idn, gh, st, short)
     terms = [gp, gp * xh2] + ([gp * xhs] if short else [])
     sums = torch.stack([t.sum(dim=(1, 2)) for t in terms], 1)
-    return sums, sums.sum(0)
+    return pool_groups(sums, groups), sums.sum(0)
 
 
-def block_bwd_dy2_plain(g, y2, idn, gh, st, s2, ss, sums, n: int
+def block_bwd_dy2_plain(g, y2, idn, gh, st, s2, ss, sums, n: int,
+                        groups: int = 1
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of :func:`block_bwd_dy2`: (dy2, du) in the activation
     dtype, or (dy2, gp float32) in the identity form, from the sums over
-    ``n`` pixels.  dy2 from gp rounded as the TPU kernel stores it (gb),
-    du from gp."""
+    ``n`` pixels (``n * groups`` on the packed map, the scales [C/4]).
+    dy2 from gp rounded as the TPU kernel stores it (gb), du from gp."""
     dt = y2.dtype
     short = ss is not None
+    n, s2 = n * groups, tile_groups(s2, groups)
+    ss = None if ss is None else tile_groups(ss, groups)
     gp, xh2, xhs = _out_terms(g, y2, idn, gh, st, short)
     dy2 = norm_bwd_dx(gp.to(dt).float(), xh2, sums[:, 0], sums[:, 1], s2,
                       st[1, 1], n).to(dt)
@@ -221,46 +260,53 @@ def block_bwd_dw_plain(k: int, x, g, pro_gh, off: int,
     return dw_f32(x, g, 1 if k == 2 else 3, off)
 
 
-def block_bwd_norm1_sums_plain(y1, dn1, st, s1, scratch=None
+def block_bwd_norm1_sums_plain(y1, dn1, st, s1, scratch=None,
+                               groups: int = 1
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of :func:`block_bwd_norm1_sums`: ([B, 2, C] = (S_dn1,
-    S_dn1*xh1) over the rank's rows, [2, C] their batch sums, the rank's
+    S_dn1*xh1) over the rank's rows, pooled over the subpixel groups with
+    ``groups`` 4, [2, C] their batch sums per packed channel, the rank's
     (dbias1, dscale1))."""
+    s1 = tile_groups(s1, groups)
     _, _, sd, sdx = norm_bwd_terms(y1, dn1, st[0, 0], st[0, 1], s1, None,
                                    False)
     sums = torch.stack([sd, sdx], 1)
-    return sums, sums.sum(0)
+    return pool_groups(sums, groups), sums.sum(0)
 
 
-def block_bwd_dy1_plain(y1, dn1, st, s1, sums, n: int) -> torch.Tensor:
+def block_bwd_dy1_plain(y1, dn1, st, s1, sums, n: int,
+                        groups: int = 1) -> torch.Tensor:
     """Plain twin of :func:`block_bwd_dy1`: dy1 in y1's dtype from the sums
-    over ``n`` pixels."""
+    over ``n`` pixels (``n * groups`` on the packed map)."""
+    s1 = tile_groups(s1, groups)
     d, xh, _, _ = norm_bwd_terms(y1, dn1, st[0, 0], st[0, 1], s1, None,
                                  False)
     return norm_bwd_dx(d, xh, sums[:, 0], sums[:, 1], s1, st[0, 1],
-                       n).to(y1.dtype)
+                       n * groups).to(y1.dtype)
 
 
 def basic_block_plain(x, w1, s1, b1, w2, s2, b2, ws=None, ss=None, bs=None,
-                      save: bool = False):
+                      save: bool = False, groups: int = 1):
     """Plain version of K3: out, or (out, Residuals) with ``save``; the
     plain twins of the split chain (:func:`split_block_fwd`), which on
     whole images is the block of the JAX package."""
     return split_block_fwd(x, w1, s1, b1, w2, s2, b2, ws, ss, bs, save,
-                           kernel=False)
+                           kernel=False, groups=groups)
 
 
-def basic_block_bwd_plain(g, x, w1, s1, w2, s2, ws, ss, res: Residuals):
-    """Plain version of K6, the arithmetic of ``_bwd_kernel`` on the
-    unpacked map: (dx in x's dtype, dw1, dw2, dws or None, and the float32
-    gradients of s1, b1, s2, b2, ss, bs as a [6, C] tensor); the plain
-    twins of the split chain (:func:`split_block_bwd`)."""
-    return split_block_bwd(g, x, w1, s1, w2, s2, ws, ss, res, kernel=False)
+def basic_block_bwd_plain(g, x, w1, s1, w2, s2, ws, ss, res: Residuals,
+                          groups: int = 1):
+    """Plain version of K6, the arithmetic of ``_bwd_kernel``: (dx in x's
+    dtype, dw1, dw2, dws or None, and the float32 gradients of s1, b1, s2,
+    b2, ss, bs as a [6, C / groups] tensor); the plain twins of the split
+    chain (:func:`split_block_bwd`)."""
+    return split_block_bwd(g, x, w1, s1, w2, s2, ws, ss, res, kernel=False,
+                           groups=groups)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    return bind("block", "smsut_block_fwd", [P] * 17 + [I] * 6 + [P])
+    return bind("block", "smsut_block_fwd", [P] * 17 + [I] * 7 + [P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,7 +316,7 @@ def _ntiles_fn():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    return bind("block_bwd", "smsut_block_bwd", [P] * 20 + [I] * 6 + [P])
+    return bind("block_bwd", "smsut_block_bwd", [P] * 20 + [I] * 7 + [P])
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,7 +351,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check_block(x, w1, w2, ws, params, what) -> Tuple[int, int]:
+def _check_block(x, w1, w2, ws, params, what, groups: int = 1
+                 ) -> Tuple[int, int]:
     b, h, wd, ci = x.shape
     co = w1.shape[-1]
     dev = x.device
@@ -316,8 +363,10 @@ def _check_block(x, w1, w2, ws, params, what) -> Tuple[int, int]:
     elif ci != co:
         raise ValueError(f"{what}: identity form needs Cin == Cout, got "
                          f"{ci} -> {co}")
+    if groups not in (1, 4):
+        raise ValueError(f"{what}: groups {groups} is not 1 or 4")
     for name, t in params:
-        require_like(t, f"{what} {name}", (co,), torch.float32, dev)
+        require_like(t, f"{what} {name}", (co // groups,), torch.float32, dev)
     if co % _COUT_MULT:
         raise ValueError(f"{what}: Cout {co} is not a multiple of "
                          f"{_COUT_MULT}")
@@ -328,19 +377,22 @@ def basic_block_fwd(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
                     b1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
                     b2: torch.Tensor, ws: Optional[torch.Tensor] = None,
                     ss: Optional[torch.Tensor] = None,
-                    bs: Optional[torch.Tensor] = None, save: bool = False):
+                    bs: Optional[torch.Tensor] = None, save: bool = False,
+                    groups: int = 1):
     """lrelu(IN(conv3(lrelu(IN(conv3(x, w1))), w2)) + idn), idn = x or
     IN(conv1x1(x, ws)).  Conv weights HWIO in x's dtype (``ws``
-    [1,1,Cin,Cout]); norm parameters [Cout] float32.  Returns out, or
-    (out, Residuals) with ``save``.  On the card Cout must be a multiple of
+    [1,1,Cin,Cout]); norm parameters [Cout / groups] float32, ``groups`` 4
+    on the packed map (module docstring).  Returns out, or (out,
+    Residuals) with ``save``.  On the card Cout must be a multiple of
     16."""
     if not on_card(x):
-        return basic_block_plain(x, w1, s1, b1, w2, s2, b2, ws, ss, bs, save)
+        return basic_block_plain(x, w1, s1, b1, w2, s2, b2, ws, ss, bs, save,
+                                 groups)
     dt = require(x, "basic_block")
     params = [("s1", s1), ("b1", b1), ("s2", s2), ("b2", b2)]
     if ws is not None:
         params += [("ss", ss), ("bs", bs)]
-    _, co = _check_block(x, w1, w2, ws, params, "basic_block")
+    _, co = _check_block(x, w1, w2, ws, params, "basic_block", groups)
     b, h, wd, _ = x.shape
     dev = x.device
     out = torch.empty((b, h, wd, co), dtype=x.dtype, device=dev)
@@ -359,28 +411,34 @@ def basic_block_fwd(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
                     w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), _ptr(ws),
                     _ptr(ss), _ptr(bs), out.data_ptr(), y1.data_ptr(),
                     y2.data_ptr(), _ptr(u), part.data_ptr(), gh.data_ptr(),
-                    _ptr(st), b, h, wd, x.shape[-1], co, dt, stream_of(x)),
+                    _ptr(st), b, h, wd, x.shape[-1], co, groups, dt,
+                    stream_of(x)),
           "basic_block", REFUSED_SHAPE)
     basic_block_fwd.launches += 1
+    basic_block_fwd.grouped += groups != 1
     return (out, Residuals(y1, y2, u, gh, st)) if save else out
 
 
 counter(basic_block_fwd)
+# of those, the launches on the packed map (groups 4)
+counter(basic_block_fwd, "grouped")
 
 
 def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                     s1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
                     ws: Optional[torch.Tensor], ss: Optional[torch.Tensor],
-                    res: Residuals):
+                    res: Residuals, groups: int = 1):
     """Backward of :func:`basic_block_fwd` for the cotangent ``g`` of its
     output: (dx in x's dtype, dw1, dw2, dws (None in the identity form)
-    float32, and [6, C] float32 gradients of (s1, b1, s2, b2, ss, bs))."""
+    float32, and [6, C / groups] float32 gradients of (s1, b1, s2, b2, ss,
+    bs))."""
     if not on_card(g):
-        return basic_block_bwd_plain(g, x, w1, s1, w2, s2, ws, ss, res)
+        return basic_block_bwd_plain(g, x, w1, s1, w2, s2, ws, ss, res,
+                                     groups)
     dt = require(x, "basic_block_bwd")
     params = [("s1", s1), ("s2", s2)] + ([("ss", ss)] if ws is not None
                                          else [])
-    ci, co = _check_block(x, w1, w2, ws, params, "basic_block_bwd")
+    ci, co = _check_block(x, w1, w2, ws, params, "basic_block_bwd", groups)
     if ci % _CIN_MULT:
         raise ValueError(f"basic_block_bwd: Cin {ci} is not a multiple of "
                          f"{_CIN_MULT}")
@@ -396,6 +454,9 @@ def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                  dev)
     require_like(res.st, "basic_block_bwd stats", (3, 2, b, co),
                  torch.float32, dev)
+    # the kernel reads a scale per packed channel
+    s1, s2 = tile_groups(s1, groups), tile_groups(s2, groups)
+    ss = None if ss is None else tile_groups(ss, groups)
     w1t, w2t = flip_io(w1), flip_io(w2)
     wst = None if ws is None else ws[0, 0].T.contiguous()
     dx = torch.empty_like(x)
@@ -413,17 +474,19 @@ def basic_block_bwd(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                         _ptr(wst), s1.data_ptr(), s2.data_ptr(), _ptr(ss),
                         dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
                         _ptr(dws), dsb.data_ptr(), scratch.data_ptr(),
-                        tickets(x).data_ptr(), b, h, wd, ci, co, dt,
+                        tickets(x).data_ptr(), b, h, wd, ci, co, groups, dt,
                         stream_of(x)), "basic_block_bwd", REFUSED_SHAPE)
     basic_block_bwd.launches += 1
+    basic_block_bwd.grouped += groups != 1
     # (dbias1, dscale1, dbias2, dscale2, dscale_s) -> (s1, b1, s2, b2, ss, bs)
     # by rows: an index list would be copied to the card and the host would
     # wait for the stream
     dsb = torch.stack((dsb[1], dsb[0], dsb[3], dsb[2], dsb[4], dsb[2]))
-    return dx, dw1, dw2, dws, dsb
+    return dx, dw1, dw2, dws, fold_groups(dsb, groups)
 
 
 counter(basic_block_bwd)
+counter(basic_block_bwd, "grouped")
 
 
 # ------------------------------------------------ K3 and K6 split phases
@@ -716,16 +779,29 @@ def _phases(kernel: bool, fns):
     return fns if kernel else tuple(_TWINS[f] for f in fns)
 
 
+def _split_groups(kernel: bool, groups: int, what: str) -> None:
+    """The split phases on the card take the unpacked map alone."""
+    if kernel and groups != 1:
+        raise ValueError(f"{what}: the split phases of K3/K6 take groups 1; "
+                         f"the packed map on the space axis is ROADMAP "
+                         f"A13c")
+
+
 def split_block_fwd(x, w1, s1, b1, w2, s2, b2, ws=None, ss=None, bs=None,
-                    save: bool = False, kernel: Optional[bool] = None):
+                    save: bool = False, kernel: Optional[bool] = None,
+                    groups: int = 1):
     """K3 split at its statistics (the phases, or their plain twins
     without ``kernel``) on a space rank's rows ``x`` of every image, the
     norms' sums added over the space group between the phases: out, or
     (out, Residuals) with ``save``.  Without a space group it is the
-    block on whole images (the halos zero, the sums the image's)."""
+    block on whole images (the halos zero, the sums the image's).
+    ``groups`` 4 (the packed map) is the plain twins' alone."""
     if kernel is None:
         kernel = on_card(x)
+    _split_groups(kernel, groups, "split_block_fwd")
     conv, finalize, out = _phases(kernel, SPLIT_FWD)
+    fin = ((lambda *a: finalize(*a, groups=groups)) if groups != 1
+           else finalize)
     h = x.shape[1]
     n = image_pixels(x)
     short = ws is not None
@@ -738,12 +814,12 @@ def split_block_fwd(x, w1, s1, b1, w2, s2, b2, ws=None, ss=None, bs=None,
     mesh.space_all_reduce_(sums)
     if short:
         sums, sums_s = sums[0], sums[1]
-    gh1, m1, r1 = finalize(sums, n, s1, b1, save)
+    gh1, m1, r1 = fin(sums, n, s1, b1, save)
     y1h, off = mesh.inner_halo_rows(y1, 1)
     y2, sums2 = conv(1, y1h, w2, gh1, h, off)
     mesh.space_all_reduce_(sums2)
-    gh2, m2, r2 = finalize(sums2, n, s2, b2, save)
-    ghs, ms, rs = (finalize(sums_s, n, ss, bs, save) if short
+    gh2, m2, r2 = fin(sums2, n, s2, b2, save)
+    ghs, ms, rs = (fin(sums_s, n, ss, bs, save) if short
                    else (None, None, None))
     o = out(y2, gh2, u if short else x, ghs)
     if not save:
@@ -758,33 +834,36 @@ def split_block_fwd(x, w1, s1, b1, w2, s2, b2, ws=None, ss=None, bs=None,
 
 
 def split_block_bwd(g, x, w1, s1, w2, s2, ws, ss, res: Residuals,
-                    kernel: Optional[bool] = None):
+                    kernel: Optional[bool] = None, groups: int = 1):
     """K6 split at its norm sums (the phases, or their plain twins without
     ``kernel``) on a space rank's rows: (dx, dw1, dw2, dws or None, the
-    [6, C] gradients of (s1, b1, s2, b2, ss, bs)), dx from the group's sums
-    and the cotangents' halos, the rest the rank's own.  Without a space
-    group, K6 on whole images."""
+    [6, C / groups] gradients of (s1, b1, s2, b2, ss, bs)), dx from the
+    group's sums and the cotangents' halos, the rest the rank's own.
+    Without a space group, K6 on whole images.  ``groups`` 4 (the packed
+    map) is the plain twins' alone."""
     if kernel is None:
         kernel = on_card(g)
+    _split_groups(kernel, groups, "split_block_bwd")
     out_sums, dy2_pass, bconv, bdw, n1_sums, dy1_pass = _phases(kernel,
                                                                 SPLIT_BWD)
+    gk = {"groups": groups} if groups != 1 else {}
     h = x.shape[1]
     n = image_pixels(x)
     short = ws is not None
     y1, y2, u, gh, st, xh, y1h = res
     idn = u if short else x
     scratch = bwd_split_scratch(x, w1.shape[-1], short) if kernel else None
-    sums_o, dsb_o = out_sums(g, y2, idn, gh, st, short, scratch)
+    sums_o, dsb_o = out_sums(g, y2, idn, gh, st, short, scratch, **gk)
     mesh.space_all_reduce_(sums_o)
-    dy2, dq = dy2_pass(g, y2, idn, gh, st, s2, ss, sums_o, n)
+    dy2, dq = dy2_pass(g, y2, idn, gh, st, s2, ss, sums_o, n, **gk)
     dn1 = bconv(0, mesh.halo_rows(dy2, 1), flip_io(w2), h, 1, y1, gh[0])
     if y1h is None:
         y1h = mesh.inner_halo_rows(y1, 1)[0]
     off = mesh.inner_halo_offset(1)
     dw2 = bdw(0, y1h, dy2, gh[0], off, scratch)
-    sums1, dsb1 = n1_sums(y1, dn1, st, s1, scratch)
+    sums1, dsb1 = n1_sums(y1, dn1, st, s1, scratch, **gk)
     mesh.space_all_reduce_(sums1)
-    dy1 = dy1_pass(y1, dn1, st, s1, sums1, n)
+    dy1 = dy1_pass(y1, dn1, st, s1, sums1, n, **gk)
     dw1 = bdw(1, mesh.halo_rows(x, 1) if xh is None else xh, dy1, None, 1,
               scratch)
     dws = None
@@ -795,7 +874,7 @@ def split_block_bwd(g, x, w1, s1, w2, s2, ws, ss, res: Residuals,
     dx = bconv(2, mesh.halo_rows(dy1, 1), flip_io(w1), h, 1, side)
     dss = dsb_o[2] if short else torch.zeros_like(dsb_o[0])
     dsb = torch.stack((dsb1[1], dsb1[0], dsb_o[1], dsb_o[0], dss, dsb_o[0]))
-    return dx, dw1, dw2, dws, dsb
+    return dx, dw1, dw2, dws, fold_groups(dsb, groups)
 
 
 class _BasicBlock(torch.autograd.Function):
@@ -805,16 +884,18 @@ class _BasicBlock(torch.autograd.Function):
     ran."""
 
     @staticmethod
-    def forward(ctx, x, w1, s1, b1, w2, s2, b2, ws, ss, bs):
+    def forward(ctx, x, w1, s1, b1, w2, s2, b2, ws, ss, bs, groups):
         ctx.kernel = on_card(x)
         ctx.split = distributed.space_count() > 1
+        ctx.groups = groups
         args = (x, w1, s1, b1, w2, s2, b2, ws, ss, bs)
         if ctx.split:
-            out, res = split_block_fwd(*args, save=True, kernel=ctx.kernel)
+            out, res = split_block_fwd(*args, save=True, kernel=ctx.kernel,
+                                       groups=groups)
         else:
             # whole images: the halos are zero rows, which the backward
             # pads again rather than keeps
-            out, res = basic_block_fwd(*args, save=True)
+            out, res = basic_block_fwd(*args, save=True, groups=groups)
             res = res[:5]
         ctx.save_for_backward(x, w1, s1, w2, s2, ws, ss, *res)
         return out
@@ -830,33 +911,34 @@ class _BasicBlock(torch.autograd.Function):
         x, w1, s1, w2, s2, ws, ss, *res = ctx.saved_tensors
         args = (g.contiguous(), x, w1, s1, w2, s2, ws, ss, Residuals(*res))
         if ctx.split:
-            dx, dw1, dw2, dws, dsb = split_block_bwd(*args,
-                                                     kernel=ctx.kernel)
+            dx, dw1, dw2, dws, dsb = split_block_bwd(
+                *args, kernel=ctx.kernel, groups=ctx.groups)
         else:
             bwd = basic_block_bwd if ctx.kernel else basic_block_bwd_plain
-            dx, dw1, dw2, dws, dsb = bwd(*args)
+            dx, dw1, dw2, dws, dsb = bwd(*args, groups=ctx.groups)
         grads = [dx, dw1.to(w1.dtype), dsb[0], dsb[1], dw2.to(w2.dtype),
                  dsb[2], dsb[3]]
         if ws is None:
-            return (*grads, None, None, None)
-        return (*grads, dws.to(ws.dtype), dsb[4], dsb[5])
+            return (*grads, None, None, None, None)
+        return (*grads, dws.to(ws.dtype), dsb[4], dsb[5], None)
 
 
 def basic_block(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
                 b1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
                 b2: torch.Tensor, ws: Optional[torch.Tensor] = None,
                 ss: Optional[torch.Tensor] = None,
-                bs: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The differentiable op.  Without autograd (serving, no_grad) it is
-    one K3 call that keeps no residuals (its split phases under a space
-    group)."""
+                bs: Optional[torch.Tensor] = None,
+                groups: int = 1) -> torch.Tensor:
+    """The differentiable op, ``groups`` 4 on the packed map.  Without
+    autograd (serving, no_grad) it is one K3 call that keeps no residuals
+    (its split phases under a space group)."""
     ins = (x, w1, s1, b1, w2, s2, b2, ws, ss, bs)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in ins):
-        return _BasicBlock.apply(*ins)
+        return _BasicBlock.apply(*ins, groups)
     if distributed.space_count() > 1:
-        return split_block_fwd(*ins)
-    return basic_block_fwd(*ins)
+        return split_block_fwd(*ins, groups=groups)
+    return basic_block_fwd(*ins, groups=groups)
 
 
 # blocks the model layer ran as the unfused chain (not :func:`takes`), and

@@ -16,11 +16,16 @@ Teacher's ``softmax_mse_consistency``; M3L's ``soft_cross_entropy``
 terms of ``smsut_tpu/train/steps/coranet.py``) in their plain form.  The
 JAX package evaluates the CoraNet tail channel-first in one fused pass, a
 TPU lane-padding device with the same math (its own tests hold it against
-the plain form); the packed variants (``dice_and_ce_loss_packed*``,
-``softmax_mse_consistency_packed``, ``argmax_packed``) serve
-``pack_levels``/``packed_loss_tails``, which do nothing in the port
-(config.py), and are not ported.  No kernel: the JAX package leaves them
-to XLA too.
+the plain form).  No kernel: the JAX package leaves them to XLA too.
+
+The packed variants (``pack_labels``, ``argmax_packed``,
+``dice_and_ce_loss_packed4``, ``dice_and_ce_loss_packed``,
+``softmax_mse_consistency_packed``) take the packed logits [B, H, W, 4C]
+of ``pack_levels`` (channel ``s*C + c``, ``models/packed.py``) as they are
+(``packed_loss_tails``): a per-pixel loss does not see the repacking, so
+each is its unpacked loss on the free view [B, H, 4W, C] with the labels
+packed alike, the softmax of each subpixel group stabilised by its own
+max.
 
 Under a process group (``parallel/``) each rank holds its rows of the
 global batch and the gradients are averaged over the group, which makes
@@ -261,3 +266,57 @@ def masked_head_mse(student: torch.Tensor, teacher: torch.Tensor,
         dist = dist + (d * umask).sum()
     dist, count = batch_sums(dist, umask.sum())
     return dist / (count + 1e-16) / 3.0
+
+
+# ---------------------------------------------------------------- packed
+
+
+def pack_labels(labels: torch.Tensor) -> torch.Tensor:
+    """[B, 2H, 2W] labels -> [B, H, W, 4] in space_to_depth's subpixel
+    order (dy*2 + dx)."""
+    b, h2, w2 = labels.shape
+    lab = labels.reshape(b, h2 // 2, 2, w2 // 2, 2).permute(0, 1, 3, 2, 4)
+    return lab.reshape(b, h2 // 2, w2 // 2, 4)
+
+
+def _view(logits_p: torch.Tensor) -> torch.Tensor:
+    """Packed logits [B, H, W, 4C] -> the per-pixel view [B, H, 4W, C]."""
+    b, h, w, c4 = logits_p.shape
+    return logits_p.reshape(b, h, 4 * w, c4 // 4)
+
+
+def _view_labels(labels4: torch.Tensor) -> torch.Tensor:
+    b, h, w, _ = labels4.shape
+    return labels4.reshape(b, h, 4 * w)
+
+
+def argmax_packed(logits_p: torch.Tensor) -> torch.Tensor:
+    """Per-subpixel-group argmax: [B, H, W, 4C] -> [B, H, W, 4] int64,
+    equal to ``pack_labels(argmax(depth_to_space(logits_p)))``."""
+    b, h, w, c4 = logits_p.shape
+    return acc(logits_p).reshape(b, h, w, 4, c4 // 4).argmax(dim=-1)
+
+
+def dice_and_ce_loss_packed4(logits_p: torch.Tensor, labels4: torch.Tensor,
+                             weight_dc: float = 0.5,
+                             weight_ce: float = 0.5) -> torch.Tensor:
+    """:func:`dice_and_ce_loss` (batch Dice) of packed logits against packed
+    [B, H, W, 4] labels (:func:`pack_labels`, :func:`argmax_packed`)."""
+    return dice_and_ce_loss(_view(logits_p), _view_labels(labels4),
+                            weight_dc, weight_ce, batch_dice=True)
+
+
+def dice_and_ce_loss_packed(logits_p: torch.Tensor, labels: torch.Tensor,
+                            weight_dc: float = 0.5,
+                            weight_ce: float = 0.5) -> torch.Tensor:
+    """:func:`dice_and_ce_loss` (batch Dice) of packed logits against the
+    unpacked [B, 2H, 2W] labels: the loss of ``depth_to_space(logits_p)``."""
+    return dice_and_ce_loss_packed4(logits_p, pack_labels(labels), weight_dc,
+                                    weight_ce)
+
+
+def softmax_mse_consistency_packed(student_p: torch.Tensor,
+                                   teacher_p: torch.Tensor) -> torch.Tensor:
+    """:func:`softmax_mse_consistency` of packed logits: the same elements,
+    the same mean."""
+    return softmax_mse_consistency(_view(student_p), _view(teacher_p))

@@ -75,6 +75,10 @@ def _seg_logits_fn(algo) -> Callable:
     return fn
 
 
+# the Config knobs of the forward's layout a manifest carries
+_LAYOUT = ("pack_levels", "pack_mode", "d_pack_mode", "pair_towers")
+
+
 def export_eval(algo, params: Any, cfg: Config, out_dir: str,
                 batch_size: int = 0) -> str:
     """Write ``params`` (the algorithm's ``eval_params``) and the manifest
@@ -105,7 +109,10 @@ def export_eval(algo, params: Any, cfg: Config, out_dir: str,
                       "img_channels": cfg.img_channels,
                       "compute_dtype": cfg.compute_dtype,
                       "block_pallas": bool(cfg.block_pallas),
-                      "n_modal": cfg.n_modal, "netF_nc": cfg.netF_nc},
+                      "n_modal": cfg.n_modal, "netF_nc": cfg.netF_nc,
+                      # the layout the forward runs in (the same weights
+                      # at any): the packed levels and the tower pairing
+                      **{k: getattr(cfg, k) for k in _LAYOUT}},
         }, f, indent=2)
     return path
 
@@ -133,7 +140,8 @@ def load_serving(out_dir: str,
                  n_label=manifest["n_class"] - 1,
                  compute_dtype=m["compute_dtype"],
                  block_pallas=m["block_pallas"],
-                 **{k: m[k] for k in ("n_modal", "netF_nc") if k in m})
+                 **{k: m[k] for k in ("n_modal", "netF_nc", *_LAYOUT)
+                    if k in m})
     algo = factory(cfg, device)
     params = algo.eval_params(torch.load(
         os.path.join(out_dir, manifest["artifact"]), map_location="cpu",

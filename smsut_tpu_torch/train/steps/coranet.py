@@ -70,7 +70,7 @@ from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.graphs import Replay
 from smsut_tpu_torch.train.state import (TrainState, make_constant_sgd,
                                          make_sgd)
-from smsut_tpu_torch.train.steps import loss_weight
+from smsut_tpu_torch.train.steps import loss_weight, pool_fused
 from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
 Params = Dict[str, torch.Tensor]
@@ -108,7 +108,8 @@ class CoraNet(SupervisedUNet):
         cfg = self.cfg
         return UNet(cfg.n_label * 3 + 1, cfg.base_width, cfg.img_channels,
                     self.dtype, block_fused=cfg.block_pallas,
-                    device=self.device, seed=seed)
+                    device=self.device, seed=seed,
+                    pack_levels=self.pack_levels, pool_fused=pool_fused(cfg))
 
     # ---------------------------------------------------------- schedules
     @property

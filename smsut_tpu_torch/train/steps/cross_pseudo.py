@@ -17,8 +17,10 @@ Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) both nets and
 their momentum hold the rank's output-channel shards, each net's
 gradients reduced with the state's shard keys.
 
-``pair_towers`` (the JAX package's tower pairing of the two nets) is a TPU
-layout knob and does nothing here (config.py).
+With ``pack_levels`` the two nets run packed and, with ``pair_towers``
+(None: on with packing, the JAX rule), as one tower-paired program
+(``models/unet.py`` ``UNetPair``); ``packed_loss_tails`` (None: on) keeps
+all four losses on the packed logits.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+from smsut_tpu_torch.models.unet import UNetPair
+from smsut_tpu_torch.ops.losses import (argmax_packed,
+                                        dice_and_ce_loss_packed4)
 from smsut_tpu_torch.ops.schedules import sigmoid_rampup
 from smsut_tpu_torch.train.state import TrainState, make_sgd
 from smsut_tpu_torch.train.steps import loss_weight
@@ -39,11 +43,22 @@ class CrossPseudo(SupervisedUNet):
     names another."""
 
     rematerialises = False
+    packed_tails = True
 
     name = "crossPse"
     uses_unlabeled = True
     lambda_semi = 0.1
     log_step = 50
+
+    def __init__(self, cfg, device=None):
+        super().__init__(cfg, device)
+        pair = cfg.pair_towers
+        # auto: paired wherever the nets run packed
+        self.pair = self.pack_levels >= 1 and (pair is None or bool(pair))
+        # the paired program over both nets' parameters, "n1.<key>" and
+        # "n2.<key>" (functional_call)
+        self.pair_net = (UNetPair(self.net, self._build(seed=1)) if self.pair
+                         else None)
 
     def init_state(self, seed: int) -> TrainState:
         """Net 1 drawn from ``seed``, net 2 from ``seed + 1``; zero
@@ -82,13 +97,24 @@ class CrossPseudo(SupervisedUNet):
         lam = loss_weight(scalars["lambda_semi"])
         leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
                   for p in (state.params, state.params2)]
-        out1, out2 = (torch.func.functional_call(self.net, p, (img,))
-                      for p in leaves)
-        loss = lambda logits, labels: dice_and_ce_loss(
-            logits, labels, cfg.weight_dc, cfg.weight_ce, batch_dice=True)
-        sup1, sup2 = loss(out1[:bs], inp["msk"]), loss(out2[:bs], inp["msk"])
-        pred1 = torch.argmax(out1[bs:].detach(), dim=-1)
-        pred2 = torch.argmax(out2[bs:].detach(), dim=-1)
+        if self.pair:
+            both = {f"n{i + 1}.{k}": v for i, p in enumerate(leaves)
+                    for k, v in p.items()}
+            out1, out2 = torch.func.functional_call(
+                self.pair_net, both, (img,), {"packed_out": self.packed_out})
+        else:
+            out1, out2 = (self.train_logits(p, img) for p in leaves)
+        sup1 = self.seg_loss(out1[:bs], inp["msk"])
+        sup2 = self.seg_loss(out2[:bs], inp["msk"])
+        if out1.shape[-1] != cfg.n_class:
+            pred1 = argmax_packed(out1[bs:].detach())
+            pred2 = argmax_packed(out2[bs:].detach())
+            loss = lambda logits, labels: dice_and_ce_loss_packed4(
+                logits, labels, cfg.weight_dc, cfg.weight_ce)
+        else:
+            pred1 = torch.argmax(out1[bs:].detach(), dim=-1)
+            pred2 = torch.argmax(out2[bs:].detach(), dim=-1)
+            loss = self.seg_loss
         semi1, semi2 = loss(out1[bs:], pred2), loss(out2[bs:], pred1)
         total = sup1 + sup2 + lam * semi1 + lam * semi2
         flat = list(leaves[0].values()) + list(leaves[1].values())

@@ -69,8 +69,17 @@ the batch sums run over the data group.  The draws are the algorithm's
 own, the same on every rank.
 
 ``remat`` rematerialises the generator's forward in the backward
-(:meth:`UGANBase._g_forward`); ``d_concat_hat`` and ``packed_loss_tails``
-are accepted and do nothing (config.py).
+(:meth:`UGANBase._g_forward`).
+
+``pack_levels`` runs the towers' outer levels and the discriminator's stem
+on the space-to-depth grid (``models/packed.py``; ``d_pack_mode`` must be
+"hw"), ``pair_towers`` (None: on with packing, except ``uganShp0``, the
+JAX rule) pairs the towers' level 0, and ``packed_loss_tails`` (None: on,
+except ``uganConsis``) keeps the segmentation losses on the packed logits
+(the translation stays unpacked for D and the L1).  ``d_concat_hat`` runs
+real, fake and x_hat through one D apply, the GP's input gradient the
+x_hat slice of its input gradient (instance norm is per image, so the
+slices are independent), through the same double backward.
 """
 from __future__ import annotations
 
@@ -86,13 +95,16 @@ from smsut_tpu_torch.models.ugan import (UGAN, Discriminator, UGANnce,
                                          sample_patch_ids)
 from smsut_tpu_torch.models.unet import rematerialised
 from smsut_tpu_torch.ops.losses import (argmax_consistency_loss,
-                                        dice_and_ce_loss, l1_loss,
+                                        argmax_packed, dice_and_ce_loss,
+                                        dice_and_ce_loss_packed,
+                                        dice_and_ce_loss_packed4, l1_loss,
                                         patch_nce_in_groups,
                                         softmax_ce_with_logits)
 from smsut_tpu_torch.ops.schedules import sigmoid_rampup
 from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.state import GANTrainState
-from smsut_tpu_torch.train.steps import loss_weight, setup_compute
+from smsut_tpu_torch.train.steps import (loss_weight, pack_levels,
+                                         pool_fused, setup_compute)
 from smsut_tpu_torch.utils.io import imwrite_gray
 
 Params = Dict[str, torch.Tensor]
@@ -131,6 +143,13 @@ class UGANBase:
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)
         self.with_nce = self.variant in ("uganShp0", "uganConsis")
+        self.pack_levels = pack_levels(cfg, discriminator=True)
+        pair, tails = cfg.pair_towers, cfg.packed_loss_tails
+        # the JAX step's auto rules (None)
+        self.pair = self.pack_levels >= 1 and (
+            self.variant != "uganShp0" if pair is None else bool(pair))
+        self.packed_seg = self.pack_levels >= 1 and (
+            self.variant != "uganConsis" if tails is None else bool(tails))
         # the fixed batch of the per-epoch translation grid (host arrays)
         self._fixed: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._draws = torch.Generator().manual_seed(cfg.seed)
@@ -149,17 +168,20 @@ class UGANBase:
     def _build(self, seed: int):
         cfg = self.cfg
         kw = dict(compute_dtype=self.dtype, device=self.device)
+        g_kw = dict(pack_levels=self.pack_levels, pair_towers=self.pair,
+                    pool_fused=pool_fused(cfg), **kw)
         if self.with_nce:
             net = UGANnce(cfg.n_class, cfg.n_modal, cfg.base_width,
                           cfg.netF_nc, cfg.img_channels,
-                          block_fused=cfg.block_pallas, seed=seed, **kw)
+                          block_fused=cfg.block_pallas, seed=seed, **g_kw)
         else:
             net = UGAN(cfg.n_class, cfg.n_modal, cfg.base_width,
                        cfg.img_channels, block_fused=cfg.block_pallas,
-                       seed=seed, **kw)
+                       seed=seed, **g_kw)
         d = Discriminator(cfg.input_size, cfg.n_modal, cfg.base_width,
                           256 if cfg.base_width == 16 else 512,
-                          cfg.img_channels, seed=seed + 1, **kw)
+                          cfg.img_channels, seed=seed + 1,
+                          pack_levels=self.pack_levels, **kw)
         return net, d
 
     # ---------------------------------------------------------------- state
@@ -212,20 +234,23 @@ class UGANBase:
 
     # ------------------------------------------------------------- forwards
     def _g_forward(self, params: Params, x: torch.Tensor, m: torch.Tensor,
-                   patch_ids: Optional[torch.Tensor]):
+                   patch_ids: Optional[torch.Tensor],
+                   packed_seg: bool = False):
         """(seg, tsl, feature pool or None); no pool with ``patch_ids``
-        None.  With ``Config.remat`` and under grad the generator's forward
-        is rematerialised in the backward (``models/unet.py``
+        None; the seg logits packed with ``packed_seg`` (and packing).
+        With ``Config.remat`` and under grad the generator's forward is
+        rematerialised in the backward (``models/unet.py``
         ``rematerialised``), as the JAX step's ``jax.checkpoint(fwd)``."""
         if self.with_nce and patch_ids is not None:
-            args = (x, m, patch_ids)
+            args = (x, m, patch_ids, False, packed_seg)
         else:
-            args = (x, m, None, True) if self.with_nce else (x, m)
+            args = ((x, m, None, True) if self.with_nce
+                    else (x, m, packed_seg))
         if self.cfg.remat and torch.is_grad_enabled():
             out = rematerialised(self.net, *args, params=params)
         else:
             out = torch.func.functional_call(self.net, params, args)
-        return out if len(args) == 3 else (*out, None)
+        return out if len(out) == 3 else (*out, None)
 
     def _d(self, params: Params, x: torch.Tensor):
         return torch.func.functional_call(self.D, params, (x,))
@@ -242,12 +267,17 @@ class UGANBase:
         grad-of-grad."""
         n = x_real.shape[0]
         x_hat = (alpha * x_real + (1.0 - alpha) * x_fake).requires_grad_()
-        src_cat, cls_cat = self._d(d_params, torch.cat([x_real, x_fake]))
-        src_h, _ = self._d(d_params, x_hat)
+        if self.cfg.d_concat_hat:
+            src_cat, cls_cat = self._d(d_params,
+                                       torch.cat([x_real, x_fake, x_hat]))
+            src_h = src_cat[2 * n:]
+        else:
+            src_cat, cls_cat = self._d(d_params, torch.cat([x_real, x_fake]))
+            src_h, _ = self._d(d_params, x_hat)
         dydx, = torch.autograd.grad(src_h.sum(), x_hat, create_graph=True)
         dydx = mesh.model_mean(dydx)
         d_real = -src_cat[:n].mean()
-        d_fake = src_cat[n:].mean()
+        d_fake = src_cat[n:2 * n].mean()
         d_cls = softmax_ce_with_logits(cls_cat[:n], mdl)
         # per image over all of its rows: the space group's sum
         norms = mesh.space_sum(dydx.reshape(n, -1).square().sum(dim=1)
@@ -341,28 +371,36 @@ class UGANBase:
         gate = (state.count >= cfg.consis_gate_step).to(x_real.dtype)
         g_leaves = {k: v.detach().requires_grad_()
                     for k, v in state.g_params.items()}
+        po = self.packed_seg
         y_fake, x_fake, feat_x = self._g_forward(g_leaves, x_real,
-                                                 inp["vec_ot"], patch_ids)
+                                                 inp["vec_ot"], patch_ids, po)
         src, cls = self._d(state.d_params, x_fake)
         g_fake = -src.mean()
         g_cls = softmax_ce_with_logits(cls, inp["modal_trg"])
-        g_seg = dice_and_ce_loss(y_fake[:bs], y_real, cfg.weight_dc,
-                                 cfg.weight_ce, batch_dice=True)
+        seg_loss = ((lambda y, t: dice_and_ce_loss_packed(
+            y, t, cfg.weight_dc, cfg.weight_ce)) if po else
+            (lambda y, t: dice_and_ce_loss(y, t, cfg.weight_dc,
+                                           cfg.weight_ce, batch_dice=True)))
+        g_seg = seg_loss(y_fake[:bs], y_real)
         y_rec, x_rec, feat_f = self._g_forward(g_leaves, x_fake,
-                                               inp["vec_to"], patch_ids)
+                                               inp["vec_to"], patch_ids, po)
         g_rec = l1_loss(x_real, x_rec)
         total = (g_fake + self.lambda_rec * g_rec + self.lambda_cls * g_cls
                  + self.lambda_seg * g_seg)
         metrics = {"G_fake": g_fake, "G_rec": g_rec, "G_cls": g_cls,
                    "G_seg": g_seg, "loss": g_seg}
         if self.variant == "ugan":
-            g_shp = dice_and_ce_loss(y_rec, y_real, cfg.weight_dc,
-                                     cfg.weight_ce, batch_dice=True)
+            g_shp = seg_loss(y_rec, y_real)
             total = total + loss_weight(scalars["lambda_shp"]) * g_shp
             metrics["G_shp"] = g_shp
         if self.variant == "uganConsis":
-            g_semi = argmax_consistency_loss(y_rec, y_fake, cfg.weight_dc,
-                                             cfg.weight_ce) * gate
+            if po:
+                g_semi = dice_and_ce_loss_packed4(
+                    y_rec, argmax_packed(y_fake.detach()), cfg.weight_dc,
+                    cfg.weight_ce) * gate
+            else:
+                g_semi = argmax_consistency_loss(
+                    y_rec, y_fake, cfg.weight_dc, cfg.weight_ce) * gate
             total = total + loss_weight(scalars["lambda_semi"]) * g_semi
             metrics["G_semi"] = g_semi
         if self.with_nce:

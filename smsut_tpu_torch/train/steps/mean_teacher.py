@@ -45,8 +45,8 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from smsut_tpu_torch.ops.losses import (dice_and_ce_loss,
-                                        softmax_mse_consistency)
+from smsut_tpu_torch.ops.losses import (softmax_mse_consistency,
+                                        softmax_mse_consistency_packed)
 from smsut_tpu_torch.ops.schedules import ema_alpha, gate, sigmoid_rampup
 from smsut_tpu_torch.parallel import distributed, mesh
 from smsut_tpu_torch.train.state import TrainState, make_sgd
@@ -137,6 +137,7 @@ class MeanTeacher(SupervisedUNet):
     the card unless ``device`` names another."""
 
     rematerialises = False
+    packed_tails = True
 
     name = "meanTeacher"
     uses_unlabeled = True
@@ -188,15 +189,15 @@ class MeanTeacher(SupervisedUNet):
                                   mesh.space_slice(g[1]))
         on = gate(state.count, self.gate_step)
         with torch.no_grad():
-            teacher = torch.func.functional_call(self.net, state.ema_params,
-                                                 (ul + noise,))
+            teacher = self.train_logits(state.ema_params, ul + noise)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
-        logits = torch.func.functional_call(
-            self.net, leaves, (torch.cat([inp["img"], ul]),))
-        sup = dice_and_ce_loss(logits[:bs], inp["msk"], cfg.weight_dc,
-                               cfg.weight_ce, batch_dice=True)
-        semi = softmax_mse_consistency(logits[bs:], teacher) * on
+        logits = self.train_logits(leaves, torch.cat([inp["img"], ul]))
+        sup = self.seg_loss(logits[:bs], inp["msk"])
+        consistency = (softmax_mse_consistency_packed
+                       if logits.shape[-1] != cfg.n_class
+                       else softmax_mse_consistency)
+        semi = consistency(logits[bs:], teacher) * on
         total = sup + loss_weight(scalars["lambda_semi"]) * semi
         grads = torch.autograd.grad(total, list(leaves.values()))
         state.update(dict(zip(leaves, grads)))

@@ -13,6 +13,12 @@ its tensors and the state's, and updates the state in place, with the LR
 read on the device at the state's device count, so the fit loop replays
 it as a CUDA graph (``train/graphs.py``).
 
+With ``Config.pack_levels`` the U-Net runs its outer levels on the
+space-to-depth grid (``models/packed.py``); ``packed_loss_tails`` (None:
+the JAX step's rule, off here, on for Mean Teacher and CPS) hands the
+packed logits to the packed losses (:meth:`SupervisedUNet.seg_loss`).  The
+eval forward returns unpacked logits either way.
+
 Under a space axis (``Config.spatial_parallel``, ``parallel/mesh.py``) the
 step takes the rank's rows of its data coordinate's images: the model's
 layers meet their neighbours, the batch Dice sums over the whole group
@@ -41,10 +47,11 @@ import torch
 from smsut_tpu_torch.config import Config
 from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models import UNet
-from smsut_tpu_torch.ops.losses import dice_and_ce_loss
+from smsut_tpu_torch.ops.losses import (dice_and_ce_loss,
+                                         dice_and_ce_loss_packed)
 from smsut_tpu_torch.parallel import mesh
 from smsut_tpu_torch.train.state import TrainState, make_sgd
-from smsut_tpu_torch.train.steps import setup_compute
+from smsut_tpu_torch.train.steps import pack_levels, pool_fused, setup_compute
 
 Params = Dict[str, torch.Tensor]
 
@@ -62,12 +69,19 @@ class SupervisedUNet:
     # algorithm's alone, as in the JAX package (the zoo's build theirs
     # without it)
     rematerialises = True
+    # the JAX step's packed_loss_tails when the Config leaves it None
+    packed_tails = False
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)
+        self.pack_levels = pack_levels(cfg)
+        tails = cfg.packed_loss_tails
+        # train forwards return packed logits for the packed losses
+        self.packed_out = self.pack_levels > 0 and (
+            self.packed_tails if tails is None else bool(tails))
         self.net = self._build(seed=0)
         # the parameters' whole shapes, which a sharded tree must match
         self.shapes = {k: tuple(v.shape)
@@ -77,7 +91,26 @@ class SupervisedUNet:
         cfg = self.cfg
         return UNet(cfg.n_class, cfg.base_width, cfg.img_channels, self.dtype,
                     block_fused=cfg.block_pallas, device=self.device,
-                    seed=seed, remat=cfg.remat_unet and self.rematerialises)
+                    seed=seed, remat=cfg.remat_unet and self.rematerialises,
+                    pack_levels=self.pack_levels, pool_fused=pool_fused(cfg))
+
+    def train_logits(self, params: Params, img: torch.Tensor
+                     ) -> torch.Tensor:
+        """The net's logits of ``img`` for the train losses: packed
+        [B, H/2, W/2, 4 n_class] under ``packed_out``."""
+        return torch.func.functional_call(self.net, params, (img,),
+                                          {"packed_out": self.packed_out})
+
+    def seg_loss(self, logits: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+        """Dice+CE (batch Dice) of unpacked or packed logits against the
+        unpacked labels."""
+        cfg = self.cfg
+        if logits.shape[-1] != cfg.n_class:
+            return dice_and_ce_loss_packed(logits, labels, cfg.weight_dc,
+                                           cfg.weight_ce)
+        return dice_and_ce_loss(logits, labels, cfg.weight_dc, cfg.weight_ce,
+                                batch_dice=True)
 
     def init_params(self, seed: int) -> Params:
         """Freshly initialised parameters, drawn from ``seed``."""
@@ -97,15 +130,12 @@ class SupervisedUNet:
                        ) -> Tuple[torch.Tensor, Params]:
         """Dice+CE loss (batch dice) of ``batch = {"img", "msk"}`` and its
         gradient with respect to every parameter."""
-        cfg = self.cfg
         img = torch.as_tensor(batch["img"], dtype=torch.float32,
                               device=self.device)
         msk = torch.as_tensor(batch["msk"], device=self.device).long()
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        logits = torch.func.functional_call(self.net, leaves, (img,))
-        loss = dice_and_ce_loss(logits, msk, cfg.weight_dc, cfg.weight_ce,
-                                batch_dice=True)
+        loss = self.seg_loss(self.train_logits(leaves, img), msk)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 

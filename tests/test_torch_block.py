@@ -129,3 +129,72 @@ def test_plain_fused_equals_unfused_chain(rng, ci, co, dtype, tol):
     assert fused.dtype == chain.dtype == dtype
     assert rel_err(fused, chain) <= tol
 
+
+
+def _packed_case(rng, segs, co, b=2, hw=8):
+    """A packed input [B, hw, hw, 4*sum(segs)] (channel s*C + c per
+    segment) and the packed kernels of ``models/packed.py``
+    ``pack_kernel``, as numpy: the TPU kernels' own operands."""
+    ci = sum(segs)
+    x, a = _case(rng, ci, co, b, 2 * hw)
+    xp = np.asarray(pk.space_to_depth(jnp.asarray(x)))
+    if len(segs) > 1:   # a decoder's concat: each segment packed alone
+        parts, c0 = [], 0
+        for c in segs:
+            parts.append(np.asarray(pk.space_to_depth(
+                jnp.asarray(x[..., c0:c0 + c]))))
+            c0 += c
+        xp = np.concatenate(parts, -1)
+    pa = dict(a)
+    pa["w1"] = np.asarray(pk.pack_kernel(jnp.asarray(a["w1"]), segs))
+    pa["w2"] = np.asarray(pk.pack_kernel(jnp.asarray(a["w2"]), (co,)))
+    if "ws" in a:
+        pa["ws"] = np.asarray(pk.pack_kernel(jnp.asarray(a["ws"]), segs))
+    return xp, pa
+
+
+_PACKED = [((16,), 16), ((8,), 16), ((16, 16), 16)]
+
+
+@pytest.mark.parametrize("segs,co", _PACKED)
+def test_plain_groups4_matches_pallas_packed(rng, segs, co):
+    """K3's plain version with groups 4 on the packed map itself against
+    ``fused_block_fwd`` (interpret mode) on the same packed operands, no
+    space_to_depth around either: the statistics pool the 4 subpixel
+    groups of each original channel.  float32, rtol/atol 1e-4 (the
+    tolerance of tests/test_packed.py)."""
+    xp, a = _packed_case(rng, segs, co)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    out, _, _ = bp.fused_block_fwd(jnp.asarray(xp), j["w1"], j["s1"],
+                                   j["b1"], j["w2"], j["s2"], j["b2"],
+                                   j.get("ws"), j.get("ss"), j.get("bs"))
+    got = block.basic_block(*_torch_args(xp, a), groups=4).numpy()
+    np.testing.assert_allclose(got, np.asarray(out), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("segs,co", _PACKED)
+def test_backward_groups4_matches_pallas_vjp(rng, segs, co):
+    """Every gradient of the autograd op with groups 4 (K6's plain
+    formula: the norm sums pooled over the subpixel groups, N = 4*H*W, the
+    norm parameters' gradients [C]) against ``apply_fused_block``'s VJP
+    (``_bwd_call``, interpret mode) with respect to the packed input, the
+    packed kernels and the [C] norm parameters; float32, errors scaled by
+    each gradient's largest entry, atol 1e-4 as the unpacked case."""
+    xp, a = _packed_case(rng, segs, co)
+    tgt = rng.standard_normal(xp.shape[:3] + (4 * co,)).astype(np.float32)
+    names = ["x"] + [k for k in _ORDER if k in a]
+    vals = [xp] + [a[k] for k in names[1:]]
+
+    def loss(*args):
+        return jnp.sum(bp.apply_fused_block(*args) * tgt)
+
+    want = jax.grad(loss, argnums=tuple(range(len(vals))))(
+        *[jnp.asarray(v) for v in vals])
+    args = [t(v).requires_grad_() for v in vals]
+    block.basic_block(*args, groups=4).backward(t(tgt))
+    for name, got, w in zip(names, args, want):
+        w = np.asarray(w)
+        assert got.grad.shape == w.shape, name
+        scale = np.abs(w).max() + 1e-9
+        np.testing.assert_allclose(got.grad.numpy() / scale, w / scale,
+                                   rtol=0, atol=1e-4, err_msg=name)

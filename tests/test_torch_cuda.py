@@ -9,8 +9,10 @@ kernels of the conv microbench (dots, im2col, im2col2: at the emulation's
 shapes, bit for bit across runs and strips, and dots' route by shape)
 and the microbench itself; the semi-supervised zoo's and M3L's
 iterations replayed against eager, and the dual-task U-Net's launches
-and gradients in its three norm and activation configurations.  Each
-test skips on a host without an NVIDIA GPU.
+and gradients in its three norm and activation configurations; K3 and K6
+with the packed map's subpixel groups (``groups=4``) against their plain
+versions, groups 1 as the default to the bit, and the packed U-Net's
+launches.  Each test skips on a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1639,3 +1641,93 @@ def test_tp_zoo_two_ranks_match_one_process(cuda_device, name):
             assert abs(g[k] - v) <= 1e-4, (k, g, w)
     assert abs(r0["checksum"] - want["checksum"]) <= 1e-5 * max(
         abs(want["checksum"]), 1.0)
+
+
+# K3 and K6 on the space-to-depth packed map (groups 4): (packed Cin,
+# packed Cout, packed side) of the w16 packed level-1 encoder block and the
+# identity form, batch 8; the norm parameters are [Cout / 4]
+PACKED_BLOCKS = ((64, 128, 32), (64, 64, 64))
+
+
+def _packed_block_args(rng, device, ci, co, hw, dtype):
+    args = _block_args(rng, device, ci, co, hw, dtype)
+    c = co // 4
+    for i in (2, 3, 5, 6) + ((8, 9) if ci != co else ()):
+        args[i] = args[i][:c].contiguous()
+    return args
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-3), (BF16, 0.05)])
+@pytest.mark.parametrize("ci,co,hw", PACKED_BLOCKS)
+def test_block_groups4(rng, cuda_device, ci, co, hw, dtype, tol):
+    """K3 and K6 with groups 4 (the statistics pooled over each original
+    channel's 4 subpixel groups) against their plain versions; each
+    launch counted as grouped."""
+    args = _packed_block_args(rng, cuda_device, ci, co, hw, dtype)
+    fwd = lambda *a: block.basic_block_fwd(*a, save=True, groups=4)
+    before = block.basic_block_fwd.grouped
+    got, res = fwd(*args)
+    assert block.basic_block_fwd.grouped == before + 1
+    with ops.plain():
+        want, res_p = fwd(*args)
+    assert rel_err(got, want) <= tol
+    x_, w1, s1, _, w2, s2, _, ws, ss, _ = args
+    g = t(rng.standard_normal((8, hw, hw, co)).astype(np.float32), dtype,
+          cuda_device)
+    bargs = (g, x_, w1, s1, w2, s2, ws, ss, res)
+    gb = block.basic_block_bwd.grouped
+    got = block.basic_block_bwd(*bargs, groups=4)
+    assert block.basic_block_bwd.grouped == gb + 1
+    assert got[4].shape == (6, co // 4)
+    with ops.plain():
+        want = block.basic_block_bwd(*bargs, groups=4)
+    for a, w in zip(got, want):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert rel_err(a, w) <= tol
+
+
+@pytest.mark.parametrize("ci,co,hw", [(32, 16, 256), (64, 64, 64)])
+def test_block_groups1_is_the_default_bit_for_bit(rng, cuda_device, ci, co,
+                                                  hw):
+    """groups 1 is the unpacked chain: the same bits as a call without the
+    argument, and it launches nothing grouped."""
+    args = _block_args(rng, cuda_device, ci, co, hw, BF16)
+    before = block.basic_block_fwd.grouped
+    a, ra = block.basic_block_fwd(*args, save=True)
+    b, rb = block.basic_block_fwd(*args, save=True, groups=1)
+    # the shortcut norm's rows only in the shortcut form
+    norms = 3 if ci != co else 2
+    assert torch.equal(a, b) and torch.equal(ra.gh[:norms], rb.gh[:norms])
+    x, w1, s1, _, w2, s2, _, ws, ss, _ = args
+    g = t(rng.standard_normal((8, hw, hw, co)).astype(np.float32), BF16,
+          cuda_device)
+    ga = block.basic_block_bwd(g, x, w1, s1, w2, s2, ws, ss, ra)
+    gb = block.basic_block_bwd(g, x, w1, s1, w2, s2, ws, ss, ra, groups=1)
+    for u, v in zip(ga, gb):
+        assert (u is None and v is None) or torch.equal(u, v)
+    assert block.basic_block_fwd.grouped == before
+
+
+def test_packed_unet_forward_counts_launches(cuda_device):
+    """The w16 U-Net at pack_levels 2, served at 64^2: K2 on every packed
+    3x3 conv it takes (the 5x5 stem on one channel packs to Cin 4 and is
+    routed), K1 on the packed norms' free view, and with the fused blocks
+    K3 with groups 4 at the four packed blocks."""
+    from smsut_tpu_torch.models import UNet
+
+    x = torch.zeros((2, 64, 64, 1), device=cuda_device)
+    for fused in (False, True):
+        net = UNet(5, 16, block_fused=fused, device=cuda_device,
+                   pack_levels=2)
+        r0 = conv3x3.conv3x3.routed
+        g0 = block.basic_block_fwd.grouped
+        with torch.inference_mode():
+            out, counts = _launches(lambda: net(x))
+        assert out.shape == (2, 64, 64, 5)
+        assert conv3x3.conv3x3.routed - r0 == 1
+        if fused:
+            assert block.basic_block_fwd.grouped - g0 == 4
+            assert counts == (1, 0, 9, 0, 0, 0)
+        else:
+            assert counts == (28, 18, 0, 0, 0, 0)

@@ -97,6 +97,7 @@ SOURCES = {
                          1)])],
     "instnorm": NORM,
     "instnorm_bwd": NORM,
+    "block_groups": [],
 }
 
 
@@ -130,6 +131,20 @@ def _generate(out: Path, files) -> None:
     start = h.index("// ---------------------------------------------------------------- PTX")
     end = h.index("// ------------------------------------------------------------ end of PTX")
     (out / "sm90_emu.cuh").write_text(h[:start] + h[end:])
+    c_fin = c[c.index("// Partial sums part[B][nt][2][C]"):
+              c.index("// grid size of a grid-stride")]
+    for k in ("finalize_kernel", "finalize_groups_kernel"):
+        c_fin = _replace(c_fin, f"{k}<<<grid, 128, 0, s>>>(",
+                         f"emu_launch({k}, grid, 128, 0, s, ", 1)
+    b = (CSRC / "block_bwd.cuh").read_text()
+    b = b[b.index("// The packed map's norm sums"):
+          b.index("// The convolutions of the chain")]
+    b = _replace(b, "pool_group_sums_kernel<<<(unsigned)((n + 255) / 256), "
+                 "256, 0, s>>>(", "emu_launch(pool_group_sums_kernel, "
+                 "(unsigned)((n + 255) / 256), 256, 0, s, ", 1)
+    (out / "block_groups_emu.cuh").write_text(
+        "#pragma once\nnamespace smsut {\n" + c_fin + b
+        + "}  // namespace smsut\n")
     h = (CSRC / "mma_tile.cuh").read_text()
     h = _replace(h, '#include "common.cuh"',
                  '#include "shim.h"\n#include "common_emu.cuh"\n'
@@ -292,3 +307,17 @@ def test_conv3x3_dw_tc_kernel_in_emulation(dw_tc_binary, env):
     assert any(", 1 splits" in s for s in splits)
     assert any(", 1 splits" not in s and " of 1 tiles" not in s
                for s in splits), splits
+
+
+def test_block_groups_finalize_and_sum_pooling_in_emulation(
+        tmp_path_factory):
+    """K3's finalize step and K6's pooling of its norm sums on the packed
+    map (groups 4) and the unpacked map (groups 1):
+    tests/cuda_emu/block_groups_check.cpp, bit for bit against a float
+    reference in the kernels' order and within 1e-5 of float64."""
+    exe = _build(tmp_path_factory, "block_groups")
+    run = subprocess.run([str(exe)], capture_output=True, text=True,
+                         timeout=600)
+    lines = run.stdout.splitlines()
+    assert run.returncode == 0 and lines[-1] == "OK", run.stdout + run.stderr
+    assert sum(" groups 4" in line for line in lines) == 6, lines
