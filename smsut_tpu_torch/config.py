@@ -6,27 +6,34 @@ names and defaults, so ``--set k=v`` lines carry over between the two
 packages.  The port imports nothing of the JAX package, not even its
 jax-free modules.
 
-The packing knobs are live, as in the JAX package's hw mode:
-``pack_levels`` N runs the first N levels of the U-Net and the UGAN towers
-and the last N of their decoders on the 2x2 space-to-depth grid
-(``models/packed.py``; no packing under batch norm: DTC), and the
-discriminator's stem there; ``pair_towers`` (None: on where the JAX
-package's rule turns it on) runs two towers' level 0 as one program
-(``models/paired.py``: the UGAN family but ``uganShp0``, CPS's two nets);
-``packed_loss_tails`` (None: each step's JAX rule) feeds the packed
-logits to the packed losses; ``pool_pack_fused`` (None: on from batch 32)
-pools and repacks in one; the GAN step's ``d_concat_hat`` runs real, fake
-and x_hat through one D apply.  ``pack_mode`` and ``d_pack_mode`` take
-"hw": with ``pack_levels > 0`` a "w" raises (the W packing is ROADMAP
-A13b; the GAN family needs ``--set d_pack_mode=hw``), and packing on the
-space or model axis raises (ROADMAP A13c).  The port's default
-``pack_levels`` is 0, not the JAX package's 2: no H100 measurement has
-chosen the packed layout yet (ROADMAP C).
+The packing knobs are live, as in the JAX package: ``pack_levels`` N runs
+the first N levels of the U-Net and the UGAN towers and the last N of
+their decoders packed, and the discriminator's stem, in ``pack_mode``
+(the towers) and ``d_pack_mode`` (the discriminator; "" inherits
+``pack_mode``): "hw" on the 2x2 space-to-depth grid
+(``models/packed.py``), "w" W-only (``models/packed_w.py``) from
+``pack_w0`` subpixels at level 0, the W discriminator's stride-2 blocks
+packed too while ``d_pack_deep``; no packing under batch norm (DTC).  So
+``--set pack_levels=2`` runs the JAX ``Config()``'s layout: hw towers,
+paired, with a deep W discriminator.  ``pair_towers`` (None: on where
+the JAX package's rule turns it on) runs two hw towers' level 0 as one
+program (``models/paired.py``: the UGAN family but ``uganShp0``, CPS's
+two nets; W towers are never paired); ``packed_loss_tails`` (None: each
+step's JAX rule) feeds the hw-packed logits to the packed losses;
+``pool_pack_fused`` (None: on from batch 32) pools and repacks in one;
+the GAN step's ``d_concat_hat`` runs real, fake and x_hat through one D
+apply.  Packing on the space or model axis raises (ROADMAP A13c).  The
+hw conv's lowering and the paired conv's weight gradient are chosen by
+the environment, as in the JAX package: ``SMSUT_PACKED_IMPL`` (v1, the
+default, v2 or v2k3) and ``SMSUT_PAIRED_DW`` (dense, the default, or
+block).  The port's default ``pack_levels`` is 0, not the JAX package's
+2: no H100 measurement has chosen a packed layout yet (ROADMAP C).
 
 Knobs that shape the TPU lowering only are accepted and do nothing in the
-port: ``layout_pin``, ``pack_w0`` and ``d_pack_deep`` (the W packing's,
-ROADMAP A13b), and ``norm_stats`` (the port always takes f32 ``reduce``
-statistics; its other modes are ROADMAP A13b).
+port: ``layout_pin`` (ROADMAP A13b; refused, as in the JAX package, with
+a W discriminator, its default), and ``norm_stats`` (the port always
+takes f32 ``reduce`` statistics, where the JAX package's "auto" sums in
+bf16 under bf16 compute; its other modes are ROADMAP A13b).
 
 ``remat`` and ``remat_unet`` rematerialise in the backward, as in the JAX
 package: ``remat`` the UGAN family's generator forward
@@ -173,7 +180,7 @@ class Config:
     prefetch_depth: int = 2
     # no-op in the port (every CUDA instance norm runs kernel K1)
     use_pallas: bool = False
-    # the space-to-depth packed levels (module docstring); 0 in the port
+    # the packed levels (module docstring); 0 in the port
     pack_levels: int = 0
     pack_mode: str = "hw"
     pack_w0: int = 8

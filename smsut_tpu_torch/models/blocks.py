@@ -13,13 +13,17 @@ dual-task U-Net (``models/dtc.py``) defaults to batch norm and ReLU.
 Module and parameter names mirror the flax tree (models/transplant.py
 maps one onto the other).
 
-``pack_levels`` N (1 or 2, the JAX package's hw mode) runs the encoder's
-first N levels and the decoder's last N on the 2x2 space-to-depth grid
-(``models/packed.py``), on the same parameters: the skips of those levels
-are packed maps, the encoder's level transitions pool and repack, and the
-decoder's head emits packed logits, unpacked unless ``packed_out``.  The
-JAX package's ``EncoderSplit``/``DecoderSplit`` (level 0 staged out for
-tower pairing, ``models/paired.py``) are routes of these modules:
+``pack_levels`` N (1 or 2) runs the encoder's first N levels and the
+decoder's last N packed, on the same parameters, in the JAX package's
+``pack_mode``: "hw" on the 2x2 space-to-depth grid (``models/packed.py``):
+the skips of those levels are packed maps, the encoder's level transitions
+pool and repack, and the decoder's head emits packed logits, unpacked
+unless ``packed_out``; "w" W-only (``models/packed_w.py``), level i at the
+pack of :func:`packed_w.w_pack_schedule` from ``pack_w0``, the encoder's
+stem at ``pack_w0``, the decoder's head unpacking its logits whatever
+``packed_out`` (as the JAX W decoder does).  The JAX package's
+``EncoderSplit``/``DecoderSplit`` (level 0 staged out for tower pairing,
+hw only, ``models/paired.py``) are routes of these modules:
 :meth:`Encoder.levels` from a level on and :meth:`Decoder.head`, with the
 level-0 parameters read from the modules themselves.
 
@@ -40,6 +44,7 @@ import torch
 from torch import nn
 
 from smsut_tpu_torch.models import packed
+from smsut_tpu_torch.models import packed_w as pw
 from smsut_tpu_torch.models.layers import (
     Conv,
     NormAct,
@@ -191,11 +196,76 @@ class BottleBlock(nn.Module):
 _MULTS = (1, 2, 4, 8)
 
 
-def check_pack_levels(pack_levels: int) -> int:
-    """The packed levels the towers take: 0, 1 or 2."""
+PACK_MODES = ("hw", "w")
+
+
+def check_pack_levels(pack_levels: int, pack_mode: str = "hw") -> int:
+    """The packed levels the towers take: 0, 1 or 2, in a ``pack_mode``
+    of :data:`PACK_MODES`."""
     if pack_levels not in (0, 1, 2):
         raise ValueError(f"pack_levels {pack_levels} is not 0, 1 or 2")
+    if pack_mode not in PACK_MODES:
+        raise ValueError(f"pack_mode {pack_mode!r} is not 'hw' or 'w'")
     return pack_levels
+
+
+class PackedTower:
+    """The packing of a tower's outer levels: ``pack_levels``, and under
+    ``pack_mode`` "w" the levels' packs (``pack_ps``, from ``pack_w0``
+    and the tower's ``width``)."""
+
+    def _packing(self, pack_levels: int, pack_mode: str, pack_w0: int,
+                 width: int) -> None:
+        self.pack_levels = check_pack_levels(pack_levels, pack_mode)
+        self.pack_mode = pack_mode
+        self.pack_w0 = pack_w0
+        self.pack_ps = pw.w_pack_schedule(pack_w0, width, pack_levels)
+
+    @property
+    def w_packed(self) -> bool:
+        return bool(self.pack_levels) and self.pack_mode == "w"
+
+
+def encoder_w(enc, x: torch.Tensor, prefix: str
+              ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """An encoder's W route (``enc.w_packed``): the stem at ``pack_w0``,
+    then its ``pack_levels`` first levels (blocks ``<prefix>1`` ..) at
+    their packs, each pooled to the next level's pack, the last to the
+    unpacked map.  Returns that map and the levels' W-packed skips."""
+    p0, ps = enc.pack_w0, enc.pack_ps
+    x = pw.pack_w(x, p0)
+    x = packed.norm_act(enc.pre_bn, pw.conv_w(
+        x, enc.pre_conv.weight, p0, (enc.pre_conv.weight.shape[2],)), p0)
+    skips = []
+    for i in range(enc.pack_levels):
+        blk = getattr(enc, f"{prefix}{i + 1}")
+        f = blk.conv1.features
+        x = pw.basic_block_w(blk, x, (blk.conv1.weight.shape[2],), ps[i])
+        skips.append(x)
+        if i + 1 < enc.pack_levels:
+            x = pw.pool_w(x, ps[i], f, ps[i + 1])
+        else:
+            x = pw.unpack_w(pw.pool_w(x, ps[i], f, ps[i] // 2), ps[i] // 2)
+    return x, skips
+
+
+def decoder_w(dec, x: torch.Tensor, skip, prefix: str) -> torch.Tensor:
+    """A decoder's levels under ``dec.w_packed`` (``up<i>`` and
+    ``<prefix><i>``, the skip of level i ``skip(i)``): the unpacked ones,
+    then the ``pack_levels`` last W-packed, the bottleneck's side entering
+    unpacked (pack 1).  Returns level 1's output at its pack."""
+    p_cur, ps = 1, dec.pack_ps
+    for i in (4, 3, 2, 1):
+        up, blk = getattr(dec, f"up{i}"), getattr(dec, f"{prefix}{i}")
+        if i > dec.pack_levels:
+            x = blk(up(x, skip(i)))
+            continue
+        f = blk.conv1.features
+        x = pw.basic_block_w(blk, pw.up_concat_w(up, x, skip(i), p_cur,
+                                                 ps[i - 1]), (f, f),
+                             ps[i - 1])
+        p_cur = ps[i - 1]
+    return x
 
 
 def encoder_levels(enc, x: torch.Tensor, start: int, prefix: str
@@ -222,19 +292,20 @@ def encoder_levels(enc, x: torch.Tensor, start: int, prefix: str
     return x, skips
 
 
-class Encoder(nn.Module):
+class Encoder(PackedTower, nn.Module):
     """5x5 stem to w/2, then 4x(BasicBlock + maxpool) and a bottleneck
     block; widths w .. 16w.  Returns (bottleneck, skips).  With
-    ``pack_levels`` the stem and the first levels run packed (module
-    docstring); ``pool_fused`` pools and repacks in one between two packed
-    levels (``Config.pool_pack_fused``)."""
+    ``pack_levels`` the stem and the first levels run packed in
+    ``pack_mode`` (module docstring); ``pool_fused`` pools and repacks in
+    one between two hw-packed levels (``Config.pool_pack_fused``)."""
 
     def __init__(self, width: int, cin: int = 1, fused: bool = False,
                  generator: Optional[torch.Generator] = None,
                  norm_type: str = "instance", act_type: str = "lrelu",
-                 pack_levels: int = 0, pool_fused: bool = False):
+                 pack_levels: int = 0, pool_fused: bool = False,
+                 pack_mode: str = "hw", pack_w0: int = 8):
         super().__init__()
-        self.pack_levels = check_pack_levels(pack_levels)
+        self._packing(pack_levels, pack_mode, pack_w0, width)
         self.pool_fused = pool_fused
         w = width
         block = lambda ci, co: BasicBlock(ci, co, fused, generator,
@@ -249,6 +320,10 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        if self.w_packed:
+            x, skips = encoder_w(self, x, "layer")
+            h, rest = self.levels(x, self.pack_levels)
+            return h, skips + rest
         if self.pack_levels:
             x = packed.pack_stem(self.pre_conv, self.pre_bn, x)
         else:
@@ -288,17 +363,19 @@ def packed_level(up, blk, x: torch.Tensor, skip: torch.Tensor
                                (f, f))
 
 
-class Decoder(nn.Module):
+class Decoder(PackedTower, nn.Module):
     """4-level decoder: transposed-conv up + concat, BasicBlock, then a
     1x1 head.  With ``pack_levels`` its last levels and the head run packed
-    against the encoder's packed skips (module docstring)."""
+    in ``pack_mode`` against the encoder's packed skips (module
+    docstring)."""
 
     def __init__(self, out_ch: int, width: int, fused: bool = False,
                  generator: Optional[torch.Generator] = None,
                  norm_type: str = "instance", act_type: str = "lrelu",
-                 pack_levels: int = 0):
+                 pack_levels: int = 0, pack_mode: str = "hw",
+                 pack_w0: int = 8):
         super().__init__()
-        self.pack_levels = check_pack_levels(pack_levels)
+        self._packing(pack_levels, pack_mode, pack_w0, width)
         w = width
         for i in (4, 3, 2, 1):
             mult = _MULTS[i - 1]
@@ -323,6 +400,8 @@ class Decoder(nn.Module):
                skips: Sequence[torch.Tensor]) -> torch.Tensor:
         """The four up + concat + block levels, without the head (level
         1's output packed with ``pack_levels``)."""
+        if self.w_packed:
+            return decoder_w(self, x, lambda i: skips[i - 1], "layer")
         x = self.head(x, skips)
         if self.pack_levels:
             return packed_level(self.up1, self.layer1, x, skips[0])
@@ -331,9 +410,13 @@ class Decoder(nn.Module):
     def fc_apply(self, y: torch.Tensor, packed_out: bool = False
                  ) -> torch.Tensor:
         """The 1x1 head on level 1's output; packed logits unpacked
-        unless ``packed_out``."""
+        unless ``packed_out`` (W-packed ones always)."""
         if not self.pack_levels:
             return self.fc(y)
+        if self.w_packed:
+            p = self.pack_ps[0]
+            return pw.unpack_w(pw.conv_w(y, self.fc.weight, p,
+                                         (y.shape[-1] // p,)), p)
         y = packed.packed_conv(y, self.fc.weight, (y.shape[-1] // 4,))
         return y if packed_out else packed.depth_to_space(
             y, self.fc.features)

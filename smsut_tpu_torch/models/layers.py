@@ -144,16 +144,19 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def conv_plain(x: torch.Tensor, w: torch.Tensor,
                valid_h: bool = False) -> torch.Tensor:
-    """SAME conv with odd-k HWIO ``w`` where no kernel of the port applies:
-    a matmul for 1x1, ``F.conv2d`` on the channels-last view otherwise;
-    with ``valid_h`` unpadded in H (``x`` holds its halo rows)."""
-    k = w.shape[0]
-    if k == 1:
+    """SAME conv with HWIO ``w`` [kh, kw, Cin, Cout] where no kernel of the
+    port applies: a matmul for 1x1, ``F.conv2d`` on the channels-last view
+    otherwise, padded ``kh // 2`` in H and ``kw // 2`` in W (odd sizes:
+    SAME; the W-packed stem's [5, 3] kernel; a 2x2 kernel gives the padded
+    VALID conv of ``models/packed.py``'s v2k3 lowering); with ``valid_h``
+    unpadded in H (``x`` holds its halo rows)."""
+    k, kw = w.shape[0], w.shape[1]
+    if k == kw == 1:
         return x @ w[0, 0]
     # a contiguous weight: the CPU's float64 conv (slow_conv2d) refuses a
     # strided one in its double backward
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(),
-                 padding=(0 if valid_h else k // 2, k // 2))
+                 padding=(0 if valid_h else k // 2, kw // 2))
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -2,8 +2,8 @@
 """Space-to-depth ("hw") packed execution of the first ``pack_levels``
 levels, NHWC.
 
-Port of ``smsut_tpu/models/packed.py`` (its ``v1`` lowering, the JAX
-package's default): a level runs on the 2x2 space-to-depth grid
+Port of ``smsut_tpu/models/packed.py`` (its default ``v1`` lowering,
+and ``SMSUT_PACKED_IMPL`` v2/v2k3, :func:`packed_conv`): a level runs on the 2x2 space-to-depth grid
 ``[B, H/2, W/2, 4C]`` with packed channel ``s*C + c`` (subpixel ``s =
 dy*2 + dx``), the same arithmetic as the unpacked level, term for term:
 
@@ -36,6 +36,7 @@ counted in ``block.basic_block.routed``.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -50,9 +51,10 @@ from smsut_tpu_torch.parallel import distributed
 
 
 def check_unsharded(what: str) -> None:
-    """The packed levels run on whole maps and whole weights: a space
-    axis (a packed row is two image rows) or a model axis (channel shards
-    of the ``s*C + c`` layout) raises, naming ROADMAP A13c."""
+    """The packed levels of either packing (hw here, W in
+    ``models/packed_w.py``) run on whole maps and whole weights: a space
+    axis (a packed hw row is two image rows) or a model axis (channel
+    shards of a packed layout) raises, naming ROADMAP A13c."""
     if distributed.space_count() > 1 or distributed.model_count() > 1:
         raise ValueError(f"{what}: pack_levels > 0 runs on the data axis "
                          f"alone; the packed levels on the space or model "
@@ -170,13 +172,102 @@ def conv_packed_kernel(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     return conv_plain(x, wp)
 
 
+# The unfused packed conv's lowering, as the JAX package selects it
+# (``SMSUT_PACKED_IMPL``): "v1" the packed SAME conv above; "v2k3" a 3x3 as
+# a padded VALID 2x2 conv and four shifted slices (9 of 16 kernel slots
+# live, against 9 of 36); "v2" that and a 1x1 as the dense per-subpixel
+# product.  The same values in every mode; the fused block (``packed_block``
+# under ``block_pallas``) and ``models/paired.py`` keep v1, as in the JAX
+# package.
+IMPLS = ("v1", "v2", "v2k3")
+CONV_IMPL = os.environ.get("SMSUT_PACKED_IMPL", "v1")
+
+
+@functools.lru_cache(maxsize=None)
+def _placement_v2_k3() -> np.ndarray:
+    """P[u, v, tr, tc, s_in, s_out] (0/1) of the v2k3 kernel: output
+    subpixel (dy, dx)'s packed window slot (tr, ay) holds original tap u =
+    2 tr + dy + ay - 1 (where 0 <= u < 3), columns alike."""
+    p = np.zeros((3, 3, 2, 2, 4, 4), np.float32)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            for tr in (0, 1):
+                for ay in (0, 1):
+                    u = 2 * tr + dy + ay - 1
+                    for tc in (0, 1):
+                        for ax in (0, 1):
+                            v = 2 * tc + dx + ax - 1
+                            if 0 <= u < 3 and 0 <= v < 3:
+                                p[u, v, tr, tc, ay * 2 + ax,
+                                  dy * 2 + dx] = 1.0
+    return p
+
+
+def pack_kernel_v2_k3(w: torch.Tensor,
+                      in_segments: Sequence[int]) -> torch.Tensor:
+    """[3, 3, Cin, Cout] -> [2, 2, 4 sum(segs), 4 Cout], the kernel of the
+    padded VALID formulation (the JAX ``pack_kernel_v2_k3``), one placement
+    product per segment."""
+    if tuple(w.shape[:2]) != (3, 3) or sum(in_segments) != w.shape[2]:
+        raise ValueError(f"pack_kernel_v2_k3: kernel {tuple(w.shape)} and "
+                         f"segments {tuple(in_segments)}")
+    p = _on(_placement_v2_k3(), ("v2k3",), w.device).to(w.dtype)
+    cout = w.shape[-1]
+    parts, c0 = [], 0
+    for c in in_segments:
+        seg = torch.einsum("uvio,uvabst->absito", w[:, :, c0:c0 + c], p)
+        parts.append(seg.reshape(2, 2, 4 * c, 4 * cout))
+        c0 += c
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 2)
+
+
+def _packed_conv_v2_k3(x: torch.Tensor, w: torch.Tensor,
+                       in_segments: Sequence[int]) -> torch.Tensor:
+    """v2k3: one 2x2 conv over the 1-padded packed grid ([B, H'+1, W'+1,
+    4 Cout], ``conv_plain``: not a 3x3 for K2, counted in
+    ``conv3x3.conv3x3.routed``), output subpixel (dy, dx) its slice at
+    (dy, dx)."""
+    conv3x3.routed += 1
+    full = conv_plain(x, pack_kernel_v2_k3(w, in_segments).to(x.dtype))
+    h, wd, cout = x.shape[1], x.shape[2], w.shape[-1]
+    return torch.cat([full[:, dy:dy + h, dx:dx + wd,
+                           (dy * 2 + dx) * cout:(dy * 2 + dx + 1) * cout]
+                      for dy in (0, 1) for dx in (0, 1)], -1)
+
+
+def _packed_conv_v2_k1(x: torch.Tensor, w: torch.Tensor,
+                       in_segments: Sequence[int]) -> torch.Tensor:
+    """v2's 1x1: the channels regrouped subpixel-major ([seg][s][c] ->
+    [s][seg][c], slices, no index), then the dense product on the
+    [..., 4, Cin] view, with no structured zeros."""
+    if len(in_segments) > 1:
+        offs = np.cumsum((0,) + tuple(4 * c for c in in_segments))
+        x = torch.cat([x[..., o + s * c:o + (s + 1) * c]
+                       for s in range(4)
+                       for c, o in zip(in_segments, offs)], -1)
+    b, h, wd, _ = x.shape
+    y = x.reshape(b, h, wd, 4, w.shape[2]) @ w[0, 0].to(x.dtype)
+    return y.reshape(b, h, wd, 4 * w.shape[-1])
+
+
 def packed_conv(x: torch.Tensor, w: torch.Tensor,
                 in_segments: Sequence[int],
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
     """The packed equivalent of the SAME conv with original kernel ``w``
     (a float32 parameter, packed in float32, then cast to x's dtype), with
-    the bias at each subpixel."""
-    y = conv_packed_kernel(x, pack_kernel(w, in_segments).to(x.dtype))
+    the bias at each subpixel, lowered by ``impl`` (default
+    :data:`CONV_IMPL`)."""
+    impl = CONV_IMPL if impl is None else impl
+    if impl not in IMPLS:
+        raise ValueError(f"SMSUT_PACKED_IMPL {impl!r} is not one of {IMPLS}")
+    k = w.shape[0]
+    if impl in ("v2", "v2k3") and k == 3:
+        y = _packed_conv_v2_k3(x, w, in_segments)
+    elif impl == "v2" and k == 1:
+        y = _packed_conv_v2_k1(x, w, in_segments)
+    else:
+        y = conv_packed_kernel(x, pack_kernel(w, in_segments).to(x.dtype))
     return y if bias is None else y + tile_c(bias).to(y.dtype)
 
 
@@ -187,22 +278,24 @@ def tile_c(v: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- packed norm
 def packed_norm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    act: bool) -> torch.Tensor:
-    """Instance norm (affine, eps 1e-5) of the packed ``x`` [B, H, W, 4C]
-    per original channel over (H, W, s), then lrelu with ``act``: K1 (K4
-    backward) on the free view [B, H, 4W, C]."""
-    b, h, w, c4 = x.shape
-    y = instance_norm(x.reshape(b, h, 4 * w, c4 // 4), scale, bias, act)
-    return y.reshape(b, h, w, c4)
+                    act: bool, s: int = 4) -> torch.Tensor:
+    """Instance norm (affine, eps 1e-5) of the packed ``x`` [B, H, W, s*C]
+    (``s`` subpixels a pixel: 4 here, the pack factor in
+    ``models/packed_w.py``) per original channel over (H, W, s), then lrelu
+    with ``act``: K1 (K4 backward) on the free view [B, H, s*W, C]."""
+    b, h, w, sc = x.shape
+    y = instance_norm(x.reshape(b, h, s * w, sc // s), scale, bias, act)
+    return y.reshape(b, h, w, sc)
 
 
-def norm_act(mod, x: torch.Tensor) -> torch.Tensor:
+def norm_act(mod, x: torch.Tensor, s: int = 4) -> torch.Tensor:
     """``models/layers.py`` ``NormAct`` ``mod`` (instance norm, with its
-    activation) on a packed map."""
+    activation) on a packed map of ``s`` subpixels a pixel."""
     if mod.norm_type != "instance" or mod.act_type not in (None, "lrelu"):
         raise ValueError("the packed levels take instance norm and leaky "
                          "ReLU")
-    return packed_norm_act(x, mod.weight, mod.bias, mod.act_type == "lrelu")
+    return packed_norm_act(x, mod.weight, mod.bias, mod.act_type == "lrelu",
+                           s)
 
 
 # ------------------------------------------------------------- pool / up

@@ -8,13 +8,18 @@ Port of ``smsut_tpu/models/ugan.py``: ``tile_modality_vec``,
 ``Discriminator``.  Module and parameter names mirror the flax tree
 (models/transplant.py maps one onto the other).
 
-``pack_levels`` runs the towers' outer levels on the space-to-depth grid
-and the discriminator's stem there (the JAX package's hw mode,
-``models/packed.py``); ``pair_towers`` runs both towers' level 0 (stems,
-first encoder blocks, last decoder blocks) as one tower-paired program
+``pack_levels`` runs the towers' outer levels packed in ``pack_mode``: "hw"
+on the space-to-depth grid (``models/packed.py``), "w" W-only from
+``pack_w0`` (``models/packed_w.py``).  The discriminator packs in its own
+mode (the JAX package's ``d_pack_mode``): its stem on the space-to-depth
+grid, or W-packed from ``pack_w0`` with, under ``pack_deep`` (the JAX
+``d_pack_deep``), its stride-2 blocks W-packed while their pack is 2 or
+more.  ``pair_towers`` runs both hw-packed towers' level 0 (stems, first
+encoder blocks, last decoder blocks) as one tower-paired program
 (``models/paired.py``), the JAX ``UGANEncoderSplit``/``UGANDecoderSplit``
-being routes of the same modules; ``packed_seg`` returns the packed
-segmentation logits.  The parameter tree is the same either way.
+being routes of the same modules; ``packed_seg`` returns the hw-packed
+segmentation logits (the W decoder's are unpacked whatever it says).  The
+parameter tree is the same in every layout.
 
 Under a space axis (``parallel/mesh.py``) each rank holds rows of every
 map: the towers' convs, pools and upsamples meet their neighbours in
@@ -46,10 +51,12 @@ from torch import nn
 
 from smsut_tpu_torch.device import resolve_device
 from smsut_tpu_torch.models import packed, paired
+from smsut_tpu_torch.models import packed_w as pw
 from smsut_tpu_torch.models.blocks import (BasicBlock, BottleBlock,
-                                           UpSampleAndConcat,
+                                           UpSampleAndConcat, PackedTower,
                                            check_pack_levels, decoder_head,
-                                           encoder_levels, packed_level)
+                                           decoder_w, encoder_levels,
+                                           encoder_w, packed_level)
 from smsut_tpu_torch.models.layers import (Conv, NormAct,
                                            kaiming_normal_fan_out)
 from smsut_tpu_torch.ops import acc
@@ -71,16 +78,17 @@ def tile_modality_vec(x: torch.Tensor, m: Optional[torch.Tensor],
     return torch.cat([x, m_map], dim=-1)
 
 
-class UGANEncoder(nn.Module):
+class UGANEncoder(PackedTower, nn.Module):
     """5x5 stem to w/2, then 4x(BasicBlock + max pool), widths w .. 8w.
     Returns the pooled bottleneck input and the skips [e4, e3, e2, e1];
-    the first ``pack_levels`` levels packed."""
+    the first ``pack_levels`` levels packed in ``pack_mode``."""
 
     def __init__(self, width: int, cin: int, fused: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 pack_levels: int = 0, pool_fused: bool = False):
+                 pack_levels: int = 0, pool_fused: bool = False,
+                 pack_mode: str = "hw", pack_w0: int = 8):
         super().__init__()
-        self.pack_levels = check_pack_levels(pack_levels)
+        self._packing(pack_levels, pack_mode, pack_w0, width)
         self.pool_fused = pool_fused
         w = width
         self.pre_conv = Conv(cin, w // 2, 5, generator)
@@ -93,11 +101,16 @@ class UGANEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        if self.pack_levels:
-            x = packed.pack_stem(self.pre_conv, self.pre_bn, x)
+        if self.w_packed:
+            x, skips = encoder_w(self, x, "enc")
+            x, rest = self.levels(x, self.pack_levels)
+            skips += rest
         else:
-            x = self.pre_bn(self.pre_conv(x))
-        x, skips = self.levels(x, 0)
+            if self.pack_levels:
+                x = packed.pack_stem(self.pre_conv, self.pre_bn, x)
+            else:
+                x = self.pre_bn(self.pre_conv(x))
+            x, skips = self.levels(x, 0)
         skips.reverse()
         return x, skips
 
@@ -108,18 +121,20 @@ class UGANEncoder(nn.Module):
         return encoder_levels(self, x, start, "enc")
 
 
-class UGANDecoder(nn.Module):
+class UGANDecoder(PackedTower, nn.Module):
     """4-level decoder: up + concat and a BasicBlock per level, then a 1x1
     head with a bias, tanh'd with ``use_tanh``.  The translation head
     upsamples bilinearly (``transposed=False``), the segmentation head by
-    transposed convs."""
+    transposed convs; the last ``pack_levels`` levels packed in
+    ``pack_mode``."""
 
     def __init__(self, out_ch: int, width: int, transposed: bool = True,
                  use_tanh: bool = False, fused: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 pack_levels: int = 0):
+                 pack_levels: int = 0, pack_mode: str = "hw",
+                 pack_w0: int = 8):
         super().__init__()
-        self.pack_levels = check_pack_levels(pack_levels)
+        self._packing(pack_levels, pack_mode, pack_w0, width)
         w = width
         self.use_tanh = use_tanh
         for i in (4, 3, 2, 1):
@@ -138,7 +153,13 @@ class UGANDecoder(nn.Module):
     def fc_apply(self, y: torch.Tensor, packed_out: bool = False
                  ) -> torch.Tensor:
         """The 1x1 head with its bias (tanh'd with ``use_tanh``) on level
-        1's output; packed outputs unpacked unless ``packed_out``."""
+        1's output; hw-packed outputs unpacked unless ``packed_out``,
+        W-packed ones always."""
+        if self.w_packed:
+            p = self.pack_ps[0]
+            y = pw.conv_w(y, self.fc.weight, p, (y.shape[-1] // p,),
+                          self.fc.bias)
+            return pw.unpack_w(torch.tanh(y) if self.use_tanh else y, p)
         if self.pack_levels:
             y = packed.packed_conv(y, self.fc.weight, (y.shape[-1] // 4,),
                                    self.fc.bias)
@@ -152,6 +173,9 @@ class UGANDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor],
                 packed_out: bool = False) -> torch.Tensor:
+        if self.w_packed:
+            return self.fc_apply(decoder_w(self, x, lambda i: skips[4 - i],
+                                           "dec"))
         x = self.head(x, skips)
         if self.pack_levels:
             x = packed_level(self.up1, self.dec1, x, skips[3])
@@ -166,28 +190,33 @@ class _UGANCore(nn.Module):
     bottleneck block ``enc5`` applied once to both towers' concat
     (instance norm is per sample, so this is two applies), and the two
     decoders.  Returns (seg, tsl, the translation bottleneck).  With
-    ``pack_levels`` the towers' outer levels run packed, and with
-    ``pair_towers`` their level 0 as one paired program."""
+    ``pack_levels`` the towers' outer levels run packed in ``pack_mode``,
+    and with ``pair_towers`` under "hw" their level 0 as one paired
+    program (the JAX rule: "w" towers are never paired)."""
 
     def __init__(self, out_ch: int, n_modal: int, width: int, cin: int = 1,
                  fused: bool = False,
                  generator: Optional[torch.Generator] = None,
                  pack_levels: int = 0, pair_towers: bool = False,
-                 pool_fused: bool = False):
+                 pool_fused: bool = False, pack_mode: str = "hw",
+                 pack_w0: int = 8):
         super().__init__()
         w = width
         self.n_modal = n_modal
         self.pack_levels = pack_levels
-        self.pair = bool(pair_towers) and pack_levels >= 1
-        enc = dict(pack_levels=pack_levels, pool_fused=pool_fused)
+        self.pair = (bool(pair_towers) and pack_levels >= 1
+                     and pack_mode == "hw")
+        pk = dict(pack_levels=pack_levels, pack_mode=pack_mode,
+                  pack_w0=pack_w0)
         self.tsl_encoder = UGANEncoder(w, cin + n_modal, fused, generator,
-                                       **enc)
-        self.seg_encoder = UGANEncoder(w, cin, fused, generator, **enc)
+                                       pool_fused=pool_fused, **pk)
+        self.seg_encoder = UGANEncoder(w, cin, fused, generator,
+                                       pool_fused=pool_fused, **pk)
         self.enc5 = BasicBlock(8 * w, 16 * w, fused, generator)
         self.tsl_decoder = UGANDecoder(1, w, False, True, fused, generator,
-                                       pack_levels)
+                                       **pk)
         self.seg_decoder = UGANDecoder(out_ch, w, True, False, fused,
-                                       generator, pack_levels)
+                                       generator, **pk)
 
     def _paired_encoders(self, tsl_in: torch.Tensor, x: torch.Tensor):
         """Both encoders, level 0 paired: (tsl_h, tsl_skips, seg_h,
@@ -300,18 +329,20 @@ class UGAN(_Net):
     """``UGAN(out_ch, n_modal, width)``: forward(x, m) -> (seg logits,
     translation), both float32 (the seg logits packed with
     ``packed_seg``).  ``block_fused`` runs each BasicBlock through K3 on
-    the card; ``pack_levels``, ``pair_towers`` and ``pool_fused`` as
-    :class:`_UGANCore`."""
+    the card; ``pack_levels``, ``pair_towers``, ``pool_fused``,
+    ``pack_mode`` and ``pack_w0`` as :class:`_UGANCore`."""
 
     def __init__(self, out_ch: int, n_modal: int, width: int = 16,
                  in_ch: int = 1, compute_dtype: torch.dtype = torch.bfloat16,
                  block_fused: bool = False, device: Device = None,
                  seed: int = 0, pack_levels: int = 0,
-                 pair_towers: bool = False, pool_fused: bool = False):
+                 pair_towers: bool = False, pool_fused: bool = False,
+                 pack_mode: str = "hw", pack_w0: int = 8):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.core = _UGANCore(out_ch, n_modal, width, in_ch, block_fused, g,
-                              pack_levels, pair_towers, pool_fused)
+                              pack_levels, pair_towers, pool_fused,
+                              pack_mode, pack_w0)
         self._place(compute_dtype, device)
 
     def forward(self, x: torch.Tensor, m: Optional[torch.Tensor] = None,
@@ -331,11 +362,13 @@ class UGANnce(_Net):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  block_fused: bool = False, device: Device = None,
                  seed: int = 0, pack_levels: int = 0,
-                 pair_towers: bool = False, pool_fused: bool = False):
+                 pair_towers: bool = False, pool_fused: bool = False,
+                 pack_mode: str = "hw", pack_w0: int = 8):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.core = _UGANCore(out_ch, n_modal, width, in_ch, block_fused, g,
-                              pack_levels, pair_towers, pool_fused)
+                              pack_levels, pair_towers, pool_fused,
+                              pack_mode, pack_w0)
         self.netF = PatchSampleF(16 * width, netF_nc, g)
         self._place(compute_dtype, device)
 
@@ -406,16 +439,24 @@ class Discriminator(_Net):
     channel, which the conv kernels do not take: plain PyTorch, counted in
     ``conv3x3.conv3x3.routed``) and ``conv_cls``, the full-kernel class
     head as one contraction.  forward(x) -> (src [B, s, s, 1], cls [B,
-    n_modal]), float32.  With ``pack_levels`` > 0 the stem runs on the
-    space-to-depth grid (``models/packed.py`` ``packed_stride2_conv``, the
-    JAX ``d_pack_mode="hw"``), the same parameters."""
+    n_modal]), float32.  With ``pack_levels`` > 0 and ``pack_mode`` "hw"
+    the stem runs on the space-to-depth grid (``models/packed.py``
+    ``packed_stride2_conv``, the JAX ``d_pack_mode="hw"``); with "w" the
+    stem runs W-packed from ``pack_w0`` to ``pack_w0 / 2``
+    (``models/packed_w.py``) and, under ``pack_deep``, the stride-2 blocks
+    after it while their pack is 2 or more, each halving it; the same
+    parameters."""
 
     def __init__(self, input_size: int, n_modal: int, width: int = 16,
                  max_width: int = 512, in_ch: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device: Device = None, seed: int = 0, pack_levels: int = 0):
+                 device: Device = None, seed: int = 0, pack_levels: int = 0,
+                 pack_mode: str = "hw", pack_w0: int = 8,
+                 pack_deep: bool = True):
         super().__init__()
-        self.pack_levels = pack_levels
+        self.pack_levels = check_pack_levels(pack_levels, pack_mode)
+        self.pack_mode, self.pack_w0 = pack_mode, pack_w0
+        self.pack_deep = pack_deep
         g = torch.Generator().manual_seed(seed)
         repeat_num = int(math.log2(input_size)) - 2
         self.stem = _StemConv(in_ch, width, g)
@@ -434,13 +475,23 @@ class Discriminator(_Net):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.to(self.compute_dtype)
-        if self.pack_levels:
-            x = packed.packed_stride2_conv(self.stem,
-                                           packed.space_to_depth(x))
+        first = 1
+        if self.pack_levels and self.pack_mode == "w":
+            p = self.pack_w0
+            x = lrelu(pw.stem_conv_w(pw.pack_w(x, p), self.stem.weight, p,
+                                      self.stem.bias))
+            p //= 2
+            while self.pack_deep and p >= 2 and first <= self.n_blocks:
+                x = pw.bottle_block_w(getattr(self, f"block{first}"), x, p)
+                p //= 2
+                first += 1
+            x = pw.unpack_w(x, p)
+        elif self.pack_levels:
+            x = lrelu(packed.packed_stride2_conv(self.stem,
+                                                 packed.space_to_depth(x)))
         else:
-            x = self.stem(x)
-        x = lrelu(x)
-        for i in range(1, self.n_blocks + 1):
+            x = lrelu(self.stem(x))
+        for i in range(first, self.n_blocks + 1):
             x = getattr(self, f"block{i}")(x)
         src = self.conv_src(x)
         # the class head contracts the whole final map: under a space axis

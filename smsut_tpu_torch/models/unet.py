@@ -3,11 +3,15 @@
 and ``UNetPair``, instance norm, leaky ReLU).
 
 ``pack_levels`` N runs the first N levels of the encoder and the last N of
-the decoder on the space-to-depth grid (``models/blocks.py``,
-``models/packed.py``), on the same parameters; ``packed_out`` returns the
-packed logits [B, H/2, W/2, 4 out_ch] for the packed losses
-(``ops/losses.py``).  :class:`UNetPair` runs two U-Nets on one input with
-their level-0 stages tower-paired (``models/paired.py``).
+the decoder packed, on the same parameters (``models/blocks.py``), in
+``pack_mode`` "hw" on the space-to-depth grid (``models/packed.py``) or
+"w" W-only from ``pack_w0`` (``models/packed_w.py``); ``packed_out``
+returns the hw-packed logits [B, H/2, W/2, 4 out_ch] for the packed losses
+(``ops/losses.py``), the W route's logits unpacked whatever it says, as
+the JAX W decoder returns them.  The U-Net is instance-normed, so it packs
+wherever asked (the JAX ``UNet`` does not pack under batch norm).
+:class:`UNetPair` runs two hw-packed U-Nets on one input with their
+level-0 stages tower-paired (``models/paired.py``).
 
 Logits are returned in float32 so that losses and argmax stay
 full-precision under bfloat16 compute.
@@ -58,25 +62,28 @@ class UNet(nn.Module):
     ``device``: the card unless ``device`` names another (no CUDA and no
     device raises).  ``block_fused`` runs each BasicBlock through kernel
     K3 on the card; ``remat`` rematerialises the encoder and the decoder
-    under grad (module docstring); ``pack_levels`` and ``pool_fused`` as
-    ``models/blocks.py`` ``Encoder``."""
+    under grad (module docstring); ``pack_levels``, ``pool_fused``,
+    ``pack_mode`` and ``pack_w0`` as ``models/blocks.py`` ``Encoder``."""
 
     def __init__(self, out_ch: int, width: int = 16, in_ch: int = 1,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  block_fused: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0, remat: bool = False, pack_levels: int = 0,
-                 pool_fused: bool = False):
+                 pool_fused: bool = False, pack_mode: str = "hw",
+                 pack_w0: int = 8):
         super().__init__()
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.remat = remat
         self.pack_levels = pack_levels
+        self.pack_mode = pack_mode
         g = torch.Generator().manual_seed(seed)
+        pk = dict(pack_levels=pack_levels, pack_mode=pack_mode,
+                  pack_w0=pack_w0)
         self.encoder = Encoder(width, in_ch, block_fused, g,
-                               pack_levels=pack_levels, pool_fused=pool_fused)
-        self.decoder = Decoder(out_ch, width, block_fused, g,
-                               pack_levels=pack_levels)
+                               pool_fused=pool_fused, **pk)
+        self.decoder = Decoder(out_ch, width, block_fused, g, **pk)
         self.to(device)
 
     def forward(self, x: torch.Tensor,
@@ -103,8 +110,9 @@ class UNetPair(nn.Module):
 
     def __init__(self, n1: UNet, n2: UNet):
         super().__init__()
-        if not n1.pack_levels or n1.pack_levels != n2.pack_levels:
-            raise ValueError("UNetPair: both nets packed alike, "
+        if (not n1.pack_levels or n1.pack_levels != n2.pack_levels
+                or "hw" != n1.pack_mode or "hw" != n2.pack_mode):
+            raise ValueError("UNetPair: both nets hw-packed alike, "
                              "pack_levels >= 1")
         self.n1, self.n2 = n1, n2
 

@@ -13,6 +13,7 @@ parameters' dtype, as the host floats the optimizer took before.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -40,7 +41,15 @@ def poly_lr_schedule(base_lr: float, total_iters: int,
 def poly_lr_table(base_lr: float, total_iters: int,
                   power: float = 0.9) -> np.ndarray:
     """float64 [total_iters + 2]: row k is ``poly_lr_host`` at count k.  The
-    last row, 0, is the LR of every count past it."""
+    last row, 0, is the LR of every count past it.  A copy of the table
+    each distinct schedule builds once: tens of thousands of host calls."""
+    return _poly_lr_table(float(base_lr), int(total_iters),
+                          float(power)).copy()
+
+
+@functools.lru_cache(maxsize=64)
+def _poly_lr_table(base_lr: float, total_iters: int,
+                   power: float) -> np.ndarray:
     return np.array([poly_lr_host(base_lr, k, total_iters, power)
                      for k in range(total_iters + 2)], np.float64)
 

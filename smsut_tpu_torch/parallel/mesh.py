@@ -143,8 +143,9 @@ def check_config(cfg, gan: bool = False,
     if sp > 1 and cfg.pack_levels > 0:
         # the data axis takes packing as it is (packing is per image)
         raise ValueError(f"spatial_parallel={sp} with pack_levels="
-                         f"{cfg.pack_levels}: the packed levels on the space "
-                         f"axis are ROADMAP A13c (set pack_levels=0)")
+                         f"{cfg.pack_levels}: the packed levels (hw or W) "
+                         f"on the space axis are ROADMAP A13c (set "
+                         f"pack_levels=0)")
     if sp > 1:
         check_spatial(cfg, sp, gan, maps)
     set_spatial(sp)

@@ -76,7 +76,8 @@ def _seg_logits_fn(algo) -> Callable:
 
 
 # the Config knobs of the forward's layout a manifest carries
-_LAYOUT = ("pack_levels", "pack_mode", "d_pack_mode", "pair_towers")
+_LAYOUT = ("pack_levels", "pack_mode", "d_pack_mode", "pair_towers",
+           "pack_w0", "d_pack_deep")
 
 
 def export_eval(algo, params: Any, cfg: Config, out_dir: str,
@@ -111,7 +112,8 @@ def export_eval(algo, params: Any, cfg: Config, out_dir: str,
                       "block_pallas": bool(cfg.block_pallas),
                       "n_modal": cfg.n_modal, "netF_nc": cfg.netF_nc,
                       # the layout the forward runs in (the same weights
-                      # at any): the packed levels and the tower pairing
+                      # at any): the packed levels, their packing and the
+                      # tower pairing
                       **{k: getattr(cfg, k) for k in _LAYOUT}},
         }, f, indent=2)
     return path

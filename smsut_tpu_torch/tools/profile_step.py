@@ -111,8 +111,12 @@ def families(rows: Sequence[Row], fused: bool) -> Dict[str, float]:
 def device_rows(torch, fn, n: int) -> Tuple[List[Row], float]:
     """(kernel key, device ms per call, launches per call) of ``n`` calls of
     ``fn`` under torch.profiler, device kernels only, the most first; and
-    the host's ms per call under the profiler."""
+    the host's ms per call under the profiler.  The rows are those of
+    ``key_averages()``'s device entries, summed from the profiler's raw
+    events: ``key_averages`` first builds and walks a tree of every host
+    operation, seconds of host time for steps of thousands of launches."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -122,10 +126,21 @@ def device_rows(torch, fn, n: int) -> Tuple[List[Row], float]:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    # key_averages() skips the same events, and counts an async one's
+    # device time as 0
+    acc: Dict[str, List[float]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()
+                or _filter_name(e.name())
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        a = acc.setdefault(_rewrite_name(name=e.name(), with_wildcard=True),
+                           [0.0, 0])
+        a[0] += (e.end_ns() - e.start_ns()) / 1e3
+        a[1] += 1
+    rows = sorted(((k, us / 1e3 / n, c // n) for k, (us, c) in acc.items()
+                   if us > 0), key=lambda r: -r[1])
     return rows, wall
 
 

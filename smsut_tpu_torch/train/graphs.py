@@ -27,6 +27,7 @@ overwrites them.  A failed capture raises.  Off the card, and with
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -114,10 +115,20 @@ class Replay:
         before = ops.counts()
         # the loaders' producer threads pin host memory while this thread
         # captures: "thread_local" keeps their calls out of this capture's
-        # checks (in "global" mode a cudaHostAlloc there would end it)
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            out = self.fn(e.static)
+        # checks (in "global" mode a cudaHostAlloc there would end it).
+        # No garbage collection while it captures: a graph held in a
+        # reference cycle (a Trainer's Replay of its own bound method) is
+        # freed by the collector, and its cudaGraphExecDestroy on this
+        # thread would end the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = self.fn(e.static)
+        finally:
+            if collecting:
+                gc.enable()
         e.counts = [a - b for a, b in zip(ops.counts(), before)]
         ops.add_counts([-d for d in e.counts])
         e.graph, e.out = graph, out

@@ -109,7 +109,7 @@ class CoraNet(SupervisedUNet):
         return UNet(cfg.n_label * 3 + 1, cfg.base_width, cfg.img_channels,
                     self.dtype, block_fused=cfg.block_pallas,
                     device=self.device, seed=seed,
-                    pack_levels=self.pack_levels, pool_fused=pool_fused(cfg))
+                    pool_fused=pool_fused(cfg), **self.packing.model_kw())
 
     # ---------------------------------------------------------- schedules
     @property

@@ -17,10 +17,12 @@ Under a model axis (``parallel/mesh.py`` ``make_mesh_2d``) both nets and
 their momentum hold the rank's output-channel shards, each net's
 gradients reduced with the state's shard keys.
 
-With ``pack_levels`` the two nets run packed and, with ``pair_towers``
-(None: on with packing, the JAX rule), as one tower-paired program
-(``models/unet.py`` ``UNetPair``); ``packed_loss_tails`` (None: on) keeps
-all four losses on the packed logits.
+With ``pack_levels`` the two nets run packed in ``pack_mode`` and, under
+"hw" with ``pair_towers`` (None: on, the JAX rule), as one tower-paired
+program (``models/unet.py`` ``UNetPair``); W-packed nets are never paired,
+even with ``pair_towers=True`` (the JAX rule).  Under "hw"
+``packed_loss_tails`` (None: on) keeps all four losses on the packed
+logits; the W nets' logits are unpacked.
 """
 from __future__ import annotations
 
@@ -53,8 +55,9 @@ class CrossPseudo(SupervisedUNet):
     def __init__(self, cfg, device=None):
         super().__init__(cfg, device)
         pair = cfg.pair_towers
-        # auto: paired wherever the nets run packed
-        self.pair = self.pack_levels >= 1 and (pair is None or bool(pair))
+        # auto: paired wherever the nets run hw-packed; never under "w"
+        self.pair = (self.pack_levels >= 1 and self.packing.mode == "hw"
+                     and (pair is None or bool(pair)))
         # the paired program over both nets' parameters, "n1.<key>" and
         # "n2.<key>" (functional_call)
         self.pair_net = (UNetPair(self.net, self._build(seed=1)) if self.pair

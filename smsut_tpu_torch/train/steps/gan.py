@@ -71,12 +71,16 @@ own, the same on every rank.
 ``remat`` rematerialises the generator's forward in the backward
 (:meth:`UGANBase._g_forward`).
 
-``pack_levels`` runs the towers' outer levels and the discriminator's stem
-on the space-to-depth grid (``models/packed.py``; ``d_pack_mode`` must be
-"hw"), ``pair_towers`` (None: on with packing, except ``uganShp0``, the
-JAX rule) pairs the towers' level 0, and ``packed_loss_tails`` (None: on,
-except ``uganConsis``) keeps the segmentation losses on the packed logits
-(the translation stays unpacked for D and the L1).  ``d_concat_hat`` runs
+``pack_levels`` runs the towers' outer levels packed in ``pack_mode`` and
+the discriminator's stem (with ``d_pack_deep`` under "w", its first
+stride-2 blocks too) in ``d_pack_mode`` ("" inheriting ``pack_mode``):
+"hw" on the space-to-depth grid (``models/packed.py``), "w" W-only from
+``pack_w0`` (``models/packed_w.py``); the JAX ``Config()``'s default is
+an hw generator with a deep W discriminator.  Under an hw generator
+``pair_towers`` (None: on, except ``uganShp0``, the JAX rule) pairs the
+towers' level 0 (W towers are never paired) and ``packed_loss_tails``
+(None: on, except ``uganConsis``) keeps the segmentation losses on the
+packed logits (the translation stays unpacked for D and the L1).  ``d_concat_hat`` runs
 real, fake and x_hat through one D apply, the GP's input gradient the
 x_hat slice of its input gradient (instance norm is per image, so the
 slices are independent), through the same double backward.
@@ -143,12 +147,15 @@ class UGANBase:
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)
         self.with_nce = self.variant in ("uganShp0", "uganConsis")
-        self.pack_levels = pack_levels(cfg, discriminator=True)
+        self.packing = pack_levels(cfg, discriminator=True)
+        self.pack_levels = self.packing.levels
         pair, tails = cfg.pair_towers, cfg.packed_loss_tails
-        # the JAX step's auto rules (None)
-        self.pair = self.pack_levels >= 1 and (
+        # the JAX step's auto rules (None); W towers are neither paired nor
+        # packed at the seg head
+        hw = self.pack_levels >= 1 and self.packing.mode == "hw"
+        self.pair = hw and (
             self.variant != "uganShp0" if pair is None else bool(pair))
-        self.packed_seg = self.pack_levels >= 1 and (
+        self.packed_seg = hw and (
             self.variant != "uganConsis" if tails is None else bool(tails))
         # the fixed batch of the per-epoch translation grid (host arrays)
         self._fixed: Optional[Tuple[np.ndarray, np.ndarray]] = None
@@ -168,8 +175,8 @@ class UGANBase:
     def _build(self, seed: int):
         cfg = self.cfg
         kw = dict(compute_dtype=self.dtype, device=self.device)
-        g_kw = dict(pack_levels=self.pack_levels, pair_towers=self.pair,
-                    pool_fused=pool_fused(cfg), **kw)
+        g_kw = dict(pair_towers=self.pair, pool_fused=pool_fused(cfg),
+                    **self.packing.model_kw(), **kw)
         if self.with_nce:
             net = UGANnce(cfg.n_class, cfg.n_modal, cfg.base_width,
                           cfg.netF_nc, cfg.img_channels,
@@ -181,7 +188,7 @@ class UGANBase:
         d = Discriminator(cfg.input_size, cfg.n_modal, cfg.base_width,
                           256 if cfg.base_width == 16 else 512,
                           cfg.img_channels, seed=seed + 1,
-                          pack_levels=self.pack_levels, **kw)
+                          **self.packing.d_kw(), **kw)
         return net, d
 
     # ---------------------------------------------------------------- state

@@ -13,11 +13,14 @@ its tensors and the state's, and updates the state in place, with the LR
 read on the device at the state's device count, so the fit loop replays
 it as a CUDA graph (``train/graphs.py``).
 
-With ``Config.pack_levels`` the U-Net runs its outer levels on the
-space-to-depth grid (``models/packed.py``); ``packed_loss_tails`` (None:
-the JAX step's rule, off here, on for Mean Teacher and CPS) hands the
-packed logits to the packed losses (:meth:`SupervisedUNet.seg_loss`).  The
-eval forward returns unpacked logits either way.
+With ``Config.pack_levels`` the U-Net runs its outer levels packed in
+``Config.pack_mode``: "hw" on the space-to-depth grid
+(``models/packed.py``), "w" W-only from ``pack_w0``
+(``models/packed_w.py``); under "hw" ``packed_loss_tails`` (None: the JAX
+step's rule, off here, on for Mean Teacher and CPS) hands the packed
+logits to the packed losses (:meth:`SupervisedUNet.seg_loss`, which tells
+them by their channels), while the W route's logits are unpacked, as in
+the JAX package.  The eval forward returns unpacked logits either way.
 
 Under a space axis (``Config.spatial_parallel``, ``parallel/mesh.py``) the
 step takes the rank's rows of its data coordinate's images: the model's
@@ -77,11 +80,14 @@ class SupervisedUNet:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = setup_compute(cfg)
-        self.pack_levels = pack_levels(cfg)
+        self.packing = pack_levels(cfg)
+        self.pack_levels = self.packing.levels
         tails = cfg.packed_loss_tails
-        # train forwards return packed logits for the packed losses
-        self.packed_out = self.pack_levels > 0 and (
-            self.packed_tails if tails is None else bool(tails))
+        # train forwards return hw-packed logits for the packed losses
+        self.packed_out = (self.pack_levels > 0
+                           and self.packing.mode == "hw" and (
+                               self.packed_tails if tails is None
+                               else bool(tails)))
         self.net = self._build(seed=0)
         # the parameters' whole shapes, which a sharded tree must match
         self.shapes = {k: tuple(v.shape)
@@ -92,7 +98,7 @@ class SupervisedUNet:
         return UNet(cfg.n_class, cfg.base_width, cfg.img_channels, self.dtype,
                     block_fused=cfg.block_pallas, device=self.device,
                     seed=seed, remat=cfg.remat_unet and self.rematerialises,
-                    pack_levels=self.pack_levels, pool_fused=pool_fused(cfg))
+                    pool_fused=pool_fused(cfg), **self.packing.model_kw())
 
     def train_logits(self, params: Params, img: torch.Tensor
                      ) -> torch.Tensor:

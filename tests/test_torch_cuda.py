@@ -12,7 +12,10 @@ iterations replayed against eager, and the dual-task U-Net's launches
 and gradients in its three norm and activation configurations; K3 and K6
 with the packed map's subpixel groups (``groups=4``) against their plain
 versions, groups 1 as the default to the bit, and the packed U-Net's
-launches.  Each test skips on a host without an NVIDIA GPU.
+launches; K2, K2 as dx and K5 with W-packed kernels and K1/K4 on W views
+at the W layouts' shapes (``-k wpack``); ``tools/profile_step.py``'s
+device rows against the profiler's ``key_averages``.  Each test skips on
+a host without an NVIDIA GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1731,3 +1734,103 @@ def test_packed_unet_forward_counts_launches(cuda_device):
             assert counts == (1, 0, 9, 0, 0, 0)
         else:
             assert counts == (28, 18, 0, 0, 0, 0)
+
+
+# K2, K2 as dx and K5 with W-packed kernels (models/packed_w.py) at the w16
+# W layouts' shapes: ([B, H, J], pack, original input segments, original
+# Cout): the U-Net's level-0 conv2, its level-1 decoder conv1 on two
+# segments, the discriminator's second W block's conv1
+WPACK_CONVS = (((8, 256, 32), 8, (16,), 16), ((8, 128, 32), 4, (32, 32), 32),
+               ((16, 64, 32), 2, (32,), 64))
+# K1 and K4 on the W views [B, H, J*p, C]: ([B, H, J], pack, C, act)
+WPACK_NORMS = (((8, 256, 32), 8, 16, True), ((16, 128, 32), 4, 32, False))
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-4), (BF16, 0.02)])
+@pytest.mark.parametrize("bhj,p,segs,co0", WPACK_CONVS)
+def test_wpack_conv3x3_fwd_dx_dw(rng, cuda_device, bhj, p, segs, co0, dtype,
+                                 tol):
+    """K2 on the W-packed kernel, K2 as its dx (the kernel flipped and
+    IO-swapped) and K5, each one launch, against their plain versions."""
+    from smsut_tpu_torch.models.packed_w import pack_kernel_w
+
+    ci, co = p * sum(segs), p * co0
+    w = t(conv_w(rng, 3, sum(segs), co0), F32, cuda_device)
+    wp = pack_kernel_w(w, p, segs).to(dtype)
+    x = t(rng.normal(size=bhj + (ci,)).astype(np.float32), dtype, cuda_device)
+    g = t(rng.normal(size=bhj + (co,)).astype(np.float32), dtype, cuda_device)
+    _held_against_plain(conv3x3.conv3x3_fwd, conv3x3.conv3x3_fwd, (x, wp),
+                        tol)
+    _held_against_plain(conv3x3.conv3x3_fwd, conv3x3.conv3x3_fwd,
+                        (g, conv3x3.flip_io(wp)), tol)
+    _held_against_plain(conv3x3.conv3x3_dw, conv3x3.conv3x3_dw, (x, g), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(F32, 1e-4), (BF16, 0.05)])
+@pytest.mark.parametrize("bhj,p,c,act", WPACK_NORMS)
+def test_wpack_instnorm_on_the_w_view(rng, cuda_device, bhj, p, c, act,
+                                      dtype, tol):
+    """K1 and K4 on the free W view of a W-packed map (no copy), against
+    their plain versions."""
+    b, h, j = bhj
+    xw = t((rng.normal(size=(b, h, j, p * c)) * 2 + 0.3).astype(np.float32),
+           dtype, cuda_device)
+    x = xw.reshape(b, h, j * p, c)
+    assert x.data_ptr() == xw.data_ptr()
+    s, bb = (t(a, device=cuda_device) for a in norm_params(rng, c))
+    _held_against_plain(instnorm.instance_norm, instnorm.instance_norm_fwd,
+                        (x, s, bb, act), tol)
+    g = t(rng.normal(size=x.shape).astype(np.float32), dtype, cuda_device)
+    _, mean, rstd = instnorm.instance_norm_fwd(x, s, bb, act)
+    args = (x, g, mean, rstd, s, bb, act)
+    got, counts = _launches(lambda: instnorm.instance_norm_bwd(*args))
+    assert counts == (0, 0, 0, 1, 0, 0)
+    with ops.plain():
+        want = instnorm.instance_norm_bwd(*args)
+    for a, w in zip(got, want):
+        assert rel_err(a, w) <= tol
+
+
+def test_device_rows_match_key_averages(cuda_device):
+    """``tools/profile_step.py`` ``device_rows`` sums the profiler's raw
+    device events: the same keys, launches and device ms per call as
+    ``key_averages()``'s device entries, on two steps of the w16 U-Net
+    (hundreds of kernels each)."""
+    from torch.autograd import DeviceType
+
+    from smsut_tpu_torch.config import Config
+    from smsut_tpu_torch.tools import profile_step
+    from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
+
+    algo = SupervisedUNet(Config(input_size=128, base_width=16,
+                                 batch_size=2, compute_dtype="bfloat16"))
+    state = algo.init_state(0)
+    rng = np.random.default_rng(3)
+    batch = {"img": torch.from_numpy(rng.normal(size=(2, 128, 128, 1))
+                                     .astype(np.float32)).to(cuda_device),
+             "msk": torch.from_numpy(rng.integers(0, 5, (2, 128, 128))
+                                     .astype(np.int32)).to(cuda_device)}
+    step = lambda: algo.train_step(state, batch)
+    step()
+    torch.cuda.synchronize()
+    seen = []
+    real = torch.profiler.profile.__exit__
+
+    def keep(prof, *a):
+        out = real(prof, *a)
+        seen.append(prof)
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler.profile, "__exit__", keep)
+        rows, _ = profile_step.device_rows(torch, step, 2)
+    want = sorted(((e.key, e.self_device_time_total / 1e3 / 2, e.count // 2)
+                   for e in seen[0].key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    assert len(rows) > 10
+    assert sorted(r[0] for r in rows) == sorted(r[0] for r in want)
+    got = {k: (ms, n) for k, ms, n in rows}
+    for k, ms, n in want:
+        assert got[k][1] == n
+        assert got[k][0] == pytest.approx(ms, rel=1e-9, abs=1e-12)

@@ -388,30 +388,43 @@ def test_ugan_and_discriminator_packed_match_jax():
 
 def test_w_packing_and_sharded_packing_raise_naming_the_roadmap(
         monkeypatch):
-    """``pack_mode``/``d_pack_mode`` "w" with packing raise naming ROADMAP
-    A13b (the GAN family's default ``d_pack_mode`` "w" with the
-    ``--set d_pack_mode=hw`` workaround); the packed levels under a space
-    or a model group raise naming A13c; nothing raises unpacked."""
+    """Packing in either mode (hw or W, the discriminator's too) under a
+    space or a model group raises naming ROADMAP A13c; an unknown
+    ``pack_mode``/``d_pack_mode``, a ``pack_w0`` whose packs do not divide
+    the maps (an odd one for the W stem's stride 2) and ``layout_pin`` with
+    a W discriminator (the JAX package's message) raise; nothing raises
+    unpacked, nor in the JAX ``Config()``'s layout."""
     from smsut_tpu_torch.config import Config
     from smsut_tpu_torch.parallel import distributed
     from smsut_tpu_torch.train.steps.gan import UGANConsisAlgo
     from smsut_tpu_torch.train.steps.supervised import SupervisedUNet
 
     small = dict(input_size=32, base_width=8, batch_size=2, nce_patches=4)
-    with pytest.raises(ValueError, match="A13b"):
-        SupervisedUNet(Config(**small, pack_levels=2, pack_mode="w"),
+    for bad in (dict(pack_mode="x"), dict(d_pack_mode="hx")):
+        with pytest.raises(ValueError, match="is not"):
+            UGANConsisAlgo(Config(**small, pack_levels=2, **bad),
+                           device="cpu")
+    with pytest.raises(ValueError, match="pack_w0=3"):
+        SupervisedUNet(Config(**small, pack_levels=2, pack_mode="w",
+                              pack_w0=3), device="cpu")
+    with pytest.raises(ValueError, match="pack_w0=3"):
+        UGANConsisAlgo(Config(**small, pack_levels=2, pack_w0=3),
                        device="cpu")
-    with pytest.raises(ValueError, match="d_pack_mode=hw"):
-        UGANConsisAlgo(Config(**small, pack_levels=2), device="cpu")
-    UGANConsisAlgo(Config(**small), device="cpu")   # unpacked: "w" unused
-    net = UNet(5, 8, compute_dtype=torch.float32, device="cpu",
-               pack_levels=2)
+    with pytest.raises(ValueError, match="layout_pin='cmin' cannot be"):
+        SupervisedUNet(Config(**small, layout_pin="cmin"), device="cpu")
+    UGANConsisAlgo(Config(**small), device="cpu")   # unpacked
+    UGANConsisAlgo(Config(**small, pack_levels=2), device="cpu")
     x = torch.zeros((1, 32, 32, 1))
+    nets = [UNet(5, 8, compute_dtype=torch.float32, device="cpu",
+                 pack_levels=2, pack_mode=mode) for mode in ("hw", "w")]
+    nets.append(Discriminator(32, 4, 8, 64, compute_dtype=torch.float32,
+                              device="cpu", pack_levels=2, pack_mode="w"))
     for name in ("space_count", "model_count"):
-        with monkeypatch.context() as m:
-            m.setattr(distributed, name, lambda: 2)
-            with pytest.raises(ValueError, match="A13c"):
-                net(x)
+        for net in nets:
+            with monkeypatch.context() as m:
+                m.setattr(distributed, name, lambda: 2)
+                with pytest.raises(ValueError, match="A13c"):
+                    net(x)
 
 
 def test_serving_carries_the_packed_layout(tmp_path):
